@@ -1,0 +1,127 @@
+"""Host numpy evaluation of the filter IR over a point FeatureTable.
+
+≙ ``geomesa_tpu.filter.evaluate``: ``evaluate`` returns a boolean mask over
+the table's rows; ``evaluate_at`` evaluates only at the given candidate rows
+(the refine path: the rows the device's f32 certainty band left uncertain
+re-evaluate here in exact f64). Node kinds outside the point slice raise
+NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from geomesa_tpu_torch.features import geometry as geo
+from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
+from geomesa_tpu_torch.filter import geom_numpy as gn
+from geomesa_tpu_torch.filter import ir
+
+
+def evaluate(f: ir.Filter, table: FeatureTable) -> np.ndarray:
+    """Boolean mask over all table rows."""
+    return _eval(f, table, None)
+
+
+def evaluate_at(f: ir.Filter, table: FeatureTable,
+                rows: np.ndarray) -> np.ndarray:
+    """Boolean mask over ``rows`` (indices into the table)."""
+    return _eval(f, table, np.asarray(rows, dtype=np.int64))
+
+
+def _col(table: FeatureTable, name: str, rows: Optional[np.ndarray]):
+    col = np.asarray(table.column(name))
+    return col if rows is None else col[rows]
+
+
+def _xy(table: FeatureTable, attr: str, rows: Optional[np.ndarray]):
+    col = table.column(attr)
+    if not isinstance(col, geo.GeometryArray):
+        raise TypeError(f"Attribute {attr} is not a geometry")
+    x, y = col.point_xy()
+    return (x, y) if rows is None else (x[rows], y[rows])
+
+
+def _eval(f: ir.Filter, table: FeatureTable,
+          rows: Optional[np.ndarray]) -> np.ndarray:
+    n = len(table) if rows is None else len(rows)
+    if isinstance(f, ir.Include):
+        return np.ones(n, dtype=bool)
+    if isinstance(f, ir.Exclude):
+        return np.zeros(n, dtype=bool)
+    if isinstance(f, ir.And):
+        mask = np.ones(n, dtype=bool)
+        for c in f.children:
+            mask &= _eval(c, table, rows)
+        return mask
+    if isinstance(f, ir.Or):
+        mask = np.zeros(n, dtype=bool)
+        for c in f.children:
+            mask |= _eval(c, table, rows)
+        return mask
+    if isinstance(f, ir.Not):
+        return ~_eval(f.child, table, rows)
+    if isinstance(f, ir.BBox):
+        # envelope overlap; a point's envelope is the point itself
+        x, y = _xy(table, f.attr, rows)
+        return (x <= f.xmax) & (x >= f.xmin) & (y <= f.ymax) & (y >= f.ymin)
+    if isinstance(f, ir.Intersects) and f.geometry[0] in (geo.POLYGON,
+                                                          geo.MULTIPOLYGON):
+        x, y = _xy(table, f.attr, rows)
+        out = np.zeros(n, dtype=bool)
+        lx0, ly0, lx1, ly1 = gn.literal_bbox(f.geometry)
+        cand = np.nonzero((x <= lx1) & (x >= lx0) & (y <= ly1) & (y >= ly0))[0]
+        if len(cand):
+            out[cand] = gn.points_in_polygon(x[cand], y[cand], f.geometry)
+        return out
+    if isinstance(f, ir.During):
+        col = _col(table, f.attr, rows).astype(np.int64)
+        lo = (col >= f.lo) if f.lo_inclusive else (col > f.lo)
+        hi = (col <= f.hi) if f.hi_inclusive else (col < f.hi)
+        return lo & hi
+    if isinstance(f, ir.Cmp):
+        return _cmp(f, table, rows)
+    if isinstance(f, ir.In):
+        col = table.column(f.attr)
+        if isinstance(col, StringColumn):
+            codes = col.codes if rows is None else col.codes[rows]
+            wanted = set(f.values)
+            keep = [i for i, v in enumerate(col.vocab) if v in wanted]
+            return np.isin(codes, keep)
+        return np.isin(_col(table, f.attr, rows), list(f.values))
+    raise NotImplementedError(
+        f"host evaluation of {type(f).__name__} is not ported yet "
+        "(ROADMAP.md Queue 1, items 9 and 13)")
+
+
+def _cmp(f: ir.Cmp, table: FeatureTable,
+         rows: Optional[np.ndarray]) -> np.ndarray:
+    col = table.column(f.attr)
+    if isinstance(col, StringColumn):
+        codes = col.codes if rows is None else col.codes[rows]
+        if f.op in ("=", "<>"):
+            try:
+                mask = codes == col.vocab.index(f.value)
+            except ValueError:
+                mask = np.zeros(len(codes), dtype=bool)
+            return mask if f.op == "=" else ~mask
+        vals = np.array(col.vocab, dtype=object)[codes]
+        return _apply_op(f.op, vals, f.value)
+    return _apply_op(f.op, _col(table, f.attr, rows), f.value)
+
+
+def _apply_op(op: str, arr, value) -> np.ndarray:
+    if op == "=":
+        return arr == value
+    if op == "<>":
+        return arr != value
+    if op == "<":
+        return arr < value
+    if op == "<=":
+        return arr <= value
+    if op == ">":
+        return arr > value
+    if op == ">=":
+        return arr >= value
+    raise ValueError(f"Unknown op {op}")

@@ -1,0 +1,54 @@
+"""Plan and result datatypes (≙ ``geomesa_tpu.index.api``)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+import numpy as np
+
+from geomesa_tpu_torch.features.table import FeatureTable
+from geomesa_tpu_torch.filter import ir
+
+
+def not_ported(what: str, item: int) -> NotImplementedError:
+    """The error every entry point raises for a shape outside the slice,
+    naming the ROADMAP.md item that ports it (never a result computed by
+    some other path)."""
+    return NotImplementedError(
+        f"{what} is not ported to geomesa_tpu_torch yet "
+        f"(ROADMAP.md Queue 1, item {item})")
+
+
+@dataclass
+class IndexScanPlan:
+    """One executable strategy: device primary params + residual split.
+
+    ≙ QueryStrategy (api/GeoMesaFeatureIndex.getQueryStrategy:248): the
+    index chosen, its primary key-space constraints (padded fp62 box /
+    binned-time window arrays), and the filter remainder split between the
+    device (compiled residual) and the host.
+    """
+
+    index: object
+    primary_kind: str                              # "point_boxes" | "none"
+    boxes_loose: Optional[np.ndarray] = None       # (B,8) int32 fp62 planes
+    windows: Optional[np.ndarray] = None           # (T,4) int32 exact bin/off
+    residual_device: Optional[tuple] = None        # (key, params, fn)
+    residual_host: Optional[ir.Filter] = None      # host-refined remainder
+    empty: bool = False                            # provably no results
+    explain: Dict[str, object] = field(default_factory=dict)
+
+
+@dataclass
+class QueryResult:
+    """Materialized query output: ascending row indices into the loaded
+    table and the hydrated rows."""
+
+    indices: np.ndarray
+    table: FeatureTable
+    plan: Optional[IndexScanPlan] = None
+
+    @property
+    def count(self) -> int:
+        return len(self.indices)
