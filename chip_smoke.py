@@ -5,9 +5,12 @@
 Phases, each failing the run (non-zero exit) when it fails:
 
 1. device: the card's name and power limit;
-2. build: every CUDA kernel of the main path from the checkout's sources;
+2. build: every CUDA kernel of the main path from the checkout's sources,
+   with ptxas' report and the SASS instructions per (point, edge) pair of
+   the refine kernel's inner loop;
 3. kernels against their plain PyTorch versions on the card, at the shapes
-   the main path gives them, with times and bounds;
+   the main path gives them (and near-edge shapes, unmasked and masked),
+   with times and bounds;
 4. the main path: a 100M-point Z3 layer loaded through the port's
    DataStore and queried (count, polygon count, polygon select), each
    result equal to a numpy f64 oracle computed here, with the kernel's
@@ -22,6 +25,9 @@ without a result when no CUDA card is present.
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -33,9 +39,22 @@ import numpy as np
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 
-# f32 additions, multiplications, negations and absolute values per
-# (point, edge) pair in pip_band.cu (comparisons not counted)
-PIP_OPS_PER_PAIR = 26
+# f32 operations the refine needs, whatever implements it, counting each
+# addition, subtraction, multiplication and comparison as one (absolute
+# values and negations are operand modifiers on this card, not counted).
+# Per (live point, real edge) pair:
+#   2 comparisons   cond = (y1 > y) != (y2 > y)
+#   5 arithmetic    d2x, d2y, t1 = d1x*d2y, t2 = d1y*d2x, det = t1 - t2
+#   2 additions     sd = (|d1x| + |d1y|) + |d2x| + |d2y|, its edge-only
+#                   first sum not counted here
+#   4 arithmetic    tol = tol_t * (|t1| + |t2|) + tol_d * sd
+#   1 comparison    the crossing: det > tol (upward) or det < -tol
+#   1 comparison    |det| <= tol
+#   1 comparison    |y1 - y| <= band (|y1 - y| is |d2y|: no new subtraction)
+#   2 (sub + cmp)   |y2 - y| <= band
+# = 18. Per real edge, once: d1x, d1y, |d1x| + |d1y| and upward (y2 > y1) = 4.
+PIP_OPS_PER_PAIR = 18
+PIP_OPS_PER_EDGE = 4
 
 CONCAVE_WKT = "POLYGON((-10 20, 40 20, 40 60, -10 60, 15 40, -10 20))"
 CONCAVE = [(-10.0, 20.0), (40.0, 20.0), (40.0, 60.0), (-10.0, 60.0),
@@ -121,9 +140,9 @@ def phase_device():
 
 
 def phase_build():
-    from geomesa_tpu_torch.kernels import build
+    from geomesa_tpu_torch.kernels import build, pip
     t0 = time.perf_counter()
-    out = build.build(["pip_band"])
+    out = build.build([pip.NAME])
     secs = time.perf_counter() - t0
     for name, r in out.items():
         log(f"[build] {name}: {r['seconds']:.2f} s")
@@ -131,48 +150,117 @@ def phase_build():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] total {secs:.2f} s")
+    sass = sass_per_pair(build._target(pip.NAME)[1])
+    log(f"[build] {pip.NAME} SASS inner loop: {json.dumps(sass)}")
     return secs
 
 
-def compare_pip(label: str, tx, ty, te, reps: int) -> dict:
-    """pip_band's kernel against its plain version on the same card tensors:
-    flags must be byte-equal; both timed with CUDA events."""
+def sass_per_pair(so_path: str):
+    """SASS instructions per (point, edge) pair in a point-in-polygon
+    kernel's inner loop, read with ``cuobjdump -sass``: among the innermost
+    loops (a backward branch and the instructions from its target to it),
+    the one covering the most pairs per pass, where a pair has exactly 4
+    FMUL (t1, t2 and the two tolerance products); with the loop's opcode
+    counts. None when the toolkit's cuobjdump is missing or no loop
+    qualifies."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                          text=True, check=True).stdout
+    best = None
+    for fn in text.split("Function : ")[1:]:
+        ins = [(int(a, 16), op.strip()) for a, op in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+        loops = []
+        for at, op in ins:
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < at:
+                loops.append((int(m.group(1), 16), at))
+        inner = [lp for lp in loops if not any(
+            o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+        for lo, hi in inner:
+            body = [op for at, op in ins if lo <= at <= hi]
+            fmul = sum(1 for op in body
+                       if re.match(r"(@!?U?P\w+\s+)?FMUL\b", op))
+            if fmul >= 4 and (best is None or fmul > best["fmul"]):
+                ops = {}
+                for op in body:
+                    name = re.sub(r"^@!?U?P\w+\s+", "", op).split()[0]
+                    ops[name] = ops.get(name, 0) + 1
+                best = {"instructions": len(body), "fmul": fmul,
+                        "pairs": fmul / 4, "per_pair": len(body) / (fmul / 4),
+                        "opcodes": ops}
+    return best
+
+
+def refine_bound(n: int, live: int, ne: int, n_starts: int,
+                 masked: bool) -> dict:
+    """The least time the card could take for the refine's work on these
+    inputs: bytes (the mask, live rows' coordinates once, both outputs, the
+    block starts and the real edges) over the HBM rate, against operations
+    (live points x real edges x PIP_OPS_PER_PAIR, plus the edge-only terms)
+    over the f32 rate."""
+    nbytes = (n if masked else 0) + live * 8 + 2 * n + n_starts * 8 + ne * 16
+    ops = live * ne * PIP_OPS_PER_PAIR + ne * PIP_OPS_PER_EDGE
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3}
+
+
+def compare_refine(label: str, tx, ty, te, n_edges: int, reps: int,
+                   mask=None, starts=None, bsz=None) -> dict:
+    """pip_refine's kernel (pad rows skipped) against its plain version
+    (the whole padded table) on the same card tensors: hit and unc must be
+    byte-equal; both timed with CUDA events."""
     import torch
-    from geomesa_tpu_torch.index.scan import pip_band
+    from geomesa_tpu_torch.index.scan import pip_refine as plain
     from geomesa_tpu_torch.kernels import pip
 
-    kin, kout = pip.pip_flags(tx, ty, te)
+    kw = {"mask": mask, "starts": starts, "bsz": bsz}
+    khit, kunc = pip.pip_refine(tx, ty, te, n_edges=n_edges, **kw)
     torch.cuda.synchronize()
-    pin, pout = pip_band(tx, ty, te)
+    phit, punc = plain(tx, ty, te, **kw)
     torch.cuda.synchronize()
-    err = max(int((kin.to(torch.int8) - pin.to(torch.int8)).abs().max()),
-              int((kout.to(torch.int8) - pout.to(torch.int8)).abs().max()))
-    if err != 0 or not (torch.equal(kin, pin) and torch.equal(kout, pout)):
-        raise AssertionError(f"pip_band {label}: kernel flags differ from "
-                             f"the plain version")
-    n, ne = tx.shape[0], te.shape[0]
-    n_unc = int((~pin & ~pout).sum())
-    ms = cuda_ms(lambda: pip.pip_flags(tx, ty, te), reps)
-    plain_ms = cuda_ms(lambda: pip_band(tx, ty, te), max(1, reps // 10))
-    nbytes = n * (4 + 4 + 1 + 1) + ne * 16
-    ops = n * ne * PIP_OPS_PER_PAIR
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
-    r = {"n": n, "ne": ne, "ms": ms, "plain_ms": plain_ms,
-         "bound_ms": max(t_bytes, t_ops) * 1e3,
-         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-         "max_abs_err": err, "uncertain": n_unc}
-    log(f"[kernel] pip_band {label}: n={n} ne={ne} flags equal "
-        f"(uncertain {n_unc}), kernel {ms} ms, plain {plain_ms} ms, bound "
-        f"{r['bound_ms']} ms ({r['bound_by']}; bytes {t_bytes * 1e3} ms, "
-        f"operations {t_ops * 1e3} ms)")
+    err = max(int((khit.to(torch.int8) - phit.to(torch.int8)).abs().max()),
+              int((kunc.to(torch.int8) - punc.to(torch.int8)).abs().max())) \
+        if khit.numel() else 0
+    if err != 0 or not (torch.equal(khit, phit) and torch.equal(kunc, punc)):
+        raise AssertionError(f"pip_refine {label}: kernel hit/unc differ "
+                             f"from the plain version")
+    n = khit.shape[0]
+    live = n if mask is None else int(mask.sum())
+    ms = cuda_ms(lambda: pip.pip_refine(tx, ty, te, n_edges=n_edges, **kw),
+                 reps)
+    plain_ms = cuda_ms(lambda: plain(tx, ty, te, **kw), max(1, reps // 10))
+    r = {"n": n, "live": live, "ne": n_edges, "ms": ms, "plain_ms": plain_ms,
+         "max_abs_err": err, "hit": int(phit.sum()),
+         "uncertain": int(punc.sum()),
+         **refine_bound(n, live, n_edges,
+                        0 if starts is None else starts.shape[0],
+                        mask is not None)}
+    log(f"[kernel] pip_refine {label}: n={n} live={live} ne={n_edges} "
+        f"hit/unc equal (hit {r['hit']}, uncertain {r['uncertain']}), "
+        f"kernel {ms} ms, plain {plain_ms} ms, bound {r['bound_ms']} ms "
+        f"({r['bound_by']}; bytes {r['bytes_ms']} ms, operations "
+        f"{r['ops_ms']} ms)")
     return r
 
 
+def near_edge_masks(n: int, seed: int) -> dict:
+    """20% masks over n candidates: at random, and in coherent runs of 1000
+    rows (a fifth of the runs live)."""
+    rng = np.random.default_rng(seed)
+    runs = np.repeat(rng.random(-(-n // 1000)) < 0.2, 1000)[:n]
+    return {"random20": rng.random(n) < 0.2, "runs20": runs}
+
+
 def phase_kernels():
-    """pip_band against its plain version at n = cap * block rows (the
+    """pip_refine against its plain version at n = cap * block rows (the
     pruned branch's largest gather on the 100M table), half the points
     within 1e-5 deg of an edge, for the concave query polygon and a
-    1000-vertex ring."""
+    1000-vertex ring, unmasked and under 20% masks."""
     import torch
 
     dev = torch.device("cuda")
@@ -181,25 +269,35 @@ def phase_kernels():
                               ("ring1024", ring_1000(), 12)):
         px, py = near_edge_points(ring, KERNEL_N, seed)
         t = [torch.from_numpy(a).to(dev) for a in (px, py, padded_edges(ring))]
-        out[label] = compare_pip(f"near-edge {label}", *t,
-                                 reps=20 if label == "concave8" else 10)
+        reps = 20 if label == "concave8" else 10
+        ne = len(ring) - 1
+        out[label] = compare_refine(f"near-edge {label}", *t, ne, reps)
+        for mlabel, m in near_edge_masks(KERNEL_N, seed).items():
+            out[f"{label}_{mlabel}"] = compare_refine(
+                f"near-edge {label} {mlabel}", *t, ne, reps,
+                mask=torch.from_numpy(m).to(dev))
         del t
     torch.cuda.empty_cache()
     return out
 
 
 def phase_kernel_main_inputs(store) -> dict:
-    """pip_band against its plain version on the very tensors the main
-    path's polygon query hands it: the gathered xf/yf rows and the padded
-    edge table of query (b)."""
+    """pip_refine against its plain version on the very tensors the main
+    path's polygon query hands it: the table's xf/yf columns, the mask and
+    block starts of query (b)'s candidates, and its edge table."""
     from geomesa_tpu_torch.index import compiled
 
     plan = store.planner("gdelt").plan(Q_POLY)
     edges = compiled.refine_edges(plan)
     prog = compiled.Program(plan, "count_refine", unc_cap=4096, edges=edges)
-    cols, _, _ = prog._candidates()
-    return compare_pip("main-path (b)", cols["xf"], cols["yf"], prog.edges,
-                       reps=50)
+    m, _, starts = prog._candidates()
+    cols = prog.index.device.columns
+    r = compare_refine("main-path (b)", cols["xf"], cols["yf"], prog.edges,
+                       prog.n_edges, reps=50, mask=m, starts=starts,
+                       bsz=prog.bsz)
+    log(f"[kernel] main-path (b): the mask keeps {r['live']} of {r['n']} "
+        f"candidates ({r['live'] / max(1, r['n'])})")
+    return r
 
 
 def corpus(n: int, seed: int = 1234):
@@ -246,7 +344,7 @@ def oracle_pip(px, py, ring) -> np.ndarray:
 def phase_main_path(n: int = N, device: str = "cuda"):
     """Load the corpus through the port's DataStore (Z3 build on the card)
     and answer the three queries; each must equal the numpy f64 oracle.
-    Returns the pip_band launches of the checked run."""
+    Returns the pip_refine launches of the checked run."""
     import torch
     from geomesa_tpu_torch import DataStoreFinder
     from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
@@ -290,14 +388,14 @@ def phase_main_path(n: int = N, device: str = "cuda"):
         f"{load_s:.2f} s; columns {sorted(placed)} on {set(placed.values())}")
 
     # the checked run: launch counts read around it
-    pip.pip_flags.launches = 0
+    pip.pip_refine.launches = 0
     got_box = store.count("gdelt", Q_BOX)
-    l_a = pip.pip_flags.launches
+    l_a = pip.pip_refine.launches
     got_poly = store.count("gdelt", Q_POLY)
-    l_b = pip.pip_flags.launches - l_a
+    l_b = pip.pip_refine.launches - l_a
     got_rows = store.query("gdelt", Q_POLY).indices
     sync()
-    launches = pip.pip_flags.launches
+    launches = pip.pip_refine.launches
     l_c = launches - l_a - l_b
     if got_box != want_box:
         raise AssertionError(f"(a) count {got_box} != oracle {want_box}")
@@ -307,16 +405,17 @@ def phase_main_path(n: int = N, device: str = "cuda"):
         raise AssertionError(f"(c) rows differ from the oracle "
                              f"({len(got_rows)} vs {len(want_rows)})")
     if device == "cuda" and (l_a != 0 or l_b < 1 or l_c < 1):
-        raise AssertionError(f"pip_band launches (a) {l_a} (b) {l_b} (c) "
+        raise AssertionError(f"pip_refine launches (a) {l_a} (b) {l_b} (c) "
                              f"{l_c}: (b) and (c) must launch it, (a) not")
     log(f"[main] (a) {got_box} (b) {got_poly} (c) {len(got_rows)} rows: "
-        f"equal to the oracle; pip_band launches (a) {l_a} (b) {l_b} (c) {l_c}")
+        f"equal to the oracle; pip_refine launches (a) {l_a} (b) {l_b} "
+        f"(c) {l_c}")
 
     plan = store.planner("gdelt").plan(Q_POLY)
     prog = compiled.Program(plan, "count")
     alive = int(prog._alive().sum())
     log(f"[main] polygon query: {alive} of {-(-n // prog.bsz)} blocks alive "
-        f"(cap {prog.cap}); pip_band rows per launch "
+        f"(cap {prog.cap}); pip_refine candidates per launch "
         f"{alive * prog.bsz if alive <= prog.cap else n}")
 
     p50 = {}
@@ -369,7 +468,10 @@ def breakdown(store, sync) -> None:
 def phase_profile(store) -> None:
     """One run of each query under torch.profiler: wall time, the summed
     time of its device activities (kernels and copies), the device's idle
-    share over the run, and the activities that take the most time."""
+    share over the run, the activities that take the most time, and the
+    column gathers (``index_select``) it made, of which those of float
+    columns: the layer's only float device columns are the coordinates
+    xf/yf, which the refine reads through the block starts instead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -379,7 +481,8 @@ def phase_profile(store) -> None:
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -391,10 +494,16 @@ def phase_profile(store) -> None:
         for e in kernels:
             top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
         top5 = sorted(top.items(), key=lambda kv: -kv[1])[:5]
+        gathers = [e for e in prof.events() if e.name == "aten::index_select"]
+        float_gathers = sum(
+            1 for e in gathers
+            if (getattr(e, "input_dtypes", None) or [""])[0] == "float")
         log(json.dumps({"profile": {
             "query": label, "wall_ms_profiled": wall_ms,
             "device_busy_ms": busy_ms, "device_activities": len(kernels),
             "idle_share": 1.0 - busy_ms / wall_ms,
+            "index_select": len(gathers),
+            "index_select_float": float_gathers,
             "top": [[k[:60], v] for k, v in top5]}}))
 
 
@@ -409,7 +518,7 @@ def main() -> int:
     import torch
     from geomesa_tpu_torch.kernels import pip
     print(json.dumps({"kernels": [{
-        "name": "pip_band", "route": "cuda", "source": pip.SOURCE,
+        "name": pip.NAME, "route": "cuda", "source": pip.SOURCE,
         "replaces": pip.REPLACES, "launches": launches,
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -12,8 +12,9 @@ For a point_boxes plan the program
 3. applies the exact fp62 box mask, the exact time windows and the lowered
    residual;
 4. counts, or compacts row positions into a fixed-capacity result, and in
-   the refine modes classifies every candidate row against the polygon with
-   the ``pip_band`` CUDA kernel (certain-in / certain-out / uncertain).
+   the refine modes classifies the masked candidate rows against the
+   polygon with the ``pip_refine`` CUDA kernel (certain hit / uncertain),
+   which reads their coordinates through the gathered blocks' starts.
 
 The uncertain sliver re-evaluates on the host in exact f64.
 
@@ -41,7 +42,7 @@ from geomesa_tpu_torch.filter.geom_numpy import literal_segments
 from geomesa_tpu_torch.index import prune as _prune
 from geomesa_tpu_torch.index.api import IndexScanPlan, not_ported
 from geomesa_tpu_torch.index.scan import EDGE_PAD, _time_mask, point_boxes
-from geomesa_tpu_torch.kernels.pip import pip_flags
+from geomesa_tpu_torch.kernels.pip import pip_refine
 
 # block-gate slack in degrees: the per-block summaries are f32 reductions of
 # the f32 coordinate planes and the gate envelopes are f32 roundings of f64
@@ -136,6 +137,14 @@ def refine_edges(plan: IndexScanPlan) -> Optional[np.ndarray]:
     return ep
 
 
+def real_edges(edges: np.ndarray) -> int:
+    """Rows of a ``refine_edges`` table before its ``EDGE_PAD`` filler."""
+    n = len(edges)
+    while n and np.array_equal(edges[n - 1], EDGE_PAD):
+        n -= 1
+    return n
+
+
 class _Gather:
     """Dict-like view of the candidate rows of each column, read on first
     access, so a pruned scan touches only the columns its mask needs
@@ -210,6 +219,7 @@ class Program:
             _, params, self.res_fn = plan.residual_device
             self.res_params = [torch.from_numpy(p).to(dev) for p in params]
         self.edges = None if edges is None else torch.from_numpy(edges).to(dev)
+        self.n_edges = None if edges is None else real_edges(edges)
 
     def _mask(self, c) -> torch.Tensor:
         m = point_boxes(c, self.boxes)
@@ -234,8 +244,10 @@ class Program:
         return alive
 
     def _candidates(self):
-        """(columns view, mask, rowids or None): the pruned branch's gathered
-        blocks when few enough are alive, else the full table."""
+        """(mask, rowids, starts) of the candidate rows: the pruned branch's
+        gathered blocks when few enough are alive (candidate i is row
+        ``starts[i // bsz] + i % bsz``), else the full table (rowids and
+        starts None)."""
         cols = self.index.device.columns
         n, bsz = self.n, self.bsz
         if n >= 4 * bsz:
@@ -253,12 +265,12 @@ class Program:
                               & (rows < starts[:, None] + bsz)).reshape(-1)
                 rows = rows.reshape(-1)
                 g = _Gather(cols, rows)
-                return g, self._mask(g) & membership, rows
+                return self._mask(g) & membership, rows, astart
         # tiny tables (under 4 blocks) and overfull gates: the full mask
-        return cols, self._mask(cols), None
+        return self._mask(cols), None, None
 
     def run(self) -> torch.Tensor:
-        c, m, rowids = self._candidates()
+        m, rowids, starts = self._candidates()
         n = self.n
         count = m.sum(dtype=torch.int32).reshape(1)
         if self.mode == "count":
@@ -267,9 +279,10 @@ class Program:
             return torch.cat([count, _compact(m, rowids, self.sel_cap, n)])
         if self.mode not in ("count_refine", "select_refine"):
             raise ValueError(self.mode)
-        cin, cout = pip_flags(c["xf"], c["yf"], self.edges)
-        hit = m & cin
-        unc = m & ~cin & ~cout
+        cols = self.index.device.columns
+        hit, unc = pip_refine(cols["xf"], cols["yf"], self.edges, mask=m,
+                              starts=starts, bsz=self.bsz,
+                              n_edges=self.n_edges)
         parts = [hit.sum(dtype=torch.int32).reshape(1),
                  unc.sum(dtype=torch.int32).reshape(1)]
         if self.mode == "select_refine":

@@ -1,10 +1,11 @@
 """Device predicates of the point scan as torch functions.
 
 ≙ ``geomesa_tpu.index.scan``: the exact fp62 box mask, the exact binned-time
-window mask, the residual-predicate compiler, and the certainty-band
-point-in-polygon classifier (``pip_band``, the plain version of the CUDA
-kernel in ``kernels/csrc/pip_band.cu``). Every function takes tensors on
-whatever device the caller's table lives on.
+window mask, the residual-predicate compiler, the certainty-band
+point-in-polygon classifier (``pip_band``) and the fused program's polygon
+refine built on it (``pip_refine``, the plain version of the CUDA kernel in
+``kernels/csrc/pip_refine.cu``). Every function takes tensors on whatever
+device the caller's table lives on.
 
 Exactness contract (as in the reference): box and time masks compare int32
 planes and so reproduce the host's f64 predicates exactly; geometry uses f32
@@ -119,10 +120,9 @@ def pip_band(px: torch.Tensor, py: torch.Tensor, edges: torch.Tensor):
     by the half-open crossing rule: uncertain when any edge's crossing
     decision sits inside its error band or a vertex y ties the ray.
 
-    The plain PyTorch version of the ``pip_band`` CUDA kernel: the CPU path,
-    and the kernel's yardstick on the card. Points run in chunks so the
-    (point, edge) temporaries stay bounded; each point's flags depend on its
-    own row only, so chunking changes nothing."""
+    Points run in chunks so the (point, edge) temporaries stay bounded;
+    each point's flags depend on its own row only, so chunking changes
+    nothing."""
     n, ne = px.shape[0], edges.shape[0]
     cin = torch.empty(n, dtype=torch.bool, device=px.device)
     cout = torch.empty(n, dtype=torch.bool, device=px.device)
@@ -133,6 +133,33 @@ def pip_band(px: torch.Tensor, py: torch.Tensor, edges: torch.Tensor):
         cin[a:b], cout[a:b] = _pip_band_pairs(
             px[a:b, None], py[a:b, None], *e)
     return cin, cout
+
+
+def pip_refine(xf: torch.Tensor, yf: torch.Tensor, edges: torch.Tensor,
+               mask: Optional[torch.Tensor] = None,
+               starts: Optional[torch.Tensor] = None,
+               bsz: Optional[int] = None, n_edges: Optional[int] = None):
+    """(hit, uncertain) bool flags of the fused program's candidate rows
+    against a polygon edge table: ``mask & cin`` and ``mask & ~cin & ~cout``
+    over ``pip_band``'s flags (≙ the reference's ``refine_of`` for its
+    ``pip`` kind). Candidate i is row ``starts[i // bsz] + i % bsz`` of
+    ``xf``/``yf`` when block starts are given, else row i; ``mask=None``
+    makes every candidate live; ``n_edges`` keeps only the table's first
+    rows (the rest ``EDGE_PAD`` filler, which changes no flag).
+
+    The plain PyTorch version of the ``pip_refine`` CUDA kernel: gather,
+    classify, mask. The CPU path, and the kernel's yardstick on the card."""
+    if starts is not None:
+        rows = (starts[:, None] + torch.arange(
+            bsz, device=starts.device)[None, :]).reshape(-1)
+        xf, yf = xf.index_select(0, rows), yf.index_select(0, rows)
+    if n_edges is not None:
+        edges = edges[:n_edges]
+    cin, cout = pip_band(xf, yf, edges)
+    unc = ~cin & ~cout
+    if mask is None:
+        return cin, unc
+    return mask & cin, mask & unc
 
 
 # -- residual predicate compiler --------------------------------------------

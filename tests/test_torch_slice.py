@@ -185,6 +185,32 @@ def test_program_output_equals_reference(world, mode, q):
     assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("mode", ["count_refine", "select_refine"])
+def test_refine_gathers_no_coordinates(world, monkeypatch, mode):
+    """On the pruned branch (a one-day window keeps 3 of 12 blocks) the
+    polygon refine reads xf/yf through the gathered blocks' starts: only
+    the mask's columns are gathered, and the raw result is the
+    reference's, value for value."""
+    jp, tp = world
+    q = (f"INTERSECTS(geom, {POLY}) AND dtg DURING "
+         "2020-01-05T00:00:00Z/2020-01-06T00:00:00Z")
+    jprog = jcompiled._from_plan(jp, jp.plan(q), mode)
+    want = np.asarray(jprog.dispatch())
+    seen = []
+    gather = tcompiled._Gather.__getitem__
+    monkeypatch.setattr(tcompiled._Gather, "__getitem__",
+                        lambda self, k: seen.append(k) or gather(self, k))
+    plan = tp.plan(q)
+    prog = tcompiled.Program(plan, mode, sel_cap=jprog.sel_cap,
+                             unc_cap=jprog.unc_cap,
+                             edges=tcompiled.refine_edges(plan))
+    assert prog.n_edges == 5
+    got = prog.run()
+    assert {"bin", "off", "xi"} <= set(seen)      # the pruned branch ran
+    assert not {"xf", "yf"} & set(seen)
+    assert got[0] > 0 and np.array_equal(got.numpy(), want)
+
+
 def test_three_row_table_runs_full_branch():
     cols = _columns(3, seed=1)
     cols["geom"] = (np.array([1.0, 20.0, 30.0]), np.array([25.0, 45.0, 50.0]))
