@@ -5,18 +5,27 @@
 Phases, each failing the run (non-zero exit) when it fails:
 
 1. device: the card's name and power limit;
-2. build: every CUDA kernel of the main path from the checkout's sources,
-   with ptxas' report and the SASS instructions per (point, edge) pair of
-   the refine kernel's inner loop;
-3. kernels against their plain PyTorch versions on the card, at the shapes
-   the main path gives them (and near-edge shapes, unmasked and masked),
-   with times and bounds;
+2. build: every CUDA kernel of the port (``kernels/build.py`` ``KERNELS``)
+   from the checkout's sources, one nvcc each, all started together, with
+   ptxas' report and the SASS instructions per (point, edge) pair of the
+   refine kernel's inner loop;
+3. pip_refine against its plain PyTorch version on the card at near-edge
+   shapes, unmasked and masked, with times and bounds;
 4. the main path: a 100M-point Z3 layer loaded through the port's
-   DataStore and queried (count, polygon count, polygon select), each
-   result equal to a numpy f64 oracle computed here, with the kernel's
-   launch count read around the run;
-5. the result lines: one JSON object per kernel, the card, and the final
-   ``{"ok": true, ...}`` line.
+   DataStore and queried — (a) box count, (b) polygon count, (c) polygon
+   select, (d) the flagship 64x64 density of ``__graft_entry__.entry()``
+   through ``store.query(..., hints={"density": ...})`` and through the
+   fused program, (e) query (a) as a 256x256 ``val``-weighted density,
+   (f) a time+attribute count and select and an INCLUDE count on the staged
+   path — each result equal to a numpy oracle computed here, with every
+   kernel's launch count read around the run;
+5. each kernel against its plain version on the tensors the main path
+   gives it: pip_refine at (b)'s candidates; grid_scatter at (d)'s route
+   inputs and at the full-table mask, at 64x64 and 256x256, unit and
+   ``val``-weighted, with times, bounds and ``torch.bincount``'s time for
+   the scatter part;
+6. a profile of each query, and the result lines: one JSON object per
+   kernel, the card, and the final ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero
 without a result when no CUDA card is present.
@@ -56,6 +65,12 @@ PEAK_F32_OPS_S = 67e12
 PIP_OPS_PER_PAIR = 18
 PIP_OPS_PER_EDGE = 4
 
+# f32 operations of the density scatter per live candidate, whatever
+# implements it: 2 subtractions and 2 divisions (fx, fy), 4 comparisons
+# (the bbox test), 2 multiplications (by W and H) and 1 addition (the cell
+# update); the bbox's two widths once per call are not counted
+SCATTER_OPS_PER_ROW = 11
+
 CONCAVE_WKT = "POLYGON((-10 20, 40 20, 40 60, -10 60, 15 40, -10 20))"
 CONCAVE = [(-10.0, 20.0), (40.0, 20.0), (40.0, 60.0), (-10.0, 60.0),
            (15.0, 40.0), (-10.0, 20.0)]
@@ -68,6 +83,14 @@ SPEC = "name:String,val:Int,dtg:Date,*geom:Point;geomesa.z3.interval=week"
 DURING = "dtg DURING 2020-01-05T00:00:00Z/2020-01-12T00:00:00Z"
 Q_BOX = f"BBOX(geom, -10, 30, 30, 55) AND {DURING} AND val > 10"
 Q_POLY = f"INTERSECTS(geom, {CONCAVE_WKT}) AND {DURING}"
+# (d): __graft_entry__.entry()'s flagship step, a 64x64 density
+D_BBOX = (-60.0, -30.0, 60.0, 30.0)
+Q_D = ("BBOX(geom, -60, -30, 60, 30) AND dtg DURING "
+       "2020-01-03T00:00:00Z/2020-01-15T00:00:00Z AND val > 10")
+# (e): query (a) as a 256x256 val-weighted density over its own box
+E_BBOX = (-10.0, 30.0, 30.0, 55.0)
+# (f): plans without a box, on the staged path
+Q_F = f"{DURING} AND val > 90"
 REPS = 10
 
 
@@ -142,7 +165,7 @@ def phase_device():
 def phase_build():
     from geomesa_tpu_torch.kernels import build, pip
     t0 = time.perf_counter()
-    out = build.build([pip.NAME])
+    out = build.build(build.KERNELS)
     secs = time.perf_counter() - t0
     for name, r in out.items():
         log(f"[build] {name}: {r['seconds']:.2f} s")
@@ -300,6 +323,124 @@ def phase_kernel_main_inputs(store) -> dict:
     return r
 
 
+def scatter_bound(n: int, live: int, weighted: bool, cells: int,
+                  n_starts: int) -> dict:
+    """The least time the card could take for the scatter on these inputs:
+    bytes (the mask, the live rows' x/y and weight once, the raster written
+    once, the block starts) over the HBM rate, against operations (live rows
+    x SCATTER_OPS_PER_ROW) over the f32 rate."""
+    nbytes = n + live * (12 if weighted else 8) + cells * 4 + n_starts * 8
+    ops = live * SCATTER_OPS_PER_ROW
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3}
+
+
+def compare_scatter(label: str, cols, mask, starts, bsz, bbox, width: int,
+                    height: int, wname) -> dict:
+    """grid_scatter's kernel against its plain version on the same card
+    tensors: unit weights byte-equal; weighted per cell within
+    2 * gamma(n_cell - 1) * sum|w| (two summation orders, each within
+    gamma(n_cell - 1) * sum|w| of the exact sum; gamma(k) = k u / (1 - k u),
+    u = 2^-24). Times by CUDA events; ``torch.bincount`` over precomputed
+    cell ids as the library's time for the scatter part (excluding the
+    snap)."""
+    import torch
+    from geomesa_tpu_torch.index import scan
+    from geomesa_tpu_torch.kernels import density
+
+    g = torch.tensor(bbox, dtype=torch.float32, device=mask.device)
+    w = None if wname is None else cols[wname]
+    args = (cols["xf"], cols["yf"], mask, w, starts, bsz, g, width, height)
+    kg, kc = density.grid_scatter(*args)
+    torch.cuda.synchronize()
+    pg, pc = scan.grid_scatter(*args)
+    torch.cuda.synchronize()
+    if int(kc) != int(pc):
+        raise AssertionError(f"grid_scatter {label}: count {int(kc)} != "
+                             f"plain {int(pc)}")
+    err = float((kg - pg).abs().max())
+    if w is None:
+        if not torch.equal(kg, pg):
+            raise AssertionError(f"grid_scatter {label}: unit grid differs "
+                                 f"from the plain version (max {err})")
+    else:
+        unit, _ = scan.grid_scatter(*args[:3], None, *args[4:])
+        absw, _ = scan.grid_scatter(*args[:3], w.abs().to(torch.float32),
+                                    *args[4:])
+        k = (unit.double() - 1).clamp_min(0) * 2.0 ** -24
+        tol = 2 * k / (1 - k) * absw.double()
+        if bool(((kg.double() - pg.double()).abs() > tol).any()):
+            raise AssertionError(f"grid_scatter {label}: weighted grid off "
+                                 f"the plain version past the bound ({err})")
+    # cell ids of the live rows inside the bbox, for bincount's time
+    rows = None if starts is None else scan.block_rows(starts, bsz)
+    xs = cols["xf"] if rows is None else cols["xf"].index_select(0, rows)
+    ys = cols["yf"] if rows is None else cols["yf"].index_select(0, rows)
+    fx = (xs - g[0]) / (g[2] - g[0])
+    fy = (ys - g[1]) / (g[3] - g[1])
+    inb = mask & (fx >= 0) & (fx < 1) & (fy >= 0) & (fy < 1)
+    cell = ((fy * height).to(torch.int32).clamp_(0, height - 1).to(torch.int64)
+            * width + (fx * width).to(torch.int32).clamp_(0, width - 1))[inb]
+    wts = None
+    if w is not None:
+        wts = (w if rows is None else w.index_select(0, rows))[inb].to(
+            torch.float32)
+    del xs, ys, fx, fy, inb
+    live = int(mask.sum())
+    ms = cuda_ms(lambda: density.grid_scatter(*args), 20)
+    plain_ms = cuda_ms(lambda: scan.grid_scatter(*args), 3)
+    lib_ms = cuda_ms(lambda: torch.bincount(cell, weights=wts,
+                                            minlength=width * height), 20)
+    r = {"label": label, "n": int(mask.shape[0]), "live": live,
+         "in_bbox": int(cell.shape[0]), "width": width, "height": height,
+         "weight": wname, "ms": ms, "plain_ms": plain_ms,
+         "library_ms": lib_ms, "max_abs_err": err,
+         "count": int(kc), "grid_sum": float(kg.sum()),
+         **scatter_bound(int(mask.shape[0]), live, w is not None,
+                         width * height,
+                         0 if starts is None else int(starts.shape[0]))}
+    log(f"[kernel] grid_scatter {label} {width}x{height} weight={wname}: "
+        f"n={r['n']} live={live} in bbox {r['in_bbox']}, equal to the plain "
+        f"version (max abs err {err}), kernel {ms} ms, plain {plain_ms} ms, "
+        f"bincount (scatter part only) {lib_ms} ms, bound {r['bound_ms']} ms "
+        f"({r['bound_by']}; bytes {r['bytes_ms']} ms, operations "
+        f"{r['ops_ms']} ms)")
+    return r
+
+
+def phase_density_kernel(store) -> list:
+    """grid_scatter against its plain version on the tensors query (d)'s
+    staged route hands it (the range-pruned blocks' mask and starts, or
+    the full-table mask) and on the full-table 100M-row mask of the
+    density_compact route, at 64x64 and 256x256, unit and val-weighted."""
+    from geomesa_tpu_torch.index import prune
+
+    planner = store.planner("gdelt")
+    plan = planner.plan(Q_D)
+    kern = plan.index.kernels
+    args = (plan.primary_kind, plan.boxes_loose, plan.windows,
+            plan.residual_device)
+    cols = plan.index.device.columns
+    full = kern.mask(*args)
+    blocks = planner._pruned_blocks(plan)
+    if blocks is None:
+        sets = [("main-path (d) = full-table mask", full, None, None)]
+    else:
+        bsz = int(prune.BLOCK_SIZE)
+        m, _, astart, _ = kern._stage_blocks(*args, blocks, bsz)()
+        sets = [("main-path (d) range-pruned", m, astart, bsz),
+                ("full-table mask (d)", full, None, None)]
+    out = []
+    for label, m, st, bsz in sets:
+        for shape in ((64, 64), (256, 256)):
+            for wname in (None, "val"):
+                out.append(compare_scatter(label, cols, m, st, bsz, D_BBOX,
+                                           *shape, wname))
+    return out
+
+
 def corpus(n: int, seed: int = 1234):
     """64 Gaussian clusters of points over 30 days (bench.py cfg1), with
     name drawn from 3 values and val from integers(0, 100)."""
@@ -314,6 +455,28 @@ def corpus(n: int, seed: int = 1234):
     name = rng.integers(0, 3, n).astype(np.int32)
     val = rng.integers(0, 100, n).astype(np.int32)
     return x, y, dtg, name, val
+
+
+def oracle_density(x, y, rows, bbox, width: int, height: int,
+                   weight=None) -> np.ndarray:
+    """The device path's density, written out here: the selected rows' f32
+    coordinate planes snapped with f32 numpy arithmetic in the reference's
+    order (bbox rounded to f32; fx = (x - xmin) / (xmax - xmin); a row counts
+    when 0 <= fx < 1 and 0 <= fy < 1, in cell (int(fy*H), int(fx*W))
+    clipped), the counts (or the weights) summed per cell exactly (f64)."""
+    g = np.asarray(bbox, dtype=np.float32)
+    xf = x[rows].astype(np.float32)
+    yf = y[rows].astype(np.float32)
+    fx = (xf - g[0]) / (g[2] - g[0])
+    fy = (yf - g[1]) / (g[3] - g[1])
+    inb = (fx >= 0) & (fx < 1) & (fy >= 0) & (fy < 1)
+    ix = np.clip((fx[inb] * np.float32(width)).astype(np.int32), 0, width - 1)
+    iy = np.clip((fy[inb] * np.float32(height)).astype(np.int32), 0,
+                 height - 1)
+    cell = iy.astype(np.int64) * width + ix
+    w = None if weight is None else weight[rows][inb].astype(np.float64)
+    return np.bincount(cell, weights=w, minlength=width * height).reshape(
+        height, width)
 
 
 def oracle_pip(px, py, ring) -> np.ndarray:
@@ -341,32 +504,52 @@ def oracle_pip(px, py, ring) -> np.ndarray:
     return out
 
 
+def density_hint(bbox, width, height, weight=None) -> dict:
+    return {"density": {"bbox": bbox, "width": width, "height": height,
+                        "weight": weight}}
+
+
 def phase_main_path(n: int = N, device: str = "cuda"):
     """Load the corpus through the port's DataStore (Z3 build on the card)
-    and answer the three queries; each must equal the numpy f64 oracle.
-    Returns the pip_refine launches of the checked run."""
+    and answer queries (a)-(f); each must equal its numpy oracle. Returns
+    each kernel's launches in the checked run, and the store."""
     import torch
     from geomesa_tpu_torch import DataStoreFinder
+    from geomesa_tpu_torch.aggregates.density import prepare_density
     from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
     from geomesa_tpu_torch.index import compiled
-    from geomesa_tpu_torch.kernels import pip
+    from geomesa_tpu_torch.kernels import density, pip
 
     t0 = time.perf_counter()
     x, y, dtg, name, val = corpus(n)
     gen_s = time.perf_counter() - t0
     log(f"[main] corpus n={n} generated in {gen_s:.2f} s")
 
-    lo = np.datetime64("2020-01-05", "ms").astype(np.int64)
-    hi = np.datetime64("2020-01-12", "ms").astype(np.int64)
+    def during(a, b):
+        return (dtg > np.datetime64(a, "ms").astype(np.int64)) \
+            & (dtg < np.datetime64(b, "ms").astype(np.int64))
+
     t0 = time.perf_counter()
-    tmask = (dtg > lo) & (dtg < hi)
-    want_box = int(np.count_nonzero(
-        tmask & (x >= -10) & (x <= 30) & (y >= 30) & (y <= 55) & (val > 10)))
+    tmask = during("2020-01-05", "2020-01-12")
+    sel_a = tmask & (x >= -10) & (x <= 30) & (y >= 30) & (y <= 55) & (val > 10)
+    want_box = int(np.count_nonzero(sel_a))
     cand = np.flatnonzero(tmask & (x >= -10) & (x <= 40) & (y >= 20) & (y <= 60))
     want_rows = cand[oracle_pip(x[cand], y[cand], CONCAVE)]
-    del tmask, cand
-    log(f"[main] numpy f64 oracle in {time.perf_counter() - t0:.2f} s: "
-        f"box {want_box}, polygon {len(want_rows)}")
+    rows_d = np.flatnonzero(during("2020-01-03", "2020-01-15") & (x >= -60)
+                            & (x <= 60) & (y >= -30) & (y <= 30) & (val > 10))
+    want_d = oracle_density(x, y, rows_d, D_BBOX, 64, 64)
+    rows_e = np.flatnonzero(sel_a)
+    want_e = oracle_density(x, y, rows_e, E_BBOX, 256, 256, val)
+    n_e = oracle_density(x, y, rows_e, E_BBOX, 256, 256)
+    want_f = np.flatnonzero(tmask & (val > 90))
+    del tmask, cand, sel_a
+    log(f"[main] numpy oracle in {time.perf_counter() - t0:.2f} s: "
+        f"box {want_box}, polygon {len(want_rows)}, (d) {len(rows_d)} rows "
+        f"(densest cell {int(want_d.max())}), (e) {len(rows_e)} rows, "
+        f"(f) {len(want_f)} rows")
+    if want_d.max() >= 1 << 24:
+        raise AssertionError("(d)'s densest cell reaches 2^24: f32 unit "
+                             "sums are no longer exact there")
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     if device == "cuda":
@@ -380,23 +563,46 @@ def phase_main_path(n: int = N, device: str = "cuda"):
     store.load("gdelt", table)
     sync()
     load_s = time.perf_counter() - t0
-    idx = store.planner("gdelt").indexes[0]
+    planner = store.planner("gdelt")
+    idx = planner.indexes[0]
     placed = {k: str(v.device) for k, v in idx.device.columns.items()}
     if not all(d.startswith(device) for d in placed.values()):
         raise AssertionError(f"device columns off the card: {placed}")
     log(f"[main] load (host encode + Z3 sort/gather on the card) "
         f"{load_s:.2f} s; columns {sorted(placed)} on {set(placed.values())}")
 
-    # the checked run: launch counts read around it
-    pip.pip_refine.launches = 0
-    got_box = store.count("gdelt", Q_BOX)
-    l_a = pip.pip_refine.launches
-    got_poly = store.count("gdelt", Q_POLY)
-    l_b = pip.pip_refine.launches - l_a
-    got_rows = store.query("gdelt", Q_POLY).indices
+    # the checked run: every kernel's launch count read around it
+    counters = {"pip_refine": pip.pip_refine,
+                "grid_scatter": density.grid_scatter}
+    for c in counters.values():
+        c.launches = 0
+    per_query = {}
+
+    def run(label, fn):
+        before = {k: c.launches for k, c in counters.items()}
+        out = fn()
+        per_query[label] = {k: c.launches - before[k]
+                            for k, c in counters.items()}
+        return out
+
+    got_box = run("a", lambda: store.count("gdelt", Q_BOX))
+    got_poly = run("b", lambda: store.count("gdelt", Q_POLY))
+    got_rows = run("c", lambda: store.query("gdelt", Q_POLY).indices)
+    got_d = run("d", lambda: store.query(
+        "gdelt", Q_D, hints=density_hint(D_BBOX, 64, 64)))
+    fused_d = run("d_fused", lambda: compiled.try_density(
+        planner, planner.plan(Q_D), D_BBOX, 64, 64))
+    got_e = run("e", lambda: store.query(
+        "gdelt", Q_BOX, hints=density_hint(E_BBOX, 256, 256, "val")))
+    prep_e = prepare_density(planner, Q_BOX, E_BBOX, 256, 256, "val")
+    enc_e = prep_e.packed()
+    raw_e = run("e_device", lambda: prep_e.dispatch().cpu().numpy())
+    got_f_count = run("f_count", lambda: store.count("gdelt", Q_F))
+    got_f_rows = run("f_select", lambda: store.query("gdelt", Q_F).indices)
+    got_inc = run("f_include", lambda: store.count("gdelt", "INCLUDE"))
     sync()
-    launches = pip.pip_refine.launches
-    l_c = launches - l_a - l_b
+    launches = {k: c.launches for k, c in counters.items()}
+
     if got_box != want_box:
         raise AssertionError(f"(a) count {got_box} != oracle {want_box}")
     if got_poly != len(want_rows):
@@ -404,14 +610,59 @@ def phase_main_path(n: int = N, device: str = "cuda"):
     if not np.array_equal(got_rows, want_rows):
         raise AssertionError(f"(c) rows differ from the oracle "
                              f"({len(got_rows)} vs {len(want_rows)})")
-    if device == "cuda" and (l_a != 0 or l_b < 1 or l_c < 1):
-        raise AssertionError(f"pip_refine launches (a) {l_a} (b) {l_b} (c) "
-                             f"{l_c}: (b) and (c) must launch it, (a) not")
-    log(f"[main] (a) {got_box} (b) {got_poly} (c) {len(got_rows)} rows: "
-        f"equal to the oracle; pip_refine launches (a) {l_a} (b) {l_b} "
-        f"(c) {l_c}")
+    for label, grid in (("store", got_d.weights), ("fused", fused_d[0])):
+        if grid.dtype != np.float32 or grid.shape != (64, 64) \
+                or not np.array_equal(grid, want_d.astype(np.float32)):
+            raise AssertionError(f"(d) {label} grid differs from the oracle "
+                                 f"(sum {grid.sum()} vs {want_d.sum()})")
+    if fused_d[1] != len(rows_d):
+        raise AssertionError(f"(d) fused count {fused_d[1]} != {len(rows_d)}")
+    # (e): the device grid per cell within gamma(n_cell - 1) * sum|w| of the
+    # exact f64 sum (val >= 0, so sum|w| is the oracle's own cell sum); the
+    # store's grid comes back through the readback encoding the reference's
+    # ladder picks for a weighted 256x256 grid (fp16), which adds at most
+    # 2^-11 of each cell
+    k = np.maximum(n_e - 1, 0) * 2.0 ** -24
+    gam = k / (1 - k)
+    err_raw = np.abs(raw_e.astype(np.float64) - want_e)
+    if raw_e.shape != (256, 256) or not np.all(err_raw <= gam * want_e):
+        raise AssertionError(f"(e) device grid off the oracle by "
+                             f"{float(err_raw.max())}")
+    err_e = np.abs(got_e.weights.astype(np.float64) - want_e)
+    fp16 = 2.0 ** -11 if enc_e and enc_e[0] in ("fp16", "sparse") else 0.0
+    tol_e = (gam * (1 + fp16) + fp16) * want_e
+    if got_e.weights.shape != (256, 256) or not np.all(err_e <= tol_e):
+        raise AssertionError(f"(e) store grid off the oracle by "
+                             f"{float(err_e.max())} (encoding {enc_e})")
+    if got_f_count != len(want_f) or not np.array_equal(got_f_rows, want_f):
+        raise AssertionError(f"(f) {got_f_count} / {len(got_f_rows)} rows "
+                             f"!= oracle {len(want_f)}")
+    if got_inc != n:
+        raise AssertionError(f"(f) INCLUDE count {got_inc} != {n}")
+    q = per_query
+    if device == "cuda" and (
+            q["a"]["pip_refine"] != 0 or q["b"]["pip_refine"] < 1
+            or q["c"]["pip_refine"] < 1 or q["d"]["grid_scatter"] < 1
+            or q["d_fused"]["grid_scatter"] < 1 or q["e"]["grid_scatter"] < 1
+            or q["e_device"]["grid_scatter"] < 1
+            or launches["grid_scatter"] == 0):
+        raise AssertionError(f"kernel launches per query {json.dumps(q)}: "
+                             "(b), (c) must launch pip_refine and (a) not; "
+                             "(d), (d) fused and (e) grid_scatter")
+    routes = {lbl: "range-pruned" if planner._pruned_blocks(
+        planner.plan(qq)) is not None else "full-mask"
+        for lbl, qq in (("d", Q_D), ("e", Q_BOX), ("f", Q_F))}
+    log(f"[main] (a) {got_box} (b) {got_poly} (c) {len(got_rows)} rows "
+        f"(d) 64x64 grid of {int(got_d.weights.sum())} (store and fused) "
+        f"(e) 256x256 val grid of {float(got_e.weights.sum())} (device grid "
+        f"max cell error {float(err_raw.max())}; store grid through "
+        f"{enc_e}, max cell error {float(err_e.max())}) (f) {got_f_count} "
+        f"rows, INCLUDE {got_inc}: equal to the oracles")
+    log(f"[main] densest (d) cell {int(want_d.max())} (< 2^24, so unit "
+        f"grids compare byte for byte); staged routes {json.dumps(routes)}")
+    log(f"[main] launches per query {json.dumps(per_query)}")
 
-    plan = store.planner("gdelt").plan(Q_POLY)
+    plan = planner.plan(Q_POLY)
     prog = compiled.Program(plan, "count")
     alive = int(prog._alive().sum())
     log(f"[main] polygon query: {alive} of {-(-n // prog.bsz)} blocks alive "
@@ -419,9 +670,7 @@ def phase_main_path(n: int = N, device: str = "cuda"):
         f"{alive * prog.bsz if alive <= prog.cap else n}")
 
     p50 = {}
-    for label, fn in (("a_box_count", lambda: store.count("gdelt", Q_BOX)),
-                      ("b_poly_count", lambda: store.count("gdelt", Q_POLY)),
-                      ("c_poly_query", lambda: store.query("gdelt", Q_POLY))):
+    for label, fn in queries(store):
         fn()
         ts = []
         for _ in range(REPS):
@@ -435,9 +684,22 @@ def phase_main_path(n: int = N, device: str = "cuda"):
     log(json.dumps({"main_path": {
         "n": n, "device": device, "gen_s": gen_s, "load_s": load_s, "p50_ms": p50,
         "reps": REPS, "max_memory_allocated": peak,
-        "launches_checked_run": launches}}))
+        "launches_checked_run": launches, "routes": routes}}))
     breakdown(store, sync)
-    return launches, store
+    return launches, store, routes
+
+
+def queries(store):
+    """The main path's queries as (label, zero-arg fn), for the timings and
+    the profile."""
+    return (("a_box_count", lambda: store.count("gdelt", Q_BOX)),
+            ("b_poly_count", lambda: store.count("gdelt", Q_POLY)),
+            ("c_poly_query", lambda: store.query("gdelt", Q_POLY)),
+            ("d_density", lambda: store.query(
+                "gdelt", Q_D, hints=density_hint(D_BBOX, 64, 64))),
+            ("e_density_val", lambda: store.query(
+                "gdelt", Q_BOX, hints=density_hint(E_BBOX, 256, 256, "val"))),
+            ("f_staged_count", lambda: store.count("gdelt", Q_F)))
 
 
 def breakdown(store, sync) -> None:
@@ -448,9 +710,10 @@ def breakdown(store, sync) -> None:
 
     planner = store.planner("gdelt")
     plan = planner.plan(Q_POLY)
-    rows = compiled.select(planner, plan)
+    rows = compiled.try_select_refine(planner, plan, None)
     stages = {"plan": lambda: planner.plan(Q_POLY),
-              "fused_select": lambda: compiled.select(planner, plan),
+              "fused_select": lambda: compiled.try_select_refine(
+                  planner, plan, None),
               "hydrate": lambda: planner.table.take(rows)}
     out = {}
     for label, fn in stages.items():
@@ -475,9 +738,7 @@ def phase_profile(store) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for label, fn in (("a_box_count", lambda: store.count("gdelt", Q_BOX)),
-                      ("b_poly_count", lambda: store.count("gdelt", Q_POLY)),
-                      ("c_poly_query", lambda: store.query("gdelt", Q_POLY))):
+    for label, fn in queries(store):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -512,17 +773,25 @@ def main() -> int:
     log(f"[device] nvidia-smi: {smi}")
     phase_build()
     phase_kernels()
-    launches, store = phase_main_path()
+    launches, store, routes = phase_main_path()
     k = phase_kernel_main_inputs(store)
+    d = phase_density_kernel(store)
     phase_profile(store)
     import torch
-    from geomesa_tpu_torch.kernels import pip
+    from geomesa_tpu_torch.kernels import density, pip
+    head = d[0]   # (d)'s own inputs, 64x64, unit weights
     print(json.dumps({"kernels": [{
         "name": pip.NAME, "route": "cuda", "source": pip.SOURCE,
-        "replaces": pip.REPLACES, "launches": launches,
+        "replaces": pip.REPLACES, "launches": launches["pip_refine"],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}]}))
+        "bound_by": k["bound_by"], "library_ms": None}, {
+        "name": density.NAME, "route": "cuda", "source": density.SOURCE,
+        "replaces": density.REPLACES,
+        "launches": launches["grid_scatter"],
+        "max_abs_err": max(r["max_abs_err"] for r in d), "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

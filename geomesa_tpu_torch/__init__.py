@@ -9,8 +9,11 @@ device code is PyTorch, with every TPU kernel of the ported path rewritten
 by hand in CUDA for Hopper (``kernels/``).
 
 Ported so far: the Z3 point path — ECQL ``BBOX``/``INTERSECTS(POLYGON)`` +
-``DURING`` + attribute predicates, answered as counts or selected rows by
-the fused program. See ROADMAP.md for what remains.
+``DURING`` + attribute predicates, answered as counts, selected rows or
+density heat maps by the fused program, or by the staged scan path
+(``ScanKernels`` over a range-pruned block cover) for the plans the fused
+program does not take, plans without a box among them. See ROADMAP.md for
+what remains.
 """
 
 __version__ = "0.1.0"

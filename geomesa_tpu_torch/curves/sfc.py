@@ -2,11 +2,13 @@
 
 Vectorized over numpy arrays; strict bounds checking with a ``lenient`` clamp
 escape hatch, matching the reference's index()/lenientIndex() pair
-(Z3SFC.scala:32-47). Only the key encode is here: the fused query program
-covers blocks with device summaries, so the port plans no z-range covers.
+(Z3SFC.scala:32-47), and the array-form z-range cover the staged path's
+range pruner reads (``ranges_arrays``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -14,6 +16,7 @@ from geomesa_tpu_torch.curves import zorder
 from geomesa_tpu_torch.curves.binnedtime import TimePeriod, max_offset
 from geomesa_tpu_torch.curves.normalize import (NormalizedLat, NormalizedLon,
                                                 NormalizedTime)
+from geomesa_tpu_torch.curves.ranges import zranges_3d_arrays
 
 
 class Z3SFC:
@@ -64,3 +67,20 @@ class Z3SFC:
         """x/y in degrees, t = offset *within the time bin* (period units)."""
         xi, yi, ti = self.normalize(x, y, t, lenient)
         return zorder.z3_encode(xi, yi, ti)
+
+    def ranges_arrays(self, xy, t, max_ranges: Optional[int] = None,
+                      max_levels: int = 64):
+        """Array-form cover (lo, hi, contained) of the cross product of
+        lon/lat boxes ``xy`` and in-bin time windows ``t`` — the
+        query-planning path (feeds prune.ranges_to_slices without
+        per-range objects)."""
+        boxes = []
+        for xmin, ymin, xmax, ymax in xy:
+            xlo, ylo = self.lon.normalize(xmin), self.lat.normalize(ymin)
+            xhi, yhi = self.lon.normalize(xmax), self.lat.normalize(ymax)
+            for tmin, tmax in t:
+                tlo, thi = self.time.normalize(tmin), self.time.normalize(tmax)
+                boxes.append((int(xlo), int(ylo), int(tlo),
+                              int(xhi), int(yhi), int(thi)))
+        return zranges_3d_arrays(boxes, self.precision, max_ranges or 2000,
+                                 max_levels)

@@ -6,17 +6,21 @@
     store.load("gdelt", FeatureTable.build(sft, columns))
     store.count("gdelt", "BBOX(geom, ...) AND dtg DURING ...")
     store.query("gdelt", "INTERSECTS(geom, POLYGON(...)) AND ...").indices
+    store.query("gdelt", "dtg DURING ...", hints={"density": {
+        "bbox": (-60, -30, 60, 30), "width": 64, "height": 64}}).weights
 
 The device is ``cuda`` unless the caller passes another (``device="cpu"``
 runs every kernel's plain version); asking for ``cuda`` without a card
-raises. This slice holds one bulk load per type in a Z3 index; every other
-store feature raises NotImplementedError naming its ROADMAP.md item.
+raises. This port holds one bulk load per type in a Z3 index and answers
+counts, selects and density heat maps; every other store feature raises
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Union
 
+from geomesa_tpu_torch.aggregates.density import DensityGrid, density
 from geomesa_tpu_torch.features.sft import SimpleFeatureType
 from geomesa_tpu_torch.features.table import FeatureTable
 from geomesa_tpu_torch.filter import ir
@@ -70,9 +74,22 @@ class TorchDataStore:
               f: Union[str, ir.Filter] = "INCLUDE") -> int:
         return self.planner(type_name).count(f)
 
-    def query(self, type_name: str,
-              f: Union[str, ir.Filter] = "INCLUDE") -> QueryResult:
-        return self.planner(type_name).query(f)
+    def query(self, type_name: str, f: Union[str, ir.Filter] = "INCLUDE",
+              hints: Optional[dict] = None
+              ) -> Union[QueryResult, DensityGrid]:
+        """Rows of a filter as a QueryResult; with ``hints={"density":
+        {"bbox", "width", "height", "weight"}}`` a DensityGrid heat map of
+        the matches instead (width/height default to 256, weight to None)."""
+        hints = hints or {}
+        unknown = set(hints) - {"density"}
+        if unknown:
+            raise not_ported(f"query hints {sorted(unknown)}", 10)
+        planner = self.planner(type_name)
+        if "density" in hints:
+            d = dict(hints["density"])
+            return density(planner, f, d["bbox"], d.get("width", 256),
+                           d.get("height", 256), d.get("weight"))
+        return planner.query(f)
 
 
 class DataStoreFinder:

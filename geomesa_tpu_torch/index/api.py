@@ -38,6 +38,16 @@ class IndexScanPlan:
     residual_host: Optional[ir.Filter] = None      # host-refined remainder
     empty: bool = False                            # provably no results
     explain: Dict[str, object] = field(default_factory=dict)
+    # range-pruning cache (planner._pruned_blocks): False = not yet computed,
+    # None = pruning declined (full scan), ndarray = candidate block ids
+    blocks: object = False
+
+    @property
+    def device_exact(self) -> bool:
+        """True when the plan resolves entirely on the device: a mask scan
+        with no host refinement."""
+        return (not self.empty and self.residual_host is None
+                and self.index is not None)
 
 
 @dataclass

@@ -11,16 +11,24 @@ For a point_boxes plan the program
    else masks the full table (the reference's ``lax.cond(n_alive <= cap)``);
 3. applies the exact fp62 box mask, the exact time windows and the lowered
    residual;
-4. counts, or compacts row positions into a fixed-capacity result, and in
+4. counts, or compacts row positions into a fixed-capacity result; in
    the refine modes classifies the masked candidate rows against the
-   polygon with the ``pip_refine`` CUDA kernel (certain hit / uncertain),
-   which reads their coordinates through the gathered blocks' starts.
+   polygon with the ``pip_refine`` CUDA kernel (certain hit / uncertain);
+   in the density mode scatters them onto a raster with the
+   ``grid_scatter`` CUDA kernel. Both kernels read the candidates'
+   coordinates through the gathered blocks' starts.
 
 The uncertain sliver re-evaluates on the host in exact f64.
 
-Modes: ``count``, ``select``, ``count_refine``, ``select_refine``. The
-results are the reference program's, value for value: the same packed int32
-layout, capacities and fill.
+Modes: ``count``, ``select``, ``count_refine``, ``select_refine``,
+``density``. The results are the reference program's, value for value: the
+same packed int32 layout, capacities and fill, and for ``density`` the same
+(H, W) f32 grid and int32 count.
+
+The ``try_*`` entry points return None for every plan the reference's
+``_from_plan`` declines (the fused switch off, no spatial box, a host
+residual other than the polygon refine, a table under four blocks); the
+planner then runs the staged path (``index/scan.py`` ``ScanKernels``).
 
 Choosing the branch and compacting synchronize with the host once each
 (``torch.nonzero`` and the alive count); the reference does neither. A
@@ -40,8 +48,10 @@ from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.filter.evaluate import evaluate_at
 from geomesa_tpu_torch.filter.geom_numpy import literal_segments
 from geomesa_tpu_torch.index import prune as _prune
-from geomesa_tpu_torch.index.api import IndexScanPlan, not_ported
-from geomesa_tpu_torch.index.scan import EDGE_PAD, _time_mask, point_boxes
+from geomesa_tpu_torch.index.api import IndexScanPlan
+from geomesa_tpu_torch.index.scan import (EDGE_PAD, _compact, _time_mask,
+                                          expand_blocks, point_boxes)
+from geomesa_tpu_torch.kernels.density import grid_scatter
 from geomesa_tpu_torch.kernels.pip import pip_refine
 
 # block-gate slack in degrees: the per-block summaries are f32 reductions of
@@ -145,58 +155,26 @@ def real_edges(edges: np.ndarray) -> int:
     return n
 
 
-class _Gather:
-    """Dict-like view of the candidate rows of each column, read on first
-    access, so a pruned scan touches only the columns its mask needs
-    (≙ the reference's ``_LazyBlockGather``)."""
-
-    def __init__(self, cols, rows: torch.Tensor):
-        self._cols = cols
-        self._rows = rows
-        self._cache = {}
-
-    def __getitem__(self, k: str) -> torch.Tensor:
-        if k not in self._cache:
-            self._cache[k] = self._cols[k].index_select(0, self._rows)
-        return self._cache[k]
-
-    def __contains__(self, k: str) -> bool:
-        return k in self._cols
-
-    def values(self):
-        # row-count probes (Include/Exclude) only need a length and device
-        yield self._rows
-
-
-def _compact(mask: torch.Tensor, rowids: Optional[torch.Tensor], cap: int,
-             fill: int) -> torch.Tensor:
-    """Ascending positions of ``mask`` (mapped through ``rowids`` when the
-    rows were gathered) in a ``cap``-long int32 vector padded with ``fill``
-    (≙ ``jnp.nonzero(size=cap, fill_value=...)``)."""
-    pos = torch.nonzero(mask).flatten()[:cap]
-    if rowids is not None:
-        pos = rowids.index_select(0, pos)
-    out = torch.full((cap,), fill, dtype=torch.int32, device=mask.device)
-    out[: pos.shape[0]] = pos.to(torch.int32)
-    return out
-
-
 class Program:
     """The fused program of one plan in one mode (≙ the reference's
     ``_jit_program``), with its constants on the table's device. ``run()``
-    returns the reference program's int32 result:
+    returns the reference program's result:
 
-    - ``count``: [count]
-    - ``select``: [count, positions × sel_cap]
-    - ``count_refine``: [certain, uncertain, uncertain positions × unc_cap]
-    - ``select_refine``: [certain, uncertain, certain positions × sel_cap,
-      uncertain positions × unc_cap]
+    - ``count``: int32 [count]
+    - ``select``: int32 [count, positions × sel_cap]
+    - ``count_refine``: int32 [certain, uncertain, uncertain positions ×
+      unc_cap]
+    - ``select_refine``: int32 [certain, uncertain, certain positions ×
+      sel_cap, uncertain positions × unc_cap]
+    - ``density``: ((height, width) f32 grid over ``grid`` = [xmin, ymin,
+      xmax, ymax], 0-d int32 count of the masked rows)
 
     Positions index the table's sorted rows, ascending, padded with n.
     """
 
     def __init__(self, plan: IndexScanPlan, mode: str, sel_cap: int = 0,
-                 unc_cap: int = 0, edges: Optional[np.ndarray] = None):
+                 unc_cap: int = 0, edges: Optional[np.ndarray] = None,
+                 grid=None, width: int = 0, height: int = 0):
         index = plan.index
         self.index = index
         self.mode = mode
@@ -220,6 +198,11 @@ class Program:
             self.res_params = [torch.from_numpy(p).to(dev) for p in params]
         self.edges = None if edges is None else torch.from_numpy(edges).to(dev)
         self.n_edges = None if edges is None else real_edges(edges)
+        # the raster's bbox rounds f64 → f32 as the reference stages it
+        self.grid = None if grid is None else torch.from_numpy(
+            np.asarray(grid, dtype=np.float32)).to(dev)
+        self.width = width
+        self.height = height
 
     def _mask(self, c) -> torch.Tensor:
         m = point_boxes(c, self.boxes)
@@ -255,23 +238,18 @@ class Program:
             # host sync: the branch choice of the reference's lax.cond
             if int(alive.sum()) <= self.cap:
                 bids = torch.nonzero(alive).flatten()
-                starts = bids * bsz
-                # clamped starts re-read a suffix of the previous block; the
-                # membership test masks the re-reads (no double counts)
-                astart = starts.clamp(0, n - bsz)
-                rows = astart[:, None] + torch.arange(
-                    bsz, device=bids.device)[None, :]
-                membership = ((rows >= starts[:, None])
-                              & (rows < starts[:, None] + bsz)).reshape(-1)
-                rows = rows.reshape(-1)
-                g = _Gather(cols, rows)
+                membership, rows, astart, g = expand_blocks(cols, bids, bsz, n)
                 return self._mask(g) & membership, rows, astart
         # tiny tables (under 4 blocks) and overfull gates: the full mask
         return self._mask(cols), None, None
 
-    def run(self) -> torch.Tensor:
+    def run(self):
         m, rowids, starts = self._candidates()
         n = self.n
+        cols = self.index.device.columns
+        if self.mode == "density":
+            return grid_scatter(cols["xf"], cols["yf"], m, None, starts,
+                                self.bsz, self.grid, self.width, self.height)
         count = m.sum(dtype=torch.int32).reshape(1)
         if self.mode == "count":
             return count
@@ -279,7 +257,6 @@ class Program:
             return torch.cat([count, _compact(m, rowids, self.sel_cap, n)])
         if self.mode not in ("count_refine", "select_refine"):
             raise ValueError(self.mode)
-        cols = self.index.device.columns
         hit, unc = pip_refine(cols["xf"], cols["yf"], self.edges, mask=m,
                               starts=starts, bsz=self.bsz,
                               n_edges=self.n_edges)
@@ -293,43 +270,75 @@ class Program:
 
 # -- qualification and execution ----------------------------------------------
 
+_REFINE_MODES = ("count_refine", "select_refine")
 
-def _qualify(plan: IndexScanPlan) -> Optional[np.ndarray]:
-    """Raise for every plan shape the fused program does not take; return
-    the refine edge table (None when the plan is device-exact)."""
+
+def _from_plan(plan: IndexScanPlan, mode: str, capacity: Optional[int] = None,
+               unc_cap: int = 0, grid=None, width: int = 0,
+               height: int = 0) -> Optional[Program]:
+    """The fused program of a plan in one mode, or None when the fused
+    program does not take the plan and the staged path answers it (≙ the
+    reference's ``_from_plan``/``_build`` declines)."""
     if not config.FUSED_QUERY.get():
-        raise not_ported("execution with GEOMESA_TPU_FUSED_QUERY off (the "
-                         "staged ScanKernels path)", 6)
-    if plan.primary_kind != "point_boxes" or plan.boxes_loose is None:
-        raise not_ported("plans without a spatial box (the staged "
-                         "ScanKernels path)", 6)
+        return None
+    if plan.empty or plan.index is None \
+            or plan.primary_kind != "point_boxes" or plan.boxes_loose is None:
+        return None
     boxes_geo = plan.explain.get("boxes")
     if not boxes_geo or len(boxes_geo) > len(plan.boxes_loose):
-        raise not_ported("this spatial extraction", 6)
-    if plan.residual_host is None:
         return None
-    edges = refine_edges(plan)
-    if edges is None:
-        raise not_ported(
-            f"the host residual {type(plan.residual_host).__name__} (dist "
-            "refine, st_* calls and other host predicates)", 5)
-    return edges
+    edges = None
+    if mode in _REFINE_MODES:
+        edges = refine_edges(plan)
+        if edges is None:
+            return None
+    elif plan.residual_host is not None:
+        return None
+    n = plan.index.device.n
+    if n < 4 * int(_prune.BLOCK_SIZE):
+        return None  # tiny tables: the staged full mask is already one pass
+    sel_cap = min(_tier(capacity), _pow2(n)) \
+        if mode in ("select", "select_refine") else 0
+    return Program(plan, mode, sel_cap=sel_cap, unc_cap=unc_cap, edges=edges,
+                   grid=grid, width=width, height=height)
 
 
-def count(planner, plan: IndexScanPlan) -> int:
-    """Count of a non-empty plan: device-exact in one program, or certain
-    hits plus the host f64 verdict on the uncertain sliver."""
-    edges = _qualify(plan)
-    if edges is None:
-        return int(Program(plan, "count").run()[0])
+def try_count(planner, plan: IndexScanPlan) -> Optional[int]:
+    """One-program count of a device-exact plan, or None."""
+    prog = _from_plan(plan, "count")
+    return None if prog is None else int(prog.run()[0])
+
+
+def try_select(planner, plan: IndexScanPlan,
+               capacity: Optional[int]) -> Optional[np.ndarray]:
+    """One-program select → index POSITIONS (the caller maps and sorts), or
+    None. Overflow regrows the capacity tier and re-runs."""
+    while True:
+        prog = _from_plan(plan, "select", capacity=capacity)
+        if prog is None:
+            return None
+        out = prog.run().cpu().numpy()
+        cnt = int(out[0])
+        if cnt <= prog.sel_cap:
+            return out[1: 1 + cnt].astype(np.int64)
+        capacity = _pow2(cnt)
+
+
+def try_count_refine(planner, plan: IndexScanPlan) -> Optional[int]:
+    """Fused scan + polygon refine + count: certain hits plus the host f64
+    verdict on the uncertain sliver, or None. An uncertainty overflow
+    regrows the capacity and re-runs (the reference hands it to the staged
+    path instead; the results are the same)."""
     unc_cap = _UNC_CAP
     while True:
-        out = Program(plan, "count_refine", unc_cap=unc_cap,
-                      edges=edges).run().cpu().numpy()
+        prog = _from_plan(plan, "count_refine", unc_cap=unc_cap)
+        if prog is None:
+            return None
+        out = prog.run().cpu().numpy()
         certain, n_unc = int(out[0]), int(out[1])
         if n_unc <= unc_cap:
             break
-        unc_cap = _pow2(n_unc)   # uncertainty overflow: regrow, re-run
+        unc_cap = _pow2(n_unc)
     if n_unc == 0:
         return certain
     rows = plan.index.map_rows(out[2: 2 + n_unc].astype(np.int64))
@@ -337,31 +346,43 @@ def count(planner, plan: IndexScanPlan) -> int:
         evaluate_at(plan.residual_host, planner.table, rows)))
 
 
-def select(planner, plan: IndexScanPlan,
-           capacity: Optional[int] = None) -> np.ndarray:
-    """Ascending table rows of a non-empty plan. Overflow of the select or
-    uncertain capacity regrows it and re-runs the program."""
-    edges = _qualify(plan)
-    sel_cap = min(_tier(capacity), _pow2(plan.index.device.n))
-    unc_cap = _UNC_CAP if edges is not None else 0
+def try_select_refine(planner, plan: IndexScanPlan,
+                      capacity: Optional[int]) -> Optional[np.ndarray]:
+    """Fused select with the polygon refine → FINAL sorted table rows
+    (certain hits + host-confirmed uncertain rows), or None. Overflow of the
+    select or uncertain capacity regrows it and re-runs."""
+    unc_cap = _UNC_CAP
     while True:
-        if edges is None:
-            out = Program(plan, "select", sel_cap=sel_cap).run().cpu().numpy()
-            n_in, n_unc, head = int(out[0]), 0, 1
-        else:
-            out = Program(plan, "select_refine", sel_cap=sel_cap,
-                          unc_cap=unc_cap, edges=edges).run().cpu().numpy()
-            n_in, n_unc, head = int(out[0]), int(out[1]), 2
-        if n_in > sel_cap:
-            sel_cap = _pow2(n_in)
+        prog = _from_plan(plan, "select_refine", capacity=capacity,
+                          unc_cap=unc_cap)
+        if prog is None:
+            return None
+        out = prog.run().cpu().numpy()
+        n_in, n_unc = int(out[0]), int(out[1])
+        if n_in > prog.sel_cap:
+            capacity = _pow2(n_in)
         elif n_unc > unc_cap:
             unc_cap = _pow2(n_unc)
         else:
             break
-    rows = plan.index.map_rows(out[head: head + n_in].astype(np.int64))
+    sel_cap = prog.sel_cap
+    rows = plan.index.map_rows(out[2: 2 + n_in].astype(np.int64))
     if n_unc:
         unc_rows = plan.index.map_rows(
-            out[head + sel_cap: head + sel_cap + n_unc].astype(np.int64))
+            out[2 + sel_cap: 2 + sel_cap + n_unc].astype(np.int64))
         keep = evaluate_at(plan.residual_host, planner.table, unc_rows)
         rows = np.concatenate([rows, unc_rows[keep]])
     return np.sort(rows)
+
+
+def try_density(planner, plan: IndexScanPlan, grid_bbox, width: int,
+                height: int):
+    """One-program heat-map: ((H, W) f32 grid, count) as numpy and int, or
+    None. Available to aggregation callers; the staged density modes stay
+    the default route (as in the reference)."""
+    prog = _from_plan(plan, "density", grid=grid_bbox, width=width,
+                      height=height)
+    if prog is None:
+        return None
+    grid, cnt = prog.run()
+    return grid.cpu().numpy(), int(cnt)

@@ -1,11 +1,14 @@
-"""Device predicates of the point scan as torch functions.
+"""Device predicates of the point scan and the staged scan path, as torch
+functions.
 
 ≙ ``geomesa_tpu.index.scan``: the exact fp62 box mask, the exact binned-time
 window mask, the residual-predicate compiler, the certainty-band
 point-in-polygon classifier (``pip_band``) and the fused program's polygon
 refine built on it (``pip_refine``, the plain version of the CUDA kernel in
-``kernels/csrc/pip_refine.cu``). Every function takes tensors on whatever
-device the caller's table lives on.
+``kernels/csrc/pip_refine.cu``), the masked density scatter (``_grid_scatter``
+and ``grid_scatter``, the plain versions of ``kernels/csrc/grid_scatter.cu``),
+and ``ScanKernels``, the staged scan modes over one index's device table.
+Every function takes tensors on whatever device the caller's table lives on.
 
 Exactness contract (as in the reference): box and time masks compare int32
 planes and so reproduce the host's f64 predicates exactly; geometry uses f32
@@ -150,8 +153,7 @@ def pip_refine(xf: torch.Tensor, yf: torch.Tensor, edges: torch.Tensor,
     The plain PyTorch version of the ``pip_refine`` CUDA kernel: gather,
     classify, mask. The CPU path, and the kernel's yardstick on the card."""
     if starts is not None:
-        rows = (starts[:, None] + torch.arange(
-            bsz, device=starts.device)[None, :]).reshape(-1)
+        rows = block_rows(starts, bsz)
         xf, yf = xf.index_select(0, rows), yf.index_select(0, rows)
     if n_edges is not None:
         edges = edges[:n_edges]
@@ -160,6 +162,71 @@ def pip_refine(xf: torch.Tensor, yf: torch.Tensor, edges: torch.Tensor,
     if mask is None:
         return cin, unc
     return mask & cin, mask & unc
+
+
+# -- density scatter (plain versions of kernels/csrc/grid_scatter.cu) --------
+
+# where an f32 sum of ones stops growing: 2^24 + 1 rounds back to 2^24
+UNIT_CLAMP = 1 << 24
+
+
+def _grid_scatter(xs: torch.Tensor, ys: torch.Tensor, mask: torch.Tensor,
+                  weight: Optional[torch.Tensor], grid: torch.Tensor,
+                  width: int, height: int) -> torch.Tensor:
+    """Masked scatter-add onto a (height, width) f32 raster, ``grid`` =
+    [xmin, ymin, xmax, ymax] f32 (GridSnap.scala:23 snap semantics, the
+    reference's ``_grid_scatter`` operation for operation): a row counts when
+    0 <= fx < 1 and 0 <= fy < 1, then lands in cell (clip(int(fy * H)),
+    clip(int(fx * W))). ``weight`` (int32 or f32) converts to f32 and adds
+    in f32. None counts rows: the reference adds f32 ones one at a time, and
+    such a sum stops at 2^24, so the counts are integers clamped there
+    (exact in any order, on any device)."""
+    xmin, ymin, xmax, ymax = grid[0], grid[1], grid[2], grid[3]
+    fx = (xs - xmin) / (xmax - xmin)
+    fy = (ys - ymin) / (ymax - ymin)
+    inb = mask & (fx >= 0) & (fx < 1) & (fy >= 0) & (fy < 1)
+    ix = (fx * width).to(torch.int32).clamp_(0, width - 1)
+    iy = (fy * height).to(torch.int32).clamp_(0, height - 1)
+    cell = (iy.to(torch.int64) * width + ix)[inb]
+    if weight is None:
+        out = torch.zeros(height * width, dtype=torch.int64, device=xs.device)
+        out.index_put_((cell,), torch.ones_like(cell), accumulate=True)
+        out = out.clamp_(max=UNIT_CLAMP).to(torch.float32)
+    else:
+        out = torch.zeros(height * width, dtype=torch.float32,
+                          device=xs.device)
+        out.index_put_((cell,), weight.to(torch.float32)[inb],
+                       accumulate=True)
+    return out.reshape(height, width)
+
+
+def block_rows(starts: torch.Tensor, bsz: int) -> torch.Tensor:
+    """Row ids of the candidates read through block starts: candidate i is
+    row ``starts[i // bsz] + i % bsz``."""
+    return (starts[:, None] + torch.arange(
+        bsz, device=starts.device)[None, :]).reshape(-1)
+
+
+def grid_scatter(xf: torch.Tensor, yf: torch.Tensor, mask: torch.Tensor,
+                 weight: Optional[torch.Tensor], starts: Optional[torch.Tensor],
+                 bsz: Optional[int], grid: torch.Tensor, width: int,
+                 height: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """((height, width) f32 grid, int32 count of masked candidates) of the
+    candidate rows: row ``starts[i // bsz] + i % bsz`` of the table's
+    ``xf``/``yf`` (and ``weight``) planes when block starts are given, else
+    row i. The count is every masked candidate, in the grid's bbox or not
+    (the reference's ``jnp.sum(m)``).
+
+    The plain PyTorch version of the ``grid_scatter`` CUDA kernel: gather,
+    snap, scatter-add. The CPU path, and the kernel's yardstick on the
+    card."""
+    if starts is not None:
+        rows = block_rows(starts, bsz)
+        xf, yf = xf.index_select(0, rows), yf.index_select(0, rows)
+        if weight is not None:
+            weight = weight.index_select(0, rows)
+    out = _grid_scatter(xf, yf, mask, weight, grid, width, height)
+    return out, mask.sum(dtype=torch.int32)
 
 
 # -- residual predicate compiler --------------------------------------------
@@ -320,3 +387,271 @@ def pad_windows(windows: np.ndarray, min_size: int = 1) -> np.ndarray:
     if len(windows):
         out[: len(windows)] = windows
     return out
+
+
+# -- the staged scan path ----------------------------------------------------
+
+
+def _mask_kernel(primary_kind: str, has_time: bool):
+    """The staged mask fn of one structural signature: the primary (exact
+    fp62 boxes, or none), AND the time windows, AND the device residual;
+    all rows when nothing constrains the scan (≙ the reference's
+    ``_mask_kernel``)."""
+    if primary_kind not in ("point_boxes", "none"):
+        raise ValueError(f"primary kind {primary_kind}")
+
+    def mask(cols, boxes, windows, rparams, residual_fn):
+        m = None
+        if primary_kind != "none":
+            m = point_boxes(cols, boxes)
+        if has_time:
+            tm = _time_mask(cols, windows)
+            m = tm if m is None else (m & tm)
+        if residual_fn is not None:
+            rm = residual_fn(cols, rparams)
+            m = rm if m is None else (m & rm)
+        if m is None:
+            r = next(iter(cols.values()))
+            m = torch.ones(r.shape[0], dtype=torch.bool, device=r.device)
+        return m
+
+    return mask
+
+
+class _Gather:
+    """Dict-like view of the candidate rows of each column, read on first
+    access, so a pruned scan touches only the columns its mask needs
+    (≙ the reference's ``_LazyBlockGather``)."""
+
+    def __init__(self, cols, rows: torch.Tensor):
+        self._cols = cols
+        self._rows = rows
+        self._cache = {}
+
+    def __getitem__(self, k: str) -> torch.Tensor:
+        if k not in self._cache:
+            self._cache[k] = self._cols[k].index_select(0, self._rows)
+        return self._cache[k]
+
+    def __contains__(self, k: str) -> bool:
+        return k in self._cols
+
+    def values(self):
+        # row-count probes (Include/Exclude) only need a length and device
+        yield self._rows
+
+
+def expand_blocks(cols, block_ids: torch.Tensor, bsz: int, n: int):
+    """Block ids (pad = -1) → (membership mask, row ids, clamped starts,
+    lazy gather). A start past ``n - bsz`` clamps, so the last partial block
+    re-reads a suffix of the previous one; the membership test (the row
+    belongs to ITS intended block) masks those re-reads and the pad blocks
+    without double counts. Candidate i is row ``astart[i // bsz] + i % bsz``.
+    The one home of this logic: the fused program's pruned branch and every
+    staged block mode go through it."""
+    starts = block_ids.to(torch.int64) * bsz
+    astart = starts.clamp(0, max(0, n - bsz))
+    rows = astart[:, None] + torch.arange(bsz, device=block_ids.device)[None, :]
+    valid = ((block_ids >= 0)[:, None]
+             & (rows >= starts[:, None])
+             & (rows < starts[:, None] + bsz)).reshape(-1)
+    rows = rows.reshape(-1)
+    return valid, rows, astart, _Gather(cols, rows)
+
+
+def _compact(mask: torch.Tensor, rowids: Optional[torch.Tensor], cap: int,
+             fill: int) -> torch.Tensor:
+    """Ascending positions of ``mask`` (mapped through ``rowids`` when the
+    rows were gathered) in a ``cap``-long int32 vector padded with ``fill``
+    (≙ ``jnp.nonzero(size=cap, fill_value=...)``)."""
+    pos = torch.nonzero(mask).flatten()[:cap]
+    if rowids is not None:
+        pos = rowids.index_select(0, pos)
+    out = torch.full((cap,), fill, dtype=torch.int32, device=mask.device)
+    out[: pos.shape[0]] = pos.to(torch.int32)
+    return out
+
+
+class ScanKernels:
+    """The staged scan modes over one index's device table (≙ the
+    reference's ``ScanKernels``): ``count``, ``mask``, ``count_blocks``,
+    ``select_blocks``, ``select`` (the packed select), ``density_compact``
+    and ``density_blocks``, each with the reference's arguments — a primary
+    kind, pow2-padded fp62 boxes, pow2-padded time windows and the compiled
+    residual ``(key, params, fn)``.
+
+    PyTorch runs eagerly, so nothing is compiled or cached per signature:
+    the ``prepare_*`` methods stage the query constants on the table's
+    device once and return zero-arg dispatchers whose results stay on the
+    device (the reference's prepared-statement pattern); the blocking
+    methods read results back. Block modes take the host cover's block ids
+    (``index.prune``) and re-apply the full exact mask to every gathered
+    row."""
+
+    def __init__(self, device_cols: Dict[str, torch.Tensor]):
+        self.cols = device_cols
+        first = next(iter(device_cols.values()))
+        self.n = int(first.shape[0])
+        self.device = first.device
+
+    def _dev(self, a) -> Optional[torch.Tensor]:
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(self.device)
+
+    def _stage(self, primary_kind, boxes, windows, residual):
+        """Constants on the device → mask fn over a dict of columns."""
+        kernel = _mask_kernel(primary_kind, windows is not None)
+        b, w = self._dev(boxes), self._dev(windows)
+        rp = [self._dev(p) for p in residual[1]] if residual else []
+        fn = residual[2] if residual else None
+        return lambda cols: kernel(cols, b, w, rp, fn)
+
+    def _pad_blocks(self, blocks: np.ndarray) -> np.ndarray:
+        nb = max(8, 1 << max(0, (len(blocks) - 1)).bit_length())
+        out = np.full(nb, -1, dtype=np.int32)
+        out[: len(blocks)] = blocks
+        return out
+
+    def _stage_blocks(self, primary_kind, boxes, windows, residual,
+                      blocks: np.ndarray, block_size: int):
+        """→ zero-arg fn giving (mask, row ids, clamped starts, gather) over
+        the padded candidate blocks."""
+        mask_of = self._stage(primary_kind, boxes, windows, residual)
+        db = self._dev(self._pad_blocks(blocks))
+
+        def run():
+            valid, rows, astart, g = expand_blocks(self.cols, db, block_size,
+                                                   self.n)
+            return mask_of(g) & valid, rows, astart, g
+        return run
+
+    # full-table modes -------------------------------------------------------
+
+    def prepare_mask(self, primary_kind, boxes, windows, residual):
+        """Zero-arg mask dispatcher (device constants pre-staged)."""
+        mask_of = self._stage(primary_kind, boxes, windows, residual)
+        return lambda: mask_of(self.cols)
+
+    def mask(self, primary_kind, boxes, windows, residual) -> torch.Tensor:
+        return self.prepare_mask(primary_kind, boxes, windows, residual)()
+
+    def prepare_count(self, primary_kind, boxes, windows, residual):
+        """Zero-arg count dispatcher → 0-d int32 device tensor."""
+        disp = self.prepare_mask(primary_kind, boxes, windows, residual)
+        return lambda: disp().sum(dtype=torch.int32)
+
+    def count(self, primary_kind, boxes, windows, residual) -> int:
+        return int(self.prepare_count(primary_kind, boxes, windows,
+                                      residual)())
+
+    def prepare_select(self, primary_kind, boxes, windows, residual,
+                       capacity: int):
+        """Zero-arg packed-select dispatcher → int32 [count, ascending
+        positions × capacity, padded with n] (the reference's
+        ``select_packed`` mode)."""
+        disp = self.prepare_mask(primary_kind, boxes, windows, residual)
+
+        def run():
+            m = disp()
+            return torch.cat([m.sum(dtype=torch.int32).reshape(1),
+                              _compact(m, None, capacity, self.n)])
+        return run
+
+    def select(self, primary_kind, boxes, windows, residual, capacity: int):
+        """(sorted positions int64, true count); grows the capacity and
+        re-runs on overflow."""
+        while True:
+            out = self.prepare_select(primary_kind, boxes, windows, residual,
+                                      capacity)().cpu().numpy()
+            cnt = int(out[0])
+            if cnt <= capacity:
+                return out[1: 1 + cnt].astype(np.int64), cnt
+            capacity = 1 << int(np.ceil(np.log2(cnt)))
+
+    # range-pruned block modes -----------------------------------------------
+
+    def prepare_count_blocks(self, primary_kind, boxes, windows, residual,
+                             blocks: np.ndarray, block_size: int):
+        """Zero-arg pruned-count dispatcher → 0-d int32 device tensor."""
+        run = self._stage_blocks(primary_kind, boxes, windows, residual,
+                                 blocks, block_size)
+        return lambda: run()[0].sum(dtype=torch.int32)
+
+    def count_blocks(self, primary_kind, boxes, windows, residual,
+                     blocks: np.ndarray, block_size: int) -> int:
+        """Exact count scanning only the candidate blocks."""
+        return int(self.prepare_count_blocks(primary_kind, boxes, windows,
+                                             residual, blocks, block_size)())
+
+    def prepare_select_blocks(self, primary_kind, boxes, windows, residual,
+                              blocks: np.ndarray, block_size: int,
+                              capacity: int):
+        """Zero-arg pruned packed-select dispatcher → int32 [count, ascending
+        positions × capacity, padded with n]."""
+        run = self._stage_blocks(primary_kind, boxes, windows, residual,
+                                 blocks, block_size)
+
+        def go():
+            m, rows, _, _ = run()
+            return torch.cat([m.sum(dtype=torch.int32).reshape(1),
+                              _compact(m, rows, capacity, self.n)])
+        return go
+
+    def select_blocks(self, primary_kind, boxes, windows, residual,
+                      blocks: np.ndarray, block_size: int, capacity: int):
+        """(sorted positions int64, true count) scanning only candidate
+        blocks; grows the capacity and re-runs on overflow."""
+        nb = len(self._pad_blocks(blocks))
+        capacity = min(max(1024, capacity), nb * block_size)
+        while True:
+            out = self.prepare_select_blocks(
+                primary_kind, boxes, windows, residual, blocks, block_size,
+                capacity)().cpu().numpy()
+            cnt = int(out[0])
+            if cnt <= capacity:
+                return out[1: 1 + cnt].astype(np.int64), cnt
+            capacity = 1 << int(np.ceil(np.log2(cnt)))
+
+    # density ----------------------------------------------------------------
+
+    def _grid_of(self, grid_bbox) -> torch.Tensor:
+        # f64 bounds round to f32 the way the reference stages them
+        return self._dev(np.asarray(grid_bbox, dtype=np.float32))
+
+    def prepare_density_compact(self, primary_kind, boxes, windows, residual,
+                                grid_bbox, width: int, height: int,
+                                cap: int, wname: Optional[str]):
+        """Zero-arg dispatcher → ((H, W) f32 grid, 0-d int32 match count),
+        both on the device. The reference compacts up to ``cap`` matching
+        rows before its scatter (a TPU scatter prices per update); the card
+        scatters straight from the full-table mask. ``cap`` stays in the
+        API so the caller's overflow check (count > cap → restage) behaves
+        as the reference's."""
+        from geomesa_tpu_torch.kernels.density import grid_scatter as kernel
+        del cap
+        disp = self.prepare_mask(primary_kind, boxes, windows, residual)
+        g = self._grid_of(grid_bbox)
+        w = self.cols[wname] if wname else None
+        cols = self.cols
+        return lambda: kernel(cols["xf"], cols["yf"], disp(), w, None, None,
+                              g, width, height)
+
+    def prepare_density_blocks(self, primary_kind, boxes, windows, residual,
+                               grid_bbox, width: int, height: int,
+                               blocks: np.ndarray, block_size: int,
+                               wname: Optional[str]):
+        """Zero-arg dispatcher for the range-pruned heat-map: the scatter
+        reads the candidates' coordinates (and weights) through the gathered
+        blocks' starts."""
+        from geomesa_tpu_torch.kernels.density import grid_scatter as kernel
+        run = self._stage_blocks(primary_kind, boxes, windows, residual,
+                                 blocks, block_size)
+        g = self._grid_of(grid_bbox)
+        w = self.cols[wname] if wname else None
+        cols = self.cols
+
+        def go():
+            m, _, astart, _ = run()
+            return kernel(cols["xf"], cols["yf"], m, w, astart, block_size,
+                          g, width, height)
+        return go

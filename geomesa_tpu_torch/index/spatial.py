@@ -5,7 +5,9 @@ Rows live on the device in epoch-major (bin, z3) order — the reference's
 reference's ``_sort_keys``), the stable sort runs on the device, and every
 query column gathers through the permutation once. ``plan`` turns a filter
 into padded fp62 boxes, exact binned-time windows and a residual split
-between the device and the host.
+between the device and the host; ``candidate_blocks`` covers a plan with the
+gather blocks of its z-ranges (the staged path's range pruning), from host
+copies of the sorted keys.
 """
 
 from __future__ import annotations
@@ -15,16 +17,19 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from geomesa_tpu_torch.curves.binnedtime import TimePeriod, time_to_binned_time
+from geomesa_tpu_torch.curves.binnedtime import (TimePeriod, max_offset,
+                                                 time_to_binned_time)
 from geomesa_tpu_torch.curves.sfc import Z3SFC
 from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.filter.extract import extract_bboxes, extract_intervals
+from geomesa_tpu_torch.index import prune as _p
 from geomesa_tpu_torch.index.api import IndexScanPlan, not_ported
 from geomesa_tpu_torch.index.device import (DeviceTable, fp62_lat, fp62_lon,
                                             host_planes, resolve)
-from geomesa_tpu_torch.index.scan import (compile_residual, pad_boxes,
-                                          pad_windows, split_residual)
+from geomesa_tpu_torch.index.scan import (ScanKernels, compile_residual,
+                                          pad_boxes, pad_windows,
+                                          split_residual)
 
 
 def device_sort_perm(bins: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -95,11 +100,13 @@ class Z3Index:
         self.geom = sft.geometry_attribute.name
         self.dtg = sft.dtg_attribute.name
         self.period = TimePeriod.parse(sft.z3_interval)
-        bins, z = self._sort_keys()
-        self.perm = device_sort_perm(torch.from_numpy(bins).to(dev),
-                                     torch.from_numpy(z).to(dev))
+        self._sfc = Z3SFC.apply(self.period)
+        self._bins, self._z = self._sort_keys()
+        self.perm = device_sort_perm(torch.from_numpy(self._bins).to(dev),
+                                     torch.from_numpy(self._z).to(dev))
         self.device = DeviceTable.build_sorted(
             host_planes(table, self.period), self.perm)
+        self.kernels = ScanKernels(self.device.columns)
         self.vocabs = {
             name: col.vocab for name, col in table.columns.items()
             if isinstance(col, StringColumn)
@@ -115,9 +122,106 @@ class Z3Index:
         x, y = self.table.geometry().point_xy()
         ms = np.asarray(self.table.columns[self.dtg], dtype=np.int64)
         bins, offs = time_to_binned_time(ms, self.period)
-        sfc = Z3SFC.apply(self.period)
+        sfc = self._sfc
         z = sfc.index(x, y, np.minimum(offs, int(sfc.time.max)), lenient=True)
         return np.asarray(bins, dtype=np.int32), np.asarray(z, dtype=np.int64)
+
+    # host sorted keys (range pruning) -------------------------------------
+
+    def _sorted_plane(self, attr: str, src: np.ndarray) -> np.ndarray:
+        """A host key plane in index order, gathered through the device
+        permutation on first use and kept."""
+        cached = getattr(self, attr, None)
+        if cached is None:
+            cached = torch.from_numpy(src).to(self.perm.device).index_select(
+                0, self.perm).cpu().numpy()
+            setattr(self, attr, cached)
+        return cached
+
+    @property
+    def sorted_z(self) -> np.ndarray:
+        return self._sorted_plane("_sorted_z", self._z)
+
+    @property
+    def sorted_bins(self) -> np.ndarray:
+        return self._sorted_plane("_sorted_bins", self._bins)
+
+    def _bin_segments(self) -> _p.BinSegments:
+        if getattr(self, "_bin_segs", None) is None:
+            self._bin_segs = _p.BinSegments(self.sorted_bins)
+        return self._bin_segs
+
+    def candidate_blocks(self, plan: IndexScanPlan) -> Optional[np.ndarray]:
+        """Sorted unique gather-block ids covering every possibly-matching
+        row; None when pruning does not apply or would not pay (no spatial
+        box, over 16 boxes, a table under 4 blocks, a cover over
+        ``PRUNE_MAX_FRACTION`` of the rows or blocks); an empty array when
+        the cover is provably empty. The device re-applies the full exact
+        mask to gathered blocks, so this only needs to be a superset (≙ the
+        reference's ≤2000-range scan plans, Z3IndexKeySpace.getRanges)."""
+        if plan.empty or plan.boxes_loose is None:
+            return None
+        boxes = plan.explain.get("boxes")
+        if not boxes or len(boxes) > 16:
+            return None
+        n = len(self.table)
+        if n < 4 * _p.BLOCK_SIZE:
+            return None
+        # plan.windows is None iff the temporal extraction was unconstrained:
+        # the explain intervals then hold the open-ended sentinel, which must
+        # read as "no temporal constraint"
+        intervals = plan.explain.get("intervals") \
+            if plan.windows is not None else None
+        slices = self._row_slices(list(boxes), intervals)
+        if slices is None:
+            return None
+        total = int((slices[:, 1] - slices[:, 0]).sum()) if len(slices) else 0
+        if total > _p.PRUNE_MAX_FRACTION * n:
+            return None
+        blocks = _p.slices_to_blocks(slices, n)
+        if blocks is not None \
+                and len(blocks) * _p.BLOCK_SIZE > _p.PRUNE_MAX_FRACTION * n:
+            return None
+        plan.explain.update(_p.candidate_stats(slices, blocks, n))
+        if blocks is None:
+            # provably empty candidate set — still exact (superset of nothing)
+            blocks = np.empty(0, dtype=np.int32)
+        return blocks
+
+    def _binned_row_slices(self, boxes, intervals, sorted_keys,
+                           cover_fn) -> Optional[np.ndarray]:
+        """Epoch-major pruning: per-bin segments × per-window covers (covers
+        dedup by in-bin window, so a multi-bin interval costs at most three
+        distinct covers: head, whole period, tail)."""
+        segs = self._bin_segments()
+        mo = max_offset(self.period) - 1
+        if intervals:
+            bw = _p.bin_windows(intervals, self.period)
+            if bw is None:
+                return None
+        else:
+            bins = segs.all_bins()
+            if len(bins) > _p.MAX_BINS:
+                return None
+            bw = [(int(b), (0, mo)) for b in bins]
+        covers = {}
+        out = []
+        for b, w in bw:
+            lo, hi = segs.segment(b)
+            if lo >= hi:
+                continue
+            if w not in covers:
+                covers[w] = cover_fn(boxes, w)
+            out.append(_p.ranges_to_slices(sorted_keys, covers[w], lo=lo, hi=hi))
+        return np.concatenate(out) if out else np.empty((0, 2), dtype=np.int64)
+
+    def _row_slices(self, boxes, intervals) -> Optional[np.ndarray]:
+        """Candidate [lo, hi) row slices in index order (a superset of the
+        matches), or None when the decomposition explodes."""
+        return self._binned_row_slices(
+            boxes, intervals, self.sorted_z,
+            lambda bx, w: self._sfc.ranges_arrays(
+                bx, [w], max_ranges=_p.MAX_RANGES))
 
     def map_rows(self, idx: np.ndarray) -> np.ndarray:
         """Sorted positions → table rows (gathered on the device)."""
