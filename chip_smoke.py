@@ -19,12 +19,22 @@ Phases, each failing the run (non-zero exit) when it fails:
    (f) a time+attribute count and select and an INCLUDE count on the staged
    path — each result equal to a numpy oracle computed here, with every
    kernel's launch count read around the run;
-5. each kernel against its plain version on the tensors the main path
+5. the serving path (g) on the same store, every answer equal to its numpy
+   oracle: (g1) ``planner.prepare`` of (a) — blocking counts and 64
+   ``count_async`` calls with one stacked readback; (g2) 10 never-seen
+   boxes, each prepared and counted (the recipe fast path); (g3) 64
+   distinct boxes in one ``prepare_counts_multi_blocks`` dispatch over the
+   union of their covers, and ``counts_multi`` over the full table; (g4)
+   the micro-batching ``QueryScheduler`` under 64 client threads, against
+   64 threads of unbatched ``planner.count``, and the store's
+   ``count_many`` — with ``box_count``'s launches read around (g);
+6. each kernel against its plain version on the tensors the main path
    gives it: pip_refine at (b)'s candidates; grid_scatter at (d)'s route
    inputs and at the full-table mask, at 64x64 and 256x256, unit and
    ``val``-weighted, with times, bounds and ``torch.bincount``'s time for
-   the scatter part;
-6. a profile of each query, and the result lines: one JSON object per
+   the scatter part; box_count at (g3)'s union blocks and the full table
+   with 64 boxes, and at (f)'s count;
+7. a profile of each query, and the result lines: one JSON object per
    kernel, the card, and the final ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero
@@ -71,6 +81,19 @@ PIP_OPS_PER_EDGE = 4
 # update); the bbox's two widths once per call are not counted
 SCATTER_OPS_PER_ROW = 11
 
+# int32 operations of the batched box count, the fewest an implementation
+# needs. The lo planes (fp62 lo, time offset) are never negative, so a
+# signed lexicographic (hi, lo) compare is one signed 64-bit compare of
+# hi:lo: 2 instructions (ISETP.U32 on lo, ISETP.EX on hi), with the ANDs and
+# ORs folded into the predicate inputs of the next compare. Per (candidate
+# in its block, real window): 2 compares = 4. Per (candidate passing
+# membership, windows, residual and __valid__; real box): 4 compares = 8.
+# A window's own test (bin_lo <= bin_hi) is once per window, not counted.
+# The card issues 64 INT32 lanes an SM a clock (Hopper).
+WINDOW_OPS = 4
+BOX_OPS = 8
+INT32_LANES_PER_SM = 64
+
 CONCAVE_WKT = "POLYGON((-10 20, 40 20, 40 60, -10 60, 15 40, -10 20))"
 CONCAVE = [(-10.0, 20.0), (40.0, 20.0), (40.0, 60.0), (-10.0, 60.0),
            (15.0, 40.0), (-10.0, 20.0)]
@@ -92,6 +115,24 @@ E_BBOX = (-10.0, 30.0, 30.0, 55.0)
 # (f): plans without a box, on the staged path
 Q_F = f"{DURING} AND val > 90"
 REPS = 10
+# (g): bench.py cfg1's serving queries around (a)'s box: 10 never-seen
+# boxes for the cold path (bench.py:389-395) and 64 distinct boxes for the
+# batch and the scheduler (bench.py:425-431)
+QX0, QY0, QX1, QY1 = -10.0, 30.0, 30.0, 55.0
+COLD_DAYS = ("2020-01-06", "2020-01-13")
+BATCH_DAYS = ("2020-01-05", "2020-01-12")
+COLD_BOXES = [(QX0 + 0.11 + 0.83 * i, QY0 - 0.07 - 0.41 * i,
+               QX1 + 0.11 + 0.83 * i, QY1 - 0.07 - 0.41 * i)
+              for i in range(10)]
+BATCH_BOXES = [(QX0 + (i % 8) * 0.4, QY0 + (i // 8) * 0.3,
+                QX1 + (i % 8) * 0.4, QY1 + (i // 8) * 0.3)
+               for i in range(64)]
+G_THREADS = 64
+
+
+def box_query(box, days) -> str:
+    return (f"BBOX(geom, {box[0]}, {box[1]}, {box[2]}, {box[3]}) AND dtg "
+            f"DURING {days[0]}T00:00:00Z/{days[1]}T00:00:00Z")
 
 
 def log(*a):
@@ -441,6 +482,127 @@ def phase_density_kernel(store) -> list:
     return out
 
 
+def sm_clock_mhz(fn, ms: float) -> dict:
+    """The SM clock (``nvidia-smi clocks.sm``) read while about half a
+    second of ``fn`` launches is queued on the card, and its maximum."""
+    import torch
+    for _ in range(max(50, int(500 / max(ms, 1e-3)))):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    torch.cuda.synchronize()
+    cur, mx = (float(v) for v in out.splitlines()[0].split(","))
+    return {"sm_mhz": cur, "max_sm_mhz": mx}
+
+
+def box_count_bound(cols, boxes, windows, resid, block_ids, bsz,
+                    per_box: bool, clock_mhz: float) -> dict:
+    """The least time the card could take for the batched count on these
+    inputs. Bytes: the time planes (8 B) of every candidate in its block,
+    the box planes (16 B) of every candidate that passes the windows, the
+    residual and __valid__, the residual mask bytes, the block ids, boxes,
+    windows and counts. Operations: WINDOW_OPS per (candidate in its
+    block, real window) and BOX_OPS per (passing candidate, real box), over
+    the INT32 rate at the measured SM clock."""
+    import torch
+    from geomesa_tpu_torch.index import scan
+    n = int(next(iter(cols.values())).shape[0])
+    if block_ids is None:
+        member, ncand = n, n
+    else:
+        member = int(scan.expand_blocks(cols, block_ids, bsz, n)[0].sum())
+        ncand = int(block_ids.shape[0]) * bsz
+    base = int(scan.box_count(cols, None, windows, resid, block_ids, bsz,
+                              False))
+    t_real = 0 if windows is None else int((windows[:, 0]
+                                            <= windows[:, 2]).sum())
+    empty = torch.as_tensor(scan.EMPTY_BOX, device=boxes.device) \
+        if boxes is not None else None
+    b_real = 0 if boxes is None else int((boxes != empty).any(dim=1).sum())
+    nbytes = (member * (8 if windows is not None else 0)
+              + base * (16 if boxes is not None else 0)
+              + (ncand if resid is not None else 0)
+              + (member if "__valid__" in cols else 0)
+              + (0 if block_ids is None else 4 * int(block_ids.shape[0]))
+              + (0 if boxes is None else 32 * int(boxes.shape[0]))
+              + (0 if windows is None else 16 * int(windows.shape[0]))
+              + 4 * (int(boxes.shape[0]) if per_box else 1))
+    ops = member * t_real * WINDOW_OPS + base * b_real * BOX_OPS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / int_rate
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3,
+            "candidates": ncand, "in_blocks": member, "passing": base,
+            "boxes_real": b_real, "windows_real": t_real,
+            "int_ops_per_s": int_rate}
+
+
+def compare_box_count(label: str, cols, boxes, windows, resid, block_ids,
+                      bsz, per_box: bool, reps: int) -> dict:
+    """box_count's kernel against its plain version on the same card
+    tensors: integer counts, so equal value for value; both timed with
+    CUDA events; the SM clock read under the kernel's own load."""
+    import torch
+    from geomesa_tpu_torch.index import scan
+    from geomesa_tpu_torch.kernels import box_count
+
+    args = (cols, boxes, windows, resid, block_ids, bsz, per_box)
+    kern = box_count.box_count(*args)
+    torch.cuda.synchronize()
+    plain = scan.box_count(*args)
+    torch.cuda.synchronize()
+    err = int((kern.long() - plain.long()).abs().max())
+    if err != 0 or not torch.equal(kern, plain):
+        raise AssertionError(f"box_count {label}: kernel counts differ from "
+                             f"the plain version (max abs err {err})")
+    ms = cuda_ms(lambda: box_count.box_count(*args), reps)
+    plain_ms = cuda_ms(lambda: scan.box_count(*args), max(1, reps // 10))
+    clk = sm_clock_mhz(lambda: box_count.box_count(*args), ms)
+    r = {"label": label, "per_box": per_box, "ms": ms, "plain_ms": plain_ms,
+         "max_abs_err": err, "total": int(kern.sum()), **clk,
+         **box_count_bound(*args[:6], per_box, clk["sm_mhz"])}
+    log(f"[kernel] box_count {label}: {r['candidates']} candidates "
+        f"({r['in_blocks']} in their blocks, {r['passing']} passing), "
+        f"{r['boxes_real']} boxes, equal to the plain version (total "
+        f"{r['total']}), kernel {ms} ms, plain {plain_ms} ms, bound "
+        f"{r['bound_ms']} ms ({r['bound_by']}; bytes {r['bytes_ms']} ms, "
+        f"operations {r['ops_ms']} ms at {clk['sm_mhz']} MHz)")
+    return r
+
+
+def phase_box_count_kernel(store, g) -> list:
+    """box_count against its plain version on the main path's tensors:
+    (g3)'s 64 boxes over the union of their covers and over the full table
+    (per-box counts), and (f)'s staged count (the any-box count: its time
+    window and its residual mask, no box)."""
+    import torch
+    from geomesa_tpu_torch.index import scan
+
+    planner = store.planner("gdelt")
+    kern = planner.indexes[0].kernels
+    cols = kern.cols
+    dev = kern.device
+    boxes = torch.from_numpy(scan.pad_boxes(g["boxes64"])).to(dev)
+    win = torch.from_numpy(g["windows"]).to(dev)
+    bids = torch.from_numpy(kern._pad_blocks(g["union"])).to(dev)
+    out = [compare_box_count("(g3) union blocks, 64 boxes", cols, boxes,
+                             win, None, bids, g["bsz"], True, 50),
+           compare_box_count("full table, 64 boxes", cols, boxes, win, None,
+                             None, None, True, 10)]
+    plan = planner.plan(Q_F)
+    _, params, fn = plan.residual_device
+    resid = fn(cols, [torch.from_numpy(p).to(dev) for p in params])
+    out.append(compare_box_count(
+        "(f) staged count", cols, None,
+        torch.from_numpy(plan.windows).to(dev), resid, None, None, False,
+        20))
+    return out
+
+
 def corpus(n: int, seed: int = 1234):
     """64 Gaussian clusters of points over 30 days (bench.py cfg1), with
     name drawn from 3 values and val from integers(0, 100)."""
@@ -518,7 +680,7 @@ def phase_main_path(n: int = N, device: str = "cuda"):
     from geomesa_tpu_torch.aggregates.density import prepare_density
     from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
     from geomesa_tpu_torch.index import compiled
-    from geomesa_tpu_torch.kernels import density, pip
+    from geomesa_tpu_torch.kernels import box_count, density, pip
 
     t0 = time.perf_counter()
     x, y, dtg, name, val = corpus(n)
@@ -542,6 +704,8 @@ def phase_main_path(n: int = N, device: str = "cuda"):
     want_e = oracle_density(x, y, rows_e, E_BBOX, 256, 256, val)
     n_e = oracle_density(x, y, rows_e, E_BBOX, 256, 256)
     want_f = np.flatnonzero(tmask & (val > 90))
+    g_oracle = serving_oracle(x, y, dtg)
+    g_oracle["a"] = want_box
     del tmask, cand, sel_a
     log(f"[main] numpy oracle in {time.perf_counter() - t0:.2f} s: "
         f"box {want_box}, polygon {len(want_rows)}, (d) {len(rows_d)} rows "
@@ -573,7 +737,8 @@ def phase_main_path(n: int = N, device: str = "cuda"):
 
     # the checked run: every kernel's launch count read around it
     counters = {"pip_refine": pip.pip_refine,
-                "grid_scatter": density.grid_scatter}
+                "grid_scatter": density.grid_scatter,
+                "box_count": box_count.box_count}
     for c in counters.values():
         c.launches = 0
     per_query = {}
@@ -645,10 +810,13 @@ def phase_main_path(n: int = N, device: str = "cuda"):
             or q["c"]["pip_refine"] < 1 or q["d"]["grid_scatter"] < 1
             or q["d_fused"]["grid_scatter"] < 1 or q["e"]["grid_scatter"] < 1
             or q["e_device"]["grid_scatter"] < 1
-            or launches["grid_scatter"] == 0):
+            or launches["grid_scatter"] == 0
+            or q["f_count"]["box_count"] < 1
+            or q["f_include"]["box_count"] < 1):
         raise AssertionError(f"kernel launches per query {json.dumps(q)}: "
                              "(b), (c) must launch pip_refine and (a) not; "
-                             "(d), (d) fused and (e) grid_scatter")
+                             "(d), (d) fused and (e) grid_scatter; (f)'s "
+                             "counts box_count")
     routes = {lbl: "range-pruned" if planner._pruned_blocks(
         planner.plan(qq)) is not None else "full-mask"
         for lbl, qq in (("d", Q_D), ("e", Q_BOX), ("f", Q_F))}
@@ -686,7 +854,234 @@ def phase_main_path(n: int = N, device: str = "cuda"):
         "reps": REPS, "max_memory_allocated": peak,
         "launches_checked_run": launches, "routes": routes}}))
     breakdown(store, sync)
-    return launches, store, routes
+    return launches, store, routes, g_oracle
+
+
+def serving_oracle(x, y, dtg) -> dict:
+    """numpy counts of (g)'s cold and batch queries: f64 box predicates
+    and the exclusive DURING bounds over the raw columns, each box over
+    the rows of its time window inside the union of the boxes."""
+    out = {}
+    for key, boxes, days in (("cold", COLD_BOXES, COLD_DAYS),
+                             ("batch", BATCH_BOXES, BATCH_DAYS)):
+        lo, hi = (np.datetime64(d, "ms").astype(np.int64) for d in days)
+        b = np.asarray(boxes)
+        rows = np.flatnonzero(
+            (dtg > lo) & (dtg < hi) & (x >= b[:, 0].min())
+            & (x <= b[:, 2].max()) & (y >= b[:, 1].min())
+            & (y <= b[:, 3].max()))
+        xs, ys = x[rows], y[rows]
+        out[key] = [int(np.count_nonzero((xs >= q[0]) & (xs <= q[2])
+                                         & (ys >= q[1]) & (ys <= q[3])))
+                    for q in boxes]
+    return out
+
+
+def run_clients(fn, queries_, wants, reps: int, timeout: float = 300.0):
+    """``G_THREADS`` client threads released together, client i asking
+    ``queries_[i % len]`` ``reps`` times through ``fn``: (per-call seconds,
+    wall seconds). Every answer must equal its oracle; a client's error is
+    raised here."""
+    import threading
+    lats, errs = [], []
+    lock = threading.Lock()
+    barrier = threading.Barrier(G_THREADS + 1)
+
+    def client(i):
+        q, want = queries_[i % len(queries_)], wants[i % len(wants)]
+        mine = []
+        try:
+            barrier.wait()
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                got = fn(q)
+                mine.append(time.perf_counter() - t0)
+                if got != want:
+                    raise AssertionError(f"{q}: {got} != oracle {want}")
+        except Exception as e:  # raised below, after the join
+            with lock:
+                errs.append(e)
+        with lock:
+            lats.extend(mine)
+
+    ths = [threading.Thread(target=client, args=(i,))
+           for i in range(G_THREADS)]
+    for th in ths:
+        th.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for th in ths:
+        th.join(timeout=timeout)
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in ths):
+        raise AssertionError("a client thread did not finish")
+    if errs:
+        raise errs[0]
+    return lats, wall
+
+
+def p50_ms(samples) -> float:
+    return float(np.median(np.asarray(samples) * 1e3))
+
+
+def phase_serving(store, oracle) -> dict:
+    """(g): the serving path on the 100M-point store, every answer equal to
+    its numpy oracle, with box_count's launches counted from 0 around it.
+    Returns the measurements and (g3)'s dispatch inputs."""
+    import torch
+    from geomesa_tpu_torch.index import compiled, prune, scan
+    from geomesa_tpu_torch.kernels import box_count
+    from geomesa_tpu_torch.serve.scheduler import (PlannerBinding,
+                                                   QueryScheduler)
+
+    planner = store.planner("gdelt")
+    sync = torch.cuda.synchronize
+    r = {}
+    box_count.box_count.launches = 0
+
+    # (g1) prepared count of (a): blocking, then 64 count_async calls and
+    # one stacked readback
+    want = oracle["a"]
+    pq = planner.prepare(Q_BOX)
+    r["g1_handle"] = type(pq).__name__
+    r["g1_fused"] = getattr(pq, "_fused", None) is not None
+    ts = []
+    for _ in range(REPS + 1):
+        t0 = time.perf_counter()
+        got = pq.count()
+        ts.append(time.perf_counter() - t0)
+        if got != want:
+            raise AssertionError(f"(g1) count {got} != oracle {want}")
+    r["g1_blocking_p50_ms"] = p50_ms(ts[1:])
+
+    def pipeline():
+        return torch.stack([pq.count_async() for _ in range(64)]).cpu()
+
+    pipeline()
+    sync()
+    syncs, d0 = scan.ROUNDS.syncs, scan.ROUNDS.dispatches
+    t0 = time.perf_counter()
+    total = pipeline().numpy()
+    wall = time.perf_counter() - t0
+    if not (total == want).all():
+        raise AssertionError(f"(g1) pipelined counts {set(total.tolist())} "
+                             f"!= oracle {want}")
+    r["g1_pipelined_per_query_ms"] = wall * 1e3 / 64
+    r["g1_pipelined_host_syncs_per_query"] =         (scan.ROUNDS.syncs - syncs) / 64
+    r["g1_pipelined_readbacks"] = scan.ROUNDS.dispatches - d0
+
+    # (g2) never-seen boxes: prepare (the recipe fast path after the
+    # shape's first query) + blocking count, end to end
+    st0 = dict(compiled.STATS)
+    prep, tot, kinds = [], [], []
+    for box, want_c in zip(COLD_BOXES, oracle["cold"]):
+        q = box_query(box, COLD_DAYS)
+        t0 = time.perf_counter()
+        pqc = planner.prepare(q)
+        t1 = time.perf_counter()
+        got = pqc.count()
+        tot.append(time.perf_counter() - t0)
+        prep.append(t1 - t0)
+        kinds.append(type(pqc).__name__)
+        if got != want_c:
+            raise AssertionError(f"(g2) {q}: {got} != oracle {want_c}")
+    r["g2_prepare_p50_ms"] = p50_ms(prep)
+    r["g2_cold_query_p50_ms"] = p50_ms(tot)
+    r["g2_stats"] = {k: compiled.STATS[k] - st0[k] for k in st0}
+    r["g2_handles"] = kinds
+    if r["g2_stats"]["shape_hits"] < 9:
+        raise AssertionError(f"(g2) recipe stats {r['g2_stats']}: expected "
+                             "at least 9 shape hits")
+
+    # (g3) 64 distinct boxes in one dispatch over the union of their covers
+    bqueries = [box_query(b, BATCH_DAYS) for b in BATCH_BOXES]
+    wants = np.asarray(oracle["batch"], dtype=np.int64)
+    t0 = time.perf_counter()
+    plans = [planner.plan(q) for q in bqueries]
+    blocks = [planner._pruned_blocks(p) for p in plans]
+    if any(b is None for b in blocks):
+        raise AssertionError("(g3) a batch box's cover declined pruning")
+    union = np.unique(np.concatenate(blocks)).astype(np.int32)
+    boxes64 = np.concatenate([p.boxes_loose[:1] for p in plans])
+    r["g3_prep_ms"] = (time.perf_counter() - t0) * 1e3
+    r["g3_union_blocks"] = int(len(union))
+    lead = plans[0]
+    kern = lead.index.kernels
+    bsz = int(prune.BLOCK_SIZE)
+    disp = kern.prepare_counts_multi_blocks(
+        "point_boxes", boxes64, lead.windows, lead.residual_device, union,
+        bsz)
+    got = disp().cpu().numpy()[:64]
+    if not np.array_equal(got, wants):
+        raise AssertionError(f"(g3) batch counts differ from the oracle at "
+                             f"{np.flatnonzero(got != wants).tolist()}")
+    nb = 16
+    outs = [disp() for _ in range(nb)]
+    sync()
+    t0 = time.perf_counter()
+    outs = [disp() for _ in range(nb)]
+    sync()
+    r["g3_batch64_per_query_ms"] =         (time.perf_counter() - t0) * 1e3 / (nb * 64)
+    if not all(np.array_equal(o.cpu().numpy()[:64], wants) for o in outs):
+        raise AssertionError("(g3) a timed batch differs from the oracle")
+    full = kern.counts_multi("point_boxes", boxes64, lead.windows,
+                             lead.residual_device)
+    if not np.array_equal(full, wants):
+        raise AssertionError("(g3) full-table counts_multi differs from the "
+                             "oracle")
+    # the scheduler reads a batch's counts back through pinned memory and
+    # a CUDA event; the pageable copy beside it
+    t = disp()
+    sync()
+    ts_pg, ts_pin = [], []
+    for _ in range(100):
+        t0 = time.perf_counter()
+        t.cpu()
+        ts_pg.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        scan.Readback(t).wait()
+        ts_pin.append(time.perf_counter() - t0)
+    r["g4_readback"] = {"form": "pinned + CUDA event",
+                        "pinned_event_p50_ms": p50_ms(ts_pin),
+                        "pageable_cpu_p50_ms": p50_ms(ts_pg)}
+
+    # (g4) the micro-batching scheduler under 64 client threads, then the
+    # unbatched per-request path, then the store's own scheduler
+    sched = QueryScheduler(PlannerBinding({"gdelt": planner}),
+                           flush_size=64, window_us=8000)
+    try:
+        if sched.count_many("gdelt", bqueries, timeout=300) != wants.tolist():
+            raise AssertionError("(g4) scheduler warm-up differs from the "
+                                 "oracle")
+        lat, wall = run_clients(
+            lambda q: sched.count("gdelt", q, timeout=300), bqueries,
+            wants.tolist(), 8)
+        st = sched.stats()
+    finally:
+        sched.shutdown()
+    r["g4_scheduler_qps"] = len(lat) / wall
+    r["g4_scheduler_p50_ms"] = p50_ms(lat)
+    r["g4_plan_cache_hit_rate"] = st["plan_cache"]["hit_rate"]
+    r["g4_flush_reasons"] = st["flush_reasons"]
+    r["g4_mean_batch"] = st["queries"] / max(1, st["batches"])
+    r["g4_batches"] = st["batches"]
+    for q in bqueries[:4]:
+        planner.count(q)
+    lat_u, wall_u = run_clients(lambda q: planner.count(q), bqueries,
+                                wants.tolist(), 2)
+    r["g4_unbatched_qps"] = len(lat_u) / wall_u
+    r["g4_unbatched_p50_ms"] = p50_ms(lat_u)
+    t0 = time.perf_counter()
+    if store.count_many("gdelt", bqueries) != wants.tolist():
+        raise AssertionError("(g4) store.count_many differs from the oracle")
+    r["g4_store_count_many_ms"] = (time.perf_counter() - t0) * 1e3
+    sync()
+    r["box_count_launches"] = box_count.box_count.launches
+    if kern.device.type == "cuda" and r["box_count_launches"] == 0:
+        raise AssertionError("(g) launched no box_count kernel")
+    log(json.dumps({"serving": r}))
+    return {"r": r, "pq": pq, "disp": disp, "boxes64": boxes64,
+            "windows": lead.windows, "union": union, "bsz": bsz}
 
 
 def queries(store):
@@ -702,33 +1097,66 @@ def queries(store):
             ("f_staged_count", lambda: store.count("gdelt", Q_F)))
 
 
-def breakdown(store, sync) -> None:
-    """Host-clock split of query (c) into its stages (p50 of REPS each):
-    parse + plan, the fused select (program runs, row mapping, host refine,
-    sort), and the hydration of the selected rows."""
-    from geomesa_tpu_torch.index import compiled
-
-    planner = store.planner("gdelt")
-    plan = planner.plan(Q_POLY)
-    rows = compiled.try_select_refine(planner, plan, None)
-    stages = {"plan": lambda: planner.plan(Q_POLY),
-              "fused_select": lambda: compiled.try_select_refine(
-                  planner, plan, None),
-              "hydrate": lambda: planner.table.take(rows)}
+def _split(stages: dict, sync, reps: int) -> dict:
     out = {}
     for label, fn in stages.items():
+        fn()
         ts = []
-        for _ in range(REPS):
+        for _ in range(reps):
             sync()
             t0 = time.perf_counter()
             fn()
             sync()
             ts.append((time.perf_counter() - t0) * 1e3)
         out[label] = float(np.median(ts))
-    log(json.dumps({"breakdown_c_ms": out}))
+    return out
 
 
-def phase_profile(store) -> None:
+def breakdown(store, sync) -> None:
+    """Host-clock splits (p50 each): query (c) into parse + plan, the fused
+    select (program runs, row mapping, host refine, sort) and the hydration
+    of the selected rows (REPS each); query (a) into plan, the bare fused
+    program (run + readback, without and with a device synchronise before
+    the readback), ``compiled.try_count`` (plus its readback bookkeeping),
+    and ``store.count`` with tracing on and off (5 * REPS each, two
+    passes: the layers the port's count path stacks on the program)."""
+    import torch
+    from geomesa_tpu_torch import trace
+    from geomesa_tpu_torch.index import compiled
+
+    planner = store.planner("gdelt")
+    plan = planner.plan(Q_POLY)
+    rows = compiled.try_select_refine(planner, plan, None)
+    log(json.dumps({"breakdown_c_ms": _split({
+        "plan": lambda: planner.plan(Q_POLY),
+        "fused_select": lambda: compiled.try_select_refine(planner, plan,
+                                                           None),
+        "hydrate": lambda: planner.table.take(rows)}, sync, REPS)}))
+
+    plan_a = planner.plan(Q_BOX)
+
+    def untraced():
+        with trace.disabled():
+            store.count("gdelt", Q_BOX)
+
+    def synced():
+        out = compiled.Program(plan_a, "count").run()
+        torch.cuda.synchronize()
+        return int(out[0])
+
+    stages = {"plan": lambda: planner.plan(Q_BOX),
+              "program_run": lambda: int(
+                  compiled.Program(plan_a, "count").run()[0]),
+              "program_run_synced": synced,
+              "try_count": lambda: compiled.try_count(planner, plan_a),
+              "store_count": lambda: store.count("gdelt", Q_BOX),
+              "store_count_untraced": untraced}
+    for rnd in (1, 2):   # two passes: the spread between them is the noise
+        log(json.dumps({"breakdown_a_ms": _split(stages, sync, 5 * REPS),
+                        "pass": rnd}))
+
+
+def phase_profile(store, extra=()) -> None:
     """One run of each query under torch.profiler: wall time, the summed
     time of its device activities (kernels and copies), the device's idle
     share over the run, the activities that take the most time, and the
@@ -738,7 +1166,7 @@ def phase_profile(store) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for label, fn in queries(store):
+    for label, fn in (*queries(store), *extra):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -773,13 +1201,17 @@ def main() -> int:
     log(f"[device] nvidia-smi: {smi}")
     phase_build()
     phase_kernels()
-    launches, store, routes = phase_main_path()
+    launches, store, routes, g_oracle = phase_main_path()
+    g = phase_serving(store, g_oracle)
     k = phase_kernel_main_inputs(store)
     d = phase_density_kernel(store)
-    phase_profile(store)
+    b = phase_box_count_kernel(store, g)
+    phase_profile(store, (("g1_prepared_count", g["pq"].count),
+                          ("g3_batch64_dispatch", g["disp"])))
     import torch
-    from geomesa_tpu_torch.kernels import density, pip
+    from geomesa_tpu_torch.kernels import box_count, density, pip
     head = d[0]   # (d)'s own inputs, 64x64, unit weights
+    bhead = b[0]  # (g3)'s batch over the union of its covers
     print(json.dumps({"kernels": [{
         "name": pip.NAME, "route": "cuda", "source": pip.SOURCE,
         "replaces": pip.REPLACES, "launches": launches["pip_refine"],
@@ -791,7 +1223,13 @@ def main() -> int:
         "launches": launches["grid_scatter"],
         "max_abs_err": max(r["max_abs_err"] for r in d), "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"]}]}))
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"]}, {
+        "name": box_count.NAME, "route": "cuda", "source": box_count.SOURCE,
+        "replaces": box_count.REPLACES,
+        "launches": launches["box_count"] + g["r"]["box_count_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in b), "ms": bhead["ms"],
+        "plain_ms": bhead["plain_ms"], "bound_ms": bhead["bound_ms"],
+        "bound_by": bhead["bound_by"], "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

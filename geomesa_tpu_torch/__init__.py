@@ -12,8 +12,11 @@ Ported so far: the Z3 point path — ECQL ``BBOX``/``INTERSECTS(POLYGON)`` +
 ``DURING`` + attribute predicates, answered as counts, selected rows or
 density heat maps by the fused program, or by the staged scan path
 (``ScanKernels`` over a range-pruned block cover) for the plans the fused
-program does not take, plans without a box among them. See ROADMAP.md for
-what remains.
+program does not take, plans without a box among them; and the serving
+path: prepared queries with the recipe cache (``planner.prepare``) and the
+micro-batching scheduler (``serve/``) behind the store's ``count_many``,
+``count_future`` and ``count_coalesced``. See ROADMAP.md for what
+remains.
 """
 
 __version__ = "0.1.0"

@@ -20,6 +20,13 @@ For a point_boxes plan the program
 
 The uncertain sliver re-evaluates on the host in exact f64.
 
+Prepared counts (``planner.prepare``) register each filter shape's outcome
+in a per-planner recipe cache; a repeat shape with new values binds them
+straight into a count ``Program`` (``fast_prepare``: no ``planner.plan()``,
+no range cover), as the reference's recipe fast path does. PyTorch runs
+eagerly, so where the reference rebinds a packed constant vector into a
+compiled program, the port builds a ``Program`` from the bound values.
+
 Modes: ``count``, ``select``, ``count_refine``, ``select_refine``,
 ``density``. The results are the reference program's, value for value: the
 same packed int32 layout, capacities and fill, and for ``density`` the same
@@ -37,22 +44,35 @@ sync-free compaction is ROADMAP.md Queue 2, item 4.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+import threading
+import time
+from collections import OrderedDict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from geomesa_tpu_torch import config
+from geomesa_tpu_torch import trace as _trace
+from geomesa_tpu_torch.curves.binnedtime import time_to_binned_time
 from geomesa_tpu_torch.features import geometry as geo
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.filter.evaluate import evaluate_at
+from geomesa_tpu_torch.filter.extract import extract_bboxes, extract_intervals
 from geomesa_tpu_torch.filter.geom_numpy import literal_segments
 from geomesa_tpu_torch.index import prune as _prune
 from geomesa_tpu_torch.index.api import IndexScanPlan
-from geomesa_tpu_torch.index.scan import (EDGE_PAD, _compact, _time_mask,
-                                          expand_blocks, point_boxes)
+from geomesa_tpu_torch.index.scan import (EDGE_PAD, ROUNDS, Unsupported,
+                                          _compact, _dev, _fetch, _time_mask,
+                                          compile_residual, expand_blocks,
+                                          pad_boxes, pad_windows, point_boxes,
+                                          split_residual)
+from geomesa_tpu_torch.index.spatial import _boxes_fp62, _strip_handled
 from geomesa_tpu_torch.kernels.density import grid_scatter
 from geomesa_tpu_torch.kernels.pip import pip_refine
+from geomesa_tpu_torch.metrics import REGISTRY
+from geomesa_tpu_torch.serve.resilience import deadline as _rdl
 
 # block-gate slack in degrees: the per-block summaries are f32 reductions of
 # the f32 coordinate planes and the gate envelopes are f32 roundings of f64
@@ -67,6 +87,18 @@ _UNC_CAP = 4096  # refine-mode uncertain-row capacity (regrows past it)
 
 _I32_MIN = -(1 << 31) + 1
 _I32_MAX = (1 << 31) - 1
+
+# observable ledger for tests and the debug surfaces: the reference's keys,
+# counted where the reference counts them (its ``programs_built`` has no
+# counterpart: the port compiles nothing)
+STATS: Dict[str, int] = {
+    "queries": 0,          # runs served by a fused program
+    "fallbacks": 0,        # qualification declines (staged path served)
+    "shape_hits": 0,       # recipe fast-path binds (no planner.plan at all)
+    "shape_misses": 0,     # shapes seen before a recipe existed
+    "bind_failures": 0,    # recipe present but the new values didn't bind
+    "overflow_retries": 0, # capacity regrows
+}
 
 
 def _pow2(x: int) -> int:
@@ -175,7 +207,28 @@ class Program:
     def __init__(self, plan: IndexScanPlan, mode: str, sel_cap: int = 0,
                  unc_cap: int = 0, edges: Optional[np.ndarray] = None,
                  grid=None, width: int = 0, height: int = 0):
-        index = plan.index
+        self._bind(plan.index, mode, plan.boxes_loose,
+                   _gate_of(plan.explain["boxes"], len(plan.boxes_loose)),
+                   plan.windows, plan.residual_device, sel_cap, unc_cap,
+                   edges, grid, width, height)
+
+    @classmethod
+    def of_values(cls, index, mode: str, boxes: np.ndarray, gate: np.ndarray,
+                  windows: Optional[np.ndarray],
+                  residual: Optional[tuple]) -> "Program":
+        """The program of already-bound query values — pow2-padded fp62
+        ``boxes``, their (B, 4) f32 block ``gate``, pow2-padded
+        ``windows`` and the compiled device residual ``(key, params, fn)``
+        — built without a plan (the recipe fast path's rebind)."""
+        prog = cls.__new__(cls)
+        prog._bind(index, mode, boxes, gate, windows, residual)
+        return prog
+
+    def _bind(self, index, mode: str, boxes: np.ndarray, gate: np.ndarray,
+              windows: Optional[np.ndarray], residual: Optional[tuple],
+              sel_cap: int = 0, unc_cap: int = 0,
+              edges: Optional[np.ndarray] = None, grid=None, width: int = 0,
+              height: int = 0) -> None:
         self.index = index
         self.mode = mode
         self.sel_cap = sel_cap
@@ -186,21 +239,20 @@ class Program:
         nb = -(-self.n // self.bsz)
         self.cap = min(_pow2(max(4, int(np.ceil(
             nb * float(_prune.PRUNE_MAX_FRACTION))))), _pow2(nb))
-        self.boxes = torch.from_numpy(plan.boxes_loose).to(dev)
-        self.gate = torch.from_numpy(
-            _gate_of(plan.explain["boxes"], len(plan.boxes_loose))).to(dev)
-        self.windows = None if plan.windows is None \
-            else torch.from_numpy(plan.windows).to(dev)
+        self.boxes = _dev(boxes, dev)
+        self.gate = _dev(gate, dev)
+        self.windows = _dev(windows, dev)
+        self.res_key = residual[0] if residual is not None else "none"
         self.res_fn = None
         self.res_params = []
-        if plan.residual_device is not None:
-            _, params, self.res_fn = plan.residual_device
-            self.res_params = [torch.from_numpy(p).to(dev) for p in params]
-        self.edges = None if edges is None else torch.from_numpy(edges).to(dev)
+        if residual is not None:
+            _, params, self.res_fn = residual
+            self.res_params = [_dev(p, dev) for p in params]
+        self.edges = _dev(edges, dev)
         self.n_edges = None if edges is None else real_edges(edges)
         # the raster's bbox rounds f64 → f32 as the reference stages it
-        self.grid = None if grid is None else torch.from_numpy(
-            np.asarray(grid, dtype=np.float32)).to(dev)
+        self.grid = None if grid is None \
+            else _dev(np.asarray(grid, dtype=np.float32), dev)
         self.width = width
         self.height = height
 
@@ -236,6 +288,7 @@ class Program:
         if n >= 4 * bsz:
             alive = self._alive()
             # host sync: the branch choice of the reference's lax.cond
+            ROUNDS.syncs += 1
             if int(alive.sum()) <= self.cap:
                 bids = torch.nonzero(alive).flatten()
                 membership, rows, astart, g = expand_blocks(cols, bids, bsz, n)
@@ -254,6 +307,7 @@ class Program:
         if self.mode == "count":
             return count
         if self.mode == "select":
+            ROUNDS.syncs += 1   # torch.nonzero
             return torch.cat([count, _compact(m, rowids, self.sel_cap, n)])
         if self.mode not in ("count_refine", "select_refine"):
             raise ValueError(self.mode)
@@ -265,6 +319,7 @@ class Program:
         if self.mode == "select_refine":
             parts.append(_compact(hit, rowids, self.sel_cap, n))
         parts.append(_compact(unc, rowids, self.unc_cap, n))
+        ROUNDS.syncs += len(parts) - 2   # torch.nonzero
         return torch.cat(parts)
 
 
@@ -303,10 +358,37 @@ def _from_plan(plan: IndexScanPlan, mode: str, capacity: Optional[int] = None,
                    grid=grid, width=width, height=height)
 
 
+def _fallback() -> None:
+    if config.FUSED_QUERY.get():
+        STATS["fallbacks"] += 1
+
+
+def _dispatched() -> None:
+    _rdl.check_current("fused_dispatch")
+    STATS["queries"] += 1
+    REGISTRY.inc("fused.queries")
+
+
+def prepare_count_program(planner, plan: IndexScanPlan) -> Optional[Program]:
+    """The PreparedQuery hook: the fused count program of a device-exact
+    plan, or None (the staged dispatchers take over)."""
+    prog = _from_plan(plan, "count")
+    if prog is not None:
+        STATS["queries"] += 1
+        REGISTRY.inc("fused.queries")
+    else:
+        _fallback()
+    return prog
+
+
 def try_count(planner, plan: IndexScanPlan) -> Optional[int]:
     """One-program count of a device-exact plan, or None."""
     prog = _from_plan(plan, "count")
-    return None if prog is None else int(prog.run()[0])
+    if prog is None:
+        _fallback()
+        return None
+    _dispatched()
+    return int(_fetch(prog.run)[0])
 
 
 def try_select(planner, plan: IndexScanPlan,
@@ -316,11 +398,14 @@ def try_select(planner, plan: IndexScanPlan,
     while True:
         prog = _from_plan(plan, "select", capacity=capacity)
         if prog is None:
+            _fallback()
             return None
-        out = prog.run().cpu().numpy()
+        _dispatched()
+        out = _fetch(prog.run).cpu().numpy()
         cnt = int(out[0])
         if cnt <= prog.sel_cap:
             return out[1: 1 + cnt].astype(np.int64)
+        STATS["overflow_retries"] += 1
         capacity = _pow2(cnt)
 
 
@@ -333,11 +418,14 @@ def try_count_refine(planner, plan: IndexScanPlan) -> Optional[int]:
     while True:
         prog = _from_plan(plan, "count_refine", unc_cap=unc_cap)
         if prog is None:
+            _fallback()
             return None
-        out = prog.run().cpu().numpy()
+        _dispatched()
+        out = _fetch(prog.run).cpu().numpy()
         certain, n_unc = int(out[0]), int(out[1])
         if n_unc <= unc_cap:
             break
+        STATS["overflow_retries"] += 1
         unc_cap = _pow2(n_unc)
     if n_unc == 0:
         return certain
@@ -356,8 +444,10 @@ def try_select_refine(planner, plan: IndexScanPlan,
         prog = _from_plan(plan, "select_refine", capacity=capacity,
                           unc_cap=unc_cap)
         if prog is None:
+            _fallback()
             return None
-        out = prog.run().cpu().numpy()
+        _dispatched()
+        out = _fetch(prog.run).cpu().numpy()
         n_in, n_unc = int(out[0]), int(out[1])
         if n_in > prog.sel_cap:
             capacity = _pow2(n_in)
@@ -365,6 +455,7 @@ def try_select_refine(planner, plan: IndexScanPlan,
             unc_cap = _pow2(n_unc)
         else:
             break
+        STATS["overflow_retries"] += 1
     sel_cap = prog.sel_cap
     rows = plan.index.map_rows(out[2: 2 + n_in].astype(np.int64))
     if n_unc:
@@ -383,6 +474,348 @@ def try_density(planner, plan: IndexScanPlan, grid_bbox, width: int,
     prog = _from_plan(plan, "density", grid=grid_bbox, width=width,
                       height=height)
     if prog is None:
+        _fallback()
         return None
-    grid, cnt = prog.run()
+    _dispatched()
+    grid, cnt = _fetch(prog.run)
     return grid.cpu().numpy(), int(cnt)
+
+
+# -- shape-keyed recipe fast path (skip planning entirely) --------------------
+
+
+def _shape_key(f: ir.Filter) -> str:
+    """Value-free structural signature of a filter tree (the reference's,
+    string for string): two queries with this key in common differ only in
+    geometry/time/constant VALUES."""
+    if isinstance(f, ir.And):
+        return "and(" + ",".join(_shape_key(c) for c in f.children) + ")"
+    if isinstance(f, ir.Or):
+        return "or(" + ",".join(_shape_key(c) for c in f.children) + ")"
+    if isinstance(f, ir.Not):
+        return f"not({_shape_key(f.child)})"
+    if isinstance(f, ir.Include):
+        return "inc"
+    if isinstance(f, ir.Exclude):
+        return "exc"
+    if isinstance(f, ir.BBox):
+        return f"bbox:{f.attr}"
+    if isinstance(f, ir.Intersects):
+        return f"ints:{f.attr}:{f.geometry[0]}"
+    if isinstance(f, ir.During):
+        return f"during:{f.attr}:{int(f.lo_inclusive)}{int(f.hi_inclusive)}"
+    if isinstance(f, ir.Cmp):
+        return f"cmp{f.op}:{f.attr}"
+    if isinstance(f, ir.In):
+        return f"in{_pow2(len(f.values))}:{f.attr}"
+    if isinstance(f, ir.Func):
+        return f"fn:{f.name}({_func_args_sig(f.args)})"
+    if isinstance(f, ir.FuncCmp):
+        return f"fc{f.op}:{f.name}({_func_args_sig(f.args)})"
+    raise Unsupported(type(f).__name__)
+
+
+def _func_args_sig(args: tuple) -> str:
+    """Value-free signature of st_* call arguments: attributes by name,
+    geometry literals by type code, scalars as 'f'."""
+    parts = []
+    for a in args:
+        if isinstance(a, str):
+            parts.append(f"a:{a}")
+        elif isinstance(a, tuple):
+            parts.append(f"l{a[0]}")
+        elif isinstance(a, ir.FuncExpr):
+            parts.append(f"{a.name}({_func_args_sig(a.args)})")
+        else:
+            parts.append("f")
+    return ",".join(parts)
+
+
+def _auths_key(auths) -> Optional[tuple]:
+    return None if auths is None else tuple(sorted(auths))
+
+
+class _RecipeCache:
+    """Small thread-safe LRU for (shape, auths) → Recipe | None (negative),
+    bounded by ``GEOMESA_TPU_FUSED_SHAPE_CACHE``."""
+
+    MISS = object()
+
+    def __init__(self):
+        self._d: "OrderedDict" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, key):
+        with self._lock:
+            v = self._d.get(key, self.MISS)
+            if v is not self.MISS:
+                self._d.move_to_end(key)
+            return v
+
+    def put(self, key, value) -> None:
+        with self._lock:
+            cap = max(1, int(config.FUSED_SHAPE_CACHE.get()))
+            self._d[key] = value
+            self._d.move_to_end(key)
+            while len(self._d) > cap:
+                self._d.popitem(last=False)
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+
+def _recipes(planner) -> _RecipeCache:
+    cache = getattr(planner, "_fused_recipes", None)
+    if cache is None:
+        cache = _RecipeCache()
+        planner._fused_recipes = cache
+    return cache
+
+
+_EMPTY_BIND = object()   # bind result: provably-empty query (count 0)
+
+
+def _boxes_fp62_fast(boxes) -> Optional[np.ndarray]:
+    """Scalar twin of ``spatial._boxes_fp62`` for a handful of boxes:
+    Python float math, bit-identical to the numpy path (Python floats are C
+    doubles, and floor(ldexp(frac, 62)) of an integral float converts to
+    int exactly). None on a NaN or infinite coordinate (the caller then
+    uses the array path)."""
+    out = np.empty((len(boxes), 8), dtype=np.int32)
+    m62 = (1 << 62) - 1
+    m31 = (1 << 31) - 1
+    try:
+        for i, (xmin, ymin, xmax, ymax) in enumerate(boxes):
+            row = out[i]
+            for j, (c, lo, span) in enumerate(
+                    ((xmin, -180.0, 360.0), (xmax, -180.0, 360.0),
+                     (ymin, -90.0, 180.0), (ymax, -90.0, 180.0))):
+                frac = (float(c) - lo) / span
+                frac = 0.0 if frac < 0.0 else (1.0 if frac > 1.0 else frac)
+                v = min(math.floor(math.ldexp(frac, 62)), m62)
+                row[2 * j] = v >> 31
+                row[2 * j + 1] = v & m31
+    except (ValueError, OverflowError):   # NaN / inf coordinate
+        return None
+    return out
+
+
+class Recipe:
+    """Bind instructions for one (filter shape, auths): everything needed to
+    turn a NEW same-shape filter into a fused count program without calling
+    ``planner.plan()`` — extract boxes/intervals, window them, recompile
+    the device residual (its structure key must reproduce the recipe's).
+    Any drift (box count, window count, residual key, a host residual)
+    returns None and the planner serves the query exactly."""
+
+    __slots__ = ("index", "sft", "geom", "dtg", "period", "vocabs",
+                 "n_boxes", "n_windows", "res_key", "template_plan")
+
+    def __init__(self, plan, planner, res_key):
+        self.index = plan.index
+        self.sft = planner.sft
+        self.geom = plan.index.geom
+        self.dtg = plan.index.dtg
+        self.period = plan.index.period
+        self.vocabs = plan.index.vocabs
+        self.n_boxes = len(plan.boxes_loose)
+        self.n_windows = 0 if plan.windows is None else len(plan.windows)
+        self.res_key = res_key
+        self.template_plan = plan
+
+    def bind(self, f: ir.Filter):
+        """→ (boxes, gate, windows, dev_ir) | _EMPTY_BIND | None."""
+        if self.geom is None:
+            return None
+        ext = extract_bboxes(f, self.geom)
+        if len(ext.boxes) == 0:
+            return _EMPTY_BIND
+        if ext.unconstrained:
+            return None
+        boxes = (_boxes_fp62_fast(ext.boxes) if len(ext.boxes) <= 4
+                 else None)
+        if boxes is None:
+            boxes = _boxes_fp62(ext.boxes)
+        if len(boxes) & (len(boxes) - 1):
+            boxes = pad_boxes(boxes)
+        if len(boxes) != self.n_boxes:
+            return None
+        windows = None
+        iv = extract_intervals(f, self.dtg) if self.dtg else None
+        if iv is not None and len(iv.intervals) == 0:
+            return _EMPTY_BIND
+        if iv is not None and not iv.unconstrained:
+            w = np.empty((len(iv.intervals), 4), dtype=np.int32)
+            i32 = (1 << 31) - 1   # open-ended intervals overflow the bin i32
+            for i, (lo, hi) in enumerate(iv.intervals):
+                blo, olo = time_to_binned_time(lo, self.period)
+                bhi, ohi = time_to_binned_time(hi, self.period)
+                w[i] = (max(-i32, int(blo)), int(olo),
+                        min(i32, int(bhi)), int(ohi))
+            windows = pad_windows(w)
+        if (0 if windows is None else len(windows)) != self.n_windows:
+            return None
+        residual = _strip_handled(f, self.geom, self.dtg, True)
+        dev_ir, host_ir = split_residual(
+            residual, self.sft, self.vocabs, set(self.index.device.columns))
+        if host_ir is not None:
+            return None   # refine shapes go through the planner
+        return boxes, _gate_of(ext.boxes, len(boxes)), windows, dev_ir
+
+
+def _rebind(recipe: Recipe, boxes, gate, windows, dev_ir) -> Optional[Program]:
+    """The count program of a bound query: recompile the device residual
+    over the index's columns and build the program from the values. None
+    when the residual's structure key drifted from the recipe's, or the
+    table is under four blocks (the fused program declines it)."""
+    index = recipe.index
+    if index.device.n < 4 * int(_prune.BLOCK_SIZE):
+        return None
+    try:
+        residual = compile_residual(dev_ir, recipe.sft, recipe.vocabs,
+                                    set(index.device.columns)) \
+            if dev_ir is not None else None
+    except Unsupported:
+        return None
+    if (residual[0] if residual is not None else "none") != recipe.res_key:
+        return None   # structure drift: stay on the planner's path
+    return Program.of_values(index, "count", boxes, gate, windows, residual)
+
+
+class FusedPrepared:
+    """PreparedQuery-shaped handle from the recipe fast path: the query went
+    filter → bound values → one fused program, never through
+    ``planner.plan()``. ``plan`` exposes the recipe's template plan (its
+    box/window VALUES belong to the recipe's exemplar query — audit and
+    explain surfaces only)."""
+
+    def __init__(self, planner, recipe: Recipe, f: ir.Filter, auths,
+                 prog: Optional[Program]):
+        self.planner = planner
+        self.plan = recipe.template_plan
+        self.filter = f
+        self.auths = auths
+        self._prog = prog        # None → provably empty
+
+    @property
+    def device_exact(self) -> bool:
+        return self._prog is not None
+
+    def count_async(self):
+        """Dispatch → 0-d int32 device tensor (None for empty binds): the
+        same contract as PreparedQuery.count_async. The fused program
+        syncs with the host once inside (its branch choice), so the call
+        returns after the gate's readback, not at once."""
+        if self._prog is None:
+            return None
+        with _trace.span("device_scan", kind="device_scan"):
+            return self._prog.run()[0]
+
+    def count(self) -> int:
+        from geomesa_tpu_torch.index.guards import Deadline
+        attrs = {"type": self.planner.sft.name, "prepared": True}
+        if _trace.enabled():
+            attrs["filter"] = str(self.filter)
+        with _trace.trace("count", **attrs):
+            dl = Deadline(self.planner.timeout_ms)
+            t0 = time.perf_counter()
+            n = 0 if self._prog is None else int(_fetch(self._prog.run)[0])
+            dl.check("scan")
+            self.planner._write_audit(self.plan, self.filter, 0.0,
+                                      (time.perf_counter() - t0) * 1000, n)
+            return n
+
+    def select_indices(self) -> np.ndarray:
+        # selects replan through the general path (capacity tiers vary);
+        # counts are the latency-critical shape the recipe accelerates
+        return self.planner.select_indices(self.filter, auths=self.auths)
+
+
+def fast_prepare(planner, f: ir.Filter, auths) -> Optional[FusedPrepared]:
+    """Recipe-keyed prepare: when this (filter shape, auths) has fused
+    before, bind the new VALUES straight into a fused count program — no
+    plan, no range decomposition. None sends the caller down the ordinary
+    prepare path (which registers the shape)."""
+    if not config.FUSED_QUERY.get() or getattr(planner, "interceptors", None):
+        return None
+    try:
+        skey = _shape_key(f)
+    except Unsupported:
+        return None
+    cache = _recipes(planner)
+    r = cache.get((skey, _auths_key(auths)))
+    if r is _RecipeCache.MISS:
+        STATS["shape_misses"] += 1
+        return None
+    if r is None:   # negative entry: shape known non-fusable
+        return None
+    bound = r.bind(f)
+    if bound is _EMPTY_BIND:
+        STATS["shape_hits"] += 1
+        return FusedPrepared(planner, r, f, auths, None)
+    if bound is None:
+        STATS["bind_failures"] += 1
+        return None
+    prog = _rebind(r, *bound)
+    if prog is None:
+        STATS["bind_failures"] += 1
+        return None
+    STATS["shape_hits"] += 1
+    STATS["queries"] += 1
+    REGISTRY.inc("fused.shape_hits")
+    REGISTRY.inc("fused.queries")
+    return FusedPrepared(planner, r, f, auths, prog)
+
+
+def note_shape(planner, plan, f: ir.Filter, auths,
+               prog: Optional[Program]) -> None:
+    """Slow-path epilogue: record how this shape resolved so the NEXT
+    same-shape query takes the recipe fast path (or skips the attempt —
+    negative entries stop re-qualifying known-staged shapes)."""
+    if not config.FUSED_QUERY.get() or getattr(planner, "interceptors", None):
+        return
+    if getattr(plan, "empty", False):
+        return   # emptiness is a property of the values, not the shape
+    try:
+        skey = _shape_key(f)
+    except Unsupported:
+        return
+    cache = _recipes(planner)
+    ck = (skey, _auths_key(auths))
+    if cache.get(ck) is not _RecipeCache.MISS:
+        return
+    if prog is None:
+        cache.put(ck, None)
+        return
+    cache.put(ck, Recipe(plan, planner, prog.res_key))
+
+
+# -- startup warming ----------------------------------------------------------
+
+
+def warm_programs(index) -> int:
+    """Make the fused count path ready for traffic on an index: build its
+    per-block summaries and load the kernels the path launches, so the
+    first cold query pays neither. Returns the kernels loaded (0 where the
+    fused program declines the index, and on the CPU, which runs the plain
+    versions)."""
+    if not config.FUSED_QUERY.get():
+        return 0
+    cols = getattr(getattr(index, "device", None), "columns", None)
+    if not cols or "xf" not in cols or not getattr(index, "points", False):
+        return 0
+    if index.device.n < 4 * int(_prune.BLOCK_SIZE):
+        return 0
+    block_summaries(index, int(_prune.BLOCK_SIZE))
+    if index.device.device.type != "cuda":
+        return 0
+    from geomesa_tpu_torch.kernels import build
+    for name in build.KERNELS:
+        build.load(name)
+    return len(build.KERNELS)
+
+
+def stats_snapshot() -> Dict[str, int]:
+    """STATS (debug/healthz surfaces). The port compiles no programs, so
+    there is no live program count beside it."""
+    return dict(STATS)

@@ -5,17 +5,21 @@ split), then execute as the reference does: the fused program first
 (``index/compiled.py``), else the staged ``ScanKernels`` over the plan's
 range-pruned block cover (``_pruned_blocks``), else the staged full-table
 mask. A count or a select of ascending table rows; host residuals
-re-evaluate on the host in f64 (``_refine``). Plan shapes that need modules
-not yet ported raise NotImplementedError naming their ROADMAP.md item.
+re-evaluate on the host in f64 (``_refine``). ``prepare`` plans once (or
+binds a known shape's new values through the recipe fast path) and hands
+back a re-executable ``PreparedQuery``. Plan shapes that need modules not
+yet ported raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Union
 
 import numpy as np
 
 from geomesa_tpu_torch import config
+from geomesa_tpu_torch import trace as _trace
 from geomesa_tpu_torch.features.table import FeatureTable
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.filter.evaluate import evaluate_at
@@ -23,6 +27,9 @@ from geomesa_tpu_torch.filter.parser import parse_ecql
 from geomesa_tpu_torch.index import compiled as _fused
 from geomesa_tpu_torch.index import prune as _prune
 from geomesa_tpu_torch.index.api import IndexScanPlan, QueryResult, not_ported
+from geomesa_tpu_torch.index.guards import Deadline
+from geomesa_tpu_torch.index.scan import _fetch
+from geomesa_tpu_torch.serve.resilience import deadline as _rdl
 
 _SELECT_CAP = 1 << 16
 # select-capacity tiers (the reference's): hints quantize UP to a tier
@@ -49,14 +56,27 @@ def _has_function(f: Optional[ir.Filter]) -> bool:
 
 
 class QueryPlanner:
-    """Planner + executor for one feature type over its Z3 index."""
+    """Planner + executor for one feature type over its Z3 index.
+    ``timeout_ms``: the cooperative deadline of ``count`` and prepared
+    counts (``guards.Deadline``, checked between stages)."""
 
-    def __init__(self, sft, table: FeatureTable, indexes: List[object]):
+    def __init__(self, sft, table: FeatureTable, indexes: List[object],
+                 timeout_ms: Optional[float] = None):
         self.sft = sft
         self.table = table
         self.indexes = indexes
+        self.timeout_ms = timeout_ms
 
     def plan(self, f: Union[str, ir.Filter]) -> IndexScanPlan:
+        if not _trace.enabled():
+            return self._plan(f)
+        t0 = time.perf_counter()
+        try:
+            return self._plan(f)
+        finally:
+            _trace.record("plan", "plan", time.perf_counter() - t0)
+
+    def _plan(self, f: Union[str, ir.Filter]) -> IndexScanPlan:
         if isinstance(f, str):
             f = parse_ecql(f)
         if isinstance(f, ir.FidFilter):
@@ -81,16 +101,67 @@ class QueryPlanner:
         if not config.PRUNE_ENABLED.get():
             return None
         if plan.blocks is False:
-            plan.blocks = None if plan.empty or plan.index is None \
-                else plan.index.candidate_blocks(plan)
+            # per-request deadline checkpoint: the range decomposition is
+            # the priciest host stage before a device dispatch
+            _rdl.check_current("range_decompose")
+            blocks = None
+            if not plan.empty and plan.index is not None:
+                t0 = time.perf_counter()
+                blocks = plan.index.candidate_blocks(plan)
+                if _trace.enabled():
+                    _trace.record("range_decompose", "range_decompose",
+                                  time.perf_counter() - t0)
+            plan.blocks = blocks
         return plan.blocks
+
+    # -- visibility and audit ------------------------------------------------
+
+    def _apply_auths(self, plan: IndexScanPlan, auths) -> IndexScanPlan:
+        """The plan under the caller's authorizations: ``None`` is the
+        identity; visibility labels are not ported yet."""
+        if auths is None:
+            return plan
+        raise not_ported("visibility labels and query authorizations", 10)
+
+    def _write_audit(self, plan, f, plan_ms: float, scan_ms: float,
+                     hits: int) -> None:
+        """The reference's audit-log hook; the audit log is not ported yet
+        (ROADMAP.md Queue 1 item 10), so nothing is written."""
 
     # -- execution -----------------------------------------------------------
 
-    def count(self, f: Union[str, ir.Filter]) -> int:
-        return self._count(self.plan(f), f)
+    def prepare(self, f: Union[str, ir.Filter],
+                auths=None) -> Union["PreparedQuery", "_fused.FusedPrepared"]:
+        """Plan once and stage the query's constants on the device; the
+        handle re-executes without re-parsing, re-planning or re-uploading.
+        When this (filter shape, auths) has fused before, the recipe fast
+        path binds the new values straight into a fused count program (no
+        plan, no range cover); the ordinary path registers each shape's
+        outcome so its next occurrence takes the fast path."""
+        f_ir = f if isinstance(f, ir.Filter) else parse_ecql(f)
+        fp = _fused.fast_prepare(self, f_ir, auths)
+        if fp is not None:
+            return fp
+        plan = self._apply_auths(self.plan(f_ir), auths)
+        pq = PreparedQuery(self, plan, f_ir, auths)
+        _fused.note_shape(self, plan, f_ir, auths, pq._fused)
+        return pq
 
-    def _count(self, plan: IndexScanPlan, f) -> int:
+    def count(self, f: Union[str, ir.Filter], auths=None) -> int:
+        with _trace.trace("count", type=self.sft.name, filter=str(f)):
+            dl = Deadline(self.timeout_ms)
+            t0 = time.perf_counter()
+            plan = self._apply_auths(self.plan(f), auths)
+            plan_ms = (time.perf_counter() - t0) * 1000
+            dl.check("plan")
+            t1 = time.perf_counter()
+            n = self._count(plan, f, auths)
+            dl.check("scan")
+            self._write_audit(plan, f, plan_ms,
+                              (time.perf_counter() - t1) * 1000, n)
+            return n
+
+    def _count(self, plan: IndexScanPlan, f, auths=None) -> int:
         if plan.empty:
             return 0
         if plan.residual_host is None:
@@ -111,15 +182,16 @@ class QueryPlanner:
         fused = _fused.try_count_refine(self, plan)
         if fused is not None:
             return fused
-        return len(self.select_indices(f, plan=plan))
+        return len(self.select_indices(f, plan=plan, auths=auths))
 
     def select_indices(self, f: Union[str, ir.Filter],
                        plan: Optional[IndexScanPlan] = None,
-                       capacity: Optional[int] = None) -> np.ndarray:
+                       capacity: Optional[int] = None,
+                       auths=None) -> np.ndarray:
         """Matching row indices (ascending) into the table. ``capacity``:
         expected match-count hint that sizes the first select."""
         if plan is None:
-            plan = self.plan(f)
+            plan = self._apply_auths(self.plan(f), auths)
         if plan.empty:
             return np.empty(0, dtype=np.int64)
         if plan.residual_host is None:
@@ -167,3 +239,80 @@ class QueryPlanner:
         """Residual mask over candidate rows (the st_* catalog route of the
         reference raises at plan time in the port: ROADMAP.md item 5)."""
         return evaluate_at(res, self.table, rows)
+
+
+class PreparedQuery:
+    """A planned query with its constants staged on the device.
+
+    ``count_async`` dispatches and returns the 0-d count tensor without a
+    readback, so many queries can be read back together; ``count`` and
+    ``select_indices`` block for the value. Plans that need a host refine
+    run through the planner's general execution (``count``)."""
+
+    def __init__(self, planner: QueryPlanner, plan: IndexScanPlan,
+                 f: ir.Filter, auths):
+        self.planner = planner
+        self.plan = plan
+        self.filter = f
+        self.auths = auths
+        self._count_disp = None
+        self._fused = None
+        if plan.device_exact:
+            prog = _fused.prepare_count_program(planner, plan)
+            if prog is not None:
+                # the fused program: cover + scan + residual + count
+                self._fused = prog
+                self._count_disp = lambda: prog.run()[0]
+                return
+            blocks = planner._pruned_blocks(plan)
+            kernels = plan.index.kernels
+            if blocks is not None and len(blocks) > 0:
+                self._count_disp = kernels.prepare_count_blocks(
+                    plan.primary_kind, plan.boxes_loose, plan.windows,
+                    plan.residual_device, blocks, _prune.BLOCK_SIZE)
+            elif blocks is None:
+                self._count_disp = kernels.prepare_count(
+                    plan.primary_kind, plan.boxes_loose, plan.windows,
+                    plan.residual_device)
+            else:  # provably-empty candidate set
+                self._count_disp = lambda: np.zeros((), dtype=np.int32)
+
+    @property
+    def device_exact(self) -> bool:
+        """True when the whole query resolves on the device (no host
+        refine)."""
+        return self._count_disp is not None
+
+    def count_async(self):
+        """Dispatch → 0-d int32 count (None for empty plans). The fused
+        program syncs with the host once inside (its branch choice), so a
+        fused count returns after that readback, not at once."""
+        if self._count_disp is None:
+            if self.plan.empty:
+                return None
+            raise ValueError("plan needs host execution; use count()")
+        with _trace.span("device_scan", kind="device_scan"):
+            return self._count_disp()
+
+    def count(self) -> int:
+        """Blocking count, subject to the planner's cooperative deadline."""
+        attrs = {"type": self.planner.sft.name, "prepared": True}
+        if _trace.enabled():
+            attrs["filter"] = str(self.filter)
+        with _trace.trace("count", **attrs):
+            dl = Deadline(self.planner.timeout_ms)
+            t0 = time.perf_counter()
+            if self.plan.empty:
+                n = 0
+            elif self._count_disp is not None:
+                n = int(_fetch(self._count_disp))
+            else:
+                n = self.planner._count(self.plan, self.filter, self.auths)
+            dl.check("scan")
+            self.planner._write_audit(self.plan, self.filter, 0.0,
+                                      (time.perf_counter() - t0) * 1000, n)
+            return n
+
+    def select_indices(self) -> np.ndarray:
+        return self.planner.select_indices(self.filter, plan=self.plan,
+                                           auths=self.auths)

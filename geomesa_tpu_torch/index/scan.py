@@ -7,8 +7,12 @@ point-in-polygon classifier (``pip_band``) and the fused program's polygon
 refine built on it (``pip_refine``, the plain version of the CUDA kernel in
 ``kernels/csrc/pip_refine.cu``), the masked density scatter (``_grid_scatter``
 and ``grid_scatter``, the plain versions of ``kernels/csrc/grid_scatter.cu``),
-and ``ScanKernels``, the staged scan modes over one index's device table.
-Every function takes tensors on whatever device the caller's table lives on.
+the batched box counts (``box_count``, the plain version of
+``kernels/csrc/box_count.cu``), and ``ScanKernels``, the staged scan modes
+over one index's device table. Every function takes tensors on whatever
+device the caller's table lives on. ``ROUNDS`` counts the host-to-device
+copies (``_dev``) and blocking readbacks (``_fetch``) of the port's query
+paths.
 
 Exactness contract (as in the reference): box and time masks compare int32
 planes and so reproduce the host's f64 predicates exactly; geometry uses f32
@@ -23,7 +27,84 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from geomesa_tpu_torch import trace as _trace
 from geomesa_tpu_torch.filter import ir
+
+
+class _RoundLedger:
+    """Process-wide count of host↔device rounds (≙ the reference's
+    ``ROUNDS``): ``dispatches`` counts blocking readbacks (``_fetch``),
+    ``uploads`` host-to-device copies of query constants (``_dev``).
+    ``syncs`` counts the host syncs the fused program makes inside one
+    dispatch (its branch choice and its compaction), which the reference's
+    single XLA program does not make."""
+
+    __slots__ = ("dispatches", "uploads", "syncs")
+
+    def __init__(self):
+        self.dispatches = 0
+        self.uploads = 0
+        self.syncs = 0
+
+    def snapshot(self):
+        return (self.dispatches, self.uploads)
+
+
+ROUNDS = _RoundLedger()
+
+
+def _host(t):
+    return t.cpu() if isinstance(t, torch.Tensor) else t
+
+
+def _ready(out):
+    """A dispatch's result read back to the host: each tensor's copy waits
+    for the stream that computes it, and that wait is the only one (no
+    device-wide synchronise). Host values and CPU tensors pass as they
+    are."""
+    if isinstance(out, (tuple, list)):
+        return type(out)(_host(t) for t in out)
+    return _host(out)
+
+
+def _fetch(dispatch, *args):
+    """Run a dispatch under a ``device_scan`` span (the host-side enqueue)
+    and read it back under a ``device_wait`` span; returns the result on
+    the host. One blocking readback in ``ROUNDS``."""
+    ROUNDS.dispatches += 1
+    return _trace.device_fetch(_ready, dispatch, *args)
+
+
+def _dev(a, device) -> Optional[torch.Tensor]:
+    """A host array's copy on ``device`` (one upload in ``ROUNDS``)."""
+    if a is None:
+        return None
+    ROUNDS.uploads += 1
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+class Readback:
+    """A device result's copy to the host, started now and read later from
+    another thread: on the card the values copy into pinned host memory on
+    the launching thread's stream, behind a CUDA event recorded after the
+    copy; ``wait`` blocks on that event only. A CPU tensor needs no copy."""
+
+    __slots__ = ("_host", "_event")
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
+        else:
+            self._host = t
+
+    def wait(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
 
 # -- primary spatial/temporal masks -----------------------------------------
 
@@ -227,6 +308,50 @@ def grid_scatter(xf: torch.Tensor, yf: torch.Tensor, mask: torch.Tensor,
             weight = weight.index_select(0, rows)
     out = _grid_scatter(xf, yf, mask, weight, grid, width, height)
     return out, mask.sum(dtype=torch.int32)
+
+
+# -- batched box counts (plain version of kernels/csrc/box_count.cu) --------
+
+
+def box_count(cols, boxes: Optional[torch.Tensor],
+              windows: Optional[torch.Tensor], resid: Optional[torch.Tensor],
+              block_ids: Optional[torch.Tensor], bsz: Optional[int],
+              per_box: bool) -> torch.Tensor:
+    """int32 counts of a table's candidates (≙ the reference's
+    ``count_multi``/``count_multi_blocks`` and the any-box mask plus sum of
+    ``count``/``count_blocks``). The candidates are the table's rows, or
+    the rows of the padded ``block_ids`` (pad -1) through
+    ``expand_blocks``' membership test; ``base`` = membership AND any of
+    the (T, 4) ``windows`` AND the ``resid`` mask (one bool a candidate)
+    AND the table's ``__valid__``. ``per_box``: one count per row of the
+    (B, 8) fp62 ``boxes`` of ``base`` and that box (a (B,) tensor, one
+    pass a box as the reference's ``lax.map``: the (N, B) matrix is never
+    built); else a 0-d count of ``base`` and any box (of ``base`` alone
+    without boxes).
+
+    The plain PyTorch version of the ``box_count`` CUDA kernel. The CPU
+    path, and the kernel's yardstick on the card."""
+    n = int(next(iter(cols.values())).shape[0])
+    base, g = None, cols
+    if block_ids is not None:
+        base, _, _, g = expand_blocks(cols, block_ids, bsz, n)
+    for m in (None if windows is None else _time_mask(g, windows), resid,
+              g["__valid__"] if "__valid__" in g else None):
+        if m is not None:
+            base = m if base is None else base & m
+
+    def count(m: torch.Tensor) -> torch.Tensor:
+        return (m if base is None else m & base).sum(dtype=torch.int32)
+
+    if per_box:
+        return torch.stack([count(point_boxes(g, boxes[b: b + 1]))
+                            for b in range(boxes.shape[0])])
+    if boxes is not None:
+        return count(point_boxes(g, boxes))
+    if base is None:
+        dev = next(iter(cols.values())).device
+        return torch.tensor(n, dtype=torch.int32, device=dev)
+    return base.sum(dtype=torch.int32)
 
 
 # -- residual predicate compiler --------------------------------------------
@@ -475,8 +600,9 @@ def _compact(mask: torch.Tensor, rowids: Optional[torch.Tensor], cap: int,
 class ScanKernels:
     """The staged scan modes over one index's device table (≙ the
     reference's ``ScanKernels``): ``count``, ``mask``, ``count_blocks``,
-    ``select_blocks``, ``select`` (the packed select), ``density_compact``
-    and ``density_blocks``, each with the reference's arguments — a primary
+    ``counts_multi``, ``counts_multi_blocks``, ``select_blocks``,
+    ``select`` (the packed select), ``density_compact`` and
+    ``density_blocks``, each with the reference's arguments — a primary
     kind, pow2-padded fp62 boxes, pow2-padded time windows and the compiled
     residual ``(key, params, fn)``.
 
@@ -495,8 +621,7 @@ class ScanKernels:
         self.device = first.device
 
     def _dev(self, a) -> Optional[torch.Tensor]:
-        return None if a is None else torch.from_numpy(
-            np.ascontiguousarray(a)).to(self.device)
+        return _dev(a, self.device)
 
     def _stage(self, primary_kind, boxes, windows, residual):
         """Constants on the device → mask fn over a dict of columns."""
@@ -511,6 +636,38 @@ class ScanKernels:
         out = np.full(nb, -1, dtype=np.int32)
         out[: len(blocks)] = blocks
         return out
+
+    def _stage_count(self, primary_kind, boxes, windows, residual,
+                     blocks: Optional[np.ndarray] = None,
+                     block_size: Optional[int] = None,
+                     per_box: bool = False):
+        """Constants on the device → zero-arg dispatcher of the
+        ``box_count`` kernel: per-box counts ((B,) int32) or the any-box
+        count (0-d int32), over the table or the padded candidate blocks.
+        The residual runs as torch ops first, into a mask of the
+        candidates (over the gathered residual columns only in the block
+        case); membership, windows, ``__valid__`` and boxes are the
+        kernel's."""
+        from geomesa_tpu_torch.kernels.box_count import box_count as kernel
+        if primary_kind not in ("point_boxes", "none") \
+                or (per_box and primary_kind != "point_boxes"):
+            raise ValueError(f"primary kind {primary_kind}")
+        b = self._dev(boxes) if primary_kind != "none" else None
+        w = self._dev(windows)
+        fn = residual[2] if residual else None
+        rp = [self._dev(p) for p in residual[1]] if residual else []
+        db = None if blocks is None else self._dev(self._pad_blocks(blocks))
+        cols, n = self.cols, self.n
+
+        def run():
+            rm = None
+            if fn is not None:
+                if db is None:
+                    rm = fn(cols, rp)
+                else:
+                    rm = fn(expand_blocks(cols, db, block_size, n)[3], rp)
+            return kernel(cols, b, w, rm, db, block_size, per_box)
+        return run
 
     def _stage_blocks(self, primary_kind, boxes, windows, residual,
                       blocks: np.ndarray, block_size: int):
@@ -536,13 +693,30 @@ class ScanKernels:
         return self.prepare_mask(primary_kind, boxes, windows, residual)()
 
     def prepare_count(self, primary_kind, boxes, windows, residual):
-        """Zero-arg count dispatcher → 0-d int32 device tensor."""
-        disp = self.prepare_mask(primary_kind, boxes, windows, residual)
-        return lambda: disp().sum(dtype=torch.int32)
+        """Zero-arg count dispatcher → 0-d int32 device tensor (the
+        ``box_count`` kernel's any-box count)."""
+        return self._stage_count(primary_kind, boxes, windows, residual)
 
     def count(self, primary_kind, boxes, windows, residual) -> int:
-        return int(self.prepare_count(primary_kind, boxes, windows,
-                                      residual)())
+        return int(_fetch(self.prepare_count(primary_kind, boxes, windows,
+                                             residual)))
+
+    def prepare_counts_multi(self, primary_kind, boxes: np.ndarray, windows,
+                             residual):
+        """Zero-arg dispatcher → per-box int32 counts over the FULL table
+        (the batched serving path when range pruning declined). B pads to
+        a power of two (``EMPTY_BOX`` rows count zero); callers slice the
+        readback to ``len(boxes)``."""
+        return self._stage_count(primary_kind, pad_boxes(boxes), windows,
+                                 residual, per_box=True)
+
+    def counts_multi(self, primary_kind, boxes: np.ndarray, windows,
+                     residual) -> np.ndarray:
+        """Per-box counts for a (B, 8) box array: one upload of each
+        constant, one kernel, one readback."""
+        out = _fetch(self.prepare_counts_multi(primary_kind, boxes, windows,
+                                               residual))
+        return out.cpu().numpy()[: len(boxes)]
 
     def prepare_select(self, primary_kind, boxes, windows, residual,
                        capacity: int):
@@ -561,8 +735,9 @@ class ScanKernels:
         """(sorted positions int64, true count); grows the capacity and
         re-runs on overflow."""
         while True:
-            out = self.prepare_select(primary_kind, boxes, windows, residual,
-                                      capacity)().cpu().numpy()
+            out = _fetch(self.prepare_select(
+                primary_kind, boxes, windows, residual,
+                capacity)).cpu().numpy()
             cnt = int(out[0])
             if cnt <= capacity:
                 return out[1: 1 + cnt].astype(np.int64), cnt
@@ -572,16 +747,34 @@ class ScanKernels:
 
     def prepare_count_blocks(self, primary_kind, boxes, windows, residual,
                              blocks: np.ndarray, block_size: int):
-        """Zero-arg pruned-count dispatcher → 0-d int32 device tensor."""
-        run = self._stage_blocks(primary_kind, boxes, windows, residual,
+        """Zero-arg pruned-count dispatcher → 0-d int32 device tensor (the
+        ``box_count`` kernel's any-box count over the candidate blocks)."""
+        return self._stage_count(primary_kind, boxes, windows, residual,
                                  blocks, block_size)
-        return lambda: run()[0].sum(dtype=torch.int32)
 
     def count_blocks(self, primary_kind, boxes, windows, residual,
                      blocks: np.ndarray, block_size: int) -> int:
         """Exact count scanning only the candidate blocks."""
-        return int(self.prepare_count_blocks(primary_kind, boxes, windows,
-                                             residual, blocks, block_size)())
+        return int(_fetch(self.prepare_count_blocks(
+            primary_kind, boxes, windows, residual, blocks, block_size)))
+
+    def prepare_counts_multi_blocks(self, primary_kind, boxes: np.ndarray,
+                                    windows, residual, blocks: np.ndarray,
+                                    block_size: int):
+        """Zero-arg dispatcher → per-box int32 counts for a whole batch of
+        box-queries over the union of their candidate blocks (the batched
+        serving path). Boxes pad to a power of two, blocks to a power of
+        two of at least 8 with pad -1."""
+        return self._stage_count(primary_kind, pad_boxes(boxes), windows,
+                                 residual, blocks, block_size, per_box=True)
+
+    def counts_multi_blocks(self, primary_kind, boxes: np.ndarray, windows,
+                            residual, blocks: np.ndarray,
+                            block_size: int) -> np.ndarray:
+        """Blocking counterpart of ``prepare_counts_multi_blocks``."""
+        out = _fetch(self.prepare_counts_multi_blocks(
+            primary_kind, boxes, windows, residual, blocks, block_size))
+        return out.cpu().numpy()[: len(boxes)]
 
     def prepare_select_blocks(self, primary_kind, boxes, windows, residual,
                               blocks: np.ndarray, block_size: int,
@@ -604,9 +797,9 @@ class ScanKernels:
         nb = len(self._pad_blocks(blocks))
         capacity = min(max(1024, capacity), nb * block_size)
         while True:
-            out = self.prepare_select_blocks(
+            out = _fetch(self.prepare_select_blocks(
                 primary_kind, boxes, windows, residual, blocks, block_size,
-                capacity)().cpu().numpy()
+                capacity)).cpu().numpy()
             cnt = int(out[0])
             if cnt <= capacity:
                 return out[1: 1 + cnt].astype(np.int64), cnt

@@ -1,0 +1,402 @@
+"""The port's batched box counts (``ScanKernels.counts_multi`` /
+``counts_multi_blocks``) and the staged ``count`` / ``count_blocks`` that
+now go through the same reduction, against the JAX package's
+``ScanKernels`` on identical state: an 8,000-row table with gather blocks of
+512 rows in both packages (the last block is partial, so its start clamps).
+Every comparison is exact (int32 counts, value for value): B in {1, 3, 8,
+64, 300} boxes, with and without time windows, with and without a device
+residual (``age > 10``, a string ``IN``), over the full table, a real range
+cover, explicit block lists with pad blocks, the clamped last block and
+ids past the table, an empty block list, and all-empty boxes.
+
+The port runs with device="cpu" here: the plain versions. The ``gpu`` tests
+hold the ``box_count`` CUDA kernel to its plain version on the card at the
+same cases and at n = 3 * 2^20 + 17 rows. They import nothing of JAX, so on
+the card (where JAX is not installed) ``python -m pytest --noconftest -m gpu
+tests/test_torch_box_count.py`` runs them.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from geomesa_tpu_torch import config as tconfig
+from geomesa_tpu_torch.features.sft import SimpleFeatureType as TSFT
+from geomesa_tpu_torch.features.table import FeatureTable as TTable
+from geomesa_tpu_torch.index import scan as tscan
+from geomesa_tpu_torch.index.device import fp62
+from geomesa_tpu_torch.index.planner import QueryPlanner as TPlanner
+from geomesa_tpu_torch.index.spatial import Z3Index as TZ3
+from geomesa_tpu_torch.index.spatial import _boxes_fp62 as t_fp62
+from geomesa_tpu_torch.kernels import box_count as tkernel
+
+SPEC = ("name:String,age:Int,score:Float,dtg:Date,*geom:Point;"
+        "geomesa.z3.interval=week")
+DURING = "dtg DURING 2020-01-03T00:00:00Z/2020-01-15T00:00:00Z"
+N = 8000
+BSZ = 512
+
+# plans whose windows and device residual the batched counts reuse
+FILTERS = {
+    "none": "INCLUDE",
+    "time": DURING,
+    "resid": "age > 10",
+    "time_resid": f"{DURING} AND age > 10",
+    "time_in": f"{DURING} AND name IN ('alpha', 'beta')",
+}
+
+
+def _ref(name: str):
+    """A module of the JAX package (imported only by the CPU tests)."""
+    pytest.importorskip("jax")
+    return importlib.import_module(name)
+
+
+def _columns(n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-170, 170, n)
+    y = rng.uniform(-80, 80, n)
+    base = np.datetime64("2020-01-01T00:00:00", "ms").astype(np.int64)
+    dtg = base + rng.integers(0, 30 * 86400000, n)
+    name = rng.choice(["alpha", "beta", "gamma", "delta"], n)
+    age = rng.integers(0, 100, n).astype(np.int32)
+    score = rng.uniform(0, 1, n).astype(np.float32)
+    return {"name": name, "age": age, "score": score, "dtg": dtg,
+            "geom": (x, y)}
+
+
+def _boxes(k: int, seed: int):
+    """k user-space boxes: random spans, some degenerate, some touching the
+    domain edges."""
+    rng = np.random.default_rng(seed)
+    x0 = rng.uniform(-180, 170, k)
+    y0 = rng.uniform(-90, 80, k)
+    w = rng.uniform(0, 60, k)
+    h = rng.uniform(0, 40, k)
+    out = [(float(a), float(b), float(min(180, a + c)), float(min(90, b + d)))
+           for a, b, c, d in zip(x0, y0, w, h)]
+    if k > 2:
+        out[1] = (-180.0, -90.0, 180.0, 90.0)
+        out[2] = (10.0, 10.0, 10.0, 10.0)
+    return out
+
+
+@pytest.fixture(scope="module")
+def world():
+    jconfig = _ref("geomesa_tpu.config")
+    jprune = _ref("geomesa_tpu.index.prune")
+    vars(jprune).pop("BLOCK_SIZE", None)
+    for c in (jconfig, tconfig):
+        c.PRUNE_BLOCK.set(BSZ)
+    try:
+        cols = _columns(N, 5)
+        JSFT = _ref("geomesa_tpu.features.sft").SimpleFeatureType
+        JTable = _ref("geomesa_tpu.features.table").FeatureTable
+        JZ3 = _ref("geomesa_tpu.index.spatial").Z3Index
+        JPlanner = _ref("geomesa_tpu.index.planner").QueryPlanner
+        jsft = JSFT.from_spec("s", SPEC)
+        jt = JTable.build(jsft, cols)
+        jp = JPlanner(jsft, jt, [JZ3(jsft, jt)])
+        tsft = TSFT.from_spec("s", SPEC)
+        tt = TTable.build(tsft, cols)
+        tp = TPlanner(tsft, tt, [TZ3(tsft, tt, "cpu")])
+        yield jp, tp
+    finally:
+        for c in (jconfig, tconfig):
+            c.PRUNE_BLOCK.unset()
+
+
+def _fp62(k: int, seed: int):
+    boxes = _boxes(k, seed)
+    jb = _ref("geomesa_tpu.index.spatial")._boxes_fp62(boxes)
+    tb = t_fp62(boxes)
+    assert np.array_equal(jb, tb)
+    return jb, tb
+
+
+def _rest(plan):
+    return plan.windows, plan.residual_device
+
+
+def _cover(jp, tp):
+    """The union of two box queries' range covers (as the scheduler
+    builds it), equal in both packages."""
+    short = "dtg DURING 2020-01-04T00:00:00Z/2020-01-07T00:00:00Z"
+    qs = [f"BBOX(geom, 10, 10, 40, 40) AND {short}",
+          f"BBOX(geom, -120, -50, -90, -20) AND {short}"]
+    jb = [jp._pruned_blocks(jp.plan(q)) for q in qs]
+    tb = [tp._pruned_blocks(tp.plan(q)) for q in qs]
+    for a, b in zip(jb, tb):
+        assert a is not None and np.array_equal(a, b)
+    return np.unique(np.concatenate(tb)).astype(np.int32)
+
+
+# the clamped last block (15: rows 7680..7999 read from 7488), ids past the
+# table (20, 99), and a count that is not a power of two (pads with -1)
+EDGE_BLOCKS = np.array([0, 3, 14, 15, 20, 99], dtype=np.int32)
+
+
+@pytest.mark.parametrize("B,fkey", [
+    (1, "none"), (1, "time_resid"), (3, "time"), (3, "resid"),
+    (8, "none"), (8, "time"), (8, "resid"), (8, "time_resid"),
+    (8, "time_in"), (64, "time_resid"), (64, "none"), (300, "time"),
+])
+@pytest.mark.parametrize("where", ["table", "cover", "edge", "empty"])
+def test_counts_multi_equal_reference(world, B, fkey, where):
+    jp, tp = world
+    jk, tk = jp.indexes[0].kernels, tp.indexes[0].kernels
+    jb, tb = _fp62(B, seed=B)
+    f = FILTERS[fkey]
+    ja, ta = _rest(jp.plan(f)), _rest(tp.plan(f))
+    if where == "table":
+        want = jk.counts_multi("point_boxes", jb, *ja)
+        got = tk.counts_multi("point_boxes", tb, *ta)
+    else:
+        blocks = {"cover": lambda: _cover(jp, tp),
+                  "edge": lambda: EDGE_BLOCKS,
+                  "empty": lambda: np.empty(0, dtype=np.int32)}[where]()
+        want = jk.counts_multi_blocks("point_boxes", jb, *ja, blocks, BSZ)
+        got = tk.counts_multi_blocks("point_boxes", tb, *ta, blocks, BSZ)
+    assert got.dtype == np.int32 and got.shape == (B,)
+    assert np.array_equal(got, np.asarray(want))
+    if where in ("table", "cover") and B > 1:
+        assert got.max() > 0
+
+
+@pytest.mark.parametrize("where", ["table", "edge"])
+def test_all_empty_boxes_count_zero(world, where):
+    jp, tp = world
+    jk, tk = jp.indexes[0].kernels, tp.indexes[0].kernels
+    boxes = np.tile(tscan.EMPTY_BOX, (5, 1))
+    ja, ta = _rest(jp.plan(DURING)), _rest(tp.plan(DURING))
+    if where == "table":
+        want = jk.counts_multi("point_boxes", boxes, *ja)
+        got = tk.counts_multi("point_boxes", boxes, *ta)
+    else:
+        want = jk.counts_multi_blocks("point_boxes", boxes, *ja,
+                                      EDGE_BLOCKS, BSZ)
+        got = tk.counts_multi_blocks("point_boxes", boxes, *ta,
+                                     EDGE_BLOCKS, BSZ)
+    assert np.array_equal(got, np.asarray(want))
+    assert not got.any()
+
+
+@pytest.mark.parametrize("nbox", [0, 1, 4])
+@pytest.mark.parametrize("fkey", ["none", "time_resid", "time_in"])
+def test_rerouted_count_and_count_blocks_equal_reference(world, nbox, fkey):
+    """``count``/``count_blocks`` (now the kernel's any-box count) against
+    the reference's: primary ``point_boxes`` with 1 and 4 boxes, and
+    primary ``none`` (nbox 0)."""
+    jp, tp = world
+    jk, tk = jp.indexes[0].kernels, tp.indexes[0].kernels
+    f = FILTERS[fkey]
+    ja, ta = _rest(jp.plan(f)), _rest(tp.plan(f))
+    if nbox:
+        jb, tb = _fp62(nbox, seed=40 + nbox)
+        jb = tb = tscan.pad_boxes(tb)
+        kind = "point_boxes"
+    else:
+        jb = tb = None
+        kind = "none"
+    want = jk.count(kind, jb, *ja)
+    assert tk.count(kind, tb, *ta) == want
+    assert int(tk.prepare_count(kind, tb, *ta)()) == want
+    for blocks in (_cover(jp, tp), EDGE_BLOCKS):
+        want = jk.count_blocks(kind, jb, *ja, blocks, BSZ)
+        assert tk.count_blocks(kind, tb, *ta, blocks, BSZ) == want
+        assert int(tk.prepare_count_blocks(kind, tb, *ta, blocks,
+                                           BSZ)()) == want
+
+
+def test_per_box_needs_a_box_primary(world):
+    _, tp = world
+    with pytest.raises(ValueError, match="primary kind"):
+        tp.indexes[0].kernels.prepare_counts_multi(
+            "none", np.tile(tscan.EMPTY_BOX, (1, 1)), None, None)
+
+
+# -- the CUDA kernel against its plain version (card only) --------------------
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the box_count kernel)")
+    return torch.device("cuda")
+
+
+def _planes(n: int, seed: int, dev):
+    """Random device planes of a Z3 point table: fp62 x/y (with exact ties
+    to the boxes' bounds), binned time, a sparse __valid__."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-180, 180, n)
+    y = rng.uniform(-90, 90, n)
+    x[: n // 50] = 10.0        # ties on a box edge
+    xi, xl = fp62(x, -180.0, 180.0)
+    yi, yl = fp62(y, -90.0, 90.0)
+    cols = {"xi": xi, "xl": xl, "yi": yi, "yl": yl,
+            "bin": rng.integers(2600, 2606, n).astype(np.int32),
+            "off": rng.integers(0, 604800, n).astype(np.int32)}
+    out = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+    return out, rng.random(n) < 0.9
+
+
+def _gpu_case(n, nbox, windows, resid, blocks, valid, seed):
+    dev = _cuda()
+    cols, vmask = _planes(n, seed, dev)
+    if valid:
+        cols["__valid__"] = torch.from_numpy(vmask).to(dev)
+    boxes = None
+    if nbox:
+        b = t_fp62(_boxes(nbox, seed))
+        boxes = torch.from_numpy(tscan.pad_boxes(b)).to(dev)
+    w = None
+    if windows:
+        w = torch.tensor([[2601, 1000, 2603, 500], [2605, 7, 2605, 90000],
+                          [1, 0, 0, 0], [1, 0, 0, 0]], dtype=torch.int32,
+                         device=dev)
+    bid = None
+    ncand = n
+    if blocks is not None:
+        nb = max(8, 1 << max(0, len(blocks) - 1).bit_length())
+        pad = np.full(nb, -1, dtype=np.int32)
+        pad[: len(blocks)] = blocks
+        bid = torch.from_numpy(pad).to(dev)
+        ncand = nb * BSZ
+    r = None
+    if resid:
+        rng = np.random.default_rng(seed + 1)
+        r = torch.from_numpy(rng.random(ncand) < 0.7).to(dev)
+    return cols, boxes, w, r, bid
+
+
+GPU_BLOCKS = {
+    "table": None,
+    "edge": "edge",          # clamped last block, ids past the table, pads
+    "empty": np.empty(0, dtype=np.int32),
+    "many": "many",
+}
+
+
+# (n, boxes, per_box): the any-box count without boxes, with 1 and 4; the
+# per-box counts at 1, 3, 64 and 300 boxes, and at 1500 (two launches of
+# 1024-box tiles) on the small table
+GPU_SHAPES = [(n, b, pb) for n in (N, 3 * (1 << 20) + 17)
+              for b, pb in ((0, False), (1, False), (4, False), (1, True),
+                            (3, True), (64, True), (300, True))] \
+    + [(N, 1500, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,nbox,per_box", GPU_SHAPES)
+@pytest.mark.parametrize("windows,resid,valid", [
+    (False, False, False), (True, False, False), (True, True, False),
+    (True, True, True)])
+@pytest.mark.parametrize("where", list(GPU_BLOCKS))
+def test_cuda_kernel_equals_plain(n, nbox, per_box, windows, resid, valid,
+                                  where):
+    blocks = GPU_BLOCKS[where]
+    last = -(-n // BSZ) - 1
+    if isinstance(blocks, str):
+        blocks = (np.array([0, 3, last - 1, last, last + 5, last + 90],
+                           dtype=np.int32) if blocks == "edge"
+                  else np.arange(0, last + 1, 3, dtype=np.int32))
+    cols, boxes, w, r, bid = _gpu_case(n, nbox, windows, resid, blocks,
+                                       valid, seed=nbox + 7 * windows)
+    before = tkernel.box_count.launches
+    got = tkernel.box_count(cols, boxes, w, r, bid, BSZ if bid is not None
+                            else None, per_box)
+    torch.cuda.synchronize()
+    plain = tscan.box_count(cols, boxes, w, r, bid, BSZ if bid is not None
+                            else None, per_box)
+    assert got.dtype == torch.int32 and got.shape == plain.shape
+    assert torch.equal(got, plain), (got, plain)
+    assert tkernel.box_count.launches == before + 1
+
+
+def _small_boxes(k: int, seed: int):
+    """k boxes of at most 12 x 8 degrees: a row lies in few of them, so
+    the any-box loop walks far down the list."""
+    rng = np.random.default_rng(seed)
+    x0 = rng.uniform(-180, 168, k)
+    y0 = rng.uniform(-90, 82, k)
+    return [(float(a), float(b), float(a + c), float(b + d)) for a, b, c, d
+            in zip(x0, y0, rng.uniform(0, 12, k), rng.uniform(0, 8, k))]
+
+
+def _narrow_windows(k: int, seed: int, dev):
+    """k windows over the planes' bins, narrow enough that together they
+    hold about a third of the rows, every fifth one empty (bin_lo >
+    bin_hi)."""
+    rng = np.random.default_rng(seed)
+    blo = rng.integers(2600, 2606, k)
+    olo = rng.integers(0, 604800, k)
+    wide = rng.integers(0, 2_200_000 // max(k, 1) + 1, k)
+    w = np.stack([blo, olo, blo, olo + wide], axis=1)
+    w[::5, 0] = w[::5, 2] + 1
+    return torch.from_numpy(w.astype(np.int32)).to(dev)
+
+
+# (boxes, windows, per_box): more boxes than the kernel stages in shared
+# memory on the any-box count (the rest read from device memory), more
+# windows than it stages, both, and a window list with no rows (nothing
+# passes, as the plain version's any over no windows)
+GPU_LISTS = [(1500, 4, False), (4, 300, False), (1500, 300, False),
+             (64, 300, True), (1500, 300, True), (4, 0, False),
+             (64, 0, True), (0, 0, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbox,nwin,per_box", GPU_LISTS)
+@pytest.mark.parametrize("where", ["table", "edge"])
+def test_cuda_kernel_long_box_and_window_lists_equal_plain(nbox, nwin,
+                                                           per_box, where):
+    dev = _cuda()
+    cols, _ = _planes(N, nbox + nwin, dev)
+    some = _small_boxes if nbox > 1024 else _boxes
+    boxes = None if nbox == 0 else torch.from_numpy(
+        tscan.pad_boxes(t_fp62(some(nbox, nbox)))).to(dev)
+    w = _narrow_windows(nwin, nwin, dev)
+    bid = None if where == "table" else torch.from_numpy(
+        np.concatenate([EDGE_BLOCKS, np.full(2, -1, np.int32)])).to(dev)
+    bsz = None if bid is None else BSZ
+    before = tkernel.box_count.launches
+    got = tkernel.box_count(cols, boxes, w, None, bid, bsz, per_box)
+    torch.cuda.synchronize()
+    plain = tscan.box_count(cols, boxes, w, None, bid, bsz, per_box)
+    assert got.dtype == torch.int32 and got.shape == plain.shape
+    assert torch.equal(got, plain), (got, plain)
+    assert tkernel.box_count.launches == before + (1 if nwin else 0)
+    if nwin:
+        assert int(plain.sum()) > 0
+
+
+@pytest.mark.gpu
+def test_cuda_staged_counts_equal_cpu():
+    """The staged counts through the store's route on the card equal the
+    same table's on the CPU."""
+    dev = _cuda()
+    tconfig.PRUNE_BLOCK.set(BSZ)
+    try:
+        cols = _columns(N, 5)
+        sft = TSFT.from_spec("s", SPEC)
+        table = TTable.build(sft, cols)
+        cpu = TPlanner(sft, table, [TZ3(sft, table, "cpu")])
+        gpu = TPlanner(sft, table, [TZ3(sft, table, dev)])
+        tb = tscan.pad_boxes(t_fp62(_boxes(64, 3)))
+        for f in FILTERS.values():
+            cp, gp = cpu.plan(f), gpu.plan(f)
+            ck, gk = cpu.indexes[0].kernels, gpu.indexes[0].kernels
+            assert np.array_equal(
+                gk.counts_multi("point_boxes", tb, *_rest(gp)),
+                ck.counts_multi("point_boxes", tb, *_rest(cp)))
+            assert np.array_equal(
+                gk.counts_multi_blocks("point_boxes", tb, *_rest(gp),
+                                       EDGE_BLOCKS, BSZ),
+                ck.counts_multi_blocks("point_boxes", tb, *_rest(cp),
+                                       EDGE_BLOCKS, BSZ))
+            assert gk.count(cp.primary_kind, gp.boxes_loose, *_rest(gp)) \
+                == ck.count(cp.primary_kind, cp.boxes_loose, *_rest(cp))
+    finally:
+        tconfig.PRUNE_BLOCK.unset()

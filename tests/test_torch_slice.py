@@ -245,6 +245,12 @@ def test_outside_slice_raises_naming_roadmap(q, item):
         store.count("fq", q)
 
 
+def test_prepare_with_auths_raises_naming_roadmap():
+    planner = _store(600).planner("fq")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        planner.prepare(BOX, auths=["admin"])
+
+
 def test_store_count_and_query(world):
     jp, _ = world
     store = _store()
@@ -269,6 +275,11 @@ def test_port_imports_neither_jax_nor_reference():
     code = (
         "import sys, numpy as np\n"
         "from geomesa_tpu_torch import DataStoreFinder\n"
+        "import geomesa_tpu_torch.serve.scheduler, "
+        "geomesa_tpu_torch.serve.resilience, geomesa_tpu_torch.metrics, "
+        "geomesa_tpu_torch.trace, geomesa_tpu_torch.index.guards, "
+        "geomesa_tpu_torch.durability.faults, "
+        "geomesa_tpu_torch.kernels.box_count\n"
         "from geomesa_tpu_torch.features.table import FeatureTable\n"
         "s = DataStoreFinder.get_data_store(type='torch', device='cpu')\n"
         "sft = s.create_schema('t', 'val:Int,dtg:Date,*geom:Point')\n"
