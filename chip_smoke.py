@@ -8,7 +8,8 @@ Phases, each failing the run (non-zero exit) when it fails:
 2. build: every CUDA kernel of the port (``kernels/build.py`` ``KERNELS``)
    from the checkout's sources, one nvcc each, all started together, with
    ptxas' report and the SASS instructions per (point, edge) pair of the
-   refine kernel's inner loop;
+   refine kernel's inner loop and per (candidate, box) of the box count's
+   tile loop;
 3. pip_refine against its plain PyTorch version on the card at near-edge
    shapes, unmasked and masked, with times and bounds;
 4. the main path: a 100M-point Z3 layer loaded through the port's
@@ -31,9 +32,10 @@ Phases, each failing the run (non-zero exit) when it fails:
 6. each kernel against its plain version on the tensors the main path
    gives it: pip_refine at (b)'s candidates; grid_scatter at (d)'s route
    inputs and at the full-table mask, at 64x64 and 256x256, unit and
-   ``val``-weighted, with times, bounds and ``torch.bincount``'s time for
-   the scatter part; box_count at (g3)'s union blocks and the full table
-   with 64 boxes, and at (f)'s count;
+   ``val``-weighted, with times, bounds, device activities a call and
+   ``torch.bincount``'s time for the scatter part; box_count at (g3)'s
+   union blocks and the full table with 64 boxes, and at (f)'s count, with
+   the passing candidates and the kernel's tile fills;
 7. a profile of each query, and the result lines: one JSON object per
    kernel, the card, and the final ``{"ok": true, ...}`` line.
 
@@ -82,10 +84,11 @@ PIP_OPS_PER_EDGE = 4
 SCATTER_OPS_PER_ROW = 11
 
 # int32 operations of the batched box count, the fewest an implementation
-# needs. The lo planes (fp62 lo, time offset) are never negative, so a
-# signed lexicographic (hi, lo) compare is one signed 64-bit compare of
-# hi:lo: 2 instructions (ISETP.U32 on lo, ISETP.EX on hi), with the ANDs and
-# ORs folded into the predicate inputs of the next compare. Per (candidate
+# needs. A signed lexicographic (hi, lo) compare is one signed 64-bit
+# compare of the order-preserving key hi:(lo ^ 2^31) (index/scan.py
+# pack62): 2 instructions (ISETP.U32 on the low word, ISETP.EX on the high
+# one), with the ANDs and ORs folded into the predicate inputs of the next
+# compare. Per (candidate
 # in its block, real window): 2 compares = 4. Per (candidate passing
 # membership, windows, residual and __valid__; real box): 4 compares = 8.
 # A window's own test (bin_lo <= bin_hi) is once per window, not counted.
@@ -204,7 +207,7 @@ def phase_device():
 
 
 def phase_build():
-    from geomesa_tpu_torch.kernels import build, pip
+    from geomesa_tpu_torch.kernels import box_count, build, pip
     t0 = time.perf_counter()
     out = build.build(build.KERNELS)
     secs = time.perf_counter() - t0
@@ -216,23 +219,22 @@ def phase_build():
     log(f"[build] total {secs:.2f} s")
     sass = sass_per_pair(build._target(pip.NAME)[1])
     log(f"[build] {pip.NAME} SASS inner loop: {json.dumps(sass)}")
+    sass = sass_per_candidate_box(build._target(box_count.NAME)[1])
+    log(f"[build] {box_count.NAME} SASS tile loop: {json.dumps(sass)}")
     return secs
 
 
-def sass_per_pair(so_path: str):
-    """SASS instructions per (point, edge) pair in a point-in-polygon
-    kernel's inner loop, read with ``cuobjdump -sass``: among the innermost
-    loops (a backward branch and the instructions from its target to it),
-    the one covering the most pairs per pass, where a pair has exactly 4
-    FMUL (t1, t2 and the two tolerance products); with the loop's opcode
-    counts. None when the toolkit's cuobjdump is missing or no loop
-    qualifies."""
+def sass_inner_loops(so_path: str):
+    """Each kernel's innermost loops in a built library, read with
+    ``cuobjdump -sass``: (instructions, opcode counts) of every backward
+    branch's body that holds no other loop. None when the toolkit's
+    cuobjdump is missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
     text = subprocess.run([tool, "-sass", so_path], capture_output=True,
                           text=True, check=True).stdout
-    best = None
+    out = []
     for fn in text.split("Function : ")[1:]:
         ins = [(int(a, 16), op.strip()) for a, op in
                re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
@@ -241,20 +243,49 @@ def sass_per_pair(so_path: str):
             m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
             if m and int(m.group(1), 16) < at:
                 loops.append((int(m.group(1), 16), at))
-        inner = [lp for lp in loops if not any(
-            o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
-        for lo, hi in inner:
-            body = [op for at, op in ins if lo <= at <= hi]
-            fmul = sum(1 for op in body
-                       if re.match(r"(@!?U?P\w+\s+)?FMUL\b", op))
-            if fmul >= 4 and (best is None or fmul > best["fmul"]):
-                ops = {}
-                for op in body:
+        for lo, hi in loops:
+            if any(o != (lo, hi) and lo <= o[0] and o[1] <= hi
+                   for o in loops):
+                continue
+            ops = {}
+            for at, op in ins:
+                if lo <= at <= hi:
                     name = re.sub(r"^@!?U?P\w+\s+", "", op).split()[0]
                     ops[name] = ops.get(name, 0) + 1
-                best = {"instructions": len(body), "fmul": fmul,
-                        "pairs": fmul / 4, "per_pair": len(body) / (fmul / 4),
-                        "opcodes": ops}
+            out.append((sum(ops.values()), ops))
+    return out
+
+
+def sass_per_pair(so_path: str):
+    """SASS instructions per (point, edge) pair in a point-in-polygon
+    kernel's inner loop: among the innermost loops, the one covering the
+    most pairs per pass, where a pair has exactly 4 FMUL (t1, t2 and the
+    two tolerance products); with the loop's opcode counts. None when no
+    loop qualifies or cuobjdump is missing."""
+    best = None
+    for n_ins, ops in sass_inner_loops(so_path) or ():
+        fmul = sum(v for k, v in ops.items() if k.startswith("FMUL"))
+        if fmul >= 4 and (best is None or fmul > best["fmul"]):
+            best = {"instructions": n_ins, "fmul": fmul, "pairs": fmul / 4,
+                    "per_pair": n_ins / (fmul / 4), "opcodes": ops}
+    return best
+
+
+def sass_per_candidate_box(so_path: str):
+    """SASS instructions per (candidate, box) in the box count's tile loop
+    (phase B): among the innermost loops with 16-byte shared loads (one a
+    candidate: LDS.128) and 64-bit compares (ISETP), the one with the most
+    candidates a pass, its instructions over its LDS.128 count (one box a
+    lane); with its opcode counts. Taken over all template instances, which
+    share the loop. None when no loop qualifies or cuobjdump is missing."""
+    best = None
+    for n_ins, ops in sass_inner_loops(so_path) or ():
+        lds = sum(v for k, v in ops.items()
+                  if k.startswith("LDS") and ".128" in k)
+        isetp = sum(v for k, v in ops.items() if k.startswith("ISETP"))
+        if lds and isetp >= 8 * lds and (best is None or lds > best["lds"]):
+            best = {"instructions": n_ins, "lds": lds, "isetp": isetp,
+                    "per_candidate_box": n_ins / lds, "opcodes": ops}
     return best
 
 
@@ -364,6 +395,21 @@ def phase_kernel_main_inputs(store) -> dict:
     return r
 
 
+def activities_per_call(fn) -> int:
+    """Device activities (kernels, copies, memsets) of one warm call of
+    ``fn``, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def scatter_bound(n: int, live: int, weighted: bool, cells: int,
                   n_starts: int) -> dict:
     """The least time the card could take for the scatter on these inputs:
@@ -430,6 +476,7 @@ def compare_scatter(label: str, cols, mask, starts, bsz, bbox, width: int,
             torch.float32)
     del xs, ys, fx, fy, inb
     live = int(mask.sum())
+    acts = activities_per_call(lambda: density.grid_scatter(*args))
     ms = cuda_ms(lambda: density.grid_scatter(*args), 20)
     plain_ms = cuda_ms(lambda: scan.grid_scatter(*args), 3)
     lib_ms = cuda_ms(lambda: torch.bincount(cell, weights=wts,
@@ -437,6 +484,7 @@ def compare_scatter(label: str, cols, mask, starts, bsz, bbox, width: int,
     r = {"label": label, "n": int(mask.shape[0]), "live": live,
          "in_bbox": int(cell.shape[0]), "width": width, "height": height,
          "weight": wname, "ms": ms, "plain_ms": plain_ms,
+         "activities_per_call": acts,
          "library_ms": lib_ms, "max_abs_err": err,
          "count": int(kc), "grid_sum": float(kg.sum()),
          **scatter_bound(int(mask.shape[0]), live, w is not None,
@@ -447,7 +495,7 @@ def compare_scatter(label: str, cols, mask, starts, bsz, bbox, width: int,
         f"version (max abs err {err}), kernel {ms} ms, plain {plain_ms} ms, "
         f"bincount (scatter part only) {lib_ms} ms, bound {r['bound_ms']} ms "
         f"({r['bound_by']}; bytes {r['bytes_ms']} ms, operations "
-        f"{r['ops_ms']} ms)")
+        f"{r['ops_ms']} ms), {acts} device activities a call")
     return r
 
 
@@ -548,7 +596,7 @@ def compare_box_count(label: str, cols, boxes, windows, resid, block_ids,
     CUDA events; the SM clock read under the kernel's own load."""
     import torch
     from geomesa_tpu_torch.index import scan
-    from geomesa_tpu_torch.kernels import box_count
+    from geomesa_tpu_torch.kernels import box_count, build
 
     args = (cols, boxes, windows, resid, block_ids, bsz, per_box)
     kern = box_count.box_count(*args)
@@ -559,14 +607,24 @@ def compare_box_count(label: str, cols, boxes, windows, resid, block_ids,
     if err != 0 or not torch.equal(kern, plain):
         raise AssertionError(f"box_count {label}: kernel counts differ from "
                              f"the plain version (max abs err {err})")
+    acts = activities_per_call(lambda: box_count.box_count(*args))
     ms = cuda_ms(lambda: box_count.box_count(*args), reps)
     plain_ms = cuda_ms(lambda: scan.box_count(*args), max(1, reps // 10))
     clk = sm_clock_mhz(lambda: box_count.box_count(*args), ms)
     r = {"label": label, "per_box": per_box, "ms": ms, "plain_ms": plain_ms,
          "max_abs_err": err, "total": int(kern.sum()), **clk,
+         "activities_per_call": acts,
          **box_count_bound(*args[:6], per_box, clk["sm_mhz"])}
+    # the kernel's rounds of TILE candidates a CTA; per box, each round's
+    # passing candidates fill one shared-memory tile
+    tile = int(build.load(box_count.NAME).box_count_tile())
+    r["tile"] = tile
+    r["tiles"] = -(-r["candidates"] // tile)
+    r["mean_tile_fill"] = r["passing"] / (r["tiles"] * tile)
     log(f"[kernel] box_count {label}: {r['candidates']} candidates "
-        f"({r['in_blocks']} in their blocks, {r['passing']} passing), "
+        f"({r['in_blocks']} in their blocks, {r['passing']} passing; "
+        f"{r['tiles']} rounds of {tile}, mean tile fill "
+        f"{r['mean_tile_fill']}), {acts} device activities a call, "
         f"{r['boxes_real']} boxes, equal to the plain version (total "
         f"{r['total']}), kernel {ms} ms, plain {plain_ms} ms, bound "
         f"{r['bound_ms']} ms ({r['bound_by']}; bytes {r['bytes_ms']} ms, "

@@ -313,6 +313,24 @@ def grid_scatter(xf: torch.Tensor, yf: torch.Tensor, mask: torch.Tensor,
 # -- batched box counts (plain version of kernels/csrc/box_count.cu) --------
 
 
+def pack62(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Order-preserving int64 key of (hi, lo) int32 pairs: hi in the high
+    word, lo with its sign bit flipped in the low word, so that keys compare
+    as the reference's signed lexicographic ``_ge62``/``_le62`` for every
+    int32 value (what the ``box_count`` kernel compares)."""
+    return hi.to(torch.int64) * (1 << 32) + (lo.to(torch.int64) + (1 << 31))
+
+
+def _keys_any(k: torch.Tensor, lo: torch.Tensor,
+              hi: torch.Tensor) -> torch.Tensor:
+    """Rows whose key lies in any [lo[j], hi[j]] (an empty range, lo > hi,
+    holds nothing), one pass a range."""
+    out = torch.zeros_like(k, dtype=torch.bool)
+    for j in range(lo.shape[0]):
+        out |= (k >= lo[j]) & (k <= hi[j])
+    return out
+
+
 def box_count(cols, boxes: Optional[torch.Tensor],
               windows: Optional[torch.Tensor], resid: Optional[torch.Tensor],
               block_ids: Optional[torch.Tensor], bsz: Optional[int],
@@ -327,7 +345,8 @@ def box_count(cols, boxes: Optional[torch.Tensor],
     (B, 8) fp62 ``boxes`` of ``base`` and that box (a (B,) tensor, one
     pass a box as the reference's ``lax.map``: the (N, B) matrix is never
     built); else a 0-d count of ``base`` and any box (of ``base`` alone
-    without boxes).
+    without boxes). Boxes and windows compare ``pack62`` keys, as the
+    kernel does.
 
     The plain PyTorch version of the ``box_count`` CUDA kernel. The CPU
     path, and the kernel's yardstick on the card."""
@@ -335,19 +354,33 @@ def box_count(cols, boxes: Optional[torch.Tensor],
     base, g = None, cols
     if block_ids is not None:
         base, _, _, g = expand_blocks(cols, block_ids, bsz, n)
-    for m in (None if windows is None else _time_mask(g, windows), resid,
-              g["__valid__"] if "__valid__" in g else None):
+    tmask = None
+    if windows is not None:
+        tmask = _keys_any(pack62(g["bin"], g["off"]),
+                          pack62(windows[:, 0], windows[:, 1]),
+                          pack62(windows[:, 2], windows[:, 3]))
+    for m in (tmask, resid, g["__valid__"] if "__valid__" in g else None):
         if m is not None:
             base = m if base is None else base & m
 
     def count(m: torch.Tensor) -> torch.Tensor:
         return (m if base is None else m & base).sum(dtype=torch.int32)
 
-    if per_box:
-        return torch.stack([count(point_boxes(g, boxes[b: b + 1]))
-                            for b in range(boxes.shape[0])])
     if boxes is not None:
-        return count(point_boxes(g, boxes))
+        kx, ky = pack62(g["xi"], g["xl"]), pack62(g["yi"], g["yl"])
+        q = pack62(boxes[:, 0::2], boxes[:, 1::2])   # (B, 4) xlo xhi ylo yhi
+
+        def inside(b: int) -> torch.Tensor:
+            return (kx >= q[b, 0]) & (kx <= q[b, 1]) \
+                & (ky >= q[b, 2]) & (ky <= q[b, 3])
+
+        if per_box:
+            return torch.stack([count(inside(b))
+                                for b in range(boxes.shape[0])])
+        hit = torch.zeros_like(kx, dtype=torch.bool)
+        for b in range(boxes.shape[0]):
+            hit |= inside(b)
+        return count(hit)
     if base is None:
         dev = next(iter(cols.values())).device
         return torch.tensor(n, dtype=torch.int32, device=dev)

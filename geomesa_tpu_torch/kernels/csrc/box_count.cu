@@ -7,11 +7,16 @@
 // modes count_multi (:620, lax.map of one box count over the boxes) and
 // count_multi_blocks (:701, the same over the union of the batch's
 // candidate blocks), and the any-box mask plus sum of the modes count and
-// count_blocks (_mask_kernel :368, run :597 and :697). Box tests compare the
-// fp62 (hi, lo) int32 planes lexicographically and SIGNED, as the
-// reference's _ge62/_le62 do: EMPTY_BOX = [I31MAX, I31MAX, 0, 0, ...]
-// matches nothing only under signed compares. A window [bin_lo, off_lo,
-// bin_hi, off_hi] with bin_lo > bin_hi is empty.
+// count_blocks (_mask_kernel :368, run :597 and :697).
+//
+// Keys: the reference compares fp62 (hi, lo) int32 pairs lexicographically
+// and SIGNED (_ge62/_le62, scan.py:72). A pair becomes one int64,
+//     key = (hi << 32) | (uint32)(lo ^ 0x80000000),
+// whose signed order is exactly that lexicographic order for every int32
+// hi and lo (flipping lo's sign bit maps signed lo order onto unsigned
+// order). A box is (xlo, xhi, ylo, yhi) keys and a window (lo, hi) keys of
+// (bin, off). EMPTY_BOX = [I31MAX, I31MAX, 0, 0, ...] and a window with
+// bin_lo > bin_hi have lo key > hi key, so they match nothing.
 //
 // Candidates: row i of the table, or, with block ids (pad -1) and a block
 // size, candidate i reads row astart + i % bsz of block b = i / bsz, where
@@ -20,26 +25,38 @@
 // membership test of index/scan.py:expand_blocks, computed here, not
 // gathered: a clamped last block re-reads a suffix of the previous one and
 // those re-reads do not count). The residual mask, when given, has one byte
-// per candidate (the torch residual function evaluated over the gathered
-// residual columns only); __valid__ has one byte per table row.
+// per candidate; __valid__ has one byte per table row.
 //
-// What bounds it on the card: per candidate 24 bytes of int32 planes (x
-// hi/lo, y hi/lo, bin, off) plus the mask bytes; per (candidate, box) four
-// lexicographic compares. With a handful of boxes it is bound by bytes (at
-// the H100's 3.35 TB/s); at a batch of 64 boxes the compares (integer
-// operations, 64 INT32 lanes an SM a clock) bound it instead.
+// What bounds it on the card: per candidate 8 bytes of time planes plus the
+// mask bytes, per passing candidate 16 bytes of box planes; per (passing
+// candidate, box) four 64-bit compares (8 int32 instructions). With a
+// handful of boxes it is bound by bytes (the H100's 3.35 TB/s); at a batch
+// of 64 boxes by the compares (64 INT32 lanes an SM a clock).
 //
-// Design (simple first):
-// - Grid-stride over candidates, one warp per 32 consecutive candidates,
-//   rows read through the block starts (no gathers of the planes). Dead
-//   rows (membership, residual, __valid__, windows) read no coordinates.
-// - Windows and boxes are staged in shared memory (up to MAX_SMEM_WINDOWS
-//   windows and a tile of MAX_SMEM_BOXES boxes; past that they are read
-//   from device memory through the read-only cache).
-// - The box loop runs only for warps with a live base (__ballot_sync).
-//   Per box: __ballot_sync + __popc by lane 0 into a shared per-box counter,
-//   then one global atomicAdd per (CTA, box) with a nonzero count. per_box
-//   with more boxes than a tile launches once per tile.
+// Design:
+// - Phase A (filter): a CTA takes rounds of TILE consecutive candidates;
+//   each lane takes 4 consecutive candidates a step (16-byte loads of the
+//   planes where the 4 rows are consecutive and aligned, 4-byte loads of
+//   the masks), rows read through the block starts. Dead candidates read no
+//   further plane; the windows test keys from shared memory.
+// - per_box, phase B (test): phase A appends the passing candidates' (x
+//   key, y key) to a tile in shared memory (one shared atomicAdd a warp and
+//   a prefix popcount of the ballots for the slots). After __syncthreads
+//   each lane takes one box, its 4 keys in registers, and walks the tile:
+//   one broadcast 16-byte shared load a candidate, 4 compares and a
+//   predicated add into a register counter. With B < 32 boxes lanes split
+//   the tile by candidate (lane = box + B * k), with 32 < B < 256 the box
+//   groups of 32 split it among the warps (each warp a contiguous run),
+//   past 256 a lane takes several boxes. A lane flushes its count with one
+//   shared atomicAdd a tile, and the CTA adds one global atomicAdd per
+//   (CTA, box) at the end. Boxes are staged in shared memory in launches
+//   of MAX_SMEM_BOXES.
+// - any_box: no tile; each live candidate walks the boxes until its first
+//   hit (boxes in shared memory up to MAX_SMEM_BOXES, else packed from
+//   device memory as it goes), and the count is one warp reduction, one
+//   shared atomic a warp and one global atomic a CTA.
+// - Windows are staged as keys in shared memory up to MAX_SMEM_WINDOWS,
+//   else packed from device memory through the read-only cache.
 // - The outputs are int32 counts the caller zeroed on the stream.
 
 #include <cstdint>
@@ -50,8 +67,11 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_SMEM_WINDOWS = 256;    // 4 KB of windows
-constexpr int MAX_SMEM_BOXES = 1024;     // 32 KB of boxes (+ 4 KB counters)
+constexpr int VEC = 4;                        // candidates a lane a step
+constexpr int STEPS = 2;                      // warp steps a round
+constexpr int TILE = THREADS * VEC * STEPS;   // candidates a CTA round
+constexpr int MAX_SMEM_WINDOWS = 256;         // 4 KB of window keys
+constexpr int MAX_SMEM_BOXES = 1024;          // 32 KB of box keys
 
 struct Params {
   const int* xi;            // fp62 x hi plane (null without boxes)
@@ -71,102 +91,296 @@ struct Params {
   const int* boxes;         // (nbox, 8): all boxes of the call
   int nbox;
   unsigned* counts;         // per_box: one per box; any_box: one
+  int vec;                  // planes 16-byte and masks 4-byte aligned
 };
 
-__device__ __forceinline__ bool ge62(int hi, int lo, int qhi, int qlo) {
-  return hi > qhi || (hi == qhi && lo >= qlo);
+struct BoxKeys {
+  long long xlo, xhi, ylo, yhi;
+};
+
+__device__ __forceinline__ long long pack62(int hi, int lo) {
+  return (long long)(((unsigned long long)(unsigned)hi << 32)
+                     | (unsigned)(lo ^ (int)0x80000000));
 }
 
-__device__ __forceinline__ bool le62(int hi, int lo, int qhi, int qlo) {
-  return hi < qhi || (hi == qhi && lo <= qlo);
+__device__ __forceinline__ BoxKeys box_keys(const int* q) {
+  return {pack62(__ldg(q), __ldg(q + 1)), pack62(__ldg(q + 2), __ldg(q + 3)),
+          pack62(__ldg(q + 4), __ldg(q + 5)),
+          pack62(__ldg(q + 6), __ldg(q + 7))};
 }
 
-__device__ __forceinline__ bool in_box(const int* q, int xi, int xl, int yi,
-                                       int yl) {
-  return ge62(xi, xl, q[0], q[1]) && le62(xi, xl, q[2], q[3]) &&
-         ge62(yi, yl, q[4], q[5]) && le62(yi, yl, q[6], q[7]);
+__device__ __forceinline__ longlong2 window_keys(const int* w) {
+  return make_longlong2(pack62(__ldg(w), __ldg(w + 1)),
+                        pack62(__ldg(w + 2), __ldg(w + 3)));
+}
+
+__device__ __forceinline__ bool in_box(const BoxKeys& q, long long kx,
+                                       long long ky) {
+  return (kx >= q.xlo) & (kx <= q.xhi) & (ky >= q.ylo) & (ky <= q.yhi);
+}
+
+// 4 int32 values of a plane at rows[k] (k with a bit in `need`): one
+// 16-byte load when the rows are consecutive and aligned (`contig`)
+__device__ __forceinline__ void load4(const int* plane, bool contig,
+                                      const long long* rows, unsigned need,
+                                      int* out) {
+  if (contig) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(plane + rows[0]));
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      out[k] = (need >> k) & 1u ? plane[rows[k]] : 0;
+  }
+}
+
+// 4 mask bytes at idx[k] as bits (k with a bit in `need`); one 4-byte load
+// when `contig` (idx consecutive from a multiple of 4)
+__device__ __forceinline__ unsigned mask4(const uint8_t* m, bool contig,
+                                          const long long* idx,
+                                          unsigned need) {
+  unsigned out = 0u;
+  if (contig) {
+    const unsigned w = __ldg(reinterpret_cast<const unsigned*>(m + idx[0]));
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      out |= ((w >> (8 * k)) & 0xffu) ? 1u << k : 0u;
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      if (((need >> k) & 1u) && m[idx[k]]) out |= 1u << k;
+  }
+  return out & need;
+}
+
+// Phase A for a lane's candidates i0 .. i0 + 3 (i0 a multiple of 4): the
+// bits of the live ones, and with `keys` their x and y keys.
+template <bool BLOCKS>
+__device__ __forceinline__ unsigned filter4(const Params& p, long long i0,
+                                            const longlong2* win, bool keys,
+                                            long long* kx, long long* ky) {
+  long long rows[VEC], cand[VEC];
+  unsigned live = 0u;
+  if (BLOCKS) {
+    const long long clamp_hi = p.n > p.bsz ? p.n - p.bsz : 0;
+    long long blk = i0 / p.bsz, off = i0 - blk * p.bsz;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      if (k > 0 && ++off == p.bsz) { ++blk; off = 0; }
+      cand[k] = i0 + k;
+      rows[k] = 0;
+      if (cand[k] < p.ncand) {
+        const int b = __ldg(p.block_ids + blk);
+        const long long start = (long long)b * p.bsz;
+        const long long astart =
+            start < 0 ? 0 : (start > clamp_hi ? clamp_hi : start);
+        rows[k] = astart + off;
+        if (b >= 0 && rows[k] >= start && rows[k] < start + p.bsz
+            && rows[k] < p.n)
+          live |= 1u << k;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      cand[k] = rows[k] = i0 + k;
+      if (i0 + k < p.n) live |= 1u << k;
+    }
+  }
+  if (live == 0u) return 0u;
+  const bool cand4 = p.vec && i0 + VEC <= p.ncand;
+  const bool row4 = p.vec && (rows[0] & 3) == 0 && rows[0] + VEC <= p.n
+                    && rows[3] == rows[0] + 3;
+  if (p.resid) live = mask4(p.resid, cand4, cand, live);
+  if (live && p.valid) live = mask4(p.valid, row4, rows, live);
+  if (live && p.nwin > 0) {
+    int tb[VEC], to[VEC];
+    load4(p.bin, row4, rows, live, tb);
+    load4(p.off, row4, rows, live, to);
+    unsigned hit = 0u;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      if (!((live >> k) & 1u)) continue;
+      const long long tk = pack62(tb[k], to[k]);
+      for (int w = 0; w < p.nwin; ++w) {
+        const longlong2 q = win ? win[w] : window_keys(p.windows + 4 * w);
+        if ((tk >= q.x) & (tk <= q.y)) { hit |= 1u << k; break; }
+      }
+    }
+    live = hit;
+  }
+  if (live && keys) {
+    int a[VEC], b[VEC];
+    load4(p.xi, row4, rows, live, a);
+    load4(p.xl, row4, rows, live, b);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) kx[k] = pack62(a[k], b[k]);
+    load4(p.yi, row4, rows, live, a);
+    load4(p.yl, row4, rows, live, b);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) ky[k] = pack62(a[k], b[k]);
+  }
+  return live;
+}
+
+// adds 1 to c when (kx, ky) lies in box q: four signed 64-bit compares
+// chained through one predicate (8 ISETP) and a predicated add; written in
+// PTX because the compiler turns `if (in) ++c` into an add and a select
+__device__ __forceinline__ void count_in(unsigned& c, const BoxKeys& q,
+                                         long long kx, long long ky) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.ge.s64 p, %1, %3;\n\t"
+      "setp.le.and.s64 p, %1, %4, p;\n\t"
+      "setp.ge.and.s64 p, %2, %5, p;\n\t"
+      "setp.le.and.s64 p, %2, %6, p;\n\t"
+      "@p add.u32 %0, %0, 1;\n\t}"
+      : "+r"(c)
+      : "l"(kx), "l"(ky), "l"(q.xlo), "l"(q.xhi), "l"(q.ylo), "l"(q.yhi));
+}
+
+// the candidates [t, e) of a tile inside box q: 16-byte loads at immediate
+// offsets, 8 compares and a predicated add a candidate
+__device__ __forceinline__ unsigned count_run(const BoxKeys& q,
+                                              const longlong2* t,
+                                              const longlong2* e) {
+  unsigned c = 0u;
+  for (; t + 8 <= e; t += 8) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const longlong2 v = t[k];
+      count_in(c, q, v.x, v.y);
+    }
+  }
+  for (; t < e; ++t) count_in(c, q, t->x, t->y);
+  return c;
+}
+
+// Phase B: the tile's tn candidates against the launch's nb boxes, one box
+// a lane (see the design note); counts added into s_cnt. A warp's lanes
+// share their replica when P >= 32, which then takes a contiguous run of
+// the tile (every lane loads the same candidate: a broadcast); with fewer
+// boxes the lanes of a warp interleave over the tile (consecutive
+// candidates: no bank conflict).
+__device__ __forceinline__ void test_tile(const longlong2* tile, int tn,
+                                          const BoxKeys* boxes, int nb,
+                                          unsigned* s_cnt) {
+  int P;   // box slots; THREADS / P replicas split the tile
+  if (nb >= THREADS) {
+    P = THREADS;
+  } else if (nb > 32) {
+    P = 64;
+    while (P < nb) P <<= 1;
+  } else {
+    P = nb;
+  }
+  const int R = THREADS / P;
+  const int rep = threadIdx.x / P;
+  if (rep >= R) return;
+  for (int b = threadIdx.x - rep * P; b < nb; b += P) {
+    const BoxKeys q = boxes[b];
+    unsigned c = 0u;
+    if (P >= 32) {
+      c = count_run(q, tile + (int)((long long)tn * rep / R),
+                    tile + (int)((long long)tn * (rep + 1) / R));
+    } else {
+      for (int j = rep; j < tn; j += R) count_in(c, q, tile[j].x, tile[j].y);
+    }
+    if (c) atomicAdd(s_cnt + b, c);
+  }
 }
 
 // box0/ntile: the boxes [box0, box0 + ntile) this launch tests (per_box
-// tiles; any_box always all of them). smem_boxes: the tile sits in shared
-// memory (else it is read from p.boxes).
+// launches; any_box always all of them). smem_boxes: their keys are staged
+// in shared memory (always for per_box).
 template <bool PER_BOX, bool BLOCKS>
 __global__ void __launch_bounds__(THREADS)
 box_count_kernel(Params p, int box0, int ntile, bool smem_boxes) {
-  extern __shared__ int smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_n[2];    // tile fills, by round parity
   const bool smem_windows = p.nwin <= MAX_SMEM_WINDOWS;
-  int* s_win = smem;
-  int* s_box = s_win + (smem_windows ? 4 * p.nwin : 0);
+  longlong2* s_tile = reinterpret_cast<longlong2*>(smem);
+  BoxKeys* s_box =
+      reinterpret_cast<BoxKeys*>(smem + (PER_BOX ? sizeof(longlong2) * TILE
+                                                 : 0));
+  longlong2* s_win =
+      reinterpret_cast<longlong2*>(s_box + (smem_boxes ? ntile : 0));
   unsigned* s_cnt =
-      reinterpret_cast<unsigned*>(s_box + (smem_boxes ? 8 * ntile : 0));
+      reinterpret_cast<unsigned*>(s_win + (smem_windows ? p.nwin : 0));
   const int ncnt = PER_BOX ? ntile : 1;
 
   if (smem_windows)
-    for (int k = threadIdx.x; k < 4 * p.nwin; k += THREADS)
-      s_win[k] = p.windows[k];
+    for (int k = threadIdx.x; k < p.nwin; k += THREADS)
+      s_win[k] = window_keys(p.windows + 4 * k);
   if (smem_boxes)
-    for (int k = threadIdx.x; k < 8 * ntile; k += THREADS)
-      s_box[k] = p.boxes[8 * box0 + k];
+    for (int k = threadIdx.x; k < ntile; k += THREADS)
+      s_box[k] = box_keys(p.boxes + 8 * (box0 + k));
   for (int k = threadIdx.x; k < ncnt; k += THREADS) s_cnt[k] = 0u;
+  if (threadIdx.x < 2) s_n[threadIdx.x] = 0;
   __syncthreads();
-  const int* win = smem_windows ? s_win : p.windows;
-  const int* box = smem_boxes ? s_box : p.boxes + 8 * box0;
+  const longlong2* win = smem_windows ? s_win : nullptr;
+  const bool keys = PER_BOX || p.nbox > 0;
 
   const int lane = threadIdx.x & 31;
-  const long long warp = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
-  const long long stride = (long long)gridDim.x * WARPS * 32;
-  const long long clamp_hi = p.n > p.bsz ? p.n - p.bsz : 0;
-
-  for (long long base = warp * 32; base < p.ncand; base += stride) {
-    const long long i = base + lane;
-    bool live = i < p.ncand;
-    long long row = i;
-    if (BLOCKS && live) {
-      const int b = __ldg(p.block_ids + i / p.bsz);
-      const long long start = (long long)b * p.bsz;
-      const long long astart =
-          start < 0 ? 0 : (start > clamp_hi ? clamp_hi : start);
-      row = astart + i % p.bsz;
-      live = b >= 0 && row >= start && row < start + p.bsz && row < p.n;
-    }
-    if (live && p.resid) live = p.resid[i] != 0;
-    if (live && p.valid) live = p.valid[row] != 0;
-    if (live && p.nwin > 0) {
-      const int tb = p.bin[row];
-      const int to = p.off[row];
-      bool any = false;
-      for (int w = 0; w < p.nwin && !any; ++w) {
-        const int blo = win[4 * w], olo = win[4 * w + 1];
-        const int bhi = win[4 * w + 2], ohi = win[4 * w + 3];
-        any = blo <= bhi && (tb > blo || (tb == blo && to >= olo)) &&
-              (tb < bhi || (tb == bhi && to <= ohi));
+  const int warp = threadIdx.x >> 5;
+  const unsigned lt = (1u << lane) - 1u;
+  const long long rounds = (p.ncand + TILE - 1) / TILE;
+  unsigned cnt = 0u;   // any_box: this lane's hits
+  int parity = 0;
+  for (long long r = blockIdx.x; r < rounds; r += gridDim.x) {
+#pragma unroll 1
+    for (int s = 0; s < STEPS; ++s) {
+      const long long i0 = r * TILE + (long long)(warp * STEPS + s) * 32 * VEC
+                           + lane * VEC;
+      long long kx[VEC], ky[VEC];
+      unsigned live = filter4<BLOCKS>(p, i0, win, keys, kx, ky);
+      if (PER_BOX) {
+        unsigned m[VEC];
+        int tot = 0;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          m[k] = __ballot_sync(FULL, (live >> k) & 1u);
+          tot += __popc(m[k]);
+        }
+        if (tot == 0) continue;   // warp-uniform
+        int base = 0;
+        if (lane == 0) base = atomicAdd(&s_n[parity], tot);
+        base = __shfl_sync(FULL, base, 0);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          if ((live >> k) & 1u)
+            s_tile[base + __popc(m[k] & lt)] = make_longlong2(kx[k], ky[k]);
+          base += __popc(m[k]);
+        }
+      } else if (live) {
+        if (p.nbox == 0) {
+          cnt += __popc(live);
+        } else {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            if (!((live >> k) & 1u)) continue;
+            for (int b = 0; b < ntile; ++b) {
+              const BoxKeys q =
+                  smem_boxes ? s_box[b] : box_keys(p.boxes + 8 * b);
+              if (in_box(q, kx[k], ky[k])) { ++cnt; break; }
+            }
+          }
+        }
       }
-      live = any;
-    }
-    if (__ballot_sync(FULL, live) == 0u) continue;   // warp-uniform
-    int xi = 0, xl = 0, yi = 0, yl = 0;
-    if (live && p.nbox > 0) {
-      xi = p.xi[row];
-      xl = p.xl[row];
-      yi = p.yi[row];
-      yl = p.yl[row];
     }
     if (PER_BOX) {
-      for (int b = 0; b < ntile; ++b) {
-        const bool hit = live && in_box(box + 8 * b, xi, xl, yi, yl);
-        const unsigned m = __ballot_sync(FULL, hit);
-        if (lane == 0 && m) atomicAdd(&s_cnt[b], (unsigned)__popc(m));
-      }
-    } else {
-      bool hit = live;
-      if (live && p.nbox > 0) {
-        hit = false;
-        for (int b = 0; b < ntile && !hit; ++b)
-          hit = in_box(box + 8 * b, xi, xl, yi, yl);
-      }
-      const unsigned m = __ballot_sync(FULL, hit);
-      if (lane == 0 && m) atomicAdd(&s_cnt[0], (unsigned)__popc(m));
+      __syncthreads();
+      const int tn = s_n[parity];
+      // the other parity's fill was last read before the previous round's
+      // closing barrier: reset it for the next round
+      if (threadIdx.x == 0) s_n[parity ^ 1] = 0;
+      test_tile(s_tile, tn, s_box, ntile, s_cnt);
+      __syncthreads();
+      parity ^= 1;
     }
+  }
+  if (!PER_BOX) {
+    cnt = __reduce_add_sync(FULL, cnt);
+    if (lane == 0 && cnt) atomicAdd(s_cnt, cnt);
   }
   __syncthreads();
   for (int k = threadIdx.x; k < ncnt; k += THREADS) {
@@ -180,15 +394,23 @@ cudaError_t launch(const Params& p, int box0, int ntile, bool smem_boxes,
                    int sms, cudaStream_t st) {
   auto kernel = box_count_kernel<PER_BOX, BLOCKS>;
   const size_t smem =
-      sizeof(int) * ((p.nwin <= MAX_SMEM_WINDOWS ? 4 * p.nwin : 0) +
-                     (smem_boxes ? 8 * ntile : 0)) +
-      sizeof(unsigned) * (PER_BOX ? ntile : 1);
+      (PER_BOX ? sizeof(longlong2) * TILE : 0)
+      + (smem_boxes ? sizeof(BoxKeys) * ntile : 0)
+      + (p.nwin <= MAX_SMEM_WINDOWS ? sizeof(longlong2) * p.nwin : 0)
+      + sizeof(unsigned) * (PER_BOX ? ntile : 1);
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+  }
   int per_sm = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, THREADS, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long want = (p.ncand + THREADS - 1) / THREADS;
+  const long long want = (p.ncand + TILE - 1) / TILE;
   const long long fit = (long long)sms * per_sm;
   const unsigned grid = (unsigned)(want < fit ? want : fit);
   kernel<<<grid, THREADS, smem, st>>>(p, box0, ntile, smem_boxes);
@@ -201,6 +423,10 @@ cudaError_t launch_blocks(const Params& p, int box0, int ntile,
   return p.block_ids
              ? launch<PER_BOX, true>(p, box0, ntile, smem_boxes, sms, st)
              : launch<PER_BOX, false>(p, box0, ntile, smem_boxes, sms, st);
+}
+
+bool aligned(const void* ptr, uintptr_t to) {
+  return ((uintptr_t)ptr & (to - 1)) == 0;
 }
 
 }  // namespace
@@ -235,6 +461,9 @@ extern "C" int box_count_launch(const int* xi, const int* xl, const int* yi,
   p.boxes = boxes;
   p.nbox = nbox;
   p.counts = reinterpret_cast<unsigned*>(counts);
+  p.vec = aligned(xi, 16) && aligned(xl, 16) && aligned(yi, 16)
+          && aligned(yl, 16) && aligned(bin, 16) && aligned(off, 16)
+          && aligned(valid, 4) && aligned(resid, 4);
   if (p.ncand <= 0) return 0;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -253,6 +482,9 @@ extern "C" int box_count_launch(const int* xi, const int* xl, const int* yi,
   }
   return (int)err;
 }
+
+// Candidates a CTA takes a round (the per-box tile's capacity).
+extern "C" int box_count_tile() { return TILE; }
 
 extern "C" const char* box_count_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

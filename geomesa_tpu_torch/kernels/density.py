@@ -5,13 +5,16 @@ launches the kernel for tensors on a CUDA device and runs the plain PyTorch
 version (``index.scan.grid_scatter``) for tensors on the CPU. There is no
 fallback: a CUDA tensor either launches the kernel or raises.
 ``grid_scatter.launches`` counts kernel launches (and nothing else), so a
-run can show its main path went through the kernel.
+run can show its main path went through the kernel. A call is one launch:
+the kernel's accumulators live in a scratch kept per stream, which the
+kernel leaves zeroed for the next call.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -22,10 +25,17 @@ NAME = "grid_scatter"
 SOURCE = "geomesa_tpu_torch/kernels/csrc/grid_scatter.cu"
 REPLACES = "geomesa_tpu/index/scan.py:391"
 
-# rasters of at most this many cells take the shared-memory route (one
-# private uint32/f32 raster a CTA: 96 KB, two CTAs an SM); larger ones
+# rasters of at most this many cells take the shared-memory route (private
+# uint32/f32 rasters in a CTA's shared memory, at most 96 KB); larger ones
 # (the reference's default 256x256) add with global atomics
 SHARED_CELLS = 24 * 1024
+
+# (device index, stream) -> the kernel's scratch: two CTA counters, the live
+# count and one accumulator a cell, zero between calls
+# (the kernel zeroes them after use). Calls on one stream run in order, so
+# they share it.
+_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
+_SCRATCH_LOCK = threading.Lock()
 
 _WEIGHT_KINDS = {torch.int32: 1, torch.float32: 2}
 
@@ -37,6 +47,8 @@ def _bind(lib: ctypes.CDLL):
         i = ctypes.c_int
         ll = ctypes.c_longlong
         fn.argtypes = [p, p, p, i, p, p, ll, ll, p, i, i, i, p, p, p, p]
+        # (xf, yf, weight, kind, mask, starts, bsz, n, bbox, width, height,
+        #  shared, grid, count, scratch, stream)
         fn.restype = ctypes.c_int
         lib.grid_scatter_error_string.argtypes = [ctypes.c_int]
         lib.grid_scatter_error_string.restype = ctypes.c_char_p
@@ -84,6 +96,20 @@ def _check(xf, yf, mask, weight, starts, bsz, grid, width, height) -> int:
     return n
 
 
+def _scratch(dev: torch.device, stream: int, cells: int) -> torch.Tensor:
+    """The zeroed scratch of ``stream`` on ``dev``, 4 + ``cells`` words at
+    least: made (zeroed once) on first use and when a larger raster needs
+    more."""
+    key = (dev.index, stream)
+    with _SCRATCH_LOCK:
+        t = _SCRATCH.get(key)
+        if t is None or t.numel() < 4 + cells:
+            t = torch.zeros(4 + max(cells, 64 * 64), dtype=torch.int32,
+                            device=dev)
+            _SCRATCH[key] = t
+        return t
+
+
 def grid_scatter(xf: torch.Tensor, yf: torch.Tensor, mask: torch.Tensor,
                  weight: Optional[torch.Tensor], starts: Optional[torch.Tensor],
                  bsz: Optional[int], grid: torch.Tensor, width: int,
@@ -103,13 +129,12 @@ def grid_scatter(xf: torch.Tensor, yf: torch.Tensor, mask: torch.Tensor,
     cells = width * height
     out = torch.empty((height, width), dtype=torch.float32, device=xf.device)
     count = torch.empty((), dtype=torch.int32, device=xf.device)
-    counts = torch.empty(cells, dtype=torch.int32, device=xf.device) \
-        if weight is None else None
     if n == 0:
         return out.zero_(), count.zero_()
     fn = _bind(build.load(NAME))
     with torch.cuda.device(xf.device):
         stream = torch.cuda.current_stream(xf.device).cuda_stream
+        scratch = _scratch(xf.device, stream, cells)
         rc = fn(xf.data_ptr(), yf.data_ptr(),
                 None if weight is None else weight.data_ptr(),
                 0 if weight is None else _WEIGHT_KINDS[weight.dtype],
@@ -117,8 +142,7 @@ def grid_scatter(xf: torch.Tensor, yf: torch.Tensor, mask: torch.Tensor,
                 None if starts is None else starts.data_ptr(),
                 int(bsz or 0), n, grid.data_ptr(), width, height,
                 int(cells <= SHARED_CELLS), out.data_ptr(),
-                None if counts is None else counts.data_ptr(),
-                count.data_ptr(), stream)
+                count.data_ptr(), scratch.data_ptr(), stream)
     if rc != 0:
         msg = build.load(NAME).grid_scatter_error_string(rc).decode()
         raise RuntimeError(f"grid_scatter launch failed: {msg} "

@@ -217,6 +217,117 @@ def test_per_box_needs_a_box_primary(world):
             "none", np.tile(tscan.EMPTY_BOX, (1, 1)), None, None)
 
 
+# -- the order-preserving keys against the reference's compares -------------
+
+INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
+# every edge of the int32 range and of the lo sign (I31MAX is INT32_MAX)
+EDGE_INTS = np.array(sorted({INT32_MIN, -1, 0, 1, tscan._I31MAX, INT32_MAX}),
+                     dtype=np.int32)
+
+
+def _key_pairs(kind: str):
+    """(a_hi, a_lo, b_hi, b_lo) int32 arrays: every pair of EDGE_INTS pairs,
+    or 10,000 random pairs of which a third tie on hi with lo of either
+    sign and a third draw hi from [-3, 3]."""
+    if kind == "edges":
+        hi, lo = (g.ravel() for g in np.meshgrid(EDGE_INTS, EDGE_INTS))
+        ah, bh = (g.ravel() for g in np.meshgrid(hi, hi))
+        al, bl = (g.ravel() for g in np.meshgrid(lo, lo))
+        return ah, al, bh, bl
+    rng = np.random.default_rng(62)
+    n = 10_000
+
+    def draw(size):
+        return rng.integers(INT32_MIN, INT32_MAX, size, endpoint=True,
+                            dtype=np.int64).astype(np.int32)
+
+    ah, al, bh, bl = draw(n), draw(n), draw(n), draw(n)
+    third = n // 3
+    bh[:third] = ah[:third]
+    bl[:third // 2] = -al[:third // 2] - 1   # lo of the other sign
+    small = slice(third, 2 * third)
+    ah[small] = rng.integers(-3, 4, third)
+    bh[small] = rng.integers(-3, 4, third)
+    return ah, al, bh, bl
+
+
+@pytest.mark.parametrize("op", ["ge", "le"])
+@pytest.mark.parametrize("kind", ["edges", "random"])
+def test_pack62_order_equals_reference_lexicographic(kind, op):
+    """``pack62`` keys compare, element for element, as the reference's
+    signed lexicographic ``_ge62``/``_le62``."""
+    jscan = _ref("geomesa_tpu.index.scan")
+    jnp = _ref("jax.numpy")
+    ah, al, bh, bl = _key_pairs(kind)
+    ka = tscan.pack62(torch.from_numpy(ah), torch.from_numpy(al))
+    kb = tscan.pack62(torch.from_numpy(bh), torch.from_numpy(bl))
+    assert ka.dtype == torch.int64
+    got = (ka >= kb if op == "ge" else ka <= kb).numpy()
+    ref = jscan._ge62 if op == "ge" else jscan._le62
+    want = np.asarray(ref(*(jnp.asarray(a) for a in (ah, al, bh, bl))))
+    assert np.array_equal(got, want)
+    assert got.any() and not got.all()
+
+
+def _int32_planes(n: int, seed: int):
+    """Point planes over the whole int32 range: hi from [-3, 3] (ties on
+    box edges), lo of either sign; bin from 3 values, off of either sign."""
+    rng = np.random.default_rng(seed)
+
+    def full(size):
+        return rng.integers(INT32_MIN, INT32_MAX, size, endpoint=True,
+                            dtype=np.int64).astype(np.int32)
+
+    return {"xi": rng.integers(-3, 4, n).astype(np.int32), "xl": full(n),
+            "yi": rng.integers(-3, 4, n).astype(np.int32), "yl": full(n),
+            "bin": rng.integers(0, 3, n).astype(np.int32), "off": full(n)}
+
+
+def _int32_boxes(k: int, seed: int, cols):
+    """k boxes whose bounds are rows' own (hi, lo) pairs (ties on every
+    edge) or random pairs, plus EMPTY_BOX; and 3 windows, one empty."""
+    rng = np.random.default_rng(seed)
+    n = cols["xi"].shape[0]
+    r = rng.integers(0, n, (k, 4))
+    x = np.stack([cols["xi"][r], cols["xl"][r]], axis=-1)   # (k, 4, 2)
+    y = np.stack([cols["yi"][r], cols["yl"][r]], axis=-1)
+    key = lambda p: p[..., 0].astype(np.int64) * (1 << 32) + p[..., 1]  # noqa: E731
+    xs = np.take_along_axis(x, np.argsort(key(x), axis=1)[..., None], 1)
+    ys = np.take_along_axis(y, np.argsort(key(y), axis=1)[..., None], 1)
+    boxes = np.concatenate([xs[:, 0], xs[:, 3], ys[:, 0], ys[:, 3]], axis=1)
+    boxes = np.concatenate([boxes, tscan.EMPTY_BOX[None]]).astype(np.int32)
+    i = rng.integers(0, n, 2)
+    windows = np.array([[0, cols["off"][i[0]], 1, cols["off"][i[1]]],
+                        [2, INT32_MIN, 2, -1], [2, 0, 1, 0]], dtype=np.int32)
+    return boxes, windows
+
+
+@pytest.mark.parametrize("per_box", [True, False])
+@pytest.mark.parametrize("windows", [False, True])
+def test_plain_box_count_equals_reference_on_signed_planes(per_box, windows):
+    """The plain ``box_count`` (``pack62`` keys) against the reference's
+    ``_point_box_pairwise`` and ``_time_mask`` on planes whose lo values
+    take both signs and whose hi values tie on the boxes' edges."""
+    jscan = _ref("geomesa_tpu.index.scan")
+    jnp = _ref("jax.numpy")
+    cols = _int32_planes(4000, 9)
+    boxes, win = _int32_boxes(12, 10, cols)
+    jcols = {k: jnp.asarray(v) for k, v in cols.items()}
+    pair = np.asarray(jscan._point_box_pairwise(jcols, jnp.asarray(boxes)))
+    base = np.ones(len(cols["xi"]), bool)
+    if windows:
+        base = np.asarray(jscan._time_mask(jcols, jnp.asarray(win)))
+    want = (pair & base[:, None]).sum(axis=0) if per_box \
+        else (pair.any(axis=1) & base).sum()
+    tcols = {k: torch.from_numpy(v) for k, v in cols.items()}
+    got = tscan.box_count(tcols, torch.from_numpy(boxes),
+                          torch.from_numpy(win) if windows else None,
+                          None, None, None, per_box)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert 0 < int(got.sum()) and (not per_box or got[-1] == 0)
+
+
 # -- the CUDA kernel against its plain version (card only) --------------------
 
 
@@ -400,3 +511,92 @@ def test_cuda_staged_counts_equal_cpu():
                 == ck.count(cp.primary_kind, cp.boxes_loose, *_rest(cp))
     finally:
         tconfig.PRUNE_BLOCK.unset()
+
+
+# -- the kernel's tile, box-slot and key edges (card only) --------------------
+
+# box counts around the kernel's box slots: fewer than a warp (lanes split
+# the tile by candidate), one warp, box groups of 32, past the 256 threads,
+# and past a launch's 1,024 staged boxes
+GPU_B = [1, 5, 31, 32, 33, 64, 65, 1024, 1025, 1500]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbox", GPU_B)
+@pytest.mark.parametrize("where", ["table", "edge"])
+def test_cuda_kernel_box_slots_equal_plain(nbox, where):
+    cols, _, w, r, bid = _gpu_case(
+        N, 0, True, True, EDGE_BLOCKS if where == "edge" else None, True,
+        seed=nbox)
+    # unpadded: B itself, not the next power of two
+    boxes = torch.from_numpy(t_fp62(_boxes(nbox, nbox))).to(cols["xi"].device)
+    bsz = None if bid is None else BSZ
+    got = tkernel.box_count(cols, boxes, w, r, bid, bsz, True)
+    torch.cuda.synchronize()
+    plain = tscan.box_count(cols, boxes, w, r, bid, bsz, True)
+    assert got.shape == (nbox,) and torch.equal(got, plain), (got, plain)
+    assert int(plain.sum()) > 0
+
+
+def _tile() -> int:
+    from geomesa_tpu_torch.kernels import build
+    return int(build.load(tkernel.NAME).box_count_tile())
+
+
+# (candidates in tiles, extra candidates, residual): every candidate live
+# over exactly one tile, one tile and one more, and three tiles and one
+# more; one live candidate a warp step (128 candidates), with a ragged tail
+GPU_TILES = [(1, 0, "all"), (1, 1, "all"), (3, 1, "all"), (3, 17, "sparse")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiles,extra,resid", GPU_TILES)
+@pytest.mark.parametrize("nbox", [1, 64])
+def test_cuda_kernel_tile_fill_equal_plain(tiles, extra, resid, nbox):
+    dev = _cuda()
+    n = tiles * _tile() + extra
+    cols, _ = _planes(n, 3, dev)
+    boxes = torch.from_numpy(tscan.pad_boxes(t_fp62(
+        [(-180.0, -90.0, 180.0, 90.0)] + _boxes(nbox - 1, 4)))).to(dev)
+    r = None
+    if resid == "sparse":
+        m = np.zeros(n, bool)
+        m[::128] = True
+        r = torch.from_numpy(m).to(dev)
+    got = tkernel.box_count(cols, boxes, None, r, None, None, True)
+    torch.cuda.synchronize()
+    plain = tscan.box_count(cols, boxes, None, r, None, None, True)
+    assert torch.equal(got, plain), (got, plain)
+    assert int(got[0]) == (n if r is None else -(-n // 128))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_box", [True, False])
+@pytest.mark.parametrize("where", ["table", "edge", "empty"])
+@pytest.mark.parametrize("windows", ["some", "none", "no rows"])
+def test_cuda_kernel_signed_planes_equal_plain(per_box, where, windows):
+    """Planes over the whole int32 range (lo of either sign, hi ties on the
+    boxes' edges), EMPTY_BOX among the boxes, the clamped last block and
+    pads, and a (0, 4) window list."""
+    dev = _cuda()
+    n = N + 5
+    np_cols = _int32_planes(n, 21)
+    boxes, win = _int32_boxes(40, 22, np_cols)
+    cols = {k: torch.from_numpy(v).to(dev) for k, v in np_cols.items()}
+    w = {"some": torch.from_numpy(win).to(dev), "none": None,
+         "no rows": torch.empty((0, 4), dtype=torch.int32, device=dev)
+         }[windows]
+    blocks = {"table": None, "edge": np.concatenate(
+        [EDGE_BLOCKS, np.full(2, -1, np.int32)]),
+        "empty": np.full(4, -1, np.int32)}[where]
+    bid = None if blocks is None else torch.from_numpy(blocks).to(dev)
+    bsz = None if bid is None else BSZ
+    b = torch.from_numpy(boxes).to(dev)
+    got = tkernel.box_count(cols, b, w, None, bid, bsz, per_box)
+    torch.cuda.synchronize()
+    plain = tscan.box_count(cols, b, w, None, bid, bsz, per_box)
+    assert got.shape == plain.shape and torch.equal(got, plain), (got, plain)
+    if per_box:
+        assert int(got[-1]) == 0   # EMPTY_BOX
+    if where != "empty" and windows != "no rows":
+        assert int(got.sum()) > 0

@@ -550,3 +550,81 @@ def test_cuda_density_equals_cpu():
         b = tcompiled.try_density(cpu, cpu.plan(q), BBOX, 64, 64)
         assert np.array_equal(a[0], b[0]) and a[1] == b[1]
     assert tkernel.grid_scatter.launches >= before + 6
+
+
+def _assert_kernel_equals_plain(args):
+    kg, kc = tkernel.grid_scatter(*args)
+    torch.cuda.synchronize()
+    pg, pc = tscan.grid_scatter(*args)
+    assert int(kc) == int(pc)
+    if args[3] is None:
+        assert torch.equal(kg, pg)
+        return kg
+    unit, _ = tscan.grid_scatter(*args[:3], None, *args[4:])
+    absw, _ = tscan.grid_scatter(*args[:3], args[3].abs().to(torch.float32),
+                                 *args[4:])
+    assert_weighted_close(kg.cpu().numpy(), pg.cpu().numpy(),
+                          unit.cpu().numpy(), absw.cpu().numpy())
+    return kg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["shared", "global"])
+@pytest.mark.parametrize("weight", ["none", "int32", "f32"])
+@pytest.mark.parametrize("case", ["misaligned", "ragged", "misaligned_starts",
+                                  "one_live_a_unit"])
+def test_cuda_kernel_mask_edges_equal_plain(case, weight, route,
+                                            monkeypatch):
+    """A mask 1 byte past a 16-byte boundary (read bytewise), a ragged
+    tail (n not a multiple of a warp's 512 candidates), both through block
+    starts with a clamped last block, and one live candidate per 512."""
+    dev = _cuda()
+    if route == "global":
+        monkeypatch.setattr(tkernel, "SHARED_CELLS", 0)
+    n_rows = 512 * 300 + 37
+    x, y, wt, m, st, bsz = _kernel_case(
+        n_rows, "odd" if case == "misaligned_starts" else "none", "random20",
+        weight, seed=5)
+    if case == "one_live_a_unit":
+        m = np.zeros_like(m)
+        m[511::512] = True
+    t = lambda a: None if a is None else torch.from_numpy(a).to(dev)  # noqa: E731
+    mask = t(m)
+    if case.startswith("misaligned"):
+        big = torch.zeros(len(m) + 1, dtype=torch.bool, device=dev)
+        big[1:] = mask
+        mask = big[1:]
+        assert mask.data_ptr() % 16 == 1
+    _assert_kernel_equals_plain((t(x), t(y), mask, t(wt), t(st), bsz,
+                                 t(GRID), 64, 64))
+
+
+@pytest.mark.gpu
+def test_cuda_back_to_back_calls_reset_scratch():
+    """Calls in a row on one stream, without a synchronise between them,
+    each equal to the plain version: the scratch the kernel zeroes after
+    use is clean for the next call, across routes, weights, raster sizes
+    (a larger raster grows it) and both ways of finishing a raster (the
+    last CTA alone at 64x64 and 7x5, every CTA past a grid barrier at
+    256x256)."""
+    dev = _cuda()
+    x, y, wt, m, st, bsz = _kernel_case(300_007, "pow2", "runs20", "f32", 9)
+    t = lambda a: None if a is None else torch.from_numpy(a).to(dev)  # noqa: E731
+    base = [t(x), t(y), t(m), None, t(st), bsz, t(GRID)]
+    calls = [(None, 64, 64), (None, 64, 64), (t(wt), 64, 64), (None, 7, 5),
+             (t(wt), 256, 256), (None, 256, 256), (None, 64, 64)]
+    before = tkernel.grid_scatter.launches
+    outs = []
+    for w, width, height in calls:
+        args = list(base)
+        args[3] = w
+        outs.append((tkernel.grid_scatter(*args, width, height), args,
+                     width, height))
+    torch.cuda.synchronize()
+    assert tkernel.grid_scatter.launches == before + len(calls)
+    for (kg, kc), args, width, height in outs:
+        pg, pc = tscan.grid_scatter(*args, width, height)
+        assert int(kc) == int(pc) == int(m.sum())
+        if args[3] is None:
+            assert torch.equal(kg, pg)
+    assert torch.equal(outs[0][0][0], outs[-1][0][0])
