@@ -29,8 +29,19 @@ Phases, each failing the run (non-zero exit) when it fails:
    the micro-batching ``QueryScheduler`` under 64 client threads, against
    64 threads of unbatched ``planner.count``, and the store's
    ``count_many`` — with ``box_count``'s launches read around (g);
+5b. the point layer's other filters (h)-(k) on the same store, every answer
+   equal to its numpy oracle, with every kernel's launches read around
+   them: (h) an OR of two box+time branches as a count, as rows (the union
+   program) and as a 64x64 density over both branches (the union
+   program's grid_scatter);
+   (i) ``st_distance(geom, POINT) < r`` and ``<= r`` as counts and rows
+   (the fused dist refine, ``dist_refine``); (j) ``st_contains`` with
+   (b)'s polygon (the fused pip refine) and ``WITHIN`` (the staged scan and
+   the host refine); (k) a MULTIPOLYGON ``INTERSECTS`` and a ``DWITHIN``;
 6. each kernel against its plain version on the tensors the main path
-   gives it: pip_refine at (b)'s candidates; grid_scatter at (d)'s route
+   gives it: pip_refine at (b)'s candidates; dist_refine at (i)'s
+   candidates and at points within a few ulps of r ± DIST_BAND;
+   grid_scatter at (d)'s route
    inputs and at the full-table mask, at 64x64 and 256x256, unit and
    ``val``-weighted, with times, bounds, device activities a call and
    ``torch.bincount``'s time for the scatter part; box_count at (g3)'s
@@ -97,6 +108,10 @@ WINDOW_OPS = 4
 BOX_OPS = 8
 INT32_LANES_PER_SM = 64
 
+# f32 operations of the dist refine per live candidate: 2 subtractions, 2
+# multiplications, 1 addition, 1 square root and 2 comparisons
+DIST_OPS_PER_ROW = 8
+
 CONCAVE_WKT = "POLYGON((-10 20, 40 20, 40 60, -10 60, 15 40, -10 20))"
 CONCAVE = [(-10.0, 20.0), (40.0, 20.0), (40.0, 60.0), (-10.0, 60.0),
            (15.0, 40.0), (-10.0, 20.0)]
@@ -117,6 +132,27 @@ Q_D = ("BBOX(geom, -60, -30, 60, 30) AND dtg DURING "
 E_BBOX = (-10.0, 30.0, 30.0, 55.0)
 # (f): plans without a box, on the staged path
 Q_F = f"{DURING} AND val > 90"
+# (h)-(k): the point layer's other filters on the same store. (h) an OR of
+# two device-exact branches (the union program); (i) a radius around a
+# point (the fused dist refine); (j) st_contains with (b)'s polygon (the
+# fused pip refine) and WITHIN (staged scan + host refine); (k) a
+# MULTIPOLYGON and DWITHIN (staged scan + host refine)
+Q_H = (f"BBOX(geom,-10,30,30,55) AND {DURING} OR "
+       f"BBOX(geom,60,-10,100,20) AND {DURING} AND val > 50")
+# (h)'s 64x64 density covers both branches ((d)'s bbox holds neither)
+H_BBOX = (-20.0, -20.0, 110.0, 60.0)
+I_CX, I_CY, I_R = 10.0, 45.0, 5.0
+Q_I_LT = f"st_distance(geom, POINT({I_CX} {I_CY})) < {I_R} AND {DURING}"
+Q_I_LE = f"st_distance(geom, POINT({I_CX} {I_CY})) <= {I_R} AND {DURING}"
+Q_J_CONTAINS = f"st_contains({CONCAVE_WKT}, geom) AND {DURING}"
+Q_J_WITHIN = f"WITHIN(geom, {CONCAVE_WKT}) AND {DURING}"
+TRIANGLE = [(60.0, -10.0), (100.0, -10.0), (80.0, 20.0), (60.0, -10.0)]
+MULTI_WKT = ("MULTIPOLYGON(((-10 20, 40 20, 40 60, -10 60, 15 40, -10 20)),"
+             " ((60 -10, 100 -10, 80 20, 60 -10)))")
+Q_K_MULTI = f"INTERSECTS(geom, {MULTI_WKT}) AND {DURING}"
+K_D = 3.0
+Q_K_DWITHIN = (f"DWITHIN(geom, POINT({I_CX} {I_CY}), {K_D}, degrees) "
+               f"AND {DURING}")
 REPS = 10
 # (g): bench.py cfg1's serving queries around (a)'s box: 10 never-seen
 # boxes for the cold path (bench.py:389-395) and 64 distinct boxes for the
@@ -383,8 +419,8 @@ def phase_kernel_main_inputs(store) -> dict:
     from geomesa_tpu_torch.index import compiled
 
     plan = store.planner("gdelt").plan(Q_POLY)
-    edges = compiled.refine_edges(plan)
-    prog = compiled.Program(plan, "count_refine", unc_cap=4096, edges=edges)
+    prog = compiled.Program(plan, "count_refine", unc_cap=4096,
+                            refine=compiled.refine_spec(plan))
     m, _, starts = prog._candidates()
     cols = prog.index.device.columns
     r = compare_refine("main-path (b)", cols["xf"], cols["yf"], prog.edges,
@@ -395,9 +431,12 @@ def phase_kernel_main_inputs(store) -> dict:
     return r
 
 
-def activities_per_call(fn) -> int:
-    """Device activities (kernels, copies, memsets) of one warm call of
-    ``fn``, from torch.profiler."""
+def activities_per_call(fn):
+    """(device activities, their summed device ms) of one warm call of
+    ``fn`` — kernels, copies, memsets — from torch.profiler; (None, None)
+    when the profiler recorded no device activity. The device time excludes
+    the host's part of the call, which the CUDA-event times of back-to-back
+    calls include when the host is the slower side."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -406,8 +445,11 @@ def activities_per_call(fn) -> int:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:   # the profiler recorded no device activity: not measured
+        return None, None
+    return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3
 
 
 def scatter_bound(n: int, live: int, weighted: bool, cells: int,
@@ -476,7 +518,7 @@ def compare_scatter(label: str, cols, mask, starts, bsz, bbox, width: int,
             torch.float32)
     del xs, ys, fx, fy, inb
     live = int(mask.sum())
-    acts = activities_per_call(lambda: density.grid_scatter(*args))
+    acts, dev_ms = activities_per_call(lambda: density.grid_scatter(*args))
     ms = cuda_ms(lambda: density.grid_scatter(*args), 20)
     plain_ms = cuda_ms(lambda: scan.grid_scatter(*args), 3)
     lib_ms = cuda_ms(lambda: torch.bincount(cell, weights=wts,
@@ -484,7 +526,7 @@ def compare_scatter(label: str, cols, mask, starts, bsz, bbox, width: int,
     r = {"label": label, "n": int(mask.shape[0]), "live": live,
          "in_bbox": int(cell.shape[0]), "width": width, "height": height,
          "weight": wname, "ms": ms, "plain_ms": plain_ms,
-         "activities_per_call": acts,
+         "activities_per_call": acts, "device_ms_per_call": dev_ms,
          "library_ms": lib_ms, "max_abs_err": err,
          "count": int(kc), "grid_sum": float(kg.sum()),
          **scatter_bound(int(mask.shape[0]), live, w is not None,
@@ -495,7 +537,8 @@ def compare_scatter(label: str, cols, mask, starts, bsz, bbox, width: int,
         f"version (max abs err {err}), kernel {ms} ms, plain {plain_ms} ms, "
         f"bincount (scatter part only) {lib_ms} ms, bound {r['bound_ms']} ms "
         f"({r['bound_by']}; bytes {r['bytes_ms']} ms, operations "
-        f"{r['ops_ms']} ms), {acts} device activities a call")
+        f"{r['ops_ms']} ms), {acts} device activities a call "
+        f"({dev_ms} ms of device time)")
     return r
 
 
@@ -607,13 +650,13 @@ def compare_box_count(label: str, cols, boxes, windows, resid, block_ids,
     if err != 0 or not torch.equal(kern, plain):
         raise AssertionError(f"box_count {label}: kernel counts differ from "
                              f"the plain version (max abs err {err})")
-    acts = activities_per_call(lambda: box_count.box_count(*args))
+    acts, dev_ms = activities_per_call(lambda: box_count.box_count(*args))
     ms = cuda_ms(lambda: box_count.box_count(*args), reps)
     plain_ms = cuda_ms(lambda: scan.box_count(*args), max(1, reps // 10))
     clk = sm_clock_mhz(lambda: box_count.box_count(*args), ms)
     r = {"label": label, "per_box": per_box, "ms": ms, "plain_ms": plain_ms,
          "max_abs_err": err, "total": int(kern.sum()), **clk,
-         "activities_per_call": acts,
+         "activities_per_call": acts, "device_ms_per_call": dev_ms,
          **box_count_bound(*args[:6], per_box, clk["sm_mhz"])}
     # the kernel's rounds of TILE candidates a CTA; per box, each round's
     # passing candidates fill one shared-memory tile
@@ -624,7 +667,8 @@ def compare_box_count(label: str, cols, boxes, windows, resid, block_ids,
     log(f"[kernel] box_count {label}: {r['candidates']} candidates "
         f"({r['in_blocks']} in their blocks, {r['passing']} passing; "
         f"{r['tiles']} rounds of {tile}, mean tile fill "
-        f"{r['mean_tile_fill']}), {acts} device activities a call, "
+        f"{r['mean_tile_fill']}), {acts} device activities a call "
+        f"({dev_ms} ms of device time), "
         f"{r['boxes_real']} boxes, equal to the plain version (total "
         f"{r['total']}), kernel {ms} ms, plain {plain_ms} ms, bound "
         f"{r['bound_ms']} ms ({r['bound_by']}; bytes {r['bytes_ms']} ms, "
@@ -764,6 +808,7 @@ def phase_main_path(n: int = N, device: str = "cuda"):
     want_f = np.flatnonzero(tmask & (val > 90))
     g_oracle = serving_oracle(x, y, dtg)
     g_oracle["a"] = want_box
+    f_oracle = filters_oracle(x, y, val, tmask, len(want_rows))
     del tmask, cand, sel_a
     log(f"[main] numpy oracle in {time.perf_counter() - t0:.2f} s: "
         f"box {want_box}, polygon {len(want_rows)}, (d) {len(rows_d)} rows "
@@ -912,7 +957,241 @@ def phase_main_path(n: int = N, device: str = "cuda"):
         "reps": REPS, "max_memory_allocated": peak,
         "launches_checked_run": launches, "routes": routes}}))
     breakdown(store, sync)
-    return launches, store, routes, g_oracle
+    return launches, store, routes, g_oracle, f_oracle
+
+
+def filters_oracle(x, y, val, tmask, n_concave: int) -> dict:
+    """numpy answers of (h)-(k) over (a)'s week: f64 box predicates,
+    ``np.hypot`` distances to the centre, and ``oracle_pip`` for the
+    polygons (the concave polygon's own count is (b)'s, ``n_concave``)."""
+    rt = np.flatnonzero(tmask)
+    xt, yt = x[rt], y[rt]
+    h_rows = rt[((xt >= -10) & (xt <= 30) & (yt >= 30) & (yt <= 55))
+                | ((xt >= 60) & (xt <= 100) & (yt >= -10) & (yt <= 20)
+                   & (val[rt] > 50))]
+    dist = np.hypot(xt - I_CX, yt - I_CY)
+    tri = np.flatnonzero((xt >= 60) & (xt <= 100) & (yt >= -10) & (yt <= 20))
+    n_tri = int(np.count_nonzero(oracle_pip(xt[tri], yt[tri], TRIANGLE)))
+    return {"h_rows": h_rows,
+            "h_grid": oracle_density(x, y, h_rows, H_BBOX, 64, 64),
+            "i_lt": rt[dist < I_R], "i_le": rt[dist <= I_R],
+            "j": n_concave, "k_multi": n_concave + n_tri,
+            "k_dwithin": int(np.count_nonzero(dist <= K_D))}
+
+
+def filter_queries(store):
+    """(h)-(k) as (label, zero-arg fn), for the checked run, the timings
+    and the profile."""
+    hint = density_hint(H_BBOX, 64, 64)
+    return (("h_count", lambda: store.count("gdelt", Q_H)),
+            ("h_rows", lambda: store.query("gdelt", Q_H).indices),
+            ("h_density", lambda: store.query("gdelt", Q_H,
+                                              hints=hint).weights),
+            ("i_lt_count", lambda: store.count("gdelt", Q_I_LT)),
+            ("i_lt_rows", lambda: store.query("gdelt", Q_I_LT).indices),
+            ("i_le_count", lambda: store.count("gdelt", Q_I_LE)),
+            ("i_le_rows", lambda: store.query("gdelt", Q_I_LE).indices),
+            ("j_contains_count", lambda: store.count("gdelt",
+                                                     Q_J_CONTAINS)),
+            ("j_within_count", lambda: store.count("gdelt", Q_J_WITHIN)),
+            ("k_multipolygon_count", lambda: store.count("gdelt",
+                                                         Q_K_MULTI)),
+            ("k_dwithin_count", lambda: store.count("gdelt", Q_K_DWITHIN)))
+
+
+def phase_filters(store, oracle) -> dict:
+    """(h)-(k) on the 100M-point store, each answer equal to its numpy
+    oracle (counts and ascending rows exactly, the unit grid byte for
+    byte), with every kernel's launches counted from 0 around the run:
+    (i) must launch dist_refine, (j)'s st_contains pip_refine and (h)'s
+    density grid_scatter. Returns the launches."""
+    import torch
+    from geomesa_tpu_torch.index import compiled
+    from geomesa_tpu_torch.index.api import UnionScanPlan
+    from geomesa_tpu_torch.kernels import box_count, density, dist, pip
+
+    planner = store.planner("gdelt")
+    plan_h = planner.plan(Q_H)
+    if not isinstance(plan_h, UnionScanPlan) \
+            or plan_h.same_index_device_exact() is None:
+        raise AssertionError("(h) did not plan as a device-exact union")
+    kinds = {q: (compiled.refine_spec(planner.plan(q)) or ("none",))[0]
+             for q in (Q_I_LT, Q_I_LE, Q_J_CONTAINS, Q_J_WITHIN, Q_K_MULTI,
+                       Q_K_DWITHIN)}
+    counters = {"pip_refine": pip.pip_refine,
+                "grid_scatter": density.grid_scatter,
+                "box_count": box_count.box_count,
+                "dist_refine": dist.dist_refine}
+    for c in counters.values():
+        c.launches = 0
+    per_query, got = {}, {}
+    st0 = compiled.STATS["queries"]
+    for label, fn in filter_queries(store):
+        before = {k: c.launches for k, c in counters.items()}
+        got[label] = fn()
+        per_query[label] = {k: c.launches - before[k]
+                            for k, c in counters.items()}
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    fused_runs = compiled.STATS["queries"] - st0
+
+    o = oracle
+    checks = {
+        "h_count": got["h_count"] == len(o["h_rows"]),
+        "h_rows": np.array_equal(got["h_rows"], o["h_rows"]),
+        "h_density": got["h_density"].dtype == np.float32
+        and np.array_equal(got["h_density"], o["h_grid"].astype(np.float32)),
+        "i_lt_count": got["i_lt_count"] == len(o["i_lt"]),
+        "i_lt_rows": np.array_equal(got["i_lt_rows"], o["i_lt"]),
+        "i_le_count": got["i_le_count"] == len(o["i_le"]),
+        "i_le_rows": np.array_equal(got["i_le_rows"], o["i_le"]),
+        "j_contains_count": got["j_contains_count"] == o["j"],
+        "j_within_count": got["j_within_count"] == o["j"],
+        "k_multipolygon_count": got["k_multipolygon_count"] == o["k_multi"],
+        "k_dwithin_count": got["k_dwithin_count"] == o["k_dwithin"]}
+    if not all(checks.values()):
+        raise AssertionError(f"(h)-(k) differ from their oracles: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    q = per_query
+    if store.device.type == "cuda" and (
+            q["i_lt_count"]["dist_refine"] < 1
+            or q["i_le_rows"]["dist_refine"] < 1
+            or q["j_contains_count"]["pip_refine"] < 1
+            or q["h_density"]["grid_scatter"] < 1):
+        raise AssertionError(f"kernel launches per query {json.dumps(q)}: "
+                             "(i) must launch dist_refine, (j)'s st_contains "
+                             "pip_refine, (h)'s density grid_scatter")
+    sizes = {k: (int(v) if np.isscalar(v) else
+                 (int(v.sum()) if k == "h_density" else len(v)))
+             for k, v in got.items()}
+    log(f"[filters] (h)-(k) equal to their oracles: {json.dumps(sizes)}; "
+        f"refine kinds {json.dumps(list(kinds.values()))}; "
+        f"{fused_runs} fused program runs")
+    log(f"[filters] launches per query {json.dumps(per_query)}")
+
+    p50 = {}
+    for label, fn in filter_queries(store):
+        fn()
+        ts = []
+        for _ in range(REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        p50[label] = float(np.median(ts))
+    log(json.dumps({"filters": {
+        "p50_ms": p50, "reps": REPS, "answers": sizes,
+        "refine_kinds": {"i": kinds[Q_I_LT], "j_contains":
+                         kinds[Q_J_CONTAINS], "j_within": kinds[Q_J_WITHIN],
+                         "k_multipolygon": kinds[Q_K_MULTI],
+                         "k_dwithin": kinds[Q_K_DWITHIN]},
+        "launches_checked_run": launches}}))
+    return launches
+
+
+def band_points(cx: float, cy: float, r: float, n: int, seed: int):
+    """f32 points: half at a distance within 4 ulps (of each coordinate) of
+    r - DIST_BAND, r + DIST_BAND or r from (cx, cy), at random angles; half
+    uniform over the square of side 4r around the centre."""
+    from geomesa_tpu_torch.index.scan import DIST_BAND
+    rng = np.random.default_rng(seed)
+    cx, cy, r = np.float32(cx), np.float32(cy), np.float32(r)
+    h = n // 2
+    edge = np.array([r - DIST_BAND, r + DIST_BAND, r],
+                    dtype=np.float32)[rng.integers(0, 3, h)]
+    ang = rng.uniform(0, 2 * np.pi, h)
+    px = np.empty(n, np.float32)
+    py = np.empty(n, np.float32)
+    px[:h] = cx + edge * np.cos(ang).astype(np.float32)
+    py[:h] = cy + edge * np.sin(ang).astype(np.float32)
+    px[:h] += rng.integers(-4, 5, h).astype(np.float32) * np.spacing(px[:h])
+    py[:h] += rng.integers(-4, 5, h).astype(np.float32) * np.spacing(py[:h])
+    px[h:] = rng.uniform(cx - 2 * r, cx + 2 * r, n - h)
+    py[h:] = rng.uniform(cy - 2 * r, cy + 2 * r, n - h)
+    return px, py
+
+
+def dist_bound(n: int, live: int, n_starts: int, masked: bool) -> dict:
+    """The least time the card could take for the dist refine on these
+    inputs: bytes (the mask, the live rows' coordinates once, both flag
+    outputs, the block starts) over the HBM rate, against operations (live
+    rows x DIST_OPS_PER_ROW) over the f32 rate."""
+    nbytes = (n if masked else 0) + live * 8 + 2 * n + n_starts * 8
+    ops = live * DIST_OPS_PER_ROW
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3}
+
+
+def compare_dist(label: str, tx, ty, centre_r, reps: int, mask=None,
+                 starts=None, bsz=None) -> dict:
+    """dist_refine's kernel against its plain version on the same card
+    tensors: hit and unc must be byte-equal; both timed with CUDA
+    events."""
+    import torch
+    from geomesa_tpu_torch.index.scan import dist_refine as plain
+    from geomesa_tpu_torch.kernels import dist
+
+    kw = {"mask": mask, "starts": starts, "bsz": bsz}
+    khit, kunc = dist.dist_refine(tx, ty, centre_r, **kw)
+    torch.cuda.synchronize()
+    phit, punc = plain(tx, ty, centre_r, **kw)
+    torch.cuda.synchronize()
+    err = max(int((khit.to(torch.int8) - phit.to(torch.int8)).abs().max()),
+              int((kunc.to(torch.int8) - punc.to(torch.int8)).abs().max())) \
+        if khit.numel() else 0
+    if err != 0 or not (torch.equal(khit, phit) and torch.equal(kunc, punc)):
+        raise AssertionError(f"dist_refine {label}: kernel hit/unc differ "
+                             f"from the plain version")
+    n = khit.shape[0]
+    live = n if mask is None else int(mask.sum())
+    acts, dev_ms = activities_per_call(
+        lambda: dist.dist_refine(tx, ty, centre_r, **kw))
+    ms = cuda_ms(lambda: dist.dist_refine(tx, ty, centre_r, **kw), reps)
+    plain_ms = cuda_ms(lambda: plain(tx, ty, centre_r, **kw),
+                       max(1, reps // 10))
+    r = {"label": label, "n": n, "live": live, "ms": ms,
+         "plain_ms": plain_ms, "max_abs_err": err, "hit": int(phit.sum()),
+         "uncertain": int(punc.sum()), "activities_per_call": acts,
+         "device_ms_per_call": dev_ms,
+         **dist_bound(n, live, 0 if starts is None else starts.shape[0],
+                      mask is not None)}
+    log(f"[kernel] dist_refine {label}: n={n} live={live} hit/unc equal "
+        f"(hit {r['hit']}, uncertain {r['uncertain']}), kernel {ms} ms, "
+        f"plain {plain_ms} ms, bound {r['bound_ms']} ms ({r['bound_by']}; "
+        f"bytes {r['bytes_ms']} ms, operations {r['ops_ms']} ms), {acts} "
+        f"device activities a call ({dev_ms} ms of device time)")
+    return r
+
+
+def phase_dist_kernel(store) -> list:
+    """dist_refine against its plain version on the tensors query (i)'s
+    fused refine hands it (the table's xf/yf, its candidates' mask and
+    block starts, its circle), and on KERNEL_N points within a few ulps of
+    r ± DIST_BAND, unmasked and under a 20% mask."""
+    import torch
+    from geomesa_tpu_torch.index import compiled
+
+    plan = store.planner("gdelt").plan(Q_I_LT)
+    prog = compiled.Program(plan, "count_refine", unc_cap=4096,
+                            refine=compiled.refine_spec(plan))
+    m, _, starts = prog._candidates()
+    cols = prog.index.device.columns
+    out = [compare_dist("main-path (i)", cols["xf"], cols["yf"], prog.dist,
+                        50, mask=m, starts=starts, bsz=prog.bsz)]
+    dev = torch.device("cuda")
+    px, py = band_points(I_CX, I_CY, I_R, KERNEL_N, 13)
+    tx, ty = (torch.from_numpy(a).to(dev) for a in (px, py))
+    cr = np.array([I_CX, I_CY, I_R], dtype=np.float32)
+    out.append(compare_dist("near-band", tx, ty, cr, 20))
+    m20 = torch.from_numpy(
+        np.random.default_rng(14).random(KERNEL_N) < 0.2).to(dev)
+    out.append(compare_dist("near-band random20", tx, ty, cr, 20, mask=m20))
+    del tx, ty, m20
+    torch.cuda.empty_cache()
+    return out
 
 
 def serving_oracle(x, y, dtg) -> dict:
@@ -1259,35 +1538,46 @@ def main() -> int:
     log(f"[device] nvidia-smi: {smi}")
     phase_build()
     phase_kernels()
-    launches, store, routes, g_oracle = phase_main_path()
+    launches, store, routes, g_oracle, f_oracle = phase_main_path()
     g = phase_serving(store, g_oracle)
+    f = phase_filters(store, f_oracle)
     k = phase_kernel_main_inputs(store)
     d = phase_density_kernel(store)
     b = phase_box_count_kernel(store, g)
+    t = phase_dist_kernel(store)
     phase_profile(store, (("g1_prepared_count", g["pq"].count),
-                          ("g3_batch64_dispatch", g["disp"])))
+                          ("g3_batch64_dispatch", g["disp"]),
+                          *filter_queries(store)))
     import torch
-    from geomesa_tpu_torch.kernels import box_count, density, pip
+    from geomesa_tpu_torch.kernels import box_count, density, dist, pip
     head = d[0]   # (d)'s own inputs, 64x64, unit weights
     bhead = b[0]  # (g3)'s batch over the union of its covers
+    thead = t[0]  # (i)'s own inputs
     print(json.dumps({"kernels": [{
         "name": pip.NAME, "route": "cuda", "source": pip.SOURCE,
-        "replaces": pip.REPLACES, "launches": launches["pip_refine"],
+        "replaces": pip.REPLACES,
+        "launches": launches["pip_refine"] + f["pip_refine"],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None}, {
         "name": density.NAME, "route": "cuda", "source": density.SOURCE,
         "replaces": density.REPLACES,
-        "launches": launches["grid_scatter"],
+        "launches": launches["grid_scatter"] + f["grid_scatter"],
         "max_abs_err": max(r["max_abs_err"] for r in d), "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"]}, {
         "name": box_count.NAME, "route": "cuda", "source": box_count.SOURCE,
         "replaces": box_count.REPLACES,
-        "launches": launches["box_count"] + g["r"]["box_count_launches"],
+        "launches": launches["box_count"] + g["r"]["box_count_launches"]
+        + f["box_count"],
         "max_abs_err": max(r["max_abs_err"] for r in b), "ms": bhead["ms"],
         "plain_ms": bhead["plain_ms"], "bound_ms": bhead["bound_ms"],
-        "bound_by": bhead["bound_by"], "library_ms": None}]}))
+        "bound_by": bhead["bound_by"], "library_ms": None}, {
+        "name": dist.NAME, "route": "cuda", "source": dist.SOURCE,
+        "replaces": dist.REPLACES, "launches": f["dist_refine"],
+        "max_abs_err": max(r["max_abs_err"] for r in t), "ms": thead["ms"],
+        "plain_ms": thead["plain_ms"], "bound_ms": thead["bound_ms"],
+        "bound_by": thead["bound_by"], "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

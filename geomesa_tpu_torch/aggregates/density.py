@@ -20,8 +20,9 @@ import torch
 
 from geomesa_tpu_torch import config
 from geomesa_tpu_torch.aggregates import grid_codec
+from geomesa_tpu_torch.index import compiled as _fused
 from geomesa_tpu_torch.index import prune as _prune
-from geomesa_tpu_torch.index.api import not_ported
+from geomesa_tpu_torch.index.api import UnionScanPlan, not_ported
 
 
 @dataclass
@@ -71,7 +72,9 @@ def prepare_density(planner, f, bbox, width: int = 256, height: int = 256,
     ``.dispatch()`` — the (H, W) device grid without readback — and
     ``.packed()`` — the (mode, cap) of the encoding in use. Plans that are
     not device-exact, or whose weight is not a device column, go through the
-    host (``_host_density``)."""
+    host (``_host_density``). An OR plan (``UnionScanPlan``) renders unit
+    weights in one union program (``compiled.try_union_density``) when
+    every branch is device-exact on one index, else through the host."""
     if auths is not None:
         raise not_ported("visibility authorizations", 10)
     plan = planner.plan(f)
@@ -84,9 +87,19 @@ def prepare_density(planner, f, bbox, width: int = 256, height: int = 256,
     if plan.empty:
         return run_empty
 
+    if isinstance(plan, UnionScanPlan) and weight_attr is None:
+        def run_union():
+            out = _fused.try_union_density(planner, plan, auths, bbox, width,
+                                           height)
+            if out is None:
+                return _host_density(planner, f, plan, bbox, width, height,
+                                     weight_attr)
+            return DensityGrid(tuple(bbox), width, height, out[0])
+        return run_union
+
     idx = plan.index
     weight_on_device = weight_attr is None or (
-        weight_attr in idx.device.columns
+        idx is not None and weight_attr in idx.device.columns
         and planner.sft.attribute(weight_attr).type_name in _WEIGHT_TYPES)
     if plan.device_exact and "xf" in idx.device.columns and weight_on_device:
         blocks = planner._pruned_blocks(plan)

@@ -3,9 +3,11 @@
 ≙ ``geomesa_tpu.features.geometry`` reduced to pure point layers: the JAX
 package keeps every geometry in one ragged GeoArrow-style buffer; a point
 layer there is the degenerate case of one coordinate per feature, so here it
-is two flat float64 arrays. WKT parses POINT and POLYGON literals (the
-shapes of this slice's filters); geometry type codes keep the WKB numbering
-of the reference package so filter literals compare equal across both.
+is two flat float64 arrays, with the per-feature views (``type_codes``,
+``feature_coords``, ``shape``) that the host geometry
+predicates read. WKT parses every literal type the reference's
+``parse_wkt`` does; geometry type codes keep the WKB numbering of the
+reference package so filter literals compare equal across both.
 """
 
 from __future__ import annotations
@@ -19,10 +21,6 @@ import numpy as np
 # geometry type codes (WKB-compatible numbering)
 POINT, LINESTRING, POLYGON = 1, 2, 3
 MULTIPOINT, MULTILINESTRING, MULTIPOLYGON = 4, 5, 6
-
-_LATER = ("extent layers and the geometry catalog are not ported yet "
-          "(ROADMAP.md Queue 1, items 9 and 13)")
-
 
 @dataclass
 class GeometryArray:
@@ -51,6 +49,19 @@ class GeometryArray:
 
     def point_xy(self) -> Tuple[np.ndarray, np.ndarray]:
         return self.x, self.y
+
+    @property
+    def type_codes(self) -> np.ndarray:
+        """(N,) int8 type codes: every feature is a POINT."""
+        return np.full(len(self), POINT, dtype=np.int8)
+
+    def feature_coords(self, i: int) -> np.ndarray:
+        """(1, 2) coordinates of feature i."""
+        return np.array([[self.x[i], self.y[i]]], dtype=np.float64)
+
+    def shape(self, i: int) -> Tuple[int, list]:
+        """(type_code, nested lists) literal of feature i."""
+        return POINT, [float(self.x[i]), float(self.y[i])]
 
     def take(self, idx: np.ndarray) -> "GeometryArray":
         idx = np.asarray(idx, dtype=np.int64)
@@ -84,8 +95,8 @@ def _split_groups(body: str) -> List[str]:
 
 
 def parse_wkt(wkt: str) -> Tuple[int, list]:
-    """POINT / POLYGON WKT → (type_code, nested lists), the literal form of
-    the reference package's ``parse_wkt``."""
+    """WKT → (type_code, nested lists), the literal form of the reference
+    package's ``parse_wkt``."""
     m = _WKT_RE.match(wkt)
     if not m:
         raise ValueError(f"Invalid WKT: {wkt[:80]}")
@@ -96,6 +107,19 @@ def parse_wkt(wkt: str) -> Tuple[int, list]:
     inner = body[1:-1].strip()
     if name == "POINT":
         return POINT, _parse_coord_seq(inner)[0]
+    if name == "LINESTRING":
+        return LINESTRING, _parse_coord_seq(inner)
     if name == "POLYGON":
         return POLYGON, [_parse_coord_seq(g) for g in _split_groups(inner)]
-    raise NotImplementedError(f"{name} literals: {_LATER}")
+    if name == "MULTIPOINT":
+        if "(" in inner:
+            return MULTIPOINT, [_parse_coord_seq(g)[0]
+                                for g in _split_groups(inner)]
+        return MULTIPOINT, _parse_coord_seq(inner)
+    if name == "MULTILINESTRING":
+        return MULTILINESTRING, [_parse_coord_seq(g)
+                                 for g in _split_groups(inner)]
+    if name == "MULTIPOLYGON":
+        return MULTIPOLYGON, [[_parse_coord_seq(g) for g in _split_groups(p)]
+                              for p in _split_groups(inner)]
+    raise ValueError(f"Unsupported WKT type: {name}")

@@ -2,9 +2,10 @@
 
 ≙ ``geomesa_tpu.filter.evaluate``: ``evaluate`` returns a boolean mask over
 the table's rows; ``evaluate_at`` evaluates only at the given candidate rows
-(the refine path: the rows the device's f32 certainty band left uncertain
-re-evaluate here in exact f64). Node kinds outside the point slice raise
-NotImplementedError.
+(the refine path: the rows the device's f32 certainty bands left uncertain
+re-evaluate here in exact f64, geometry predicates batched through
+``geom_batch``). Feature-id filters raise NotImplementedError naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -15,8 +16,10 @@ import numpy as np
 
 from geomesa_tpu_torch.features import geometry as geo
 from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
+from geomesa_tpu_torch.filter import geom_batch as gb
 from geomesa_tpu_torch.filter import geom_numpy as gn
 from geomesa_tpu_torch.filter import ir
+from geomesa_tpu_torch.index.api import not_ported
 
 
 def evaluate(f: ir.Filter, table: FeatureTable) -> np.ndarray:
@@ -66,15 +69,10 @@ def _eval(f: ir.Filter, table: FeatureTable,
         # envelope overlap; a point's envelope is the point itself
         x, y = _xy(table, f.attr, rows)
         return (x <= f.xmax) & (x >= f.xmin) & (y <= f.ymax) & (y >= f.ymin)
-    if isinstance(f, ir.Intersects) and f.geometry[0] in (geo.POLYGON,
-                                                          geo.MULTIPOLYGON):
-        x, y = _xy(table, f.attr, rows)
-        out = np.zeros(n, dtype=bool)
-        lx0, ly0, lx1, ly1 = gn.literal_bbox(f.geometry)
-        cand = np.nonzero((x <= lx1) & (x >= lx0) & (y <= ly1) & (y >= ly0))[0]
-        if len(cand):
-            out[cand] = gn.points_in_polygon(x[cand], y[cand], f.geometry)
-        return out
+    if isinstance(f, (ir.Intersects, ir.Contains, ir.Within)):
+        return _spatial(f, table, rows)
+    if isinstance(f, ir.Dwithin):
+        return _dwithin(f, table, rows)
     if isinstance(f, ir.During):
         col = _col(table, f.attr, rows).astype(np.int64)
         lo = (col >= f.lo) if f.lo_inclusive else (col > f.lo)
@@ -90,9 +88,73 @@ def _eval(f: ir.Filter, table: FeatureTable,
             keep = [i for i, v in enumerate(col.vocab) if v in wanted]
             return np.isin(codes, keep)
         return np.isin(_col(table, f.attr, rows), list(f.values))
-    raise NotImplementedError(
-        f"host evaluation of {type(f).__name__} is not ported yet "
-        "(ROADMAP.md Queue 1, items 9 and 13)")
+    if isinstance(f, ir.IsNull):
+        col = table.column(f.attr)
+        if isinstance(col, StringColumn):
+            codes = col.codes if rows is None else col.codes[rows]
+            return np.array([col.vocab[c] == "" for c in codes], dtype=bool)
+        arr = _col(table, f.attr, rows)
+        return np.isnan(arr) if arr.dtype.kind == "f" \
+            else np.zeros(len(arr), dtype=bool)
+    if isinstance(f, (ir.Func, ir.FuncCmp)):
+        # host-oracle backend only: this evaluator IS the parity reference
+        # of the fused program's refine kinds
+        from geomesa_tpu_torch.geom.functions import eval_filter_node
+        return eval_filter_node(f, table, rows, kernels=False)
+    if isinstance(f, ir.FidFilter):
+        raise not_ported("feature-id lookups", 10)
+    raise NotImplementedError(f"Cannot evaluate {type(f).__name__}")
+
+
+def _spatial(f, table: FeatureTable,
+             rows: Optional[np.ndarray]) -> np.ndarray:
+    """Intersects, Contains and Within against a literal: on a point layer
+    Within (feature within literal) and Contains (literal contains feature)
+    are the same relation from the feature's side."""
+    x, y = _xy(table, f.attr, rows)
+    lit = f.geometry
+    out = np.zeros(len(x), dtype=bool)
+    lx0, ly0, lx1, ly1 = gn.literal_bbox(lit)
+    cand = np.nonzero((x <= lx1) & (x >= lx0) & (y <= ly1) & (y >= ly0))[0]
+    if len(cand) == 0:
+        return out
+    if lit[0] in (geo.POLYGON, geo.MULTIPOLYGON):
+        out[cand] = gn.points_in_polygon(x[cand], y[cand], lit)
+        return out
+    cand_rows = cand if rows is None else rows[cand]
+    arr = table.column(f.attr)
+    if isinstance(f, ir.Intersects):
+        out[cand] = gb.batch_intersects(arr, cand_rows, lit)
+    else:
+        out[cand] = gb.batch_within(arr, cand_rows, lit)
+    return out
+
+
+def _dwithin(f: ir.Dwithin, table: FeatureTable,
+             rows: Optional[np.ndarray]) -> np.ndarray:
+    x, y = _xy(table, f.attr, rows)
+    out = np.zeros(len(x), dtype=bool)
+    lx0, ly0, lx1, ly1 = gn.literal_bbox(f.geometry)
+    d = f.distance
+    cand = np.nonzero((x <= lx1 + d) & (x >= lx0 - d)
+                      & (y <= ly1 + d) & (y >= ly0 - d))[0]
+    if len(cand) == 0:
+        return out
+    code = f.geometry[0]
+    if code in (geo.POLYGON, geo.MULTIPOLYGON, geo.LINESTRING,
+                geo.MULTILINESTRING):
+        xc, yc = x[cand], y[cand]
+        inside = gn.points_in_polygon(xc, yc, f.geometry) \
+            if code in (geo.POLYGON, geo.MULTIPOLYGON) \
+            else np.zeros(len(cand), bool)
+        dist = gn.point_segment_distance(xc, yc,
+                                         gn.literal_segments(f.geometry))
+        out[cand] = inside | (dist <= d)
+        return out
+    cand_rows = cand if rows is None else rows[cand]
+    out[cand] = gb.batch_distance(table.column(f.attr), cand_rows,
+                                  f.geometry) <= d
+    return out
 
 
 def _cmp(f: ir.Cmp, table: FeatureTable,

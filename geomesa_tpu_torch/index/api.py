@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -48,6 +48,42 @@ class IndexScanPlan:
         with no host refinement."""
         return (not self.empty and self.residual_host is None
                 and self.index is not None)
+
+
+@dataclass
+class UnionScanPlan:
+    """OR → one plan a branch (≙ the reference's ``UnionScanPlan``, its
+    FilterSplitter OR expansion): each branch plans on its own and the
+    executor unions the row sets. When every branch is a device-exact mask
+    on the same index, the union runs as one program whose branch masks OR
+    on the device; otherwise the row sets union on the host."""
+
+    branches: List[tuple]            # [(child_filter, IndexScanPlan), ...]
+    full_filter: Optional[ir.Filter] = None
+    empty: bool = False
+    explain: Dict[str, object] = field(default_factory=dict)
+
+    # duck-typed surface shared with IndexScanPlan consumers
+    primary_kind: str = "union"
+    residual_host = None
+    index = None
+    blocks: object = None
+    boxes_loose = None
+    windows = None
+
+    @property
+    def device_exact(self) -> bool:
+        return False   # prepared and count fast paths run per branch
+
+    def same_index_device_exact(self):
+        """The shared index when every branch is a device-exact mask scan
+        on one index, else None."""
+        idxs = {id(p.index) for _, p in self.branches}
+        if len(idxs) != 1:
+            return None
+        if not all(p.device_exact for _, p in self.branches):
+            return None
+        return self.branches[0][1].index
 
 
 @dataclass

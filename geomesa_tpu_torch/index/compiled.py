@@ -12,13 +12,16 @@ For a point_boxes plan the program
 3. applies the exact fp62 box mask, the exact time windows and the lowered
    residual;
 4. counts, or compacts row positions into a fixed-capacity result; in
-   the refine modes classifies the masked candidate rows against the
-   polygon with the ``pip_refine`` CUDA kernel (certain hit / uncertain);
-   in the density mode scatters them onto a raster with the
-   ``grid_scatter`` CUDA kernel. Both kernels read the candidates'
-   coordinates through the gathered blocks' starts.
+   the refine modes classifies the masked candidate rows (certain hit /
+   uncertain) by the plan's refine kind: against a polygon with the
+   ``pip_refine`` CUDA kernel, or against a circle with the
+   ``dist_refine`` CUDA kernel; in the density mode scatters them onto a
+   raster with the ``grid_scatter`` CUDA kernel. The kernels read the
+   candidates' coordinates through the gathered blocks' starts.
 
-The uncertain sliver re-evaluates on the host in exact f64.
+The uncertain sliver re-evaluates on the host in exact f64. An OR whose
+branches are all device-exact on one index runs as one ``UnionProgram``:
+the branch gates and masks OR on the device (select and density modes).
 
 Prepared counts (``planner.prepare``) register each filter shape's outcome
 in a per-planner recipe cache; a repeat shape with new values binds them
@@ -28,14 +31,15 @@ eagerly, so where the reference rebinds a packed constant vector into a
 compiled program, the port builds a ``Program`` from the bound values.
 
 Modes: ``count``, ``select``, ``count_refine``, ``select_refine``,
-``density``. The results are the reference program's, value for value: the
-same packed int32 layout, capacities and fill, and for ``density`` the same
-(H, W) f32 grid and int32 count.
+``density`` (a union program: ``select``, ``density``). The results are
+the reference program's, value for value: the same packed int32 layout,
+capacities and fill, and for ``density`` the same (H, W) f32 grid and
+int32 count.
 
 The ``try_*`` entry points return None for every plan the reference's
 ``_from_plan`` declines (the fused switch off, no spatial box, a host
-residual other than the polygon refine, a table under four blocks); the
-planner then runs the staged path (``index/scan.py`` ``ScanKernels``).
+residual other than a refine kind, a table under four blocks); the planner
+then runs the staged path (``index/scan.py`` ``ScanKernels``).
 
 Choosing the branch and compacting synchronize with the host once each
 (``torch.nonzero`` and the alive count); the reference does neither. A
@@ -62,7 +66,7 @@ from geomesa_tpu_torch.filter.evaluate import evaluate_at
 from geomesa_tpu_torch.filter.extract import extract_bboxes, extract_intervals
 from geomesa_tpu_torch.filter.geom_numpy import literal_segments
 from geomesa_tpu_torch.index import prune as _prune
-from geomesa_tpu_torch.index.api import IndexScanPlan
+from geomesa_tpu_torch.index.api import IndexScanPlan, UnionScanPlan
 from geomesa_tpu_torch.index.scan import (EDGE_PAD, ROUNDS, Unsupported,
                                           _compact, _dev, _fetch, _time_mask,
                                           compile_residual, expand_blocks,
@@ -70,6 +74,7 @@ from geomesa_tpu_torch.index.scan import (EDGE_PAD, ROUNDS, Unsupported,
                                           split_residual)
 from geomesa_tpu_torch.index.spatial import _boxes_fp62, _strip_handled
 from geomesa_tpu_torch.kernels.density import grid_scatter
+from geomesa_tpu_torch.kernels.dist import dist_refine
 from geomesa_tpu_torch.kernels.pip import pip_refine
 from geomesa_tpu_torch.metrics import REGISTRY
 from geomesa_tpu_torch.serve.resilience import deadline as _rdl
@@ -164,27 +169,76 @@ def _gate_of(boxes_geo, B: int) -> np.ndarray:
     return gate
 
 
-def refine_edges(plan: IndexScanPlan) -> Optional[np.ndarray]:
-    """The padded f32 edge table (pow2 rows ≥ 4, ``EDGE_PAD`` filler) when
-    the host residual is ``INTERSECTS(geom, POLYGON)`` on the index's point
-    geometry — the reference's ``_refine_spec`` for its ``pip`` kind, the
-    one refine kind of this slice; else None."""
+def refine_spec(plan: IndexScanPlan):
+    """(kind, f32 constants) when the host residual is a single predicate
+    the fused program can classify with certainty bands over the index's
+    point geometry (≙ the reference's ``_refine_spec``), else None:
+
+    - ``("pip", edges)`` — point-in-polygon against the padded edge table
+      (pow2 rows ≥ 4, ``EDGE_PAD`` filler), for ``INTERSECTS(geom,
+      POLYGON)`` and for ``st_contains(POLYGON, geom)`` /
+      ``st_intersects(geom, POLYGON)`` / ``st_intersects(POLYGON, geom)``
+      (a point intersects or lies within a polygon iff it is in it);
+    - ``("dist", [cx, cy, r])`` — the banded radial distance, for
+      ``st_distance(geom, POINT) < r`` or ``<= r`` (rows within
+      ``DIST_BAND`` of the circle are uncertain, so the comparison's
+      strictness resolves in the exact host refine).
+    """
     res = plan.residual_host
-    if not (isinstance(res, ir.Intersects) and res.attr == plan.index.geom
-            and res.geometry[0] == geo.POLYGON):
+    geom_attr = plan.index.geom
+    lit = None
+    if isinstance(res, ir.Intersects):
+        if res.attr != geom_attr:
+            return None
+        lit = res.geometry
+    elif isinstance(res, ir.Func) and len(res.args) == 2:
+        a, b = res.args
+        if res.name in ("st_contains", "st_intersects") \
+                and isinstance(a, tuple) and b == geom_attr:
+            lit = a
+        elif res.name == "st_intersects" and isinstance(b, tuple) \
+                and a == geom_attr:
+            lit = b
+    elif isinstance(res, ir.FuncCmp) and res.name == "st_distance" \
+            and res.op in ("<", "<=") and len(res.args) == 2:
+        a, b = res.args
+        pt = a if isinstance(a, tuple) else b if isinstance(b, tuple) else None
+        attr_arg = b if isinstance(a, tuple) else a
+        if pt is None or attr_arg != geom_attr or pt[0] != geo.POINT:
+            return None
+        r = float(res.value)
+        if not r >= 0.0:
+            return None
+        return "dist", np.array([pt[1][0], pt[1][1], r], dtype=np.float32)
+    if lit is None or lit[0] != geo.POLYGON:
         return None
-    edges = literal_segments(res.geometry).astype(np.float32)
+    edges = literal_segments(lit).astype(np.float32)
     ep = np.tile(EDGE_PAD, (max(4, _pow2(len(edges))), 1))
     ep[: len(edges)] = edges
-    return ep
+    return "pip", ep
 
 
 def real_edges(edges: np.ndarray) -> int:
-    """Rows of a ``refine_edges`` table before its ``EDGE_PAD`` filler."""
+    """Rows of a ``pip`` edge table before its ``EDGE_PAD`` filler."""
     n = len(edges)
     while n and np.array_equal(edges[n - 1], EDGE_PAD):
         n -= 1
     return n
+
+
+def _alive_of(summ: dict, g: torch.Tensor,
+              windows: Optional[torch.Tensor]) -> torch.Tensor:
+    """Blocks the gate envelopes ``g`` (and the time windows) can touch."""
+    alive = ((summ["bxmax"][:, None] >= g[None, :, 0])
+             & (summ["bxmin"][:, None] <= g[None, :, 2])
+             & (summ["bymax"][:, None] >= g[None, :, 1])
+             & (summ["bymin"][:, None] <= g[None, :, 3])).any(dim=1)
+    if windows is not None and "binmin" in summ:
+        blo, bhi = windows[:, 0], windows[:, 2]
+        alive = alive & ((blo <= bhi)[None, :]
+                         & (summ["binmin"][:, None] <= bhi[None, :])
+                         & (summ["binmax"][:, None] >= blo[None, :])).any(dim=1)
+    return alive
 
 
 class Program:
@@ -195,7 +249,7 @@ class Program:
     - ``count``: int32 [count]
     - ``select``: int32 [count, positions × sel_cap]
     - ``count_refine``: int32 [certain, uncertain, uncertain positions ×
-      unc_cap]
+      unc_cap], by the ``refine`` kind (``refine_spec``)
     - ``select_refine``: int32 [certain, uncertain, certain positions ×
       sel_cap, uncertain positions × unc_cap]
     - ``density``: ((height, width) f32 grid over ``grid`` = [xmin, ymin,
@@ -205,12 +259,12 @@ class Program:
     """
 
     def __init__(self, plan: IndexScanPlan, mode: str, sel_cap: int = 0,
-                 unc_cap: int = 0, edges: Optional[np.ndarray] = None,
+                 unc_cap: int = 0, refine: Optional[tuple] = None,
                  grid=None, width: int = 0, height: int = 0):
         self._bind(plan.index, mode, plan.boxes_loose,
                    _gate_of(plan.explain["boxes"], len(plan.boxes_loose)),
                    plan.windows, plan.residual_device, sel_cap, unc_cap,
-                   edges, grid, width, height)
+                   refine, grid, width, height)
 
     @classmethod
     def of_values(cls, index, mode: str, boxes: np.ndarray, gate: np.ndarray,
@@ -227,18 +281,11 @@ class Program:
     def _bind(self, index, mode: str, boxes: np.ndarray, gate: np.ndarray,
               windows: Optional[np.ndarray], residual: Optional[tuple],
               sel_cap: int = 0, unc_cap: int = 0,
-              edges: Optional[np.ndarray] = None, grid=None, width: int = 0,
+              refine: Optional[tuple] = None, grid=None, width: int = 0,
               height: int = 0) -> None:
-        self.index = index
-        self.mode = mode
-        self.sel_cap = sel_cap
+        self._bind_common(index, mode, sel_cap, grid, width, height)
         self.unc_cap = unc_cap
         dev = index.device.device
-        self.n = index.device.n
-        self.bsz = int(_prune.BLOCK_SIZE)
-        nb = -(-self.n // self.bsz)
-        self.cap = min(_pow2(max(4, int(np.ceil(
-            nb * float(_prune.PRUNE_MAX_FRACTION))))), _pow2(nb))
         self.boxes = _dev(boxes, dev)
         self.gate = _dev(gate, dev)
         self.windows = _dev(windows, dev)
@@ -248,11 +295,27 @@ class Program:
         if residual is not None:
             _, params, self.res_fn = residual
             self.res_params = [_dev(p, dev) for p in params]
-        self.edges = _dev(edges, dev)
-        self.n_edges = None if edges is None else real_edges(edges)
+        self.refine = None if refine is None else refine[0]
+        self.edges = self.n_edges = self.dist = None
+        if self.refine == "pip":
+            self.edges = _dev(refine[1], dev)
+            self.n_edges = real_edges(refine[1])
+        elif self.refine == "dist":
+            self.dist = refine[1]   # host f32 [cx, cy, r]: launch arguments
+
+    def _bind_common(self, index, mode: str, sel_cap: int, grid, width: int,
+                     height: int) -> None:
+        self.index = index
+        self.mode = mode
+        self.sel_cap = sel_cap
+        self.n = index.device.n
+        self.bsz = int(_prune.BLOCK_SIZE)
+        nb = -(-self.n // self.bsz)
+        self.cap = min(_pow2(max(4, int(np.ceil(
+            nb * float(_prune.PRUNE_MAX_FRACTION))))), _pow2(nb))
         # the raster's bbox rounds f64 → f32 as the reference stages it
         self.grid = None if grid is None \
-            else _dev(np.asarray(grid, dtype=np.float32), dev)
+            else _dev(np.asarray(grid, dtype=np.float32), index.device.device)
         self.width = width
         self.height = height
 
@@ -265,18 +328,8 @@ class Program:
         return m
 
     def _alive(self) -> torch.Tensor:
-        summ = block_summaries(self.index, self.bsz)
-        g = self.gate
-        alive = ((summ["bxmax"][:, None] >= g[None, :, 0])
-                 & (summ["bxmin"][:, None] <= g[None, :, 2])
-                 & (summ["bymax"][:, None] >= g[None, :, 1])
-                 & (summ["bymin"][:, None] <= g[None, :, 3])).any(dim=1)
-        if self.windows is not None and "binmin" in summ:
-            blo, bhi = self.windows[:, 0], self.windows[:, 2]
-            alive = alive & ((blo <= bhi)[None, :]
-                             & (summ["binmin"][:, None] <= bhi[None, :])
-                             & (summ["binmax"][:, None] >= blo[None, :])).any(dim=1)
-        return alive
+        return _alive_of(block_summaries(self.index, self.bsz), self.gate,
+                         self.windows)
 
     def _candidates(self):
         """(mask, rowids, starts) of the candidate rows: the pruned branch's
@@ -311,9 +364,13 @@ class Program:
             return torch.cat([count, _compact(m, rowids, self.sel_cap, n)])
         if self.mode not in ("count_refine", "select_refine"):
             raise ValueError(self.mode)
-        hit, unc = pip_refine(cols["xf"], cols["yf"], self.edges, mask=m,
-                              starts=starts, bsz=self.bsz,
-                              n_edges=self.n_edges)
+        if self.refine == "dist":
+            hit, unc = dist_refine(cols["xf"], cols["yf"], self.dist, mask=m,
+                                   starts=starts, bsz=self.bsz)
+        else:
+            hit, unc = pip_refine(cols["xf"], cols["yf"], self.edges, mask=m,
+                                  starts=starts, bsz=self.bsz,
+                                  n_edges=self.n_edges)
         parts = [hit.sum(dtype=torch.int32).reshape(1),
                  unc.sum(dtype=torch.int32).reshape(1)]
         if self.mode == "select_refine":
@@ -321,6 +378,49 @@ class Program:
         parts.append(_compact(unc, rowids, self.unc_cap, n))
         ROUNDS.syncs += len(parts) - 2   # torch.nonzero
         return torch.cat(parts)
+
+
+class UnionProgram(Program):
+    """The fused program of an OR whose branches are all device-exact
+    point-box scans on one index (≙ the reference's ``_jit_union_program``),
+    in ``select`` or ``density`` mode, with ``Program``'s results. A block
+    is alive when any branch's gate touches it; a row matches when any
+    branch's boxes, windows and device residual hold, so rows that two
+    branches share count once."""
+
+    def __init__(self, plan: UnionScanPlan, mode: str, sel_cap: int = 0,
+                 grid=None, width: int = 0, height: int = 0):
+        index = plan.same_index_device_exact()
+        self._bind_common(index, mode, sel_cap, grid, width, height)
+        dev = index.device.device
+        self.branches = []
+        for _, bp in plan.branches:
+            res = bp.residual_device
+            self.branches.append((
+                _dev(bp.boxes_loose, dev),
+                _dev(_gate_of(bp.explain["boxes"], len(bp.boxes_loose)), dev),
+                _dev(bp.windows, dev),
+                None if res is None else (res[2], [_dev(p, dev)
+                                                   for p in res[1]])))
+
+    def _mask(self, c) -> torch.Tensor:
+        m = None
+        for boxes, _, windows, res in self.branches:
+            bm = point_boxes(c, boxes)
+            if windows is not None:
+                bm = bm & _time_mask(c, windows)
+            if res is not None:
+                bm = bm & res[0](c, res[1])
+            m = bm if m is None else (m | bm)
+        return m
+
+    def _alive(self) -> torch.Tensor:
+        summ = block_summaries(self.index, self.bsz)
+        alive = None
+        for _, gate, windows, _ in self.branches:
+            a = _alive_of(summ, gate, windows)
+            alive = a if alive is None else (alive | a)
+        return alive
 
 
 # -- qualification and execution ----------------------------------------------
@@ -342,10 +442,10 @@ def _from_plan(plan: IndexScanPlan, mode: str, capacity: Optional[int] = None,
     boxes_geo = plan.explain.get("boxes")
     if not boxes_geo or len(boxes_geo) > len(plan.boxes_loose):
         return None
-    edges = None
+    refine = None
     if mode in _REFINE_MODES:
-        edges = refine_edges(plan)
-        if edges is None:
+        refine = refine_spec(plan)
+        if refine is None:
             return None
     elif plan.residual_host is not None:
         return None
@@ -354,8 +454,8 @@ def _from_plan(plan: IndexScanPlan, mode: str, capacity: Optional[int] = None,
         return None  # tiny tables: the staged full mask is already one pass
     sel_cap = min(_tier(capacity), _pow2(n)) \
         if mode in ("select", "select_refine") else 0
-    return Program(plan, mode, sel_cap=sel_cap, unc_cap=unc_cap, edges=edges,
-                   grid=grid, width=width, height=height)
+    return Program(plan, mode, sel_cap=sel_cap, unc_cap=unc_cap,
+                   refine=refine, grid=grid, width=width, height=height)
 
 
 def _fallback() -> None:
@@ -473,6 +573,65 @@ def try_density(planner, plan: IndexScanPlan, grid_bbox, width: int,
     the default route (as in the reference)."""
     prog = _from_plan(plan, "density", grid=grid_bbox, width=width,
                       height=height)
+    if prog is None:
+        _fallback()
+        return None
+    _dispatched()
+    grid, cnt = _fetch(prog.run)
+    return grid.cpu().numpy(), int(cnt)
+
+
+def _union_from_plan(planner, plan: UnionScanPlan, mode: str, auths,
+                     capacity: Optional[int] = None, grid=None,
+                     width: int = 0, height: int = 0
+                     ) -> Optional[UnionProgram]:
+    """The union program of an OR plan, or None when a branch is not a
+    device-exact point-box scan on the shared index (≙ the reference's
+    ``_build_union`` declines; the per-branch path then serves it)."""
+    if not config.FUSED_QUERY.get():
+        return None
+    idx = plan.same_index_device_exact()
+    if idx is None or idx.device.n < 4 * int(_prune.BLOCK_SIZE):
+        return None
+    for _, bp in plan.branches:
+        bp = planner._apply_auths(bp, auths)
+        boxes_geo = bp.explain.get("boxes")
+        if bp.primary_kind != "point_boxes" or bp.boxes_loose is None \
+                or not boxes_geo or len(boxes_geo) > len(bp.boxes_loose):
+            return None
+    sel_cap = min(_tier(capacity), _pow2(idx.device.n)) \
+        if mode == "select" else 0
+    return UnionProgram(plan, mode, sel_cap=sel_cap, grid=grid, width=width,
+                        height=height)
+
+
+def try_union_select(planner, plan: UnionScanPlan, auths,
+                     capacity: Optional[int] = None) -> Optional[np.ndarray]:
+    """One-program select of an OR plan → FINAL sorted table rows (rows of
+    overlapping branches once), or None. Overflow regrows the capacity tier
+    and re-runs."""
+    while True:
+        prog = _union_from_plan(planner, plan, "select", auths,
+                                capacity=capacity)
+        if prog is None:
+            _fallback()
+            return None
+        _dispatched()
+        out = _fetch(prog.run).cpu().numpy()
+        cnt = int(out[0])
+        if cnt <= prog.sel_cap:
+            return np.sort(prog.index.map_rows(
+                out[1: 1 + cnt].astype(np.int64)))
+        STATS["overflow_retries"] += 1
+        capacity = _pow2(cnt)
+
+
+def try_union_density(planner, plan: UnionScanPlan, auths, grid_bbox,
+                      width: int, height: int):
+    """One-program heat-map of an OR plan: ((H, W) f32 grid, count) as
+    numpy and int, or None."""
+    prog = _union_from_plan(planner, plan, "density", auths, grid=grid_bbox,
+                            width=width, height=height)
     if prog is None:
         _fallback()
         return None

@@ -5,18 +5,24 @@ split), then execute as the reference does: the fused program first
 (``index/compiled.py``), else the staged ``ScanKernels`` over the plan's
 range-pruned block cover (``_pruned_blocks``), else the staged full-table
 mask. A count or a select of ascending table rows; host residuals
-re-evaluate on the host in f64 (``_refine``). ``prepare`` plans once (or
-binds a known shape's new values through the recipe fast path) and hands
-back a re-executable ``PreparedQuery``. Plan shapes that need modules not
-yet ported raise NotImplementedError naming their ROADMAP.md item.
+re-evaluate on the host in f64 (``_refine``). An OR whose single plan would
+need a host residual plans one branch at a time (``UnionScanPlan``) when
+every branch has a spatial primary: the branch masks OR on the device when
+all are device-exact, else the branch row sets union on the host.
+``prepare`` plans once (or binds a known shape's new values through the
+recipe fast path) and hands back a re-executable ``PreparedQuery``. Plan
+shapes that need modules not yet ported raise NotImplementedError naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import List, Optional, Union
 
 import numpy as np
+import torch
 
 from geomesa_tpu_torch import config
 from geomesa_tpu_torch import trace as _trace
@@ -26,7 +32,8 @@ from geomesa_tpu_torch.filter.evaluate import evaluate_at
 from geomesa_tpu_torch.filter.parser import parse_ecql
 from geomesa_tpu_torch.index import compiled as _fused
 from geomesa_tpu_torch.index import prune as _prune
-from geomesa_tpu_torch.index.api import IndexScanPlan, QueryResult, not_ported
+from geomesa_tpu_torch.index.api import (IndexScanPlan, QueryResult,
+                                         UnionScanPlan, not_ported)
 from geomesa_tpu_torch.index.guards import Deadline
 from geomesa_tpu_torch.index.scan import _fetch
 from geomesa_tpu_torch.serve.resilience import deadline as _rdl
@@ -43,16 +50,6 @@ def _select_tier(capacity) -> int:
         if capacity <= t:
             return t
     return 1 << max(0, (int(capacity) - 1)).bit_length()
-
-
-def _has_function(f: Optional[ir.Filter]) -> bool:
-    if isinstance(f, (ir.Func, ir.FuncCmp)):
-        return True
-    if isinstance(f, (ir.And, ir.Or)):
-        return any(_has_function(c) for c in f.children)
-    if isinstance(f, ir.Not):
-        return _has_function(f.child)
-    return False
 
 
 class QueryPlanner:
@@ -85,12 +82,34 @@ class QueryPlanner:
             raise ValueError(f"No indexes for {self.sft.name}")
         plan = self.indexes[0].plan(f)
         if isinstance(f, ir.Or) and plan.residual_host is not None:
-            # the reference answers these with per-branch plans + a union
-            raise not_ported("OR filters planned as a union of branches", 3)
-        if _has_function(plan.residual_host):
-            raise not_ported("st_* function predicates and the dist refine "
-                             "(the geometry catalog's host oracle)", 5)
+            # OR → one plan a branch (≙ FilterSplitter's OR expansion): when
+            # every branch plans with a spatial primary, per-branch scans and
+            # a row-set union beat the union-boxes prefilter + host residual
+            # the single plan needs
+            union = self._union_plan(f)
+            if union is not None:
+                plan = union
         return plan
+
+    def _union_plan(self, f: ir.Or) -> Optional[UnionScanPlan]:
+        """Per-branch plans of an OR filter, or None when a branch would
+        scan unconstrained (then the single superset plan wins). The branch
+        count is capped like the reference's DNF expansion."""
+        if len(f.children) > 8:
+            return None
+        branches = []
+        for c in f.children:
+            bp = self.indexes[0].plan(c)
+            if bp.empty:
+                continue
+            if bp.primary_kind == "none":
+                return None   # unconstrained branch: a union buys nothing
+            branches.append((c, bp))
+        return UnionScanPlan(
+            branches=branches, full_filter=f, empty=not branches,
+            explain={"index": "union",
+                     "strategies": [p.explain.get("index")
+                                    for _, p in branches]})
 
     # -- range pruning -------------------------------------------------------
 
@@ -161,9 +180,25 @@ class QueryPlanner:
                               (time.perf_counter() - t1) * 1000, n)
             return n
 
+    def _union_masks(self, plan: UnionScanPlan, auths, idx):
+        """The OR of the branches' staged device masks over ``idx``'s
+        sorted rows (rows two branches share count once)."""
+        return functools.reduce(lambda a, b: a | b, [
+            idx.kernels.mask(bp.primary_kind, bp.boxes_loose, bp.windows,
+                             bp.residual_device)
+            for bp in (self._apply_auths(bp, auths)
+                       for _, bp in plan.branches)])
+
     def _count(self, plan: IndexScanPlan, f, auths=None) -> int:
         if plan.empty:
             return 0
+        if isinstance(plan, UnionScanPlan):
+            idx = plan.same_index_device_exact()
+            if idx is not None:
+                # OR of the branch masks on the device, one readback
+                return int(_fetch(lambda: self._union_masks(
+                    plan, auths, idx).sum(dtype=torch.int32)))
+            return len(self._union_select(plan, auths))
         if plan.residual_host is None:
             # fully device-exact: the fused program, else a staged count
             fused = _fused.try_count(self, plan)
@@ -194,6 +229,8 @@ class QueryPlanner:
             plan = self._apply_auths(self.plan(f), auths)
         if plan.empty:
             return np.empty(0, dtype=np.int64)
+        if isinstance(plan, UnionScanPlan):
+            return self._union_select(plan, auths)
         if plan.residual_host is None:
             pos = _fused.try_select(self, plan, capacity)
             if pos is not None:
@@ -220,6 +257,35 @@ class QueryPlanner:
             return np.sort(rows)
         return np.sort(self._refine(plan, rows))
 
+    def _union_select(self, plan: UnionScanPlan, auths) -> np.ndarray:
+        """Sorted unique rows of an OR plan: one union program when every
+        branch is device-exact on one index, else the union of the branch
+        row sets."""
+        rows = _fused.try_union_select(self, plan, auths)
+        if rows is not None:
+            return rows
+        sets = [self.select_indices(c, plan=bp, auths=auths)
+                for c, bp in plan.branches]
+        if not sets:
+            return np.empty(0, dtype=np.int64)
+        return np.unique(np.concatenate(sets))
+
+    def scan_mask(self, f: Union[str, ir.Filter], auths=None):
+        """(plan, device mask over the plan index's sorted rows); the mask
+        is None when the plan needs a host refine (≙ the reference's
+        ``scan_mask``, the aggregation scans' shared validate step)."""
+        plan = self._apply_auths(self.plan(f), auths)
+        if isinstance(plan, UnionScanPlan):
+            idx = plan.same_index_device_exact()
+            if idx is None or plan.empty:
+                return plan, None
+            return plan, self._union_masks(plan, auths, idx)
+        if not plan.device_exact:
+            return plan, None
+        return plan, plan.index.kernels.mask(
+            plan.primary_kind, plan.boxes_loose, plan.windows,
+            plan.residual_device)
+
     def query(self, f: Union[str, ir.Filter]) -> QueryResult:
         plan = self.plan(f)
         rows = self.select_indices(f, plan=plan)
@@ -236,8 +302,11 @@ class QueryPlanner:
         return rows[self._refine_mask(plan.residual_host, rows)]
 
     def _refine_mask(self, res: ir.Filter, rows: np.ndarray) -> np.ndarray:
-        """Residual mask over candidate rows (the st_* catalog route of the
-        reference raises at plan time in the port: ROADMAP.md item 5)."""
+        """Residual mask over candidate rows, st_* calls through the host
+        oracle (``geom.functions``). The reference's optional device-catalog
+        route gives the same mask by its own contract
+        (tests/test_geom_catalog.py ``test_kernel_vs_oracle_parity_pins_zero``);
+        the catalog is ROADMAP.md Queue 1, item 13."""
         return evaluate_at(res, self.table, rows)
 
 

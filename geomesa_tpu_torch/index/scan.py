@@ -5,7 +5,9 @@ functions.
 window mask, the residual-predicate compiler, the certainty-band
 point-in-polygon classifier (``pip_band``) and the fused program's polygon
 refine built on it (``pip_refine``, the plain version of the CUDA kernel in
-``kernels/csrc/pip_refine.cu``), the masked density scatter (``_grid_scatter``
+``kernels/csrc/pip_refine.cu``), the radial-distance refine
+(``dist_refine``, the plain version of ``kernels/csrc/dist_refine.cu``),
+the masked density scatter (``_grid_scatter``
 and ``grid_scatter``, the plain versions of ``kernels/csrc/grid_scatter.cu``),
 the batched box counts (``box_count``, the plain version of
 ``kernels/csrc/box_count.cu``), and ``ScanKernels``, the staged scan modes
@@ -240,6 +242,49 @@ def pip_refine(xf: torch.Tensor, yf: torch.Tensor, edges: torch.Tensor,
         edges = edges[:n_edges]
     cin, cout = pip_band(xf, yf, edges)
     unc = ~cin & ~cout
+    if mask is None:
+        return cin, unc
+    return mask & cin, mask & unc
+
+
+# radial-distance certainty band (degrees) of the ``dist`` refine kind (the
+# reference's compiled._DIST_BAND): it exceeds the f32 error of the distance
+# over the f32 coordinate planes (coordinate rounding ≤ 2.5e-5 an axis, a
+# few ulp of arithmetic, the radius literal's own f32 cast), so rows inside
+# the band re-evaluate on the host in exact f64
+DIST_BAND = np.float32(1e-3)
+
+
+def dist_bounds(centre_r) -> Tuple[float, float, float, float]:
+    """(cx, cy, r − DIST_BAND, r + DIST_BAND) of an f32 [cx, cy, r], each
+    rounded in f32 as the reference's traced program rounds it."""
+    cx, cy, r = np.asarray(centre_r, dtype=np.float32)
+    return float(cx), float(cy), float(r - DIST_BAND), float(r + DIST_BAND)
+
+
+def dist_refine(xf: torch.Tensor, yf: torch.Tensor, centre_r,
+                mask: Optional[torch.Tensor] = None,
+                starts: Optional[torch.Tensor] = None,
+                bsz: Optional[int] = None):
+    """(hit, uncertain) bool flags of the fused program's candidate rows
+    against a circle, ``centre_r`` = f32 [cx, cy, r] (≙ the reference's
+    ``refine_of`` for its ``dist`` kind): with d = sqrt((x − cx)² +
+    (y − cy)²) in f32, hit = d ≤ r − DIST_BAND and uncertain = not hit and
+    not d ≥ r + DIST_BAND, both masked. Candidates are read as in
+    ``pip_refine``.
+
+    The plain PyTorch version of the ``dist_refine`` CUDA kernel: gather,
+    classify, mask. The CPU path, and the kernel's yardstick on the card."""
+    if starts is not None:
+        rows = block_rows(starts, bsz)
+        xf, yf = xf.index_select(0, rows), yf.index_select(0, rows)
+    cx, cy, lo, hi = (torch.tensor(v, dtype=torch.float32, device=xf.device)
+                      for v in dist_bounds(centre_r))
+    dx = xf - cx
+    dy = yf - cy
+    d = torch.sqrt(dx * dx + dy * dy)
+    cin = d <= lo
+    unc = ~cin & ~(d >= hi)
     if mask is None:
         return cin, unc
     return mask & cin, mask & unc

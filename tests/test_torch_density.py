@@ -378,9 +378,13 @@ def test_density_empty_and_unported(world):
     assert empty.weights.shape == (8, 8) and not empty.weights.any()
     with pytest.raises(NotImplementedError, match="item 10"):
         tdensity.density(tp, "INCLUDE", BBOX, 8, 8, auths=["admin"])
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tdensity.density(tp, f"BBOX(geom,0,0,1,1) OR INTERSECTS(geom, {POLY})",
-                         BBOX, 8, 8)
+    # an OR with a host-refined branch (ROADMAP.md Queue 1 item 3, now
+    # ported): the per-branch select and the host grid, as the reference
+    jdensity = _ref("geomesa_tpu.aggregates.density")
+    q = f"BBOX(geom,0,0,1,1) OR INTERSECTS(geom, {POLY})"
+    got = tdensity.density(tp, q, BBOX, 8, 8).weights
+    assert got.any()
+    assert np.array_equal(got, jdensity.density(jp, q, BBOX, 8, 8).weights)
 
 
 def test_store_density_hint(world):

@@ -179,9 +179,9 @@ def test_program_output_equals_reference(world, mode, q):
     jprog = jcompiled._from_plan(jp, jp.plan(q), mode)
     want = np.atleast_1d(np.asarray(jprog.dispatch()))
     tplan = tp.plan(q)
-    edges = tcompiled.refine_edges(tplan) if "refine" in mode else None
+    refine = tcompiled.refine_spec(tplan) if "refine" in mode else None
     got = tcompiled.Program(tplan, mode, sel_cap=jprog.sel_cap,
-                            unc_cap=jprog.unc_cap, edges=edges).run()
+                            unc_cap=jprog.unc_cap, refine=refine).run()
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), want)
 
@@ -204,7 +204,7 @@ def test_refine_gathers_no_coordinates(world, monkeypatch, mode):
     plan = tp.plan(q)
     prog = tcompiled.Program(plan, mode, sel_cap=jprog.sel_cap,
                              unc_cap=jprog.unc_cap,
-                             edges=tcompiled.refine_edges(plan))
+                             refine=tcompiled.refine_spec(plan))
     assert prog.n_edges == 5
     got = prog.run()
     assert {"bin", "off", "xi"} <= set(seen)      # the pruned branch ran
@@ -235,14 +235,23 @@ def _store(n=6000):
 
 @pytest.mark.parametrize("q,item", [
     ("IN ('1', '2')", "item 10"),
-    (f"{BOX} OR INTERSECTS(geom, {POLY})", "item 3"),
-    (f"{DURING} AND st_distance(geom, POINT(0 0)) < 5", "item 5"),
-    ("st_distance(geom, POINT(0 0)) < 5 AND BBOX(geom,-5,-5,5,5)", "item 5"),
 ])
 def test_outside_slice_raises_naming_roadmap(q, item):
     store = _store(600)
     with pytest.raises(NotImplementedError, match=item):
         store.count("fq", q)
+
+
+@pytest.mark.parametrize("q", [
+    f"{BOX} OR INTERSECTS(geom, {POLY})",
+    f"{DURING} AND st_distance(geom, POINT(0 0)) < 5",
+    "st_distance(geom, POINT(0 0)) < 5 AND BBOX(geom,-5,-5,5,5)",
+])
+def test_former_outside_slice_cases_match_reference(world, q):
+    """The OR-union and st_* shapes this slice once refused (ROADMAP.md
+    Queue 1 items 3 and 5, now ported) answer as the reference does."""
+    jp, tp = world
+    _parity(jp, tp, q)
 
 
 def test_prepare_with_auths_raises_naming_roadmap():
