@@ -47,8 +47,23 @@ Phases, each failing the run (non-zero exit) when it fails:
    ``torch.bincount``'s time for the scatter part; box_count at (g3)'s
    union blocks and the full table with 64 boxes, and at (f)'s count, with
    the passing candidates and the kernel's tile fills;
-7. a profile of each query, and the result lines: one JSON object per
-   kernel, the card, and the final ``{"ok": true, ...}`` line.
+7. a profile of each query;
+8. the write path (l) on the same store, after every other phase (the
+   corpus changes under it): 20 appends of 100,000 rows into the LSM delta
+   tier, (a)-(d) and (g3)'s 64 boxes through ``count_many`` over main +
+   delta, a 21st append that flushes through by the incremental merge
+   build (``merge_scatter``), the same answers again, the merged
+   permutation against ``np.lexsort`` and the merged columns against the
+   numpy planes, ``merge_scatter`` against its plain version at the flush's
+   shape, and upsert / remove / update / age-off on a separate 1M-row
+   store — every answer equal to its numpy oracle, every kernel's launches
+   counted from 0 around it;
+9. the result lines: one JSON object per kernel, the card, and the final
+   ``{"ok": true, ...}`` line.
+
+The main path's load prints its split by stage (host keys, uploads, the
+device sort, host planes, the sorted gathers), each timer stopped on a
+device sync.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero
 without a result when no CUDA card is present.
@@ -167,6 +182,14 @@ BATCH_BOXES = [(QX0 + (i % 8) * 0.4, QY0 + (i // 8) * 0.3,
                 QX1 + (i % 8) * 0.4, QY1 + (i // 8) * 0.3)
                for i in range(64)]
 G_THREADS = 64
+# (l): the write path on the same store: 20 appends of 100,000 rows into
+# the LSM delta (the threshold is max(50,000, 0.02 x 100M) = 2M rows), a
+# 21st that flushes through by the merge build, and the full-rebuild
+# mutations on a separate 1M-row store
+L_BATCHES = 20
+L_BATCH = 100_000
+L_SEED = 77
+L_STORE_N = 1_000_000
 
 
 def box_query(box, days) -> str:
@@ -808,6 +831,8 @@ def phase_main_path(n: int = N, device: str = "cuda"):
     want_f = np.flatnonzero(tmask & (val > 90))
     g_oracle = serving_oracle(x, y, dtg)
     g_oracle["a"] = want_box
+    g_oracle["b_rows"] = want_rows
+    g_oracle["d_grid"] = want_d
     f_oracle = filters_oracle(x, y, val, tmask, len(want_rows))
     del tmask, cand, sel_a
     log(f"[main] numpy oracle in {time.perf_counter() - t0:.2f} s: "
@@ -837,6 +862,13 @@ def phase_main_path(n: int = N, device: str = "cuda"):
         raise AssertionError(f"device columns off the card: {placed}")
     log(f"[main] load (host encode + Z3 sort/gather on the card) "
         f"{load_s:.2f} s; columns {sorted(placed)} on {set(placed.values())}")
+    # the load by stage, each timer stopped on a device sync
+    # (Z3Index.build_stages): host keys (_sort_keys), key upload + plane
+    # uploads, device_sort_perm, host_planes, the sorted gathers
+    # (DeviceTable.build_sorted)
+    split = dict(idx.build_stages)
+    log(f"[main] load split (s): {json.dumps(split)}; the rest of the "
+        f"load {load_s - sum(split.values())} s")
 
     # the checked run: every kernel's launch count read around it
     counters = {"pip_refine": pip.pip_refine,
@@ -955,6 +987,7 @@ def phase_main_path(n: int = N, device: str = "cuda"):
     log(json.dumps({"main_path": {
         "n": n, "device": device, "gen_s": gen_s, "load_s": load_s, "p50_ms": p50,
         "reps": REPS, "max_memory_allocated": peak,
+        "load_split_s": split,
         "launches_checked_run": launches, "routes": routes}}))
     breakdown(store, sync)
     return launches, store, routes, g_oracle, f_oracle
@@ -1421,6 +1454,415 @@ def phase_serving(store, oracle) -> dict:
             "windows": lead.windows, "union": union, "bsz": bsz}
 
 
+def write_batch(k: int, seed: int = L_SEED):
+    """Batch k of phase (l): L_BATCH rows from (seed, k), half inside (a)'s
+    box and week, half over the globe and the corpus's month; name from
+    the corpus's 3 values, val from integers(0, 100)."""
+    rng = np.random.default_rng([seed, k])
+    n, h = L_BATCH, L_BATCH // 2
+    lo, hi = (np.datetime64(d, "ms").astype(np.int64)
+              for d in ("2020-01-05", "2020-01-12"))
+    base = np.datetime64("2020-01-01T00:00:00", "ms").astype(np.int64)
+    x = np.concatenate([rng.uniform(QX0, QX1, h), rng.uniform(-180, 180,
+                                                              n - h)])
+    y = np.concatenate([rng.uniform(QY0, QY1, h), rng.uniform(-90, 90,
+                                                              n - h)])
+    dtg = np.concatenate([rng.integers(lo + 1, hi, h),
+                          base + rng.integers(0, 30 * 86400000, n - h)])
+    return (x, y, dtg, rng.integers(0, 3, n).astype(np.int32),
+            rng.integers(0, 100, n).astype(np.int32))
+
+
+def oracle_host_density(x, y, rows, bbox, width: int, height: int):
+    """The delta tier's density, written out: the selected rows' f64
+    coordinates snapped in f64 (fx = (x - xmin) / (xmax - xmin); a row
+    counts when 0 <= fx < 1 and 0 <= fy < 1, in cell (int(fy*H),
+    int(fx*W)) clipped), counted per cell."""
+    xmin, ymin, xmax, ymax = (float(v) for v in bbox)
+    fx = (x[rows] - xmin) / (xmax - xmin)
+    fy = (y[rows] - ymin) / (ymax - ymin)
+    inb = (fx >= 0) & (fx < 1) & (fy >= 0) & (fy < 1)
+    ix = np.clip((fx[inb] * width).astype(np.int64), 0, width - 1)
+    iy = np.clip((fy[inb] * height).astype(np.int64), 0, height - 1)
+    return np.bincount(iy * width + ix, minlength=width * height).reshape(
+        height, width)
+
+
+def delta_oracle(x, y, dtg, val, m: int) -> dict:
+    """numpy answers of (a), (b)/(c), (d)'s rows and (g3)'s 64 boxes over
+    the first m appended rows (row ids within the delta)."""
+    x, y, dtg, val = x[:m], y[:m], dtg[:m], val[:m]
+
+    def during(a, b):
+        return (dtg > np.datetime64(a, "ms").astype(np.int64)) \
+            & (dtg < np.datetime64(b, "ms").astype(np.int64))
+
+    tmask = during("2020-01-05", "2020-01-12")
+    a = int(np.count_nonzero(tmask & (x >= -10) & (x <= 30) & (y >= 30)
+                             & (y <= 55) & (val > 10)))
+    cand = np.flatnonzero(tmask & (x >= -10) & (x <= 40) & (y >= 20)
+                          & (y <= 60))
+    rows_d = np.flatnonzero(during("2020-01-03", "2020-01-15") & (x >= -60)
+                            & (x <= 60) & (y >= -30) & (y <= 30) & (val > 10))
+    b = np.asarray(BATCH_BOXES)
+    lo, hi = (np.datetime64(d, "ms").astype(np.int64) for d in BATCH_DAYS)
+    inb = (dtg > lo) & (dtg < hi)
+    batch = [int(np.count_nonzero(inb & (x >= q[0]) & (x <= q[2])
+                                  & (y >= q[1]) & (y <= q[3])))
+             for q in b]
+    return {"a": a, "b_rows": cand[oracle_pip(x[cand], y[cand], CONCAVE)],
+            "rows_d": rows_d, "batch": batch}
+
+
+def write_queries(store):
+    """Phase (l)'s queries as (label, zero-arg fn)."""
+    bq = [box_query(b, BATCH_DAYS) for b in BATCH_BOXES]
+    return (("a", lambda: store.count("gdelt", Q_BOX)),
+            ("b", lambda: store.count("gdelt", Q_POLY)),
+            ("c", lambda: store.query("gdelt", Q_POLY).indices),
+            ("d", lambda: store.query(
+                "gdelt", Q_D, hints=density_hint(D_BBOX, 64, 64)).weights),
+            ("g3_count_many", lambda: store.count_many("gdelt", bq)))
+
+
+def check_write_answers(label, got, want) -> None:
+    bad = [k for k in want if not (
+        np.array_equal(got[k], want[k]) if isinstance(want[k], np.ndarray)
+        else got[k] == want[k])]
+    if bad:
+        raise AssertionError(f"(l) {label}: {bad} differ from their "
+                             f"oracles")
+    if got["d"].dtype != np.float32:
+        raise AssertionError(f"(l) {label}: density grid {got['d'].dtype}")
+
+
+def merge_bound(olds, n_delta: int) -> dict:
+    """The least time the card could take for the merge: every column's
+    n_old + n_delta elements read once and n_new written once, plus the
+    int32 ranks, over the HBM rate (no arithmetic to speak of)."""
+    n_new = int(olds[0].shape[0]) + n_delta
+    nbytes = sum(2 * n_new * o.element_size() for o in olds) + 4 * n_delta
+    return {"bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes}
+
+
+def compare_merge(old_idx, new_idx) -> dict:
+    """merge_scatter's kernel against its plain version at the flush's own
+    shape and inputs: the resident columns and permutation of the index
+    before the flush, and the delta rows and ranks read back out of the
+    merged index (the delta rows are those whose table row is past the
+    old table; their merged positions give the ranks). Both must equal
+    the merged index's columns byte for byte; both timed with CUDA
+    events."""
+    import torch
+    from geomesa_tpu_torch.index import device
+    from geomesa_tpu_torch.kernels import merge
+
+    n_old = int(old_idx.perm.shape[0])
+    pos_del = torch.nonzero(new_idx.perm >= n_old).squeeze(1)
+    n_delta = int(pos_del.shape[0])
+    r = (pos_del - torch.arange(n_delta, device=pos_del.device)).to(
+        torch.int32)
+    names = list(new_idx.device.columns)
+    olds = [old_idx.device[k] for k in names] + [old_idx.perm]
+    deltas = [new_idx.device[k].index_select(0, pos_del) for k in names] \
+        + [new_idx.perm.index_select(0, pos_del)]
+    want = [new_idx.device[k] for k in names] + [new_idx.perm]
+    got = merge.merge_scatter(olds, deltas, r)
+    torch.cuda.synchronize()
+    plain = device.merge_scatter(olds, deltas, r)
+    torch.cuda.synchronize()
+    for k, g, p, w in zip(names + ["perm"], got, plain, want):
+        if not (torch.equal(g, w) and torch.equal(p, w)):
+            raise AssertionError(f"merge_scatter at the flush's shape: "
+                                 f"column {k} differs")
+    del got, plain
+    acts, dev_ms = activities_per_call(
+        lambda: merge.merge_scatter(olds, deltas, r))
+    ms = cuda_ms(lambda: merge.merge_scatter(olds, deltas, r), 10)
+    plain_ms = cuda_ms(lambda: device.merge_scatter(olds, deltas, r), 3)
+    out = {"n_old": n_old, "n_delta": n_delta, "columns": len(olds),
+           "column_bytes": [o.element_size() for o in olds],
+           "ms": ms, "plain_ms": plain_ms, "max_abs_err": 0,
+           "activities_per_call": acts, "device_ms_per_call": dev_ms,
+           **merge_bound(olds, n_delta)}
+    log(f"[kernel] merge_scatter flush shape: {n_old} resident + {n_delta} "
+        f"delta rows, {len(olds)} columns {out['column_bytes']} B, equal to "
+        f"the plain version and the merged index, kernel {ms} ms, plain "
+        f"{plain_ms} ms, bound {out['bound_ms']} ms (bytes, "
+        f"{out['bytes']} B), {acts} device activities a call ({dev_ms} ms "
+        f"of device time)")
+    return out
+
+
+def phase_write(store, oracle) -> dict:
+    """(l): the write path on the 100M-point store, after every other
+    phase (the corpus changes under it). 20 appends of L_BATCH rows land in
+    the LSM delta (the threshold is max(50,000, 0.02 x 100M)); (a), (b),
+    (c), (d) and (g3)'s 64 boxes through ``count_many`` answer over main
+    + delta, each equal to its oracle; a 21st append flushes through by
+    the merge build (``merge_scatter``); the same answers again; the
+    merged permutation equals ``np.lexsort`` of the merged keys and the
+    downloaded xi/yi/bin/off columns equal the numpy planes gathered
+    through it; the kernel against its plain version at the flush's
+    shape; then the full-rebuild mutations on their own 1M-row store.
+    Every kernel's launches are counted from 0 around the checked run."""
+    import torch
+    from geomesa_tpu_torch.curves.binnedtime import time_to_binned_time
+    from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
+    from geomesa_tpu_torch.index.device import fp62_lat, fp62_lon
+    from geomesa_tpu_torch.kernels import (box_count, density, dist, merge,
+                                           pip)
+    from geomesa_tpu_torch.metrics import REGISTRY
+
+    def counter(name):
+        return REGISTRY.snapshot()["counters"].get(name, 0)
+
+    t0 = time.perf_counter()
+    batches = [write_batch(k) for k in range(L_BATCHES + 1)]
+    dx, dy, ddtg, dname, dval = (np.concatenate(c) for c in zip(*batches))
+    o20 = delta_oracle(dx, dy, ddtg, dval, L_BATCHES * L_BATCH)
+    o21 = delta_oracle(dx, dy, ddtg, dval, len(dx))
+    log(f"[write] {L_BATCHES + 1} batches of {L_BATCH} rows and their "
+        f"oracles in {time.perf_counter() - t0:.2f} s")
+    sft = store.get_schema("gdelt")
+    n0 = len(store.tables["gdelt"])
+    counters = {"pip_refine": pip.pip_refine,
+                "grid_scatter": density.grid_scatter,
+                "box_count": box_count.box_count,
+                "dist_refine": dist.dist_refine,
+                "merge_scatter": merge.merge_scatter}
+    for c in counters.values():
+        c.launches = 0
+    appends0 = counter("ingest.delta_appends")
+    merges0 = counter("ingest.merge_builds")
+    append_s = []
+
+    def append(k):
+        x, y, dtg, name, val = batches[k]
+        t = FeatureTable.build(sft, {
+            "name": StringColumn(name, ["a", "b", "c"]), "val": val,
+            "dtg": dtg, "geom": (x, y)})
+        t1 = time.perf_counter()
+        store.load("gdelt", t)
+        torch.cuda.synchronize()
+        append_s.append(time.perf_counter() - t1)
+
+    # 1. twenty appends into the delta tier
+    for k in range(L_BATCHES):
+        append(k)
+    n_appends = counter("ingest.delta_appends") - appends0
+    delta = store.deltas["gdelt"]
+    if n_appends != L_BATCHES or merge.merge_scatter.launches != 0 \
+            or delta is None or len(delta) != L_BATCHES * L_BATCH:
+        raise AssertionError(f"(l) {n_appends} delta appends, "
+                             f"{merge.merge_scatter.launches} merges, delta "
+                             f"{None if delta is None else len(delta)} rows")
+
+    def wants(od, grid):
+        return {"a": oracle["a"] + od["a"],
+                "b": len(oracle["b_rows"]) + len(od["b_rows"]),
+                "c": np.concatenate([oracle["b_rows"], od["b_rows"] + n0]),
+                "d": grid.astype(np.float32),
+                "g3_count_many": [int(a + b) for a, b in
+                                  zip(oracle["batch"], od["batch"])]}
+
+    per_query = {}
+
+    def run_all(label):
+        got, ts = {}, {}
+        for q, fn in write_queries(store):
+            before = {k: c.launches for k, c in counters.items()}
+            t1 = time.perf_counter()
+            got[q] = fn()
+            torch.cuda.synchronize()
+            ts[q] = (time.perf_counter() - t1) * 1e3
+            per_query[f"{label}_{q}"] = {k: c.launches - before[k]
+                                         for k, c in counters.items()}
+        return got, ts
+
+    got1, ms1 = run_all("delta")
+    check_write_answers("over main + delta", got1, wants(
+        o20, oracle["d_grid"] + oracle_host_density(dx, dy, o20["rows_d"],
+                                                    D_BBOX, 64, 64)))
+
+    # 2. the 21st append flushes through by the merge build, under the
+    # profiler: the flush's device busy time against its wall time
+    idx_old = store.planners["gdelt"].indexes[0]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        append(L_BATCHES)
+    flush_s = append_s[-1]
+    busy = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    flush_busy_ms = sum(e.time_range.elapsed_us() for e in busy) / 1e3
+    log(f"[write] flush-through append {flush_s * 1e3} ms: {len(busy)} "
+        f"device activities, {flush_busy_ms} ms busy, idle share "
+        f"{1.0 - flush_busy_ms / (flush_s * 1e3)}")
+    on_card = store.device.type == "cuda"
+    if store.deltas["gdelt"] is not None \
+            or counter("ingest.merge_builds") != merges0 + 1 \
+            or (on_card and merge.merge_scatter.launches < 1):
+        raise AssertionError(f"(l) the 21st append did not flush through by "
+                             f"the merge build (merge_scatter launches "
+                             f"{merge.merge_scatter.launches})")
+    idx = store.planners["gdelt"].indexes[0]
+    got2, ms2 = run_all("merged")
+    rows21 = o21["rows_d"]
+    check_write_answers("after the merge", got2, wants(
+        o21, oracle["d_grid"] + oracle_density(dx, dy, rows21, D_BBOX, 64,
+                                               64)))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    q = per_query
+    if on_card and (q["delta_b"]["pip_refine"] < 1
+                    or q["merged_b"]["pip_refine"] < 1
+                    or q["delta_d"]["grid_scatter"] < 1
+                    or launches["merge_scatter"] != 1):
+        raise AssertionError(f"(l) kernel launches {json.dumps(q)}: (b) "
+                             "must launch pip_refine, (d) grid_scatter, the "
+                             "flush merge_scatter once")
+
+    # 3. the merged table against a full sort and the numpy planes
+    t1 = time.perf_counter()
+    perm = idx.perm.cpu().numpy()
+    if not np.array_equal(perm, np.lexsort((idx._z, idx._bins))):
+        raise AssertionError("(l) merged permutation != np.lexsort of the "
+                             "merged (z, bin) keys")
+    if not (np.array_equal(idx.sorted_z, idx._z[perm])
+            and np.array_equal(idx.sorted_bins, idx._bins[perm])):
+        raise AssertionError("(l) merged sorted key runs differ")
+    mt = store.tables["gdelt"]
+    mx, my = mt.geometry().point_xy()
+    bins, offs = time_to_binned_time(np.asarray(mt.columns["dtg"]),
+                                     idx.period)
+    for name, plane in (("xi", lambda: fp62_lon(mx)[0]),
+                        ("yi", lambda: fp62_lat(my)[0]),
+                        ("bin", lambda: np.asarray(bins, dtype=np.int32)),
+                        ("off", lambda: np.asarray(offs, dtype=np.int32))):
+        if not np.array_equal(idx.device[name].cpu().numpy(),
+                              plane()[perm]):
+            raise AssertionError(f"(l) merged device column {name} != the "
+                                 "numpy plane gathered through the perm")
+    del perm, bins, offs
+    check_s = time.perf_counter() - t1
+    log(f"[write] merged table: perm == np.lexsort of the merged keys, "
+        f"xi/yi/bin/off == numpy planes through it ({check_s:.2f} s)")
+
+    # 4. the kernel at the flush's shape
+    k = compare_merge(idx_old, idx)
+    del idx_old
+    torch.cuda.empty_cache()
+
+    # 5. the full-rebuild mutations on their own store
+    m = phase_mutations(store.device)
+    out = {"appends": L_BATCHES + 1, "batch_rows": L_BATCH,
+           "append_p50_ms": p50_ms(append_s[:-1]),
+           "append_ms": [t * 1e3 for t in append_s[:-1]],
+           "flush_through_ms": flush_s * 1e3,
+           "flush_device_busy_ms": flush_busy_ms,
+           "flush_device_activities": len(busy),
+           "flush_idle_share": 1.0 - flush_busy_ms / (flush_s * 1e3),
+           "merge_stages_s": idx.build_stages,
+           "query_ms_over_delta": ms1, "query_ms_merged": ms2,
+           "launches_checked_run": launches, "kernel": k,
+           "mutations": m}
+    log(f"[write] launches per query {json.dumps(per_query)}")
+    log(json.dumps({"write": out}, default=str))
+    return out
+
+
+def phase_mutations(device) -> dict:
+    """upsert, remove_features, update_features and age_off — each a full
+    rebuild — on a separate L_STORE_N-row store of the corpus's shape
+    (with a 4000-day expiry, so the 2020 rows survive the write-path check
+    on today's clock), each answer against its numpy oracle."""
+    import torch
+    from geomesa_tpu_torch import DataStoreFinder
+    from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
+
+    x, y, dtg, name, val = corpus(L_STORE_N, seed=L_SEED)
+    store = DataStoreFinder.get_data_store(type="torch", device=device)
+    sft = store.create_schema(
+        "m", SPEC + ",geomesa.feature.expiry=dtg(4000 days)")
+
+    def table(x, y, dtg, name, val, fids=None):
+        return FeatureTable.build(sft, {
+            "name": StringColumn(name, ["a", "b", "c"]), "val": val,
+            "dtg": dtg, "geom": (x, y)}, fids=fids)
+
+    store.load("m", table(x, y, dtg, name, val))
+    n = L_STORE_N
+
+    def box_count_of(x, y, dtg, val):
+        lo, hi = (np.datetime64(d, "ms").astype(np.int64)
+                  for d in ("2020-01-05", "2020-01-12"))
+        return int(np.count_nonzero(
+            (dtg > lo) & (dtg < hi) & (x >= -10) & (x <= 30) & (y >= 30)
+            & (y <= 55) & (val > 10)))
+
+    out = {}
+
+    def timed(label, fn):
+        t1 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[f"{label}_ms"] = (time.perf_counter() - t1) * 1e3
+        return r
+
+    # upsert: 1,000 rows whose fids collide with implicit main-table ids
+    rng = np.random.default_rng([L_SEED, 1])
+    hit = np.sort(rng.choice(n, 1000, replace=False))
+    bx, by, bdtg, bname, bval = (a[:1000] for a in write_batch(99))
+    timed("upsert", lambda: store.upsert("m", table(
+        bx, by, bdtg, bname, bval, fids=[str(k) for k in hit])))
+    keep = np.ones(n, dtype=bool)
+    keep[hit] = False
+    x, y, dtg, name, val = (np.concatenate([a[keep], b]) for a, b in
+                            zip((x, y, dtg, name, val),
+                                (bx, by, bdtg, bname, bval)))
+    fids_tail = store.tables["m"].fids_at(np.arange(n - 1000, n)).tolist()
+    if store.count("m", "INCLUDE") != n \
+            or store.count("m", Q_BOX) != box_count_of(x, y, dtg, val) \
+            or fids_tail != [str(k) for k in hit]:
+        raise AssertionError("(l) upsert differs from its oracle")
+    out["upserted"] = 1000
+    # remove_features
+    want = int(np.count_nonzero(val == 7))
+    got = timed("remove", lambda: store.remove_features("m", "val = 7"))
+    keep = val != 7
+    x, y, dtg, name, val = (a[keep] for a in (x, y, dtg, name, val))
+    if got != want or store.count("m", "INCLUDE") != len(x) \
+            or store.count("m", Q_BOX) != box_count_of(x, y, dtg, val):
+        raise AssertionError("(l) remove_features differs from its oracle")
+    out["removed"] = got
+    # update_features
+    want = int(np.count_nonzero(val > 90))
+    got = timed("update", lambda: store.update_features(
+        "m", "val > 90", {"val": 7}))
+    val = np.where(val > 90, 7, val).astype(np.int32)
+    if got != want or store.count("m", "val = 7") != want \
+            or store.count("m", "val > 90") != 0 \
+            or store.count("m", Q_BOX) != box_count_of(x, y, dtg, val):
+        raise AssertionError("(l) update_features differs from its oracle")
+    out["updated"] = got
+    # age_off at a clock whose cutoff is 2020-01-15
+    cutoff = np.datetime64("2020-01-15", "ms").astype(np.int64)
+    now_ms = int(cutoff) + 4000 * 86_400_000
+    want = int(np.count_nonzero(dtg <= cutoff))
+    got = timed("age_off", lambda: store.age_off("m", now_ms=now_ms))
+    keep = dtg > cutoff
+    x, y, dtg, name, val = (a[keep] for a in (x, y, dtg, name, val))
+    if got != want or store.count("m", "INCLUDE") != len(x) \
+            or store.count("m", Q_BOX) != box_count_of(x, y, dtg, val):
+        raise AssertionError("(l) age_off differs from its oracle")
+    out.update(rows=n, aged_off=got)
+    log(f"[write] mutations on a {n}-row store equal their oracles: "
+        f"{json.dumps(out)}")
+    return out
+
+
 def queries(store):
     """The main path's queries as (label, zero-arg fn), for the timings and
     the profile."""
@@ -1548,8 +1990,9 @@ def main() -> int:
     phase_profile(store, (("g1_prepared_count", g["pq"].count),
                           ("g3_batch64_dispatch", g["disp"]),
                           *filter_queries(store)))
+    w = phase_write(store, g_oracle)
     import torch
-    from geomesa_tpu_torch.kernels import box_count, density, dist, pip
+    from geomesa_tpu_torch.kernels import box_count, density, dist, merge, pip
     head = d[0]   # (d)'s own inputs, 64x64, unit weights
     bhead = b[0]  # (g3)'s batch over the union of its covers
     thead = t[0]  # (i)'s own inputs
@@ -1577,7 +2020,14 @@ def main() -> int:
         "replaces": dist.REPLACES, "launches": f["dist_refine"],
         "max_abs_err": max(r["max_abs_err"] for r in t), "ms": thead["ms"],
         "plain_ms": thead["plain_ms"], "bound_ms": thead["bound_ms"],
-        "bound_by": thead["bound_by"], "library_ms": None}]}))
+        "bound_by": thead["bound_by"], "library_ms": None}, {
+        "name": merge.NAME, "route": "cuda", "source": merge.SOURCE,
+        "replaces": merge.REPLACES,
+        "launches": w["launches_checked_run"]["merge_scatter"],
+        "max_abs_err": w["kernel"]["max_abs_err"], "ms": w["kernel"]["ms"],
+        "plain_ms": w["kernel"]["plain_ms"],
+        "bound_ms": w["kernel"]["bound_ms"],
+        "bound_by": w["kernel"]["bound_by"], "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

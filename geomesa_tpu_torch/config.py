@@ -2,9 +2,9 @@
 
 ≙ ``geomesa_tpu.config`` (the reference's GeoMesaSystemProperties tier),
 trimmed to the knobs of the ported paths (the Z3 point query, the staged
-scan, density, prepared queries and the serving scheduler with its
-resilience layer). The names and defaults are
-the JAX package's, so one environment configures both. Every property reads
+scan, density, prepared queries, the serving scheduler with its
+resilience layer, the store's LSM delta tier and merge builds). The names
+and defaults are the JAX package's, so one environment configures both. Every property reads
 its environment variable on EACH access (late-bound), falling back to a
 programmatic ``set`` override, then the default.
 
@@ -218,6 +218,25 @@ RETRY_CAP_MS = _register(
     "Backoff ceiling per retry sleep.")
 
 # -- trace context (trace.py) -------------------------------------------------
+
+LSM_MAX_FRACTION = _register(
+    "GEOMESA_TPU_LSM_MAX_FRAC", 0.02, float,
+    "Delta-run flush threshold as a fraction of the main table.")
+
+MERGE_BUILD = _register(
+    "GEOMESA_TPU_MERGE_BUILD", True, _parse_bool,
+    "Master switch for delta-incremental merge builds: an LSM delta-tier "
+    "flush merges the already-sorted resident run with the freshly-sorted "
+    "delta run (merge-by-key; block metadata rebuilt from the merge, not "
+    "a re-sort) instead of re-sorting the full table. Destructive paths "
+    "(remove/update/upsert-collision/age-off drops/schema change) always "
+    "fall back to a full rebuild.")
+
+MERGE_MAX_FRACTION = _register(
+    "GEOMESA_TPU_MERGE_MAX_FRACTION", 0.25, float,
+    "Largest delta-to-resident row fraction the merge build accepts; a "
+    "flush above it (bulk load through the delta tier) takes the full "
+    "rebuild, whose O(n log n) sort amortizes better at that scale.")
 
 NODE_ID = _register(
     "GEOMESA_TPU_NODE_ID", "", str,

@@ -4,10 +4,18 @@
     store.create_schema("gdelt", "name:String,val:Int,dtg:Date,*geom:Point;"
                         "geomesa.z3.interval=week")
     store.load("gdelt", FeatureTable.build(sft, columns))
+    store.load("gdelt", more)             # lands in the LSM delta tier
+    with store.get_writer("gdelt") as w:  # row appends, the same path
+        w.write(name="a", val=1, dtg=..., geom="POINT (1 2)")
     store.count("gdelt", "BBOX(geom, ...) AND dtg DURING ...")
     store.query("gdelt", "INTERSECTS(geom, POLYGON(...)) AND ...").indices
     store.query("gdelt", "dtg DURING ...", hints={"density": {
         "bbox": (-60, -30, 60, 30), "width": 64, "height": 64}}).weights
+    store.flush("gdelt")                  # merge the delta into the index
+    store.upsert("gdelt", batch)          # put by fid
+    store.remove_features("gdelt", "val = 7")
+    store.update_features("gdelt", "val < 10", {"val": 0})
+    store.age_off("gdelt", now_ms)        # geomesa.feature.expiry
 
     # the serving path: concurrent counts coalesce into batched dispatches
     store.count_many("gdelt", [f1, f2, ...])
@@ -15,10 +23,14 @@
 
 The device is ``cuda`` unless the caller passes another (``device="cpu"``
 runs every kernel's plain version); asking for ``cuda`` without a card
-raises. This port holds one bulk load per type in a Z3 index and answers
-counts, selects and density heat maps, directly or through the store's
-micro-batching scheduler (``serve/scheduler.py``); every other store
-feature raises NotImplementedError naming its ROADMAP.md item.
+raises. Each type holds a main table in a Z3 index on the device and an
+LSM delta tier: small appends land in a host-side delta run that counts,
+selects and density grids merge in exactly; a flush (explicit, past the
+threshold, or before ``planner()`` hands out a planner) merges the delta
+into the index by the incremental merge build (``Z3Index.merge_from``, the
+``merge_scatter`` CUDA kernel), and the destructive mutations rebuild it.
+Every other store feature raises NotImplementedError naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -26,14 +38,20 @@ from __future__ import annotations
 import itertools
 import os
 import threading
+import time
 from typing import Dict, List, Optional, Union
 
-from geomesa_tpu_torch import config
+import numpy as np
 
-from geomesa_tpu_torch.aggregates.density import DensityGrid, density
+from geomesa_tpu_torch import config
+from geomesa_tpu_torch import trace as _trace
+from geomesa_tpu_torch.aggregates.density import DensityGrid, density, host_grid
+from geomesa_tpu_torch.features.geometry import GeometryArray
 from geomesa_tpu_torch.features.sft import SimpleFeatureType
-from geomesa_tpu_torch.features.table import FeatureTable
+from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
 from geomesa_tpu_torch.filter import ir
+from geomesa_tpu_torch.filter.evaluate import evaluate
+from geomesa_tpu_torch.filter.parser import parse_ecql
 from geomesa_tpu_torch.index.api import QueryResult, not_ported
 from geomesa_tpu_torch.index.device import resolve
 from geomesa_tpu_torch.index.planner import QueryPlanner
@@ -51,14 +69,77 @@ def _next_epoch() -> str:
     return f"{os.getpid():x}d{next(_EPOCHS)}"
 
 
+class FeatureWriter:
+    """Batch appender (≙ ``geomesa_tpu/datastore.py:50``): collects rows on
+    the host; ``flush`` (or leaving the ``with`` block) builds one columnar
+    batch and appends it through the store's LSM path."""
+
+    def __init__(self, store: "TorchDataStore", type_name: str):
+        self.store = store
+        self.type_name = type_name
+        self.sft = store.schemas[type_name]
+        self._rows: List[dict] = []
+        self._fids: List[Optional[str]] = []
+
+    def write(self, fid: Optional[str] = None, vis: str = "",
+              **attributes) -> str:
+        """Buffer one feature; returns its fid (``<type>.<n>`` when none is
+        given). ``vis``: visibility labels are not ported yet."""
+        if vis:
+            raise not_ported("visibility labels", 10)
+        missing = [a.name for a in self.sft.attributes
+                   if a.name not in attributes]
+        if missing:
+            raise ValueError(f"Missing attributes {missing}")
+        self._rows.append(attributes)
+        if fid is None:
+            fid = f"{self.type_name}.{self.store._fid_counter(self.type_name)}"
+        self._fids.append(fid)
+        return fid
+
+    def flush(self) -> None:
+        if not self._rows:
+            return
+        cols: Dict[str, object] = {}
+        for a in self.sft.attributes:
+            vals = [row[a.name] for row in self._rows]
+            cols[a.name] = GeometryArray.from_rows(vals) \
+                if a.is_geometry else vals
+        batch = FeatureTable.build(self.sft, cols, fids=self._fids)
+        self.store._append(self.type_name, batch)
+        self._rows, self._fids = [], []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            self.flush()
+
+
 class TorchDataStore:
-    """Schemas, loaded tables and their planners, on one device."""
+    """Schemas, tables, LSM deltas and their planners, on one device.
+
+    Concurrency (≙ the reference's): mutators serialize on the store lock
+    and build-then-swap — new tables and planners are built fully before a
+    shared reference is reassigned, and no FeatureTable or QueryPlanner is
+    mutated in place. Readers take one consistent (planner, delta) pair
+    under a brief lock (``_snapshot``) and run on the captured objects."""
 
     def __init__(self, params: Optional[dict] = None):
         self.params = dict(params or {})
+        if self.params.get("durability"):
+            raise not_ported("durability (the write-ahead log, snapshots "
+                             "and recovery)", 15)
         self.device = resolve(self.params.get("device"))
         self.schemas: Dict[str, SimpleFeatureType] = {}
+        self.tables: Dict[str, Optional[FeatureTable]] = {}
         self.planners: Dict[str, QueryPlanner] = {}
+        # LSM delta tier: recent appends held as a small host-side run that
+        # queries merge in exactly; flushed into the device-indexed main
+        # table past the flush threshold (≙ the Lambda store's hot tier)
+        self.deltas: Dict[str, Optional[FeatureTable]] = {}
+        self._counters: Dict[str, int] = {}
         self._lock = threading.RLock()
         # per-type mutation generation: the serving caches' invalidation
         # token (a plan or cover cached against generation g is
@@ -75,6 +156,7 @@ class TorchDataStore:
                       spec: Optional[str] = None) -> SimpleFeatureType:
         if isinstance(sft, str):
             sft = SimpleFeatureType.from_spec(sft, spec or "")
+        sft.feature_expiry  # validate up front, not on the first write
         if sft.name in self.schemas:
             raise ValueError(f"Schema {sft.name} already exists")
         if not Z3Index.supports(sft):
@@ -85,31 +167,333 @@ class TorchDataStore:
             raise not_ported("attribute and configured indexes", 10)
         with self._lock:
             self.schemas[sft.name] = sft
+            self.tables[sft.name] = None
             self._bump_generation(sft.name)
         return sft
 
+    def get_schema(self, type_name: str) -> SimpleFeatureType:
+        return self.schemas[type_name]
+
+    def get_type_names(self) -> List[str]:
+        return list(self.schemas)
+
+    # -- writes --------------------------------------------------------------
+
+    def get_writer(self, type_name: str) -> FeatureWriter:
+        if type_name not in self.schemas:
+            raise KeyError(type_name)
+        return FeatureWriter(self, type_name)
+
     def load(self, type_name: str, table: FeatureTable) -> None:
-        """Bulk-load a columnar table: builds the Z3 index on the device."""
-        sft = self.schemas[type_name]
-        if type_name in self.planners:
-            raise not_ported("appends to a loaded type (the LSM delta tier)", 10)
-        planner = QueryPlanner(sft, table, [Z3Index(sft, table, self.device)])
+        """Append a prebuilt columnar table: the first load builds the Z3
+        index on the device, later ones take the LSM append path."""
+        self._append(type_name, table)
+
+    def _append(self, type_name: str, batch: FeatureTable) -> None:
         with self._lock:
-            self.planners[type_name] = planner
+            self._append_apply(type_name, batch)
+
+    def _append_apply(self, type_name: str, batch: FeatureTable) -> None:
+        """The LSM append (≙ ``geomesa_tpu/datastore.py:274-349``): a batch
+        lands in the host-side delta run while the run stays within
+        ``max(50_000, LSM_MAX_FRACTION × main rows)``; past it the delta
+        flushes through with the batch. Callers hold the lock."""
+        _metrics.inc("ingest.features", len(batch))
+        self._bump_generation(type_name)
+        # already-expired incoming rows never land
+        batch, _ = self._apply_age_off(type_name, batch)
+        current = self.tables.get(type_name)
+        if current is None:
+            self.tables[type_name] = batch
+            self.deltas[type_name] = None
+            with _trace.span("ingest.index_build", kind="aggregate"):
+                self._rebuild_indexes(type_name)
+            return
+        delta = self.deltas.get(type_name)
+        merged_delta = batch if delta is None \
+            else FeatureTable.concat([delta, batch])
+        threshold = max(50_000, int(config.LSM_MAX_FRACTION.get()
+                                    * len(current)))
+        if len(merged_delta) > threshold:
+            _metrics.inc("ingest.flushes")
+            self.deltas[type_name] = None
+            self._merge_in(type_name, current, merged_delta)
+        else:
+            _metrics.inc("ingest.delta_appends")
+            self.deltas[type_name] = merged_delta
+
+    def _merge_in(self, type_name: str, current: FeatureTable,
+                  delta: FeatureTable) -> None:
+        """Main table + delta, aged off, installed: by the incremental merge
+        build when nothing aged off, else by a full rebuild."""
+        n_old = len(current)
+        merged = FeatureTable.concat([current, delta])
+        merged, n_exp = self._apply_age_off(type_name, merged)
+        with _trace.span("ingest.index_build", kind="aggregate"):
+            # age-off drops invalidate the resident sorted run's row
+            # identity — only a clean append merges incrementally
+            if n_exp or not self._merge_rebuild(type_name, merged, n_old):
+                self.tables[type_name] = merged
+                self._rebuild_indexes(type_name)
+
+    def flush(self, type_name: str) -> None:
+        """Merge the delta run into the main device index (≙
+        ``geomesa_tpu/datastore.py:351``). No-op when the delta is empty."""
+        with self._lock:
+            delta = self.deltas.get(type_name)
+            if delta is None:
+                return
+            with _trace.span("ingest.flush", kind="aggregate",
+                             type=type_name):
+                self._bump_generation(type_name)
+                self.deltas[type_name] = None
+                self._merge_in(type_name, self.tables[type_name], delta)
+
+    def upsert(self, type_name: str, batch: FeatureTable) -> int:
+        """Atomic put-by-fid (≙ ``geomesa_tpu/datastore.py:375-431``):
+        rows whose fids collide with the batch's are removed, then the
+        batch appends — one mutation under one lock hold, idempotent.
+        Without a main-table collision the batch rides the LSM append path.
+        Returns the rows written."""
+        if type_name not in self.schemas:
+            raise KeyError(type_name)
+        with self._lock, _trace.span("ingest.upsert", kind="aggregate",
+                                     type=type_name):
+            self._upsert_locked(type_name, batch)
+        return len(batch)
+
+    def _upsert_locked(self, type_name: str, batch: FeatureTable) -> None:
+        _metrics.inc("ingest.upserts")
+        batch_fids = batch.fids
+        delta = self.deltas.get(type_name)
+        if delta is not None:
+            ddup = delta.fid_runs.isin(batch_fids)
+            if ddup.any():
+                keep = np.flatnonzero(~ddup)
+                self.deltas[type_name] = delta.take(keep) if len(keep) \
+                    else None
+        current = self.tables.get(type_name)
+        main_dup = None
+        if current is not None and len(current):
+            main_dup = current.fid_runs.isin(batch_fids)
+            if not main_dup.any():
+                main_dup = None
+        if main_dup is None:
+            self._append_apply(type_name, batch)
+            return
+        self._bump_generation(type_name)
+        current = current.take(np.flatnonzero(~main_dup))
+        delta = self.deltas.get(type_name)
+        if delta is not None:
+            current = FeatureTable.concat([current, delta])
+            self.deltas[type_name] = None
+        merged = FeatureTable.concat([current, batch]) \
+            if len(current) else batch
+        merged, _ = self._apply_age_off(type_name, merged)
+        self.tables[type_name] = merged
+        self._rebuild_indexes(type_name)
+
+    def _apply_age_off(self, type_name: str, table: Optional[FeatureTable],
+                       now_ms: Optional[int] = None):
+        """(surviving table, n_expired) under the type's
+        ``geomesa.feature.expiry`` TTL; no-op without one. Null dates
+        (int64 min) never expire."""
+        exp = self.schemas[type_name].feature_expiry
+        if exp is None or table is None or len(table) == 0:
+            return table, 0
+        attr, ttl_ms = exp
+        now = int(time.time() * 1000) if now_ms is None else int(now_ms)
+        vals = np.asarray(table.columns[attr], dtype=np.int64)
+        keep = (vals > now - ttl_ms) | (vals == np.iinfo(np.int64).min)
+        n_exp = int(len(keep) - keep.sum())
+        if n_exp == 0:
+            return table, 0
+        _metrics.inc("ingest.aged_off", n_exp)
+        return table.take(np.flatnonzero(keep)), n_exp
+
+    def age_off(self, type_name: str, now_ms: Optional[int] = None) -> int:
+        """Age-off compaction of the main table and the delta (≙
+        ``geomesa_tpu/datastore.py:433-482``): drops every row whose TTL
+        lapsed at ``now_ms`` (default: now) and rebuilds the index when
+        anything dropped or a delta was pending. Returns the rows removed,
+        delta rows included."""
+        now = int(time.time() * 1000) if now_ms is None else int(now_ms)
+        with self._lock, _trace.span("ingest.age_off", kind="aggregate",
+                                     type=type_name):
+            table = self.tables.get(type_name)
+            delta = self.deltas.get(type_name)
+            if delta is not None:
+                table = FeatureTable.concat([table, delta])
+            table2, n = self._apply_age_off(type_name, table, now)
+            if n or delta is not None:
+                self._bump_generation(type_name)
+                self.deltas[type_name] = None
+                self.tables[type_name] = table2
+                self._rebuild_indexes(type_name)
+        return n
+
+    def update_features(self, type_name: str, f: Union[str, ir.Filter],
+                        updates: Dict[str, object]) -> int:
+        """Set attributes of the matching features and rebuild the index (≙
+        ``geomesa_tpu/datastore.py:1076-1160``). ``updates``: attr → a
+        scalar, an array (one value a match) or a callable of the matching
+        sub-table. Build-then-swap: the patched columns land in a new
+        FeatureTable. Returns the rows updated."""
+        with self._lock:
+            planner = self.planner(type_name)  # flushes any delta first
+            rows = planner.select_indices(f)
+            if len(rows) == 0:
+                return 0
+            table = planner.table
+            cols: Dict[str, object] = dict(table.columns)
+            sub = None
+            for name, val in updates.items():
+                attr = self.schemas[type_name].attribute(name)
+                if callable(val):
+                    sub = sub if sub is not None else table.take(rows)
+                    val = val(sub)
+                col = table.columns[name]
+                if isinstance(col, GeometryArray):
+                    new = val if isinstance(val, GeometryArray) \
+                        else GeometryArray.from_rows(
+                            [val] * len(rows) if isinstance(val, str)
+                            else list(val))
+                    x, y = col.x.copy(), col.y.copy()
+                    x[rows], y[rows] = new.x, new.y
+                    cols[name] = GeometryArray(x, y)
+                elif isinstance(col, StringColumn):
+                    values = np.asarray(col.vocab, dtype=object)[col.codes]
+                    values[rows] = val if isinstance(val, str) \
+                        else np.asarray([str(v) for v in val], dtype=object)
+                    cols[name] = StringColumn.encode(values)
+                else:
+                    # copy-on-write: loaded tables may alias caller arrays
+                    arr = np.array(col, copy=True)
+                    if attr.type_name == "Date":
+                        v = np.asarray(val)
+                        if v.dtype.kind in "MUS":
+                            val = v.astype("datetime64[ms]").astype(np.int64)
+                    arr[rows] = val
+                    cols[name] = arr
             self._bump_generation(type_name)
+            self.tables[type_name] = FeatureTable(
+                table.sft, cols, _n=len(table), _fids=table._fids)
+            self._rebuild_indexes(type_name)
+            return int(len(rows))
+
+    def remove_features(self, type_name: str,
+                        f: Union[str, ir.Filter]) -> int:
+        """Delete the matching features and rebuild the index over the
+        survivors (≙ ``geomesa_tpu/datastore.py:1224``). Returns the rows
+        removed."""
+        with self._lock:
+            planner = self.planner(type_name)
+            rows = planner.select_indices(f)
+            if len(rows) == 0:
+                return 0
+            keep = np.ones(len(planner.table), dtype=bool)
+            keep[rows] = False
+            self._bump_generation(type_name)
+            self.tables[type_name] = planner.table.take(np.flatnonzero(keep))
+            self._rebuild_indexes(type_name)
+            return int(len(rows))
+
+    def _fid_counter(self, type_name: str) -> int:
+        with self._lock:  # two writers must never share a fid
+            c = self._counters.get(type_name, 0)
+            self._counters[type_name] = c + 1
+            return c
+
+    # -- index builds --------------------------------------------------------
+
+    def _rebuild_indexes(self, type_name: str) -> None:
+        """Full build of the type's Z3 index over its main table, swapped
+        in once built (callers hold the lock)."""
+        sft = self.schemas[type_name]
+        table = self.tables[type_name]
+        self.planners[type_name] = QueryPlanner(
+            sft, table, [Z3Index(sft, table, self.device)])
+
+    def _merge_rebuild(self, type_name: str, merged: FeatureTable,
+                       n_old: int) -> bool:
+        """Incremental flush (≙ ``geomesa_tpu/datastore.py:574-647``): merge
+        the freshly sorted delta run into the resident index
+        (``Z3Index.merge_from``) instead of re-sorting the whole table.
+        False when ineligible (``MERGE_BUILD`` off, an empty side, a delta
+        over ``MERGE_MAX_FRACTION`` of the main table — counted in
+        ``ingest.merge_fraction_breaches`` — or a stale planner): the
+        caller then rebuilds. Callers hold the lock and have not installed
+        ``merged`` yet."""
+        if not config.MERGE_BUILD.get():
+            return False
+        n_delta = len(merged) - n_old
+        if n_old <= 0 or n_delta <= 0:
+            return False
+        if n_delta > config.MERGE_MAX_FRACTION.get() * max(1, n_old):
+            _metrics.inc("ingest.merge_fraction_breaches")
+            _metrics.inc(f"ingest.merge_fraction_breaches.{type_name}")
+            return False
+        old_planner = self.planners.get(type_name)
+        current = self.tables.get(type_name)
+        if old_planner is None or current is None or len(current) != n_old \
+                or any(idx.table is not current
+                       for idx in old_planner.indexes):
+            return False
+        with _trace.span("ingest.merge_build", kind="aggregate",
+                         type=type_name):
+            indexes = [type(idx).merge_from(idx, merged, n_old)
+                       for idx in old_planner.indexes]
+            self.tables[type_name] = merged
+            self.planners[type_name] = QueryPlanner(
+                self.schemas[type_name], merged, indexes)
+        _metrics.inc("ingest.merge_builds")
+        return True
+
+    # -- reads ---------------------------------------------------------------
 
     def planner(self, type_name: str) -> QueryPlanner:
+        """The type's QueryPlanner over a fully merged view: a pending delta
+        flushes first (≙ ``geomesa_tpu/datastore.py:867-874``). The store's
+        own count and query merge the delta inline and never flush."""
+        with self._lock:
+            self.flush(type_name)
+            return self._main_planner(type_name)
+
+    def _main_planner(self, type_name: str) -> QueryPlanner:
         if type_name not in self.planners:
             raise ValueError(f"No data written to {type_name}")
         return self.planners[type_name]
 
+    def _snapshot(self, type_name: str):
+        """One consistent (planner, delta) pair, captured under the lock;
+        the query then runs lock-free on the captured objects."""
+        with self._lock:
+            return self._main_planner(type_name), self.deltas.get(type_name)
+
+    def _delta_rows(self, delta: Optional[FeatureTable], f,
+                    auths) -> np.ndarray:
+        """Matching rows of a snapshotted delta run, evaluated on the host
+        in f64 (the delta is bounded small, so brute force is exact)."""
+        if delta is None:
+            return np.empty(0, dtype=np.int64)
+        if auths is not None:
+            raise not_ported("visibility labels and query authorizations",
+                             10)
+        fir = parse_ecql(f) if isinstance(f, str) else f
+        return np.flatnonzero(evaluate(fir, delta))
+
     def count(self, type_name: str, f: Union[str, ir.Filter] = "INCLUDE",
               auths: Optional[list] = None,
               deadline_ms: Optional[float] = None) -> int:
-        """The direct count; ``deadline_ms`` bounds it as the ambient
-        request deadline the planner's stages check."""
+        """The direct count over main table and delta; ``deadline_ms``
+        bounds it as the ambient request deadline the planner's stages
+        check."""
         with _rdl.scope(deadline_ms):
-            return self.planner(type_name).count(f, auths=auths)
+            planner, delta = self._snapshot(type_name)
+            c = planner.count(f, auths=auths)
+            if delta is not None:
+                c += len(self._delta_rows(delta, f, auths))
+            return c
 
     # -- the serving path ----------------------------------------------------
 
@@ -124,12 +508,12 @@ class TorchDataStore:
             return self._generations.get(type_name, 0)
 
     def _sched_snapshot(self, type_name: str):
-        """(planner, generation, epoch) captured atomically for the query
-        scheduler. The reference's snapshot also carries the type's LSM
-        delta, which the port does not have yet (ROADMAP.md Queue 1
-        item 10)."""
+        """(planner, delta, generation, epoch) captured atomically for the
+        query scheduler — the scheduler-side twin of ``_snapshot``; the
+        epoch salts its cache keys per store incarnation."""
         with self._lock:
-            return (self.planner(type_name),
+            return (self._main_planner(type_name),
+                    self.deltas.get(type_name),
                     self._generations.get(type_name, 0), self.epoch)
 
     def scheduler(self):
@@ -206,17 +590,36 @@ class TorchDataStore:
               ) -> Union[QueryResult, DensityGrid]:
         """Rows of a filter as a QueryResult; with ``hints={"density":
         {"bbox", "width", "height", "weight"}}`` a DensityGrid heat map of
-        the matches instead (width/height default to 256, weight to None)."""
+        the matches instead (width/height default to 256, weight to None).
+        A pending delta merges in inline, as in the reference
+        (``geomesa_tpu/datastore.py:927-1027``): its rows stack above the
+        main table's (``indices`` past ``len(main table)``), and a density
+        adds the delta's host grid onto the device grid."""
         hints = hints or {}
         unknown = set(hints) - {"density"}
         if unknown:
             raise not_ported(f"query hints {sorted(unknown)}", 10)
-        planner = self.planner(type_name)
+        planner, delta = self._snapshot(type_name)
         if "density" in hints:
             d = dict(hints["density"])
-            return density(planner, f, d["bbox"], d.get("width", 256),
+            grid = density(planner, f, d["bbox"], d.get("width", 256),
                            d.get("height", 256), d.get("weight"))
-        return planner.query(f)
+            if delta is not None:
+                grid.weights = grid.weights + host_grid(
+                    delta, self._delta_rows(delta, f, None), d["bbox"],
+                    grid.width, grid.height, d.get("weight"))
+            return grid
+        res = planner.query(f)
+        if delta is None:
+            return res
+        drows = self._delta_rows(delta, f, None)
+        n_main = len(planner.table)
+        rows = np.concatenate([res.indices, drows + n_main])
+        sub = FeatureTable.concat([res.table, delta.take(drows)]) \
+            if len(drows) else res.table
+        if res.plan is not None:
+            res.plan.explain["stacked_rows_base"] = n_main
+        return QueryResult(rows, sub, res.plan)
 
 
 class DataStoreFinder:

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -66,6 +66,37 @@ class GeometryArray:
     def take(self, idx: np.ndarray) -> "GeometryArray":
         idx = np.asarray(idx, dtype=np.int64)
         return GeometryArray(self.x[idx], self.y[idx])
+
+    @classmethod
+    def from_wkt(cls, wkts: Sequence[str]) -> "GeometryArray":
+        """Point WKT literals → a column (≙ the reference's ``from_wkt``,
+        ``geomesa_tpu/features/geometry.py:146``, for point layers)."""
+        xy = np.empty((len(wkts), 2), dtype=np.float64)
+        for i, w in enumerate(wkts):
+            code, coords = parse_wkt(w)
+            if code != POINT:
+                raise NotImplementedError(
+                    "non-point geometries in a column are not ported to "
+                    "geomesa_tpu_torch yet (ROADMAP.md Queue 1, item 9)")
+            xy[i] = coords
+        return cls(xy[:, 0], xy[:, 1])
+
+    @classmethod
+    def from_rows(cls, vals: Sequence) -> "GeometryArray":
+        """Coerce per-row geometry values — (x, y) pairs or WKT strings —
+        into a column (the row writers' sniff, ≙
+        ``geomesa_tpu/features/geometry.py:150``)."""
+        if vals and isinstance(vals[0], (tuple, list)) and len(vals[0]) == 2 \
+                and isinstance(vals[0][0], (int, float)):
+            xy = np.asarray(vals, dtype=np.float64)
+            return cls(xy[:, 0], xy[:, 1])
+        return cls.from_wkt(list(vals))
+
+    @classmethod
+    def concat(cls, arrays: Sequence["GeometryArray"]) -> "GeometryArray":
+        """Row concatenation (≙ ``geomesa_tpu/features/geometry.py:223``)."""
+        return cls(np.concatenate([a.x for a in arrays]),
+                   np.concatenate([a.y for a in arrays]))
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ Per-type configuration rides in ``user_data`` exactly like the reference
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -149,6 +150,33 @@ class SimpleFeatureType:
         return self.user_data.get("geomesa.z3.interval", "week")
 
     @property
+    def feature_expiry(self) -> Optional[tuple]:
+        """(date attribute name, ttl_ms) from ``geomesa.feature.expiry``
+        user data, or None (≙ ``geomesa_tpu/features/sft.py:171``): the
+        reference FeatureExpiration syntax, ``attr(duration)`` or a bare
+        ``duration`` on the default dtg attribute. The store enforces it at
+        ingest, at every LSM flush and in ``age_off``."""
+        raw = self.user_data.get("geomesa.feature.expiry")
+        if not raw:
+            return None
+        m = re.match(r"^\s*(\w+)\s*\(\s*([^)]+?)\s*\)\s*$", raw)
+        if m:
+            attr_name, dur = m.group(1), m.group(2)
+            attr = self.attribute(attr_name)
+        else:
+            dur = raw.strip()
+            attr = self.dtg_attribute
+            if attr is None:
+                raise ValueError(
+                    "geomesa.feature.expiry with a bare duration needs a "
+                    "Date attribute (or use 'attr(duration)')")
+        if attr.type_name != "Date":
+            raise ValueError(
+                f"geomesa.feature.expiry attribute {attr.name!r} must be a "
+                f"Date (got {attr.type_name})")
+        return attr.name, parse_duration_ms(dur)
+
+    @property
     def device_column_group(self) -> Optional[List[str]]:
         """Attribute names projected onto the device (``geomesa.column.groups``
         user data, ':'-separated). ≙ the reference's ColumnGroups narrow
@@ -168,3 +196,23 @@ class SimpleFeatureType:
                 f"(have {sorted(known)}; ':'-separated)")
         return names
 
+
+_DURATION_MS = {
+    "ms": 1, "millis": 1, "milliseconds": 1,
+    "s": 1000, "second": 1000, "seconds": 1000,
+    "min": 60_000, "minute": 60_000, "minutes": 60_000,
+    "h": 3_600_000, "hour": 3_600_000, "hours": 3_600_000,
+    "d": 86_400_000, "day": 86_400_000, "days": 86_400_000,
+    "w": 604_800_000, "week": 604_800_000, "weeks": 604_800_000,
+}
+
+
+def parse_duration_ms(s: str) -> int:
+    """'7 days' / '30min' / '500 ms' → milliseconds (the reference's
+    duration grammar, ``geomesa_tpu/features/sft.py``)."""
+    m = re.match(r"^\s*(\d+)\s*([a-zA-Z]+)\s*$", s)
+    if not m or m.group(2).lower() not in _DURATION_MS:
+        raise ValueError(
+            f"Cannot parse duration {s!r} (want '<n> "
+            f"{'|'.join(sorted(set(_DURATION_MS)))}')")
+    return int(m.group(1)) * _DURATION_MS[m.group(2).lower()]

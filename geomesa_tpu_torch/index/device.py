@@ -11,13 +11,18 @@ index-sorted row order —
                    dictionary codes
 
 The planes are encoded on the host with the reference's numpy semantics
-(the native C++ encoder is not ported yet), then moved to the device.
+(the native C++ encoder is not ported yet), then moved to the device. A
+flush of the store's delta tier merges a sorted delta run into the resident
+columns (``DeviceTable.merge_scatter``) through the ``merge_scatter`` CUDA
+kernel (``kernels/merge.py``); ``merge_scatter`` below is its plain
+version.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -36,6 +41,13 @@ def resolve(device: Union[str, torch.device, None] = None) -> torch.device:
             f"device {dev} requested but torch.cuda.is_available() is "
             "false; pass device='cpu' to run the plain versions")
     return dev
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op off CUDA): the build
+    stages' timers stop on it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def fp62(x, lo: float, hi: float):
@@ -143,12 +155,117 @@ class DeviceTable:
 
     @classmethod
     def build_sorted(cls, planes: Dict[str, np.ndarray],
-                     perm: torch.Tensor) -> "DeviceTable":
+                     perm: torch.Tensor,
+                     stages: Dict[str, float]) -> "DeviceTable":
         """Upload unsorted host planes one at a time and gather each through
         the device permutation ``perm`` (the index's sort), so at most one
-        unsorted plane is resident beside the sorted table."""
+        unsorted plane is resident beside the sorted table. ``stages``
+        accumulates the synchronised seconds of the uploads (``upload_s``)
+        and of the gathers (``gather_s``)."""
         cols = {}
         for k, v in planes.items():
-            cols[k] = torch.from_numpy(np.ascontiguousarray(v)).to(
-                perm.device).index_select(0, perm)
+            t0 = time.perf_counter()
+            raw = torch.from_numpy(np.ascontiguousarray(v)).to(perm.device)
+            sync(perm.device)
+            t1 = time.perf_counter()
+            cols[k] = raw.index_select(0, perm)
+            sync(perm.device)
+            stages["upload_s"] = stages.get("upload_s", 0.0) + t1 - t0
+            stages["gather_s"] = stages.get("gather_s", 0.0) \
+                + time.perf_counter() - t1
+            del raw
         return cls(int(perm.shape[0]), cols)
+
+    @classmethod
+    def merge_scatter(cls, old: "DeviceTable",
+                      delta_planes: Dict[str, np.ndarray],
+                      r: np.ndarray, stale=(),
+                      full_codes: Optional[Dict[str, np.ndarray]] = None,
+                      perm_pair=None,
+                      host_perm: Optional[np.ndarray] = None,
+                      stages: Optional[Dict[str, float]] = None):
+        """Incremental merge of ``old``'s sorted columns with a sorted delta
+        run, the device half of the LSM merge build (≙
+        ``geomesa_tpu/index/device.py:160-238``).
+
+        ``r[j]`` = merged rank of sorted-delta row j among the resident rows
+        (count of resident keys ≤ the delta key — residents win ties), host
+        int, non-decreasing. Only delta-sized data crosses the host link:
+        every column that is in both ``old`` and ``delta_planes`` and not
+        ``stale`` merges in ONE launch of the ``merge_scatter`` kernel
+        (``kernels/merge.py``; its plain version on the CPU), the
+        permutation with them when ``perm_pair`` = (old device perm, delta
+        perm values) is given — the port's permutation is int64, so it
+        merges as an 8-byte column. ``stale`` columns (dictionary codes
+        whose vocab changed under the union-vocab concat) rebuild from
+        ``full_codes`` through one gather by ``host_perm`` or the merged
+        device perm. ``stages`` receives the synchronised seconds of the
+        upload (``upload_s``), the kernel (``kernel_s``) and the stale
+        gathers (``stale_s``). Returns (DeviceTable, merged perm or None)."""
+        from geomesa_tpu_torch.kernels import merge as _merge
+
+        dev = old.device
+        full_codes = full_codes or {}
+        st = {} if stages is None else stages
+        t0 = time.perf_counter()
+        names = [k for k in old.columns
+                 if k in delta_planes and k not in stale]
+        olds = [old.columns[k] for k in names]
+        deltas = [torch.from_numpy(np.ascontiguousarray(
+            np.asarray(delta_planes[k], dtype=_np_dtype(old.columns[k]))))
+            .to(dev) for k in names]
+        if perm_pair is not None:
+            olds.append(perm_pair[0])
+            deltas.append(torch.from_numpy(np.ascontiguousarray(
+                np.asarray(perm_pair[1], dtype=_np_dtype(perm_pair[0]))))
+                .to(dev))
+        r32 = torch.from_numpy(np.asarray(r, dtype=np.int32)).to(dev)
+        sync(dev)
+        t1 = time.perf_counter()
+        outs = _merge.merge_scatter(olds, deltas, r32)
+        sync(dev)
+        t2 = time.perf_counter()
+        merged = dict(zip(names, outs))
+        new_perm = outs[-1] if perm_pair is not None else None
+        for name in stale:
+            codes = np.asarray(full_codes[name], dtype=np.int32)
+            if host_perm is not None:
+                merged[name] = torch.from_numpy(codes[host_perm]).to(dev)
+            else:
+                merged[name] = torch.from_numpy(codes).to(dev).index_select(
+                    0, new_perm)
+        sync(dev)
+        st["upload_s"] = t1 - t0
+        st["kernel_s"] = t2 - t1
+        st["stale_s"] = time.perf_counter() - t2
+        cols = {k: merged[k] for k in old.columns if k in merged}
+        return cls(old.n + len(r), cols), new_perm
+
+
+def _np_dtype(t: torch.Tensor) -> np.dtype:
+    return torch.empty(0, dtype=t.dtype).numpy().dtype
+
+
+def merge_scatter(olds: Sequence[torch.Tensor],
+                  deltas: Sequence[torch.Tensor],
+                  r: torch.Tensor) -> List[torch.Tensor]:
+    """Plain version of the ``merge_scatter`` kernel (the reference's
+    ``_build_merge_scatter``, ``geomesa_tpu/index/device.py:241``): for
+    every column pair, ``out[i + #{j : r[j] <= i}] = old[i]`` and
+    ``out[r[j] + j] = delta[j]``, by ``torch.searchsorted`` and
+    ``index_copy_``."""
+    n_delta = int(r.shape[0])
+    n_old = int(olds[0].shape[0]) if olds else 0
+    dev = r.device
+    shift = torch.searchsorted(
+        r, torch.arange(n_old, dtype=r.dtype, device=dev), right=True)
+    pos_res = torch.arange(n_old, dtype=torch.int64, device=dev) + shift
+    pos_del = r.to(torch.int64) + torch.arange(n_delta, dtype=torch.int64,
+                                               device=dev)
+    out = []
+    for o, d in zip(olds, deltas):
+        buf = torch.empty(n_old + n_delta, dtype=o.dtype, device=dev)
+        buf.index_copy_(0, pos_res, o)
+        buf.index_copy_(0, pos_del, d)
+        out.append(buf)
+    return out

@@ -7,12 +7,16 @@ query column gathers through the permutation once. ``plan`` turns a filter
 into padded fp62 boxes, exact binned-time windows and a residual split
 between the device and the host; ``candidate_blocks`` covers a plan with the
 gather blocks of its z-ranges (the staged path's range pruning), from host
-copies of the sorted keys.
+copies of the sorted keys. ``merge_from`` builds the index of a table that
+grew by a delta run incrementally: only the delta sorts, and the device
+columns merge through the ``merge_scatter`` kernel (``build_stages`` holds
+each build's synchronised stage seconds).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple, Union
+import time
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,7 +30,7 @@ from geomesa_tpu_torch.filter.extract import extract_bboxes, extract_intervals
 from geomesa_tpu_torch.index import prune as _p
 from geomesa_tpu_torch.index.api import IndexScanPlan, not_ported
 from geomesa_tpu_torch.index.device import (DeviceTable, fp62_lat, fp62_lon,
-                                            host_planes, resolve)
+                                            host_planes, resolve, sync)
 from geomesa_tpu_torch.index.scan import (ScanKernels, compile_residual,
                                           pad_boxes, pad_windows,
                                           split_residual)
@@ -83,6 +87,18 @@ def _boxes_fp62(boxes) -> np.ndarray:
     return out
 
 
+class _DeltaKeyShim:
+    """Minimal stand-in passed to ``Z3Index._sort_keys`` to encode a delta
+    run's keys without building an index over it (≙
+    ``geomesa_tpu/index/spatial.py:349``)."""
+
+    def __init__(self, table, dtg, period, sfc):
+        self.table = table
+        self.dtg = dtg
+        self.period = period
+        self._sfc = sfc
+
+
 class Z3Index:
     """Point + time: epoch-major (bin, z3) order (≙ Z3IndexKeySpace.scala:34)."""
 
@@ -101,16 +117,127 @@ class Z3Index:
         self.dtg = sft.dtg_attribute.name
         self.period = TimePeriod.parse(sft.z3_interval)
         self._sfc = Z3SFC.apply(self.period)
+        # the build by stage, each timer stopped on a device sync: host
+        # keys, key upload + plane uploads, the device sort, host planes,
+        # the sorted gathers
+        st: Dict[str, float] = {}
+        t0 = time.perf_counter()
         self._bins, self._z = self._sort_keys()
-        self.perm = device_sort_perm(torch.from_numpy(self._bins).to(dev),
-                                     torch.from_numpy(self._z).to(dev))
-        self.device = DeviceTable.build_sorted(
-            host_planes(table, self.period), self.perm)
+        t1 = time.perf_counter()
+        bins = torch.from_numpy(self._bins).to(dev)
+        z = torch.from_numpy(self._z).to(dev)
+        sync(dev)
+        t2 = time.perf_counter()
+        self.perm = device_sort_perm(bins, z)
+        del bins, z
+        sync(dev)
+        t3 = time.perf_counter()
+        planes = host_planes(table, self.period)
+        st.update(keys_s=t1 - t0, upload_s=t2 - t1, sort_s=t3 - t2,
+                  planes_s=time.perf_counter() - t3)
+        self.device = DeviceTable.build_sorted(planes, self.perm, st)
+        self.build_stages = st
         self.kernels = ScanKernels(self.device.columns)
         self.vocabs = {
             name: col.vocab for name, col in table.columns.items()
             if isinstance(col, StringColumn)
         }
+
+    @classmethod
+    def merge_from(cls, old: "Z3Index", merged_table: FeatureTable,
+                   n_old: int) -> "Z3Index":
+        """Incremental (LSM-merge) build (≙
+        ``geomesa_tpu/index/spatial.py:663-823``): ``merged_table`` is
+        ``old.table`` followed by ``n_delta`` appended rows. Only the delta
+        run's keys are encoded and sorted (``np.lexsort``); each delta row's
+        rank ``r`` among the resident sorted keys comes from a per-bin
+        ``searchsorted`` with ties to the residents (``side="right"``); the
+        host key planes merge by direct placement; the device columns and
+        the permutation merge in one ``merge_scatter`` launch, moving only
+        delta-sized data over the host link. The result is bitwise the full
+        rebuild's: the merged order is the stable lexsort of the
+        concatenated keys (residents keep their order, delta rows keep
+        theirs, ties go to the smaller table row — a resident)."""
+        n_new = len(merged_table)
+        n_delta = n_new - n_old
+        self = cls.__new__(cls)
+        self.sft = old.sft
+        self.table = merged_table
+        self.geom, self.dtg = old.geom, old.dtg
+        self.period, self._sfc = old.period, old._sfc
+        st: Dict[str, float] = {}
+        t0 = time.perf_counter()
+
+        # 1-2. the delta run's keys and its own stable sort
+        delta_table = merged_table.take(np.arange(n_old, n_new,
+                                                  dtype=np.int64))
+        bins_d, z_d = cls._sort_keys(_DeltaKeyShim(
+            delta_table, old.dtg, old.period, old._sfc))
+        p_d = np.lexsort((z_d, bins_d)).astype(np.int64)
+        z_sd, b_sd = z_d[p_d], bins_d[p_d]
+        t1 = time.perf_counter()
+
+        # 3. ranks among the residents, bin segment by bin segment
+        old_z, old_b = old.sorted_z, old.sorted_bins
+        r = np.empty(n_delta, dtype=np.int64)
+        touched = np.unique(b_sd)
+        for b in touched:
+            ds = np.searchsorted(b_sd, b, side="left")
+            de = np.searchsorted(b_sd, b, side="right")
+            rs = np.searchsorted(old_b, b, side="left")
+            re_ = np.searchsorted(old_b, b, side="right")
+            r[ds:de] = rs + np.searchsorted(old_z[rs:re_], z_sd[ds:de],
+                                            side="right")
+        t2 = time.perf_counter()
+
+        # 4. host key planes: delta row j lands at r[j] + j, the residents
+        # fill the rest in order
+        is_delta = np.zeros(n_new, dtype=bool)
+        is_delta[r + np.arange(n_delta, dtype=np.int64)] = True
+        self._z = np.concatenate([old._z, z_d])
+        self._bins = np.concatenate([old._bins, bins_d])
+        for attr, res, dl in (("_sorted_z", old_z, z_sd),
+                              ("_sorted_bins", old_b, b_sd)):
+            merged = np.empty(n_new, dtype=res.dtype)
+            merged[~is_delta] = res
+            merged[is_delta] = dl
+            setattr(self, attr, merged)
+        del is_delta
+        t3 = time.perf_counter()
+
+        # 5. dictionary columns whose vocab grew under the union-vocab
+        # concat: the resident device codes are stale, so those columns
+        # rebuild from the merged codes
+        self.vocabs = {name: col.vocab
+                       for name, col in merged_table.columns.items()
+                       if isinstance(col, StringColumn)}
+        stale = [name for name in old.device.columns
+                 if name in self.vocabs
+                 and old.vocabs.get(name) != self.vocabs[name]]
+        full_codes = {name: merged_table.columns[name].codes
+                      for name in stale}
+        t4 = time.perf_counter()
+
+        # 6. the delta's device planes, in delta-sorted order
+        delta_planes = {k: v[p_d] for k, v in
+                        host_planes(delta_table, old.period).items()}
+        t5 = time.perf_counter()
+
+        # 7. one merge_scatter launch: every column and the permutation
+        self.device, self.perm = DeviceTable.merge_scatter(
+            old.device, delta_planes, r, stale=stale, full_codes=full_codes,
+            perm_pair=(old.perm, n_old + p_d), stages=st)
+
+        # 8. the staged scan modes over the merged columns
+        self.kernels = ScanKernels(self.device.columns)
+        st.update(keys_s=t1 - t0, rank_s=t2 - t1, host_runs_s=t3 - t2,
+                  vocab_s=t4 - t3, planes_s=t5 - t4,
+                  merge_s=time.perf_counter() - t0, merge_rows=n_delta,
+                  merge_fraction=n_delta / max(1, n_old),
+                  merge_touched_bins=len(touched),
+                  merge_stale_cols=sorted(stale))
+        self.build_stages = st
+        return self
 
     @classmethod
     def supports(cls, sft) -> bool:

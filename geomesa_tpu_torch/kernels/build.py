@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
 
 # every kernel of the port, by its source's name under csrc/
-KERNELS = ("pip_refine", "grid_scatter", "box_count", "dist_refine")
+KERNELS = ("pip_refine", "grid_scatter", "box_count", "dist_refine",
+           "merge_scatter")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -27,8 +27,12 @@ Caching in front of the batcher:
                share one host range decomposition.
 
 Both invalidate through the store's per-type generation counter (bumped by
-``load`` and ``create_schema``), and the epoch salts the keys per store
-incarnation.
+every mutation: ``create_schema``, ``load`` and the LSM appends, flushes,
+upserts, updates, removals and age-offs), and the epoch salts the keys per
+store incarnation. A request captures a consistent (planner, delta,
+generation) snapshot at submit; the matching rows of its type's pending
+LSM delta evaluate on the host and add to its count, so a mid-flush
+mutation never pairs a pre-flush plan with post-flush state.
 
 Thread model: callers submit from any thread and block on a per-request
 future; one collector thread owns batching/planning/dispatch, one completer
@@ -48,11 +52,11 @@ yet, ROADMAP.md Queue 1 item 12, so such requests run or cancel exactly).
 A worker that dies fails every outstanding future with SchedulerCrashed;
 shutdown fails what it leaves with SchedulerShutdown.
 
-Left out until the observability plane and the store's delta tier are
-ported (ROADMAP.md Queue 1 items 15 and 10): ``obs.install()``, the flight
-recorder's wide events, the workload cell, kernel attribution, the
-hot-result cache (``serve/cache.py``, whose admission reads the workload
-plane's hot set), and the LSM delta rows. The reference's JAX
+Left out until the observability plane is ported (ROADMAP.md Queue 1
+item 15): ``obs.install()``, the flight recorder's wide events, the
+workload cell, kernel attribution and the hot-result cache
+(``serve/cache.py``, whose admission reads the workload plane's hot
+set). The reference's JAX
 transfer-shape warm-up becomes ``compiled.warm_programs`` on the bound
 planners' indexes.
 """
@@ -184,14 +188,19 @@ class LruCache:
 
 
 class StoreBinding:
-    """Bind a scheduler to a TorchDataStore: snapshots are (planner,
-    generation, epoch) captured atomically w.r.t. the store's mutations."""
+    """Bind a scheduler to a TorchDataStore: snapshots are (planner, delta,
+    generation, epoch) captured atomically w.r.t. the store's mutations;
+    delta rows evaluate on the host exactly as the store's own count
+    path does."""
 
     def __init__(self, store):
         self.store = store
 
     def snapshot(self, type_name: str):
         return self.store._sched_snapshot(type_name)
+
+    def delta_rows(self, delta, f, auths):
+        return self.store._delta_rows(delta, f, auths)
 
 
 class PlannerBinding:
@@ -205,7 +214,10 @@ class PlannerBinding:
         self._epoch = _next_epoch()
 
     def snapshot(self, type_name: str):
-        return self._planners[type_name], 0, self._epoch
+        return self._planners[type_name], None, 0, self._epoch
+
+    def delta_rows(self, delta, f, auths):
+        return ()
 
 
 # -- requests -----------------------------------------------------------------
@@ -218,14 +230,16 @@ class Request:
     ``degraded`` say how the request resolved off the exact path."""
 
     __slots__ = ("type_name", "f_ir", "f_key", "auths", "auths_key",
-                 "planner", "generation", "epoch", "future", "t_submit",
+                 "planner", "delta", "generation", "epoch", "future",
+                 "t_submit",
                  "plan", "queue_wait_s", "plan_s", "scan_s", "batched",
                  "batch_size", "deadline", "priority", "tenant",
                  "cancelled", "degraded", "plan_cache_hit",
                  "cover_cache_hit", "batch_id", "rows_scanned", "retries")
 
     def __init__(self, type_name, f_ir, f_key, auths, auths_key, planner,
-                 generation, epoch, deadline: Optional[Deadline] = None,
+                 delta, generation, epoch,
+                 deadline: Optional[Deadline] = None,
                  priority: str = "interactive",
                  tenant: Optional[str] = None):
         self.type_name = type_name
@@ -234,6 +248,7 @@ class Request:
         self.auths = auths
         self.auths_key = auths_key
         self.planner = planner
+        self.delta = delta
         self.generation = generation
         self.epoch = epoch
         self.future: Future = Future()
@@ -351,10 +366,10 @@ class QueryScheduler:
         f_ir = parse_ecql(f) if isinstance(f, str) else f
         auths_key = None if auths is None \
             else tuple(sorted(str(a) for a in auths))
-        planner, gen, epoch = self.binding.snapshot(type_name)
+        planner, delta, gen, epoch = self.binding.snapshot(type_name)
         dl = _rdl.resolve(deadline, deadline_ms)
         req = Request(type_name, f_ir, repr(f_ir), auths, auths_key,
-                      planner, gen, epoch, deadline=dl,
+                      planner, delta, gen, epoch, deadline=dl,
                       priority=normalize_priority(priority),
                       tenant=tenant_label(tenant, auths))
         _metrics.inc("scheduler.queries")
@@ -775,6 +790,10 @@ class QueryScheduler:
 
     def _complete_batch(self, out: Readback, grp: List[Request],
                         t0: float) -> None:
+        # host-side LSM-delta counts first: they overlap the in-flight
+        # device round trip instead of adding to it
+        extras = [len(self.binding.delta_rows(r.delta, r.f_ir, r.auths))
+                  if r.delta is not None else 0 for r in grp]
         _faults.serve_gate("sched.device_wait")
         try:
             counts = out.wait()  # blocks until the batch's counts landed
@@ -788,7 +807,7 @@ class QueryScheduler:
             r.batched = True
             r.batch_size = len(grp)
             r.scan_s = scan_s
-            self._resolve(r, int(counts[i]))
+            self._resolve(r, int(counts[i]) + extras[i])
 
     def _complete_single(self, r: Request) -> None:
         """Fallback execution for plans the fused kernel can't serve (host
@@ -806,6 +825,9 @@ class QueryScheduler:
             with _rdl.use(r.deadline):
                 n = 0 if r.plan.empty \
                     else r.planner._count(r.plan, r.f_ir, r.auths)
+                if r.delta is not None:
+                    n += len(self.binding.delta_rows(r.delta, r.f_ir,
+                                                     r.auths))
         except DeadlineExceeded as e:
             r.cancelled = True
             _metrics.inc("scheduler.deadline_cancelled")

@@ -425,7 +425,8 @@ def test_store_count_many_future_and_coalesced(store):
     finally:
         tconfig.SCHED_ENABLED.unset()
     g = store.generation("t")
-    assert g >= 2 and store._sched_snapshot("t")[1:] == (g, store.epoch)
+    assert g >= 2 and store._sched_snapshot("t")[1:] == (None, g,
+                                                          store.epoch)
     with pytest.raises(ValueError):
         store.count_future("no_such_type", "INCLUDE")
 
