@@ -48,6 +48,19 @@ Phases, each failing the run (non-zero exit) when it fails:
    union blocks and the full table with 64 boxes, and at (f)'s count, with
    the passing candidates and the kernel's tile fills;
 7. a profile of each query;
+7b. Z2 and the extent indexes (m), on stores of their own: (m1) bench.py
+   cfg2 not cut — 5,000,000 single-segment LineStrings (XZ2), the polygon
+   INTERSECTS as a count (the ``seg_band`` route) and as rows against
+   bench.py's exact segment test, a BBOX count and 64 shifted boxes through
+   ``counts_multi_blocks`` and ``store.count_many`` (``box_count``'s
+   envelope mode); (m2) the same segments with a date (XZ3), the
+   INTERSECTS AND a week; (m3) 500,000 small convex quadrilaterals (XZ2,
+   the host ragged refine); (m4) the first 10,000,000 points of the cfg1
+   corpus without a date (Z2) — every answer equal to its numpy oracle,
+   p50s of prepared queries, the builds by stage and the host refine's
+   share of the band count; then ``seg_band`` against its plain version at
+   (m1)'s candidate blocks and at 33,554,432 near-edge segments, and
+   ``box_count``'s envelope mode at (m1)'s box and 64 boxes;
 8. the write path (l) on the same store, after every other phase (the
    corpus changes under it): 20 appends of 100,000 rows into the LSM delta
    tier, (a)-(d) and (g3)'s 64 boxes through ``count_many`` over main +
@@ -454,25 +467,29 @@ def phase_kernel_main_inputs(store) -> dict:
     return r
 
 
-def activities_per_call(fn):
-    """(device activities, their summed device ms) of one warm call of
-    ``fn`` — kernels, copies, memsets — from torch.profiler; (None, None)
-    when the profiler recorded no device activity. The device time excludes
-    the host's part of the call, which the CUDA-event times of back-to-back
-    calls include when the host is the slower side."""
+def activities_per_call(fn, calls: int = 10):
+    """(device activities, their summed device ms) a warm call of ``fn`` —
+    kernels, copies, memsets — from torch.profiler over ``calls`` calls (a
+    profile of one call of a few µs sometimes comes back without device
+    events); (None, None) when the profiler recorded no device activity.
+    The device time excludes the host's part of the call, which the
+    CUDA-event times of back-to-back calls include when the host is the
+    slower side."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:   # the profiler recorded no device activity: not measured
         return None, None
-    return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    return (len(dev) / calls,
+            sum(e.time_range.elapsed_us() for e in dev) / 1e3 / calls)
 
 
 def scatter_bound(n: int, live: int, weighted: bool, cells: int,
@@ -612,14 +629,16 @@ def sm_clock_mhz(fn, ms: float) -> dict:
 
 
 def box_count_bound(cols, boxes, windows, resid, block_ids, bsz,
-                    per_box: bool, clock_mhz: float) -> dict:
+                    per_box: bool, clock_mhz: float,
+                    envelope: bool = False) -> dict:
     """The least time the card could take for the batched count on these
     inputs. Bytes: the time planes (8 B) of every candidate in its block,
-    the box planes (16 B) of every candidate that passes the windows, the
-    residual and __valid__, the residual mask bytes, the block ids, boxes,
-    windows and counts. Operations: WINDOW_OPS per (candidate in its
-    block, real window) and BOX_OPS per (passing candidate, real box), over
-    the INT32 rate at the measured SM clock."""
+    the box planes (16 B; an envelope's 32 B) of every candidate that
+    passes the windows, the residual and __valid__, the residual mask
+    bytes, the block ids, boxes, windows and counts. Operations:
+    WINDOW_OPS per (candidate in its block, real window) and BOX_OPS per
+    (passing candidate, real box), over the INT32 rate at the measured SM
+    clock."""
     import torch
     from geomesa_tpu_torch.index import scan
     n = int(next(iter(cols.values())).shape[0])
@@ -636,7 +655,8 @@ def box_count_bound(cols, boxes, windows, resid, block_ids, bsz,
         if boxes is not None else None
     b_real = 0 if boxes is None else int((boxes != empty).any(dim=1).sum())
     nbytes = (member * (8 if windows is not None else 0)
-              + base * (16 if boxes is not None else 0)
+              + base * ((32 if envelope else 16) if boxes is not None
+                        else 0)
               + (ncand if resid is not None else 0)
               + (member if "__valid__" in cols else 0)
               + (0 if block_ids is None else 4 * int(block_ids.shape[0]))
@@ -656,7 +676,8 @@ def box_count_bound(cols, boxes, windows, resid, block_ids, bsz,
 
 
 def compare_box_count(label: str, cols, boxes, windows, resid, block_ids,
-                      bsz, per_box: bool, reps: int) -> dict:
+                      bsz, per_box: bool, reps: int,
+                      envelope: bool = False) -> dict:
     """box_count's kernel against its plain version on the same card
     tensors: integer counts, so equal value for value; both timed with
     CUDA events; the SM clock read under the kernel's own load."""
@@ -664,7 +685,7 @@ def compare_box_count(label: str, cols, boxes, windows, resid, block_ids,
     from geomesa_tpu_torch.index import scan
     from geomesa_tpu_torch.kernels import box_count, build
 
-    args = (cols, boxes, windows, resid, block_ids, bsz, per_box)
+    args = (cols, boxes, windows, resid, block_ids, bsz, per_box, envelope)
     kern = box_count.box_count(*args)
     torch.cuda.synchronize()
     plain = scan.box_count(*args)
@@ -680,7 +701,7 @@ def compare_box_count(label: str, cols, boxes, windows, resid, block_ids,
     r = {"label": label, "per_box": per_box, "ms": ms, "plain_ms": plain_ms,
          "max_abs_err": err, "total": int(kern.sum()), **clk,
          "activities_per_call": acts, "device_ms_per_call": dev_ms,
-         **box_count_bound(*args[:6], per_box, clk["sm_mhz"])}
+         **box_count_bound(*args[:6], per_box, clk["sm_mhz"], envelope)}
     # the kernel's rounds of TILE candidates a CTA; per box, each round's
     # passing candidates fill one shared-memory tile
     tile = int(build.load(box_count.NAME).box_count_tile())
@@ -1863,6 +1884,552 @@ def phase_mutations(device) -> dict:
     return out
 
 
+# -- (m): Z2 and the extent indexes -------------------------------------------
+
+# f32 operations of the segment band per (live segment, real edge), whatever
+# implements it: four orientations with their bounds, 11 each (d2x, d2y; t1,
+# t2; det; |t1| + |t2|; the two sums of the |d| terms past the hoisted
+# |d1x| + |d1y|; the two products and the bound's sum), 8 band compares
+# (o > t and o < -t of each), 4 compares of the crossing rule's conditions,
+# 2 of |o| <= t, 2 of the |y1 - y| ties and 2 subtractions and 2 compares
+# of the |y2 - y| ties = 64; per live segment once: b - a and |b - a| (3)
+SEG_OPS_PER_PAIR = 64
+SEG_OPS_PER_SEGMENT = 3
+
+# bench.py cfg2, not cut: 5,000,000 single-segment LineStrings with its
+# distributions (bench.py:605-618), its polygon and its exact oracle
+M_N = 5_000_000
+M_SEED = 2602
+M_WKT = "POLYGON ((-12 30, 10 28, 14 44, -2 50, -12 30))"
+M_RING = [(-12.0, 30.0), (10.0, 28.0), (14.0, 44.0), (-2.0, 50.0),
+          (-12.0, 30.0)]
+Q_M1 = f"INTERSECTS(geom, {M_WKT})"
+M_BOX = (-12.0, 28.0, 14.0, 50.0)
+Q_M1_BBOX = "BBOX(geom, -12, 28, 14, 50)"
+# 64 boxes shifted from M_BOX as (g3)'s are from (a)'s
+M_BOXES = [(M_BOX[0] + (i % 8) * 0.4, M_BOX[1] + (i // 8) * 0.3,
+            M_BOX[2] + (i % 8) * 0.4, M_BOX[3] + (i // 8) * 0.3)
+           for i in range(64)]
+# (m2) the same segments with a date uniform over 30 days, a week's query
+Q_M2 = f"{Q_M1} AND {DURING}"
+# (m3) small convex quadrilaterals in an XZ2 layer
+M_POLY_N = 500_000
+# (m4) the first 10,000,000 points of the cfg1 corpus, without a date
+M_Z2_N = 10_000_000
+Q_M4 = "BBOX(geom, -10, 30, 30, 55) AND val > 10"
+# the seg_band check at segments within a few ulps of the polygon's edges
+M_NEAR_N = 33_554_432
+
+
+def cfg2_segments(n: int, seed: int):
+    """bench.py:605-618's distributions: start U(-175, 170) x U(-85, 80),
+    extent U(0.01, 2.0) in each axis."""
+    rng = np.random.default_rng(seed)
+    lx = rng.uniform(-175, 170, n)
+    ly = rng.uniform(-85, 80, n)
+    dx = rng.uniform(0.01, 2.0, n)
+    dy = rng.uniform(0.01, 2.0, n)
+    return lx, ly, lx + dx, ly + dy
+
+
+def oracle_cfg2(ax, ay, bx, by, ring) -> np.ndarray:
+    """bench.py:643-676's exact test, f64: an endpoint inside the ring
+    (even-odd ray cast) or a proper crossing of an edge (orientation
+    signs)."""
+    ring = np.asarray(ring, dtype=np.float64)
+    hit = np.zeros(len(ax), dtype=bool)
+    for qx, qy in ((ax, ay), (bx, by)):
+        ins = np.zeros(len(ax), dtype=bool)
+        for i in range(len(ring) - 1):
+            (x1, y1), (x2, y2) = ring[i], ring[i + 1]
+            crosses = (y1 > qy) != (y2 > qy)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                xint = x1 + (qy - y1) * (x2 - x1) / (y2 - y1)
+            ins ^= crosses & (qx < xint)
+        hit |= ins
+
+    def orient(ox, oy, px_, py_, rx, ry):
+        return np.sign((px_ - ox) * (ry - oy) - (py_ - oy) * (rx - ox))
+
+    for i in range(len(ring) - 1):
+        (x1, y1), (x2, y2) = ring[i], ring[i + 1]
+        o1 = orient(ax, ay, bx, by, x1, y1)
+        o2 = orient(ax, ay, bx, by, x2, y2)
+        o3 = orient(x1, y1, x2, y2, ax, ay)
+        o4 = orient(x1, y1, x2, y2, bx, by)
+        hit |= (o1 != o2) & (o3 != o4)
+    return hit
+
+
+def quads(n: int, seed: int) -> np.ndarray:
+    """(n, 5, 2) closed rings of small convex quadrilaterals: four
+    vertices at sorted angles around a centre U(-175, 175) x U(-85, 85),
+    radii U(0.05, 1.5)."""
+    rng = np.random.default_rng(seed)
+    cx = rng.uniform(-175, 175, n)
+    cy = rng.uniform(-85, 85, n)
+    r = rng.uniform(0.05, 1.5, (n, 4))
+    ang = np.sort(rng.uniform(0, 2 * np.pi, (n, 4)), axis=1)
+    ring = np.empty((n, 5, 2))
+    ring[:, :4, 0] = cx[:, None] + r * np.cos(ang)
+    ring[:, :4, 1] = cy[:, None] + r * np.sin(ang)
+    ring[:, 4] = ring[:, 0]
+    return ring
+
+
+def oracle_quads(rings: np.ndarray, ring) -> np.ndarray:
+    """f64, written out here: a quadrilateral intersects the polygon when a
+    vertex of either lies inside the other (crossing parity, or on an edge
+    for the quadrilateral's vertices) or an edge of one crosses an edge of
+    the other (orientation signs differ on both, as bench.py's test)."""
+    q = np.asarray(ring, dtype=np.float64)
+    n = len(rings)
+    v = rings[:, :4].reshape(-1, 2)
+    hit = oracle_pip(v[:, 0], v[:, 1], q).reshape(n, 4).any(axis=1)
+    for px, py in q[:-1]:
+        ins = np.zeros(n, dtype=bool)
+        for k in range(4):
+            x1, y1 = rings[:, k, 0], rings[:, k, 1]
+            x2, y2 = rings[:, k + 1, 0], rings[:, k + 1, 1]
+            crosses = (y1 > py) != (y2 > py)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                xint = (x2 - x1) * (py - y1) / (y2 - y1) + x1
+            ins ^= crosses & (px < xint)
+        hit |= ins
+
+    def orient(ox, oy, px_, py_, rx, ry):
+        return np.sign((px_ - ox) * (ry - oy) - (py_ - oy) * (rx - ox))
+
+    for k in range(4):
+        ax, ay = rings[:, k, 0], rings[:, k, 1]
+        bx, by = rings[:, k + 1, 0], rings[:, k + 1, 1]
+        for i in range(len(q) - 1):
+            (x1, y1), (x2, y2) = q[i], q[i + 1]
+            hit |= (orient(ax, ay, bx, by, x1, y1)
+                    != orient(ax, ay, bx, by, x2, y2)) \
+                & (orient(x1, y1, x2, y2, ax, ay)
+                   != orient(x1, y1, x2, y2, bx, by))
+    return hit
+
+
+def near_edge_segments(n: int, seed: int, ring=M_RING):
+    """(ax, ay, bx, by) of n segments with an end within a few f32 ulps of
+    a point of the ring's edges (a tenth on a vertex), running off in a
+    random direction for 1e-6 to 2 degrees, or along the edge: every
+    orientation and crossing band of the classifier occurs."""
+    rng = np.random.default_rng(seed)
+    r = np.asarray(ring, dtype=np.float64)
+    k = rng.integers(0, len(r) - 1, n)
+    t = rng.uniform(0, 1, n)
+    t[: n // 10] = 0.0
+    e1, e2 = r[k], r[k + 1]
+    p = e1 + t[:, None] * (e2 - e1)
+    ulp = np.spacing(np.abs(p).astype(np.float32)).astype(np.float64)
+    a = p + rng.integers(-4, 5, (n, 2)) * ulp
+    length = rng.choice([1e-6, 1e-4, 1e-2, 2.0], n)
+    ang = rng.uniform(0, 2 * np.pi, n)
+    d = np.stack([np.cos(ang), np.sin(ang)], 1) * length[:, None]
+    along = rng.random(n) < 0.15
+    d[along] = (e2 - e1)[along] * rng.uniform(-0.3, 0.3, int(along.sum())
+                                              )[:, None]
+    return a[:, 0], a[:, 1], a[:, 0] + d[:, 0], a[:, 1] + d[:, 1]
+
+
+def timed(fn, sync, reps: int = REPS):
+    """(p50 ms, last result) of ``fn`` over ``reps`` synchronised calls
+    after one warm-up call."""
+    out = fn()
+    ts = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        ts.append(time.perf_counter() - t0)
+    return p50_ms(ts), out
+
+
+def _check(label: str, got, want) -> None:
+    """A count or a row set against its oracle."""
+    if isinstance(want, np.ndarray):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"(m) {label}: {len(got)} rows differ from "
+                                 f"the oracle's {len(want)}")
+    elif got != want:
+        raise AssertionError(f"(m) {label}: {got} != oracle {want}")
+
+
+def extent_store(device: str, name: str, spec: str, cols: dict):
+    """A store of its own holding one layer; returns (store, planner, load
+    seconds, the index's build stages)."""
+    from geomesa_tpu_torch import DataStoreFinder
+    from geomesa_tpu_torch.features.table import FeatureTable
+    store = DataStoreFinder.get_data_store(type="torch", device=device)
+    store.create_schema(name, spec)
+    table = FeatureTable.build(store.get_schema(name), cols)
+    t0 = time.perf_counter()
+    store.load(name, table)
+    planner = store.planner(name)
+    load_s = time.perf_counter() - t0
+    return store, planner, load_s, dict(planner.indexes[0].build_stages)
+
+
+def prepared_band(planner, q: str, sync) -> dict:
+    """p50 of a prepared count (the plan and its cover made once, as
+    bench.py's cfg2 prepares its query) with the band's split: certain and
+    uncertain rows, the host refine's seconds and its share of the count's
+    wall time (p50 over the reps)."""
+    pq = planner.prepare(q)
+    pq.count()
+    walls, shares = [], []
+    for _ in range(REPS):
+        sync()
+        t0 = time.perf_counter()
+        n = pq.count()
+        sync()
+        w = time.perf_counter() - t0
+        band = pq.plan.explain.get("band") or {}
+        walls.append(w)
+        shares.append(band.get("refine_s", 0.0) / w)
+    return {"count": n, "p50_ms": p50_ms(walls),
+            "refine_share_p50": float(np.median(shares)),
+            "band": dict(pq.plan.explain.get("band") or {}),
+            "candidate_blocks": pq.plan.explain.get("candidate_blocks")}
+
+
+def phase_extent(points_table, device: str = "cuda", n: int = M_N,
+                 n_poly: int = M_POLY_N, n_z2: int = M_Z2_N) -> dict:
+    """(m): Z2 and the extent indexes on stores of their own, every answer
+    equal to a numpy oracle computed here, every kernel's launches counted
+    from 0 around the run. (m1) bench.py cfg2 not cut: the polygon
+    INTERSECTS as a count (the seg_band route) and as rows, a BBOX count
+    (box_count's envelope any-box count), 64 shifted boxes through
+    ``counts_multi_blocks`` and ``store.count_many`` (its per-box count);
+    (m2) the same segments with a date (XZ3), the INTERSECTS AND a week;
+    (m3) small convex quadrilaterals (XZ2; the band declines, the host
+    ragged refine answers); (m4) the first ``n_z2`` points of the cfg1
+    corpus (``points_table``) without a date (Z2), (a)'s box AND val > 10.
+    Returns the measurements and (m1)'s store for the kernel checks."""
+    import torch
+    from geomesa_tpu_torch.features.geometry import (POLYGON,
+                                                     GeometryArray)
+    from geomesa_tpu_torch.index import prune
+    from geomesa_tpu_torch.index.spatial import _boxes_fp62
+    from geomesa_tpu_torch.kernels import (box_count, density, dist, merge,
+                                           pip, seg_band)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    counters = {"pip_refine": pip.pip_refine,
+                "grid_scatter": density.grid_scatter,
+                "box_count": box_count.box_count,
+                "dist_refine": dist.dist_refine,
+                "merge_scatter": merge.merge_scatter,
+                "seg_band": seg_band.seg_band}
+    for c in counters.values():
+        c.launches = 0
+    out = {}
+
+    # (m1) cfg2
+    t0 = time.perf_counter()
+    ax, ay, bx, by = cfg2_segments(n, M_SEED)
+    coords = np.empty((2 * n, 2))
+    coords[0::2, 0], coords[0::2, 1] = ax, ay
+    coords[1::2, 0], coords[1::2, 1] = bx, by
+    hit = oracle_cfg2(ax, ay, bx, by, M_RING)
+    want_rows = np.flatnonzero(hit)
+    env = ((ax <= M_BOX[2]) & (bx >= M_BOX[0]) & (ay <= M_BOX[3])
+           & (by >= M_BOX[1]))
+    want_boxes = [int(np.count_nonzero((ax <= q[2]) & (bx >= q[0])
+                                       & (ay <= q[3]) & (by >= q[1])))
+                  for q in M_BOXES]
+    log(f"[m1] {n} segments and their oracles in "
+        f"{time.perf_counter() - t0:.2f} s")
+    store, planner, load_s, stages = extent_store(
+        device, "osm", "*geom:LineString",
+        {"geom": GeometryArray.linestrings(coords)})
+    del coords
+    idx = planner.indexes[0]
+    log(f"[m1] load {load_s} s into {idx.name}; split (s): "
+        f"{json.dumps(stages)}")
+    t0 = time.perf_counter()
+    got = store.count("osm", Q_M1)
+    cold_count_ms = (time.perf_counter() - t0) * 1e3
+    _check("m1 count", got, len(want_rows))
+    _check("m1 rows", store.query("osm", Q_M1).indices, want_rows)
+    band = prepared_band(planner, Q_M1, sync)
+    _check("m1 prepared count", band["count"], len(want_rows))
+    if band["band"].get("uncertain") is None:
+        raise AssertionError(f"(m1) the band route did not answer: {band}")
+    pq = planner.prepare(Q_M1)
+    rows_p50, rows = timed(pq.select_indices, sync)
+    _check("m1 prepared rows", rows, want_rows)
+    _check("m1 bbox count", store.count("osm", Q_M1_BBOX),
+           int(np.count_nonzero(env)))
+    bbox_p50, got = timed(planner.prepare(Q_M1_BBOX).count, sync)
+    _check("m1 prepared bbox count", got, int(np.count_nonzero(env)))
+    plans = [planner.plan(f"BBOX(geom, {q[0]}, {q[1]}, {q[2]}, {q[3]})")
+             for q in M_BOXES]
+    covers = [planner._pruned_blocks(p) for p in plans]
+    union = np.unique(np.concatenate(covers)).astype(np.int32)
+    fp = _boxes_fp62(M_BOXES)
+    multi_p50, got = timed(lambda: idx.kernels.counts_multi_blocks(
+        "bbox_overlap", fp, None, None, union, prune.BLOCK_SIZE), sync)
+    _check("m1 counts_multi_blocks", list(map(int, got)), want_boxes)
+    filters = [f"BBOX(geom, {q[0]}, {q[1]}, {q[2]}, {q[3]})"
+               for q in M_BOXES]
+    many_p50, got = timed(lambda: store.count_many("osm", filters), sync)
+    _check("m1 count_many", list(map(int, got)), want_boxes)
+    store.close()
+    out["m1"] = {
+        "n": n, "load_s": load_s, "build_stages_s": stages,
+        "index": idx.name, "count": len(want_rows),
+        "cold_count_ms": cold_count_ms, "count_p50_ms": band["p50_ms"],
+        "refine_share_p50": band["refine_share_p50"],
+        "certain": band["band"]["certain"],
+        "uncertain": band["band"]["uncertain"],
+        "candidate_blocks": band["candidate_blocks"],
+        "rows_p50_ms": rows_p50, "bbox_count": int(np.count_nonzero(env)),
+        "bbox_count_p50_ms": bbox_p50, "union_blocks": int(len(union)),
+        "counts_multi_blocks_p50_ms": multi_p50,
+        "count_many_p50_ms": many_p50}
+    log(json.dumps({"m1": out["m1"]}))
+    m1 = {"store": store, "planner": planner, "union": union, "fp": fp}
+
+    # (m2) XZ3: the same segments with a date
+    rng = np.random.default_rng(M_SEED + 1)
+    base = np.datetime64("2020-01-01T00:00:00", "ms").astype(np.int64)
+    dtg = base + rng.integers(0, 30 * 86400000, n)
+    tm = (dtg > np.datetime64("2020-01-05", "ms").astype(np.int64)) \
+        & (dtg < np.datetime64("2020-01-12", "ms").astype(np.int64))
+    want2 = np.flatnonzero(hit & tm)
+    coords = np.empty((2 * n, 2))
+    coords[0::2, 0], coords[0::2, 1] = ax, ay
+    coords[1::2, 0], coords[1::2, 1] = bx, by
+    store2, planner2, load2, stages2 = extent_store(
+        device, "osm_t", "dtg:Date,*geom:LineString;"
+        "geomesa.z3.interval=week",
+        {"dtg": dtg, "geom": GeometryArray.linestrings(coords)})
+    del coords, dtg, tm
+    _check("m2 count", store2.count("osm_t", Q_M2), len(want2))
+    _check("m2 rows", store2.query("osm_t", Q_M2).indices, want2)
+    band2 = prepared_band(planner2, Q_M2, sync)
+    _check("m2 prepared count", band2["count"], len(want2))
+    rows2_p50, rows = timed(planner2.prepare(Q_M2).select_indices, sync)
+    _check("m2 prepared rows", rows, want2)
+    out["m2"] = {"n": n, "load_s": load2, "build_stages_s": stages2,
+                 "index": planner2.indexes[0].name, "count": len(want2),
+                 "count_p50_ms": band2["p50_ms"],
+                 "refine_share_p50": band2["refine_share_p50"],
+                 "certain": band2["band"].get("certain"),
+                 "uncertain": band2["band"].get("uncertain"),
+                 "rows_p50_ms": rows2_p50}
+    log(json.dumps({"m2": out["m2"]}))
+    del store2, planner2, ax, ay, bx, by, hit
+
+    # (m3) polygons
+    rings = quads(n_poly, M_SEED + 2)
+    want3 = np.flatnonzero(oracle_quads(rings, M_RING))
+    lv = np.arange(n_poly + 1, dtype=np.int64)
+    garr = GeometryArray(np.full(n_poly, POLYGON, dtype=np.int8), lv, lv,
+                         5 * lv, rings.reshape(-1, 2))
+    store3, planner3, load3, stages3 = extent_store(
+        device, "parcels", "*geom:Polygon", {"geom": garr})
+    _check("m3 count", store3.count("parcels", Q_M1), len(want3))
+    _check("m3 rows", store3.query("parcels", Q_M1).indices, want3)
+    count3_p50, got = timed(planner3.prepare(Q_M1).count, sync)
+    _check("m3 prepared count", got, len(want3))
+    rows3_p50, rows = timed(planner3.prepare(Q_M1).select_indices, sync)
+    _check("m3 prepared rows", rows, want3)
+    plan3 = planner3.plan(Q_M1)
+    planner3._count(plan3, Q_M1)
+    if "band" in plan3.explain:
+        raise AssertionError("(m3) the band route took a polygon layer")
+    out["m3"] = {"n": n_poly, "load_s": load3, "build_stages_s": stages3,
+                 "index": planner3.indexes[0].name, "count": len(want3),
+                 "count_p50_ms": count3_p50, "rows_p50_ms": rows3_p50}
+    log(json.dumps({"m3": out["m3"]}))
+    del store3, planner3, garr, rings
+
+    # (m4) Z2: the first n_z2 points of the cfg1 corpus without a date
+    px, py = (v[:n_z2] for v in points_table.geometry().point_xy())
+    val = np.asarray(points_table.columns["val"])[:n_z2]
+    want4 = np.flatnonzero((px >= -10) & (px <= 30) & (py >= 30)
+                           & (py <= 55) & (val > 10))
+    store4, planner4, load4, stages4 = extent_store(
+        device, "pts", "val:Int,*geom:Point",
+        {"val": val, "geom": (px, py)})
+    _check("m4 count", store4.count("pts", Q_M4), len(want4))
+    _check("m4 rows", store4.query("pts", Q_M4).indices, want4)
+    count4_p50, got = timed(planner4.prepare(Q_M4).count, sync)
+    _check("m4 prepared count", got, len(want4))
+    rows4_p50, rows = timed(lambda: store4.query("pts", Q_M4).indices, sync)
+    _check("m4 rows p50", rows, want4)
+    out["m4"] = {"n": n_z2, "load_s": load4, "build_stages_s": stages4,
+                 "index": planner4.indexes[0].name, "count": len(want4),
+                 "count_p50_ms": count4_p50, "rows_p50_ms": rows4_p50}
+    log(json.dumps({"m4": out["m4"]}))
+    del store4, planner4
+
+    sync()
+    out["launches"] = {k: c.launches for k, c in counters.items()}
+    on_card = device == "cuda"
+    if on_card and (out["launches"]["seg_band"] < 1
+                    or out["launches"]["box_count"] < 1):
+        raise AssertionError(f"(m) did not launch seg_band and box_count: "
+                             f"{out['launches']}")
+    log(json.dumps({"extent": {k: out[k] for k in ("m1", "m2", "m3", "m4",
+                                                   "launches")}}))
+    out["m1_state"] = m1
+    return out
+
+
+def seg_band_bound(cols, boxes, windows, resid, block_ids, bsz,
+                   n_edges: int, unc_cap: int) -> dict:
+    """The least time the card could take for the band count on these
+    inputs. Bytes: the block ids, the time planes (8 B) of every candidate
+    in its block (with windows), the mask bytes, the envelope planes (32 B)
+    of every candidate past the windows, residual and __valid__, the
+    segment planes (16 B) of every live candidate, the edges, boxes,
+    windows and the output. Operations: SEG_OPS_PER_PAIR per (live
+    segment, real edge) and SEG_OPS_PER_SEGMENT per live segment over the
+    f32 rate."""
+    from geomesa_tpu_torch.index import scan
+    n = int(cols["sx1"].shape[0])
+    member, _, _, g = scan.expand_blocks(cols, block_ids, bsz, n)
+    pre = member.clone()
+    if windows is not None:
+        pre &= scan._time_mask(g, windows)
+    for m in (resid, g["__valid__"] if "__valid__" in g else None):
+        if m is not None:
+            pre &= m
+    live = int((pre & scan.bbox_overlap(g, boxes)).sum())
+    n_member, n_pre = int(member.sum()), int(pre.sum())
+    ncand = int(block_ids.shape[0]) * bsz
+    nbytes = (4 * int(block_ids.shape[0])
+              + (8 * n_member if windows is not None else 0)
+              + (ncand if resid is not None else 0)
+              + (n_member if "__valid__" in cols else 0)
+              + 32 * n_pre + 16 * live + 16 * n_edges
+              + 32 * int(boxes.shape[0])
+              + (0 if windows is None else 16 * int(windows.shape[0]))
+              + 4 * (2 + unc_cap))
+    ops = live * (n_edges * SEG_OPS_PER_PAIR + SEG_OPS_PER_SEGMENT)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3,
+            "candidates": ncand, "in_blocks": n_member, "live": live}
+
+
+def compare_seg_band(label: str, cols, boxes, windows, resid, block_ids,
+                     bsz, edges, n_edges: int, reps: int,
+                     unc_cap: int = 4096) -> dict:
+    """seg_band's kernel against its plain version on the same card
+    tensors: integer vectors, so equal value for value; both timed with
+    CUDA events; the device activities and device time of one call."""
+    import torch
+    from geomesa_tpu_torch.index import scan
+    from geomesa_tpu_torch.kernels import seg_band
+
+    args = (cols, boxes, windows, resid, block_ids, bsz, edges, n_edges,
+            unc_cap)
+    kern = seg_band.seg_band(*args)
+    torch.cuda.synchronize()
+    plain = scan.seg_band(*args)
+    torch.cuda.synchronize()
+    err = int((kern.long() - plain.long()).abs().max())
+    if err != 0 or not torch.equal(kern, plain):
+        raise AssertionError(f"seg_band {label}: the kernel's vector differs "
+                             f"from the plain version (max abs err {err})")
+    acts, dev_ms = activities_per_call(lambda: seg_band.seg_band(*args))
+    ms = cuda_ms(lambda: seg_band.seg_band(*args), reps)
+    plain_ms = cuda_ms(lambda: scan.seg_band(*args), max(1, reps // 10))
+    r = {"label": label, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+         "certain": int(kern[0]), "uncertain": int(kern[1]),
+         "edges": n_edges, "activities_per_call": acts,
+         "device_ms_per_call": dev_ms,
+         **seg_band_bound(*args[:6], n_edges, unc_cap)}
+    log(f"[kernel] seg_band {label}: {r['candidates']} candidates "
+        f"({r['in_blocks']} in their blocks, {r['live']} live), "
+        f"{n_edges} edges, {r['certain']} certain and {r['uncertain']} "
+        f"uncertain, equal to the plain version, kernel {ms} ms, plain "
+        f"{plain_ms} ms, bound {r['bound_ms']} ms ({r['bound_by']}; bytes "
+        f"{r['bytes_ms']} ms, operations {r['ops_ms']} ms), {acts} device "
+        f"activities a call ({dev_ms} ms of device time)")
+    return r
+
+
+def near_edge_table(n: int, seed: int, dev):
+    """Device columns of n near-edge segments in table order: the fp62
+    envelope planes and the f32 segment planes."""
+    import torch
+    from geomesa_tpu_torch.index.device import fp62_lat, fp62_lon
+    ax, ay, bx, by = near_edge_segments(n, seed)
+    cols = {}
+    for name, v, enc in (("bxmin", np.minimum(ax, bx), fp62_lon),
+                         ("bymin", np.minimum(ay, by), fp62_lat),
+                         ("bxmax", np.maximum(ax, bx), fp62_lon),
+                         ("bymax", np.maximum(ay, by), fp62_lat)):
+        cols[name + "_i"], cols[name + "_l"] = enc(v)
+    for name, v in (("sx1", ax), ("sy1", ay), ("sx2", bx), ("sy2", by)):
+        cols[name] = v.astype(np.float32)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in cols.items()}
+
+
+def phase_extent_kernels(m1: dict) -> dict:
+    """seg_band and box_count's envelope mode against their plain versions
+    on the card: seg_band at (m1)'s candidate blocks and at M_NEAR_N
+    segments within a few ulps of the polygon's edges (every block a
+    candidate); box_count at (m1)'s BBOX count (any box over its cover) and
+    its 64 boxes (per box over their union cover)."""
+    import torch
+    from geomesa_tpu_torch.filter.geom_numpy import literal_segments
+    from geomesa_tpu_torch.filter.parser import parse_ecql
+    from geomesa_tpu_torch.index import prune, scan
+    from geomesa_tpu_torch.index.spatial import _boxes_fp62
+
+    planner = m1["planner"]
+    kern = planner.indexes[0].kernels
+    cols, dev = kern.cols, kern.device
+    bsz = int(prune.BLOCK_SIZE)
+    plan = planner.plan(Q_M1)
+    blocks = planner._pruned_blocks(plan)
+    edges = literal_segments(parse_ecql(Q_M1).geometry).astype(np.float32)
+    ne = max(4, 1 << max(0, len(edges) - 1).bit_length())
+    ep = np.tile(scan.EDGE_PAD, (ne, 1))
+    ep[: len(edges)] = edges
+    e = torch.from_numpy(ep).to(dev)
+    boxes = torch.from_numpy(plan.boxes_loose).to(dev)
+    bids = torch.from_numpy(kern._pad_blocks(blocks)).to(dev)
+    seg = [compare_seg_band("(m1) candidate blocks", cols, boxes, None,
+                            None, bids, bsz, e, len(edges), 50)]
+    near = near_edge_table(M_NEAR_N, M_SEED + 3, dev)
+    all_blocks = torch.arange(-(-M_NEAR_N // bsz), dtype=torch.int32,
+                              device=dev)
+    qbox = torch.from_numpy(scan.pad_boxes(_boxes_fp62([M_BOX]))).to(dev)
+    seg.append(compare_seg_band(f"{M_NEAR_N} near-edge segments", near,
+                                qbox, None, None, all_blocks, bsz, e,
+                                len(edges), 5))
+    del near
+    plan_b = planner.plan(Q_M1_BBOX)
+    bb = planner._pruned_blocks(plan_b)
+    box = [compare_box_count(
+        "(m1) BBOX, its cover", cols,
+        torch.from_numpy(plan_b.boxes_loose).to(dev), None, None,
+        torch.from_numpy(kern._pad_blocks(bb)).to(dev), bsz, False, 50,
+        envelope=True),
+        compare_box_count(
+        "(m1) 64 boxes, union cover", cols,
+        torch.from_numpy(scan.pad_boxes(m1["fp"])).to(dev), None, None,
+        torch.from_numpy(kern._pad_blocks(m1["union"])).to(dev), bsz, True,
+        50, envelope=True)]
+    return {"seg_band": seg, "box_count": box}
+
+
 def queries(store):
     """The main path's queries as (label, zero-arg fn), for the timings and
     the profile."""
@@ -1990,9 +2557,12 @@ def main() -> int:
     phase_profile(store, (("g1_prepared_count", g["pq"].count),
                           ("g3_batch64_dispatch", g["disp"]),
                           *filter_queries(store)))
+    m = phase_extent(store.planner("gdelt").table)
+    mk = phase_extent_kernels(m.pop("m1_state"))
     w = phase_write(store, g_oracle)
     import torch
-    from geomesa_tpu_torch.kernels import box_count, density, dist, merge, pip
+    from geomesa_tpu_torch.kernels import (box_count, density, dist, merge,
+                                           pip, seg_band)
     head = d[0]   # (d)'s own inputs, 64x64, unit weights
     bhead = b[0]  # (g3)'s batch over the union of its covers
     thead = t[0]  # (i)'s own inputs
@@ -2012,8 +2582,9 @@ def main() -> int:
         "name": box_count.NAME, "route": "cuda", "source": box_count.SOURCE,
         "replaces": box_count.REPLACES,
         "launches": launches["box_count"] + g["r"]["box_count_launches"]
-        + f["box_count"],
-        "max_abs_err": max(r["max_abs_err"] for r in b), "ms": bhead["ms"],
+        + f["box_count"] + m["launches"]["box_count"],
+        "max_abs_err": max(r["max_abs_err"] for r in b + mk["box_count"]),
+        "ms": bhead["ms"],
         "plain_ms": bhead["plain_ms"], "bound_ms": bhead["bound_ms"],
         "bound_by": bhead["bound_by"], "library_ms": None}, {
         "name": dist.NAME, "route": "cuda", "source": dist.SOURCE,
@@ -2027,7 +2598,14 @@ def main() -> int:
         "max_abs_err": w["kernel"]["max_abs_err"], "ms": w["kernel"]["ms"],
         "plain_ms": w["kernel"]["plain_ms"],
         "bound_ms": w["kernel"]["bound_ms"],
-        "bound_by": w["kernel"]["bound_by"], "library_ms": None}]}))
+        "bound_by": w["kernel"]["bound_by"], "library_ms": None}, {
+        "name": seg_band.NAME, "route": "cuda", "source": seg_band.SOURCE,
+        "replaces": seg_band.REPLACES, "launches": m["launches"]["seg_band"],
+        "max_abs_err": max(r["max_abs_err"] for r in mk["seg_band"]),
+        "ms": mk["seg_band"][0]["ms"],
+        "plain_ms": mk["seg_band"][0]["plain_ms"],
+        "bound_ms": mk["seg_band"][0]["bound_ms"],
+        "bound_by": mk["seg_band"][0]["bound_by"], "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

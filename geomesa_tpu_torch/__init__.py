@@ -15,8 +15,10 @@ density heat maps by the fused program, or by the staged scan path
 program does not take, plans without a box among them; and the serving
 path: prepared queries with the recipe cache (``planner.prepare``) and the
 micro-batching scheduler (``serve/``) behind the store's ``count_many``,
-``count_future`` and ``count_coalesced``. See ROADMAP.md for what
-remains.
+``count_future`` and ``count_coalesced``; the write path (the LSM delta
+tier and the merge build); and the Z2, XZ2 and XZ3 indexes of point,
+line and polygon layers, with the segment certainty band of
+single-segment line layers. See ROADMAP.md for what remains.
 """
 
 __version__ = "0.1.0"

@@ -77,6 +77,8 @@ def prepare_density(planner, f, bbox, width: int = 256, height: int = 256,
     every branch is device-exact on one index, else through the host."""
     if auths is not None:
         raise not_ported("visibility authorizations", 10)
+    if not planner.table.geometry().is_points:
+        raise not_ported("density over extent layers", 9)
     plan = planner.plan(f)
     shape = (height, width)
 

@@ -1,21 +1,19 @@
 """Host-side z-range cover: decompose integer query boxes into Morton ranges.
 
 ≙ ``geomesa_tpu.curves.ranges`` (the reference's from-scratch take on
-sfcurve's ``Z3.zranges``, Z3SFC.scala:61): a breadth-first octree traversal
-that emits a z-interval for each tree cell fully contained in (or, at the
-recursion budget, overlapping) any query box, then sort-merges adjacent
-intervals. Host numpy, in the array form only: (lo, hi, contained) arrays
-of inclusive z-intervals, at most ``max_ranges`` of them (default the
+sfcurve's ``Z2.zranges`` / ``Z3.zranges``, Z2SFC.scala:52, Z3SFC.scala:61):
+a breadth-first quad/octree traversal that emits a z-interval for each tree
+cell fully contained in (or, at the recursion budget, overlapping) any query
+box, then sort-merges adjacent intervals. Host numpy: (lo, hi, contained)
+arrays of inclusive z-intervals, at most ``max_ranges`` of them (default the
 reference's ``geomesa.scan.ranges.target`` = 2000), which the range pruner
-turns into candidate row blocks.
-
-Only the 3-D cover of the Z3 index is here (Z2 is not ported). The
-reference runs an equivalent C++ pass when its native library is built;
-this is its numpy fallback, which gives the same ranges.
+turns into candidate row blocks; ``IndexRange``/``merge_ranges`` are the
+object form the XZ curves' covers use.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -23,14 +21,43 @@ import numpy as np
 from geomesa_tpu_torch.curves import zorder
 
 
+@dataclass(frozen=True)
+class IndexRange:
+    """Inclusive z-interval [lower, upper]; ``contained`` means every z in the
+    interval satisfies the query box (no further filtering needed)."""
+
+    lower: int
+    upper: int
+    contained: bool = False
+
+
+def merge_ranges(ranges: List[IndexRange]) -> List[IndexRange]:
+    """Sort and merge adjacent/overlapping ranges (sfcurve/XZ2SFC merge rule:
+    merge when lower <= current.upper + 1; merged range is contained only if
+    both inputs were)."""
+    if not ranges:
+        return []
+    ranges = sorted(ranges, key=lambda r: (r.lower, r.upper))
+    out: List[IndexRange] = []
+    cur = ranges[0]
+    for r in ranges[1:]:
+        if r.lower <= cur.upper + 1:
+            cur = IndexRange(cur.lower, max(cur.upper, r.upper), cur.contained and r.contained)
+        else:
+            out.append(cur)
+            cur = r
+    out.append(cur)
+    return out
+
+
 _EMPTY_COVER = (np.empty(0, np.int64), np.empty(0, np.int64),
                 np.empty(0, bool))
 
 
 def merge_range_arrays(lo: np.ndarray, hi: np.ndarray, cont: np.ndarray):
-    """Sort and merge inclusive (lo, hi, contained) range arrays: merge when
-    lower <= current.upper + 1; a merged range is contained only if all its
-    inputs were (the sfcurve/XZ2SFC merge rule)."""
+    """Vectorized sort+merge of inclusive (lo, hi, contained) range arrays
+    (same rule as ``merge_ranges``; arrays in, arrays out — no per-range
+    Python objects on the query-planning hot path)."""
     if len(lo) == 0:
         return _EMPTY_COVER
     order = np.lexsort((hi, lo))
@@ -44,20 +71,26 @@ def merge_range_arrays(lo: np.ndarray, hi: np.ndarray, cont: np.ndarray):
             np.logical_and.reduceat(cont, starts))
 
 
-def _zranges_arrays(boxes: Sequence[Sequence[Tuple[int, int]]], bits: int,
-                    max_ranges: int, max_levels: int):
-    """3-D Morton cover → merged (lo, hi, contained) inclusive z-interval
-    arrays covering the union of boxes.
+def _zranges_arrays(
+    boxes: Sequence[Sequence[Tuple[int, int]]],
+    bits: int,
+    dims: int,
+    max_ranges: int,
+    max_levels: int,
+):
+    """Generic D-dimensional Morton cover → merged (lo, hi, contained)
+    inclusive z-interval arrays covering the union of boxes.
 
     boxes: per-box, per-dim inclusive int bounds [(lo, hi), ...] in
-    normalized int space. A level-synchronous vectorized BFS. Budget rule
+    normalized int space. A level-synchronous vectorized numpy BFS (the
+    reference's numpy pass, which its C++ pass matches). Budget rule
     mirrors sfcurve's maxRanges stop: when expanding the next level would
     exceed the budget, remaining overlapping cells flush as coarse
     (uncontained) ranges.
     """
     if not boxes:
         return _EMPTY_COVER
-    dims = 3
+    interleave = {2: zorder.z2_encode, 3: zorder.z3_encode}[dims]
     max_levels = min(max_levels, bits)
 
     blo = np.array([[d[0] for d in b] for b in boxes], dtype=np.int64)  # (B,D)
@@ -71,16 +104,16 @@ def _zranges_arrays(boxes: Sequence[Sequence[Tuple[int, int]]], bits: int,
     out_hi: List[np.ndarray] = []
     out_cont: List[np.ndarray] = []
 
-    def emit(cells: np.ndarray, level: int, contained: bool) -> None:
+    def emit(cells: np.ndarray, level: int, contained: np.ndarray) -> None:
         if len(cells) == 0:
             return
         shift = bits - level
         lo_coords = cells << shift
-        zlo = zorder.z3_encode(lo_coords[:, 0], lo_coords[:, 1],
-                               lo_coords[:, 2]).astype(np.int64)
+        zlo = interleave(*(lo_coords[:, d] for d in range(dims))).astype(np.int64)
         out_lo.append(zlo)
         out_hi.append(zlo + ((1 << (dims * shift)) - 1))
-        out_cont.append(np.full(len(cells), contained))
+        out_cont.append(np.broadcast_to(contained, (len(cells),)).copy()
+                        if contained.ndim == 0 else contained)
 
     cells = np.zeros((1, dims), dtype=np.int64)
     level = 0
@@ -93,14 +126,14 @@ def _zranges_arrays(boxes: Sequence[Sequence[Tuple[int, int]]], bits: int,
         touches = ((chi >= blo[None]) & (clo <= bhi[None])).all(-1).any(-1)
         overlap = touches & ~inside
 
-        emit(cells[inside], level, True)
+        emit(cells[inside], level, np.True_)
         emitted += int(inside.sum())
         live = cells[overlap]
         n_live = len(live)
         if n_live == 0:
             break
         if level >= max_levels or emitted + n_live * (1 << dims) > max_ranges:
-            emit(live, level, False)  # budget/depth stop: coarse cover
+            emit(live, level, np.False_)  # budget/depth stop: coarse cover
             break
         cells = ((live[:, None, :] << 1) | child_bits[None]).reshape(-1, dims)
         level += 1
@@ -111,12 +144,50 @@ def _zranges_arrays(boxes: Sequence[Sequence[Tuple[int, int]]], bits: int,
                               np.concatenate(out_cont))
 
 
+def to_ranges(arrays) -> List[IndexRange]:
+    """(lo, hi, contained) arrays → IndexRange list (the object-form API)."""
+    lo, hi, cont = arrays
+    return [IndexRange(int(l), int(h), bool(c))
+            for l, h, c in zip(lo, hi, cont)]
+
+
+def _reshape_2d(boxes):
+    return [((xlo, xhi), (ylo, yhi)) for xlo, ylo, xhi, yhi in boxes]
+
+
+def _reshape_3d(boxes):
+    return [((xlo, xhi), (ylo, yhi), (tlo, thi))
+            for xlo, ylo, tlo, xhi, yhi, thi in boxes]
+
+
+def zranges_2d(
+    boxes: Sequence[Tuple[int, int, int, int]],
+    bits: int = 31,
+    max_ranges: int = 2000,
+    max_levels: int = 64,
+) -> List[IndexRange]:
+    """2-D cover. boxes = (xlo, ylo, xhi, yhi) inclusive normalized ints."""
+    return to_ranges(zranges_2d_arrays(boxes, bits, max_ranges, max_levels))
+
+
+def zranges_3d(
+    boxes: Sequence[Tuple[int, int, int, int, int, int]],
+    bits: int = 21,
+    max_ranges: int = 2000,
+    max_levels: int = 64,
+) -> List[IndexRange]:
+    """3-D cover. boxes = (xlo, ylo, tlo, xhi, yhi, thi) inclusive ints."""
+    return to_ranges(zranges_3d_arrays(boxes, bits, max_ranges, max_levels))
+
+
+def zranges_2d_arrays(boxes, bits: int = 31, max_ranges: int = 2000,
+                      max_levels: int = 64):
+    """Array-form 2-D cover: merged (lo, hi, contained) — the hot-path form
+    consumed directly by prune.ranges_to_slices."""
+    return _zranges_arrays(_reshape_2d(boxes), bits, 2, max_ranges, max_levels)
+
+
 def zranges_3d_arrays(boxes, bits: int = 21, max_ranges: int = 2000,
                       max_levels: int = 64):
-    """Array-form 3-D cover of boxes = (xlo, ylo, tlo, xhi, yhi, thi)
-    inclusive normalized ints: merged (lo, hi, contained), consumed directly
-    by ``index.prune.ranges_to_slices``."""
-    return _zranges_arrays(
-        [((xlo, xhi), (ylo, yhi), (tlo, thi))
-         for xlo, ylo, tlo, xhi, yhi, thi in boxes],
-        bits, max_ranges, max_levels)
+    """Array-form 3-D cover: merged (lo, hi, contained)."""
+    return _zranges_arrays(_reshape_3d(boxes), bits, 3, max_ranges, max_levels)

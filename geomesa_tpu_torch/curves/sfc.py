@@ -1,14 +1,14 @@
-"""Z3 space-filling curve (≙ reference Z3SFC.scala).
+"""Z2 / Z3 space-filling curves (≙ reference Z2SFC.scala / Z3SFC.scala).
 
 Vectorized over numpy arrays; strict bounds checking with a ``lenient`` clamp
 escape hatch, matching the reference's index()/lenientIndex() pair
-(Z3SFC.scala:32-47), and the array-form z-range cover the staged path's
-range pruner reads (``ranges_arrays``).
+(Z2SFC.scala:27-41, Z3SFC.scala:32-47), and the array-form z-range covers
+the staged path's range pruner reads (``ranges_arrays``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -16,7 +16,60 @@ from geomesa_tpu_torch.curves import zorder
 from geomesa_tpu_torch.curves.binnedtime import TimePeriod, max_offset
 from geomesa_tpu_torch.curves.normalize import (NormalizedLat, NormalizedLon,
                                                 NormalizedTime)
-from geomesa_tpu_torch.curves.ranges import zranges_3d_arrays
+from geomesa_tpu_torch.curves.ranges import (IndexRange, to_ranges,
+                                             zranges_2d_arrays,
+                                             zranges_3d_arrays)
+
+
+class Z2SFC:
+    """2-D Morton curve over lon/lat, 31 bits/dim by default."""
+
+    def __init__(self, precision: int = 31):
+        self.precision = precision
+        self.lon = NormalizedLon(precision)
+        self.lat = NormalizedLat(precision)
+
+    def _check(self, x, y, lenient: bool):
+        x = np.asarray(x, dtype=np.float64)
+        y = np.asarray(y, dtype=np.float64)
+        oob = (x < self.lon.min) | (x > self.lon.max) | (y < self.lat.min) | (y > self.lat.max)
+        if np.any(oob):
+            if not lenient:
+                raise ValueError(
+                    f"Value(s) out of bounds ([{self.lon.min},{self.lon.max}], "
+                    f"[{self.lat.min},{self.lat.max}])")
+            x, y = self.lon.clamp(x), self.lat.clamp(y)
+        return x, y
+
+    def normalize(self, x, y, lenient: bool = False):
+        """(lon, lat) → per-dim normalized ints (the device-resident coords)."""
+        x, y = self._check(x, y, lenient)
+        return self.lon.normalize(x), self.lat.normalize(y)
+
+    def index(self, x, y, lenient: bool = False):
+        xi, yi = self.normalize(x, y, lenient)
+        return zorder.z2_encode(xi, yi)
+
+    def ranges(
+        self,
+        xy: Sequence[Tuple[float, float, float, float]],
+        max_ranges: Optional[int] = None,
+        max_levels: int = 64,
+    ) -> List[IndexRange]:
+        """Cover (xmin, ymin, xmax, ymax) user-space boxes with z ranges."""
+        return to_ranges(self.ranges_arrays(xy, max_ranges, max_levels))
+
+    def ranges_arrays(self, xy, max_ranges: Optional[int] = None,
+                      max_levels: int = 64):
+        """Array-form cover (lo, hi, contained) — the query-planning hot
+        path (feeds prune.ranges_to_slices without per-range objects)."""
+        boxes = []
+        for xmin, ymin, xmax, ymax in xy:
+            xlo, ylo = self.normalize(xmin, ymin)
+            xhi, yhi = self.normalize(xmax, ymax)
+            boxes.append((int(xlo), int(ylo), int(xhi), int(yhi)))
+        return zranges_2d_arrays(boxes, self.precision, max_ranges or 2000,
+                                 max_levels)
 
 
 class Z3SFC:

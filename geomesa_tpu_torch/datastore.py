@@ -23,12 +23,14 @@
 
 The device is ``cuda`` unless the caller passes another (``device="cpu"``
 runs every kernel's plain version); asking for ``cuda`` without a card
-raises. Each type holds a main table in a Z3 index on the device and an
-LSM delta tier: small appends land in a host-side delta run that counts,
+raises. Each type holds a main table in its spatial index on the device
+— Z3 for points with a date, XZ3 for lines and polygons with a date, Z2
+and XZ2 without one — and an LSM delta tier: small appends land in a host-side delta run that counts,
 selects and density grids merge in exactly; a flush (explicit, past the
 threshold, or before ``planner()`` hands out a planner) merges the delta
 into the index by the incremental merge build (``Z3Index.merge_from``, the
-``merge_scatter`` CUDA kernel), and the destructive mutations rebuild it.
+``merge_scatter`` CUDA kernel; the other indexes rebuild in full), and the
+destructive mutations rebuild it.
 Every other store feature raises NotImplementedError naming its
 ROADMAP.md item.
 """
@@ -55,7 +57,7 @@ from geomesa_tpu_torch.filter.parser import parse_ecql
 from geomesa_tpu_torch.index.api import QueryResult, not_ported
 from geomesa_tpu_torch.index.device import resolve
 from geomesa_tpu_torch.index.planner import QueryPlanner
-from geomesa_tpu_torch.index.spatial import Z3Index
+from geomesa_tpu_torch.index.spatial import index_class
 from geomesa_tpu_torch.metrics import REGISTRY as _metrics
 from geomesa_tpu_torch.serve.resilience import deadline as _rdl
 
@@ -159,9 +161,7 @@ class TorchDataStore:
         sft.feature_expiry  # validate up front, not on the first write
         if sft.name in self.schemas:
             raise ValueError(f"Schema {sft.name} already exists")
-        if not Z3Index.supports(sft):
-            raise not_ported("schemas without a Point geometry and a Date "
-                             "(Z2 and the extent indexes)", 9)
+        index_class(sft)  # raises for a schema no index of the port holds
         if any(a.options.get("index", "").lower() in ("true", "full", "join")
                for a in sft.attributes) or sft.user_data.get("geomesa.indices"):
             raise not_ported("attribute and configured indexes", 10)
@@ -185,8 +185,9 @@ class TorchDataStore:
         return FeatureWriter(self, type_name)
 
     def load(self, type_name: str, table: FeatureTable) -> None:
-        """Append a prebuilt columnar table: the first load builds the Z3
-        index on the device, later ones take the LSM append path."""
+        """Append a prebuilt columnar table: the first load builds the
+        type's spatial index on the device, later ones take the LSM append
+        path."""
         self._append(type_name, table)
 
     def _append(self, type_name: str, batch: FeatureTable) -> None:
@@ -358,9 +359,7 @@ class TorchDataStore:
                         else GeometryArray.from_rows(
                             [val] * len(rows) if isinstance(val, str)
                             else list(val))
-                    x, y = col.x.copy(), col.y.copy()
-                    x[rows], y[rows] = new.x, new.y
-                    cols[name] = GeometryArray(x, y)
+                    cols[name] = col.replace_rows(rows, new)
                 elif isinstance(col, StringColumn):
                     values = np.asarray(col.vocab, dtype=object)[col.codes]
                     values[rows] = val if isinstance(val, str) \
@@ -407,24 +406,33 @@ class TorchDataStore:
     # -- index builds --------------------------------------------------------
 
     def _rebuild_indexes(self, type_name: str) -> None:
-        """Full build of the type's Z3 index over its main table, swapped
-        in once built (callers hold the lock)."""
+        """Full build of the type's spatial index over its main table — the
+        first of ``INDEX_CLASSES`` that supports the schema (Z3, XZ3, Z2,
+        XZ2; ≙ ``geomesa_tpu/datastore.py:519-535``) — swapped in once
+        built (callers hold the lock)."""
         sft = self.schemas[type_name]
         table = self.tables[type_name]
         self.planners[type_name] = QueryPlanner(
-            sft, table, [Z3Index(sft, table, self.device)])
+            sft, table, [index_class(sft)(sft, table, self.device)])
 
     def _merge_rebuild(self, type_name: str, merged: FeatureTable,
                        n_old: int) -> bool:
         """Incremental flush (≙ ``geomesa_tpu/datastore.py:574-647``): merge
         the freshly sorted delta run into the resident index
         (``Z3Index.merge_from``) instead of re-sorting the whole table.
-        False when ineligible (``MERGE_BUILD`` off, an empty side, a delta
+        False when ineligible (``MERGE_BUILD`` off, an index without
+        ``merge_from`` — every index but Z3's, whose flush rebuilds in
+        full, the reference's own route for them — an empty side, a delta
         over ``MERGE_MAX_FRACTION`` of the main table — counted in
         ``ingest.merge_fraction_breaches`` — or a stale planner): the
         caller then rebuilds. Callers hold the lock and have not installed
         ``merged`` yet."""
         if not config.MERGE_BUILD.get():
+            return False
+        old_planner = self.planners.get(type_name)
+        if old_planner is not None and not all(
+                hasattr(type(idx), "merge_from")
+                for idx in old_planner.indexes):
             return False
         n_delta = len(merged) - n_old
         if n_old <= 0 or n_delta <= 0:

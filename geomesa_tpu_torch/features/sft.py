@@ -150,6 +150,12 @@ class SimpleFeatureType:
         return self.user_data.get("geomesa.z3.interval", "week")
 
     @property
+    def xz_precision(self) -> int:
+        """The XZ curves' resolution g (``geomesa.xz.precision``, default
+        12)."""
+        return int(self.user_data.get("geomesa.xz.precision", "12"))
+
+    @property
     def feature_expiry(self) -> Optional[tuple]:
         """(date attribute name, ttl_ms) from ``geomesa.feature.expiry``
         user data, or None (≙ ``geomesa_tpu/features/sft.py:171``): the

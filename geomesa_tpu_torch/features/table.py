@@ -1,7 +1,8 @@
 """FeatureTable: the host columnar feature collection.
 
-≙ ``geomesa_tpu.features.table`` for point layers: per attribute, a host
-numpy column (the durable copy the host refine reads); strings as
+≙ ``geomesa_tpu.features.table``: per attribute, a host numpy column (the
+durable copy the host refine reads); geometries as a ``GeometryArray``
+(point or ragged); strings as
 dictionary codes (int32) + a sorted vocab, exactly the reference's
 ``StringColumn.encode`` so device codes agree across both packages.
 Feature ids are explicit strings or implicit (fid == str(row)); both stay
@@ -210,8 +211,8 @@ class FeatureTable:
     @classmethod
     def build(cls, sft: SimpleFeatureType, data: Dict[str, object],
               fids: Optional[Sequence[str]] = None) -> "FeatureTable":
-        """data: attribute name → column values. Point geometries are a
-        GeometryArray, an (x, y) array tuple or a list of point WKT;
+        """data: attribute name → column values. Geometries are a
+        GeometryArray, an (x, y) point array tuple or a list of WKT;
         strings encode to dictionaries (or arrive as a StringColumn).
         ``fids``: explicit feature ids (default: implicit, str(row))."""
         columns: Dict[str, object] = {}

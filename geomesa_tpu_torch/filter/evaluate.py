@@ -1,4 +1,4 @@
-"""Host numpy evaluation of the filter IR over a point FeatureTable.
+"""Host numpy evaluation of the filter IR over a FeatureTable.
 
 ≙ ``geomesa_tpu.filter.evaluate``: ``evaluate`` returns a boolean mask over
 the table's rows; ``evaluate_at`` evaluates only at the given candidate rows
@@ -38,12 +38,22 @@ def _col(table: FeatureTable, name: str, rows: Optional[np.ndarray]):
     return col if rows is None else col[rows]
 
 
-def _xy(table: FeatureTable, attr: str, rows: Optional[np.ndarray]):
+def _geom_col(table: FeatureTable, attr: str) -> geo.GeometryArray:
     col = table.column(attr)
     if not isinstance(col, geo.GeometryArray):
         raise TypeError(f"Attribute {attr} is not a geometry")
+    return col
+
+
+def _xy(col: geo.GeometryArray, rows: Optional[np.ndarray]):
     x, y = col.point_xy()
     return (x, y) if rows is None else (x[rows], y[rows])
+
+
+def _envelopes(col: geo.GeometryArray, rows: Optional[np.ndarray]):
+    """Per-feature [xmin, ymin, xmax, ymax] of an extent column."""
+    bb = col.bboxes()
+    return bb if rows is None else bb[rows]
 
 
 def _eval(f: ir.Filter, table: FeatureTable,
@@ -67,8 +77,14 @@ def _eval(f: ir.Filter, table: FeatureTable,
         return ~_eval(f.child, table, rows)
     if isinstance(f, ir.BBox):
         # envelope overlap; a point's envelope is the point itself
-        x, y = _xy(table, f.attr, rows)
-        return (x <= f.xmax) & (x >= f.xmin) & (y <= f.ymax) & (y >= f.ymin)
+        col = _geom_col(table, f.attr)
+        if col.is_points:
+            x, y = _xy(col, rows)
+            return (x <= f.xmax) & (x >= f.xmin) & (y <= f.ymax) \
+                & (y >= f.ymin)
+        bb = _envelopes(col, rows)
+        return (bb[:, 0] <= f.xmax) & (bb[:, 2] >= f.xmin) \
+            & (bb[:, 1] <= f.ymax) & (bb[:, 3] >= f.ymin)
     if isinstance(f, (ir.Intersects, ir.Contains, ir.Within)):
         return _spatial(f, table, rows)
     if isinstance(f, ir.Dwithin):
@@ -108,11 +124,15 @@ def _eval(f: ir.Filter, table: FeatureTable,
 
 def _spatial(f, table: FeatureTable,
              rows: Optional[np.ndarray]) -> np.ndarray:
-    """Intersects, Contains and Within against a literal: on a point layer
-    Within (feature within literal) and Contains (literal contains feature)
-    are the same relation from the feature's side."""
-    x, y = _xy(table, f.attr, rows)
+    """Intersects, Contains and Within against a literal: Within (feature
+    within literal) and Contains (literal contains feature) are the same
+    relation from the feature's side. Extent features go through the
+    batched ragged predicates after an envelope prefilter."""
+    col = _geom_col(table, f.attr)
     lit = f.geometry
+    if not col.is_points:
+        return _spatial_extent(f, col, rows)
+    x, y = _xy(col, rows)
     out = np.zeros(len(x), dtype=bool)
     lx0, ly0, lx1, ly1 = gn.literal_bbox(lit)
     cand = np.nonzero((x <= lx1) & (x >= lx0) & (y <= ly1) & (y >= ly0))[0]
@@ -122,17 +142,48 @@ def _spatial(f, table: FeatureTable,
         out[cand] = gn.points_in_polygon(x[cand], y[cand], lit)
         return out
     cand_rows = cand if rows is None else rows[cand]
-    arr = table.column(f.attr)
     if isinstance(f, ir.Intersects):
-        out[cand] = gb.batch_intersects(arr, cand_rows, lit)
+        out[cand] = gb.batch_intersects(col, cand_rows, lit)
     else:
-        out[cand] = gb.batch_within(arr, cand_rows, lit)
+        out[cand] = gb.batch_within(col, cand_rows, lit)
+    return out
+
+
+def _spatial_extent(f, col: geo.GeometryArray,
+                    rows: Optional[np.ndarray]) -> np.ndarray:
+    """``_spatial`` over extent features (≙
+    ``geomesa_tpu/filter/evaluate.py:123-150``)."""
+    lit = f.geometry
+    bb = _envelopes(col, rows)
+    out = np.zeros(len(bb), dtype=bool)
+    lx0, ly0, lx1, ly1 = gn.literal_bbox(lit)
+    cand = np.nonzero((bb[:, 0] <= lx1) & (bb[:, 2] >= lx0)
+                      & (bb[:, 1] <= ly1) & (bb[:, 3] >= ly0))[0]
+    if len(cand) == 0:
+        return out
+    cand_rows = cand if rows is None else rows[cand]
+    if isinstance(f, ir.Intersects):
+        out[cand] = gb.batch_intersects(col, cand_rows, lit)
+    else:
+        out[cand] = gb.batch_within(col, cand_rows, lit)
     return out
 
 
 def _dwithin(f: ir.Dwithin, table: FeatureTable,
              rows: Optional[np.ndarray]) -> np.ndarray:
-    x, y = _xy(table, f.attr, rows)
+    col = _geom_col(table, f.attr)
+    if not col.is_points:
+        bb = _envelopes(col, rows)
+        out = np.zeros(len(bb), dtype=bool)
+        lx0, ly0, lx1, ly1 = gn.literal_bbox(f.geometry)
+        d = f.distance
+        cand = np.nonzero((bb[:, 0] <= lx1 + d) & (bb[:, 2] >= lx0 - d)
+                          & (bb[:, 1] <= ly1 + d) & (bb[:, 3] >= ly0 - d))[0]
+        if len(cand):
+            cand_rows = cand if rows is None else rows[cand]
+            out[cand] = gb.batch_distance(col, cand_rows, f.geometry) <= d
+        return out
+    x, y = _xy(col, rows)
     out = np.zeros(len(x), dtype=bool)
     lx0, ly0, lx1, ly1 = gn.literal_bbox(f.geometry)
     d = f.distance
@@ -152,8 +203,7 @@ def _dwithin(f: ir.Dwithin, table: FeatureTable,
         out[cand] = inside | (dist <= d)
         return out
     cand_rows = cand if rows is None else rows[cand]
-    out[cand] = gb.batch_distance(table.column(f.attr), cand_rows,
-                                  f.geometry) <= d
+    out[cand] = gb.batch_distance(col, cand_rows, f.geometry) <= d
     return out
 
 

@@ -4,8 +4,8 @@
 the filters need: point-in-polygon (crossing parity), segment intersection,
 distance. It gives the boundary segments of a literal (the device refine's
 edge table), settles in f64 the rows the f32 certainty bands leave
-uncertain, and is the scalar oracle of ``filter.geom_batch``. Features come
-from the port's point ``GeometryArray`` (one coordinate each).
+uncertain, and is the scalar oracle of ``filter.geom_batch``, over point
+and ragged features alike.
 
 Geometry literals are (type_code, nested lists) as in features.geometry.
 """
@@ -195,6 +195,70 @@ def geometry_intersects(arr: "geo.GeometryArray", i: int, literal: tuple) -> boo
     if code in (geo.POINT, geo.MULTIPOINT) and lcode in (geo.LINESTRING, geo.MULTILINESTRING):
         return bool(np.any(_points_on_segments(fcoords[:, 0], fcoords[:, 1], literal_segments(literal))))
     return segments_cross(feature_segments(arr, i), literal_segments(literal))
+
+
+def point_segment_distance(px, py, segs: np.ndarray) -> np.ndarray:
+    """Min distance from each point to any segment; (N,) array."""
+    pxv = np.asarray(px, dtype=np.float64)[..., None]
+    pyv = np.asarray(py, dtype=np.float64)[..., None]
+    if len(segs) == 0:
+        return np.full(np.shape(px), np.inf)
+    x1, y1, x2, y2 = segs[:, 0], segs[:, 1], segs[:, 2], segs[:, 3]
+    dx, dy = x2 - x1, y2 - y1
+    ll = dx * dx + dy * dy
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = np.clip(((pxv - x1) * dx + (pyv - y1) * dy) / np.where(ll == 0, 1, ll), 0, 1)
+    cx, cy = x1 + t * dx, y1 + t * dy
+    return np.sqrt(np.min((pxv - cx) ** 2 + (pyv - cy) ** 2, axis=-1))
+
+
+def geometry_distance(arr: "geo.GeometryArray", i: int, literal: tuple) -> float:
+    """Approximate min distance between feature i and a literal (0 when they
+    intersect; otherwise min vertex-to-boundary distance both ways)."""
+    if geometry_intersects(arr, i, literal):
+        return 0.0
+    fcoords = arr.feature_coords(i)
+    lsegs = literal_segments(literal)
+    d = np.inf
+    if len(lsegs):
+        d = min(d, float(np.min(point_segment_distance(fcoords[:, 0], fcoords[:, 1], lsegs))))
+    lc = literal_coords(literal)
+    fsegs = feature_segments(arr, i)
+    if len(fsegs):
+        d = min(d, float(np.min(point_segment_distance(lc[:, 0], lc[:, 1], fsegs))))
+    elif not len(lsegs):
+        d = min(d, float(np.min(np.hypot(fcoords[:, None, 0] - lc[None, :, 0],
+                                         fcoords[:, None, 1] - lc[None, :, 1]))))
+    return d
+
+
+def geometry_within(arr: "geo.GeometryArray", i: int, literal: tuple) -> bool:
+    """Feature i entirely within a polygonal literal: all vertices inside and
+    no boundary crossing out (approximate at shared boundaries)."""
+    fcoords = arr.feature_coords(i)
+    if not np.all(points_in_polygon(fcoords[:, 0], fcoords[:, 1], literal)):
+        return False
+    fsegs = feature_segments(arr, i)
+    if len(fsegs) == 0:
+        return True
+    # vertices all inside: only a boundary crossing can place part outside
+    return not _segments_properly_cross(fsegs, literal_segments(literal))
+
+
+def _segments_properly_cross(a: np.ndarray, b: np.ndarray) -> bool:
+    if len(a) == 0 or len(b) == 0:
+        return False
+    ax1, ay1, ax2, ay2 = (a[:, i][:, None] for i in range(4))
+    bx1, by1, bx2, by2 = (b[:, i][None, :] for i in range(4))
+
+    def orient(ox, oy, px_, py_, qx, qy):
+        return (px_ - ox) * (qy - oy) - (py_ - oy) * (qx - ox)
+
+    d1 = orient(ax1, ay1, ax2, ay2, bx1, by1)
+    d2 = orient(ax1, ay1, ax2, ay2, bx2, by2)
+    d3 = orient(bx1, by1, bx2, by2, ax1, ay1)
+    d4 = orient(bx1, by1, bx2, by2, ax2, ay2)
+    return bool(np.any(((d1 * d2) < 0) & ((d3 * d4) < 0)))
 
 
 def point_segment_distance(px, py, segs: np.ndarray) -> np.ndarray:

@@ -49,6 +49,14 @@ class GeomBatch:
         return self.arr
 
 
+def _points_only(col: geo.GeometryArray) -> None:
+    """st_* functions read point features only (the ragged oracle is not
+    ported)."""
+    if not col.is_points:
+        raise not_ported("st_* functions over extent features (the ragged "
+                         "geom/oracle.py)", 9)
+
+
 def _rows_of(table, rows: Optional[np.ndarray]) -> np.ndarray:
     if rows is None:
         return np.arange(len(table), dtype=np.int64)
@@ -62,6 +70,7 @@ def geom_arg(table, rows: Optional[np.ndarray], arg) -> GeomBatch:
         col = table.column(arg)
         if not isinstance(col, geo.GeometryArray):
             raise TypeError(f"Attribute {arg} is not a geometry")
+        _points_only(col)
         return GeomBatch(col, r, False)
     if isinstance(arg, ir.FuncExpr):
         return eval_funcexpr(table, rows, arg)
@@ -199,6 +208,7 @@ def eval_filter_node(f, table, rows: Optional[np.ndarray],
         attr, x0, y0, x1, y1 = pre
         col = table.column(attr)
         if isinstance(col, geo.GeometryArray):
+            _points_only(col)
             # a point's bbox is the point itself
             x, y = col.point_xy()
             x, y = x[r], y[r]

@@ -31,7 +31,7 @@ class IndexScanPlan:
     """
 
     index: object
-    primary_kind: str                              # "point_boxes" | "none"
+    primary_kind: str        # "point_boxes" | "bbox_overlap" | "none"
     boxes_loose: Optional[np.ndarray] = None       # (B,8) int32 fp62 planes
     windows: Optional[np.ndarray] = None           # (T,4) int32 exact bin/off
     residual_device: Optional[tuple] = None        # (key, params, fn)
@@ -41,6 +41,8 @@ class IndexScanPlan:
     # range-pruning cache (planner._pruned_blocks): False = not yet computed,
     # None = pruning declined (full scan), ndarray = candidate block ids
     blocks: object = False
+    # heuristic strategy cost (the index's ``_cost``; lower is better)
+    cost: float = 0.0
 
     @property
     def device_exact(self) -> bool:

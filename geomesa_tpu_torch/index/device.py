@@ -6,6 +6,10 @@ index-sorted row order —
   - ``xi``/``xl``, ``yi``/``yl``  int32 fp62 planes (hi/lo 31 bits) of the
                    f64 coordinates: box predicates compare these exactly
   - ``xf``/``yf``  float32 coordinates (block summaries, polygon band)
+  - ``bxmin``/``bymin``/``bxmax``/``bymax`` float32 envelopes of an extent
+                   layer, with their fp62 planes ``*_i``/``*_l``; the
+                   segment planes ``sx1``/``sy1``/``sx2``/``sy2`` (f32) join
+                   lazily for single-segment line layers
   - ``bin``/``off`` int32 exact binned time of the primary dtg
   - attribute columns: Int/Boolean as is, Float as f32, strings as
                    dictionary codes
@@ -77,18 +81,30 @@ def fp62_lat(y):
 
 def host_planes(table: FeatureTable,
                 period: Optional[TimePeriod] = None) -> Dict[str, np.ndarray]:
-    """Unsorted numpy projection of a point ``table`` onto the device column
-    layout (row order = table order; the index applies its sort on the
-    device). Same planes, dtypes and values as the reference's
-    ``host_planes`` for point layers."""
+    """Unsorted numpy projection of ``table`` onto the device column layout
+    (row order = table order; the index applies its sort on the device).
+    Same planes, dtypes and values as the reference's ``host_planes``: a
+    point layer's fp62 and f32 coordinates, an extent layer's f32 envelope
+    (``bxmin``/``bymin``/``bxmax``/``bymax``) and its fp62 planes
+    (``*_i``/``*_l``, exact envelope-overlap tests)."""
     cols: Dict[str, np.ndarray] = {}
     geom_attr = table.sft.geometry_attribute
     if geom_attr is not None:
-        x, y = table.columns[geom_attr.name].point_xy()
-        cols["xi"], cols["xl"] = fp62_lon(x)
-        cols["yi"], cols["yl"] = fp62_lat(y)
-        cols["xf"] = np.asarray(x, dtype=np.float32)
-        cols["yf"] = np.asarray(y, dtype=np.float32)
+        garr = table.columns[geom_attr.name]
+        if garr.is_points:
+            x, y = garr.point_xy()
+            cols["xi"], cols["xl"] = fp62_lon(x)
+            cols["yi"], cols["yl"] = fp62_lat(y)
+            cols["xf"] = np.asarray(x, dtype=np.float32)
+            cols["yf"] = np.asarray(y, dtype=np.float32)
+        else:
+            bb = garr.bboxes()
+            env = (("bxmin", fp62_lon), ("bymin", fp62_lat),
+                   ("bxmax", fp62_lon), ("bymax", fp62_lat))
+            for k, (name, _) in enumerate(env):
+                cols[name] = np.asarray(bb[:, k], dtype=np.float32)
+            for k, (name, enc) in enumerate(env):
+                cols[name + "_i"], cols[name + "_l"] = enc(bb[:, k])
 
     dtg_attr = table.sft.dtg_attribute
     if dtg_attr is not None and period is not None:

@@ -1,11 +1,15 @@
 """Query planning and execution (≙ ``geomesa_tpu.index.planner``).
 
-Flow: parse the ECQL, plan it on the Z3 index (boxes, windows, residual
-split), then execute as the reference does: the fused program first
-(``index/compiled.py``), else the staged ``ScanKernels`` over the plan's
-range-pruned block cover (``_pruned_blocks``), else the staged full-table
-mask. A count or a select of ascending table rows; host residuals
-re-evaluate on the host in f64 (``_refine``). An OR whose single plan would
+Flow: parse the ECQL, plan it on the type's spatial index (Z3, XZ3, Z2
+or XZ2: boxes, windows, residual split; the cheapest plan by heuristic
+cost), then execute as the reference does: the fused program first
+(``index/compiled.py``, point primaries), else the staged ``ScanKernels``
+over the plan's range-pruned block cover (``_pruned_blocks``), else the
+staged full-table mask. A count or a select of ascending table rows; host
+residuals re-evaluate on the host in f64 (``_refine``). A polygon
+INTERSECTS over a single-segment line layer counts through the
+certainty-band ``seg_band`` kernel, refining only its uncertain rows
+(``_band_intersects_count``). An OR whose single plan would
 need a host residual plans one branch at a time (``UnionScanPlan``) when
 every branch has a spatial primary: the branch masks OR on the device when
 all are device-exact, else the branch row sets union on the host.
@@ -26,9 +30,12 @@ import torch
 
 from geomesa_tpu_torch import config
 from geomesa_tpu_torch import trace as _trace
+from geomesa_tpu_torch.features import geometry as geo
 from geomesa_tpu_torch.features.table import FeatureTable
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.filter.evaluate import evaluate_at
+from geomesa_tpu_torch.filter.geom_batch import batch_intersects
+from geomesa_tpu_torch.filter.geom_numpy import literal_segments
 from geomesa_tpu_torch.filter.parser import parse_ecql
 from geomesa_tpu_torch.index import compiled as _fused
 from geomesa_tpu_torch.index import prune as _prune
@@ -53,7 +60,7 @@ def _select_tier(capacity) -> int:
 
 
 class QueryPlanner:
-    """Planner + executor for one feature type over its Z3 index.
+    """Planner + executor for one feature type over its spatial index.
     ``timeout_ms``: the cooperative deadline of ``count`` and prepared
     counts (``guards.Deadline``, checked between stages)."""
 
@@ -80,7 +87,7 @@ class QueryPlanner:
             raise not_ported("feature-id lookups", 10)
         if not self.indexes:
             raise ValueError(f"No indexes for {self.sft.name}")
-        plan = self.indexes[0].plan(f)
+        plan = self._choose(f)
         if isinstance(f, ir.Or) and plan.residual_host is not None:
             # OR → one plan a branch (≙ FilterSplitter's OR expansion): when
             # every branch plans with a spatial primary, per-branch scans and
@@ -91,6 +98,13 @@ class QueryPlanner:
                 plan = union
         return plan
 
+    def _choose(self, f: ir.Filter) -> IndexScanPlan:
+        """The cheapest index's plan by heuristic cost (≙ the reference's
+        strategy choice, ``geomesa_tpu/index/planner.py:102-136``, without
+        its stats battery, which is not ported)."""
+        return min((idx.plan(f) for idx in self.indexes),
+                   key=lambda p: p.cost)
+
     def _union_plan(self, f: ir.Or) -> Optional[UnionScanPlan]:
         """Per-branch plans of an OR filter, or None when a branch would
         scan unconstrained (then the single superset plan wins). The branch
@@ -99,7 +113,7 @@ class QueryPlanner:
             return None
         branches = []
         for c in f.children:
-            bp = self.indexes[0].plan(c)
+            bp = self._choose(c)
             if bp.empty:
                 continue
             if bp.primary_kind == "none":
@@ -217,7 +231,48 @@ class QueryPlanner:
         fused = _fused.try_count_refine(self, plan)
         if fused is not None:
             return fused
+        fast = self._band_intersects_count(plan)
+        if fast is not None:
+            return fast
         return len(self.select_indices(f, plan=plan, auths=auths))
+
+    def _band_intersects_count(self, plan: IndexScanPlan) -> Optional[int]:
+        """Device certainty-band count for the common extent query shape (≙
+        ``geomesa_tpu/index/planner.py:434-469``): a single polygon
+        INTERSECTS residual over a single-segment line layer. The
+        ``seg_band`` kernel classifies the candidate blocks' segments as
+        certain hit / certain miss / uncertain (f32 error bands), and only
+        the uncertain sliver refines on the host in exact f64. None when
+        the shape does not apply or the uncertain rows overflow the
+        kernel's cap (the caller then refines every candidate)."""
+        res = plan.residual_host
+        if not (isinstance(res, ir.Intersects) and plan.index is not None
+                and plan.primary_kind == "bbox_overlap"
+                and res.attr == plan.index.geom):
+            return None
+        if res.geometry[0] != geo.POLYGON:
+            return None
+        if not plan.index.ensure_segment_columns():
+            return None
+        blocks = self._pruned_blocks(plan)
+        if blocks is None or len(blocks) == 0:
+            return 0 if blocks is not None else None
+        edges = literal_segments(res.geometry).astype(np.float32)
+        certain, unc = plan.index.kernels.intersects_band_blocks(
+            plan.primary_kind, plan.boxes_loose, plan.windows,
+            plan.residual_device, edges, blocks, _prune.BLOCK_SIZE)
+        band = {"certain": certain,
+                "uncertain": None if unc is None else len(unc)}
+        plan.explain["band"] = band
+        if unc is None or len(unc) == 0:
+            return None if unc is None else certain
+        t0 = time.perf_counter()
+        with _trace.span("refine", kind="refine", rows=len(unc)):
+            rows = plan.index.map_rows(unc)
+            n = certain + int(batch_intersects(self.table.geometry(), rows,
+                                               res.geometry).sum())
+        band["refine_s"] = time.perf_counter() - t0
+        return n
 
     def select_indices(self, f: Union[str, ir.Filter],
                        plan: Optional[IndexScanPlan] = None,

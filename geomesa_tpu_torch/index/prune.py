@@ -48,12 +48,18 @@ MAX_BINS = 512
 
 def ranges_to_slices(sorted_keys: np.ndarray, ranges, lo: int = 0,
                      hi: Optional[int] = None) -> np.ndarray:
-    """Inclusive key ranges, as the (lo, hi, ...) arrays of
-    ``Z3SFC.ranges_arrays``, → [lo, hi) row slices via binary search over
-    one contiguous segment of a sorted key array. Returns (S, 2) int64."""
+    """Inclusive key ranges → [lo, hi) row slices via binary search over
+    one contiguous segment of a sorted key array. Returns (S, 2) int64.
+    ``ranges``: the (lo, hi, ...) arrays of ``ranges_arrays`` (Z2, Z3), or
+    a list of ``IndexRange`` (the XZ curves' covers)."""
     if hi is None:
         hi = len(sorted_keys)
-    lowers, uppers = ranges[0], ranges[1]
+    if isinstance(ranges, tuple) and len(ranges) >= 2 \
+            and isinstance(ranges[0], np.ndarray):
+        lowers, uppers = ranges[0], ranges[1]
+    else:
+        lowers = np.fromiter((r.lower for r in ranges), np.int64, len(ranges))
+        uppers = np.fromiter((r.upper for r in ranges), np.int64, len(ranges))
     if len(lowers) == 0 or lo >= hi:
         return np.empty((0, 2), dtype=np.int64)
     seg = sorted_keys[lo:hi]

@@ -1,8 +1,11 @@
-"""Device predicates of the point scan and the staged scan path, as torch
+"""Device predicates of the scans and the staged scan path, as torch
 functions.
 
-≙ ``geomesa_tpu.index.scan``: the exact fp62 box mask, the exact binned-time
-window mask, the residual-predicate compiler, the certainty-band
+≙ ``geomesa_tpu.index.scan``: the exact fp62 box mask of point layers and
+envelope-overlap mask of extent layers (``PRIMARY_FNS``), the exact
+binned-time window mask, the residual-predicate compiler, the
+segment certainty band of single-segment line layers (``seg_band``, the
+plain version of ``kernels/csrc/seg_band.cu``), the certainty-band
 point-in-polygon classifier (``pip_band``) and the fused program's polygon
 refine built on it (``pip_refine``, the plain version of the CUDA kernel in
 ``kernels/csrc/pip_refine.cu``), the radial-distance refine
@@ -133,6 +136,31 @@ def point_boxes(cols, boxes: torch.Tensor) -> torch.Tensor:
     ).any(dim=1)
 
 
+def bbox_overlap(cols, boxes: torch.Tensor) -> torch.Tensor:
+    """Any-box envelope overlap for extent layers — EXACT on the envelopes
+    (fp62 planes; refining to the geometry is the spatial residual's job):
+    a row passes box b when bxmin <= qxhi, bxmax >= qxlo, bymin <= qyhi and
+    bymax >= qylo (≙ the reference's ``_bbox_overlap_mask``)."""
+    b = boxes[None, :, :]
+    return (
+        _le62(cols["bxmin_i"][:, None], cols["bxmin_l"][:, None],
+              b[..., 2], b[..., 3])
+        & _ge62(cols["bxmax_i"][:, None], cols["bxmax_l"][:, None],
+                b[..., 0], b[..., 1])
+        & _le62(cols["bymin_i"][:, None], cols["bymin_l"][:, None],
+                b[..., 6], b[..., 7])
+        & _ge62(cols["bymax_i"][:, None], cols["bymax_l"][:, None],
+                b[..., 4], b[..., 5])
+    ).any(dim=1)
+
+
+# the primary masks by kind (≙ the reference's PRIMARY_FNS)
+PRIMARY_FNS: Dict[str, Callable] = {
+    "point_boxes": point_boxes,
+    "bbox_overlap": bbox_overlap,
+}
+
+
 def _time_mask(cols, windows: torch.Tensor) -> torch.Tensor:
     """Any-window (bin, off) containment (≙ Z3Filter.timeInBounds, exact).
     windows (T, 4) int32 [bin_lo, off_lo, bin_hi, off_hi]; empty windows
@@ -219,6 +247,80 @@ def pip_band(px: torch.Tensor, py: torch.Tensor, edges: torch.Tensor):
         cin[a:b], cout[a:b] = _pip_band_pairs(
             px[a:b, None], py[a:b, None], *e)
     return cin, cout
+
+
+def _segpair_band(ax, ay, bx, by, cx, cy, dx, dy):
+    """(certain-intersect, certain-miss) of segment (a, b) against edge
+    (c, d), four orientation bands (≙ the reference's ``_segpair_band``)."""
+    o1, t1 = _orient_band(ax, ay, bx, by, cx, cy)
+    o2, t2 = _orient_band(ax, ay, bx, by, dx, dy)
+    o3, t3 = _orient_band(cx, cy, dx, dy, ax, ay)
+    o4, t4 = _orient_band(cx, cy, dx, dy, bx, by)
+    opp12 = ((o1 > t1) & (o2 < -t2)) | ((o1 < -t1) & (o2 > t2))
+    opp34 = ((o3 > t3) & (o4 < -t4)) | ((o3 < -t3) & (o4 > t4))
+    same12 = ((o1 > t1) & (o2 > t2)) | ((o1 < -t1) & (o2 < -t2))
+    same34 = ((o3 > t3) & (o4 > t4)) | ((o3 < -t3) & (o4 < -t4))
+    return opp12 & opp34, same12 | same34
+
+
+def _seg_flags(ax, ay, bx, by, edges: torch.Tensor):
+    """(certain hit, certain miss) of segments (a, b) (n,) against a
+    polygon's edge table: an endpoint certainly inside or a certain
+    crossing is a hit; both endpoints certainly outside and every edge a
+    certain miss is a miss (the reference's ``intersects_band_blocks``
+    composition). Segments run in chunks, as in ``pip_band``."""
+    n, ne = ax.shape[0], edges.shape[0]
+    hit = torch.empty(n, dtype=torch.bool, device=ax.device)
+    miss = torch.empty(n, dtype=torch.bool, device=ax.device)
+    e = [edges[None, :, k] for k in range(4)]
+    step = max(1, _PIP_CHUNK_PAIRS // max(1, ne))
+    for a in range(0, n, step):
+        b = min(n, a + step)
+        sa = [v[a:b, None] for v in (ax, ay, bx, by)]
+        hit_p, miss_p = _segpair_band(*sa, *e)
+        in_a, out_a = _pip_band_pairs(sa[0], sa[1], *e)
+        in_b, out_b = _pip_band_pairs(sa[2], sa[3], *e)
+        hit[a:b] = in_a | in_b | hit_p.any(dim=1)
+        miss[a:b] = out_a & out_b & miss_p.all(dim=1)
+    return hit, miss
+
+
+def seg_band(cols, boxes: torch.Tensor, windows: Optional[torch.Tensor],
+             resid: Optional[torch.Tensor], block_ids: torch.Tensor,
+             bsz: int, edges: torch.Tensor, n_edges: Optional[int],
+             unc_cap: int) -> torch.Tensor:
+    """int32 ``[certain hits, n_uncertain, uncertain rows × unc_cap]`` of
+    the segment features in the candidate blocks against a polygon (≙ the
+    reference's ``intersects_band_blocks`` mode). A candidate is live when
+    it belongs to its block (``expand_blocks``), its envelope overlaps any
+    of the (B, 8) fp62 ``boxes``, its (bin, off) lies in any of the (T, 4)
+    ``windows``, its ``resid`` byte is set and the table's ``__valid__``
+    holds; a live candidate is a certain hit, a certain miss or uncertain
+    by ``_seg_flags`` over its ``sx1``/``sy1``/``sx2``/``sy2`` planes and
+    the f32 ``edges`` (``n_edges`` keeps the table's first rows, the rest
+    being ``EDGE_PAD`` filler that changes no flag). The uncertain rows are
+    the sorted-table positions of the first ``unc_cap`` uncertain
+    candidates in candidate order, padded with the table's row count;
+    ``n_uncertain`` counts them all.
+
+    The plain PyTorch version of the ``seg_band`` CUDA kernel. The CPU
+    path, and the kernel's yardstick on the card."""
+    n = int(next(iter(cols.values())).shape[0])
+    m, rows, _, g = expand_blocks(cols, block_ids, bsz, n)
+    m = m & bbox_overlap(g, boxes)
+    if windows is not None:
+        m = m & _time_mask(g, windows)
+    for extra in (resid, g["__valid__"] if "__valid__" in g else None):
+        if extra is not None:
+            m = m & extra
+    if n_edges is not None:
+        edges = edges[:n_edges]
+    hit, miss = _seg_flags(g["sx1"], g["sy1"], g["sx2"], g["sy2"], edges)
+    hit = m & hit
+    unc = m & ~hit & ~miss
+    return torch.cat([hit.sum(dtype=torch.int32).reshape(1),
+                      unc.sum(dtype=torch.int32).reshape(1),
+                      _compact(unc, rows, unc_cap, n)])
 
 
 def pip_refine(xf: torch.Tensor, yf: torch.Tensor, edges: torch.Tensor,
@@ -379,7 +481,7 @@ def _keys_any(k: torch.Tensor, lo: torch.Tensor,
 def box_count(cols, boxes: Optional[torch.Tensor],
               windows: Optional[torch.Tensor], resid: Optional[torch.Tensor],
               block_ids: Optional[torch.Tensor], bsz: Optional[int],
-              per_box: bool) -> torch.Tensor:
+              per_box: bool, envelope: bool = False) -> torch.Tensor:
     """int32 counts of a table's candidates (≙ the reference's
     ``count_multi``/``count_multi_blocks`` and the any-box mask plus sum of
     ``count``/``count_blocks``). The candidates are the table's rows, or
@@ -390,8 +492,11 @@ def box_count(cols, boxes: Optional[torch.Tensor],
     (B, 8) fp62 ``boxes`` of ``base`` and that box (a (B,) tensor, one
     pass a box as the reference's ``lax.map``: the (N, B) matrix is never
     built); else a 0-d count of ``base`` and any box (of ``base`` alone
-    without boxes). Boxes and windows compare ``pack62`` keys, as the
-    kernel does.
+    without boxes). A row is in a box when its point is (``xi``/``xl``,
+    ``yi``/``yl``), or with ``envelope`` when its envelope overlaps the box
+    (the ``bbox_overlap`` primary of extent layers: ``bxmin`` <= qxhi,
+    ``bxmax`` >= qxlo, ``bymin`` <= qyhi, ``bymax`` >= qylo on the fp62
+    planes). Boxes and windows compare ``pack62`` keys, as the kernel does.
 
     The plain PyTorch version of the ``box_count`` CUDA kernel. The CPU
     path, and the kernel's yardstick on the card."""
@@ -412,17 +517,24 @@ def box_count(cols, boxes: Optional[torch.Tensor],
         return (m if base is None else m & base).sum(dtype=torch.int32)
 
     if boxes is not None:
-        kx, ky = pack62(g["xi"], g["xl"]), pack62(g["yi"], g["yl"])
         q = pack62(boxes[:, 0::2], boxes[:, 1::2])   # (B, 4) xlo xhi ylo yhi
+        if envelope:
+            x0, x1 = (pack62(g[f"bx{e}_i"], g[f"bx{e}_l"])
+                      for e in ("min", "max"))
+            y0, y1 = (pack62(g[f"by{e}_i"], g[f"by{e}_l"])
+                      for e in ("min", "max"))
+        else:
+            x0 = x1 = pack62(g["xi"], g["xl"])
+            y0 = y1 = pack62(g["yi"], g["yl"])
 
         def inside(b: int) -> torch.Tensor:
-            return (kx >= q[b, 0]) & (kx <= q[b, 1]) \
-                & (ky >= q[b, 2]) & (ky <= q[b, 3])
+            return (x1 >= q[b, 0]) & (x0 <= q[b, 1]) \
+                & (y1 >= q[b, 2]) & (y0 <= q[b, 3])
 
         if per_box:
             return torch.stack([count(inside(b))
                                 for b in range(boxes.shape[0])])
-        hit = torch.zeros_like(kx, dtype=torch.bool)
+        hit = torch.zeros_like(x0, dtype=torch.bool)
         for b in range(boxes.shape[0]):
             hit |= inside(b)
         return count(hit)
@@ -597,16 +709,17 @@ def pad_windows(windows: np.ndarray, min_size: int = 1) -> np.ndarray:
 
 def _mask_kernel(primary_kind: str, has_time: bool):
     """The staged mask fn of one structural signature: the primary (exact
-    fp62 boxes, or none), AND the time windows, AND the device residual;
+    fp62 point boxes or envelope overlap, or none), AND the time windows,
+    AND the device residual;
     all rows when nothing constrains the scan (≙ the reference's
     ``_mask_kernel``)."""
-    if primary_kind not in ("point_boxes", "none"):
+    if primary_kind != "none" and primary_kind not in PRIMARY_FNS:
         raise ValueError(f"primary kind {primary_kind}")
 
     def mask(cols, boxes, windows, rparams, residual_fn):
         m = None
         if primary_kind != "none":
-            m = point_boxes(cols, boxes)
+            m = PRIMARY_FNS[primary_kind](cols, boxes)
         if has_time:
             tm = _time_mask(cols, windows)
             m = tm if m is None else (m & tm)
@@ -727,9 +840,10 @@ class ScanKernels:
         case); membership, windows, ``__valid__`` and boxes are the
         kernel's."""
         from geomesa_tpu_torch.kernels.box_count import box_count as kernel
-        if primary_kind not in ("point_boxes", "none") \
-                or (per_box and primary_kind != "point_boxes"):
+        if (primary_kind != "none" and primary_kind not in PRIMARY_FNS) \
+                or (per_box and primary_kind == "none"):
             raise ValueError(f"primary kind {primary_kind}")
+        envelope = primary_kind == "bbox_overlap"
         b = self._dev(boxes) if primary_kind != "none" else None
         w = self._dev(windows)
         fn = residual[2] if residual else None
@@ -744,7 +858,8 @@ class ScanKernels:
                     rm = fn(cols, rp)
                 else:
                     rm = fn(expand_blocks(cols, db, block_size, n)[3], rp)
-            return kernel(cols, b, w, rm, db, block_size, per_box)
+            return kernel(cols, b, w, rm, db, block_size, per_box,
+                          envelope)
         return run
 
     def _stage_blocks(self, primary_kind, boxes, windows, residual,
@@ -882,6 +997,60 @@ class ScanKernels:
             if cnt <= capacity:
                 return out[1: 1 + cnt].astype(np.int64), cnt
             capacity = 1 << int(np.ceil(np.log2(cnt)))
+
+    # certainty-band segment intersects -------------------------------------
+
+    def prepare_intersects_band_blocks(self, primary_kind, boxes, windows,
+                                       residual, edges: np.ndarray,
+                                       blocks: np.ndarray, block_size: int,
+                                       unc_cap: int = 4096):
+        """Zero-arg dispatcher → int32 ``[certain hits, n_uncertain,
+        uncertain rows × unc_cap]`` on the device: the ``seg_band`` kernel
+        over the padded candidate blocks of a single-segment line layer
+        (``sx1``/``sy1``/``sx2``/``sy2``, see ``index.spatial``
+        ``ensure_segment_columns``) against a polygon's f32 ``edges``,
+        padded as the reference pads them (a power of two of at least 4
+        rows of ``EDGE_PAD``; the kernel reads the real rows only). The
+        residual runs as torch ops over the gathered residual columns,
+        into a mask of the candidates."""
+        from geomesa_tpu_torch.kernels.seg_band import seg_band as kernel
+        if primary_kind != "bbox_overlap":
+            raise ValueError(f"primary kind {primary_kind}")
+        ne = max(4, 1 << max(0, (len(edges) - 1)).bit_length())
+        ep = np.tile(EDGE_PAD, (ne, 1))
+        ep[: len(edges)] = edges
+        n_edges = len(edges)
+        b, w, e = self._dev(boxes), self._dev(windows), self._dev(ep)
+        fn = residual[2] if residual else None
+        rp = [self._dev(p) for p in residual[1]] if residual else []
+        db = self._dev(self._pad_blocks(blocks))
+        cols, n = self.cols, self.n
+
+        def run():
+            rm = None
+            if fn is not None:
+                rm = fn(expand_blocks(cols, db, block_size, n)[3], rp)
+            return kernel(cols, b, w, rm, db, block_size, e, n_edges,
+                          unc_cap)
+        return run
+
+    def intersects_band_blocks(self, primary_kind, boxes, windows, residual,
+                               edges: np.ndarray, blocks: np.ndarray,
+                               block_size: int, unc_cap: int = 4096):
+        """(certain hit count, uncertain row positions) of the exact
+        segment-feature × polygon intersects over the candidate blocks (≙
+        the reference's ``ScanKernels.intersects_band_blocks``). The
+        uncertain positions (rows within the f32 certainty band of a
+        boundary) need the host's exact f64 refine; they are None when
+        they overflowed ``unc_cap`` (the caller then refines every
+        candidate on the host)."""
+        out = _fetch(self.prepare_intersects_band_blocks(
+            primary_kind, boxes, windows, residual, edges, blocks,
+            block_size, unc_cap)).cpu().numpy()
+        certain, n_unc = int(out[0]), int(out[1])
+        if n_unc > unc_cap:
+            return certain, None
+        return certain, out[2: 2 + n_unc].astype(np.int64)
 
     # density ----------------------------------------------------------------
 

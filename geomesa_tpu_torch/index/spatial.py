@@ -1,32 +1,46 @@
-"""The Z3 point index (≙ ``geomesa_tpu.index.spatial.Z3Index``).
+"""The spatial indexes: Z3, XZ3, Z2 and XZ2 (≙ ``geomesa_tpu.index.spatial``).
 
-Rows live on the device in epoch-major (bin, z3) order — the reference's
-``[epoch:2][z:8]`` row layout. The keys are encoded on the host (numpy, the
-reference's ``_sort_keys``), the stable sort runs on the device, and every
-query column gathers through the permutation once. ``plan`` turns a filter
-into padded fp62 boxes, exact binned-time windows and a residual split
-between the device and the host; ``candidate_blocks`` covers a plan with the
-gather blocks of its z-ranges (the staged path's range pruning), from host
-copies of the sorted keys. ``merge_from`` builds the index of a table that
-grew by a delta run incrementally: only the delta sorts, and the device
-columns merge through the ``merge_scatter`` kernel (``build_stages`` holds
-each build's synchronised stage seconds).
+Each index owns a device-resident projection of the table sorted in its key
+order — epoch-major for the temporal variants, the reference's
+``[epoch:2][z:8]`` row layout — plus host copies of the sorted keys for
+range pruning:
+
+  - ``Z3Index``  point + time, (bin, z3) order (Z3IndexKeySpace.scala:34);
+  - ``XZ3Index`` extent + time, (bin, xz3) order (XZ3IndexKeySpace.scala:33);
+  - ``Z2Index``  point, z2 order (Z2IndexKeySpace.scala:29);
+  - ``XZ2Index`` extent, xz2 order (XZ2IndexKeySpace.scala:28).
+
+The keys are encoded on the host (numpy, the reference's ``_sort_keys``),
+the stable sort runs on the device (``device_sort_perm``), and every query
+column gathers through the permutation once (``build_stages`` holds each
+build's synchronised stage seconds). ``plan`` turns a filter into padded
+fp62 boxes — a point-in-box primary on point layers, an envelope-overlap
+primary (``bbox_overlap``) on extent layers — exact binned-time windows and
+a residual split between the device and the host; ``candidate_blocks``
+covers a plan with the gather blocks of its key ranges (the staged path's
+range pruning). ``ensure_segment_columns`` uploads a single-segment line
+layer's endpoints for the certainty-band intersects count. ``Z3Index``
+also builds incrementally from a grown table (``merge_from``, the
+``merge_scatter`` kernel).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from geomesa_tpu_torch.curves.binnedtime import (TimePeriod, max_offset,
                                                  time_to_binned_time)
-from geomesa_tpu_torch.curves.sfc import Z3SFC
+from geomesa_tpu_torch.curves.sfc import Z2SFC, Z3SFC
+from geomesa_tpu_torch.curves.xz import XZ2SFC, XZ3SFC
+from geomesa_tpu_torch.features import geometry as geo
 from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
 from geomesa_tpu_torch.filter import ir
-from geomesa_tpu_torch.filter.extract import extract_bboxes, extract_intervals
+from geomesa_tpu_torch.filter.extract import (Extraction, extract_bboxes,
+                                              extract_intervals)
 from geomesa_tpu_torch.index import prune as _p
 from geomesa_tpu_torch.index.api import IndexScanPlan, not_ported
 from geomesa_tpu_torch.index.device import (DeviceTable, fp62_lat, fp62_lon,
@@ -35,24 +49,40 @@ from geomesa_tpu_torch.index.scan import (ScanKernels, compile_residual,
                                           pad_boxes, pad_windows,
                                           split_residual)
 
+_MASK21 = (1 << 21) - 1
 
-def device_sort_perm(bins: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """Stable lexicographic (bin, z) sort permutation, on the keys' device.
 
-    Two stable passes — by z, then by bin through the first permutation —
-    give exactly the reference's ``lax.sort`` over (bin, z planes, row iota),
-    ties broken by row id, i.e. ``np.lexsort((z, bin))``."""
-    p1 = torch.sort(z, stable=True).indices
-    p2 = torch.sort(bins.index_select(0, p1), stable=True).indices
-    return p1.index_select(0, p2)
+def _split63(v: np.ndarray) -> List[np.ndarray]:
+    """Split non-negative int64 keys (< 2^63) into three 21-bit int32 planes
+    (major → minor), the reference's device sort keys."""
+    v = np.asarray(v, dtype=np.int64)
+    return [((v >> 42) & _MASK21).astype(np.int32),
+            ((v >> 21) & _MASK21).astype(np.int32),
+            (v & _MASK21).astype(np.int32)]
+
+
+def device_sort_perm(keys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Stable lexicographic sort permutation of integer key planes (major →
+    minor), on the keys' device.
+
+    One stable pass a plane, minor first, each through the permutation so
+    far: exactly the reference's ``lax.sort`` over (key planes, row iota),
+    ties broken by row id, i.e. ``np.lexsort(tuple(reversed(keys)))``."""
+    perm = None
+    for k in reversed(list(keys)):
+        kk = k if perm is None else k.index_select(0, perm)
+        p = torch.sort(kk, stable=True).indices
+        perm = p if perm is None else perm.index_select(0, p)
+    return perm
 
 
 def _strip_handled(f: ir.Filter, geom: Optional[str], dtg: Optional[str],
                    points: bool) -> Optional[ir.Filter]:
     """Residual after removing predicates the primary boxes/windows enforce
-    exactly (the reference's rule): BBox always, point/rectangle Intersects
-    on point layers, and temporal predicates on the dtg. OR-rooted filters
-    keep the whole filter as residual."""
+    exactly (the reference's rule): BBox always (envelope semantics, exact
+    for points and extents alike through the fp62 planes), point/rectangle
+    Intersects on point layers only, and temporal predicates on the dtg.
+    OR-rooted filters keep the whole filter as residual."""
     if isinstance(f, ir.Or):
         return f
     children = f.children if isinstance(f, ir.And) else (f,)
@@ -88,48 +118,56 @@ def _boxes_fp62(boxes) -> np.ndarray:
 
 
 class _DeltaKeyShim:
-    """Minimal stand-in passed to ``Z3Index._sort_keys`` to encode a delta
-    run's keys without building an index over it (≙
+    """Minimal stand-in passed to an index class's ``_sort_keys`` to encode
+    a delta run's keys without building an index over it (``_sort_keys``
+    reads table/sft/geom/dtg/period and writes its key arrays — ``_z``/
+    ``_xz``/``_bins``/``_sfc`` — onto ``self``; ≙
     ``geomesa_tpu/index/spatial.py:349``)."""
 
-    def __init__(self, table, dtg, period, sfc):
+    def __init__(self, sft, table, geom, dtg, period):
+        self.sft = sft
         self.table = table
+        self.geom = geom
         self.dtg = dtg
         self.period = period
-        self._sfc = sfc
 
 
-class Z3Index:
-    """Point + time: epoch-major (bin, z3) order (≙ Z3IndexKeySpace.scala:34)."""
+class BaseSpatialIndex:
+    """Shared machinery (≙ the reference's ``BaseSpatialIndex``): the
+    build, the device table and its scan modes, planning, the host sorted
+    keys and the range cover. Subclasses supply ``supports``,
+    ``_sort_keys`` and ``_row_slices``."""
 
-    name = "z3"
-    points = True
+    name: str = "base"
+    temporal: bool = False
+    points: bool = True
 
     def __init__(self, sft, table: FeatureTable,
                  device: Union[str, torch.device, None] = None):
         if not self.supports(sft):
-            raise not_ported("indexes other than Z3 over Point + Date "
-                             "(Z2 and the extent indexes)", 9)
+            raise ValueError(f"{type(self).__name__} does not support "
+                             f"schema {sft.name}")
         dev = resolve(device)
         self.sft = sft
         self.table = table
         self.geom = sft.geometry_attribute.name
-        self.dtg = sft.dtg_attribute.name
-        self.period = TimePeriod.parse(sft.z3_interval)
-        self._sfc = Z3SFC.apply(self.period)
+        dtg = sft.dtg_attribute
+        self.dtg = dtg.name if dtg is not None else None
+        self.period = TimePeriod.parse(sft.z3_interval) \
+            if self.dtg is not None else None
         # the build by stage, each timer stopped on a device sync: host
         # keys, key upload + plane uploads, the device sort, host planes,
         # the sorted gathers
         st: Dict[str, float] = {}
         t0 = time.perf_counter()
-        self._bins, self._z = self._sort_keys()
+        keys = self._sort_keys()
         t1 = time.perf_counter()
-        bins = torch.from_numpy(self._bins).to(dev)
-        z = torch.from_numpy(self._z).to(dev)
+        dkeys = [torch.from_numpy(np.ascontiguousarray(k)).to(dev)
+                 for k in keys]
         sync(dev)
         t2 = time.perf_counter()
-        self.perm = device_sort_perm(bins, z)
-        del bins, z
+        self.perm = device_sort_perm(dkeys)
+        del dkeys
         sync(dev)
         t3 = time.perf_counter()
         planes = host_planes(table, self.period)
@@ -144,114 +182,13 @@ class Z3Index:
         }
 
     @classmethod
-    def merge_from(cls, old: "Z3Index", merged_table: FeatureTable,
-                   n_old: int) -> "Z3Index":
-        """Incremental (LSM-merge) build (≙
-        ``geomesa_tpu/index/spatial.py:663-823``): ``merged_table`` is
-        ``old.table`` followed by ``n_delta`` appended rows. Only the delta
-        run's keys are encoded and sorted (``np.lexsort``); each delta row's
-        rank ``r`` among the resident sorted keys comes from a per-bin
-        ``searchsorted`` with ties to the residents (``side="right"``); the
-        host key planes merge by direct placement; the device columns and
-        the permutation merge in one ``merge_scatter`` launch, moving only
-        delta-sized data over the host link. The result is bitwise the full
-        rebuild's: the merged order is the stable lexsort of the
-        concatenated keys (residents keep their order, delta rows keep
-        theirs, ties go to the smaller table row — a resident)."""
-        n_new = len(merged_table)
-        n_delta = n_new - n_old
-        self = cls.__new__(cls)
-        self.sft = old.sft
-        self.table = merged_table
-        self.geom, self.dtg = old.geom, old.dtg
-        self.period, self._sfc = old.period, old._sfc
-        st: Dict[str, float] = {}
-        t0 = time.perf_counter()
-
-        # 1-2. the delta run's keys and its own stable sort
-        delta_table = merged_table.take(np.arange(n_old, n_new,
-                                                  dtype=np.int64))
-        bins_d, z_d = cls._sort_keys(_DeltaKeyShim(
-            delta_table, old.dtg, old.period, old._sfc))
-        p_d = np.lexsort((z_d, bins_d)).astype(np.int64)
-        z_sd, b_sd = z_d[p_d], bins_d[p_d]
-        t1 = time.perf_counter()
-
-        # 3. ranks among the residents, bin segment by bin segment
-        old_z, old_b = old.sorted_z, old.sorted_bins
-        r = np.empty(n_delta, dtype=np.int64)
-        touched = np.unique(b_sd)
-        for b in touched:
-            ds = np.searchsorted(b_sd, b, side="left")
-            de = np.searchsorted(b_sd, b, side="right")
-            rs = np.searchsorted(old_b, b, side="left")
-            re_ = np.searchsorted(old_b, b, side="right")
-            r[ds:de] = rs + np.searchsorted(old_z[rs:re_], z_sd[ds:de],
-                                            side="right")
-        t2 = time.perf_counter()
-
-        # 4. host key planes: delta row j lands at r[j] + j, the residents
-        # fill the rest in order
-        is_delta = np.zeros(n_new, dtype=bool)
-        is_delta[r + np.arange(n_delta, dtype=np.int64)] = True
-        self._z = np.concatenate([old._z, z_d])
-        self._bins = np.concatenate([old._bins, bins_d])
-        for attr, res, dl in (("_sorted_z", old_z, z_sd),
-                              ("_sorted_bins", old_b, b_sd)):
-            merged = np.empty(n_new, dtype=res.dtype)
-            merged[~is_delta] = res
-            merged[is_delta] = dl
-            setattr(self, attr, merged)
-        del is_delta
-        t3 = time.perf_counter()
-
-        # 5. dictionary columns whose vocab grew under the union-vocab
-        # concat: the resident device codes are stale, so those columns
-        # rebuild from the merged codes
-        self.vocabs = {name: col.vocab
-                       for name, col in merged_table.columns.items()
-                       if isinstance(col, StringColumn)}
-        stale = [name for name in old.device.columns
-                 if name in self.vocabs
-                 and old.vocabs.get(name) != self.vocabs[name]]
-        full_codes = {name: merged_table.columns[name].codes
-                      for name in stale}
-        t4 = time.perf_counter()
-
-        # 6. the delta's device planes, in delta-sorted order
-        delta_planes = {k: v[p_d] for k, v in
-                        host_planes(delta_table, old.period).items()}
-        t5 = time.perf_counter()
-
-        # 7. one merge_scatter launch: every column and the permutation
-        self.device, self.perm = DeviceTable.merge_scatter(
-            old.device, delta_planes, r, stale=stale, full_codes=full_codes,
-            perm_pair=(old.perm, n_old + p_d), stages=st)
-
-        # 8. the staged scan modes over the merged columns
-        self.kernels = ScanKernels(self.device.columns)
-        st.update(keys_s=t1 - t0, rank_s=t2 - t1, host_runs_s=t3 - t2,
-                  vocab_s=t4 - t3, planes_s=t5 - t4,
-                  merge_s=time.perf_counter() - t0, merge_rows=n_delta,
-                  merge_fraction=n_delta / max(1, n_old),
-                  merge_touched_bins=len(touched),
-                  merge_stale_cols=sorted(stale))
-        self.build_stages = st
-        return self
-
-    @classmethod
     def supports(cls, sft) -> bool:
-        g = sft.geometry_attribute
-        return g is not None and g.type_name == "Point" and sft.dtg_attribute is not None
+        raise NotImplementedError
 
-    def _sort_keys(self) -> Tuple[np.ndarray, np.ndarray]:
-        """(bin int32, z3 int64) per table row, as the reference encodes them."""
-        x, y = self.table.geometry().point_xy()
-        ms = np.asarray(self.table.columns[self.dtg], dtype=np.int64)
-        bins, offs = time_to_binned_time(ms, self.period)
-        sfc = self._sfc
-        z = sfc.index(x, y, np.minimum(offs, int(sfc.time.max)), lenient=True)
-        return np.asarray(bins, dtype=np.int32), np.asarray(z, dtype=np.int64)
+    def _sort_keys(self) -> List[np.ndarray]:
+        """Integer key planes, major → minor; sets the index's host key
+        arrays (``_z`` or ``_xz``, and ``_bins`` on temporal indexes)."""
+        raise NotImplementedError
 
     # host sorted keys (range pruning) -------------------------------------
 
@@ -264,10 +201,6 @@ class Z3Index:
                 0, self.perm).cpu().numpy()
             setattr(self, attr, cached)
         return cached
-
-    @property
-    def sorted_z(self) -> np.ndarray:
-        return self._sorted_plane("_sorted_z", self._z)
 
     @property
     def sorted_bins(self) -> np.ndarray:
@@ -345,10 +278,7 @@ class Z3Index:
     def _row_slices(self, boxes, intervals) -> Optional[np.ndarray]:
         """Candidate [lo, hi) row slices in index order (a superset of the
         matches), or None when the decomposition explodes."""
-        return self._binned_row_slices(
-            boxes, intervals, self.sorted_z,
-            lambda bx, w: self._sfc.ranges_arrays(
-                bx, [w], max_ranges=_p.MAX_RANGES))
+        raise NotImplementedError
 
     def map_rows(self, idx: np.ndarray) -> np.ndarray:
         """Sorted positions → table rows (gathered on the device)."""
@@ -356,22 +286,50 @@ class Z3Index:
                               device=self.perm.device)
         return self.perm.index_select(0, idx).cpu().numpy()
 
+    # certified segment predicates ------------------------------------------
+
+    def ensure_segment_columns(self) -> bool:
+        """Upload each feature's segment endpoints (``sx1``/``sy1``/
+        ``sx2``/``sy2`` f32, in index order) when every feature is a
+        two-point LineString — what the device certainty-band intersects
+        count (``kernels/seg_band.py``) reads. Lazy and cached; False when
+        the layer does not qualify (≙ ``geomesa_tpu/index/spatial.py:892``)."""
+        cached = getattr(self, "_seg_cols_ok", None)
+        if cached is not None:
+            return cached
+        ok = False
+        garr = self.table.geometry()
+        if not garr.is_point_column and len(garr):
+            counts = np.diff(garr.ring_offsets)
+            if (np.all(garr.type_codes == geo.LINESTRING)
+                    and len(counts) == len(garr) and np.all(counts == 2)):
+                segs = garr.coords.reshape(len(garr), 4)
+                for i, name in enumerate(("sx1", "sy1", "sx2", "sy2")):
+                    raw = torch.from_numpy(np.ascontiguousarray(
+                        segs[:, i].astype(np.float32))).to(self.perm.device)
+                    self.device.columns[name] = raw.index_select(0, self.perm)
+                ok = True
+        self._seg_cols_ok = ok
+        return ok
+
+    # planning ---------------------------------------------------------------
+
     def plan(self, f: ir.Filter) -> IndexScanPlan:
         ext = extract_bboxes(f, self.geom)
-        iv = extract_intervals(f, self.dtg)
-        if len(ext.boxes) == 0 or len(iv.intervals) == 0:
-            return IndexScanPlan(self, "none", empty=True)
+        iv = extract_intervals(f, self.dtg) if self.dtg is not None else None
+        if len(ext.boxes) == 0 or (iv is not None and len(iv.intervals) == 0):
+            return IndexScanPlan(self, "none", empty=True, cost=0.0)
 
         residual = _strip_handled(f, self.geom, self.dtg, self.points)
 
         boxes_loose = None
         kind = "none"
         if not ext.unconstrained:
-            kind = "point_boxes"
+            kind = "point_boxes" if self.points else "bbox_overlap"
             boxes_loose = pad_boxes(_boxes_fp62(ext.boxes))
 
         windows = None
-        if not iv.unconstrained:
+        if iv is not None and not iv.unconstrained:
             w = np.empty((len(iv.intervals), 4), dtype=np.int32)
             i32 = (1 << 31) - 1  # open-ended intervals overflow the bin i32
             for i, (lo, hi) in enumerate(iv.intervals):
@@ -393,7 +351,266 @@ class Z3Index:
             windows=windows,
             residual_device=compiled,
             residual_host=host_res,
+            cost=self._cost(ext, iv),
             explain={"index": self.name, "boxes": ext.boxes,
-                     "intervals": iv.intervals,
+                     "intervals": None if iv is None else iv.intervals,
                      "residual_device": dev_res, "residual_host": host_res},
         )
+
+    def _cost(self, ext: Extraction, iv) -> float:
+        """Heuristic strategy cost (≙ the reference's ``_cost``,
+        StrategyDecider's index heuristics: lower is better;
+        spatio-temporal beats spatial beats a full scan)."""
+        spatial = not ext.unconstrained
+        temporal = iv is not None and not iv.unconstrained
+        if self.temporal and spatial and temporal:
+            return 1.0
+        if spatial:
+            return 2.0 if not self.temporal else 2.5
+        if temporal and self.temporal:
+            return 3.0
+        return 10.0  # full scan
+
+
+class Z3Index(BaseSpatialIndex):
+    """Point + time: epoch-major (bin, z3) order (≙ Z3IndexKeySpace.scala:34)."""
+
+    name = "z3"
+    temporal = True
+    points = True
+
+    @classmethod
+    def merge_from(cls, old: "Z3Index", merged_table: FeatureTable,
+                   n_old: int) -> "Z3Index":
+        """Incremental (LSM-merge) build (≙
+        ``geomesa_tpu/index/spatial.py:663-823``): ``merged_table`` is
+        ``old.table`` followed by ``n_delta`` appended rows. Only the delta
+        run's keys are encoded and sorted (``np.lexsort``); each delta row's
+        rank ``r`` among the resident sorted keys comes from a per-bin
+        ``searchsorted`` with ties to the residents (``side="right"``); the
+        host key planes merge by direct placement; the device columns and
+        the permutation merge in one ``merge_scatter`` launch, moving only
+        delta-sized data over the host link. The result is bitwise the full
+        rebuild's: the merged order is the stable lexsort of the
+        concatenated keys (residents keep their order, delta rows keep
+        theirs, ties go to the smaller table row — a resident)."""
+        n_new = len(merged_table)
+        n_delta = n_new - n_old
+        self = cls.__new__(cls)
+        self.sft = old.sft
+        self.table = merged_table
+        self.geom, self.dtg = old.geom, old.dtg
+        self.period, self._sfc = old.period, old._sfc
+        st: Dict[str, float] = {}
+        t0 = time.perf_counter()
+
+        # 1-2. the delta run's keys and its own stable sort
+        delta_table = merged_table.take(np.arange(n_old, n_new,
+                                                  dtype=np.int64))
+        shim = _DeltaKeyShim(old.sft, delta_table, old.geom, old.dtg,
+                             old.period)
+        cls._sort_keys(shim)
+        bins_d, z_d = shim._bins, shim._z
+        p_d = np.lexsort((z_d, bins_d)).astype(np.int64)
+        z_sd, b_sd = z_d[p_d], bins_d[p_d]
+        t1 = time.perf_counter()
+
+        # 3. ranks among the residents, bin segment by bin segment
+        old_z, old_b = old.sorted_z, old.sorted_bins
+        r = np.empty(n_delta, dtype=np.int64)
+        touched = np.unique(b_sd)
+        for b in touched:
+            ds = np.searchsorted(b_sd, b, side="left")
+            de = np.searchsorted(b_sd, b, side="right")
+            rs = np.searchsorted(old_b, b, side="left")
+            re_ = np.searchsorted(old_b, b, side="right")
+            r[ds:de] = rs + np.searchsorted(old_z[rs:re_], z_sd[ds:de],
+                                            side="right")
+        t2 = time.perf_counter()
+
+        # 4. host key planes: delta row j lands at r[j] + j, the residents
+        # fill the rest in order
+        is_delta = np.zeros(n_new, dtype=bool)
+        is_delta[r + np.arange(n_delta, dtype=np.int64)] = True
+        self._z = np.concatenate([old._z, z_d])
+        self._bins = np.concatenate([old._bins, bins_d])
+        for attr, res, dl in (("_sorted_z", old_z, z_sd),
+                              ("_sorted_bins", old_b, b_sd)):
+            merged = np.empty(n_new, dtype=res.dtype)
+            merged[~is_delta] = res
+            merged[is_delta] = dl
+            setattr(self, attr, merged)
+        del is_delta
+        t3 = time.perf_counter()
+
+        # 5. dictionary columns whose vocab grew under the union-vocab
+        # concat: the resident device codes are stale, so those columns
+        # rebuild from the merged codes
+        self.vocabs = {name: col.vocab
+                       for name, col in merged_table.columns.items()
+                       if isinstance(col, StringColumn)}
+        stale = [name for name in old.device.columns
+                 if name in self.vocabs
+                 and old.vocabs.get(name) != self.vocabs[name]]
+        full_codes = {name: merged_table.columns[name].codes
+                      for name in stale}
+        t4 = time.perf_counter()
+
+        # 6. the delta's device planes, in delta-sorted order
+        delta_planes = {k: v[p_d] for k, v in
+                        host_planes(delta_table, old.period).items()}
+        t5 = time.perf_counter()
+
+        # 7. one merge_scatter launch: every column and the permutation
+        self.device, self.perm = DeviceTable.merge_scatter(
+            old.device, delta_planes, r, stale=stale, full_codes=full_codes,
+            perm_pair=(old.perm, n_old + p_d), stages=st)
+
+        # 8. the staged scan modes over the merged columns
+        self.kernels = ScanKernels(self.device.columns)
+        st.update(keys_s=t1 - t0, rank_s=t2 - t1, host_runs_s=t3 - t2,
+                  vocab_s=t4 - t3, planes_s=t5 - t4,
+                  merge_s=time.perf_counter() - t0, merge_rows=n_delta,
+                  merge_fraction=n_delta / max(1, n_old),
+                  merge_touched_bins=len(touched),
+                  merge_stale_cols=sorted(stale))
+        self.build_stages = st
+        return self
+
+    @classmethod
+    def supports(cls, sft) -> bool:
+        g = sft.geometry_attribute
+        return g is not None and g.type_name == "Point" and sft.dtg_attribute is not None
+
+    def _sort_keys(self) -> List[np.ndarray]:
+        """(bin int32, z3 int64) per table row, as the reference encodes
+        them; its device sort splits z into three 21-bit planes, which
+        orders exactly as the int64 key does."""
+        x, y = self.table.geometry().point_xy()
+        ms = np.asarray(self.table.columns[self.dtg], dtype=np.int64)
+        bins, offs = time_to_binned_time(ms, self.period)
+        sfc = Z3SFC.apply(self.period)
+        self._sfc = sfc
+        self._z = np.asarray(
+            sfc.index(x, y, np.minimum(offs, int(sfc.time.max)), lenient=True),
+            dtype=np.int64)
+        self._bins = np.asarray(bins, dtype=np.int32)
+        return [self._bins, self._z]
+
+    @property
+    def sorted_z(self) -> np.ndarray:
+        return self._sorted_plane("_sorted_z", self._z)
+
+    def _row_slices(self, boxes, intervals) -> Optional[np.ndarray]:
+        return self._binned_row_slices(
+            boxes, intervals, self.sorted_z,
+            lambda bx, w: self._sfc.ranges_arrays(
+                bx, [w], max_ranges=_p.MAX_RANGES))
+
+
+class Z2Index(BaseSpatialIndex):
+    """Point, no time: z2 order (≙ Z2IndexKeySpace.scala:29)."""
+
+    name = "z2"
+    temporal = False
+    points = True
+
+    @classmethod
+    def supports(cls, sft) -> bool:
+        g = sft.geometry_attribute
+        return g is not None and g.type_name == "Point"
+
+    def _sort_keys(self) -> List[np.ndarray]:
+        x, y = self.table.geometry().point_xy()
+        self._z = Z2SFC().index(x, y, lenient=True)
+        return _split63(self._z)
+
+    @property
+    def sorted_z(self) -> np.ndarray:
+        return self._sorted_plane("_sorted_z", self._z)
+
+    def _row_slices(self, boxes, intervals) -> Optional[np.ndarray]:
+        rs = Z2SFC().ranges_arrays(boxes, max_ranges=_p.MAX_RANGES)
+        return _p.ranges_to_slices(self.sorted_z, rs)
+
+
+class XZ3Index(BaseSpatialIndex):
+    """Extent + time: (bin, xz3) order (≙ XZ3IndexKeySpace.scala:33)."""
+
+    name = "xz3"
+    temporal = True
+    points = False
+
+    @classmethod
+    def supports(cls, sft) -> bool:
+        g = sft.geometry_attribute
+        return g is not None and g.type_name != "Point" \
+            and sft.dtg_attribute is not None
+
+    def _sort_keys(self) -> List[np.ndarray]:
+        bb = self.table.geometry().bboxes()
+        ms = np.asarray(self.table.columns[self.dtg], dtype=np.int64)
+        bins, offs = time_to_binned_time(ms, self.period)
+        sfc = XZ3SFC.apply(self.sft.xz_precision, self.period)
+        mins = np.stack([bb[:, 0], bb[:, 1], offs.astype(np.float64)], axis=1)
+        maxs = np.stack([bb[:, 2], bb[:, 3], offs.astype(np.float64)], axis=1)
+        self._xz = sfc.index(mins, maxs, lenient=True)
+        self._bins = np.asarray(bins, dtype=np.int32)
+        return [self._bins] + _split63(self._xz)
+
+    @property
+    def sorted_xz(self) -> np.ndarray:
+        return self._sorted_plane("_sorted_xz", self._xz)
+
+    def _row_slices(self, boxes, intervals) -> Optional[np.ndarray]:
+        sfc = XZ3SFC.apply(self.sft.xz_precision, self.period)
+
+        def cover(bx, w):
+            qs = [(xmin, ymin, float(w[0]), xmax, ymax, float(w[1]))
+                  for xmin, ymin, xmax, ymax in bx]
+            return sfc.ranges(qs, max_ranges=_p.MAX_RANGES)
+
+        return self._binned_row_slices(boxes, intervals, self.sorted_xz, cover)
+
+
+class XZ2Index(BaseSpatialIndex):
+    """Extent, no time: xz2 order (≙ XZ2IndexKeySpace.scala:28)."""
+
+    name = "xz2"
+    temporal = False
+    points = False
+
+    @classmethod
+    def supports(cls, sft) -> bool:
+        g = sft.geometry_attribute
+        return g is not None and g.type_name != "Point"
+
+    def _sort_keys(self) -> List[np.ndarray]:
+        bb = self.table.geometry().bboxes()
+        sfc = XZ2SFC.apply(self.sft.xz_precision)
+        self._xz = sfc.index(bb[:, [0, 1]], bb[:, [2, 3]], lenient=True)
+        return _split63(self._xz)
+
+    @property
+    def sorted_xz(self) -> np.ndarray:
+        return self._sorted_plane("_sorted_xz", self._xz)
+
+    def _row_slices(self, boxes, intervals) -> Optional[np.ndarray]:
+        sfc = XZ2SFC.apply(self.sft.xz_precision)
+        rs = sfc.ranges_bbox(boxes, max_ranges=_p.MAX_RANGES)
+        return _p.ranges_to_slices(self.sorted_xz, rs)
+
+
+# the reference's default order (geomesa_tpu/index/spatial.py:1334, its
+# opt-in S3/S2 aside): a schema builds the first class that supports it
+INDEX_CLASSES = [Z3Index, XZ3Index, Z2Index, XZ2Index]
+
+
+def index_class(sft):
+    """The first index class of ``INDEX_CLASSES`` that supports ``sft``
+    (≙ the reference's ``_build_planner`` pick, ``datastore.py:519-535``)."""
+    for c in INDEX_CLASSES:
+        if c.supports(sft):
+            return c
+    raise not_ported("schemas without a geometry attribute (the full-scan "
+                     "index)", 9)

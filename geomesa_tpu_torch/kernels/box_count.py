@@ -1,7 +1,7 @@
 """Wrapper of the ``box_count`` CUDA kernel (``csrc/box_count.cu``).
 
-``box_count(cols, boxes, windows, resid, block_ids, bsz, per_box)``
-launches the kernel for tensors on a CUDA device and runs the plain PyTorch
+``box_count(cols, boxes, windows, resid, block_ids, bsz, per_box,
+envelope)`` launches the kernel for tensors on a CUDA device and runs the plain PyTorch
 version (``index.scan.box_count``) for tensors on the CPU. There is no
 fallback: a CUDA tensor either launches the kernel or raises.
 ``box_count.launches`` counts the calls that launched the kernel (and
@@ -23,6 +23,10 @@ SOURCE = "geomesa_tpu_torch/kernels/csrc/box_count.cu"
 REPLACES = "geomesa_tpu/index/scan.py:620"
 
 _PLANES = ("xi", "xl", "yi", "yl")
+# an extent layer's envelope: the min planes take the point planes' slots,
+# the max planes ride beside them
+_ENV_MIN = ("bxmin_i", "bxmin_l", "bymin_i", "bymin_l")
+_ENV_MAX = ("bxmax_i", "bxmax_l", "bymax_i", "bymax_l")
 _TIME = ("bin", "off")
 
 
@@ -32,15 +36,19 @@ def _bind(lib: ctypes.CDLL):
         p = ctypes.c_void_p
         i = ctypes.c_int
         ll = ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, ll, ll, ll, p, i, p, i, i,
-                       p, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, ll, ll, ll,
+                       p, i, p, i, i, p, p]
         fn.restype = ctypes.c_int
         lib.box_count_error_string.argtypes = [ctypes.c_int]
         lib.box_count_error_string.restype = ctypes.c_char_p
     return fn
 
 
-def _check(cols, boxes, windows, resid, block_ids, bsz, per_box):
+def _planes(envelope: bool):
+    return _ENV_MIN + _ENV_MAX if envelope else _PLANES
+
+
+def _check(cols, boxes, windows, resid, block_ids, bsz, per_box, envelope):
     """Validate the inputs; return (table rows, candidates, device)."""
     if not cols:
         raise ValueError("cols must hold the table's device columns")
@@ -50,7 +58,7 @@ def _check(cols, boxes, windows, resid, block_ids, bsz, per_box):
         if boxes.dtype != torch.int32 or boxes.dim() != 2 \
                 or boxes.shape[1] != 8:
             raise TypeError("boxes must be a (B, 8) int32 tensor")
-        need.update((k, cols[k]) for k in _PLANES)
+        need.update((k, cols[k]) for k in _planes(envelope))
     elif per_box:
         raise ValueError("per_box counts need boxes")
     if windows is not None:
@@ -89,16 +97,17 @@ def _check(cols, boxes, windows, resid, block_ids, bsz, per_box):
 def box_count(cols: Mapping[str, torch.Tensor], boxes: Optional[torch.Tensor],
               windows: Optional[torch.Tensor], resid: Optional[torch.Tensor],
               block_ids: Optional[torch.Tensor], bsz: Optional[int],
-              per_box: bool) -> torch.Tensor:
+              per_box: bool, envelope: bool = False) -> torch.Tensor:
     """int32 counts of the candidates, left on the device: with
     ``per_box`` one per row of ``boxes`` (B,), else a 0-d count of the
     candidates inside any box (of every live candidate when ``boxes`` is
-    None). See ``index.scan.box_count`` for the semantics."""
+    None); ``envelope`` tests an extent layer's envelope overlap instead of
+    point containment. See ``index.scan.box_count`` for the semantics."""
     n, ncand, dev = _check(cols, boxes, windows, resid, block_ids, bsz,
-                           per_box)
+                           per_box, envelope)
     if dev.type == "cpu":
         return scan.box_count(cols, boxes, windows, resid, block_ids, bsz,
-                              per_box)
+                              per_box, envelope)
     if dev.type != "cuda":
         raise ValueError(f"box_count runs on cuda or cpu, not {dev}")
     nbox = 0 if boxes is None else int(boxes.shape[0])
@@ -116,7 +125,10 @@ def box_count(cols: Mapping[str, torch.Tensor], boxes: Optional[torch.Tensor],
     fn = _bind(build.load(NAME))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(ptr(cols[k]) if has_boxes else None for k in _PLANES),
+        rc = fn(*(ptr(cols[k]) if has_boxes else None
+                  for k in (_ENV_MIN if envelope else _PLANES)),
+                *(ptr(cols[k]) if has_boxes and envelope else None
+                  for k in _ENV_MAX),
                 *(ptr(cols[k]) if has_time else None for k in _TIME),
                 ptr(valid), ptr(resid), ptr(block_ids),
                 0 if block_ids is None else int(block_ids.shape[0]),

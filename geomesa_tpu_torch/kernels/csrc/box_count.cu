@@ -1,13 +1,18 @@
-// Batched box counts for Hopper (sm_90a): per candidate row of a Z3 point
-// table, base = membership AND any time window AND the residual mask AND
-// __valid__; then either one count per box (per_box) or one count of the
-// rows inside any box (any_box; base alone when there are no boxes).
+// Batched box counts for Hopper (sm_90a): per candidate row of a point or
+// extent table, base = membership AND any time window AND the residual mask
+// AND __valid__; then either one count per box (per_box) or one count of
+// the rows inside any box (any_box; base alone when there are no boxes).
+// A point row is in a box when its point is; an extent row (ENV, the
+// bbox_overlap primary of the XZ indexes) when its envelope overlaps it:
+// bxmin <= qxhi, bxmax >= qxlo, bymin <= qyhi, bymax >= qylo.
 //
 // Replaces the XLA programs of geomesa_tpu/index/scan.py: the ScanKernels
 // modes count_multi (:620, lax.map of one box count over the boxes) and
 // count_multi_blocks (:701, the same over the union of the batch's
 // candidate blocks), and the any-box mask plus sum of the modes count and
-// count_blocks (_mask_kernel :368, run :597 and :697).
+// count_blocks (_mask_kernel :368, run :597 and :697), for the point
+// primary (_point_box_mask :94) and the envelope primary
+// (_bbox_overlap_pairwise/_bbox_overlap_mask :100-114).
 //
 // Keys: the reference compares fp62 (hi, lo) int32 pairs lexicographically
 // and SIGNED (_ge62/_le62, scan.py:72). A pair becomes one int64,
@@ -28,10 +33,11 @@
 // per candidate; __valid__ has one byte per table row.
 //
 // What bounds it on the card: per candidate 8 bytes of time planes plus the
-// mask bytes, per passing candidate 16 bytes of box planes; per (passing
-// candidate, box) four 64-bit compares (8 int32 instructions). With a
-// handful of boxes it is bound by bytes (the H100's 3.35 TB/s); at a batch
-// of 64 boxes by the compares (64 INT32 lanes an SM a clock).
+// mask bytes, per passing candidate 16 bytes of box planes (32 for an
+// envelope); per (passing candidate, box) four 64-bit compares (8 int32
+// instructions), for points and envelopes alike. With a handful of boxes
+// it is bound by bytes (the H100's 3.35 TB/s); at a batch of 64 boxes by
+// the compares (64 INT32 lanes an SM a clock).
 //
 // Design:
 // - Phase A (filter): a CTA takes rounds of TILE consecutive candidates;
@@ -40,7 +46,8 @@
 //   the masks), rows read through the block starts. Dead candidates read no
 //   further plane; the windows test keys from shared memory.
 // - per_box, phase B (test): phase A appends the passing candidates' (x
-//   key, y key) to a tile in shared memory (one shared atomicAdd a warp and
+//   key, y key; an envelope's four keys in 32 bytes) to a tile in shared
+//   memory (one shared atomicAdd a warp and
 //   a prefix popcount of the ballots for the slots). After __syncthreads
 //   each lane takes one box, its 4 keys in registers, and walks the tile:
 //   one broadcast 16-byte shared load a candidate, 4 compares and a
@@ -78,6 +85,10 @@ struct Params {
   const int* xl;
   const int* yi;
   const int* yl;
+  const int* xi2;           // ENV: the max planes (xi..yl hold the min)
+  const int* xl2;
+  const int* yi2;
+  const int* yl2;
   const int* bin;           // binned time (null without windows)
   const int* off;
   const uint8_t* valid;     // __valid__ per table row, or null
@@ -119,6 +130,13 @@ __device__ __forceinline__ bool in_box(const BoxKeys& q, long long kx,
   return (kx >= q.xlo) & (kx <= q.xhi) & (ky >= q.ylo) & (ky <= q.yhi);
 }
 
+// the envelope [x0, x1] x [y0, y1] overlaps box q
+__device__ __forceinline__ bool overlaps(const BoxKeys& q, long long x0,
+                                         long long x1, long long y0,
+                                         long long y1) {
+  return (x0 <= q.xhi) & (x1 >= q.xlo) & (y0 <= q.yhi) & (y1 >= q.ylo);
+}
+
 // 4 int32 values of a plane at rows[k] (k with a bit in `need`): one
 // 16-byte load when the rows are consecutive and aligned (`contig`)
 __device__ __forceinline__ void load4(const int* plane, bool contig,
@@ -154,11 +172,13 @@ __device__ __forceinline__ unsigned mask4(const uint8_t* m, bool contig,
 }
 
 // Phase A for a lane's candidates i0 .. i0 + 3 (i0 a multiple of 4): the
-// bits of the live ones, and with `keys` their x and y keys.
-template <bool BLOCKS>
+// bits of the live ones, and with `keys` their x and y keys (ENV: the min
+// keys, and the max keys in kx2, ky2).
+template <bool BLOCKS, bool ENV>
 __device__ __forceinline__ unsigned filter4(const Params& p, long long i0,
                                             const longlong2* win, bool keys,
-                                            long long* kx, long long* ky) {
+                                            long long* kx, long long* ky,
+                                            long long* kx2, long long* ky2) {
   long long rows[VEC], cand[VEC];
   unsigned live = 0u;
   if (BLOCKS) {
@@ -219,6 +239,16 @@ __device__ __forceinline__ unsigned filter4(const Params& p, long long i0,
     load4(p.yl, row4, rows, live, b);
 #pragma unroll
     for (int k = 0; k < VEC; ++k) ky[k] = pack62(a[k], b[k]);
+    if (ENV) {
+      load4(p.xi2, row4, rows, live, a);
+      load4(p.xl2, row4, rows, live, b);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) kx2[k] = pack62(a[k], b[k]);
+      load4(p.yi2, row4, rows, live, a);
+      load4(p.yl2, row4, rows, live, b);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) ky2[k] = pack62(a[k], b[k]);
+    }
   }
   return live;
 }
@@ -238,20 +268,47 @@ __device__ __forceinline__ void count_in(unsigned& c, const BoxKeys& q,
       : "l"(kx), "l"(ky), "l"(q.xlo), "l"(q.xhi), "l"(q.ylo), "l"(q.yhi));
 }
 
+// adds 1 to c when the envelope (x.x, x.y) x (y.x, y.y) overlaps box q,
+// as count_in does for a point
+__device__ __forceinline__ void count_env(unsigned& c, const BoxKeys& q,
+                                          longlong2 x, longlong2 y) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.le.s64 p, %1, %6;\n\t"
+      "setp.ge.and.s64 p, %2, %5, p;\n\t"
+      "setp.le.and.s64 p, %3, %8, p;\n\t"
+      "setp.ge.and.s64 p, %4, %7, p;\n\t"
+      "@p add.u32 %0, %0, 1;\n\t}"
+      : "+r"(c)
+      : "l"(x.x), "l"(x.y), "l"(y.x), "l"(y.y), "l"(q.xlo), "l"(q.xhi),
+        "l"(q.ylo), "l"(q.yhi));
+}
+
+// tile entry t: a point's (x, y) keys, or an envelope's ((x0, x1),
+// (y0, y1)) keys in two 16-byte words
+template <bool ENV>
+__device__ __forceinline__ void count_at(unsigned& c, const BoxKeys& q,
+                                         const longlong2* t) {
+  if (ENV) {
+    count_env(c, q, t[0], t[1]);
+  } else {
+    const longlong2 v = t[0];
+    count_in(c, q, v.x, v.y);
+  }
+}
+
 // the candidates [t, e) of a tile inside box q: 16-byte loads at immediate
 // offsets, 8 compares and a predicated add a candidate
+template <bool ENV>
 __device__ __forceinline__ unsigned count_run(const BoxKeys& q,
                                               const longlong2* t,
                                               const longlong2* e) {
+  constexpr int W = ENV ? 2 : 1;   // 16-byte words a tile entry
   unsigned c = 0u;
-  for (; t + 8 <= e; t += 8) {
+  for (; t + 8 * W <= e; t += 8 * W) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const longlong2 v = t[k];
-      count_in(c, q, v.x, v.y);
-    }
+    for (int k = 0; k < 8; ++k) count_at<ENV>(c, q, t + k * W);
   }
-  for (; t < e; ++t) count_in(c, q, t->x, t->y);
+  for (; t < e; t += W) count_at<ENV>(c, q, t);
   return c;
 }
 
@@ -261,9 +318,11 @@ __device__ __forceinline__ unsigned count_run(const BoxKeys& q,
 // the tile (every lane loads the same candidate: a broadcast); with fewer
 // boxes the lanes of a warp interleave over the tile (consecutive
 // candidates: no bank conflict).
+template <bool ENV>
 __device__ __forceinline__ void test_tile(const longlong2* tile, int tn,
                                           const BoxKeys* boxes, int nb,
                                           unsigned* s_cnt) {
+  constexpr int W = ENV ? 2 : 1;   // 16-byte words a tile entry
   int P;   // box slots; THREADS / P replicas split the tile
   if (nb >= THREADS) {
     P = THREADS;
@@ -280,10 +339,10 @@ __device__ __forceinline__ void test_tile(const longlong2* tile, int tn,
     const BoxKeys q = boxes[b];
     unsigned c = 0u;
     if (P >= 32) {
-      c = count_run(q, tile + (int)((long long)tn * rep / R),
-                    tile + (int)((long long)tn * (rep + 1) / R));
+      c = count_run<ENV>(q, tile + W * (int)((long long)tn * rep / R),
+                         tile + W * (int)((long long)tn * (rep + 1) / R));
     } else {
-      for (int j = rep; j < tn; j += R) count_in(c, q, tile[j].x, tile[j].y);
+      for (int j = rep; j < tn; j += R) count_at<ENV>(c, q, tile + W * j);
     }
     if (c) atomicAdd(s_cnt + b, c);
   }
@@ -292,16 +351,16 @@ __device__ __forceinline__ void test_tile(const longlong2* tile, int tn,
 // box0/ntile: the boxes [box0, box0 + ntile) this launch tests (per_box
 // launches; any_box always all of them). smem_boxes: their keys are staged
 // in shared memory (always for per_box).
-template <bool PER_BOX, bool BLOCKS>
+template <bool PER_BOX, bool BLOCKS, bool ENV>
 __global__ void __launch_bounds__(THREADS)
 box_count_kernel(Params p, int box0, int ntile, bool smem_boxes) {
+  constexpr int W = ENV ? 2 : 1;   // 16-byte words a tile entry
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_n[2];    // tile fills, by round parity
   const bool smem_windows = p.nwin <= MAX_SMEM_WINDOWS;
   longlong2* s_tile = reinterpret_cast<longlong2*>(smem);
-  BoxKeys* s_box =
-      reinterpret_cast<BoxKeys*>(smem + (PER_BOX ? sizeof(longlong2) * TILE
-                                                 : 0));
+  BoxKeys* s_box = reinterpret_cast<BoxKeys*>(
+      smem + (PER_BOX ? sizeof(longlong2) * W * TILE : 0));
   longlong2* s_win =
       reinterpret_cast<longlong2*>(s_box + (smem_boxes ? ntile : 0));
   unsigned* s_cnt =
@@ -331,8 +390,9 @@ box_count_kernel(Params p, int box0, int ntile, bool smem_boxes) {
     for (int s = 0; s < STEPS; ++s) {
       const long long i0 = r * TILE + (long long)(warp * STEPS + s) * 32 * VEC
                            + lane * VEC;
-      long long kx[VEC], ky[VEC];
-      unsigned live = filter4<BLOCKS>(p, i0, win, keys, kx, ky);
+      long long kx[VEC], ky[VEC], kx2[VEC], ky2[VEC];
+      unsigned live =
+          filter4<BLOCKS, ENV>(p, i0, win, keys, kx, ky, kx2, ky2);
       if (PER_BOX) {
         unsigned m[VEC];
         int tot = 0;
@@ -347,8 +407,15 @@ box_count_kernel(Params p, int box0, int ntile, bool smem_boxes) {
         base = __shfl_sync(FULL, base, 0);
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
-          if ((live >> k) & 1u)
-            s_tile[base + __popc(m[k] & lt)] = make_longlong2(kx[k], ky[k]);
+          if ((live >> k) & 1u) {
+            longlong2* t = s_tile + W * (base + __popc(m[k] & lt));
+            if (ENV) {
+              t[0] = make_longlong2(kx[k], kx2[k]);
+              t[1] = make_longlong2(ky[k], ky2[k]);
+            } else {
+              t[0] = make_longlong2(kx[k], ky[k]);
+            }
+          }
           base += __popc(m[k]);
         }
       } else if (live) {
@@ -361,7 +428,11 @@ box_count_kernel(Params p, int box0, int ntile, bool smem_boxes) {
             for (int b = 0; b < ntile; ++b) {
               const BoxKeys q =
                   smem_boxes ? s_box[b] : box_keys(p.boxes + 8 * b);
-              if (in_box(q, kx[k], ky[k])) { ++cnt; break; }
+              if (ENV ? overlaps(q, kx[k], kx2[k], ky[k], ky2[k])
+                      : in_box(q, kx[k], ky[k])) {
+                ++cnt;
+                break;
+              }
             }
           }
         }
@@ -373,7 +444,7 @@ box_count_kernel(Params p, int box0, int ntile, bool smem_boxes) {
       // the other parity's fill was last read before the previous round's
       // closing barrier: reset it for the next round
       if (threadIdx.x == 0) s_n[parity ^ 1] = 0;
-      test_tile(s_tile, tn, s_box, ntile, s_cnt);
+      test_tile<ENV>(s_tile, tn, s_box, ntile, s_cnt);
       __syncthreads();
       parity ^= 1;
     }
@@ -389,12 +460,12 @@ box_count_kernel(Params p, int box0, int ntile, bool smem_boxes) {
   }
 }
 
-template <bool PER_BOX, bool BLOCKS>
+template <bool PER_BOX, bool BLOCKS, bool ENV>
 cudaError_t launch(const Params& p, int box0, int ntile, bool smem_boxes,
                    int sms, cudaStream_t st) {
-  auto kernel = box_count_kernel<PER_BOX, BLOCKS>;
+  auto kernel = box_count_kernel<PER_BOX, BLOCKS, ENV>;
   const size_t smem =
-      (PER_BOX ? sizeof(longlong2) * TILE : 0)
+      (PER_BOX ? sizeof(longlong2) * (ENV ? 2 : 1) * TILE : 0)
       + (smem_boxes ? sizeof(BoxKeys) * ntile : 0)
       + (p.nwin <= MAX_SMEM_WINDOWS ? sizeof(longlong2) * p.nwin : 0)
       + sizeof(unsigned) * (PER_BOX ? ntile : 1);
@@ -417,12 +488,22 @@ cudaError_t launch(const Params& p, int box0, int ntile, bool smem_boxes,
   return cudaGetLastError();
 }
 
-template <bool PER_BOX>
+template <bool PER_BOX, bool ENV>
 cudaError_t launch_blocks(const Params& p, int box0, int ntile,
                           bool smem_boxes, int sms, cudaStream_t st) {
   return p.block_ids
-             ? launch<PER_BOX, true>(p, box0, ntile, smem_boxes, sms, st)
-             : launch<PER_BOX, false>(p, box0, ntile, smem_boxes, sms, st);
+             ? launch<PER_BOX, true, ENV>(p, box0, ntile, smem_boxes, sms, st)
+             : launch<PER_BOX, false, ENV>(p, box0, ntile, smem_boxes, sms,
+                                           st);
+}
+
+template <bool PER_BOX>
+cudaError_t launch_kind(const Params& p, int box0, int ntile,
+                        bool smem_boxes, int sms, cudaStream_t st) {
+  return p.xi2 ? launch_blocks<PER_BOX, true>(p, box0, ntile, smem_boxes,
+                                              sms, st)
+               : launch_blocks<PER_BOX, false>(p, box0, ntile, smem_boxes,
+                                               sms, st);
 }
 
 bool aligned(const void* ptr, uintptr_t to) {
@@ -432,10 +513,14 @@ bool aligned(const void* ptr, uintptr_t to) {
 }  // namespace
 
 // Adds the counts of the candidates into `counts` (int32, zeroed by the
-// caller on the same stream): nbox counts when per_box, else one. Returns
-// the first CUDA error (0 on success).
+// caller on the same stream): nbox counts when per_box, else one. With
+// xi2 (and xl2, yi2, yl2) the rows are envelopes: xi..yl hold the min
+// planes, xi2..yl2 the max planes. Returns the first CUDA error (0 on
+// success).
 extern "C" int box_count_launch(const int* xi, const int* xl, const int* yi,
-                                const int* yl, const int* bin, const int* off,
+                                const int* yl, const int* xi2,
+                                const int* xl2, const int* yi2,
+                                const int* yl2, const int* bin, const int* off,
                                 const uint8_t* valid, const uint8_t* resid,
                                 const int* block_ids, long long nblocks,
                                 long long bsz, long long n,
@@ -448,6 +533,10 @@ extern "C" int box_count_launch(const int* xi, const int* xl, const int* yi,
   p.xl = xl;
   p.yi = yi;
   p.yl = yl;
+  p.xi2 = xi2;
+  p.xl2 = xl2;
+  p.yi2 = yi2;
+  p.yl2 = yl2;
   p.bin = bin;
   p.off = off;
   p.valid = valid;
@@ -462,7 +551,9 @@ extern "C" int box_count_launch(const int* xi, const int* xl, const int* yi,
   p.nbox = nbox;
   p.counts = reinterpret_cast<unsigned*>(counts);
   p.vec = aligned(xi, 16) && aligned(xl, 16) && aligned(yi, 16)
-          && aligned(yl, 16) && aligned(bin, 16) && aligned(off, 16)
+          && aligned(yl, 16) && aligned(xi2, 16) && aligned(xl2, 16)
+          && aligned(yi2, 16) && aligned(yl2, 16) && aligned(bin, 16)
+          && aligned(off, 16)
           && aligned(valid, 4) && aligned(resid, 4);
   if (p.ncand <= 0) return 0;
   int dev = 0, sms = 0;
@@ -474,11 +565,11 @@ extern "C" int box_count_launch(const int* xi, const int* xl, const int* yi,
     for (int box0 = 0; box0 < nbox; box0 += MAX_SMEM_BOXES) {
       const int ntile =
           nbox - box0 < MAX_SMEM_BOXES ? nbox - box0 : MAX_SMEM_BOXES;
-      err = launch_blocks<true>(p, box0, ntile, true, sms, st);
+      err = launch_kind<true>(p, box0, ntile, true, sms, st);
       if (err != cudaSuccess) return (int)err;
     }
   } else {
-    err = launch_blocks<false>(p, 0, nbox, nbox <= MAX_SMEM_BOXES, sms, st);
+    err = launch_kind<false>(p, 0, nbox, nbox <= MAX_SMEM_BOXES, sms, st);
   }
   return (int)err;
 }

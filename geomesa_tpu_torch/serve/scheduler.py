@@ -78,7 +78,7 @@ from geomesa_tpu_torch import trace as _trace
 from geomesa_tpu_torch.durability import faults as _faults
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.filter.parser import parse_ecql
-from geomesa_tpu_torch.index.scan import Readback
+from geomesa_tpu_torch.index.scan import PRIMARY_FNS, Readback
 from geomesa_tpu_torch.metrics import REGISTRY as _metrics
 from geomesa_tpu_torch.serve.resilience import deadline as _rdl
 from geomesa_tpu_torch.serve.resilience import degrade as _degrade
@@ -693,7 +693,7 @@ class QueryScheduler:
                 self._fail(r, e)
                 continue
             plan = r.plan
-            if (plan.device_exact and plan.primary_kind == "point_boxes"
+            if (plan.device_exact and plan.primary_kind in PRIMARY_FNS
                     and plan.boxes_loose is not None
                     and plan.boxes_loose.shape == (1, 8)):
                 pruned = plan.blocks is not None

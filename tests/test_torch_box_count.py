@@ -600,3 +600,258 @@ def test_cuda_kernel_signed_planes_equal_plain(per_box, where, windows):
         assert int(got[-1]) == 0   # EMPTY_BOX
     if where != "empty" and windows != "no rows":
         assert int(got.sum()) > 0
+
+
+# -- extent layers: the envelope primary (bbox_overlap) -----------------------
+
+EXT_SPEC = ("name:String,age:Int,dtg:Date,*geom:LineString;"
+            "geomesa.z3.interval=week")
+
+
+def _lines(n: int, seed: int):
+    """n two- and three-vertex LineStrings: envelopes from points to 8 x 6
+    degrees, a fiftieth of them with an end on x = 10 (ties on box
+    edges)."""
+    from geomesa_tpu_torch.features.geometry import LINESTRING
+    rng = np.random.default_rng(seed)
+    x0 = rng.uniform(-178, 170, n)
+    y0 = rng.uniform(-88, 82, n)
+    x0[: n // 50] = 10.0
+    shapes = []
+    for i in range(n):
+        k = 2 + (i % 2)
+        xs = x0[i] + np.concatenate([[0.0], rng.uniform(0, 8, k - 1)])
+        ys = y0[i] + np.concatenate([[0.0], rng.uniform(0, 6, k - 1)])
+        shapes.append((LINESTRING, np.stack([xs, ys], 1).tolist()))
+    return shapes
+
+
+@pytest.fixture(scope="module")
+def extent_world():
+    """An XZ3 layer of N LineStrings in both packages, blocks of BSZ."""
+    jconfig = _ref("geomesa_tpu.config")
+    jprune = _ref("geomesa_tpu.index.prune")
+    vars(jprune).pop("BLOCK_SIZE", None)
+    for c in (jconfig, tconfig):
+        c.PRUNE_BLOCK.set(BSZ)
+    try:
+        from geomesa_tpu_torch.features.geometry import GeometryArray
+        from geomesa_tpu_torch.index.spatial import XZ3Index as TXZ3
+        cols = _columns(N, 15)
+        del cols["score"]
+        shapes = _lines(N, 16)
+        JGeo = _ref("geomesa_tpu.features.geometry").GeometryArray
+        JSFT = _ref("geomesa_tpu.features.sft").SimpleFeatureType
+        JTable = _ref("geomesa_tpu.features.table").FeatureTable
+        JXZ3 = _ref("geomesa_tpu.index.spatial").XZ3Index
+        JPlanner = _ref("geomesa_tpu.index.planner").QueryPlanner
+        jsft = JSFT.from_spec("e", EXT_SPEC)
+        jt = JTable.build(jsft, dict(cols, geom=JGeo.from_shapes(shapes)))
+        jp = JPlanner(jsft, jt, [JXZ3(jsft, jt)])
+        tsft = TSFT.from_spec("e", EXT_SPEC)
+        tt = TTable.build(tsft, dict(cols,
+                                     geom=GeometryArray.from_shapes(shapes)))
+        tp = TPlanner(tsft, tt, [TXZ3(tsft, tt, "cpu")])
+        yield jp, tp
+    finally:
+        for c in (jconfig, tconfig):
+            c.PRUNE_BLOCK.unset()
+
+
+def _ext_cover(jp, tp):
+    short = "dtg DURING 2020-01-04T00:00:00Z/2020-01-07T00:00:00Z"
+    qs = [f"BBOX(geom, 10, 10, 40, 40) AND {short}",
+          f"BBOX(geom, -120, -50, -90, -20) AND {short}"]
+    jb = [jp._pruned_blocks(jp.plan(q)) for q in qs]
+    tb = [tp._pruned_blocks(tp.plan(q)) for q in qs]
+    for a, b in zip(jb, tb):
+        assert a is not None and np.array_equal(a, b)
+    return np.unique(np.concatenate(tb)).astype(np.int32)
+
+
+@pytest.mark.parametrize("B,fkey", [
+    (1, "none"), (1, "time_resid"), (3, "time"), (8, "resid"),
+    (8, "time_in"), (64, "time_resid"), (300, "none"),
+])
+@pytest.mark.parametrize("where", ["table", "cover", "edge", "empty"])
+def test_envelope_counts_multi_equal_reference(extent_world, B, fkey, where):
+    """Per-box envelope-overlap counts (``counts_multi`` and
+    ``counts_multi_blocks`` with primary ``bbox_overlap``) against the
+    reference's on the same XZ3 layer."""
+    jp, tp = extent_world
+    jk, tk = jp.indexes[0].kernels, tp.indexes[0].kernels
+    jb, tb = _fp62(B, seed=B + 1)
+    f = FILTERS[fkey]
+    ja, ta = _rest(jp.plan(f)), _rest(tp.plan(f))
+    if where == "table":
+        want = jk.counts_multi("bbox_overlap", jb, *ja)
+        got = tk.counts_multi("bbox_overlap", tb, *ta)
+    else:
+        blocks = {"cover": lambda: _ext_cover(jp, tp),
+                  "edge": lambda: EDGE_BLOCKS,
+                  "empty": lambda: np.empty(0, dtype=np.int32)}[where]()
+        want = jk.counts_multi_blocks("bbox_overlap", jb, *ja, blocks, BSZ)
+        got = tk.counts_multi_blocks("bbox_overlap", tb, *ta, blocks, BSZ)
+    assert got.dtype == np.int32 and got.shape == (B,)
+    assert np.array_equal(got, np.asarray(want))
+    if where in ("table", "cover") and B > 1:
+        assert got.max() > 0
+
+
+@pytest.mark.parametrize("nbox", [1, 4])
+@pytest.mark.parametrize("fkey", ["none", "time_resid", "time_in"])
+def test_envelope_count_and_count_blocks_equal_reference(extent_world, nbox,
+                                                         fkey):
+    """The any-box envelope count (``count`` / ``count_blocks``) against
+    the reference's."""
+    jp, tp = extent_world
+    jk, tk = jp.indexes[0].kernels, tp.indexes[0].kernels
+    f = FILTERS[fkey]
+    ja, ta = _rest(jp.plan(f)), _rest(tp.plan(f))
+    jb, tb = _fp62(nbox, seed=50 + nbox)
+    jb = tb = tscan.pad_boxes(tb)
+    want = jk.count("bbox_overlap", jb, *ja)
+    assert tk.count("bbox_overlap", tb, *ta) == want
+    assert int(tk.prepare_count("bbox_overlap", tb, *ta)()) == want
+    for blocks in (_ext_cover(jp, tp), EDGE_BLOCKS):
+        want = jk.count_blocks("bbox_overlap", jb, *ja, blocks, BSZ)
+        assert tk.count_blocks("bbox_overlap", tb, *ta, blocks, BSZ) == want
+    assert want > 0
+
+
+def _int32_env_planes(n: int, seed: int):
+    """Envelope planes over the whole int32 range: each min/max pair a
+    row's two (hi, lo) keys in order, hi from [-3, 3] (ties on the box
+    edges), lo of either sign; bin from 3 values, off of either sign."""
+    a = _int32_planes(n, seed)
+    b = _int32_planes(n, seed + 100)
+    out = {"bin": a["bin"], "off": a["off"]}
+    for ax, hi, lo in (("x", "xi", "xl"), ("y", "yi", "yl")):
+        ka = a[hi].astype(np.int64) * (1 << 32) + a[lo]
+        kb = b[hi].astype(np.int64) * (1 << 32) + b[lo]
+        swap = kb < ka
+        for name, src, alt in ((f"b{ax}min", a, b), (f"b{ax}max", b, a)):
+            out[f"{name}_i"] = np.where(swap, alt[hi], src[hi])
+            out[f"{name}_l"] = np.where(swap, alt[lo], src[lo])
+    return out
+
+
+@pytest.mark.parametrize("per_box", [True, False])
+@pytest.mark.parametrize("windows", [False, True])
+def test_plain_envelope_box_count_equals_reference_on_signed_planes(
+        per_box, windows):
+    """The plain envelope ``box_count`` (``pack62`` keys) against the
+    reference's ``_bbox_overlap_pairwise`` and ``_time_mask``."""
+    jscan = _ref("geomesa_tpu.index.scan")
+    jnp = _ref("jax.numpy")
+    cols = _int32_env_planes(4000, 31)
+    pts = {"xi": cols["bxmin_i"], "xl": cols["bxmin_l"],
+           "yi": cols["bymin_i"], "yl": cols["bymin_l"], "off": cols["off"]}
+    boxes, win = _int32_boxes(12, 32, pts)
+    jcols = {k: jnp.asarray(v) for k, v in cols.items()}
+    pair = np.asarray(jscan._bbox_overlap_pairwise(jcols,
+                                                   jnp.asarray(boxes)))
+    base = np.ones(4000, bool)
+    if windows:
+        base = np.asarray(jscan._time_mask(jcols, jnp.asarray(win)))
+    want = (pair & base[:, None]).sum(axis=0) if per_box \
+        else (pair.any(axis=1) & base).sum()
+    tcols = {k: torch.from_numpy(v) for k, v in cols.items()}
+    got = tscan.box_count(tcols, torch.from_numpy(boxes),
+                          torch.from_numpy(win) if windows else None,
+                          None, None, None, per_box, envelope=True)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert 0 < int(got.sum())
+
+
+def _env_planes(n: int, seed: int, dev):
+    """Random device envelope planes of an extent table (fp62, a fiftieth
+    with bxmin on x = 10, ties on box edges), binned time."""
+    rng = np.random.default_rng(seed)
+    x0 = rng.uniform(-180, 175, n)
+    y0 = rng.uniform(-90, 86, n)
+    x0[: n // 50] = 10.0
+    x1 = np.minimum(180.0, x0 + rng.uniform(0, 5, n))
+    y1 = np.minimum(90.0, y0 + rng.uniform(0, 4, n))
+    cols = {"bin": rng.integers(2600, 2606, n).astype(np.int32),
+            "off": rng.integers(0, 604800, n).astype(np.int32)}
+    for name, v, lo, hi in (("bxmin", x0, -180.0, 180.0),
+                            ("bymin", y0, -90.0, 90.0),
+                            ("bxmax", x1, -180.0, 180.0),
+                            ("bymax", y1, -90.0, 90.0)):
+        cols[name + "_i"], cols[name + "_l"] = fp62(v, lo, hi)
+    out = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+    return out, rng.random(n) < 0.9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [N, 3 * (1 << 20) + 17])
+@pytest.mark.parametrize("nbox,per_box", [
+    (0, False), (1, False), (4, False), (1, True), (3, True), (64, True),
+    (300, True), (1500, True), (1500, False)])
+@pytest.mark.parametrize("windows,resid,valid", [
+    (False, False, False), (True, True, True)])
+@pytest.mark.parametrize("where", list(GPU_BLOCKS))
+def test_cuda_envelope_kernel_equals_plain(n, nbox, per_box, windows, resid,
+                                           valid, where):
+    """The envelope kernel (``box_count(..., envelope=True)``) against its
+    plain version: any-box and per-box, over the table and blocks (the
+    clamped last block, ids past the table, pads, an empty list), with
+    windows, a residual and __valid__, past the staged box counts."""
+    dev = _cuda()
+    blocks = GPU_BLOCKS[where]
+    last = -(-n // BSZ) - 1
+    if isinstance(blocks, str):
+        blocks = (np.array([0, 3, last - 1, last, last + 5, last + 90],
+                           dtype=np.int32) if blocks == "edge"
+                  else np.arange(0, last + 1, 3, dtype=np.int32))
+    _, _, w, r, bid = _gpu_case(n, 0, windows, resid, blocks, False,
+                                seed=nbox + 3)
+    cols, vmask = _env_planes(n, nbox + 5, dev)
+    if valid:
+        cols["__valid__"] = torch.from_numpy(vmask).to(dev)
+    boxes = None
+    if nbox:
+        b = t_fp62(_boxes(nbox, nbox + 9))
+        boxes = torch.from_numpy(b if nbox == 1500 else tscan.pad_boxes(b)
+                                 ).to(dev)
+    bsz = None if bid is None else BSZ
+    before = tkernel.box_count.launches
+    got = tkernel.box_count(cols, boxes, w, r, bid, bsz, per_box,
+                            envelope=nbox > 0)
+    torch.cuda.synchronize()
+    plain = tscan.box_count(cols, boxes, w, r, bid, bsz, per_box,
+                            envelope=nbox > 0)
+    assert got.dtype == torch.int32 and got.shape == plain.shape
+    assert torch.equal(got, plain), (got, plain)
+    assert tkernel.box_count.launches == before + 1
+    if nbox and where in ("table", "many"):
+        assert int(got.sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_box", [True, False])
+@pytest.mark.parametrize("where", ["table", "edge"])
+def test_cuda_envelope_kernel_signed_planes_equal_plain(per_box, where):
+    """Envelope planes over the whole int32 range, EMPTY_BOX among the
+    boxes, windows of either sign."""
+    dev = _cuda()
+    n = N + 5
+    np_cols = _int32_env_planes(n, 41)
+    pts = {"xi": np_cols["bxmin_i"], "xl": np_cols["bxmin_l"],
+           "yi": np_cols["bymin_i"], "yl": np_cols["bymin_l"],
+           "off": np_cols["off"]}
+    boxes, win = _int32_boxes(40, 42, pts)
+    cols = {k: torch.from_numpy(v).to(dev) for k, v in np_cols.items()}
+    bid = None if where == "table" else torch.from_numpy(EDGE_BLOCKS).to(dev)
+    bsz = None if bid is None else BSZ
+    b = torch.from_numpy(boxes).to(dev)
+    w = torch.from_numpy(win).to(dev)
+    got = tkernel.box_count(cols, b, w, None, bid, bsz, per_box,
+                            envelope=True)
+    torch.cuda.synchronize()
+    plain = tscan.box_count(cols, b, w, None, bid, bsz, per_box,
+                            envelope=True)
+    assert got.shape == plain.shape and torch.equal(got, plain), (got, plain)
+    assert int(got.sum()) > 0
