@@ -1,0 +1,409 @@
+"""Two trees of the port timed on one card, in turns.
+
+    python3 chip_compare.py PARENT_ROOT CHANGE_ROOT [--phases count,kernels]
+        [--rounds 4] [--reps 40] [--n 100000000] [--out FILE] [--device cpu]
+
+One worker process a tree imports ``geomesa_tpu_torch`` from that tree,
+builds its kernels and sets up each phase once; the main process then asks
+the two in turns — parent, change, change, parent, ... — so that each
+adjacent pair of answers ran on the same card, seconds apart. The phases:
+
+- ``count``: query (a) of ``chip_smoke.py`` on its 100M-point bench cfg1
+  corpus (``--n``), loaded through the tree's store and checked against
+  the numpy oracle. An answer is the p50 of ``--reps`` timed
+  ``store.count`` calls and of as many runs of the fused program alone
+  (``compiled.Program(plan, "count").run()``, which the trees share: a
+  control for the card's and the host's drift).
+- ``kernels``: ``seg_band`` at bench cfg2's (m1) shape (32 blocks of
+  4,096 candidates, a 4-edge polygon, its box) and at 33,554,432
+  segments within a few ulps of the polygon's edges; ``dist_refine`` at
+  query (i)'s shape (268 blocks of 4,096 candidates through block starts
+  into 8,388,608 points, 9.26% of them masked in) and at 33,554,432
+  points within a few ulps of r ± DIST_BAND, unmasked. For each, the
+  wrapper's call (``flags`` for ``dist_refine``) and the call with the
+  two counts the fused program takes (``with_counts``: a tree whose
+  wrapper gives no counts sums the flags after it). An answer is
+  ``chip_smoke.cuda_ms`` over back-to-back calls and
+  ``chip_smoke.activities_per_call`` (device activities and device ms a
+  call over ten calls). The inputs are made once from fixed seeds and
+  saved under ``archive_check/compare_inputs/`` (``.gitignore`` lists
+  it); both trees must give the same outputs (compared by digest).
+
+Prints each answer, then per tree the median of every metric and the
+change-minus-parent median over adjacent pairs; writes all of it to
+``--out``. ``--device cpu`` is a dry run of the protocol at a small size
+(times then come from the host clock). Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CACHE = os.path.join(HERE, "archive_check", "compare_inputs")
+BSZ = 4096
+M1_BLOCKS = 32
+M1_TABLE = 4 * M1_BLOCKS * BSZ
+NEAR_N = 33_554_432
+I_TABLE = 8_388_608
+I_BLOCKS = 268
+I_LIVE = 0.0926
+CIRCLE = (10.0, 45.0, 5.0)
+RING = [(-12.0, 30.0), (10.0, 28.0), (14.0, 44.0), (-2.0, 50.0),
+        (-12.0, 30.0)]
+BOX = (-12.0, 28.0, 14.0, 50.0)
+
+
+def _smoke():
+    """This tree's ``chip_smoke.py`` (its inputs and timing helpers), loaded
+    by path so that a worker's own tree stays first on ``sys.path``."""
+    spec = importlib.util.spec_from_file_location(
+        "_compare_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _median(v):
+    return float(np.median(v))
+
+
+# -- phase count ------------------------------------------------------------
+
+
+def setup_count(cs, a) -> tuple:
+    import torch
+
+    from geomesa_tpu_torch import DataStoreFinder
+    from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
+    from geomesa_tpu_torch.index import compiled
+
+    x, y, dtg, name, val = cs.corpus(a.n)
+    lo = np.datetime64("2020-01-05", "ms").astype(np.int64)
+    hi = np.datetime64("2020-01-12", "ms").astype(np.int64)
+    want = int(np.count_nonzero((dtg > lo) & (dtg < hi) & (x >= -10)
+                                & (x <= 30) & (y >= 30) & (y <= 55)
+                                & (val > 10)))
+    store = DataStoreFinder.get_data_store(type="torch", device=a.device)
+    sft = store.create_schema("gdelt", cs.SPEC)
+    store.load("gdelt", FeatureTable.build(sft, {
+        "name": StringColumn(name, ["a", "b", "c"]), "val": val, "dtg": dtg,
+        "geom": (x, y)}))
+    del x, y, dtg, name, val
+    plan = store.planner("gdelt").plan(cs.Q_BOX)
+    got = store.count("gdelt", cs.Q_BOX)
+    prog = int(compiled.Program(plan, "count").run()[0])
+    if got != want or prog != want:
+        raise AssertionError(f"(a) {got}, program {prog}, oracle {want}")
+    sync = torch.cuda.synchronize if a.device == "cuda" else (lambda: None)
+    stages = {"count": lambda: store.count("gdelt", cs.Q_BOX),
+              "program": lambda: int(
+                  compiled.Program(plan, "count").run()[0])}
+    for fn in stages.values():
+        for _ in range(20):
+            fn()
+
+    def answer() -> dict:
+        out = {}
+        for label, fn in stages.items():
+            ts = []
+            for _ in range(a.reps):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            out[f"{label}_p50_ms"] = _median(ts)
+        return out
+
+    return {"count": got}, answer
+
+
+# -- phase kernels ----------------------------------------------------------
+
+
+def _near_n(device: str) -> int:
+    return NEAR_N if device == "cuda" else 1 << 16
+
+
+def make_inputs(cs, device: str) -> str:
+    """Every input array of the kernels phase, made once and saved as .npy
+    under a directory of CACHE; returns the directory."""
+    near_n = _near_n(device)
+    d = os.path.join(CACHE, str(near_n))
+    if os.path.exists(os.path.join(d, "done")):
+        return d
+    from geomesa_tpu_torch.index.device import fp62_lat, fp62_lon
+    os.makedirs(d, exist_ok=True)
+
+    def segments(name, ax, ay, bx, by):
+        for plane, v, enc in (("bxmin", np.minimum(ax, bx), fp62_lon),
+                              ("bymin", np.minimum(ay, by), fp62_lat),
+                              ("bxmax", np.maximum(ax, bx), fp62_lon),
+                              ("bymax", np.maximum(ay, by), fp62_lat)):
+            hi, lo = enc(v)
+            np.save(os.path.join(d, f"{name}_{plane}_i.npy"), hi)
+            np.save(os.path.join(d, f"{name}_{plane}_l.npy"), lo)
+        for plane, v in (("sx1", ax), ("sy1", ay), ("sx2", bx), ("sy2", by)):
+            np.save(os.path.join(d, f"{name}_{plane}.npy"),
+                    v.astype(np.float32))
+
+    rng = np.random.default_rng(9)
+    ax = rng.uniform(-19, 21, M1_TABLE)   # ~44% of envelopes meet the box
+    ay = rng.uniform(20, 58, M1_TABLE)
+    segments("m1", ax, ay, ax + rng.uniform(-2, 2, M1_TABLE),
+             ay + rng.uniform(-2, 2, M1_TABLE))
+    segments("near", *cs.near_edge_segments(near_n, cs.M_SEED + 3))
+    x = rng.uniform(0, 20, I_TABLE).astype(np.float32)
+    y = rng.uniform(35, 55, I_TABLE).astype(np.float32)
+    np.save(os.path.join(d, "i_x.npy"), x)
+    np.save(os.path.join(d, "i_y.npy"), y)
+    starts = np.sort(rng.choice(I_TABLE // BSZ, I_BLOCKS, replace=False))
+    np.save(os.path.join(d, "i_starts.npy"), (starts * BSZ).astype(np.int64))
+    np.save(os.path.join(d, "i_mask.npy"),
+            rng.random(I_BLOCKS * BSZ) < I_LIVE)
+    px, py = cs.band_points(*CIRCLE, near_n, 13)
+    np.save(os.path.join(d, "dn_x.npy"), px)
+    np.save(os.path.join(d, "dn_y.npy"), py)
+    open(os.path.join(d, "done"), "w").close()
+    return d
+
+
+def _digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def setup_kernels(cs, a) -> tuple:
+    import torch
+
+    from geomesa_tpu_torch.index import scan
+    from geomesa_tpu_torch.index.spatial import _boxes_fp62
+    from geomesa_tpu_torch.kernels import build, dist, seg_band
+
+    if a.device == "cuda":
+        build.build(["seg_band", "dist_refine"])
+    d = a.inputs
+    dev = torch.device(a.device)
+
+    def load(name):
+        return torch.from_numpy(np.load(os.path.join(d, name))).to(dev)
+
+    r = np.asarray(RING)
+    e = torch.from_numpy(np.concatenate([r[:-1], r[1:]], 1)
+                         .astype(np.float32)).to(dev)
+    box = torch.from_numpy(scan.pad_boxes(_boxes_fp62([BOX]))).to(dev)
+    planes = [p + s for p in ("bxmin", "bymin", "bxmax", "bymax")
+              for s in ("_i", "_l")] + ["sx1", "sy1", "sx2", "sy2"]
+    near_n = _near_n(a.device)
+    calls, ready = {}, {}
+    for name, bids, reps in (
+            ("m1", np.arange(0, 4 * M1_BLOCKS, 4), 200),
+            ("near", np.arange(-(-near_n // BSZ)), 20)):
+        cols = {p: load(f"{name}_{p}.npy") for p in planes}
+        bid = torch.from_numpy(bids.astype(np.int32)).to(dev)
+        args = (cols, box, None, None, bid, BSZ, e, 4, 4096)
+        res = seg_band.seg_band(*args)
+        ready[f"seg_{name}"] = [_digest(res), res[:2].tolist()]
+        calls[f"seg_{name}"] = (lambda args=args: seg_band.seg_band(*args),
+                                reps)
+    cr = np.asarray(CIRCLE, dtype=np.float32)
+    # a tree whose wrapper takes f32 [cx, cy, r] and gives the flags alone
+    # (before DistBounds): the program summed the flags after it
+    counted = hasattr(scan, "DistBounds")
+    circle = scan.dist_bounds(cr) if counted else cr
+    for name, pre, kw, reps in (
+            ("i", "i", {"mask": "i_mask.npy", "starts": "i_starts.npy",
+                        "bsz": BSZ}, 200),
+            ("near", "dn", {}, 20)):
+        tx, ty = load(f"{pre}_x.npy"), load(f"{pre}_y.npy")
+        kw = {k: (load(v) if isinstance(v, str) else v)
+              for k, v in kw.items()}
+
+        def flags(tx=tx, ty=ty, kw=kw):
+            return dist.dist_refine(tx, ty, circle, **kw)
+
+        def with_counts(flags=flags):
+            if counted:
+                return flags()
+            hit, unc = flags()
+            return hit, unc, torch.cat(
+                [hit.sum(dtype=torch.int32).reshape(1),
+                 unc.sum(dtype=torch.int32).reshape(1)])
+
+        hit, unc, cnt = with_counts()
+        ready[f"dist_{name}"] = [_digest(hit, unc, cnt), cnt.tolist()]
+        calls[f"dist_{name}_flags"] = (flags, reps)
+        calls[f"dist_{name}_with_counts"] = (with_counts, reps)
+
+    def answer() -> dict:
+        out = {}
+        for key, (fn, reps) in calls.items():
+            if a.device == "cuda":
+                out[f"{key}_ms"] = cs.cuda_ms(fn, reps)
+                acts, dev_ms = cs.activities_per_call(fn)
+            else:
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    fn()
+                out[f"{key}_ms"] = (time.perf_counter() - t0) * 1e3 / 2
+                acts = dev_ms = None
+            out[f"{key}_activities"] = acts
+            out[f"{key}_device_ms"] = dev_ms
+        return out
+
+    return ready, answer
+
+
+PHASES = {"count": setup_count, "kernels": setup_kernels}
+
+
+# -- worker and turns -------------------------------------------------------
+
+
+def worker(a) -> None:
+    # the protocol owns the real stdout; anything else printed goes to
+    # stderr (a kernel build's report, nvcc's output)
+    proto = os.fdopen(os.dup(1), "w")
+    os.dup2(2, 1)
+    cs = _smoke()
+    root = os.path.abspath(a.worker)
+    sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != HERE]
+    sys.path.insert(0, root)
+    os.chdir(root)
+    t0 = time.perf_counter()
+    ready, answers = {}, {}
+    for phase in a.phases.split(","):
+        ready[phase], answers[phase] = PHASES[phase](cs, a)
+    print(json.dumps({"ready": ready,
+                      "setup_s": time.perf_counter() - t0}),
+          file=proto, flush=True)
+    for line in sys.stdin:
+        phase = line.strip()
+        if not phase:
+            break
+        print(json.dumps(answers[phase]()), file=proto, flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("roots", nargs="*")
+    ap.add_argument("--phases", default="count,kernels")
+    ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--reps", type=int, default=40)
+    ap.add_argument("--n", type=int, default=100_000_000)
+    ap.add_argument("--out", default=os.path.join(HERE, "archive_check",
+                                                  "compare.json"))
+    ap.add_argument("--device", default="cuda",
+                    help="cpu: a dry run of the protocol at a small size")
+    ap.add_argument("--worker")
+    ap.add_argument("--inputs")
+    a = ap.parse_args()
+    if a.worker:
+        worker(a)
+        return 0
+    if len(a.roots) != 2:
+        ap.error("give PARENT_ROOT and CHANGE_ROOT")
+    if any(p not in PHASES for p in a.phases.split(",")):
+        ap.error(f"phases are {sorted(PHASES)}")
+    import torch
+    if a.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA card: torch.cuda.is_available() is false")
+    cs = _smoke()
+    try:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True).stdout.strip()
+    except FileNotFoundError:
+        card = "no nvidia-smi"
+    print(card, flush=True)
+    inputs = ""
+    if "kernels" in a.phases:
+        t0 = time.perf_counter()
+        inputs = make_inputs(cs, a.device)
+        print(f"inputs {time.perf_counter() - t0:.1f} s", flush=True)
+    sides = ("parent", "change")
+    procs = {}
+    try:
+        for side, root in zip(sides, a.roots):
+            procs[side] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker",
+                 os.path.abspath(root), "--phases", a.phases, "--reps",
+                 str(a.reps), "--n", str(a.n), "--device", a.device,
+                 "--inputs", inputs],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        ready = {}
+        for side, p in procs.items():
+            line = p.stdout.readline()
+            if not line:
+                raise RuntimeError(f"{side} worker died before it was ready")
+            ready[side] = json.loads(line)
+            print(json.dumps({side: ready[side]}), flush=True)
+        if ready["parent"]["ready"] != ready["change"]["ready"]:
+            raise AssertionError("the trees' outputs differ")
+        answers = {s: {p: [] for p in a.phases.split(",")} for s in sides}
+        pairs = {p: [] for p in a.phases.split(",")}
+        for r in range(a.rounds):
+            order = sides if r % 2 == 0 else sides[::-1]
+            for phase in a.phases.split(","):
+                got = {}
+                for side in order:
+                    p = procs[side]
+                    p.stdin.write(phase + "\n")
+                    p.stdin.flush()
+                    line = p.stdout.readline()
+                    if not line:
+                        raise RuntimeError(f"{side} worker died in round {r}")
+                    got[side] = json.loads(line)
+                    answers[side][phase].append(got[side])
+                pairs[phase].append({
+                    k: got["change"][k] - got["parent"][k]
+                    for k in got["change"] if k in got["parent"]
+                    and None not in (got["change"][k], got["parent"][k])})
+                print(json.dumps({"round": r, "phase": phase,
+                                  "order": list(order), **got}), flush=True)
+        summary = {"card": card, "phases": a.phases, "rounds": a.rounds,
+                   "median": {}, "change_minus_parent": {}}
+        for phase in pairs:
+            summary["median"][phase] = {
+                s: {k: _median([b[k] for b in answers[s][phase]])
+                    for k in answers[s][phase][0]
+                    if all(b[k] is not None for b in answers[s][phase])}
+                for s in sides}
+            keys = set.intersection(*(set(d) for d in pairs[phase]))
+            summary["change_minus_parent"][phase] = {
+                k: {"median": _median([d[k] for d in pairs[phase]]),
+                    "change_slower_in": sum(d[k] > 0 for d in pairs[phase]),
+                    "of_pairs": len(pairs[phase])}
+                for k in sorted(keys)}
+        os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)
+        with open(a.out, "w") as fh:
+            json.dump({"summary": summary, "ready": ready,
+                       "answers": answers}, fh, indent=1)
+        print(json.dumps(summary), flush=True)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                try:
+                    p.stdin.write("\n")
+                    p.stdin.flush()
+                    p.wait(timeout=60)
+                except (OSError, subprocess.TimeoutExpired):
+                    p.kill()
+                    p.wait()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -279,20 +279,23 @@ def phase_device():
 
 
 def phase_build():
-    from geomesa_tpu_torch.kernels import box_count, build, pip
+    from geomesa_tpu_torch.kernels import box_count, build, pip, seg_band
     t0 = time.perf_counter()
     out = build.build(build.KERNELS)
     secs = time.perf_counter() - t0
     for name, r in out.items():
         log(f"[build] {name}: {r['seconds']:.2f} s")
         for line in r["log"].splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "smem", "spill")):
                 log(f"[build]   {line.strip()}")
     log(f"[build] total {secs:.2f} s")
     sass = sass_per_pair(build._target(pip.NAME)[1])
     log(f"[build] {pip.NAME} SASS inner loop: {json.dumps(sass)}")
     sass = sass_per_candidate_box(build._target(box_count.NAME)[1])
     log(f"[build] {box_count.NAME} SASS tile loop: {json.dumps(sass)}")
+    sass = sass_per_segment_pair(build._target(seg_band.NAME)[1])
+    log(f"[build] {seg_band.NAME} SASS edge loop: {json.dumps(sass)}")
     return secs
 
 
@@ -340,6 +343,21 @@ def sass_per_pair(so_path: str):
         if fmul >= 4 and (best is None or fmul > best["fmul"]):
             best = {"instructions": n_ins, "fmul": fmul, "pairs": fmul / 4,
                     "per_pair": n_ins / (fmul / 4), "opcodes": ops}
+    return best
+
+
+def sass_per_segment_pair(so_path: str):
+    """SASS instructions per (segment, edge) pair in the segment band's
+    edge loop: among the innermost loops, the one covering the most pairs
+    per pass, where a pair has exactly 16 FMUL (four orientations, each
+    t1, t2 and the two tolerance products); with the loop's opcode counts.
+    None when no loop qualifies or cuobjdump is missing."""
+    best = None
+    for n_ins, ops in sass_inner_loops(so_path) or ():
+        fmul = sum(v for k, v in ops.items() if k.startswith("FMUL"))
+        if fmul >= 16 and (best is None or fmul > best["fmul"]):
+            best = {"instructions": n_ins, "fmul": fmul, "pairs": fmul / 16,
+                    "per_pair": n_ins / (fmul / 16), "opcodes": ops}
     return best
 
 
@@ -1167,11 +1185,12 @@ def band_points(cx: float, cy: float, r: float, n: int, seed: int):
 
 
 def dist_bound(n: int, live: int, n_starts: int, masked: bool) -> dict:
-    """The least time the card could take for the dist refine on these
-    inputs: bytes (the mask, the live rows' coordinates once, both flag
-    outputs, the block starts) over the HBM rate, against operations (live
-    rows x DIST_OPS_PER_ROW) over the f32 rate."""
-    nbytes = (n if masked else 0) + live * 8 + 2 * n + n_starts * 8
+    """The least time the card could take for the dist refine and its
+    counts on these inputs: bytes (the mask, the live rows' coordinates
+    once, both flag outputs, the block starts, the two counts) over the HBM
+    rate, against operations (live rows x DIST_OPS_PER_ROW) over the f32
+    rate."""
+    nbytes = (n if masked else 0) + live * 8 + 2 * n + n_starts * 8 + 8
     ops = live * DIST_OPS_PER_ROW
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -1179,44 +1198,48 @@ def dist_bound(n: int, live: int, n_starts: int, masked: bool) -> dict:
             "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3}
 
 
-def compare_dist(label: str, tx, ty, centre_r, reps: int, mask=None,
+def compare_dist(label: str, tx, ty, bounds, reps: int, mask=None,
                  starts=None, bsz=None) -> dict:
     """dist_refine's kernel against its plain version on the same card
-    tensors: hit and unc must be byte-equal; both timed with CUDA
+    tensors, with the (hit, uncertain) counts the fused program takes from
+    the same launch: flags byte-equal, counts equal; both timed with CUDA
     events."""
     import torch
     from geomesa_tpu_torch.index.scan import dist_refine as plain
     from geomesa_tpu_torch.kernels import dist
 
     kw = {"mask": mask, "starts": starts, "bsz": bsz}
-    khit, kunc = dist.dist_refine(tx, ty, centre_r, **kw)
+    khit, kunc, kcnt = dist.dist_refine(tx, ty, bounds, **kw)
     torch.cuda.synchronize()
-    phit, punc = plain(tx, ty, centre_r, **kw)
+    phit, punc, pcnt = plain(tx, ty, bounds, **kw)
     torch.cuda.synchronize()
     err = max(int((khit.to(torch.int8) - phit.to(torch.int8)).abs().max()),
               int((kunc.to(torch.int8) - punc.to(torch.int8)).abs().max())) \
         if khit.numel() else 0
-    if err != 0 or not (torch.equal(khit, phit) and torch.equal(kunc, punc)):
-        raise AssertionError(f"dist_refine {label}: kernel hit/unc differ "
-                             f"from the plain version")
+    err = max(err, int((kcnt.long() - pcnt.long()).abs().max()))
+    if err != 0 or not (torch.equal(khit, phit) and torch.equal(kunc, punc)
+                        and torch.equal(kcnt, pcnt)):
+        raise AssertionError(f"dist_refine {label}: kernel hit/unc/counts "
+                             f"differ from the plain version")
     n = khit.shape[0]
     live = n if mask is None else int(mask.sum())
     acts, dev_ms = activities_per_call(
-        lambda: dist.dist_refine(tx, ty, centre_r, **kw))
-    ms = cuda_ms(lambda: dist.dist_refine(tx, ty, centre_r, **kw), reps)
-    plain_ms = cuda_ms(lambda: plain(tx, ty, centre_r, **kw),
+        lambda: dist.dist_refine(tx, ty, bounds, **kw))
+    ms = cuda_ms(lambda: dist.dist_refine(tx, ty, bounds, **kw), reps)
+    plain_ms = cuda_ms(lambda: plain(tx, ty, bounds, **kw),
                        max(1, reps // 10))
     r = {"label": label, "n": n, "live": live, "ms": ms,
-         "plain_ms": plain_ms, "max_abs_err": err, "hit": int(phit.sum()),
-         "uncertain": int(punc.sum()), "activities_per_call": acts,
+         "plain_ms": plain_ms, "max_abs_err": err, "hit": int(pcnt[0]),
+         "uncertain": int(pcnt[1]), "activities_per_call": acts,
          "device_ms_per_call": dev_ms,
          **dist_bound(n, live, 0 if starts is None else starts.shape[0],
                       mask is not None)}
-    log(f"[kernel] dist_refine {label}: n={n} live={live} hit/unc equal "
-        f"(hit {r['hit']}, uncertain {r['uncertain']}), kernel {ms} ms, "
-        f"plain {plain_ms} ms, bound {r['bound_ms']} ms ({r['bound_by']}; "
-        f"bytes {r['bytes_ms']} ms, operations {r['ops_ms']} ms), {acts} "
-        f"device activities a call ({dev_ms} ms of device time)")
+    log(f"[kernel] dist_refine {label}: n={n} live={live} hit/unc and "
+        f"counts equal (hit {r['hit']}, uncertain {r['uncertain']}), kernel "
+        f"with counts {ms} ms, plain {plain_ms} ms, bound {r['bound_ms']} ms "
+        f"({r['bound_by']}; bytes {r['bytes_ms']} ms, operations "
+        f"{r['ops_ms']} ms), {acts} device activities a call ({dev_ms} ms "
+        f"of device time)")
     return r
 
 
@@ -1226,7 +1249,7 @@ def phase_dist_kernel(store) -> list:
     block starts, its circle), and on KERNEL_N points within a few ulps of
     r ± DIST_BAND, unmasked and under a 20% mask."""
     import torch
-    from geomesa_tpu_torch.index import compiled
+    from geomesa_tpu_torch.index import compiled, scan
 
     plan = store.planner("gdelt").plan(Q_I_LT)
     prog = compiled.Program(plan, "count_refine", unc_cap=4096,
@@ -1238,7 +1261,7 @@ def phase_dist_kernel(store) -> list:
     dev = torch.device("cuda")
     px, py = band_points(I_CX, I_CY, I_R, KERNEL_N, 13)
     tx, ty = (torch.from_numpy(a).to(dev) for a in (px, py))
-    cr = np.array([I_CX, I_CY, I_R], dtype=np.float32)
+    cr = scan.dist_bounds(np.array([I_CX, I_CY, I_R], dtype=np.float32))
     out.append(compare_dist("near-band", tx, ty, cr, 20))
     m20 = torch.from_numpy(
         np.random.default_rng(14).random(KERNEL_N) < 0.2).to(dev)

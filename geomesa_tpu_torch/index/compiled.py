@@ -69,8 +69,9 @@ from geomesa_tpu_torch.index import prune as _prune
 from geomesa_tpu_torch.index.api import IndexScanPlan, UnionScanPlan
 from geomesa_tpu_torch.index.scan import (EDGE_PAD, ROUNDS, Unsupported,
                                           _compact, _dev, _fetch, _time_mask,
-                                          compile_residual, expand_blocks,
-                                          pad_boxes, pad_windows, point_boxes,
+                                          compile_residual, dist_bounds,
+                                          expand_blocks, pad_boxes,
+                                          pad_windows, point_boxes,
                                           split_residual)
 from geomesa_tpu_torch.index.spatial import _boxes_fp62, _strip_handled
 from geomesa_tpu_torch.kernels.density import grid_scatter
@@ -301,7 +302,8 @@ class Program:
             self.edges = _dev(refine[1], dev)
             self.n_edges = real_edges(refine[1])
         elif self.refine == "dist":
-            self.dist = refine[1]   # host f32 [cx, cy, r]: launch arguments
+            # the circle's f32 bounds, made once: launch arguments
+            self.dist = dist_bounds(refine[1])
 
     def _bind_common(self, index, mode: str, sel_cap: int, grid, width: int,
                      height: int) -> None:
@@ -365,18 +367,22 @@ class Program:
         if self.mode not in ("count_refine", "select_refine"):
             raise ValueError(self.mode)
         if self.refine == "dist":
-            hit, unc = dist_refine(cols["xf"], cols["yf"], self.dist, mask=m,
-                                   starts=starts, bsz=self.bsz)
+            # the kernel's launch also gives the counts
+            hit, unc, counts = dist_refine(cols["xf"], cols["yf"], self.dist,
+                                           mask=m, starts=starts,
+                                           bsz=self.bsz)
+            parts = [counts]
         else:
             hit, unc = pip_refine(cols["xf"], cols["yf"], self.edges, mask=m,
                                   starts=starts, bsz=self.bsz,
                                   n_edges=self.n_edges)
-        parts = [hit.sum(dtype=torch.int32).reshape(1),
-                 unc.sum(dtype=torch.int32).reshape(1)]
+            parts = [hit.sum(dtype=torch.int32).reshape(1),
+                     unc.sum(dtype=torch.int32).reshape(1)]
         if self.mode == "select_refine":
             parts.append(_compact(hit, rowids, self.sel_cap, n))
+            ROUNDS.syncs += 1   # torch.nonzero
         parts.append(_compact(unc, rowids, self.unc_cap, n))
-        ROUNDS.syncs += len(parts) - 2   # torch.nonzero
+        ROUNDS.syncs += 1   # torch.nonzero
         return torch.cat(parts)
 
 

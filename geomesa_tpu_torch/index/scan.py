@@ -27,7 +27,7 @@ with a certainty band, and only the uncertain sliver refines on the host.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -357,23 +357,34 @@ def pip_refine(xf: torch.Tensor, yf: torch.Tensor, edges: torch.Tensor,
 DIST_BAND = np.float32(1e-3)
 
 
-def dist_bounds(centre_r) -> Tuple[float, float, float, float]:
-    """(cx, cy, r − DIST_BAND, r + DIST_BAND) of an f32 [cx, cy, r], each
-    rounded in f32 as the reference's traced program rounds it."""
-    cx, cy, r = np.asarray(centre_r, dtype=np.float32)
-    return float(cx), float(cy), float(r - DIST_BAND), float(r + DIST_BAND)
+class DistBounds(NamedTuple):
+    """(cx, cy, r − DIST_BAND, r + DIST_BAND) of a circle, each an f32
+    value held as a Python float."""
+    cx: float
+    cy: float
+    rlo: float
+    rhi: float
 
 
-def dist_refine(xf: torch.Tensor, yf: torch.Tensor, centre_r,
+def dist_bounds(circle) -> DistBounds:
+    """The bounds of an f32 [cx, cy, r], each rounded in f32 as the
+    reference's traced program rounds it."""
+    cx, cy, r = np.asarray(circle, dtype=np.float32)
+    return DistBounds(float(cx), float(cy), float(r - DIST_BAND),
+                      float(r + DIST_BAND))
+
+
+def dist_refine(xf: torch.Tensor, yf: torch.Tensor, bounds: DistBounds,
                 mask: Optional[torch.Tensor] = None,
                 starts: Optional[torch.Tensor] = None,
                 bsz: Optional[int] = None):
     """(hit, uncertain) bool flags of the fused program's candidate rows
-    against a circle, ``centre_r`` = f32 [cx, cy, r] (≙ the reference's
-    ``refine_of`` for its ``dist`` kind): with d = sqrt((x − cx)² +
-    (y − cy)²) in f32, hit = d ≤ r − DIST_BAND and uncertain = not hit and
-    not d ≥ r + DIST_BAND, both masked. Candidates are read as in
-    ``pip_refine``.
+    against the circle of ``bounds`` (``dist_bounds`` of f32 [cx, cy, r];
+    ≙ the reference's ``refine_of`` for its ``dist`` kind): with d =
+    sqrt((x − cx)² + (y − cy)²) in f32, hit = d ≤ r − DIST_BAND and
+    uncertain = not hit and not d ≥ r + DIST_BAND, both masked. Candidates
+    are read as in ``pip_refine``. Also int32 [hits, uncertain]: the flags'
+    sums, the first two words of the fused program's refine result.
 
     The plain PyTorch version of the ``dist_refine`` CUDA kernel: gather,
     classify, mask. The CPU path, and the kernel's yardstick on the card."""
@@ -381,15 +392,16 @@ def dist_refine(xf: torch.Tensor, yf: torch.Tensor, centre_r,
         rows = block_rows(starts, bsz)
         xf, yf = xf.index_select(0, rows), yf.index_select(0, rows)
     cx, cy, lo, hi = (torch.tensor(v, dtype=torch.float32, device=xf.device)
-                      for v in dist_bounds(centre_r))
+                      for v in bounds)
     dx = xf - cx
     dy = yf - cy
     d = torch.sqrt(dx * dx + dy * dy)
-    cin = d <= lo
-    unc = ~cin & ~(d >= hi)
-    if mask is None:
-        return cin, unc
-    return mask & cin, mask & unc
+    hit = d <= lo
+    unc = ~hit & ~(d >= hi)
+    if mask is not None:
+        hit, unc = mask & hit, mask & unc
+    return hit, unc, torch.stack([hit.sum(dtype=torch.int32),
+                                  unc.sum(dtype=torch.int32)])
 
 
 # -- density scatter (plain versions of kernels/csrc/grid_scatter.cu) --------

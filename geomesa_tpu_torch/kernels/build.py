@@ -11,6 +11,7 @@ versions run.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,6 +20,8 @@ import subprocess
 import threading
 import time
 from typing import Dict, Iterable, Tuple
+
+import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
@@ -91,3 +94,26 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(so)
             _LIBS[name] = lib
         return lib
+
+
+def on_device(dev: torch.device):
+    """A context in which ``dev`` is the current CUDA device (a launch must
+    go to a stream of the current device): none when it already is."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def raw_stream(dev: torch.device) -> int:
+    """The handle of PyTorch's current stream on ``dev``, without making a
+    ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def placed(t: torch.Tensor, dev: torch.device) -> None:
+    """Raise unless ``t`` is contiguous and on ``dev`` (a wrapper's rule for
+    every tensor it hands a kernel)."""
+    if not t.is_contiguous():
+        raise ValueError("every input must be contiguous")
+    if t.device != dev:
+        raise ValueError("every input must lie on one device")

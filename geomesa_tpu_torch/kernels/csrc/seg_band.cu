@@ -34,39 +34,57 @@
 // (c, d, a) band's d2y.
 //
 // What bounds it on the card: per candidate 4 bytes of block id (amortised
-// over bsz candidates), 8 bytes of time planes and the mask bytes, 1 flag
-// byte written and read back; per live candidate 32 bytes of envelope
-// planes and 16 bytes of segment; per (live candidate, real edge) pair
-// 64 f32 operations: 4 x 11 for the orientations and their bounds (d2x,
-// d2y, t1, t2, det; |t1| + |t2|, two sums of the |d| terms past the
-// hoisted one, two products and the bound's sum), 8 band compares, 4
-// compares of the crossing rule's conditions, 2 of |o| <= t, and 2
-// subtractions and 4 compares of the vertex ties. Polygons of a few
+// over bsz candidates), 8 bytes of time planes and the mask bytes; per live
+// candidate 32 bytes of envelope planes and 16 bytes of segment; per (live
+// candidate, real edge) pair 64 f32 operations: 4 x 11 for the orientations
+// and their bounds (d2x, d2y, t1, t2, det; |t1| + |t2|, two sums of the |d|
+// terms past the hoisted one, two products and the bound's sum), 8 band
+// compares, 4 compares of the crossing rule's conditions, 2 of |o| <= t,
+// and 2 subtractions and 4 compares of the vertex ties. Polygons of a few
 // edges leave it bound by bytes.
 //
-// Design (a simple, ordered compaction):
-// - Kernel A (classify): a CTA takes chunks of CHUNK = 1024 candidates, a
-//   thread ITEMS = 4 of them, strided by the CTA width so that the flag
-//   bytes write coalesced. The edges are staged in shared memory with the
-//   terms that depend on the edge alone (d1x, d1y, |d1x| + |d1y|, upward);
-//   the boxes and windows as keys. Each live candidate walks the edges and
-//   writes one flag byte (0 miss or dead, 1 hit, 2 uncertain); each chunk
-//   writes its hit and uncertain counts.
-// - Kernel B (scan): one CTA turns the chunks' uncertain counts into
-//   exclusive offsets, in place, writes the totals and pads the list past
-//   min(n_uncertain, unc_cap) with n.
-// - Kernel C (write): a CTA takes chunks; its warps ballot the uncertain
-//   flags in candidate order and write each one's row at its chunk offset
-//   plus its rank, while that stays under unc_cap. Chunks whose offset is
-//   past the cap write nothing.
-// Kernels A and C read the flags in the same order, so the list comes out
-// in candidate order with no sort.
+// Design: one launch a call, an ordered compaction by decoupled look-back.
+// - A CTA takes chunks of CHUNK = 1024 candidates by an atomic ticket, so
+//   chunks start in candidate order; a thread holds ITEMS = 4 of a chunk's
+//   candidates, strided by the CTA width so that a warp's plane loads
+//   coalesce. The live tests and segment loads of the four go first (their
+//   loads overlap), then each live one walks the edges alone, so one
+//   segment's running state is in registers at a time (at most 64
+//   registers a thread: four CTAs an SM; past STAGE_EDGES a segment loads
+//   at its turn, so that nothing spills).
+// - The block of a chunk's first candidate is one division a chunk (by
+//   thread 0); a candidate's block follows by a shift (a power-of-two bsz),
+//   one compare (bsz >= CHUNK: a chunk spans at most two blocks) or a 32-bit
+//   division of a number under 2 * CHUNK.
+// - The chunk's uncertain rows are ranked in candidate order by a CTA-wide
+//   ballot scan. The chunk publishes its uncertain count in a status word
+//   of its own (aggregate), warp 0 sums its predecessors' words from the
+//   nearest back until one holds an inclusive prefix (32 a step), and the
+//   chunk publishes its inclusive prefix. Its rows go straight from
+//   registers to out at the exclusive prefix plus their rank; a chunk at or
+//   past unc_cap writes nothing. No flag or count goes to device memory.
+// - A chunk stops looking back once its sum reaches unc_cap: it writes
+//   nothing, and the prefix it publishes is a lower bound that is itself
+//   at least unc_cap, so every chunk that still writes sums exact values
+//   (where uncertain rows abound, no chunk waits on a long chain).
+// - A status word is epoch (32 bits) | prefix flag | value (31 bits); the
+//   wrapper passes a new epoch each call, so words of earlier calls read as
+//   unpublished and the workspace needs no memset between calls.
+// - Hits and uncertain counts add to workspace totals, one atomic a CTA.
+//   The last CTA to finish writes out[0], out[1], pads the list with n, and
+//   zeroes the ticket, the done counter and the totals for the next call.
+// - Shared memory is sized to the call: the real edges (with the terms
+//   that depend on the edge alone: d1x, d1y, |d1x| + |d1y|, upward), boxes
+//   and windows as keys. Past STAGE_EDGES edges the table streams through
+//   two tiles of TILE_EDGES by cp.async, the next tile landing while the
+//   pairs of the current one run.
 //
 // Bit-exactness: every product and sum is written with the round-to-nearest
 // intrinsics in the plain version's order, and the build passes
 // -fmad=false, so no multiply-add is contracted; the error-bound constants
 // arrive as the same f32 values the plain version uses.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -76,11 +94,17 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int ITEMS = 4;                    // candidates a thread a chunk
 constexpr int CHUNK = THREADS * ITEMS;      // candidates a chunk
-constexpr int MAX_SMEM_EDGES = 1024;        // 32 KB of staged edges
+constexpr int MIN_CTAS = 4;                 // CTAs an SM: <= 64 registers
+constexpr int STAGE_EDGES = 1024;           // edges staged once (32 KB)
+constexpr int TILE_EDGES = 512;             // a streamed tile (16 KB)
 constexpr int MAX_SMEM_BOXES = 256;         // 8 KB of box keys
 constexpr int MAX_SMEM_WINDOWS = 256;       // 4 KB of window keys
-constexpr int SCAN_THREADS = 1024;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_DEVICES = 64;
+constexpr unsigned long long PREFIX = 1ull << 31;
+constexpr unsigned long long VALUE_MAX = 0x7fffffffull;
+
+enum BszMode { BSZ_SHIFT = 0, BSZ_WRAP = 1, BSZ_DIV = 2 };
 
 struct Params {
   const int* env[8];        // bxmin_i, bxmin_l, bymin_i, bymin_l,
@@ -93,10 +117,13 @@ struct Params {
   long long bsz;
   long long n;              // table rows
   long long ncand;          // blocks * bsz
+  int bsz_mode;
+  int bsz_shift;
   const int* windows;       // (nwin, 4)
   int nwin;
   const int* boxes;         // (nbox, 8)
   int nbox;
+  int sb, sw;               // boxes and windows held in shared memory
   const float* sx1;
   const float* sy1;
   const float* sx2;
@@ -104,11 +131,15 @@ struct Params {
   const float4* edges;      // real edges only
   int ne;
   float tol_t, tol_d, dy_band;
-  uint8_t* flags;           // one byte a candidate
-  int* counts;              // per chunk: hits, then uncertain -> offset
   int nchunks;
   int unc_cap;
   int* out;                 // [hits, n_uncertain, rows x unc_cap]
+  unsigned* ticket;         // workspace: chunk ticket, CTAs done,
+  unsigned* done;
+  unsigned long long* hits; // the totals,
+  unsigned long long* uncs;
+  unsigned long long* status;  // and one status word a chunk
+  unsigned epoch;
 };
 
 struct __align__(16) Edge {
@@ -136,14 +167,39 @@ __device__ __forceinline__ longlong2 window_keys(const int* w) {
                         pack62(__ldg(w + 2), __ldg(w + 3)));
 }
 
-__device__ __forceinline__ Edge make_edge(float4 e) {
+__device__ __forceinline__ float4 edge_terms(float4 e) {
   const float d1x = __fsub_rn(e.z, e.x);
   const float d1y = __fsub_rn(e.w, e.y);
-  Edge out;
-  out.raw = e;
-  out.hz = make_float4(d1x, d1y, __fadd_rn(fabsf(d1x), fabsf(d1y)),
-                       e.w > e.y ? 1.0f : 0.0f);
-  return out;
+  return make_float4(d1x, d1y, __fadd_rn(fabsf(d1x), fabsf(d1y)),
+                     e.w > e.y ? 1.0f : 0.0f);
+}
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
 // orientation of (p, p + d1, r) with its error bound, d2 = r - p given,
@@ -160,42 +216,39 @@ __device__ __forceinline__ void orient(const Params& p, float d1x, float d1y,
                   __fmul_rn(p.tol_d, sd));
 }
 
-// the live test of candidate i; its table row in `row`
+// the live test of candidate i, in block slot blk at offset off; its table
+// row in `row`
 __device__ __forceinline__ bool live_row(const Params& p, long long i,
+                                         long long blk, long long off,
                                          const BoxKeys* s_box,
-                                         const longlong2* s_win,
-                                         long long& row) {
+                                         const longlong2* s_win, int& row) {
   row = 0;
   if (i >= p.ncand) return false;
-  const long long blk = i / p.bsz;
-  const long long off = i - blk * p.bsz;
   const int b = __ldg(p.block_ids + blk);
   const long long clamp_hi = p.n > p.bsz ? p.n - p.bsz : 0;
   const long long start = (long long)b * p.bsz;
   const long long astart =
       start < 0 ? 0 : (start > clamp_hi ? clamp_hi : start);
-  row = astart + off;
-  if (b < 0 || row < start || row >= start + p.bsz || row >= p.n)
-    return false;
+  const long long r = astart + off;
+  row = (int)r;
+  if (b < 0 || r < start || r >= start + p.bsz || r >= p.n) return false;
   if (p.resid && !p.resid[i]) return false;
-  if (p.valid && !p.valid[row]) return false;
+  if (p.valid && !p.valid[r]) return false;
   if (p.nwin > 0) {
-    const long long tk = pack62(__ldg(p.bin + row), __ldg(p.off + row));
+    const long long tk = pack62(__ldg(p.bin + r), __ldg(p.off + r));
     bool in = false;
     for (int w = 0; w < p.nwin && !in; ++w) {
-      const longlong2 q = w < MAX_SMEM_WINDOWS
-                              ? s_win[w] : window_keys(p.windows + 4 * w);
+      const longlong2 q = w < p.sw ? s_win[w] : window_keys(p.windows + 4 * w);
       in = (tk >= q.x) & (tk <= q.y);
     }
     if (!in) return false;
   }
-  const long long x0 = pack62(__ldg(p.env[0] + row), __ldg(p.env[1] + row));
-  const long long y0 = pack62(__ldg(p.env[2] + row), __ldg(p.env[3] + row));
-  const long long x1 = pack62(__ldg(p.env[4] + row), __ldg(p.env[5] + row));
-  const long long y1 = pack62(__ldg(p.env[6] + row), __ldg(p.env[7] + row));
+  const long long x0 = pack62(__ldg(p.env[0] + r), __ldg(p.env[1] + r));
+  const long long y0 = pack62(__ldg(p.env[2] + r), __ldg(p.env[3] + r));
+  const long long x1 = pack62(__ldg(p.env[4] + r), __ldg(p.env[5] + r));
+  const long long y1 = pack62(__ldg(p.env[6] + r), __ldg(p.env[7] + r));
   for (int k = 0; k < p.nbox; ++k) {
-    const BoxKeys q = k < MAX_SMEM_BOXES ? s_box[k]
-                                         : box_keys(p.boxes + 8 * k);
+    const BoxKeys q = k < p.sb ? s_box[k] : box_keys(p.boxes + 8 * k);
     if ((x0 <= q.xhi) & (x1 >= q.xlo) & (y0 <= q.yhi) & (y1 >= q.ylo))
       return true;
   }
@@ -209,12 +262,11 @@ struct Seg {
   bool par_a, par_b, unc_a, unc_b, any_hit, all_miss;
 };
 
-__device__ __forceinline__ void load_seg(const Params& p, long long row,
-                                         Seg& s) {
-  s.ax = __ldg(p.sx1 + row);
-  s.ay = __ldg(p.sy1 + row);
-  s.bx = __ldg(p.sx2 + row);
-  s.by = __ldg(p.sy2 + row);
+__device__ __forceinline__ void start_seg(float4 c, Seg& s) {
+  s.ax = c.x;
+  s.ay = c.y;
+  s.bx = c.z;
+  s.by = c.w;
   s.sdx = __fsub_rn(s.bx, s.ax);
   s.sdy = __fsub_rn(s.by, s.ay);
   s.ss = __fadd_rn(fabsf(s.sdx), fabsf(s.sdy));
@@ -256,7 +308,8 @@ __device__ __forceinline__ void pair(const Params& p, const Edge& e, Seg& s) {
              | (fabsf(__fsub_rn(y2, s.by)) <= p.dy_band);
 }
 
-__device__ __forceinline__ uint8_t verdict(const Seg& s) {
+// 0 miss, 1 hit, 2 uncertain
+__device__ __forceinline__ int verdict(const Seg& s) {
   const bool in_a = s.par_a & !s.unc_a, out_a = !s.par_a & !s.unc_a;
   const bool in_b = s.par_b & !s.unc_b, out_b = !s.par_b & !s.unc_b;
   if (in_a | in_b | s.any_hit) return 1;
@@ -264,247 +317,414 @@ __device__ __forceinline__ uint8_t verdict(const Seg& s) {
   return 2;
 }
 
-__device__ __forceinline__ void stage_edges(const Params& p, Edge* s_edge,
-                                            int e0, int m) {
+// issues the cp.async copies of tile t's raw edges into buf (this thread's
+// share: edges threadIdx.x, threadIdx.x + THREADS, ...)
+__device__ __forceinline__ void issue_tile(const Params& p, Edge* buf,
+                                           int t) {
+  const int e0 = t * TILE_EDGES;
+  const int m = p.ne - e0 < TILE_EDGES ? p.ne - e0 : TILE_EDGES;
   for (int k = threadIdx.x; k < m; k += THREADS)
-    s_edge[k] = make_edge(__ldg(p.edges + e0 + k));
+    cp_async16(&buf[k].raw, p.edges + e0 + k);
 }
 
-__global__ void __launch_bounds__(THREADS)
-classify_kernel(Params p) {
-  __shared__ Edge s_edge[MAX_SMEM_EDGES];
-  __shared__ BoxKeys s_box[MAX_SMEM_BOXES];
-  __shared__ longlong2 s_win[MAX_SMEM_WINDOWS];
-  __shared__ int s_cnt[2];
-  const int nb = p.nbox < MAX_SMEM_BOXES ? p.nbox : MAX_SMEM_BOXES;
-  const int nw = p.nwin < MAX_SMEM_WINDOWS ? p.nwin : MAX_SMEM_WINDOWS;
-  for (int k = threadIdx.x; k < nb; k += THREADS)
-    s_box[k] = box_keys(p.boxes + 8 * k);
-  for (int k = threadIdx.x; k < nw; k += THREADS)
-    s_win[k] = window_keys(p.windows + 4 * k);
-  const bool staged_once = p.ne <= MAX_SMEM_EDGES;
-  if (staged_once) stage_edges(p, s_edge, 0, p.ne);
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
+// the edge-only terms of this thread's share of a landed tile
+__device__ __forceinline__ void finish_tile(const Params& p, Edge* buf,
+                                            int t) {
+  const int e0 = t * TILE_EDGES;
+  const int m = p.ne - e0 < TILE_EDGES ? p.ne - e0 : TILE_EDGES;
+  for (int k = threadIdx.x; k < m; k += THREADS)
+    buf[k].hz = edge_terms(buf[k].raw);
+}
 
-  for (int c = blockIdx.x; c < p.nchunks; c += gridDim.x) {
-    if (threadIdx.x < 2) s_cnt[threadIdx.x] = 0;
-    Seg seg[ITEMS];
-    bool live[ITEMS];
+__device__ __forceinline__ float4 load_seg(const Params& p, int r) {
+  return make_float4(__ldg(p.sx1 + r), __ldg(p.sy1 + r), __ldg(p.sx2 + r),
+                     __ldg(p.sy2 + r));
+}
+
+// verdicts of a thread's ITEMS candidates over every edge. STAGED: the
+// whole table sits in s_edge, and the segments were loaded with the live
+// tests; else it streams through two tiles, every thread of the CTA taking
+// part in each step (the loop bounds are uniform), and each segment loads
+// when its turn comes (four held across the tiles would spill).
+template <bool STAGED>
+__device__ __forceinline__ void classify(const Params& p, Edge* s_edge,
+                                         const bool (&live)[ITEMS],
+                                         const float4 (&seg)[ITEMS],
+                                         const int (&row)[ITEMS],
+                                         int (&v)[ITEMS]) {
+  if constexpr (STAGED) {
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
-      const long long i = (long long)c * CHUNK + k * THREADS + threadIdx.x;
-      long long row;
-      live[k] = live_row(p, i, s_box, s_win, row);
-      if (live[k]) load_seg(p, row, seg[k]);
+      v[k] = 0;
+      if (!live[k]) continue;
+      Seg s;
+      start_seg(seg[k], s);
+      for (int j = 0; j < p.ne; ++j) pair(p, s_edge[j], s);
+      v[k] = verdict(s);
     }
-    for (int e0 = 0; e0 < p.ne; e0 += MAX_SMEM_EDGES) {
-      const int m = p.ne - e0 < MAX_SMEM_EDGES ? p.ne - e0 : MAX_SMEM_EDGES;
-      if (!staged_once) {
-        __syncthreads();
-        stage_edges(p, s_edge, e0, m);
-        __syncthreads();
-      }
+    return;
+  }
+  const int ntiles = (p.ne + TILE_EDGES - 1) / TILE_EDGES;
+  int g = 0;   // pipeline step: (item, tile) in order
+  issue_tile(p, s_edge, 0);
+  cp_async_commit();
 #pragma unroll
-      for (int k = 0; k < ITEMS; ++k) {
-        if (!live[k]) continue;
-        for (int j = 0; j < m; ++j) pair(p, s_edge[j], seg[k]);
+  for (int k = 0; k < ITEMS; ++k) {
+    Seg s;
+    if (live[k]) start_seg(load_seg(p, row[k]), s);
+    for (int t = 0; t < ntiles; ++t, ++g) {
+      Edge* cur = s_edge + (g & 1) * TILE_EDGES;
+      if (k + 1 < ITEMS || t + 1 < ntiles)
+        issue_tile(p, s_edge + ((g + 1) & 1) * TILE_EDGES,
+                   t + 1 < ntiles ? t + 1 : 0);
+      cp_async_commit();
+      cp_async_wait_one();   // this thread's copies of step g landed
+      finish_tile(p, cur, t);
+      __syncthreads();       // ... and every thread's, with their terms
+      if (live[k]) {
+        const int m = p.ne - t * TILE_EDGES < TILE_EDGES
+                          ? p.ne - t * TILE_EDGES : TILE_EDGES;
+        for (int j = 0; j < m; ++j) pair(p, cur[j], s);
       }
+      __syncthreads();       // cur is refilled at step g + 2
     }
-    int hits = 0, uncs = 0;
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-      const long long i = (long long)c * CHUNK + k * THREADS + threadIdx.x;
-      const uint8_t v = live[k] ? verdict(seg[k]) : 0;
-      hits += v == 1;
-      uncs += v == 2;
-      if (i < p.ncand) p.flags[i] = v;
-    }
-    __syncthreads();   // s_cnt reset before any add
-    hits = __reduce_add_sync(FULL, hits);
-    uncs = __reduce_add_sync(FULL, uncs);
-    if (lane == 0) {
-      if (hits) atomicAdd(&s_cnt[0], hits);
-      if (uncs) atomicAdd(&s_cnt[1], uncs);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      p.counts[2 * c] = s_cnt[0];
-      p.counts[2 * c + 1] = s_cnt[1];
-    }
-    __syncthreads();   // s_cnt read before the next chunk's reset
+    v[k] = live[k] ? verdict(s) : 0;
   }
 }
 
-// one CTA: exclusive offsets of the chunks' uncertain counts (in place),
-// the totals, and the list's padding
-__global__ void __launch_bounds__(SCAN_THREADS) scan_kernel(Params p) {
-  __shared__ int s_warp[SCAN_THREADS / 32];
-  __shared__ long long s_base;
-  __shared__ long long s_hits;
+template <bool STAGED>
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
+seg_band_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Edge* s_edge = reinterpret_cast<Edge*>(smem);
+  BoxKeys* s_box = reinterpret_cast<BoxKeys*>(
+      s_edge + (STAGED ? p.ne : 2 * TILE_EDGES));
+  longlong2* s_win = reinterpret_cast<longlong2*>(s_box + p.sb);
+  __shared__ int s_unc[ITEMS][WARPS];
+  __shared__ int s_hit[WARPS];
+  __shared__ int s_chunk;
+  __shared__ long long s_blk0, s_off0, s_excl;
+  __shared__ bool s_last;
+  __shared__ unsigned long long s_tot[2];
+
+  for (int k = threadIdx.x; k < p.sb; k += THREADS)
+    s_box[k] = box_keys(p.boxes + 8 * k);
+  for (int k = threadIdx.x; k < p.sw; k += THREADS)
+    s_win[k] = window_keys(p.windows + 4 * k);
+  if (STAGED) {
+    for (int k = threadIdx.x; k < p.ne; k += THREADS) {
+      const float4 e = __ldg(p.edges + k);
+      s_edge[k].raw = e;
+      s_edge[k].hz = edge_terms(e);
+    }
+  }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) { s_base = 0; s_hits = 0; }
-  __syncthreads();
-  for (int c0 = 0; c0 < p.nchunks; c0 += SCAN_THREADS) {
-    const int c = c0 + threadIdx.x;
-    const int u = c < p.nchunks ? p.counts[2 * c + 1] : 0;
-    const int h = c < p.nchunks ? p.counts[2 * c] : 0;
-    int incl = u;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(FULL, incl, d);
-      if (lane >= d) incl += v;
-    }
-    const int hsum = __reduce_add_sync(FULL, h);
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      int w = lane < SCAN_THREADS / 32 ? s_warp[lane] : 0;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int v = __shfl_up_sync(FULL, w, d);
-        if (lane >= d) w += v;
+  unsigned long long cta_hits = 0, cta_uncs = 0;   // thread 0's
+
+  for (;;) {
+    if (threadIdx.x == 0) {
+      const int c = (int)atomicAdd(p.ticket, 1u);
+      s_chunk = c;
+      if (c < p.nchunks) {
+        const long long base = (long long)c * CHUNK;
+        const long long b0 =
+            p.bsz_mode == BSZ_SHIFT ? base >> p.bsz_shift : base / p.bsz;
+        s_blk0 = b0;
+        s_off0 = base - b0 * p.bsz;
       }
-      if (lane < SCAN_THREADS / 32) s_warp[lane] = w;   // inclusive
     }
-    if (lane == 0) atomicAdd((unsigned long long*)&s_hits,
-                             (unsigned long long)hsum);
+    __syncthreads();   // also: the staged tables, the previous chunk's reads
+    const int c = s_chunk;
+    if (c >= p.nchunks) break;   // uniform over the CTA
+    const long long base = (long long)c * CHUNK;
+    const long long blk0 = s_blk0, off0 = s_off0;
+
+    bool live[ITEMS];
+    float4 seg[ITEMS];
+    int row[ITEMS];
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      const int local = k * THREADS + threadIdx.x;
+      long long blk = blk0, off = off0 + local;
+      if (p.bsz_mode == BSZ_SHIFT) {
+        blk += off >> p.bsz_shift;
+        off &= p.bsz - 1;
+      } else if (p.bsz_mode == BSZ_WRAP) {
+        if (off >= p.bsz) { ++blk; off -= p.bsz; }
+      } else {
+        const unsigned q = (unsigned)off / (unsigned)p.bsz;
+        blk += q;
+        off -= (long long)q * p.bsz;
+      }
+      live[k] = live_row(p, base + local, blk, off, s_box, s_win, row[k]);
+      seg[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (STAGED && live[k]) seg[k] = load_seg(p, row[k]);
+    }
+    int v[ITEMS];
+    classify<STAGED>(p, s_edge, live, seg, row, v);
+
+    // rank the uncertain candidates in candidate order (item, then thread)
+    int hits = 0;
+    unsigned um[ITEMS];
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      hits += v[k] == 1;
+      um[k] = __ballot_sync(FULL, v[k] == 2);
+      if (lane == 0) s_unc[k][warp] = __popc(um[k]);
+    }
+    hits = __reduce_add_sync(FULL, hits);
+    if (lane == 0) s_hit[warp] = hits;
     __syncthreads();
-    const long long before = s_base + (warp > 0 ? s_warp[warp - 1] : 0)
-                             + (incl - u);
-    if (c < p.nchunks)
-      p.counts[2 * c + 1] = before > 0x7fffffffLL ? 0x7fffffff : (int)before;
+    int agg = 0;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k)
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) agg += s_unc[k][w];
+
+    // decoupled look-back: publish the aggregate, sum the predecessors'
+    // words back to the nearest inclusive prefix, publish the prefix
+    if (warp == 0) {
+      const unsigned long long tag = (unsigned long long)p.epoch << 32;
+      if (lane == 0)
+        store_status(p.status + c,
+                     tag | (c == 0 ? PREFIX : 0ull) | (unsigned)agg);
+      long long excl = 0;
+      long long j0 = (long long)c - 1;
+      while (j0 >= 0 && excl < p.unc_cap) {
+        const long long j = j0 - lane;
+        const unsigned long long s =
+            j >= 0 ? load_status(p.status + j) : (tag | PREFIX);
+        const bool ok = (unsigned)(s >> 32) == p.epoch;
+        const unsigned okm = __ballot_sync(FULL, ok);
+        const unsigned prem = __ballot_sync(FULL, ok && (s & PREFIX));
+        const int first = prem ? __ffs(prem) - 1 : 31;
+        const unsigned need = first == 31 ? FULL : (2u << first) - 1u;
+        if ((okm & need) != need) {   // a predecessor has not published
+          __nanosleep(20);
+          continue;
+        }
+        long long val = lane <= first ? (long long)(s & VALUE_MAX) : 0;
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1)
+          val += __shfl_xor_sync(FULL, val, d);
+        excl += val;
+        if (prem) break;
+        j0 -= 32;
+      }
+      if (lane == 0) {
+        if (c > 0) {
+          const long long incl = excl + agg;
+          store_status(p.status + c,
+                       tag | PREFIX
+                           | (unsigned long long)(incl < (long long)VALUE_MAX
+                                                      ? incl : VALUE_MAX));
+        }
+        s_excl = excl;
+        int h = 0;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) h += s_hit[w];
+        cta_hits += (unsigned)h;
+        cta_uncs += (unsigned)agg;
+      }
+    }
     __syncthreads();
-    if (threadIdx.x == 0) s_base += s_warp[SCAN_THREADS / 32 - 1];
-    __syncthreads();
+    const long long excl = s_excl;
+    if (excl < p.unc_cap) {   // uniform over the CTA
+      long long pos = excl;
+#pragma unroll
+      for (int k = 0; k < ITEMS; ++k) {
+        int before = 0, total = 0;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) {
+          const int u = s_unc[k][w];
+          before += w < warp ? u : 0;
+          total += u;
+        }
+        if (v[k] == 2) {
+          const long long at =
+              pos + before + __popc(um[k] & ((1u << lane) - 1u));
+          if (at < p.unc_cap) p.out[2 + at] = row[k];
+        }
+        pos += total;
+      }
+    }
   }
-  const long long total = s_base;
+
+  // the totals; the last CTA to finish writes them, pads the list and
+  // zeroes the workspace for the next call
   if (threadIdx.x == 0) {
-    p.out[0] = (int)s_hits;
+    if (cta_hits) atomicAdd(p.hits, cta_hits);
+    if (cta_uncs) atomicAdd(p.uncs, cta_uncs);
+    __threadfence();
+    const bool last = atomicAdd(p.done, 1u) == gridDim.x - 1;
+    s_last = last;
+    if (last) {
+      __threadfence();
+      s_tot[0] = atomicAdd(p.hits, 0ull);
+      s_tot[1] = atomicAdd(p.uncs, 0ull);
+      *p.hits = 0ull;
+      *p.uncs = 0ull;
+      *p.ticket = 0u;
+      *p.done = 0u;
+    }
+  }
+  __syncthreads();
+  if (!s_last) return;
+  const unsigned long long total = s_tot[1];
+  if (threadIdx.x == 0) {
+    p.out[0] = (int)s_tot[0];
     p.out[1] = (int)total;
   }
-  const int filled = total < p.unc_cap ? (int)total : p.unc_cap;
-  for (int j = filled + threadIdx.x; j < p.unc_cap; j += SCAN_THREADS)
+  const int filled =
+      total < (unsigned long long)p.unc_cap ? (int)total : p.unc_cap;
+  for (int j = filled + threadIdx.x; j < p.unc_cap; j += THREADS)
     p.out[2 + j] = (int)p.n;
 }
 
-// writes each uncertain candidate's row at its chunk's offset plus its rank
-__global__ void __launch_bounds__(THREADS) write_kernel(Params p) {
-  __shared__ int s_warp[WARPS];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int c = blockIdx.x; c < p.nchunks; c += gridDim.x) {
-    long long base = p.counts[2 * c + 1];
-    if (base >= p.unc_cap) continue;   // uniform over the CTA
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-      const long long i = (long long)c * CHUNK + k * THREADS + threadIdx.x;
-      const bool u = i < p.ncand && p.flags[i] == 2;
-      const unsigned m = __ballot_sync(FULL, u);
-      if (lane == 0) s_warp[warp] = __popc(m);
-      __syncthreads();
-      int before = 0, total = 0;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
-        const int v = s_warp[w];
-        before += w < warp ? v : 0;
-        total += v;
-      }
-      if (u) {
-        const long long pos =
-            base + before + __popc(m & ((1u << lane) - 1u));
-        if (pos < p.unc_cap) {
-          const long long blk = i / p.bsz;
-          const long long off = i - blk * p.bsz;
-          const long long start = (long long)__ldg(p.block_ids + blk) * p.bsz;
-          const long long clamp_hi = p.n > p.bsz ? p.n - p.bsz : 0;
-          const long long astart =
-              start < 0 ? 0 : (start > clamp_hi ? clamp_hi : start);
-          p.out[2 + pos] = (int)(astart + off);
-        }
-      }
-      base += total;
-      __syncthreads();   // s_warp read before the next round's write
-    }
+// per device, read at its first call: SMs, shared memory, and each
+// kernel's static shared memory and resident CTAs an SM (no shared memory)
+struct DevInfo {
+  int sms, smem_sm, reserved;
+  int static_smem[2], occ[2];
+};
+DevInfo g_info[MAX_DEVICES];
+std::atomic<int> g_ready[MAX_DEVICES];
+
+cudaError_t device_info(int dev, DevInfo& out) {
+  DevInfo d;
+  cudaError_t err;
+  if ((err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(
+           &d.smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev))
+      != cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(
+           &d.reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev))
+      != cudaSuccess)
+    return err;
+  const void* kernels[2] = {
+      reinterpret_cast<const void*>(seg_band_kernel<false>),
+      reinterpret_cast<const void*>(seg_band_kernel<true>)};
+  for (int k = 0; k < 2; ++k) {
+    cudaFuncAttributes fa;
+    if ((err = cudaFuncGetAttributes(&fa, kernels[k])) != cudaSuccess)
+      return err;
+    d.static_smem[k] = (int)fa.sharedSizeBytes;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &d.occ[k], kernels[k], THREADS, 0)) != cudaSuccess)
+      return err;
+    if (d.occ[k] < 1) return cudaErrorInvalidConfiguration;
   }
+  out = d;
+  return cudaSuccess;
 }
 
 }  // namespace
 
+// The launch's arguments as the wrapper packs them (kernels/seg_band.py
+// _ARGS): 8-byte slots (pointers, 0 for none), then the f32 constants.
+struct SegBandArgs {
+  long long env[8];
+  long long bin, off, valid, resid, block_ids;
+  long long nblocks, bsz, n;
+  long long windows, nwin;
+  long long boxes, nbox;
+  long long seg[4];
+  long long edges, ne;
+  long long unc_cap;
+  long long out, ws, ws_chunks, epoch, device;
+  float tol_t, tol_d, dy_band, pad;
+};
+static_assert(sizeof(SegBandArgs) == 32 * 8 + 4 * 4,
+              "SegBandArgs must match _ARGS");
+
 // Computes out = [certain hits, n_uncertain, rows x unc_cap] of the
-// candidates. `flags` holds one byte a candidate (blocks * bsz) and
-// `counts` two ints a chunk of seg_band_chunk() candidates; both are
-// scratch the caller allocates. Returns the first CUDA error (0 on
-// success).
-extern "C" int seg_band_launch(
-    const int* bxmin_i, const int* bxmin_l, const int* bymin_i,
-    const int* bymin_l, const int* bxmax_i, const int* bxmax_l,
-    const int* bymax_i, const int* bymax_l, const int* bin, const int* off,
-    const uint8_t* valid, const uint8_t* resid, const int* block_ids,
-    long long nblocks, long long bsz, long long n, const int* windows,
-    int nwin, const int* boxes, int nbox, const float* sx1, const float* sy1,
-    const float* sx2, const float* sy2, const float* edges, int ne,
-    float tol_t, float tol_d, float dy_band, uint8_t* flags, int* counts,
-    int unc_cap, int* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+// candidates in one launch on `stream`, on device a->device (the current
+// device). a->ws: the workspace of this stream, 4 + a->ws_chunks 64-bit
+// words, zero when first made and left for the next call as the kernel
+// found it; calls that share it must be ordered (one stream), each with a
+// new nonzero a->epoch. Returns the first CUDA error (0 on success).
+extern "C" int seg_band_launch(const SegBandArgs* a, void* stream) {
+  const int dev = (int)a->device;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!g_ready[dev].load(std::memory_order_acquire)) {
+    const cudaError_t err = device_info(dev, g_info[dev]);
+    if (err != cudaSuccess) return (int)err;
+    g_ready[dev].store(1, std::memory_order_release);
+  }
+  const DevInfo& d = g_info[dev];
   Params p;
-  const int* env[8] = {bxmin_i, bxmin_l, bymin_i, bymin_l,
-                       bxmax_i, bxmax_l, bymax_i, bymax_l};
-  for (int k = 0; k < 8; ++k) p.env[k] = env[k];
-  p.bin = bin;
-  p.off = off;
-  p.valid = valid;
-  p.resid = resid;
-  p.block_ids = block_ids;
-  p.bsz = bsz;
-  p.n = n;
-  p.ncand = nblocks * bsz;
-  p.windows = windows;
-  p.nwin = nwin;
-  p.boxes = boxes;
-  p.nbox = nbox;
-  p.sx1 = sx1;
-  p.sy1 = sy1;
-  p.sx2 = sx2;
-  p.sy2 = sy2;
-  p.edges = reinterpret_cast<const float4*>(edges);
-  p.ne = ne;
-  p.tol_t = tol_t;
-  p.tol_d = tol_d;
-  p.dy_band = dy_band;
-  p.flags = flags;
-  p.counts = counts;
-  p.nchunks = (int)((p.ncand + CHUNK - 1) / CHUNK);
-  p.unc_cap = unc_cap;
-  p.out = out;
-  if (p.nchunks == 0) p.nchunks = 1;   // one empty chunk: zero totals
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
-                                                      classify_kernel,
-                                                      THREADS, 0);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long fit = (long long)sms * per_sm;
-  const unsigned grid =
-      (unsigned)(p.nchunks < fit ? p.nchunks : fit);
-  classify_kernel<<<grid, THREADS, 0, st>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scan_kernel<<<1, SCAN_THREADS, 0, st>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long wfit = (long long)sms * 8;
-  write_kernel<<<(unsigned)(p.nchunks < wfit ? p.nchunks : wfit), THREADS, 0,
-                 st>>>(p);
+  for (int k = 0; k < 8; ++k)
+    p.env[k] = reinterpret_cast<const int*>(a->env[k]);
+  p.bin = reinterpret_cast<const int*>(a->bin);
+  p.off = reinterpret_cast<const int*>(a->off);
+  p.valid = reinterpret_cast<const uint8_t*>(a->valid);
+  p.resid = reinterpret_cast<const uint8_t*>(a->resid);
+  p.block_ids = reinterpret_cast<const int*>(a->block_ids);
+  p.bsz = a->bsz;
+  p.n = a->n;
+  p.ncand = a->nblocks * a->bsz;
+  if (p.bsz <= 0) return (int)cudaErrorInvalidValue;
+  p.bsz_shift = 0;
+  if ((p.bsz & (p.bsz - 1)) == 0) {
+    p.bsz_mode = BSZ_SHIFT;
+    while ((1ll << p.bsz_shift) < p.bsz) ++p.bsz_shift;
+  } else {
+    p.bsz_mode = p.bsz >= CHUNK ? BSZ_WRAP : BSZ_DIV;
+  }
+  p.windows = reinterpret_cast<const int*>(a->windows);
+  p.nwin = (int)a->nwin;
+  p.boxes = reinterpret_cast<const int*>(a->boxes);
+  p.nbox = (int)a->nbox;
+  p.sb = p.nbox < MAX_SMEM_BOXES ? p.nbox : MAX_SMEM_BOXES;
+  p.sw = p.nwin < MAX_SMEM_WINDOWS ? p.nwin : MAX_SMEM_WINDOWS;
+  p.sx1 = reinterpret_cast<const float*>(a->seg[0]);
+  p.sy1 = reinterpret_cast<const float*>(a->seg[1]);
+  p.sx2 = reinterpret_cast<const float*>(a->seg[2]);
+  p.sy2 = reinterpret_cast<const float*>(a->seg[3]);
+  p.edges = reinterpret_cast<const float4*>(a->edges);
+  p.ne = (int)a->ne;
+  p.tol_t = a->tol_t;
+  p.tol_d = a->tol_d;
+  p.dy_band = a->dy_band;
+  const long long nchunks = (p.ncand + CHUNK - 1) / CHUNK;
+  if (nchunks > a->ws_chunks || nchunks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  p.nchunks = (int)nchunks;
+  p.unc_cap = (int)a->unc_cap;
+  p.out = reinterpret_cast<int*>(a->out);
+  unsigned long long* ws = reinterpret_cast<unsigned long long*>(a->ws);
+  p.ticket = reinterpret_cast<unsigned*>(ws);
+  p.done = p.ticket + 1;
+  p.hits = ws + 1;
+  p.uncs = ws + 2;
+  p.status = ws + 4;
+  p.epoch = (unsigned)a->epoch;
+  if (p.epoch == 0) return (int)cudaErrorInvalidValue;
+
+  const bool staged = p.ne <= STAGE_EDGES;
+  const size_t smem = sizeof(Edge) * (staged ? p.ne : 2 * TILE_EDGES)
+                      + sizeof(BoxKeys) * p.sb + sizeof(longlong2) * p.sw;
+  const int k = staged ? 1 : 0;
+  const long long per_block = (long long)smem + d.static_smem[k] + d.reserved;
+  long long per_sm = d.smem_sm / per_block;
+  if (per_sm > d.occ[k]) per_sm = d.occ[k];
+  if (per_sm < 1) per_sm = 1;
+  long long grid = (long long)d.sms * per_sm;
+  if (grid > nchunks) grid = nchunks;
+  if (grid < 1) grid = 1;   // no candidates: one CTA writes the zeros
+  cudaStream_t st = (cudaStream_t)stream;
+  if (staged)
+    seg_band_kernel<true><<<(unsigned)grid, THREADS, smem, st>>>(p);
+  else
+    seg_band_kernel<false><<<(unsigned)grid, THREADS, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-// Candidates a chunk takes (the scratch `counts` holds two ints a chunk).
+// Candidates a chunk takes (the workspace holds one status word a chunk).
 extern "C" int seg_band_chunk() { return CHUNK; }
 
 extern "C" const char* seg_band_error_string(int code) {

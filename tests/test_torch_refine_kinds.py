@@ -254,11 +254,13 @@ BAND_CENTRES = [(10.0, 45.0, 5.0), (-120.3, 40.7, 8.0), (0.0, 0.0, 0.0),
 def test_plain_dist_refine_equals_numpy_f32(centre_r):
     cr = np.asarray(centre_r, dtype=np.float32)
     xf, yf = _band_points(*cr)
-    hit, unc = tscan.dist_refine(torch.from_numpy(xf), torch.from_numpy(yf),
-                                 cr)
+    hit, unc, counts = tscan.dist_refine(
+        torch.from_numpy(xf), torch.from_numpy(yf), tscan.dist_bounds(cr))
     whit, wunc = _numpy_flags(xf, yf, cr)
     assert np.array_equal(hit.numpy(), whit)
     assert np.array_equal(unc.numpy(), wunc)
+    assert counts.dtype == torch.int32
+    assert counts.tolist() == [int(whit.sum()), int(wunc.sum())]
     assert unc.numpy().sum() > 0
 
 
@@ -308,6 +310,90 @@ def test_band_points_program_equals_reference(centre_r, during):
             c.FUSED_QUERY.unset()
 
 
+def _band_world(r, centre_r):
+    """Both packages' planners over table rows placed within a few ulps of
+    r ± DIST_BAND (``_band_points`` three times over, one row a 200 s
+    step from 2020-01-01). Call with PRUNE_BLOCK at 512."""
+    xf, yf = _band_points(*centre_r)
+    x = np.tile(xf, 3).astype(np.float64)
+    y = np.tile(yf, 3).astype(np.float64)
+    n = len(x)
+    base = np.datetime64("2020-01-01T00:00:00", "ms").astype(np.int64)
+    cols = {"name": np.full(n, "a"), "val": np.zeros(n, np.int32),
+            "dtg": base + np.arange(n) * 200_000, "geom": (x, y)}
+    jsft = r["SFT"].from_spec("b", SPEC)
+    jt = r["Table"].build(jsft, cols)
+    tsft = TSFT.from_spec("b", SPEC)
+    tt = TTable.build(tsft, cols)
+    return (r["Planner"](jsft, jt, [r["Z3"](jsft, jt)]),
+            TPlanner(tsft, tt, [TZ3(tsft, tt, "cpu")]))
+
+
+def _dist_counts_case(r, jp, tp, q, mode):
+    """The raw fused program of ``q`` in both packages, and the dist
+    refine's counts — the plain version's and the wrapper's, from the
+    program's own candidates — against the reference's first two words."""
+    jprog = r["compiled"]._from_plan(jp, jp.plan(q), mode)
+    want = np.asarray(jprog.dispatch())
+    tplan = tp.plan(q)
+    prog = tcompiled.Program(tplan, mode, sel_cap=jprog.sel_cap,
+                             unc_cap=jprog.unc_cap,
+                             refine=tcompiled.refine_spec(tplan))
+    assert prog.refine == "dist"
+    assert isinstance(prog.dist, tscan.DistBounds)
+    got = prog.run()
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    m, _, starts = prog._candidates()
+    cols = prog.index.device.columns
+    kw = dict(mask=m, starts=starts, bsz=prog.bsz)
+    for fn in (tscan.dist_refine, tdist.dist_refine):
+        hit, unc, counts = fn(cols["xf"], cols["yf"], prog.dist, **kw)
+        assert counts.dtype == torch.int32 and counts.shape == (2,)
+        assert counts.tolist() == [int(hit.sum()), int(unc.sum())]
+        assert np.array_equal(counts.numpy(), want[:2])
+    return want
+
+
+@pytest.mark.parametrize("mode", ["count_refine", "select_refine"])
+@pytest.mark.parametrize("q", [
+    "st_distance(geom, POINT(10 10)) < 15",
+    f"st_distance(geom, POINT(10 45)) <= 5 AND {DURING}",
+    "st_distance(geom, POINT(-120 40)) <= 8 AND val < 50",
+])
+def test_dist_counts_equal_reference(world, fused_on, q, mode):
+    """The dist refine's (hit, uncertain) counts, which ``Program.run``
+    now takes from the refine's own launch, equal the reference program's
+    first two words, and the raw program equals the reference's."""
+    jp, tp = world
+    assert _dist_counts_case(fused_on, jp, tp, q, mode)[0] > 0
+
+
+@pytest.mark.parametrize("mode", ["count_refine", "select_refine"])
+@pytest.mark.parametrize("during", [False, True])
+@pytest.mark.parametrize("centre_r", BAND_CENTRES[:3])
+def test_band_points_dist_counts_equal_reference(centre_r, during, mode):
+    """The same on rows within a few ulps of the band, where the counts
+    hold uncertain rows, on the pruned (one-day window) and full
+    branches."""
+    r = _ref()
+    cr = np.asarray(centre_r, dtype=np.float32)
+    vars(r["prune"]).pop("BLOCK_SIZE", None)
+    for c in (r["config"], tconfig):
+        c.PRUNE_BLOCK.set(512)
+        c.FUSED_QUERY.set(True)
+    try:
+        jp, tp = _band_world(r, cr)
+        q = f"st_distance(geom, POINT({cr[0]} {cr[1]})) <= {cr[2]}"
+        if during:
+            q += " AND dtg DURING 2020-01-01T00:00:00Z/2020-01-02T00:00:00Z"
+        assert _dist_counts_case(r, jp, tp, q, mode)[1] > 0
+    finally:
+        for c in (r["config"], tconfig):
+            c.PRUNE_BLOCK.unset()
+            c.FUSED_QUERY.unset()
+
+
 def test_plain_dist_refine_masks_and_starts():
     cr = np.asarray([10.0, 45.0, 5.0], dtype=np.float32)
     xf, yf = _band_points(*cr)
@@ -315,13 +401,15 @@ def test_plain_dist_refine_masks_and_starts():
     x, y = torch.from_numpy(xf[:n]), torch.from_numpy(yf[:n])
     rng = np.random.default_rng(1)
     mask = torch.from_numpy(rng.random(n) < 0.6)
-    hit, unc = tscan.dist_refine(x, y, cr)
-    mhit, munc = tscan.dist_refine(x, y, cr, mask)
+    b = tscan.dist_bounds(cr)
+    hit, unc, _ = tscan.dist_refine(x, y, b)
+    mhit, munc, mcnt = tscan.dist_refine(x, y, b, mask)
     assert torch.equal(mhit, hit & mask) and torch.equal(munc, unc & mask)
+    assert mcnt.tolist() == [int(mhit.sum()), int(munc.sum())]
     starts = torch.tensor([n - 8, 0, 16], dtype=torch.int64)
     rows = tscan.block_rows(starts, 8)
     m = torch.ones(24, dtype=torch.bool)
-    shit, sunc = tscan.dist_refine(x, y, cr, m, starts, 8)
+    shit, sunc, _ = tscan.dist_refine(x, y, b, m, starts, 8)
     assert torch.equal(shit, hit[rows]) and torch.equal(sunc, unc[rows])
 
 
@@ -336,16 +424,17 @@ def test_wrapper_cpu_runs_plain_and_counts_nothing():
     cr = np.asarray([1.0, 2.0, 3.0], dtype=np.float32)
     x = torch.linspace(-5, 5, 101)
     y = torch.full((101,), 2.0)
+    b = tscan.dist_bounds(cr)
     before = tdist.dist_refine.launches
-    got = tdist.dist_refine(x, y, cr)
-    want = tscan.dist_refine(x, y, cr)
+    got = tdist.dist_refine(x, y, b)
+    want = tscan.dist_refine(x, y, b)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert tdist.dist_refine.launches == before
     assert tdist.REPLACES == "geomesa_tpu/index/compiled.py:508"
 
 
 @pytest.mark.parametrize("bad", ["f64", "shape", "mask_dtype", "mask_len",
-                                 "starts_no_bsz", "device"])
+                                 "starts_no_bsz", "too_many", "device"])
 def test_wrapper_rejects_bad_inputs(bad):
     cr = np.asarray([0.0, 0.0, 1.0], dtype=np.float32)
     x = torch.zeros(16)
@@ -361,10 +450,12 @@ def test_wrapper_rejects_bad_inputs(bad):
         kw["mask"] = torch.zeros(15, dtype=torch.bool)
     elif bad == "starts_no_bsz":
         kw["starts"] = torch.zeros(2, dtype=torch.int64)
+    elif bad == "too_many":   # 2^31 candidates through two starts
+        kw.update(starts=torch.zeros(2, dtype=torch.int64), bsz=1 << 30)
     else:
         x, y = x.to("meta"), y.to("meta")
     with pytest.raises((TypeError, ValueError)):
-        tdist.dist_refine(x, y, cr, **kw)
+        tdist.dist_refine(x, y, tscan.dist_bounds(cr), **kw)
 
 
 # -- the CUDA kernel against its plain version (card only) --------------------
@@ -376,19 +467,34 @@ def _cuda():
     return torch.device("cuda")
 
 
+def _on_card(t: torch.Tensor, dev) -> torch.Tensor:
+    """``t`` on the card as a view at the same storage offset (so that a
+    mask one byte into its storage stays misaligned there)."""
+    off = t.storage_offset()
+    if off == 0:
+        return t.to(dev)
+    return torch.cat([torch.zeros(off, dtype=t.dtype), t]).to(dev)[off:]
+
+
 def _kernel_vs_plain(xf, yf, cr, mask=None, starts=None, bsz=None):
+    """The kernel's flags and counts against the plain version's, and the
+    counts against the flags' sums."""
     dev = _cuda()
     before = tdist.dist_refine.launches
+    b = tscan.dist_bounds(cr)
     t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (xf, yf)]
     kw = {"mask": mask, "starts": starts, "bsz": bsz}
-    want = tdist.dist_refine(*t, cr, **kw)
-    kw = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+    want = tdist.dist_refine(*t, b, **kw)
+    kw = {k: (_on_card(v, dev) if isinstance(v, torch.Tensor) else v)
           for k, v in kw.items()}
-    got = tdist.dist_refine(*(a.to(dev) for a in t), cr, **kw)
+    got = tdist.dist_refine(*(a.to(dev) for a in t), b, **kw)
     torch.cuda.synchronize()
     assert tdist.dist_refine.launches == before + (1 if len(want[0]) else 0)
-    for g, w in zip(got, want):
+    for g, w in zip(got[:2], want[:2]):
         assert g.dtype == torch.bool and torch.equal(g.cpu(), w)
+    assert got[2].dtype == torch.int32
+    assert torch.equal(got[2].cpu(), want[2])
+    assert got[2].tolist() == [int(want[0].sum()), int(want[1].sum())]
 
 
 @pytest.mark.gpu
@@ -461,3 +567,41 @@ def test_cuda_slice_dist_refine_equals_cpu():
         tconfig.PRUNE_BLOCK.unset()
     for (cc, cs), (gc, gs) in zip(out["cpu"], out["cuda"]):
         assert cc == gc > 0 and np.array_equal(cs, gs)
+
+
+COUNT_CASES = [(n, v) for v in ("nomask", "mask", "mask_off1", "mask_off4")
+               for n in (0, 1, 15, 16, 17, 1000, 100_003)] + [
+    (n, v) for v in ("starts_pow2", "starts_300")
+    for n in (300, 1000, 100_003)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,variant", COUNT_CASES)
+def test_cuda_dist_refine_counts_equal_flag_sums(n, variant):
+    """The kernel's (hit, uncertain) counts, from the same launch as the
+    flags, equal the flags' sums: without a mask, with aligned, 1-byte and
+    4-byte offset masks (the 4-wide route and the 1-wide one), through
+    block starts of a power-of-two and another size, at ragged lengths;
+    back to back on one workspace (the kernel leaves it zeroed)."""
+    cr = np.asarray([10.0, 45.0, 5.0], dtype=np.float32)
+    xf, yf = _band_points(*cr)
+    rep = -(-max(n, 1) // len(xf))
+    xf, yf = np.tile(xf, rep)[: max(n, 1)], np.tile(yf, rep)[: max(n, 1)]
+    rng = np.random.default_rng(n + 5)
+    kw = {}
+    if variant.startswith("starts"):
+        bsz = 256 if variant == "starts_pow2" else 300
+        nb = -(-n // bsz)
+        kw = {"starts": torch.from_numpy(rng.integers(
+                  0, n - bsz + 1, nb).astype(np.int64)),
+              "bsz": bsz,
+              "mask": torch.from_numpy(rng.random(nb * bsz) < 0.8)}
+    else:
+        xf, yf = xf[:n], yf[:n]
+        if variant != "nomask":
+            off = {"mask": 0, "mask_off1": 1, "mask_off4": 4}[variant]
+            m = torch.from_numpy(rng.random(n + off) < 0.7)[off:]
+            assert m.storage_offset() == off
+            kw = {"mask": m}
+    for _ in range(2):
+        _kernel_vs_plain(xf, yf, cr, **kw)

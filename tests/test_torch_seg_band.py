@@ -19,6 +19,7 @@ gpu tests/test_torch_seg_band.py`` runs them.
 """
 
 import importlib
+import threading
 
 import numpy as np
 import pytest
@@ -36,6 +37,7 @@ from geomesa_tpu_torch.index.planner import QueryPlanner as TPlanner
 from geomesa_tpu_torch.index.spatial import XZ2Index as TXZ2
 from geomesa_tpu_torch.index.spatial import XZ3Index as TXZ3
 from geomesa_tpu_torch.index.spatial import _boxes_fp62 as t_fp62
+from geomesa_tpu_torch.kernels import build as tbuild
 from geomesa_tpu_torch.kernels import seg_band as tkernel
 
 POLY = "POLYGON ((-12 30, 10 28, 14 44, -2 50, -12 30))"
@@ -417,9 +419,10 @@ def test_cuda_seg_band_equals_plain(n, where, windows, resid, valid, nbox):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [0, 3, 4, 5, 64, 1023, 1024, 1025, 2500])
+@pytest.mark.parametrize("k", [0, 3, 4, 5, 64, 1023, 1024, 1025, 2500, 4100])
 def test_cuda_seg_band_edge_counts_equal_plain(k):
-    """Real edge counts from none to past the staged 1,024, with EDGE_PAD
+    """Real edge counts from none to past the staged 1,024 (1,025, 2,500
+    and 4,100 stream through two tiles of 512 by cp.async), with EDGE_PAD
     filler rows behind them (the kernel reads the real ones only)."""
     cols, b, w, r, bid = _gpu_args(20_000, "all", False, False, False, 1,
                                    seed=k)
@@ -469,3 +472,259 @@ def test_cuda_band_count_equals_cpu():
     assert out["cuda"][0] == out["cpu"][0] > 0
     assert np.array_equal(out["cuda"][1], out["cpu"][1])
     assert out["cuda"][2] == 1 and out["cpu"][2] == 0
+
+
+# -- the wrapper's input rules (CPU) ------------------------------------------
+
+
+def _small_inputs():
+    """Valid CPU inputs of the wrapper: 600 near-edge segments in blocks of
+    BSZ rows, windows, a residual and __valid__."""
+    coords = near_edge_segments(600, 21)
+    cols, vmask = gpu_table(coords, "cpu", 21)
+    cols["__valid__"] = torch.from_numpy(vmask)
+    boxes = torch.from_numpy(tscan.pad_boxes(t_fp62(
+        [(-12.0, 28.0, 14.0, 50.0)])))
+    bid = torch.tensor([0, 2, 1, -1], dtype=torch.int32)
+    w = torch.tensor([[2600, 0, 2606, 0]], dtype=torch.int32)
+    resid = torch.from_numpy(
+        np.random.default_rng(22).random(4 * BSZ) < 0.8)
+    edges = torch.from_numpy(_edges(POLY))
+    return dict(cols=cols, boxes=boxes, windows=w, resid=resid,
+                block_ids=bid, bsz=BSZ, edges=edges, n_edges=None,
+                unc_cap=64)
+
+
+def _replace_col(kw, name, t):
+    kw["cols"] = dict(kw["cols"], **{name: t})
+
+
+# every rule of kernels/seg_band.py _check, and the device rule after it
+BAD_INPUTS = {
+    "envelope_dtype": lambda kw: _replace_col(
+        kw, "bxmin_i", kw["cols"]["bxmin_i"].long()),
+    "envelope_rows": lambda kw: _replace_col(
+        kw, "bymax_l", kw["cols"]["bymax_l"][:-1].clone()),
+    "time_dtype": lambda kw: _replace_col(
+        kw, "bin", kw["cols"]["bin"].float()),
+    "time_rows": lambda kw: _replace_col(
+        kw, "off", kw["cols"]["off"][1:].clone()),
+    "segment_dtype": lambda kw: _replace_col(
+        kw, "sx2", kw["cols"]["sx2"].double()),
+    "segment_rows": lambda kw: _replace_col(
+        kw, "sy1", kw["cols"]["sy1"][:10].clone()),
+    "boxes_dtype": lambda kw: kw.update(boxes=kw["boxes"].long()),
+    "boxes_shape": lambda kw: kw.update(boxes=kw["boxes"][:, :4].clone()),
+    "boxes_dims": lambda kw: kw.update(boxes=kw["boxes"].reshape(-1)),
+    "windows_dtype": lambda kw: kw.update(windows=kw["windows"].long()),
+    "windows_shape": lambda kw: kw.update(windows=kw["windows"][:, :3]
+                                          .clone()),
+    "edges_dtype": lambda kw: kw.update(edges=kw["edges"].double()),
+    "edges_shape": lambda kw: kw.update(edges=kw["edges"][:, :2].clone()),
+    "n_edges_high": lambda kw: kw.update(n_edges=kw["edges"].shape[0] + 1),
+    "n_edges_negative": lambda kw: kw.update(n_edges=-1),
+    "block_ids_dtype": lambda kw: kw.update(block_ids=kw["block_ids"]
+                                            .long()),
+    "block_ids_dims": lambda kw: kw.update(block_ids=kw["block_ids"]
+                                           .reshape(2, 2)),
+    "bsz_zero": lambda kw: kw.update(bsz=0),
+    "bsz_none": lambda kw: kw.update(bsz=None),
+    "unc_cap_negative": lambda kw: kw.update(unc_cap=-1),
+    "valid_dtype": lambda kw: _replace_col(
+        kw, "__valid__", kw["cols"]["__valid__"].to(torch.uint8)),
+    "valid_rows": lambda kw: _replace_col(
+        kw, "__valid__", kw["cols"]["__valid__"][:-3].clone()),
+    "resid_dtype": lambda kw: kw.update(resid=kw["resid"].to(torch.uint8)),
+    "resid_rows": lambda kw: kw.update(resid=kw["resid"][:-1].clone()),
+    "column_strided": lambda kw: _replace_col(
+        kw, "sx1", torch.stack([kw["cols"]["sx1"]] * 2, 1)[:, 0]),
+    "envelope_strided": lambda kw: _replace_col(
+        kw, "bxmax_l", torch.stack([kw["cols"]["bxmax_l"]] * 2, 1)[:, 1]),
+    "block_ids_strided": lambda kw: kw.update(
+        block_ids=torch.stack([kw["block_ids"]] * 2, 1)[:, 0]),
+    "edges_strided": lambda kw: kw.update(
+        edges=torch.cat([kw["edges"]] * 2, 1)[:, :4]),
+    "column_other_device": lambda kw: _replace_col(
+        kw, "bymin_i", kw["cols"]["bymin_i"].to("meta")),
+    "resid_other_device": lambda kw: kw.update(resid=kw["resid"]
+                                               .to("meta")),
+    "all_on_meta": lambda kw: kw.update(
+        cols={k: v.to("meta") for k, v in kw["cols"].items()},
+        **{k: kw[k].to("meta") for k in ("boxes", "windows", "resid",
+                                         "block_ids", "edges")}),
+}
+
+
+def test_wrapper_cpu_runs_plain_and_counts_nothing():
+    kw = _small_inputs()
+    before = tkernel.seg_band.launches
+    got = tkernel.seg_band(**kw)
+    want = tscan.seg_band(**kw)
+    assert torch.equal(got, want) and int(got[0]) > 0
+    assert tkernel.seg_band.launches == before
+    assert tkernel.REPLACES == "geomesa_tpu/index/scan.py:754"
+
+
+@pytest.mark.parametrize("bad", sorted(BAD_INPUTS))
+def test_wrapper_rejects_bad_inputs(bad):
+    kw = _small_inputs()
+    BAD_INPUTS[bad](kw)
+    with pytest.raises((TypeError, ValueError)):
+        tkernel.seg_band(**kw)
+
+
+# -- the one-launch design on the card: workspace reuse, streams, no
+# candidates ------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_cuda_seg_band_back_to_back_calls_share_a_workspace():
+    """Calls on one stream without a sync between them, with candidate
+    counts and caps that shrink, then grow: the status words a larger call
+    left behind must not leak into a smaller one (each call has its own
+    epoch), nor the ticket, the done counter or the totals."""
+    cols, b, w, r, _ = _gpu_args(300_000, "all", False, False, False, 1,
+                                 seed=31)
+    dev = cols["sx1"].device
+    edges = torch.from_numpy(_edges(POLY)).to(dev)
+    last = -(-300_000 // BSZ) - 1
+    plan = [(np.arange(0, last + 1), 4096), (np.arange(0, 40), 16),
+            (np.arange(0, 0), 8), (np.arange(3, 9), 1),
+            (np.arange(0, last + 1, 2), 1 << 16),
+            (np.arange(0, last + 1), 7), (np.arange(100, 130), 4096)]
+    before = tkernel.seg_band.launches
+    outs = []
+    for blocks, cap in plan:
+        bid = torch.from_numpy(blocks.astype(np.int32)).to(dev)
+        outs.append((bid, cap, tkernel.seg_band(cols, b, None, None, bid,
+                                                 BSZ, edges, None, cap)))
+    torch.cuda.synchronize()
+    assert tkernel.seg_band.launches == before + len(plan)
+    for bid, cap, got in outs:
+        want = tscan.seg_band(cols, b, None, None, bid, BSZ, edges, None,
+                              cap)
+        assert torch.equal(got, want), (cap, got[:4], want[:4])
+    assert int(outs[0][2][1]) > 4096 and int(outs[2][2][1]) == 0
+
+
+@pytest.mark.gpu
+def test_cuda_seg_band_threads_grow_one_workspace():
+    """Two threads on one stream, each with calls of growing candidate
+    counts, so that one grows the stream's workspace while the other may
+    hold the one it replaces, not yet launched; each call then allocates
+    a block of the workspace's size and fills it, so a freed workspace
+    that a pending launch still used would be overwritten. Every result
+    equals the plain version."""
+    cols, b, _, _, _ = _gpu_args(300_000, "all", False, False, False, 1,
+                                 seed=37)
+    dev = cols["sx1"].device
+    edges = torch.from_numpy(_edges(POLY)).to(dev)
+    bsz = 4096
+    nblk = -(-300_000 // bsz)
+    sizes = [200, 300, 600, 1200, 2400]   # blocks: 800 to 9,600 chunks
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    key = (dev.index, stream.cuda_stream)
+    start = threading.Barrier(2)
+    outs = [[], []]
+    errors = []
+    seen = set()
+
+    def run(t):
+        try:
+            with torch.cuda.stream(stream):
+                seen.add(tbuild.raw_stream(dev))
+                start.wait()
+                for nb in sizes:
+                    bid = torch.from_numpy(np.resize(
+                        np.arange(nblk, dtype=np.int32), nb + t)).to(dev)
+                    got = tkernel.seg_band(cols, b, None, None, bid, bsz,
+                                           edges, None, 64)
+                    torch.full((4 + 4 * nb,), -1, dtype=torch.int64,
+                               device=dev)
+                    outs[t].append((bid, got))
+        except Exception as e:   # re-raised in the test's thread
+            errors.append(e)
+
+    for _ in range(3):
+        with tkernel._WS_LOCK:
+            tkernel._WS.pop(key, None)
+        threads = [threading.Thread(target=run, args=(t,)) for t in (0, 1)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        assert not errors, errors
+        assert seen == {stream.cuda_stream}
+        assert tkernel._WS[key][1] >= 4 * (sizes[-1] + 1)
+    for bid, got in outs[0] + outs[1]:
+        want = tscan.seg_band(cols, b, None, None, bid, bsz, edges, None, 64)
+        assert torch.equal(got, want), (got[:4], want[:4])
+    assert len(outs[0]) == len(outs[1]) == 3 * len(sizes)
+
+
+@pytest.mark.gpu
+def test_cuda_seg_band_on_two_streams():
+    """Calls interleaved on two streams (a workspace each) equal the plain
+    version."""
+    cols, b, w, r, bid = _gpu_args(200_000, "all", True, True, True, 3,
+                                   seed=33)
+    dev = cols["sx1"].device
+    edges = torch.from_numpy(_edges(POLY)).to(dev)
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    args = [(bid, 4096), (bid[: len(bid) // 2].clone(), 32)]
+    outs = []
+    for rep in range(4):
+        for s, (bids, cap) in zip(streams, args):
+            with torch.cuda.stream(s):
+                resid = r[: len(bids) * BSZ].clone()
+                outs.append((bids, resid, cap, tkernel.seg_band(
+                    cols, b, w, resid, bids, BSZ, edges, None, cap)))
+    torch.cuda.synchronize()
+    for bids, resid, cap, got in outs:
+        want = tscan.seg_band(cols, b, w, resid, bids, BSZ, edges, None, cap)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks", ["none", "pad_only"])
+@pytest.mark.parametrize("unc_cap", [0, 5])
+def test_cuda_seg_band_without_candidates(blocks, unc_cap):
+    """No candidate (an empty block list) or none live (pad blocks only):
+    the counts are 0 and the list is all padding."""
+    cols, b, w, r, _ = _gpu_args(5000, "all", False, False, False, 1, seed=35)
+    dev = cols["sx1"].device
+    bid = torch.full((0 if blocks == "none" else 8,), -1, dtype=torch.int32,
+                     device=dev)
+    edges = torch.from_numpy(_edges(POLY)).to(dev)
+    got = _check_equal(cols, b, None, None, bid, edges, None, unc_cap)
+    assert got[:2].tolist() == [0, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsz", [300, 1000, 1500, 4096, 5000])
+def test_cuda_seg_band_block_sizes(bsz):
+    """Block sizes past the power-of-two ones (a candidate's block by a
+    shift): under the 1,024-candidate chunk (a 32-bit division) and over
+    it (a chunk spans at most two blocks), with clamped and pad blocks."""
+    dev = _cuda()
+    n = 60_000
+    cols, _ = gpu_table(near_edge_segments(n, 41), dev, 41)
+    last = -(-n // bsz) - 1
+    bid = torch.tensor(list(range(0, last + 1, 2)) + [last, last + 3, -1],
+                       dtype=torch.int32, device=dev)
+    boxes = torch.from_numpy(tscan.pad_boxes(t_fp62(
+        [(-12.0, 28.0, 14.0, 50.0)]))).to(dev)
+    edges = torch.from_numpy(_edges(POLY)).to(dev)
+    for cap in (16, 4096):
+        before = tkernel.seg_band.launches
+        got = tkernel.seg_band(cols, boxes, None, None, bid, bsz, edges,
+                               None, cap)
+        torch.cuda.synchronize()
+        want = tscan.seg_band(cols, boxes, None, None, bid, bsz, edges, None,
+                              cap)
+        assert torch.equal(got, want) and int(got[1]) > 0
+        assert tkernel.seg_band.launches == before + 1
