@@ -1,6 +1,7 @@
 """Two trees of the port timed on one card, in turns.
 
-    python3 chip_compare.py PARENT_ROOT CHANGE_ROOT [--phases count,kernels]
+    python3 chip_compare.py PARENT_ROOT CHANGE_ROOT
+        [--phases count,kernels,fused]
         [--rounds 4] [--reps 40] [--n 100000000] [--out FILE] [--device cpu]
 
 One worker process a tree imports ``geomesa_tpu_torch`` from that tree,
@@ -28,6 +29,14 @@ adjacent pair of answers ran on the same card, seconds apart. The phases:
   call over ten calls). The inputs are made once from fixed seeds and
   saved under ``archive_check/compare_inputs/`` (``.gitignore`` lists
   it); both trees must give the same outputs (compared by digest).
+- ``fused``: the fused programs of ``chip_smoke.py``'s main path on the
+  same store as ``count`` (loaded once a worker): (a) as a count, (b) as
+  ``count_refine``, (c) as ``select_refine``, (d) as a 64x64 density and
+  (h) as the union program's select, each built once
+  (``compiled.Program`` / ``UnionProgram``, the API both trees share). An
+  answer is the p50 of ``--reps`` runs to a device synchronise and, on
+  the card, the device activities and device ms a run; both trees must
+  give the same raw results (compared by digest).
 
 Prints each answer, then per tree the median of every metric and the
 change-minus-parent median over adjacent pairs; writes all of it to
@@ -80,12 +89,16 @@ def _median(v):
 # -- phase count ------------------------------------------------------------
 
 
-def setup_count(cs, a) -> tuple:
-    import torch
+_STORE = {}
 
+
+def _store(cs, a):
+    """(store, (a)'s oracle count): the corpus loaded through this tree's
+    store, once a worker."""
+    if "store" in _STORE:
+        return _STORE["store"]
     from geomesa_tpu_torch import DataStoreFinder
     from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
-    from geomesa_tpu_torch.index import compiled
 
     x, y, dtg, name, val = cs.corpus(a.n)
     lo = np.datetime64("2020-01-05", "ms").astype(np.int64)
@@ -99,6 +112,16 @@ def setup_count(cs, a) -> tuple:
         "name": StringColumn(name, ["a", "b", "c"]), "val": val, "dtg": dtg,
         "geom": (x, y)}))
     del x, y, dtg, name, val
+    _STORE["store"] = (store, want)
+    return store, want
+
+
+def setup_count(cs, a) -> tuple:
+    import torch
+
+    from geomesa_tpu_torch.index import compiled
+
+    store, want = _store(cs, a)
     plan = store.planner("gdelt").plan(cs.Q_BOX)
     got = store.count("gdelt", cs.Q_BOX)
     prog = int(compiled.Program(plan, "count").run()[0])
@@ -266,7 +289,62 @@ def setup_kernels(cs, a) -> tuple:
     return ready, answer
 
 
-PHASES = {"count": setup_count, "kernels": setup_kernels}
+# -- phase fused ------------------------------------------------------------
+
+
+def setup_fused(cs, a) -> tuple:
+    import torch
+
+    from geomesa_tpu_torch.index import compiled
+
+    store, _ = _store(cs, a)
+    planner = store.planner("gdelt")
+
+    def refine(q, mode, **kw):
+        plan = planner.plan(q)
+        return compiled.Program(plan, mode, unc_cap=4096,
+                                refine=compiled.refine_spec(plan), **kw)
+
+    progs = {
+        "a_count": compiled.Program(planner.plan(cs.Q_BOX), "count"),
+        "b_count_refine": refine(cs.Q_POLY, "count_refine"),
+        "c_select_refine": refine(cs.Q_POLY, "select_refine",
+                                  sel_cap=1 << 16),
+        "d_density": compiled.Program(planner.plan(cs.Q_D), "density",
+                                      grid=cs.D_BBOX, width=64, height=64),
+        "h_union_select": compiled.UnionProgram(planner.plan(cs.Q_H),
+                                                "select", sel_cap=1 << 16)}
+    sync = torch.cuda.synchronize if a.device == "cuda" else (lambda: None)
+    ready = {}
+    for label, prog in progs.items():
+        out = prog.run()
+        ready[label] = _digest(*(out if isinstance(out, tuple) else (out,)))
+        for _ in range(10):
+            prog.run()
+
+    def answer() -> dict:
+        out = {}
+        for label, prog in progs.items():
+            ts = []
+            for _ in range(a.reps):
+                sync()
+                t0 = time.perf_counter()
+                prog.run()
+                sync()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            out[f"{label}_p50_ms"] = _median(ts)
+            acts = dev_ms = None
+            if a.device == "cuda":
+                acts, dev_ms = cs.activities_per_call(prog.run)
+            out[f"{label}_activities"] = acts
+            out[f"{label}_device_ms"] = dev_ms
+        return out
+
+    return ready, answer
+
+
+PHASES = {"count": setup_count, "kernels": setup_kernels,
+          "fused": setup_fused}
 
 
 # -- worker and turns -------------------------------------------------------

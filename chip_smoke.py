@@ -19,11 +19,14 @@ Phases, each failing the run (non-zero exit) when it fails:
    fused program, (e) query (a) as a 256x256 ``val``-weighted density,
    (f) a time+attribute count and select and an INCLUDE count on the staged
    path — each result equal to a numpy oracle computed here, with every
-   kernel's launch count read around the run;
+   kernel's launch count read around the run ((a)-(d) through
+   ``block_gate`` and ``fused_scan``, (b) and (c) through
+   ``ordered_compact``);
 5. the serving path (g) on the same store, every answer equal to its numpy
    oracle: (g1) ``planner.prepare`` of (a) — blocking counts and 64
-   ``count_async`` calls with one stacked readback; (g2) 10 never-seen
-   boxes, each prepared and counted (the recipe fast path); (g3) 64
+   ``count_async`` calls with one stacked readback, each launching
+   ``block_gate`` and ``fused_scan``, with no host sync (CUDA's sync debug
+   mode); (g2) 10 never-seen boxes, each prepared and counted (the recipe fast path); (g3) 64
    distinct boxes in one ``prepare_counts_multi_blocks`` dispatch over the
    union of their covers, and ``counts_multi`` over the full table; (g4)
    the micro-batching ``QueryScheduler`` under 64 client threads, against
@@ -46,8 +49,15 @@ Phases, each failing the run (non-zero exit) when it fails:
    ``val``-weighted, with times, bounds, device activities a call and
    ``torch.bincount``'s time for the scatter part; box_count at (g3)'s
    union blocks and the full table with 64 boxes, and at (f)'s count, with
-   the passing candidates and the kernel's tile fills;
-7. a profile of each query;
+   the passing candidates and the kernel's tile fills; the fused
+   program's kernels (``phase_fused_kernels``): block_gate over the
+   table's 24,415 blocks with (a)'s gate, fused_scan's count at (a)'s
+   alive blocks and over every block and its mask at (b)'s alive blocks,
+   ordered_compact at (c)'s certain hits and over 33,554,432 candidates
+   (``torch.nonzero``'s time beside it), each with its device activities
+   and device time a call;
+7. a profile of each query: device activities, idle share and the host
+   syncs made inside it;
 7b. Z2 and the extent indexes (m), on stores of their own: (m1) bench.py
    cfg2 not cut — 5,000,000 single-segment LineStrings (XZ2), the polygon
    INTERSECTS as a count (the ``seg_band`` route) and as rows against
@@ -466,6 +476,15 @@ def phase_kernels():
     return out
 
 
+def live_candidates(prog):
+    """(mask, starts) of a program's candidates cut to its live blocks: the
+    tensors its refine kernel reads on the main path (which takes the full
+    lists with the gate's device count and stops at that count)."""
+    m, nblk, starts = prog._candidates()
+    k = int(nblk[0])
+    return m[: k * prog.bsz], starts[:k]
+
+
 def phase_kernel_main_inputs(store) -> dict:
     """pip_refine against its plain version on the very tensors the main
     path's polygon query hands it: the table's xf/yf columns, the mask and
@@ -475,7 +494,7 @@ def phase_kernel_main_inputs(store) -> dict:
     plan = store.planner("gdelt").plan(Q_POLY)
     prog = compiled.Program(plan, "count_refine", unc_cap=4096,
                             refine=compiled.refine_spec(plan))
-    m, _, starts = prog._candidates()
+    m, starts = live_candidates(prog)
     cols = prog.index.device.columns
     r = compare_refine("main-path (b)", cols["xf"], cols["yf"], prog.edges,
                        prog.n_edges, reps=50, mask=m, starts=starts,
@@ -758,7 +777,7 @@ def phase_box_count_kernel(store, g) -> list:
            compare_box_count("full table, 64 boxes", cols, boxes, win, None,
                              None, None, True, 10)]
     plan = planner.plan(Q_F)
-    _, params, fn = plan.residual_device
+    params, fn = plan.residual_device.params, plan.residual_device.fn
     resid = fn(cols, [torch.from_numpy(p).to(dev) for p in params])
     out.append(compare_box_count(
         "(f) staged count", cols, None,
@@ -844,7 +863,8 @@ def phase_main_path(n: int = N, device: str = "cuda"):
     from geomesa_tpu_torch.aggregates.density import prepare_density
     from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
     from geomesa_tpu_torch.index import compiled
-    from geomesa_tpu_torch.kernels import box_count, density, pip
+    from geomesa_tpu_torch.kernels import (box_count, compact, density,
+                                           fused_scan, gate, pip)
 
     t0 = time.perf_counter()
     x, y, dtg, name, val = corpus(n)
@@ -912,7 +932,10 @@ def phase_main_path(n: int = N, device: str = "cuda"):
     # the checked run: every kernel's launch count read around it
     counters = {"pip_refine": pip.pip_refine,
                 "grid_scatter": density.grid_scatter,
-                "box_count": box_count.box_count}
+                "box_count": box_count.box_count,
+                "block_gate": gate.block_gate,
+                "fused_scan": fused_scan.fused_scan,
+                "ordered_compact": compact.ordered_compact}
     for c in counters.values():
         c.launches = 0
     per_query = {}
@@ -986,11 +1009,18 @@ def phase_main_path(n: int = N, device: str = "cuda"):
             or q["e_device"]["grid_scatter"] < 1
             or launches["grid_scatter"] == 0
             or q["f_count"]["box_count"] < 1
-            or q["f_include"]["box_count"] < 1):
+            or q["f_include"]["box_count"] < 1
+            or any(q[k]["block_gate"] < 1 or q[k]["fused_scan"] < 1
+                   for k in ("a", "b", "c", "d_fused"))
+            or q["a"]["ordered_compact"] != 0
+            or q["b"]["ordered_compact"] < 1
+            or q["c"]["ordered_compact"] < 1):
         raise AssertionError(f"kernel launches per query {json.dumps(q)}: "
                              "(b), (c) must launch pip_refine and (a) not; "
                              "(d), (d) fused and (e) grid_scatter; (f)'s "
-                             "counts box_count")
+                             "counts box_count; (a), (b), (c) and (d) fused "
+                             "block_gate and fused_scan; (b), (c) "
+                             "ordered_compact and (a) not")
     routes = {lbl: "range-pruned" if planner._pruned_blocks(
         planner.plan(qq)) is not None else "full-mask"
         for lbl, qq in (("d", Q_D), ("e", Q_BOX), ("f", Q_F))}
@@ -1004,12 +1034,11 @@ def phase_main_path(n: int = N, device: str = "cuda"):
         f"grids compare byte for byte); staged routes {json.dumps(routes)}")
     log(f"[main] launches per query {json.dumps(per_query)}")
 
-    plan = planner.plan(Q_POLY)
-    prog = compiled.Program(plan, "count")
-    alive = int(prog._alive().sum())
-    log(f"[main] polygon query: {alive} of {-(-n // prog.bsz)} blocks alive "
-        f"(cap {prog.cap}); pip_refine candidates per launch "
-        f"{alive * prog.bsz if alive <= prog.cap else n}")
+    for label, qq in (("box (a)", Q_BOX), ("polygon (b)", Q_POLY)):
+        prog = compiled.Program(planner.plan(qq), "count")
+        alive = int(prog._gate()[2][0])
+        log(f"[main] {label}: {alive} of {-(-n // prog.bsz)} blocks alive; "
+            f"candidates per launch {alive * prog.bsz}")
 
     p50 = {}
     for label, fn in queries(store):
@@ -1080,7 +1109,8 @@ def phase_filters(store, oracle) -> dict:
     import torch
     from geomesa_tpu_torch.index import compiled
     from geomesa_tpu_torch.index.api import UnionScanPlan
-    from geomesa_tpu_torch.kernels import box_count, density, dist, pip
+    from geomesa_tpu_torch.kernels import (box_count, compact, density,
+                                           dist, fused_scan, gate, pip)
 
     planner = store.planner("gdelt")
     plan_h = planner.plan(Q_H)
@@ -1093,7 +1123,10 @@ def phase_filters(store, oracle) -> dict:
     counters = {"pip_refine": pip.pip_refine,
                 "grid_scatter": density.grid_scatter,
                 "box_count": box_count.box_count,
-                "dist_refine": dist.dist_refine}
+                "dist_refine": dist.dist_refine,
+                "block_gate": gate.block_gate,
+                "fused_scan": fused_scan.fused_scan,
+                "ordered_compact": compact.ordered_compact}
     for c in counters.values():
         c.launches = 0
     per_query, got = {}, {}
@@ -1129,10 +1162,18 @@ def phase_filters(store, oracle) -> dict:
             q["i_lt_count"]["dist_refine"] < 1
             or q["i_le_rows"]["dist_refine"] < 1
             or q["j_contains_count"]["pip_refine"] < 1
-            or q["h_density"]["grid_scatter"] < 1):
+            or q["h_density"]["grid_scatter"] < 1
+            or any(q[k]["block_gate"] < 1 or q[k]["fused_scan"] < 1
+                   for k in ("h_rows", "h_density", "i_lt_count",
+                             "j_contains_count"))
+            or q["i_le_rows"]["ordered_compact"] < 1
+            or q["h_rows"]["ordered_compact"] < 1):
         raise AssertionError(f"kernel launches per query {json.dumps(q)}: "
                              "(i) must launch dist_refine, (j)'s st_contains "
-                             "pip_refine, (h)'s density grid_scatter")
+                             "pip_refine, (h)'s density grid_scatter; the "
+                             "union program (h) and the fused refines (i), "
+                             "(j) block_gate and fused_scan; (h)'s and (i)'s "
+                             "rows ordered_compact")
     sizes = {k: (int(v) if np.isscalar(v) else
                  (int(v.sum()) if k == "h_density" else len(v)))
              for k, v in got.items()}
@@ -1254,7 +1295,7 @@ def phase_dist_kernel(store) -> list:
     plan = store.planner("gdelt").plan(Q_I_LT)
     prog = compiled.Program(plan, "count_refine", unc_cap=4096,
                             refine=compiled.refine_spec(plan))
-    m, _, starts = prog._candidates()
+    m, starts = live_candidates(prog)
     cols = prog.index.device.columns
     out = [compare_dist("main-path (i)", cols["xf"], cols["yf"], prog.dist,
                         50, mask=m, starts=starts, bsz=prog.bsz)]
@@ -1267,6 +1308,187 @@ def phase_dist_kernel(store) -> list:
         np.random.default_rng(14).random(KERNEL_N) < 0.2).to(dev)
     out.append(compare_dist("near-band random20", tx, ty, cr, 20, mask=m20))
     del tx, ty, m20
+    torch.cuda.empty_cache()
+    return out
+
+
+def _equal_or_raise(label: str, got, want) -> int:
+    """0 when every tensor of ``got`` equals its twin in ``want``; raises
+    with the largest difference otherwise."""
+    import torch
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    err = 0
+    for a, b in zip(got, want):
+        if a.shape != b.shape:
+            raise AssertionError(f"{label}: shape {tuple(a.shape)} != plain "
+                                 f"{tuple(b.shape)}")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: kernel differs from the plain "
+                                 f"version (max abs err {err})")
+    return err
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    """The least time for ``nbytes`` moved and ``ops`` operations on this
+    card's published peaks (HBM rate; the f32 rate outside the tensor cores
+    for f32 compares and, as the ALU's rate, for int32/int64 compares)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3,
+            "bytes": nbytes, "ops": ops}
+
+
+def _time_kernel(label: str, kern, plain, bound: dict, reps: int,
+                 library=None, cut=None) -> dict:
+    """A kernel against its plain version on the same card tensors (equal,
+    or the run fails; ``cut`` trims both results to what the kernel writes
+    first), then its time by CUDA events, its device activities and device
+    time a call from the profiler, the plain version's time and the library
+    call's."""
+    import torch
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    torch.cuda.synchronize()
+    if cut is not None:
+        got, want = cut(got), cut(want)
+    err = _equal_or_raise(label, got, want)
+    acts, dev_ms = activities_per_call(kern)
+    ms = cuda_ms(kern, reps)
+    plain_ms = cuda_ms(plain, max(1, reps // 10))
+    lib_ms = None if library is None else cuda_ms(library, max(1, reps // 5))
+    r = {"label": label, "ms": ms, "plain_ms": plain_ms,
+         "library_ms": lib_ms, "activities_per_call": acts,
+         "device_ms_per_call": dev_ms, "max_abs_err": err, **bound}
+    log(f"[kernel] {label}: equal to the plain version, kernel {ms} ms, "
+        f"plain {plain_ms} ms, library {lib_ms} ms, bound {r['bound_ms']} ms "
+        f"({r['bound_by']}; bytes {r['bytes_ms']} ms, operations "
+        f"{r['ops_ms']} ms), {acts} device activities a call ({dev_ms} ms of "
+        f"device time)")
+    return r
+
+
+def phase_fused_kernels(store) -> dict:
+    """block_gate, fused_scan and ordered_compact against their plain
+    versions on the main path's tensors: the gate over every block of the
+    100M table with (a)'s gate; the scan's count at (a)'s alive blocks and
+    over every block, and its mask at (b)'s alive blocks; the compaction
+    at (c)'s certain hits (through the gate's starts, its select capacity)
+    and over 33,554,432 candidates (the reference's pruned-branch most),
+    with ``torch.nonzero``'s time beside it."""
+    import torch
+    from geomesa_tpu_torch.index import compiled, scan
+    from geomesa_tpu_torch.kernels import compact, fused_scan, gate, pip
+
+    planner = store.planner("gdelt")
+    idx = planner.indexes[0]
+    cols = idx.device.columns
+    dev = cols["xi"].device
+    plan_a = planner.plan(Q_BOX)
+    prog_a = compiled.Program(plan_a, "count")
+    bsz, n = prog_a.bsz, prog_a.n
+    summ = compiled.block_summaries(idx, bsz)
+    nb = int(summ["bxmin"].shape[0])
+    q, qbuf = prog_a.query, prog_a.qbuf
+    nbox = sum(b[1] for b in q.branches)
+    nwin = sum(b[3] for b in q.branches)
+    out = {}
+
+    # the gate: summaries in, ids and starts out
+    g_args = (summ, qbuf, q, n, bsz)
+    out["block_gate"] = _time_kernel(
+        f"block_gate over {nb} blocks x (a)'s gate ({nbox} boxes, {nwin} "
+        f"windows)", lambda: gate.block_gate(*g_args),
+        lambda: scan.block_gate(*g_args),
+        _bound(nb * (16 + (8 if "binmin" in summ else 0)) + nb * 12 + 4
+               + qbuf.numel(), nb * (4 * nbox + 3 * nwin)), 200)
+    ids_a, _, nblk_a = gate.block_gate(*g_args)
+    k_a = int(nblk_a[0])
+
+    def scan_bound(k: int, ids_q, nblk_q) -> dict:
+        """Bytes: the point planes of every candidate; the time planes of
+        those in a box; the residual's columns of those in a box and a
+        window (counted by the plain scan of the query cut to its boxes,
+        and to its boxes and windows); the block ids; the count. Operations:
+        one box's 4 key compares a candidate."""
+        boxes, gate_, windows = plan_a.boxes_loose, compiled._gate_of(
+            plan_a.explain["boxes"], len(plan_a.boxes_loose)), plan_a.windows
+        prog = plan_a.residual_device.program
+        counts = []
+        for parts in ((boxes, gate_, None, None),
+                      (boxes, gate_, windows, None)):
+            qq = scan.FusedQuery([parts])
+            counts.append(int(scan.fused_scan(
+                cols, torch.from_numpy(qq.packed).to(dev), qq, ids_q,
+                nblk_q, bsz, "count")[0]))
+        rbytes = sum(cols[c].element_size() for c, _ in prog.slots)
+        cand = k * bsz
+        return _bound(16 * cand + 8 * counts[0] + rbytes * counts[1]
+                      + 4 * k + 4, 4 * cand)
+
+    s_args = (cols, qbuf, q, ids_a, nblk_a, bsz, "count")
+    scans = [_time_kernel(
+        f"fused_scan count at (a)'s {k_a} alive blocks",
+        lambda: fused_scan.fused_scan(*s_args),
+        lambda: scan.fused_scan(*s_args), scan_bound(k_a, ids_a, nblk_a),
+        200)]
+    ids_all = torch.arange(nb, dtype=torch.int32, device=dev)
+    nblk_all = torch.tensor([nb], dtype=torch.int32, device=dev)
+    s_all = (cols, qbuf, q, ids_all, nblk_all, bsz, "count")
+    scans.append(_time_kernel(
+        f"fused_scan count over all {nb} blocks",
+        lambda: fused_scan.fused_scan(*s_all),
+        lambda: scan.fused_scan(*s_all), scan_bound(nb, ids_all, nblk_all),
+        20))
+    plan_b = planner.plan(Q_POLY)
+    prog_b = compiled.Program(plan_b, "count_refine", unc_cap=4096,
+                              refine=compiled.refine_spec(plan_b))
+    ids_b, _, nblk_b = prog_b._gate()
+    k_b = int(nblk_b[0])
+    m_args = (cols, prog_b.qbuf, prog_b.query, ids_b, nblk_b, bsz, "mask")
+    scans.append(_time_kernel(
+        f"fused_scan mask at (b)'s {k_b} alive blocks",
+        lambda: fused_scan.fused_scan(*m_args),
+        lambda: scan.fused_scan(*m_args),
+        _bound(16 * k_b * bsz + 4 * k_b + k_b * bsz + 4, 4 * k_b * bsz),
+        100, cut=lambda r: (r[0][: k_b * bsz], r[1])))
+    out["fused_scan"] = scans
+
+    # the compaction at (c)'s certain hits, through the gate's starts
+    plan_c = planner.plan(Q_POLY)
+    sel = compiled._tier(None)
+    prog_c = compiled.Program(plan_c, "select_refine", sel_cap=sel,
+                              unc_cap=4096,
+                              refine=compiled.refine_spec(plan_c))
+    m_c, nblk_c, starts_c = prog_c._candidates()
+    hit, _ = pip.pip_refine(cols["xf"], cols["yf"], prog_c.edges,
+                            mask=m_c, starts=starts_c, bsz=bsz,
+                            n_edges=prog_c.n_edges, n_blocks=nblk_c)
+    k_c = int(nblk_c[0])
+    c_args = (hit, sel, n)
+    c_kw = dict(starts=starts_c, bsz=bsz, n_blocks=nblk_c)
+    live = hit[: k_c * bsz]
+    comps = [_time_kernel(
+        f"ordered_compact at (c)'s certain hits ({k_c} blocks, cap {sel})",
+        lambda: compact.ordered_compact(*c_args, **c_kw),
+        lambda: scan.ordered_compact(*c_args, **c_kw),
+        _bound(k_c * bsz + 8 * k_c + 4 * sel + 4, 0), 100,
+        library=lambda: torch.nonzero(live))]
+    big = torch.from_numpy(np.random.default_rng(21).random(KERNEL_N)
+                           < 0.1).to(dev)
+    cap = 1 << 16
+    comps.append(_time_kernel(
+        f"ordered_compact over {KERNEL_N} candidates (10% set, cap {cap})",
+        lambda: compact.ordered_compact(big, cap, n),
+        lambda: scan.ordered_compact(big, cap, n),
+        _bound(KERNEL_N + 4 * cap + 4, 0), 50,
+        library=lambda: torch.nonzero(big)))
+    out["ordered_compact"] = comps
+    del big, hit, live
     torch.cuda.empty_cache()
     return out
 
@@ -1344,7 +1566,7 @@ def phase_serving(store, oracle) -> dict:
     Returns the measurements and (g3)'s dispatch inputs."""
     import torch
     from geomesa_tpu_torch.index import compiled, prune, scan
-    from geomesa_tpu_torch.kernels import box_count
+    from geomesa_tpu_torch.kernels import box_count, fused_scan, gate
     from geomesa_tpu_torch.serve.scheduler import (PlannerBinding,
                                                    QueryScheduler)
 
@@ -1359,6 +1581,9 @@ def phase_serving(store, oracle) -> dict:
     pq = planner.prepare(Q_BOX)
     r["g1_handle"] = type(pq).__name__
     r["g1_fused"] = getattr(pq, "_fused", None) is not None
+    if not r["g1_fused"]:
+        raise AssertionError(f"(g1) prepared {r['g1_handle']} is not the "
+                             "fused program")
     ts = []
     for _ in range(REPS + 1):
         t0 = time.perf_counter()
@@ -1373,7 +1598,8 @@ def phase_serving(store, oracle) -> dict:
 
     pipeline()
     sync()
-    syncs, d0 = scan.ROUNDS.syncs, scan.ROUNDS.dispatches
+    d0 = scan.ROUNDS.dispatches
+    l0 = (gate.block_gate.launches, fused_scan.fused_scan.launches)
     t0 = time.perf_counter()
     total = pipeline().numpy()
     wall = time.perf_counter() - t0
@@ -1381,8 +1607,27 @@ def phase_serving(store, oracle) -> dict:
         raise AssertionError(f"(g1) pipelined counts {set(total.tolist())} "
                              f"!= oracle {want}")
     r["g1_pipelined_per_query_ms"] = wall * 1e3 / 64
-    r["g1_pipelined_host_syncs_per_query"] =         (scan.ROUNDS.syncs - syncs) / 64
     r["g1_pipelined_readbacks"] = scan.ROUNDS.dispatches - d0
+    r["g1_pipelined_launches"] = {
+        "block_gate": gate.block_gate.launches - l0[0],
+        "fused_scan": fused_scan.fused_scan.launches - l0[1]}
+    if min(r["g1_pipelined_launches"].values()) < 64:
+        raise AssertionError(f"(g1) 64 count_async calls launched "
+                             f"{r['g1_pipelined_launches']}: each must "
+                             "launch block_gate and fused_scan")
+    # host syncs, by CUDA's sync debug mode around the 64 calls (apart
+    # from the timed run: the check slows the host)
+    sync()
+    with scan.host_syncs("cuda") as hs:
+        futs = [pq.count_async() for _ in range(64)]
+    total = torch.stack(futs).cpu().numpy()
+    if not (total == want).all():
+        raise AssertionError(f"(g1) counts {set(total.tolist())} under the "
+                             f"sync check != oracle {want}")
+    r["g1_pipelined_host_syncs_per_query"] = hs.count / 64
+    if hs.count:
+        raise AssertionError(f"(g1) count_async made {hs.count} host syncs "
+                             "in 64 calls; the fused program makes none")
 
     # (g2) never-seen boxes: prepare (the recipe fast path after the
     # shape's first query) + blocking count, end to end
@@ -2535,7 +2780,21 @@ def phase_profile(store, extra=()) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for label, fn in (*queries(store), *extra):
+    from geomesa_tpu_torch.index import scan
+
+    runs = (*queries(store), *extra)
+    # host syncs inside each query, by CUDA's sync debug mode, in runs of
+    # their own before any profile (the check slows the host); a pinned
+    # readback's event wait is not one
+    syncs = {}
+    for label, fn in runs:
+        fn()
+        torch.cuda.synchronize()
+        with scan.host_syncs("cuda") as hs:
+            fn()
+        torch.cuda.synchronize()
+        syncs[label] = hs.count
+    for label, fn in runs:
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2560,6 +2819,7 @@ def phase_profile(store, extra=()) -> None:
             "query": label, "wall_ms_profiled": wall_ms,
             "device_busy_ms": busy_ms, "device_activities": len(kernels),
             "idle_share": 1.0 - busy_ms / wall_ms,
+            "host_syncs_inside": syncs[label],
             "index_select": len(gathers),
             "index_select_float": float_gathers,
             "top": [[k[:60], v] for k, v in top5]}}))
@@ -2577,6 +2837,7 @@ def main() -> int:
     d = phase_density_kernel(store)
     b = phase_box_count_kernel(store, g)
     t = phase_dist_kernel(store)
+    fk = phase_fused_kernels(store)
     phase_profile(store, (("g1_prepared_count", g["pq"].count),
                           ("g3_batch64_dispatch", g["disp"]),
                           *filter_queries(store)))
@@ -2584,7 +2845,8 @@ def main() -> int:
     mk = phase_extent_kernels(m.pop("m1_state"))
     w = phase_write(store, g_oracle)
     import torch
-    from geomesa_tpu_torch.kernels import (box_count, density, dist, merge,
+    from geomesa_tpu_torch.kernels import (box_count, compact, density,
+                                           dist, fused_scan, gate, merge,
                                            pip, seg_band)
     head = d[0]   # (d)'s own inputs, 64x64, unit weights
     bhead = b[0]  # (g3)'s batch over the union of its covers
@@ -2628,7 +2890,17 @@ def main() -> int:
         "ms": mk["seg_band"][0]["ms"],
         "plain_ms": mk["seg_band"][0]["plain_ms"],
         "bound_ms": mk["seg_band"][0]["bound_ms"],
-        "bound_by": mk["seg_band"][0]["bound_by"], "library_ms": None}]}))
+        "bound_by": mk["seg_band"][0]["bound_by"], "library_ms": None}] + [{
+        "name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
+        "replaces": mod.REPLACES,
+        "launches": launches[mod.NAME] + f[mod.NAME],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+        "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
+        "library_ms": rows[0]["library_ms"]}
+        for mod, rows in ((gate, [fk["block_gate"]]),
+                          (fused_scan, fk["fused_scan"]),
+                          (compact, fk["ordered_compact"]))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

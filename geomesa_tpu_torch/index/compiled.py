@@ -5,30 +5,39 @@ For a point_boxes plan the program
 
 1. gates the table's gather blocks against per-block f32 summaries of the
    coordinates and time bins (a slack-expanded superset: the exact masks
-   re-apply to every gathered row);
-2. takes the pruned branch — gather the alive blocks, with a membership
-   mask for the clamped last block — when at most ``cap`` blocks are alive,
-   else masks the full table (the reference's ``lax.cond(n_alive <= cap)``);
-3. applies the exact fp62 box mask, the exact time windows and the lowered
-   residual;
-4. counts, or compacts row positions into a fixed-capacity result; in
-   the refine modes classifies the masked candidate rows (certain hit /
+   re-apply to every candidate row) and lists the alive blocks in
+   ascending order with their count, on the device (the ``block_gate``
+   CUDA kernel);
+2. scans every candidate of those blocks in place, whatever their number
+   — the gate is a proven superset, so these are the rows of the
+   reference's pruned branch and of its full-table branch alike, in the
+   same order, and no branch is chosen — with the exact fp62 box mask,
+   the exact time windows and the residual lowered to a postfix program
+   (the ``fused_scan`` CUDA kernel);
+3. counts, or compacts the scan's mask into row positions of a
+   fixed-capacity result (the ``ordered_compact`` CUDA kernel); in the
+   refine modes classifies the masked candidate rows (certain hit /
    uncertain) by the plan's refine kind: against a polygon with the
    ``pip_refine`` CUDA kernel, or against a circle with the
-   ``dist_refine`` CUDA kernel; in the density mode scatters them onto a
-   raster with the ``grid_scatter`` CUDA kernel. The kernels read the
-   candidates' coordinates through the gathered blocks' starts.
+   ``dist_refine`` CUDA kernel, then compacts the hits and the uncertain
+   rows in order (the ``ordered_compact`` CUDA kernel); in the density
+   mode scatters them onto a raster with the ``grid_scatter`` CUDA
+   kernel. Every kernel after the gate reads the block count on the
+   device and stops there, so nothing is sized by a value read back and
+   the program makes no host sync (``scan.host_syncs`` counts none).
 
 The uncertain sliver re-evaluates on the host in exact f64. An OR whose
 branches are all device-exact on one index runs as one ``UnionProgram``:
-the branch gates and masks OR on the device (select and density modes).
+the branch gates and masks OR inside the same kernels (select and
+density modes).
 
 Prepared counts (``planner.prepare``) register each filter shape's outcome
 in a per-planner recipe cache; a repeat shape with new values binds them
 straight into a count ``Program`` (``fast_prepare``: no ``planner.plan()``,
 no range cover), as the reference's recipe fast path does. PyTorch runs
 eagerly, so where the reference rebinds a packed constant vector into a
-compiled program, the port builds a ``Program`` from the bound values.
+compiled program, the port packs the bound values into one buffer
+(``scan.FusedQuery``) and builds a ``Program`` over it.
 
 Modes: ``count``, ``select``, ``count_refine``, ``select_refine``,
 ``density`` (a union program: ``select``, ``density``). The results are
@@ -38,12 +47,12 @@ int32 count.
 
 The ``try_*`` entry points return None for every plan the reference's
 ``_from_plan`` declines (the fused switch off, no spatial box, a host
-residual other than a refine kind, a table under four blocks); the planner
-then runs the staged path (``index/scan.py`` ``ScanKernels``).
-
-Choosing the branch and compacting synchronize with the host once each
-(``torch.nonzero`` and the alive count); the reference does neither. A
-sync-free compaction is ROADMAP.md Queue 2, item 4.
+residual other than a refine kind, a table under four blocks), and for a
+residual nested deeper than the kernel's program stack
+(``scan.MAX_PROGRAM_DEPTH``) or residuals that read more columns than the
+kernel holds (``kernels.fused_scan.MAX_SLOTS``); the planner then runs the staged path
+(``index/scan.py`` ``ScanKernels``). Their results read back through
+pinned memory (``scan._fetch``).
 """
 
 from __future__ import annotations
@@ -67,15 +76,17 @@ from geomesa_tpu_torch.filter.extract import extract_bboxes, extract_intervals
 from geomesa_tpu_torch.filter.geom_numpy import literal_segments
 from geomesa_tpu_torch.index import prune as _prune
 from geomesa_tpu_torch.index.api import IndexScanPlan, UnionScanPlan
-from geomesa_tpu_torch.index.scan import (EDGE_PAD, ROUNDS, Unsupported,
-                                          _compact, _dev, _fetch, _time_mask,
+from geomesa_tpu_torch.index.scan import (EDGE_PAD, FusedQuery, Residual,
+                                          Unsupported, _dev, _fetch,
                                           compile_residual, dist_bounds,
-                                          expand_blocks, pad_boxes,
-                                          pad_windows, point_boxes,
+                                          pad_boxes, pad_windows,
                                           split_residual)
 from geomesa_tpu_torch.index.spatial import _boxes_fp62, _strip_handled
+from geomesa_tpu_torch.kernels.compact import ordered_compact
 from geomesa_tpu_torch.kernels.density import grid_scatter
 from geomesa_tpu_torch.kernels.dist import dist_refine
+from geomesa_tpu_torch.kernels.fused_scan import MAX_SLOTS, fused_scan
+from geomesa_tpu_torch.kernels.gate import block_gate
 from geomesa_tpu_torch.kernels.pip import pip_refine
 from geomesa_tpu_torch.metrics import REGISTRY
 from geomesa_tpu_torch.serve.resilience import deadline as _rdl
@@ -90,6 +101,12 @@ _GATE_SLACK = np.float32(1e-3)
 _SELECT_TIERS = (1 << 10, 1 << 13, 1 << 16, 1 << 19, 1 << 22)
 
 _UNC_CAP = 4096  # refine-mode uncertain-row capacity (regrows past it)
+
+# the packed query constants (boxes, gates, windows, residual programs) sit
+# in a kernel's shared memory: a query past this serves staged
+QUERY_MAX_BYTES = 96 * 1024
+
+_REFINE_MODES = ("count_refine", "select_refine")
 
 _I32_MIN = -(1 << 31) + 1
 _I32_MAX = (1 << 31) - 1
@@ -227,25 +244,11 @@ def real_edges(edges: np.ndarray) -> int:
     return n
 
 
-def _alive_of(summ: dict, g: torch.Tensor,
-              windows: Optional[torch.Tensor]) -> torch.Tensor:
-    """Blocks the gate envelopes ``g`` (and the time windows) can touch."""
-    alive = ((summ["bxmax"][:, None] >= g[None, :, 0])
-             & (summ["bxmin"][:, None] <= g[None, :, 2])
-             & (summ["bymax"][:, None] >= g[None, :, 1])
-             & (summ["bymin"][:, None] <= g[None, :, 3])).any(dim=1)
-    if windows is not None and "binmin" in summ:
-        blo, bhi = windows[:, 0], windows[:, 2]
-        alive = alive & ((blo <= bhi)[None, :]
-                         & (summ["binmin"][:, None] <= bhi[None, :])
-                         & (summ["binmax"][:, None] >= blo[None, :])).any(dim=1)
-    return alive
-
-
 class Program:
     """The fused program of one plan in one mode (≙ the reference's
-    ``_jit_program``), with its constants on the table's device. ``run()``
-    returns the reference program's result:
+    ``_jit_program``), with its constants packed into one device buffer
+    (``scan.FusedQuery``). ``run()`` returns the reference program's
+    result, on the device, with no host sync on the way:
 
     - ``count``: int32 [count]
     - ``select``: int32 [count, positions × sel_cap]
@@ -256,8 +259,9 @@ class Program:
     - ``density``: ((height, width) f32 grid over ``grid`` = [xmin, ymin,
       xmax, ymax], 0-d int32 count of the masked rows)
 
-    Positions index the table's sorted rows, ascending, padded with n.
-    """
+    Positions index the table's sorted rows, ascending, padded with n. The
+    candidates are the alive blocks in ascending order, whatever their
+    number (see the module's note on the branch)."""
 
     def __init__(self, plan: IndexScanPlan, mode: str, sel_cap: int = 0,
                  unc_cap: int = 0, refine: Optional[tuple] = None,
@@ -270,32 +274,25 @@ class Program:
     @classmethod
     def of_values(cls, index, mode: str, boxes: np.ndarray, gate: np.ndarray,
                   windows: Optional[np.ndarray],
-                  residual: Optional[tuple]) -> "Program":
+                  residual: Optional[Residual]) -> "Program":
         """The program of already-bound query values — pow2-padded fp62
         ``boxes``, their (B, 4) f32 block ``gate``, pow2-padded
-        ``windows`` and the compiled device residual ``(key, params, fn)``
-        — built without a plan (the recipe fast path's rebind)."""
+        ``windows`` and the compiled device ``residual`` — built without a
+        plan (the recipe fast path's rebind)."""
         prog = cls.__new__(cls)
         prog._bind(index, mode, boxes, gate, windows, residual)
         return prog
 
     def _bind(self, index, mode: str, boxes: np.ndarray, gate: np.ndarray,
-              windows: Optional[np.ndarray], residual: Optional[tuple],
+              windows: Optional[np.ndarray], residual: Optional[Residual],
               sel_cap: int = 0, unc_cap: int = 0,
               refine: Optional[tuple] = None, grid=None, width: int = 0,
               height: int = 0) -> None:
-        self._bind_common(index, mode, sel_cap, grid, width, height)
+        self._bind_common(index, mode, sel_cap, grid, width, height,
+                          [(boxes, gate, windows, residual)])
         self.unc_cap = unc_cap
-        dev = index.device.device
-        self.boxes = _dev(boxes, dev)
-        self.gate = _dev(gate, dev)
-        self.windows = _dev(windows, dev)
         self.res_key = residual[0] if residual is not None else "none"
-        self.res_fn = None
-        self.res_params = []
-        if residual is not None:
-            _, params, self.res_fn = residual
-            self.res_params = [_dev(p, dev) for p in params]
+        dev = index.device.device
         self.refine = None if refine is None else refine[0]
         self.edges = self.n_edges = self.dist = None
         if self.refine == "pip":
@@ -306,84 +303,89 @@ class Program:
             self.dist = dist_bounds(refine[1])
 
     def _bind_common(self, index, mode: str, sel_cap: int, grid, width: int,
-                     height: int) -> None:
+                     height: int, branches) -> None:
+        """Binds what every program has; ``branches`` are (boxes, gate,
+        windows, residual) and pack into the one query buffer. Raises
+        Unsupported when a residual has no program, the residuals read more
+        columns than ``fused_scan.MAX_SLOTS`` or the buffer is past
+        ``QUERY_MAX_BYTES`` (the caller serves the plan staged)."""
         self.index = index
         self.mode = mode
         self.sel_cap = sel_cap
         self.n = index.device.n
         self.bsz = int(_prune.BLOCK_SIZE)
-        nb = -(-self.n // self.bsz)
-        self.cap = min(_pow2(max(4, int(np.ceil(
-            nb * float(_prune.PRUNE_MAX_FRACTION))))), _pow2(nb))
+        progs = []
+        for boxes, gate, windows, res in branches:
+            if res is not None and res.program is None:
+                raise Unsupported("residual deeper than the program stack")
+            progs.append((boxes, gate, windows,
+                          None if res is None else res.program))
+        self.query = FusedQuery(progs)
+        if len(self.query.slots) > MAX_SLOTS:
+            raise Unsupported(f"residuals read {len(self.query.slots)} "
+                              f"columns, past the kernel's {MAX_SLOTS}")
+        if len(self.query.packed) > QUERY_MAX_BYTES:
+            raise Unsupported("query constants past the kernels' shared "
+                              "memory")
+        dev = index.device.device
+        self.qbuf = _dev(self.query.packed, dev)
         # the raster's bbox rounds f64 → f32 as the reference stages it
         self.grid = None if grid is None \
-            else _dev(np.asarray(grid, dtype=np.float32), index.device.device)
+            else _dev(np.asarray(grid, dtype=np.float32), dev)
         self.width = width
         self.height = height
 
-    def _mask(self, c) -> torch.Tensor:
-        m = point_boxes(c, self.boxes)
-        if self.windows is not None:
-            m = m & _time_mask(c, self.windows)
-        if self.res_fn is not None:
-            m = m & self.res_fn(c, self.res_params)
-        return m
-
-    def _alive(self) -> torch.Tensor:
-        return _alive_of(block_summaries(self.index, self.bsz), self.gate,
-                         self.windows)
+    def _gate(self):
+        """(ids, starts, n_blocks) of the alive blocks (``block_gate``)."""
+        return block_gate(block_summaries(self.index, self.bsz), self.qbuf,
+                          self.query, self.n, self.bsz)
 
     def _candidates(self):
-        """(mask, rowids, starts) of the candidate rows: the pruned branch's
-        gathered blocks when few enough are alive (candidate i is row
-        ``starts[i // bsz] + i % bsz``), else the full table (rowids and
-        starts None)."""
-        cols = self.index.device.columns
-        n, bsz = self.n, self.bsz
-        if n >= 4 * bsz:
-            alive = self._alive()
-            # host sync: the branch choice of the reference's lax.cond
-            ROUNDS.syncs += 1
-            if int(alive.sum()) <= self.cap:
-                bids = torch.nonzero(alive).flatten()
-                membership, rows, astart, g = expand_blocks(cols, bids, bsz, n)
-                return self._mask(g) & membership, rows, astart
-        # tiny tables (under 4 blocks) and overfull gates: the full mask
-        return self._mask(cols), None, None
+        """(mask, n_blocks, starts): the match flag of every candidate of
+        the alive blocks (candidate i is row ``starts[i // bsz] + i %
+        bsz``), for the first ``n_blocks`` blocks; past them the flags are
+        not written on the card (and 0 on the CPU)."""
+        ids, starts, nblk = self._gate()
+        m, _ = fused_scan(self.index.device.columns, self.qbuf, self.query,
+                          ids, nblk, self.bsz, "mask")
+        return m, nblk, starts
 
     def run(self):
-        m, rowids, starts = self._candidates()
-        n = self.n
         cols = self.index.device.columns
-        if self.mode == "density":
-            return grid_scatter(cols["xf"], cols["yf"], m, None, starts,
-                                self.bsz, self.grid, self.width, self.height)
-        count = m.sum(dtype=torch.int32).reshape(1)
+        n, bsz = self.n, self.bsz
         if self.mode == "count":
-            return count
+            ids, _, nblk = self._gate()
+            return fused_scan(cols, self.qbuf, self.query, ids, nblk, bsz,
+                              "count")
+        m, nblk, starts = self._candidates()
         if self.mode == "select":
-            ROUNDS.syncs += 1   # torch.nonzero
-            return torch.cat([count, _compact(m, rowids, self.sel_cap, n)])
-        if self.mode not in ("count_refine", "select_refine"):
+            out = torch.empty(1 + self.sel_cap, dtype=torch.int32,
+                              device=m.device)
+            ordered_compact(m, self.sel_cap, n, starts=starts, bsz=bsz,
+                            n_blocks=nblk, count_out=out[0:1],
+                            rows_out=out[1:])
+            return out
+        if self.mode == "density":
+            return grid_scatter(cols["xf"], cols["yf"], m, None, starts, bsz,
+                                self.grid, self.width, self.height,
+                                n_blocks=nblk)
+        if self.mode not in _REFINE_MODES:
             raise ValueError(self.mode)
+        kw = dict(mask=m, starts=starts, bsz=bsz, n_blocks=nblk)
         if self.refine == "dist":
-            # the kernel's launch also gives the counts
-            hit, unc, counts = dist_refine(cols["xf"], cols["yf"], self.dist,
-                                           mask=m, starts=starts,
-                                           bsz=self.bsz)
-            parts = [counts]
+            hit, unc, _ = dist_refine(cols["xf"], cols["yf"], self.dist, **kw)
         else:
-            hit, unc = pip_refine(cols["xf"], cols["yf"], self.edges, mask=m,
-                                  starts=starts, bsz=self.bsz,
-                                  n_edges=self.n_edges)
-            parts = [hit.sum(dtype=torch.int32).reshape(1),
-                     unc.sum(dtype=torch.int32).reshape(1)]
-        if self.mode == "select_refine":
-            parts.append(_compact(hit, rowids, self.sel_cap, n))
-            ROUNDS.syncs += 1   # torch.nonzero
-        parts.append(_compact(unc, rowids, self.unc_cap, n))
-        ROUNDS.syncs += 1   # torch.nonzero
-        return torch.cat(parts)
+            hit, unc = pip_refine(cols["xf"], cols["yf"], self.edges,
+                                  n_edges=self.n_edges, **kw)
+        sel = self.sel_cap if self.mode == "select_refine" else 0
+        out = torch.empty(2 + sel + self.unc_cap, dtype=torch.int32,
+                          device=m.device)
+        kw = dict(starts=starts, bsz=bsz, n_blocks=nblk)
+        ordered_compact(hit, sel, n, count_out=out[0:1],
+                        rows_out=out[2: 2 + sel], **kw)
+        ordered_compact(unc, self.unc_cap, n, count_out=out[1:2],
+                        rows_out=out[2 + sel:], **kw)
+        return out
 
 
 class UnionProgram(Program):
@@ -392,46 +394,19 @@ class UnionProgram(Program):
     in ``select`` or ``density`` mode, with ``Program``'s results. A block
     is alive when any branch's gate touches it; a row matches when any
     branch's boxes, windows and device residual hold, so rows that two
-    branches share count once."""
+    branches share count once. The branches pack into one query buffer,
+    and the kernels OR them per candidate."""
 
     def __init__(self, plan: UnionScanPlan, mode: str, sel_cap: int = 0,
                  grid=None, width: int = 0, height: int = 0):
         index = plan.same_index_device_exact()
-        self._bind_common(index, mode, sel_cap, grid, width, height)
-        dev = index.device.device
-        self.branches = []
-        for _, bp in plan.branches:
-            res = bp.residual_device
-            self.branches.append((
-                _dev(bp.boxes_loose, dev),
-                _dev(_gate_of(bp.explain["boxes"], len(bp.boxes_loose)), dev),
-                _dev(bp.windows, dev),
-                None if res is None else (res[2], [_dev(p, dev)
-                                                   for p in res[1]])))
-
-    def _mask(self, c) -> torch.Tensor:
-        m = None
-        for boxes, _, windows, res in self.branches:
-            bm = point_boxes(c, boxes)
-            if windows is not None:
-                bm = bm & _time_mask(c, windows)
-            if res is not None:
-                bm = bm & res[0](c, res[1])
-            m = bm if m is None else (m | bm)
-        return m
-
-    def _alive(self) -> torch.Tensor:
-        summ = block_summaries(self.index, self.bsz)
-        alive = None
-        for _, gate, windows, _ in self.branches:
-            a = _alive_of(summ, gate, windows)
-            alive = a if alive is None else (alive | a)
-        return alive
+        self._bind_common(index, mode, sel_cap, grid, width, height, [
+            (bp.boxes_loose,
+             _gate_of(bp.explain["boxes"], len(bp.boxes_loose)),
+             bp.windows, bp.residual_device) for _, bp in plan.branches])
 
 
 # -- qualification and execution ----------------------------------------------
-
-_REFINE_MODES = ("count_refine", "select_refine")
 
 
 def _from_plan(plan: IndexScanPlan, mode: str, capacity: Optional[int] = None,
@@ -460,8 +435,11 @@ def _from_plan(plan: IndexScanPlan, mode: str, capacity: Optional[int] = None,
         return None  # tiny tables: the staged full mask is already one pass
     sel_cap = min(_tier(capacity), _pow2(n)) \
         if mode in ("select", "select_refine") else 0
-    return Program(plan, mode, sel_cap=sel_cap, unc_cap=unc_cap,
-                   refine=refine, grid=grid, width=width, height=height)
+    try:
+        return Program(plan, mode, sel_cap=sel_cap, unc_cap=unc_cap,
+                       refine=refine, grid=grid, width=width, height=height)
+    except Unsupported:
+        return None
 
 
 def _fallback() -> None:
@@ -507,7 +485,7 @@ def try_select(planner, plan: IndexScanPlan,
             _fallback()
             return None
         _dispatched()
-        out = _fetch(prog.run).cpu().numpy()
+        out = _fetch(prog.run).numpy()
         cnt = int(out[0])
         if cnt <= prog.sel_cap:
             return out[1: 1 + cnt].astype(np.int64)
@@ -527,7 +505,7 @@ def try_count_refine(planner, plan: IndexScanPlan) -> Optional[int]:
             _fallback()
             return None
         _dispatched()
-        out = _fetch(prog.run).cpu().numpy()
+        out = _fetch(prog.run).numpy()
         certain, n_unc = int(out[0]), int(out[1])
         if n_unc <= unc_cap:
             break
@@ -553,7 +531,7 @@ def try_select_refine(planner, plan: IndexScanPlan,
             _fallback()
             return None
         _dispatched()
-        out = _fetch(prog.run).cpu().numpy()
+        out = _fetch(prog.run).numpy()
         n_in, n_unc = int(out[0]), int(out[1])
         if n_in > prog.sel_cap:
             capacity = _pow2(n_in)
@@ -584,7 +562,7 @@ def try_density(planner, plan: IndexScanPlan, grid_bbox, width: int,
         return None
     _dispatched()
     grid, cnt = _fetch(prog.run)
-    return grid.cpu().numpy(), int(cnt)
+    return grid.numpy(), int(cnt)
 
 
 def _union_from_plan(planner, plan: UnionScanPlan, mode: str, auths,
@@ -607,8 +585,11 @@ def _union_from_plan(planner, plan: UnionScanPlan, mode: str, auths,
             return None
     sel_cap = min(_tier(capacity), _pow2(idx.device.n)) \
         if mode == "select" else 0
-    return UnionProgram(plan, mode, sel_cap=sel_cap, grid=grid, width=width,
-                        height=height)
+    try:
+        return UnionProgram(plan, mode, sel_cap=sel_cap, grid=grid,
+                            width=width, height=height)
+    except Unsupported:
+        return None
 
 
 def try_union_select(planner, plan: UnionScanPlan, auths,
@@ -623,7 +604,7 @@ def try_union_select(planner, plan: UnionScanPlan, auths,
             _fallback()
             return None
         _dispatched()
-        out = _fetch(prog.run).cpu().numpy()
+        out = _fetch(prog.run).numpy()
         cnt = int(out[0])
         if cnt <= prog.sel_cap:
             return np.sort(prog.index.map_rows(
@@ -643,7 +624,7 @@ def try_union_density(planner, plan: UnionScanPlan, auths, grid_bbox,
         return None
     _dispatched()
     grid, cnt = _fetch(prog.run)
-    return grid.cpu().numpy(), int(cnt)
+    return grid.numpy(), int(cnt)
 
 
 # -- shape-keyed recipe fast path (skip planning entirely) --------------------
@@ -840,11 +821,13 @@ def _rebind(recipe: Recipe, boxes, gate, windows, dev_ir) -> Optional[Program]:
         residual = compile_residual(dev_ir, recipe.sft, recipe.vocabs,
                                     set(index.device.columns)) \
             if dev_ir is not None else None
+        if (residual[0] if residual is not None else "none") \
+                != recipe.res_key:
+            return None   # structure drift: stay on the planner's path
+        return Program.of_values(index, "count", boxes, gate, windows,
+                                 residual)
     except Unsupported:
         return None
-    if (residual[0] if residual is not None else "none") != recipe.res_key:
-        return None   # structure drift: stay on the planner's path
-    return Program.of_values(index, "count", boxes, gate, windows, residual)
 
 
 class FusedPrepared:
@@ -869,8 +852,8 @@ class FusedPrepared:
     def count_async(self):
         """Dispatch → 0-d int32 device tensor (None for empty binds): the
         same contract as PreparedQuery.count_async. The fused program
-        syncs with the host once inside (its branch choice), so the call
-        returns after the gate's readback, not at once."""
+        makes no host sync, so the call returns once its kernels are
+        queued."""
         if self._prog is None:
             return None
         with _trace.span("device_scan", kind="device_scan"):

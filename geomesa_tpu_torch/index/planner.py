@@ -408,9 +408,9 @@ class PreparedQuery:
         return self._count_disp is not None
 
     def count_async(self):
-        """Dispatch → 0-d int32 count (None for empty plans). The fused
-        program syncs with the host once inside (its branch choice), so a
-        fused count returns after that readback, not at once."""
+        """Dispatch → 0-d int32 count (None for empty plans), on the
+        device for the fused and the staged programs: no readback and no
+        host sync, so the call returns once the kernels are queued."""
         if self._count_disp is None:
             if self.plan.empty:
                 return None

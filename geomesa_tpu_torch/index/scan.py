@@ -3,7 +3,12 @@ functions.
 
 ≙ ``geomesa_tpu.index.scan``: the exact fp62 box mask of point layers and
 envelope-overlap mask of extent layers (``PRIMARY_FNS``), the exact
-binned-time window mask, the residual-predicate compiler, the
+binned-time window mask, the residual-predicate compiler (a torch closure
+and the same predicate as a postfix program, ``eval_program``), the fused
+program's block gate, candidate scan and ordered compaction (``block_gate``,
+``fused_scan`` and ``ordered_compact``, the plain versions of
+``kernels/csrc/block_gate.cu``, ``fused_scan.cu`` and
+``ordered_compact.cu``, over the packed ``FusedQuery``), the
 segment certainty band of single-segment line layers (``seg_band``, the
 plain version of ``kernels/csrc/seg_band.cu``), the certainty-band
 point-in-polygon classifier (``pip_band``) and the fused program's polygon
@@ -27,6 +32,7 @@ with a certainty band, and only the uncertain sliver refines on the host.
 from __future__ import annotations
 
 import functools
+import warnings
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -40,16 +46,13 @@ class _RoundLedger:
     """Process-wide count of host↔device rounds (≙ the reference's
     ``ROUNDS``): ``dispatches`` counts blocking readbacks (``_fetch``),
     ``uploads`` host-to-device copies of query constants (``_dev``).
-    ``syncs`` counts the host syncs the fused program makes inside one
-    dispatch (its branch choice and its compaction), which the reference's
-    single XLA program does not make."""
+    Host syncs inside a dispatch are measured by ``host_syncs``."""
 
-    __slots__ = ("dispatches", "uploads", "syncs")
+    __slots__ = ("dispatches", "uploads")
 
     def __init__(self):
         self.dispatches = 0
         self.uploads = 0
-        self.syncs = 0
 
     def snapshot(self):
         return (self.dispatches, self.uploads)
@@ -57,16 +60,97 @@ class _RoundLedger:
 
 ROUNDS = _RoundLedger()
 
+# the calls that make the host wait for the card: a tensor's value read
+# into Python, or an output whose size depends on the values
+_SYNC_CALLS = frozenset({
+    torch.Tensor.item, torch.Tensor.tolist, torch.Tensor.numpy,
+    torch.Tensor.__bool__, torch.Tensor.__int__, torch.Tensor.__float__,
+    torch.Tensor.__index__, torch.nonzero, torch.Tensor.nonzero,
+    torch.argwhere, torch.Tensor.argwhere, torch.masked_select,
+    torch.Tensor.masked_select, torch.unique, torch.Tensor.unique,
+    torch.unique_consecutive, torch.Tensor.unique_consecutive})
+# ... and these when a bool tensor indexes (a hidden nonzero)
+_MASK_INDEX = frozenset({torch.Tensor.__getitem__, torch.Tensor.__setitem__,
+                         torch.Tensor.index_put, torch.Tensor.index_put_})
+
+
+def _bool_index(idx) -> bool:
+    items = idx if isinstance(idx, (tuple, list)) else (idx,)
+    return any(isinstance(i, torch.Tensor) and i.dtype is torch.bool
+               for i in items)
+
+
+class _SyncCalls(torch.overrides.TorchFunctionMode):
+    def __init__(self, counter):
+        super().__init__()
+        self.counter = counter
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if (func in _SYNC_CALLS
+                or (func is torch.where and len(args) + len(kwargs or ()) == 1)
+                or (func in _MASK_INDEX and len(args) > 1
+                    and _bool_index(args[1]))):
+            self.counter.count += 1
+        return func(*args, **(kwargs or {}))
+
+
+# the warning of torch.cuda.set_sync_debug_mode("warn") (and only that one:
+# turning the mode on warns that it is a prototype, "synchronizing" too)
+_SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class host_syncs:
+    """Counts the host syncs that work on ``device`` makes inside a
+    ``with`` block, as ``count``. On the card it is CUDA's own check:
+    ``torch.cuda.set_sync_debug_mode`` makes the operations that wait for
+    the device warn (torch calls the mode a prototype that does not see
+    every such operation), and each warning counts (a wait on a CUDA
+    event, as ``Readback.host`` makes, is not one). On the CPU, where nothing waits,
+    it counts the calls that would wait on the card: a tensor's value read
+    into Python (``item``, ``bool``, ``int``, ``tolist``, ``numpy`` ...)
+    and the operations whose output size depends on the values
+    (``nonzero``, ``masked_select``, ``unique``, indexing by a bool mask).
+    For tests and measurements: on the CPU it slows every torch call."""
+
+    def __init__(self, device="cpu"):
+        self.cuda = torch.device(device).type == "cuda"
+        self.count = 0
+
+    def __enter__(self) -> "host_syncs":
+        self.count = 0
+        if self.cuda:
+            self._warns = warnings.catch_warnings(record=True)
+            self._seen = self._warns.__enter__()
+            warnings.simplefilter("always")
+            self._debug = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("warn")
+        else:
+            self._mode = _SyncCalls(self)
+            self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            torch.cuda.set_sync_debug_mode(self._debug)
+            self.count = sum(_SYNC_WARNING in str(w.message)
+                             for w in self._seen)
+            self._warns.__exit__(*exc)
+        else:
+            self._mode.__exit__(*exc)
+        return False
+
 
 def _host(t):
-    return t.cpu() if isinstance(t, torch.Tensor) else t
+    if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+        return Readback(t).host()
+    return t
 
 
 def _ready(out):
-    """A dispatch's result read back to the host: each tensor's copy waits
-    for the stream that computes it, and that wait is the only one (no
-    device-wide synchronise). Host values and CPU tensors pass as they
-    are."""
+    """A dispatch's result read back to the host: each device tensor copies
+    into pinned host memory (``Readback``) and waits for its stream's event
+    only (no device-wide synchronise). Host values and CPU tensors pass as
+    they are."""
     if isinstance(out, (tuple, list)):
         return type(out)(_host(t) for t in out)
     return _host(out)
@@ -81,11 +165,16 @@ def _fetch(dispatch, *args):
 
 
 def _dev(a, device) -> Optional[torch.Tensor]:
-    """A host array's copy on ``device`` (one upload in ``ROUNDS``)."""
+    """A host array's copy on ``device`` (one upload in ``ROUNDS``). To the
+    card it goes through pinned memory, queued on the current stream: the
+    host does not wait for the copy."""
     if a is None:
         return None
     ROUNDS.uploads += 1
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 class Readback:
@@ -106,10 +195,14 @@ class Readback:
         else:
             self._host = t
 
-    def wait(self) -> np.ndarray:
+    def host(self) -> torch.Tensor:
+        """The host tensor, once the copy is done."""
         if self._event is not None:
             self._event.synchronize()
-        return self._host.numpy()
+        return self._host
+
+    def wait(self) -> np.ndarray:
+        return self.host().numpy()
 
 # -- primary spatial/temporal masks -----------------------------------------
 
@@ -320,26 +413,44 @@ def seg_band(cols, boxes: torch.Tensor, windows: Optional[torch.Tensor],
     unc = m & ~hit & ~miss
     return torch.cat([hit.sum(dtype=torch.int32).reshape(1),
                       unc.sum(dtype=torch.int32).reshape(1),
-                      _compact(unc, rows, unc_cap, n)])
+                      _ordered(unc, unc_cap, rows, n)])
+
+
+def live_candidates(mask: Optional[torch.Tensor], ncand: int,
+                    n_blocks: Optional[torch.Tensor], bsz: Optional[int],
+                    device) -> Optional[torch.Tensor]:
+    """``mask`` limited to the candidates of the first ``n_blocks`` slots of
+    a block list (int32 (1,) on the device; None: every candidate), as the
+    kernels limit it: they read the count and stop there."""
+    if n_blocks is None:
+        return mask
+    live = (torch.arange(ncand, device=device)
+            < n_blocks.to(torch.int64) * bsz)
+    return live if mask is None else mask & live
 
 
 def pip_refine(xf: torch.Tensor, yf: torch.Tensor, edges: torch.Tensor,
                mask: Optional[torch.Tensor] = None,
                starts: Optional[torch.Tensor] = None,
-               bsz: Optional[int] = None, n_edges: Optional[int] = None):
+               bsz: Optional[int] = None, n_edges: Optional[int] = None,
+               n_blocks: Optional[torch.Tensor] = None):
     """(hit, uncertain) bool flags of the fused program's candidate rows
     against a polygon edge table: ``mask & cin`` and ``mask & ~cin & ~cout``
     over ``pip_band``'s flags (≙ the reference's ``refine_of`` for its
     ``pip`` kind). Candidate i is row ``starts[i // bsz] + i % bsz`` of
     ``xf``/``yf`` when block starts are given, else row i; ``mask=None``
     makes every candidate live; ``n_edges`` keeps only the table's first
-    rows (the rest ``EDGE_PAD`` filler, which changes no flag).
+    rows (the rest ``EDGE_PAD`` filler, which changes no flag); with
+    ``n_blocks`` (int32 (1,) on the device) only the first ``n_blocks``
+    slots' candidates are live, and the flags of the others are 0 here and
+    unwritten by the kernel.
 
     The plain PyTorch version of the ``pip_refine`` CUDA kernel: gather,
     classify, mask. The CPU path, and the kernel's yardstick on the card."""
     if starts is not None:
         rows = block_rows(starts, bsz)
         xf, yf = xf.index_select(0, rows), yf.index_select(0, rows)
+    mask = live_candidates(mask, xf.shape[0], n_blocks, bsz, xf.device)
     if n_edges is not None:
         edges = edges[:n_edges]
     cin, cout = pip_band(xf, yf, edges)
@@ -377,20 +488,23 @@ def dist_bounds(circle) -> DistBounds:
 def dist_refine(xf: torch.Tensor, yf: torch.Tensor, bounds: DistBounds,
                 mask: Optional[torch.Tensor] = None,
                 starts: Optional[torch.Tensor] = None,
-                bsz: Optional[int] = None):
+                bsz: Optional[int] = None,
+                n_blocks: Optional[torch.Tensor] = None):
     """(hit, uncertain) bool flags of the fused program's candidate rows
     against the circle of ``bounds`` (``dist_bounds`` of f32 [cx, cy, r];
     ≙ the reference's ``refine_of`` for its ``dist`` kind): with d =
     sqrt((x − cx)² + (y − cy)²) in f32, hit = d ≤ r − DIST_BAND and
     uncertain = not hit and not d ≥ r + DIST_BAND, both masked. Candidates
-    are read as in ``pip_refine``. Also int32 [hits, uncertain]: the flags'
-    sums, the first two words of the fused program's refine result.
+    are read (and limited by ``n_blocks``) as in ``pip_refine``. Also int32
+    [hits, uncertain]: the flags' sums, the first two words of the fused
+    program's refine result.
 
     The plain PyTorch version of the ``dist_refine`` CUDA kernel: gather,
     classify, mask. The CPU path, and the kernel's yardstick on the card."""
     if starts is not None:
         rows = block_rows(starts, bsz)
         xf, yf = xf.index_select(0, rows), yf.index_select(0, rows)
+    mask = live_candidates(mask, xf.shape[0], n_blocks, bsz, xf.device)
     cx, cy, lo, hi = (torch.tensor(v, dtype=torch.float32, device=xf.device)
                       for v in bounds)
     dx = xf - cx
@@ -420,23 +534,27 @@ def _grid_scatter(xs: torch.Tensor, ys: torch.Tensor, mask: torch.Tensor,
     clip(int(fx * W))). ``weight`` (int32 or f32) converts to f32 and adds
     in f32. None counts rows: the reference adds f32 ones one at a time, and
     such a sum stops at 2^24, so the counts are integers clamped there
-    (exact in any order, on any device)."""
+    (exact in any order, on any device). Rows that do not count land in
+    cells past the raster that are dropped, so no size depends on the mask
+    (spread over as many cells as the raster has, so that no one cell takes
+    every atomic add)."""
     xmin, ymin, xmax, ymax = grid[0], grid[1], grid[2], grid[3]
     fx = (xs - xmin) / (xmax - xmin)
     fy = (ys - ymin) / (ymax - ymin)
     inb = mask & (fx >= 0) & (fx < 1) & (fy >= 0) & (fy < 1)
     ix = (fx * width).to(torch.int32).clamp_(0, width - 1)
     iy = (fy * height).to(torch.int32).clamp_(0, height - 1)
-    cell = (iy.to(torch.int64) * width + ix)[inb]
+    cells = height * width
+    spill = cells + torch.arange(inb.shape[0], device=xs.device) % cells
+    cell = torch.where(inb, iy.to(torch.int64) * width + ix, spill)
     if weight is None:
-        out = torch.zeros(height * width, dtype=torch.int64, device=xs.device)
-        out.index_put_((cell,), torch.ones_like(cell), accumulate=True)
-        out = out.clamp_(max=UNIT_CLAMP).to(torch.float32)
+        out = torch.zeros(2 * cells, dtype=torch.int64, device=xs.device)
+        out.scatter_add_(0, cell, torch.ones_like(cell))
+        out = out[:cells].clamp_(max=UNIT_CLAMP).to(torch.float32)
     else:
-        out = torch.zeros(height * width, dtype=torch.float32,
-                          device=xs.device)
-        out.index_put_((cell,), weight.to(torch.float32)[inb],
-                       accumulate=True)
+        out = torch.zeros(2 * cells, dtype=torch.float32, device=xs.device)
+        out.scatter_add_(0, cell, weight.to(torch.float32))
+        out = out[:cells]
     return out.reshape(height, width)
 
 
@@ -450,12 +568,14 @@ def block_rows(starts: torch.Tensor, bsz: int) -> torch.Tensor:
 def grid_scatter(xf: torch.Tensor, yf: torch.Tensor, mask: torch.Tensor,
                  weight: Optional[torch.Tensor], starts: Optional[torch.Tensor],
                  bsz: Optional[int], grid: torch.Tensor, width: int,
-                 height: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                 height: int, n_blocks: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """((height, width) f32 grid, int32 count of masked candidates) of the
     candidate rows: row ``starts[i // bsz] + i % bsz`` of the table's
     ``xf``/``yf`` (and ``weight``) planes when block starts are given, else
-    row i. The count is every masked candidate, in the grid's bbox or not
-    (the reference's ``jnp.sum(m)``).
+    row i; with ``n_blocks`` only the first ``n_blocks`` slots' candidates
+    (as in ``pip_refine``). The count is every masked candidate, in the
+    grid's bbox or not (the reference's ``jnp.sum(m)``).
 
     The plain PyTorch version of the ``grid_scatter`` CUDA kernel: gather,
     snap, scatter-add. The CPU path, and the kernel's yardstick on the
@@ -465,6 +585,7 @@ def grid_scatter(xf: torch.Tensor, yf: torch.Tensor, mask: torch.Tensor,
         xf, yf = xf.index_select(0, rows), yf.index_select(0, rows)
         if weight is not None:
             weight = weight.index_select(0, rows)
+    mask = live_candidates(mask, xf.shape[0], n_blocks, bsz, xf.device)
     out = _grid_scatter(xf, yf, mask, weight, grid, width, height)
     return out, mask.sum(dtype=torch.int32)
 
@@ -567,52 +688,120 @@ class Unsupported(Exception):
 _EXACT_DEVICE_TYPES = {"Int", "Integer", "Boolean", "String", "Float"}
 
 
+# the residual as a postfix program of int32 words, the form the fused_scan
+# kernel evaluates: (op, slot, a, b) a word row; a stack of booleans
+OP_TRUE, OP_FALSE, OP_AND, OP_OR, OP_NOT, OP_CMP, OP_IN = range(7)
+# OP_CMP's a: the comparison; b: its constant's index in ``consts``.
+# OP_IN's a: its constants' first index; b: their count
+CMP_CODES = {"=": 0, "<>": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
+# slot kinds: an int32 column (Int, Integer, String codes), an f32 column
+# (Float, compared in f32) or a bool column (Boolean, compared as 0/1)
+SLOT_I32, SLOT_F32, SLOT_BOOL = 0, 1, 2
+# the kernel's stack is the bits of one 64-bit word
+MAX_PROGRAM_DEPTH = 64
+
+
+class ResidualProgram(NamedTuple):
+    """A lowered residual: (L, 4) int32 ``words``, int32 ``consts`` (f32
+    constants as their bits) and the column ``slots`` ((name, kind), ...)
+    that the words' slot numbers index; ``depth`` is the stack's most."""
+    words: np.ndarray
+    consts: np.ndarray
+    slots: tuple
+    depth: int
+
+
+class Residual(NamedTuple):
+    """A compiled device residual: its structure ``key``, its constants
+    ``params``, the torch closure ``fn(cols, params)`` and the same
+    predicate as a ``program`` (None when it is deeper than
+    ``MAX_PROGRAM_DEPTH``)."""
+    key: str
+    params: list
+    fn: Optional[Callable]
+    program: Optional[ResidualProgram]
+
+
 def compile_residual(f: Optional[ir.Filter], sft,
                      string_vocabs: Dict[str, list],
-                     available: Optional[set] = None):
-    """IR → (structure_key, params, fn(cols, params) -> bool mask).
+                     available: Optional[set] = None) -> Residual:
+    """IR → ``Residual(structure_key, params, fn(cols, params) -> bool
+    mask, program)``.
 
     The structure keys are the reference's (``scan.compile_residual`` and
     ``compiled._lower_residual``): ``=``/``<>``/``<``/``<=``/``>``/``>=``
     on Int/Float/Boolean columns, ``=``/``<>`` and ``IN`` on String
     dictionary codes, ``IN`` on Int, and AND/OR/NOT over them. ``params`` is
     a list of numpy constants (int32, or f32 for Float columns) that the
-    caller moves to the table's device; ``fn`` reads them by position.
-    Raises Unsupported for subtrees that must stay host-side, including
-    predicates on attributes outside the device columns (``available``).
+    caller moves to the table's device; ``fn`` reads them by position. The
+    same walk lowers the tree into a postfix ``ResidualProgram`` over the
+    same constants (``eval_program`` is its plain interpreter, the
+    ``fused_scan`` kernel runs it per candidate). Raises Unsupported for
+    subtrees that must stay host-side, including predicates on attributes
+    outside the device columns (``available``).
     """
     if f is None:
-        return "none", [], None
+        return Residual("none", [], None, None)
 
     def check_available(attr: str) -> None:
         if available is not None and attr not in available:
             raise Unsupported(f"{attr} not in the device column group")
 
     params: list = []
+    words: list = []
+    consts: list = []
+    slots: Dict[str, tuple] = {}
+    depth = [0, 0]   # now, most
 
     def const(v, dtype) -> int:
         params.append(np.asarray(v, dtype=dtype))
         return len(params) - 1
 
+    def emit(op: int, slot: int = 0, a: int = 0, b: int = 0) -> None:
+        words.append((op, slot, a, b))
+        depth[0] += {OP_AND: -1, OP_OR: -1, OP_NOT: 0}.get(op, 1)
+        depth[1] = max(depth[1], depth[0])
+
+    def slot_of(attr) -> int:
+        kind = SLOT_F32 if attr.type_name == "Float" else \
+            SLOT_BOOL if attr.type_name == "Boolean" else SLOT_I32
+        return slots.setdefault(attr.name, (len(slots), kind))[0]
+
+    def leaf(op: int, attr, cmp: int, i: int) -> None:
+        """A leaf's word over constant ``params[i]``."""
+        at = len(consts)
+        consts.extend(params[i].reshape(-1).view(np.int32).tolist())
+        if op == OP_CMP:
+            emit(OP_CMP, slot_of(attr), cmp, at)
+        else:
+            emit(OP_IN, slot_of(attr), at, len(consts) - at)
+
     def walk(node: ir.Filter) -> Tuple[str, Callable]:
         if isinstance(node, ir.Include):
+            emit(OP_TRUE)
             return "inc", lambda cols, p: torch.ones_like(
                 next(iter(cols.values())), dtype=torch.bool)
         if isinstance(node, ir.Exclude):
+            emit(OP_FALSE)
             return "exc", lambda cols, p: torch.zeros_like(
                 next(iter(cols.values())), dtype=torch.bool)
-        if isinstance(node, ir.And):
-            keys, fns = zip(*(walk(c) for c in node.children))
-            return "and(" + ",".join(keys) + ")", \
-                lambda cols, p, fns=fns: functools.reduce(
-                    torch.logical_and, [g(cols, p) for g in fns])
-        if isinstance(node, ir.Or):
-            keys, fns = zip(*(walk(c) for c in node.children))
-            return "or(" + ",".join(keys) + ")", \
-                lambda cols, p, fns=fns: functools.reduce(
-                    torch.logical_or, [g(cols, p) for g in fns])
+        if isinstance(node, (ir.And, ir.Or)):
+            op = OP_AND if isinstance(node, ir.And) else OP_OR
+            keys, fns = [], []
+            for j, c in enumerate(node.children):
+                k, g = walk(c)
+                keys.append(k)
+                fns.append(g)
+                if j:
+                    emit(op)
+            red = torch.logical_and if op == OP_AND else torch.logical_or
+            name = "and(" if op == OP_AND else "or("
+            return name + ",".join(keys) + ")", \
+                lambda cols, p, fns=tuple(fns), red=red: functools.reduce(
+                    red, [g(cols, p) for g in fns])
         if isinstance(node, ir.Not):
             k, g = walk(node.child)
+            emit(OP_NOT)
             return f"not({k})", lambda cols, p, g=g: ~g(cols, p)
         if isinstance(node, ir.Cmp):
             check_available(node.attr)
@@ -628,6 +817,7 @@ def compile_residual(f: Optional[ir.Filter], sft,
                 except ValueError:
                     code = -1  # matches nothing
                 i = const(code, np.int32)
+                leaf(OP_CMP, attr, CMP_CODES[node.op], i)
                 if node.op == "=":
                     return f"seq:{node.attr}", \
                         lambda cols, p, i=i, a=node.attr: cols[a] == p[i]
@@ -638,6 +828,7 @@ def compile_residual(f: Optional[ir.Filter], sft,
             dtype = np.float32 if attr.type_name == "Float" else np.int32
             i = const(node.value, dtype)
             op = node.op
+            leaf(OP_CMP, attr, CMP_CODES[op], i)
             cmp = {"=": torch.eq, "<>": torch.ne, "<": torch.lt,
                    "<=": torch.le, ">": torch.gt, ">=": torch.ge}[op]
             return f"cmp{op}:{node.attr}", \
@@ -658,6 +849,7 @@ def compile_residual(f: Optional[ir.Filter], sft,
             size = max(1, 1 << (len(codes) - 1).bit_length())
             padded = codes + [codes[-1]] * (size - len(codes))
             i = const(padded, np.int32)
+            leaf(OP_IN, attr, 0, i)
             return f"in{size}:{node.attr}", \
                 lambda cols, p, i=i, a=node.attr: torch.isin(cols[a], p[i])
         if isinstance(node, ir.During):
@@ -666,7 +858,53 @@ def compile_residual(f: Optional[ir.Filter], sft,
         raise Unsupported(type(node).__name__)
 
     key, fn = walk(f)
-    return key, params, fn
+    program = None
+    if depth[1] <= MAX_PROGRAM_DEPTH:
+        program = ResidualProgram(
+            np.asarray(words, dtype=np.int32).reshape(-1, 4),
+            np.asarray(consts, dtype=np.int32),
+            tuple((name, kind) for name, (_, kind) in slots.items()),
+            depth[1])
+    return Residual(key, params, fn, program)
+
+
+_CMP_FNS = (torch.eq, torch.ne, torch.lt, torch.le, torch.gt, torch.ge)
+
+
+def eval_program(cols, words: np.ndarray, consts: torch.Tensor,
+                 slots: tuple, n: int) -> torch.Tensor:
+    """The (n,) bool mask of a postfix residual program over ``cols`` (a
+    mapping of the ``slots``' column names to their n candidate rows):
+    the plain interpreter of the ``fused_scan`` kernel's. ``consts`` is the
+    int32 constant vector on the columns' device; an f32 slot compares
+    with its constant's bits read as f32, a bool slot as 0/1."""
+    dev = consts.device
+    stack = []
+    for op, slot, a, b in words.tolist():
+        if op in (OP_TRUE, OP_FALSE):
+            stack.append(torch.full((n,), op == OP_TRUE, dtype=torch.bool,
+                                    device=dev))
+        elif op in (OP_AND, OP_OR):
+            y, x = stack.pop(), stack.pop()
+            stack.append(x & y if op == OP_AND else x | y)
+        elif op == OP_NOT:
+            stack.append(~stack.pop())
+        else:
+            name, kind = slots[slot]
+            c = cols[name]
+            if kind == SLOT_BOOL:
+                c = c.to(torch.int32)
+            if op == OP_CMP:
+                v = consts[b: b + 1]
+                if kind == SLOT_F32:
+                    v = v.view(torch.float32)
+                stack.append(_CMP_FNS[a](c, v[0]))
+            elif op == OP_IN:
+                stack.append(torch.isin(c, consts[a: a + b]))
+            else:
+                raise ValueError(f"opcode {op}")
+    (m,) = stack
+    return m
 
 
 def split_residual(f: Optional[ir.Filter], sft, string_vocabs,
@@ -787,17 +1025,242 @@ def expand_blocks(cols, block_ids: torch.Tensor, bsz: int, n: int):
     return valid, rows, astart, _Gather(cols, rows)
 
 
-def _compact(mask: torch.Tensor, rowids: Optional[torch.Tensor], cap: int,
+# -- the fused scan (plain versions of kernels/csrc/block_gate.cu,
+#    fused_scan.cu and ordered_compact.cu) ------------------------------------
+
+
+def _pack62_np(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """``pack62`` of int32 numpy planes."""
+    return hi.astype(np.int64) * (1 << 32) + (lo.astype(np.int64) + (1 << 31))
+
+
+class FusedQuery:
+    """The constants of one fused program, packed into one byte buffer that
+    goes to the device in one upload and that the kernels (and their plain
+    versions) read in place. ``branches`` are (boxes (B, 8) int32 fp62,
+    gate (B, 4) f32 [xmin, ymin, xmax, ymax], windows (T, 4) int32 or None,
+    ``ResidualProgram`` or None); a row matches when any branch's boxes,
+    windows and program all hold. Sections, each 16-byte aligned:
+
+    - ``br``: one int32 row a branch, [box0, nbox, win0, nwin, prog0,
+      nprog, 0, 0] (first rows and counts in the sections below);
+    - ``box``: int64 (ΣB, 4) keys [xlo, xhi, ylo, yhi] (``pack62``);
+    - ``gate``: f32 (ΣB, 4);
+    - ``wkey``: int64 (ΣT, 2) keys [lo, hi]; ``wbin``: int32 (ΣT, 2)
+      [bin_lo, bin_hi] (the block gate's);
+    - ``prog``: int32 (ΣL, 4) program words, slots numbered in ``slots``
+      (shared by the branches), constant indices into ``const``;
+    - ``const``: int32 (ΣC,).
+
+    ``slots`` lists the residual columns ((name, kind), ...)."""
+
+    def __init__(self, branches):
+        secs: Dict[str, list] = {k: [] for k in
+                                 ("br", "box", "gate", "wkey", "wbin",
+                                  "prog", "const")}
+        slots: Dict[str, tuple] = {}
+        nbox = nwin = nprog = ncon = 0
+        self.branches = []
+        for boxes, gate, windows, prog in branches:
+            boxes = np.asarray(boxes, dtype=np.int32).reshape(-1, 8)
+            B, T = len(boxes), 0 if windows is None else len(windows)
+            secs["box"].append(np.stack([
+                _pack62_np(boxes[:, 2 * j], boxes[:, 2 * j + 1])
+                for j in range(4)], axis=1))
+            secs["gate"].append(np.asarray(gate, dtype=np.float32))
+            if T:
+                w = np.asarray(windows, dtype=np.int32)
+                secs["wkey"].append(np.stack([_pack62_np(w[:, 0], w[:, 1]),
+                                              _pack62_np(w[:, 2], w[:, 3])],
+                                             axis=1))
+                secs["wbin"].append(w[:, [0, 2]])
+            L = 0
+            if prog is not None:
+                words = prog.words.copy()
+                for j, (name, kind) in enumerate(prog.slots):
+                    g = slots.setdefault(name, (len(slots), kind))
+                    if g[1] != kind:
+                        raise Unsupported(f"column {name} read as two kinds")
+                    words[prog.words[:, 1] == j, 1] = g[0]
+                cmp = words[:, 0] == OP_CMP
+                words[cmp, 3] += ncon
+                words[words[:, 0] == OP_IN, 2] += ncon
+                L = len(words)
+                secs["prog"].append(words)
+                secs["const"].append(prog.consts)
+                ncon += len(prog.consts)
+            rec = (nbox, B, nwin, T, nprog, L)
+            self.branches.append(rec)
+            secs["br"].append(np.array([*rec, 0, 0], dtype=np.int32))
+            nbox, nwin, nprog = nbox + B, nwin + T, nprog + L
+        self.slots = tuple((name, kind) for name, (_, kind) in slots.items())
+        self.has_time = nwin > 0
+        parts, off = [], 0
+        self.offsets: Dict[str, Tuple[int, int]] = {}   # name -> (at, bytes)
+        for k, v in secs.items():
+            raw = np.concatenate([np.ascontiguousarray(x).reshape(-1)
+                                  for x in v]).view(np.uint8) if v \
+                else np.zeros(0, np.uint8)
+            self.offsets[k] = (off, len(raw))
+            pad = -len(raw) % 16
+            parts += [raw, np.zeros(pad, np.uint8)]
+            off += len(raw) + pad
+        self.packed = np.concatenate(parts) if off else np.zeros(16, np.uint8)
+        self.words = (np.concatenate(secs["prog"]) if secs["prog"]
+                      else np.zeros((0, 4), np.int32))
+
+    def section(self, buf: torch.Tensor, name: str, dtype: torch.dtype,
+                cols: int) -> torch.Tensor:
+        """Section ``name`` of the device copy ``buf`` as (rows, cols)
+        ``dtype`` (a view, no copy)."""
+        at, size = self.offsets[name]
+        return buf[at: at + size].view(dtype).reshape(-1, cols)
+
+
+def _ordered(flags: torch.Tensor, cap: int, values: torch.Tensor,
              fill: int) -> torch.Tensor:
-    """Ascending positions of ``mask`` (mapped through ``rowids`` when the
-    rows were gathered) in a ``cap``-long int32 vector padded with ``fill``
-    (≙ ``jnp.nonzero(size=cap, fill_value=...)``)."""
-    pos = torch.nonzero(mask).flatten()[:cap]
-    if rowids is not None:
-        pos = rowids.index_select(0, pos)
-    out = torch.full((cap,), fill, dtype=torch.int32, device=mask.device)
-    out[: pos.shape[0]] = pos.to(torch.int32)
+    """The ``values`` at the set ``flags``, in order, in a ``cap``-long
+    int32 vector padded with ``fill`` (≙ ``jnp.nonzero(size=cap,
+    fill_value=...)`` mapped through ``values``): ranks by a cumulative
+    sum, and a scatter that sends every flag past the cap to a dropped
+    slot, so no length is read back."""
+    pos = torch.cumsum(flags, 0) - 1
+    idx = torch.where(flags & (pos < cap), pos, torch.full_like(pos, cap))
+    out = torch.full((cap + 1,), fill, dtype=torch.int32, device=flags.device)
+    out.scatter_(0, idx, values.to(torch.int32))
+    return out[:cap]
+
+
+def block_gate(summ: dict, qbuf: torch.Tensor, query: FusedQuery, n: int,
+               bsz: int):
+    """(ids, starts, n_blocks) of the gather blocks that the query's gates
+    can touch (≙ the gate of the reference's ``_jit_program``, the OR of
+    gates of its ``_jit_union_program``, and ``jnp.nonzero(alive, size,
+    fill_value=-1)``): ``ids`` int32 (nb,) the ascending alive block ids
+    padded with -1, ``starts`` int64 (nb,) their clamped first rows
+    (``expand_blocks``' clamp; 0 in the pad), ``n_blocks`` int32 (1,) how
+    many are alive. A block is alive when, for some branch, any gate
+    envelope meets its slack-widened coordinate envelope and (when the
+    branch has windows and the table bins) any window's bin range meets
+    its bin range.
+
+    The plain PyTorch version of the ``block_gate`` CUDA kernel. The CPU
+    path, and the kernel's yardstick on the card."""
+    gates = query.section(qbuf, "gate", torch.float32, 4)
+    wbin = query.section(qbuf, "wbin", torch.int32, 2)
+    nb = int(summ["bxmin"].shape[0])
+    alive = torch.zeros(nb, dtype=torch.bool, device=qbuf.device)
+    for b0, B, w0, T, _, _ in query.branches:
+        g = gates[b0: b0 + B]
+        a = ((summ["bxmax"][:, None] >= g[None, :, 0])
+             & (summ["bxmin"][:, None] <= g[None, :, 2])
+             & (summ["bymax"][:, None] >= g[None, :, 1])
+             & (summ["bymin"][:, None] <= g[None, :, 3])).any(dim=1)
+        if T and "binmin" in summ:
+            blo, bhi = wbin[w0: w0 + T, 0], wbin[w0: w0 + T, 1]
+            a = a & ((blo <= bhi)[None, :]
+                     & (summ["binmin"][:, None] <= bhi[None, :])
+                     & (summ["binmax"][:, None] >= blo[None, :])).any(dim=1)
+        alive |= a
+    ids = _ordered(alive, nb, torch.arange(nb, device=alive.device), -1)
+    starts = torch.where(ids >= 0, (ids.to(torch.int64) * bsz).clamp(
+        0, max(0, n - bsz)), torch.zeros_like(ids, dtype=torch.int64))
+    return ids, starts, alive.sum(dtype=torch.int32).reshape(1)
+
+
+def _keys_in(k: torch.Tensor, lo: torch.Tensor,
+             hi: torch.Tensor) -> torch.Tensor:
+    out = torch.zeros_like(k, dtype=torch.bool)
+    for j in range(lo.shape[0]):
+        out |= (k >= lo[j]) & (k <= hi[j])
     return out
+
+
+def fused_scan(cols, qbuf: torch.Tensor, query: FusedQuery, ids: torch.Tensor,
+               n_blocks: torch.Tensor, bsz: int, mode: str):
+    """The fused program's scan over the candidates of a block list (≙
+    ``mask_of`` and ``gathered()`` of the reference's ``_jit_program`` and
+    ``_jit_union_program``, and their ``jnp.sum``; ``select``'s
+    ``nonzero`` is ``ordered_compact`` of the mask). Candidate i is row ``clamp(ids[i // bsz] * bsz) + i %
+    bsz``, read in place; it matches when it is a member of its block
+    (``expand_blocks``' rule) among the first ``n_blocks`` slots, the
+    table's ``__valid__`` holds, and for some
+    branch of ``query`` its point lies in any box, its (bin, off) in any
+    window, and its residual program holds (boxes and windows compare
+    ``pack62`` keys). By ``mode``:
+
+    - ``count``: int32 (1,) matches;
+    - ``mask``: (bool (slots * bsz,) match per candidate, int32 (1,)).
+
+    The plain PyTorch version of the ``fused_scan`` CUDA kernel. The CPU
+    path, and the kernel's yardstick on the card. It evaluates the
+    predicates over the whole table and then takes each candidate's flag:
+    without reading ``n_blocks`` back it cannot size the work to the alive
+    blocks, so on the CPU a query scans every row whatever the gate
+    keeps."""
+    n = int(cols["xi"].shape[0])
+    member, rows, _, _ = expand_blocks(cols, ids, bsz, n)
+    live = torch.arange(ids.shape[0], device=ids.device) \
+        < n_blocks.to(torch.int64)
+    member &= live.repeat_interleave(bsz)
+    boxes = query.section(qbuf, "box", torch.int64, 4)
+    wkey = query.section(qbuf, "wkey", torch.int64, 2)
+    consts = query.section(qbuf, "const", torch.int32, 1).reshape(-1)
+    # the predicates over the table's rows in place; each candidate then
+    # takes its row's flag
+    x = pack62(cols["xi"], cols["xl"])
+    y = pack62(cols["yi"], cols["yl"])
+    t = pack62(cols["bin"], cols["off"]) if query.has_time else None
+    m = None
+    for b0, B, w0, T, p0, L in query.branches:
+        q = boxes[b0: b0 + B]
+        bm = torch.zeros_like(x, dtype=torch.bool)
+        for j in range(B):
+            bm |= ((x >= q[j, 0]) & (x <= q[j, 1])
+                   & (y >= q[j, 2]) & (y <= q[j, 3]))
+        if T:
+            bm &= _keys_in(t, wkey[w0: w0 + T, 0], wkey[w0: w0 + T, 1])
+        if L:
+            bm &= eval_program(cols, query.words[p0: p0 + L], consts,
+                               query.slots, n)
+        m = bm if m is None else m | bm
+    if "__valid__" in cols:
+        m = m & cols["__valid__"]
+    m = m.index_select(0, rows) & member
+    count = m.sum(dtype=torch.int32).reshape(1)
+    if mode == "count":
+        return count
+    if mode == "mask":
+        return m, count
+    raise ValueError(f"fused_scan mode {mode}")
+
+
+def ordered_compact(mask: torch.Tensor, cap: int, fill: int,
+                    starts: Optional[torch.Tensor] = None,
+                    bsz: Optional[int] = None,
+                    n_blocks: Optional[torch.Tensor] = None):
+    """(int32 (1,) count, int32 (cap,) rows) of a candidate mask: the rows
+    of the set candidates in ascending candidate order, the first ``cap``
+    of them, padded with ``fill`` (≙ ``jnp.nonzero(size=cap,
+    fill_value=...)`` with the reference's ``rowids`` mapping). Candidate i
+    is row ``starts[i // bsz] + i % bsz`` when block starts are given, else
+    row i; with ``n_blocks`` (int32 (1,) on the device) only the
+    candidates of the first ``n_blocks`` slots count. The count is every
+    set candidate, past the cap too.
+
+    The plain PyTorch version of the ``ordered_compact`` CUDA kernel. The
+    CPU path, and the kernel's yardstick on the card."""
+    m = mask
+    rows = None
+    if starts is not None:
+        rows = block_rows(starts, bsz)
+        if n_blocks is not None:
+            m = m & (torch.arange(m.shape[0], device=m.device)
+                     < n_blocks.to(torch.int64) * bsz)
+    else:
+        rows = torch.arange(m.shape[0], device=m.device)
+    return (m.sum(dtype=torch.int32).reshape(1),
+            _ordered(m, cap, rows, fill))
 
 
 class ScanKernels:
@@ -927,13 +1390,18 @@ class ScanKernels:
                        capacity: int):
         """Zero-arg packed-select dispatcher → int32 [count, ascending
         positions × capacity, padded with n] (the reference's
-        ``select_packed`` mode)."""
+        ``select_packed`` mode): the mask, then the ``ordered_compact``
+        kernel."""
+        from geomesa_tpu_torch.kernels.compact import ordered_compact
         disp = self.prepare_mask(primary_kind, boxes, windows, residual)
+        n = self.n
 
         def run():
-            m = disp()
-            return torch.cat([m.sum(dtype=torch.int32).reshape(1),
-                              _compact(m, None, capacity, self.n)])
+            out = torch.empty(1 + capacity, dtype=torch.int32,
+                              device=self.device)
+            ordered_compact(disp(), capacity, n, count_out=out[:1],
+                            rows_out=out[1:])
+            return out
         return run
 
     def select(self, primary_kind, boxes, windows, residual, capacity: int):
@@ -985,14 +1453,20 @@ class ScanKernels:
                               blocks: np.ndarray, block_size: int,
                               capacity: int):
         """Zero-arg pruned packed-select dispatcher → int32 [count, ascending
-        positions × capacity, padded with n]."""
+        positions × capacity, padded with n]: the mask over the gathered
+        blocks, then the ``ordered_compact`` kernel through their starts."""
+        from geomesa_tpu_torch.kernels.compact import ordered_compact
         run = self._stage_blocks(primary_kind, boxes, windows, residual,
                                  blocks, block_size)
+        n = self.n
 
         def go():
-            m, rows, _, _ = run()
-            return torch.cat([m.sum(dtype=torch.int32).reshape(1),
-                              _compact(m, rows, capacity, self.n)])
+            m, _, astart, _ = run()
+            out = torch.empty(1 + capacity, dtype=torch.int32,
+                              device=self.device)
+            ordered_compact(m, capacity, n, starts=astart, bsz=block_size,
+                            count_out=out[:1], rows_out=out[1:])
+            return out
         return go
 
     def select_blocks(self, primary_kind, boxes, windows, residual,

@@ -3,8 +3,8 @@ library per source, loaded with ctypes.
 
 Each ``csrc/<name>.cu`` compiles for Hopper (``sm_90a``) at first use into
 ``geomesa_tpu_torch/_build/`` (listed in ``.gitignore``), under a file name
-that carries a hash of the source and flags, so an edited source rebuilds
-and an unchanged one loads as is. Nothing builds at import time: this module
+that carries a hash of the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source rebuilds and an unchanged one loads as is. Nothing builds at import time: this module
 is imported on machines without ``nvcc``, where only the plain PyTorch
 versions run.
 """
@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # every kernel of the port, by its source's name under csrc/
 KERNELS = ("pip_refine", "grid_scatter", "box_count", "dist_refine",
-           "merge_scatter", "seg_band")
+           "merge_scatter", "seg_band", "block_gate", "fused_scan",
+           "ordered_compact")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -53,6 +54,10 @@ def _target(name: str) -> Tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
     with open(src, "rb") as fh:
         digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    # the shared headers too, so an edited header rebuilds its includers
+    for hdr in sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, hdr), "rb") as fh:
+            digest.update(fh.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -68,6 +68,8 @@ struct Params {
   const float* yf;
   const uint8_t* mask;       // null: every candidate is live
   const long long* starts;   // null: candidate i is row i
+  const int* nlive;          // null, or the live slots of starts: only
+                             // their candidates are read and written
   long long bsz;
   int bsz_shift;             // log2(bsz) when bsz is a power of two, else -1
   long long n;               // candidates
@@ -131,6 +133,10 @@ __device__ __forceinline__ void quad(const Params& p, long long q,
 
 __global__ void __launch_bounds__(THREADS)
 dist_refine_kernel(Params p) {
+  if (p.nlive) {   // the block list's live candidates, read on the device
+    const long long live = (long long)max(*p.nlive, 0) * p.bsz;
+    if (live < p.n) p.n = live;
+  }
   __shared__ unsigned s_cnt[2][WARPS];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -197,11 +203,14 @@ std::atomic<int> g_ready[MAX_DEVICES];
 
 // Launches on `stream` (PyTorch's current stream of device `device`, the
 // current device) and returns the launch's cudaError_t (0 on success); the
-// caller raises on non-zero. `mask` and `starts` may be null; `counts`
+// caller raises on non-zero. `mask`, `starts` and `nlive` (a device count
+// of live slots of starts: only their candidates are read) may be null;
+// `counts`
 // gets int32 [hits, uncertain]; `ws` is this stream's workspace of 2
 // zeroed 64-bit words, which the kernel leaves zero.
 extern "C" int dist_refine_launch(const float* xf, const float* yf,
                                   const uint8_t* mask, const long long* starts,
+                                  const int* nlive,
                                   long long bsz, long long n, float cx,
                                   float cy, float rlo, float rhi,
                                   uint8_t* hit, uint8_t* unc, int* counts,
@@ -222,6 +231,7 @@ extern "C" int dist_refine_launch(const float* xf, const float* yf,
   p.yf = yf;
   p.mask = mask;
   p.starts = starts;
+  p.nlive = nlive;
   p.bsz = bsz;
   p.bsz_shift = -1;
   if (bsz > 0 && (bsz & (bsz - 1)) == 0) {

@@ -100,6 +100,8 @@ struct Params {
   const void* weight;
   const uint8_t* mask;
   const long long* starts;
+  const int* nlive;     // null, or the live slots of starts: only their
+                        // candidates are read
   long long bsz;
   long long n;
   const float* bbox;    // [xmin, ymin, xmax, ymax] f32, on the device
@@ -218,7 +220,11 @@ __device__ __forceinline__ Fetch fetch(const Params& p, long long u,
 
 template <bool SHARED, int WK, bool STARTS>
 __global__ void __launch_bounds__(THREADS)
-grid_scatter_kernel(const Params p) {
+grid_scatter_kernel(Params p) {
+  if (p.nlive) {   // the block list's live candidates, read on the device
+    const long long live = (long long)max(*p.nlive, 0) * p.bsz;
+    if (live < p.n) p.n = live;
+  }
   extern __shared__ __align__(16) unsigned smem[];
   __shared__ unsigned s_live;
   __shared__ bool s_finish;
@@ -455,7 +461,8 @@ cudaError_t launch_weights(const Params& p, int wkind, size_t smem, int sms,
 }  // namespace
 
 // Scatters the n > 0 candidates into `grid` (H*W f32) and their live count
-// into `count`, in one launch. scratch: 4 + H*W 32-bit words, 16-byte
+// into `count`, in one launch; with nlive (a device count of live slots of
+// starts, may be null) only the first *nlive * bsz candidates. scratch: 4 + H*W 32-bit words, 16-byte
 // aligned, zero on entry and left zero ([0] and [2] the CTA counters, [1]
 // the live count, [4...] the cells);
 // calls that share a scratch must be ordered (one stream). shared: 1 for
@@ -463,7 +470,8 @@ cudaError_t launch_weights(const Params& p, int wkind, size_t smem, int sms,
 extern "C" int grid_scatter_launch(const float* xf, const float* yf,
                                    const void* weight, int wkind,
                                    const uint8_t* mask,
-                                   const long long* starts, long long bsz,
+                                   const long long* starts,
+                                   const int* nlive, long long bsz,
                                    long long n, const float* bbox, int width,
                                    int height, int shared, float* grid,
                                    int* count, unsigned* scratch,
@@ -481,6 +489,7 @@ extern "C" int grid_scatter_launch(const float* xf, const float* yf,
   p.weight = weight;
   p.mask = mask;
   p.starts = starts;
+  p.nlive = nlive;
   p.bsz = bsz;
   p.n = n;
   p.bbox = bbox;

@@ -12,8 +12,9 @@
 // its error bound, and a vertex y within DY_BAND of the point's y makes the
 // point uncertain. Candidate i reads row starts[i / bsz] + i % bsz of the
 // coordinate columns (the pruned branch's gathered blocks, the last one
-// clamped), or row i when there are no starts. Uncertain rows re-evaluate on
-// the host in f64.
+// clamped), or row i when there are no starts; with a device count of live
+// blocks (block_gate.cu's), only their candidates. Uncertain rows
+// re-evaluate on the host in f64.
 //
 // What bounds it on the card: per candidate it reads 1 mask byte and writes
 // 2 flag bytes; per live candidate it reads 8 bytes of coordinates; per
@@ -100,6 +101,8 @@ struct Params {
   const float* yf;
   const uint8_t* mask;       // null: every candidate is live
   const long long* starts;   // null: candidate i is row i
+  const int* nlive;          // null, or the live slots of starts: only
+                             // their candidates are read and written
   long long bsz;
   int bsz_shift;             // log2(bsz) when bsz is a power of two, else -1
   const float4* edges;
@@ -145,31 +148,34 @@ __device__ __forceinline__ void hoist(Edge* buf, int m) {
   }
 }
 
-__device__ __forceinline__ bool whole(const Params& p, long long base) {
-  return p.aligned && base + TILE <= p.n;
+__device__ __forceinline__ bool whole(const Params& p, int n,
+                                      long long base) {
+  return p.aligned && base + TILE <= n;
 }
 
 // The lane's 8 mask bytes of a whole tile (0 when the tile is ragged or
 // there is no mask): read one tile ahead, so the read overlaps the current
 // tile's coordinate gathers and arithmetic.
 __device__ __forceinline__ unsigned long long mask_word(const Params& p,
+                                                        int n,
                                                         long long tile,
                                                         int lane) {
   const long long base = tile * TILE;
-  if (!p.mask || !whole(p, base)) return 0ull;
+  if (!p.mask || !whole(p, n, base)) return 0ull;
   return *reinterpret_cast<const unsigned long long*>(
       p.mask + base + (long long)lane * K);
 }
 
 // Packs the tile's live candidates (its mask word `w` from mask_word) across
 // the warp and loads their coordinates; `list` maps rank -> slot in the tile.
-__device__ __forceinline__ void load_tile(const Params& p, long long tile,
+__device__ __forceinline__ void load_tile(const Params& p, int n,
+                                          long long tile,
                                           unsigned long long w, int lane,
                                           uint8_t* list, Tile& t) {
   t.base = tile * TILE;
   const long long mine = t.base + (long long)lane * K;
   unsigned bits = 0;
-  if (whole(p, t.base)) {
+  if (whole(p, n, t.base)) {
     if (p.mask) {
 #pragma unroll
       for (int k = 0; k < K; ++k)
@@ -181,7 +187,7 @@ __device__ __forceinline__ void load_tile(const Params& p, long long tile,
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const long long i = mine + k;
-      if (i < p.n && (!p.mask || p.mask[i])) bits |= 1u << k;
+      if (i < n && (!p.mask || p.mask[i])) bits |= 1u << k;
     }
   }
   const unsigned lower = (1u << lane) - 1u;
@@ -275,7 +281,8 @@ __device__ __forceinline__ void classify_live(const Params& p, const Edge* es,
 
 // Scatters the packed flags back to their slots, then writes the lane's K
 // hit and unc bytes (dead slots 0).
-__device__ __forceinline__ void store_tile(const Params& p, int lane,
+__device__ __forceinline__ void store_tile(const Params& p, int n,
+                                           int lane,
                                            const uint8_t* list, uint8_t* res,
                                            const Tile& t) {
 #pragma unroll
@@ -296,13 +303,13 @@ __device__ __forceinline__ void store_tile(const Params& p, int lane,
   const unsigned long long hw = w & live;
   const unsigned long long uw = (w >> 1) & live;
   const long long mine = t.base + (long long)lane * K;
-  if (whole(p, t.base)) {
+  if (whole(p, n, t.base)) {
     *reinterpret_cast<unsigned long long*>(p.hit + mine) = hw;
     *reinterpret_cast<unsigned long long*>(p.unc + mine) = uw;
   } else {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      if (mine + k < p.n) {
+      if (mine + k < n) {
         p.hit[mine + k] = (uint8_t)((hw >> (8 * k)) & 1u);
         p.unc[mine + k] = (uint8_t)((uw >> (8 * k)) & 1u);
       }
@@ -313,6 +320,15 @@ __device__ __forceinline__ void store_tile(const Params& p, int lane,
 
 __global__ void __launch_bounds__(THREADS, 3)
 pip_refine_kernel(const __grid_constant__ Params p) {
+  // the candidates: with nlive, the block list's live ones (read on the
+  // device); 32-bit (the launch checks n < 2^31), so that the count and the
+  // tile loop's bounds take no more registers than p.n did from the
+  // parameter space
+  int n = (int)p.n;
+  if (p.nlive) {
+    const long long live = (long long)max(*p.nlive, 0) * p.bsz;
+    if (live < n) n = (int)live;
+  }
   __shared__ Edge s_edge[2][CHUNK];
   __shared__ __align__(8) uint8_t s_list[WARPS][TILE];
   __shared__ __align__(8) uint8_t s_res[WARPS][TILE];
@@ -320,8 +336,8 @@ pip_refine_kernel(const __grid_constant__ Params p) {
   const int lane = threadIdx.x & 31;
   uint8_t* list = s_list[warp];
   uint8_t* res = s_res[warp];
-  const long long ntiles = (p.n + TILE - 1) / TILE;
-  const long long stride = (long long)gridDim.x * WARPS;
+  const int ntiles = (n + TILE - 1) / TILE;
+  const int stride = gridDim.x * WARPS;
   const int nchunks = max(1, (p.ne + CHUNK - 1) / CHUNK);
 
   if (nchunks == 1) {
@@ -331,14 +347,14 @@ pip_refine_kernel(const __grid_constant__ Params p) {
     __syncthreads();
     hoist(s_edge[0], p.ne);
     __syncthreads();
-    long long tile = (long long)blockIdx.x * WARPS + warp;
-    unsigned long long w = mask_word(p, tile, lane);
+    int tile = blockIdx.x * WARPS + warp;
+    unsigned long long w = mask_word(p, n, tile, lane);
     for (; tile < ntiles; tile += stride) {
-      const unsigned long long w_next = mask_word(p, tile + stride, lane);
+      const unsigned long long w_next = mask_word(p, n, tile + stride, lane);
       Tile t;
-      load_tile(p, tile, w, lane, list, t);
+      load_tile(p, n, tile, w, lane, list, t);
       classify_live(p, s_edge[0], p.ne, t);
-      store_tile(p, lane, list, res, t);
+      store_tile(p, n, lane, list, res, t);
       w = w_next;
     }
     return;
@@ -346,16 +362,14 @@ pip_refine_kernel(const __grid_constant__ Params p) {
 
   // larger tables: the CTA's warps take one tile each per round and walk the
   // chunks together, double-buffered
-  unsigned long long w = mask_word(p, (long long)blockIdx.x * WARPS + warp,
-                                   lane);
-  for (long long first = (long long)blockIdx.x * WARPS; first < ntiles;
-       first += stride) {
-    const long long tile = first + warp;
+  unsigned long long w = mask_word(p, n, blockIdx.x * WARPS + warp, lane);
+  for (int first = blockIdx.x * WARPS; first < ntiles; first += stride) {
+    const int tile = first + warp;
     const bool active = tile < ntiles;  // warp-uniform
-    const unsigned long long w_next = mask_word(p, tile + stride, lane);
+    const unsigned long long w_next = mask_word(p, n, tile + stride, lane);
     Tile t;
     t.total = 0;
-    if (active) load_tile(p, tile, w, lane, list, t);
+    if (active) load_tile(p, n, tile, w, lane, list, t);
     w = w_next;
     stage(s_edge[0], p.edges, 0, CHUNK);
     for (int c = 0; c < nchunks; ++c) {
@@ -371,7 +385,7 @@ pip_refine_kernel(const __grid_constant__ Params p) {
       if (active) classify_live(p, buf, m, t);
     }
     __syncthreads();  // both buffers free before the next round stages
-    if (active) store_tile(p, lane, list, res, t);
+    if (active) store_tile(p, n, lane, list, res, t);
   }
 }
 
@@ -381,15 +395,20 @@ int g_ctas[64];
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream) and returns the launch's
-// cudaError_t (0 on success); the caller raises on non-zero. `mask` and
-// `starts` may be null; `edges` holds at least `ne` 16-byte aligned rows.
+// cudaError_t (0 on success); the caller raises on non-zero. `mask`,
+// `starts` and `nlive` may be null; `edges` holds at least `ne` 16-byte
+// aligned rows. With nlive (a device count of live slots of starts, as
+// block_gate.cu writes it) the grid is sized for n candidates and only the
+// first *nlive * bsz are read and written.
 extern "C" int pip_refine_launch(const float* xf, const float* yf,
                                  const uint8_t* mask, const long long* starts,
+                                 const int* nlive,
                                  long long bsz, const float* edges, int ne,
                                  long long n, float tol_t, float tol_d,
                                  float dy_band, uint8_t* hit, uint8_t* unc,
                                  void* stream) {
   if (n <= 0) return 0;
+  if (n > 0x7fffffffLL - TILE) return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -409,6 +428,7 @@ extern "C" int pip_refine_launch(const float* xf, const float* yf,
   p.yf = yf;
   p.mask = mask;
   p.starts = starts;
+  p.nlive = nlive;
   p.bsz = bsz;
   p.bsz_shift = -1;
   if (bsz > 0 && (bsz & (bsz - 1)) == 0) {

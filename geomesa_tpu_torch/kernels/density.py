@@ -1,11 +1,11 @@
 """Wrapper of the ``grid_scatter`` CUDA kernel (``csrc/grid_scatter.cu``).
 
-``grid_scatter(xf, yf, mask, weight, starts, bsz, grid, width, height)``
-launches the kernel for tensors on a CUDA device and runs the plain PyTorch
-version (``index.scan.grid_scatter``) for tensors on the CPU. There is no
-fallback: a CUDA tensor either launches the kernel or raises.
-``grid_scatter.launches`` counts kernel launches (and nothing else), so a
-run can show its main path went through the kernel. A call is one launch:
+``grid_scatter(xf, yf, mask, weight, starts, bsz, grid, width, height,
+n_blocks)`` launches the kernel for tensors on a CUDA device and runs the
+plain PyTorch version (``index.scan.grid_scatter``) for tensors on the
+CPU. There is no fallback: a CUDA tensor either launches the kernel or
+raises. ``grid_scatter.launches`` counts kernel launches (and nothing
+else), so a run can show its main path went through the kernel. A call is one launch:
 the kernel's accumulators live in a scratch kept per stream, which the
 kernel leaves zeroed for the next call.
 """
@@ -46,16 +46,17 @@ def _bind(lib: ctypes.CDLL):
         p = ctypes.c_void_p
         i = ctypes.c_int
         ll = ctypes.c_longlong
-        fn.argtypes = [p, p, p, i, p, p, ll, ll, p, i, i, i, p, p, p, p]
-        # (xf, yf, weight, kind, mask, starts, bsz, n, bbox, width, height,
-        #  shared, grid, count, scratch, stream)
+        fn.argtypes = [p, p, p, i, p, p, p, ll, ll, p, i, i, i, p, p, p, p]
+        # (xf, yf, weight, kind, mask, starts, nlive, bsz, n, bbox, width,
+        #  height, shared, grid, count, scratch, stream)
         fn.restype = ctypes.c_int
         lib.grid_scatter_error_string.argtypes = [ctypes.c_int]
         lib.grid_scatter_error_string.restype = ctypes.c_char_p
     return fn
 
 
-def _check(xf, yf, mask, weight, starts, bsz, grid, width, height) -> int:
+def _check(xf, yf, mask, weight, starts, bsz, grid, width, height,
+           n_blocks) -> int:
     """Validate the inputs; return the candidate count."""
     for name, t in (("xf", xf), ("yf", yf), ("grid", grid)):
         if t.dtype != torch.float32:
@@ -84,6 +85,12 @@ def _check(xf, yf, mask, weight, starts, bsz, grid, width, height) -> int:
             raise ValueError("starts need a positive block size bsz")
         n = starts.shape[0] * int(bsz)
         tensors.append(starts)
+    if n_blocks is not None:
+        if starts is None:
+            raise ValueError("n_blocks limits a block list: give starts")
+        if n_blocks.dtype != torch.int32 or n_blocks.shape != (1,):
+            raise TypeError("n_blocks must be an int32 (1,) tensor")
+        tensors.append(n_blocks)
     if mask.dtype != torch.bool or mask.dim() != 1:
         raise TypeError("mask must be a 1-D bool tensor")
     if mask.shape[0] != n:
@@ -113,17 +120,20 @@ def _scratch(dev: torch.device, stream: int, cells: int) -> torch.Tensor:
 def grid_scatter(xf: torch.Tensor, yf: torch.Tensor, mask: torch.Tensor,
                  weight: Optional[torch.Tensor], starts: Optional[torch.Tensor],
                  bsz: Optional[int], grid: torch.Tensor, width: int,
-                 height: int):
+                 height: int, n_blocks: Optional[torch.Tensor] = None):
     """((height, width) f32 raster, 0-d int32 count of masked candidates),
     both left on the device; see ``index.scan.grid_scatter`` for the
     semantics. Unit weights give the reference's grid byte for byte; f32
     weights agree with its sequential sum within the summation error bound.
     On the card the block starts are not range-checked (that would cost a
-    host sync): each ``starts[b] + bsz`` must stay within ``len(xf)``."""
-    n = _check(xf, yf, mask, weight, starts, bsz, grid, width, height)
+    host sync): each ``starts[b] + bsz`` must stay within ``len(xf)``;
+    with ``n_blocks`` only the first ``n_blocks`` blocks' candidates
+    count."""
+    n = _check(xf, yf, mask, weight, starts, bsz, grid, width, height,
+               n_blocks)
     if xf.device.type == "cpu":
         return scan.grid_scatter(xf, yf, mask, weight, starts, bsz, grid,
-                                 width, height)
+                                 width, height, n_blocks)
     if xf.device.type != "cuda":
         raise ValueError(f"grid_scatter runs on cuda or cpu, not {xf.device}")
     cells = width * height
@@ -140,6 +150,7 @@ def grid_scatter(xf: torch.Tensor, yf: torch.Tensor, mask: torch.Tensor,
                 0 if weight is None else _WEIGHT_KINDS[weight.dtype],
                 mask.data_ptr(),
                 None if starts is None else starts.data_ptr(),
+                None if n_blocks is None else n_blocks.data_ptr(),
                 int(bsz or 0), n, grid.data_ptr(), width, height,
                 int(cells <= SHARED_CELLS), out.data_ptr(),
                 count.data_ptr(), scratch.data_ptr(), stream)

@@ -1,6 +1,7 @@
 """Wrapper of the ``dist_refine`` CUDA kernel (``csrc/dist_refine.cu``).
 
-``dist_refine(xf, yf, bounds, mask, starts, bsz)`` launches the kernel
+``dist_refine(xf, yf, bounds, mask, starts, bsz, n_blocks)`` launches the
+kernel
 for tensors on a CUDA device and runs the plain PyTorch version
 (``index.scan.dist_refine``) for tensors on the CPU. There is no fallback:
 a CUDA tensor either launches the kernel or raises. ``dist_refine.launches``
@@ -41,7 +42,7 @@ def _bind():
         fn = lib.dist_refine_launch
         p = ctypes.c_void_p
         f = ctypes.c_float
-        fn.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_longlong,
+        fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong,
                        f, f, f, f, p, p, p, p, ctypes.c_int, p]
         fn.restype = ctypes.c_int
         lib.dist_refine_error_string.argtypes = [ctypes.c_int]
@@ -59,7 +60,7 @@ def _workspace(dev: torch.device, stream: int) -> int:
         return t.data_ptr()
 
 
-def _check(xf, yf, mask, starts, bsz) -> int:
+def _check(xf, yf, mask, starts, bsz, n_blocks) -> int:
     """Validate the inputs; return the candidate count."""
     f32 = torch.float32
     if xf.dtype is not f32:
@@ -79,6 +80,12 @@ def _check(xf, yf, mask, starts, bsz) -> int:
             raise ValueError("starts need a positive block size bsz")
         n = starts.shape[0] * int(bsz)
         build.placed(starts, dev)
+    if n_blocks is not None:
+        if starts is None:
+            raise ValueError("n_blocks limits a block list: give starts")
+        if n_blocks.dtype is not torch.int32 or n_blocks.shape != (1,):
+            raise TypeError("n_blocks must be an int32 (1,) tensor")
+        build.placed(n_blocks, dev)
     if n >= 1 << 31:
         raise ValueError(f"{n} candidates: the int32 counts hold at most "
                          "2^31 - 1")
@@ -95,18 +102,20 @@ def _check(xf, yf, mask, starts, bsz) -> int:
 def dist_refine(xf: torch.Tensor, yf: torch.Tensor, bounds: scan.DistBounds,
                 mask: Optional[torch.Tensor] = None,
                 starts: Optional[torch.Tensor] = None,
-                bsz: Optional[int] = None):
+                bsz: Optional[int] = None,
+                n_blocks: Optional[torch.Tensor] = None):
     """(hit, uncertain) bool flags of the candidate rows against the circle
     of ``bounds`` (``scan.dist_bounds``, made once by the caller) and int32
     [hits, uncertain], the flags' sums, from the same launch; see
     ``index.scan.dist_refine`` for the semantics. On the
     card the block starts are not range-checked (that would cost a host
     sync): each ``starts[b] + bsz`` must stay within ``len(xf)``, as the
-    fused program's clamped starts do."""
-    n = _check(xf, yf, mask, starts, bsz)
+    fused program's clamped starts do; with ``n_blocks`` the flags past the
+    first ``n_blocks`` blocks are not written."""
+    n = _check(xf, yf, mask, starts, bsz, n_blocks)
     dev = xf.device
     if dev.type == "cpu":
-        return scan.dist_refine(xf, yf, bounds, mask, starts, bsz)
+        return scan.dist_refine(xf, yf, bounds, mask, starts, bsz, n_blocks)
     if dev.type != "cuda":
         raise ValueError(f"dist_refine runs on cuda or cpu, not {dev}")
     hit = torch.empty(n, dtype=torch.bool, device=dev)
@@ -121,6 +130,7 @@ def dist_refine(xf: torch.Tensor, yf: torch.Tensor, bounds: scan.DistBounds,
         rc = fn(xf.data_ptr(), yf.data_ptr(),
                 None if mask is None else mask.data_ptr(),
                 None if starts is None else starts.data_ptr(),
+                None if n_blocks is None else n_blocks.data_ptr(),
                 int(bsz or 0), n, cx, cy, rlo, rhi,
                 hit.data_ptr(), unc.data_ptr(), cnt.data_ptr(),
                 _workspace(dev, stream), dev.index, stream)

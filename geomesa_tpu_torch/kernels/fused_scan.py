@@ -1,0 +1,144 @@
+"""Wrapper of the ``fused_scan`` CUDA kernel (``csrc/fused_scan.cu``).
+
+``fused_scan(cols, qbuf, query, ids, n_blocks, bsz, mode)``
+launches the kernel for tensors on a CUDA device and runs the plain PyTorch
+version (``index.scan.fused_scan``) for tensors on the CPU. There is no
+fallback: a CUDA tensor either launches the kernel or raises.
+``fused_scan.launches`` counts the calls that launched the kernel (and
+nothing else). A call is one launch; it allocates only its outputs, and the
+count's total and done counter live in the stream's workspace
+(``kernels.lookback``). A select is this kernel's mask compacted by
+``ordered_compact``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+from typing import Mapping
+
+import torch
+
+from geomesa_tpu_torch.index import scan
+from geomesa_tpu_torch.kernels import build, lookback
+
+NAME = "fused_scan"
+SOURCE = "geomesa_tpu_torch/kernels/csrc/fused_scan.cu"
+REPLACES = "geomesa_tpu/index/compiled.py:476"
+
+MAX_SLOTS = 16
+_MODES = {"count": 0, "mask": 1}
+_KIND_DTYPES = {scan.SLOT_I32: torch.int32, scan.SLOT_F32: torch.float32,
+                scan.SLOT_BOOL: torch.bool}
+_POINT = ("xi", "xl", "yi", "yl")
+_TIME = ("bin", "off")
+
+# the C side's FusedScanArgs: 44 8-byte slots
+_ARGS = struct.Struct("=44q")
+
+_FN = None
+
+
+def _bind():
+    global _FN
+    if _FN is None:
+        lib = build.load(NAME)
+        fn = lib.fused_scan_launch
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.fused_scan_error_string.argtypes = [ctypes.c_int]
+        lib.fused_scan_error_string.restype = ctypes.c_char_p
+        if lib.fused_scan_tile() != lookback.TILE:
+            raise RuntimeError("fused_scan's unit differs from lookback.TILE")
+        _FN = fn
+    return _FN
+
+
+def _check(cols, qbuf, query, ids, n_blocks, bsz, mode) -> int:
+    """Validate the inputs; return the table's rows."""
+    if mode not in _MODES:
+        raise ValueError(f"fused_scan mode {mode}")
+    n = int(cols["xi"].shape[0])
+    dev = cols["xi"].device
+    for k in _POINT + (_TIME if query.has_time else ()):
+        t = cols[k]
+        if t.dtype is not torch.int32 or t.shape != (n,):
+            raise TypeError(f"column {k} must be int32 with {n} rows")
+        build.placed(t, dev)
+    if len(query.slots) > MAX_SLOTS:
+        raise ValueError(f"a query reads at most {MAX_SLOTS} residual "
+                         "columns")
+    for name, kind in query.slots:
+        t = cols[name]
+        if t.dtype is not _KIND_DTYPES[kind] or t.shape != (n,):
+            raise TypeError(f"column {name} must be "
+                            f"{_KIND_DTYPES[kind]} with {n} rows")
+        build.placed(t, dev)
+    valid = cols["__valid__"] if "__valid__" in cols else None
+    if valid is not None:
+        if valid.dtype is not torch.bool or valid.shape != (n,):
+            raise TypeError(f"__valid__ must be bool with {n} rows")
+        build.placed(valid, dev)
+    if qbuf.dtype is not torch.uint8 or qbuf.dim() != 1 or qbuf.shape[0] % 16:
+        raise TypeError("qbuf must be a 1-D uint8 tensor of 16-byte words")
+    if ids.dtype is not torch.int32 or ids.dim() != 1:
+        raise TypeError("ids must be a 1-D int32 tensor")
+    if n_blocks.dtype is not torch.int32 or n_blocks.shape != (1,):
+        raise TypeError("n_blocks must be an int32 (1,) tensor")
+    if bsz is None or int(bsz) <= 0:
+        raise ValueError("the block list needs a positive block size bsz")
+    for t in (qbuf, ids, n_blocks):
+        build.placed(t, dev)
+    return n
+
+
+def fused_scan(cols: Mapping[str, torch.Tensor], qbuf: torch.Tensor,
+               query: scan.FusedQuery, ids: torch.Tensor,
+               n_blocks: torch.Tensor, bsz: int, mode: str):
+    """The count (int32 (1,)) or (mask, count) of the candidates of the
+    block list, left on the device; see
+    ``index.scan.fused_scan`` for the semantics. On the card the mask's
+    bytes past the first ``n_blocks`` blocks are not written."""
+    n = _check(cols, qbuf, query, ids, n_blocks, bsz, mode)
+    dev = qbuf.device
+    if dev.type == "cpu":
+        return scan.fused_scan(cols, qbuf, query, ids, n_blocks, bsz, mode)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_scan runs on cuda or cpu, not {dev}")
+    if qbuf.data_ptr() % 16:
+        raise ValueError("qbuf must be 16-byte aligned")
+    fn = _bind()
+    slots, bsz = int(ids.shape[0]), int(bsz)
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    mask = torch.empty(slots * bsz if mode == "mask" else 0,
+                       dtype=torch.bool, device=dev)
+    col = [cols[name].data_ptr() for name, _ in query.slots]
+    kinds = 0
+    for j, (_, kind) in enumerate(query.slots):
+        kinds |= kind << (4 * j)
+    valid = cols["__valid__"] if "__valid__" in cols else None
+    off = query.offsets
+    with build.on_device(dev):
+        stream = build.raw_stream(dev)
+        ws, _, epoch = lookback.workspace(dev, stream, 0)
+        args = _ARGS.pack(
+            *(cols[k].data_ptr() for k in _POINT),
+            *((cols[k].data_ptr() for k in _TIME) if query.has_time
+              else (0, 0)),
+            0 if valid is None else valid.data_ptr(),
+            *col, *([0] * (MAX_SLOTS - len(col))), kinds, len(col),
+            qbuf.data_ptr(), qbuf.shape[0], off["br"][0], off["box"][0],
+            off["wkey"][0], off["prog"][0], off["const"][0],
+            len(query.branches),
+            ids.data_ptr(), n_blocks.data_ptr(), slots, bsz, n,
+            _MODES[mode], out.data_ptr(), mask.data_ptr() if slots * bsz
+            and mode == "mask" else 0, ws.data_ptr(), epoch, dev.index)
+        rc = fn(args, stream)
+    if rc != 0:
+        msg = build.load(NAME).fused_scan_error_string(rc).decode()
+        raise RuntimeError(f"fused_scan launch failed: {msg} (cudaError {rc})")
+    fused_scan.launches += 1
+    return (mask, out) if mode == "mask" else out
+
+
+fused_scan.launches = 0

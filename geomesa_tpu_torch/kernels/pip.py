@@ -1,6 +1,7 @@
 """Wrapper of the ``pip_refine`` CUDA kernel (``csrc/pip_refine.cu``).
 
-``pip_refine(xf, yf, edges, mask, starts, bsz, n_edges)`` launches the
+``pip_refine(xf, yf, edges, mask, starts, bsz, n_edges, n_blocks)``
+launches the
 kernel for tensors on a CUDA device and runs the plain PyTorch version
 (``index.scan.pip_refine``) for tensors on the CPU. There is no fallback: a
 CUDA tensor either launches the kernel or raises. ``pip_refine.launches``
@@ -27,7 +28,7 @@ def _bind(lib: ctypes.CDLL):
     fn = lib.pip_refine_launch
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_longlong, p, ctypes.c_int,
+        fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, p, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
                        ctypes.c_float, p, p, p]
         fn.restype = ctypes.c_int
@@ -36,7 +37,7 @@ def _bind(lib: ctypes.CDLL):
     return fn
 
 
-def _check(xf, yf, edges, mask, starts, bsz, n_edges) -> int:
+def _check(xf, yf, edges, mask, starts, bsz, n_edges, n_blocks) -> int:
     """Validate the inputs; return the candidate count."""
     for name, t in (("xf", xf), ("yf", yf), ("edges", edges)):
         if t.dtype != torch.float32:
@@ -56,6 +57,12 @@ def _check(xf, yf, edges, mask, starts, bsz, n_edges) -> int:
             raise ValueError("starts need a positive block size bsz")
         n = starts.shape[0] * int(bsz)
         tensors.append(starts)
+    if n_blocks is not None:
+        if starts is None:
+            raise ValueError("n_blocks limits a block list: give starts")
+        if n_blocks.dtype != torch.int32 or n_blocks.shape != (1,):
+            raise TypeError("n_blocks must be an int32 (1,) tensor")
+        tensors.append(n_blocks)
     if mask is not None:
         if mask.dtype != torch.bool or mask.dim() != 1:
             raise TypeError("mask must be a 1-D bool tensor")
@@ -73,15 +80,18 @@ def _check(xf, yf, edges, mask, starts, bsz, n_edges) -> int:
 def pip_refine(xf: torch.Tensor, yf: torch.Tensor, edges: torch.Tensor,
                mask: Optional[torch.Tensor] = None,
                starts: Optional[torch.Tensor] = None,
-               bsz: Optional[int] = None, n_edges: Optional[int] = None):
+               bsz: Optional[int] = None, n_edges: Optional[int] = None,
+               n_blocks: Optional[torch.Tensor] = None):
     """(hit, uncertain) bool flags of the candidate rows against a polygon
     edge table; see ``index.scan.pip_refine`` for the semantics. On the
     card the block starts are not range-checked (that would cost a host
     sync): each ``starts[b] + bsz`` must stay within ``len(xf)``, as the
-    fused program's clamped starts do."""
-    n = _check(xf, yf, edges, mask, starts, bsz, n_edges)
+    fused program's clamped starts do; with ``n_blocks`` the flags past the
+    first ``n_blocks`` blocks are not written."""
+    n = _check(xf, yf, edges, mask, starts, bsz, n_edges, n_blocks)
     if xf.device.type == "cpu":
-        return scan.pip_refine(xf, yf, edges, mask, starts, bsz, n_edges)
+        return scan.pip_refine(xf, yf, edges, mask, starts, bsz, n_edges,
+                               n_blocks)
     if xf.device.type != "cuda":
         raise ValueError(f"pip_refine runs on cuda or cpu, not {xf.device}")
     hit = torch.empty(n, dtype=torch.bool, device=xf.device)
@@ -97,6 +107,7 @@ def pip_refine(xf: torch.Tensor, yf: torch.Tensor, edges: torch.Tensor,
         rc = fn(xf.data_ptr(), yf.data_ptr(),
                 None if mask is None else mask.data_ptr(),
                 None if starts is None else starts.data_ptr(),
+                None if n_blocks is None else n_blocks.data_ptr(),
                 int(bsz or 0), edges.data_ptr(), ne, n,
                 scan.TOL_T, scan.TOL_D, scan.DY_BAND,
                 hit.data_ptr(), unc.data_ptr(), stream)

@@ -7,21 +7,21 @@ There is no fallback: a CUDA tensor either launches the kernel or raises.
 ``seg_band.launches`` counts the calls that launched the kernel (and
 nothing else), so a run can show its main path went through it. A call is
 one launch; it allocates only the returned vector: the kernel's chunk
-ticket, totals and per-chunk status words live in a workspace kept per
-stream, which the kernel leaves ready for the next call.
+ticket, totals and per-chunk status words live in the stream's look-back
+workspace (``kernels.lookback``), which the kernel leaves ready for the
+next call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import struct
-import threading
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Mapping, Optional
 
 import torch
 
 from geomesa_tpu_torch.index import scan
-from geomesa_tpu_torch.kernels import build
+from geomesa_tpu_torch.kernels import build, lookback
 
 NAME = "seg_band"
 SOURCE = "geomesa_tpu_torch/kernels/csrc/seg_band.cu"
@@ -35,18 +35,6 @@ _TIME = ("bin", "off")
 # the C side's Args: 32 8-byte slots (pointers, 0 for none, and sizes), then
 # the three f32 band constants and a pad
 _ARGS = struct.Struct("=32q4f")
-
-# (device index, stream) -> [workspace, its chunks, the last epoch]: 4 + chunks
-# int64 words (ticket and done counter, two totals, a pad, then one status
-# word a chunk), zeroed when made. Calls on one stream run in order, so they
-# share it; each takes the next epoch, so the status words of earlier calls
-# read as unpublished. A call holds the workspace tensor it was given until
-# its launch is queued: a grown one replaces it here, and the allocator may
-# reuse the old block only after that launch on the same stream.
-_WS: Dict[Tuple[int, int], List] = {}
-_WS_LOCK = threading.Lock()
-_EPOCH_MAX = (1 << 32) - 1
-_MIN_WS_CHUNKS = 1024
 
 _FN = None
 _CHUNK = 0
@@ -66,25 +54,6 @@ def _bind():
         _CHUNK = int(lib.seg_band_chunk())
         _FN = fn
     return _FN
-
-
-def _workspace(dev: torch.device, stream: int,
-               nchunks: int) -> Tuple[torch.Tensor, int, int]:
-    """(workspace, chunks, epoch) of ``stream``'s workspace for a call of
-    ``nchunks`` chunks: made, or grown, zeroed; the epoch is the call's."""
-    key = (dev.index, stream)
-    with _WS_LOCK:
-        ws = _WS.get(key)
-        if ws is None or ws[1] < nchunks:
-            chunks = max(nchunks, _MIN_WS_CHUNKS,
-                         0 if ws is None else 2 * ws[1])
-            ws = _WS[key] = [torch.zeros(4 + chunks, dtype=torch.int64,
-                                         device=dev), chunks, 0]
-        ws[2] += 1
-        if ws[2] > _EPOCH_MAX:   # every 2^32 calls: forget every status word
-            ws[0][4:].zero_()
-            ws[2] = 1
-        return ws[0], ws[1], ws[2]
 
 
 def _check(cols, boxes, windows, resid, block_ids, bsz, edges, n_edges,
@@ -157,7 +126,8 @@ def seg_band(cols: Mapping[str, torch.Tensor], boxes: torch.Tensor,
     has_time = windows is not None
     with build.on_device(dev):
         stream = build.raw_stream(dev)
-        ws, ws_chunks, epoch = _workspace(dev, stream, -(-ncand // _CHUNK))
+        ws, ws_chunks, epoch = lookback.workspace(dev, stream,
+                                                  -(-ncand // _CHUNK))
         args = _ARGS.pack(
             *(cols[k].data_ptr() for k in _ENVELOPE),
             *((cols[k].data_ptr() for k in _TIME) if has_time else (0, 0)),

@@ -323,9 +323,10 @@ def test_fused_density_equals_reference_program(world, monkeypatch):
     got = tcompiled.try_density(tp, tp.plan(q), BBOX, 64, 64)
     assert want is not None and got is not None
     assert np.array_equal(got[0], want[0]) and got[1] == want[1]
-    # the pruned branch reads the coordinates through the block starts (no
-    # xf/yf gather) and agrees too: a three-day window keeps 5 of 16 blocks,
-    # under the cap of 8 that a 0.5 gather fraction allows in both packages
+    # the pruned branch reads every column in place through the alive
+    # blocks' starts (nothing is gathered) and agrees too: a three-day
+    # window keeps 5 of 16 blocks, under the cap of 8 that a 0.5 gather
+    # fraction allows the reference
     seen = []
     gather = tscan._Gather.__getitem__
     monkeypatch.setattr(tscan._Gather, "__getitem__",
@@ -337,15 +338,15 @@ def test_fused_density_equals_reference_program(world, monkeypatch):
         want = jcompiled.try_density(jp, jp.plan(Q_PRUNED), BBOX, 64, 64)
         prog = tcompiled._from_plan(tp.plan(Q_PRUNED), "density", grid=BBOX,
                                     width=64, height=64)
-        _, rowids, starts = prog._candidates()
-        assert starts is not None and rowids.shape[0] < prog.n
+        _, nblk, starts = prog._candidates()
+        assert int(nblk[0]) == 5 and starts.shape[0] == 16
         got = tcompiled.try_density(tp, tp.plan(Q_PRUNED), BBOX, 64, 64)
     finally:
         for c in confs:
             c.PRUNE_MAX_FRACTION.unset()
     assert got[1] > 0
     assert np.array_equal(got[0], want[0]) and got[1] == want[1]
-    assert {"bin", "xi"} <= set(seen) and not {"xf", "yf"} & set(seen)
+    assert seen == []
 
 
 def test_prepare_density_dispatch_packed_and_ladder(world, monkeypatch):

@@ -1,0 +1,956 @@
+"""The fused program without host syncs: the block gate, the fused scan
+(fp62 boxes, windows, the residual as a postfix program) and the ordered
+fixed-capacity compaction (``index/scan.py`` ``block_gate``,
+``fused_scan``, ``ordered_compact``; the CUDA kernels in
+``kernels/csrc/block_gate.cu``, ``fused_scan.cu``, ``ordered_compact.cu``).
+
+On the CPU, against the JAX package on identical state (the 6,000-row
+corpus of the fused-query tests, gather blocks of 512 rows, so 12 blocks,
+the last one partial): the gate's block list against the reference's
+``_block_summaries`` and gate formula; the raw result of every fused mode
+and of the union program's select and density against the reference
+program's ``dispatch()``, value for value, where the gate keeps no block,
+some blocks (the last partial one among them), and more blocks than the
+reference's ``cap`` (its full-table branch); a select whose count passes
+its capacity; every residual form of ``compile_residual`` (the lowered
+program, the torch closure and the reference's closure give one mask);
+residuals that read more columns than the kernel holds, answered by the
+staged path; and no host sync inside any dispatch (``scan.host_syncs``
+counts the calls that would wait on the card). Tolerance: none — counts,
+rows, raw program results and unit grids compare exactly. The port runs
+with device="cpu" (the plain versions).
+
+The ``gpu`` tests hold each kernel to its plain version on the card: block
+lists with pads, the clamped last block and no live block, B up to 64
+boxes, empty boxes and windows, residual programs, ``__valid__``, and
+repeated calls on one stream (each takes a fresh epoch); the store's
+programs on the card against the same table's on the CPU; and no host sync
+in the fused entry points on the card (CUDA's sync debug mode). They import
+nothing of JAX, so on the card ``python -m pytest --noconftest -m gpu
+tests/test_torch_fused_scan.py`` runs them.
+"""
+
+import importlib
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from geomesa_tpu_torch import config as tconfig
+from geomesa_tpu_torch.features.sft import SimpleFeatureType as TSFT
+from geomesa_tpu_torch.features.table import FeatureTable as TTable
+from geomesa_tpu_torch.filter import ir as tir
+from geomesa_tpu_torch.filter.parser import parse_ecql as tparse
+from geomesa_tpu_torch.index import compiled as tcompiled
+from geomesa_tpu_torch.index import scan as tscan
+from geomesa_tpu_torch.index.device import fp62
+from geomesa_tpu_torch.index import planner as tplanner
+from geomesa_tpu_torch.index.planner import QueryPlanner as TPlanner
+from geomesa_tpu_torch.index.spatial import Z3Index as TZ3
+from geomesa_tpu_torch.index.spatial import _boxes_fp62 as t_fp62
+from geomesa_tpu_torch.kernels import compact as kcompact
+from geomesa_tpu_torch.kernels import density as kdensity
+from geomesa_tpu_torch.kernels import dist as kdist
+from geomesa_tpu_torch.kernels import fused_scan as kscan
+from geomesa_tpu_torch.kernels import gate as kgate
+from geomesa_tpu_torch.kernels import pip as kpip
+
+SPEC = ("name:String,age:Int,score:Float,flag:Boolean,dtg:Date,*geom:Point;"
+        "geomesa.z3.interval=week")
+N = 6000
+BSZ = 512
+BOX = "BBOX(geom,-60,-30,60,30)"
+POLY = "POLYGON((-10 20, 40 20, 40 60, -10 60, 15 40, -10 20))"
+DURING = "dtg DURING 2020-01-03T00:00:00Z/2020-01-15T00:00:00Z"
+GRID = (-60.0, -40.0, 60.0, 40.0)
+
+# where the gate keeps no block (a window past the data), some blocks (the
+# last week: its blocks end with the partial last one), and every block
+# (more than the reference's cap of 4 of 12: its full-table branch)
+GATES = {
+    "none": "dtg DURING 2021-03-01T00:00:00Z/2021-03-09T00:00:00Z",
+    "some": "dtg DURING 2020-01-27T00:00:00Z/2020-01-31T00:00:00Z",
+    "all": "dtg DURING 2019-12-01T00:00:00Z/2020-03-01T00:00:00Z",
+}
+
+# the spatial part of each mode's query, and its residual
+MODES = {
+    "count": f"{BOX} AND age > 10",
+    "select": f"{BOX} AND name <> 'gamma'",
+    "count_refine": f"INTERSECTS(geom, {POLY})",
+    "select_refine": f"INTERSECTS(geom, {POLY}) AND score < 0.8",
+    "dist_count": "st_distance(geom, POINT(10 10)) < 25",
+    "dist_select": "st_distance(geom, POINT(-20 5)) <= 30 AND age < 70",
+    "density": f"{BOX} AND flag = true",
+}
+
+# every form compile_residual accepts
+RESIDUALS = [
+    "age = 40", "age <> 40", "age < 40", "age <= 40", "age > 40",
+    "age >= 40", "score = 0.5", "score <> 0.5", "score < 0.25",
+    "score <= 0.5", "score > 0.75", "score >= 0.5", "flag = true",
+    "flag <> true", "flag = false", "flag < true", "flag >= true",
+    "name = 'beta'", "name <> 'beta'", "name = 'zeta'", "name <> 'zeta'",
+    "name IN ('alpha', 'gamma')", "name IN ('zeta')",
+    "name IN ('alpha', 'beta', 'gamma')", "age IN (1, 5, 40, 77, 99)",
+    "age > 10 AND name = 'beta'", "age < 10 OR name = 'beta'",
+    "NOT (age > 50)",
+    "NOT (age > 50 AND (name = 'beta' OR score < 0.5)) AND flag = false",
+    "age > 5 AND age < 90 AND name <> 'delta' AND score > 0.1",
+]
+
+UNIONS = {
+    gate: f"(BBOX(geom,-60,-30,0,0) AND {w}) OR "
+          f"(BBOX(geom,-10,-10,60,30) AND {w} AND age > 30)"
+    for gate, w in GATES.items()
+}
+
+
+def _ref(name: str):
+    """A module of the JAX package (imported only by the CPU tests)."""
+    pytest.importorskip("jax")
+    return importlib.import_module(name)
+
+
+@pytest.fixture(autouse=True)
+def _small_blocks(request):
+    confs = [tconfig]
+    if "world" in request.fixturenames:
+        # earlier suites monkeypatch the reference's prune.BLOCK_SIZE; the
+        # teardown leaves a real attribute that shadows config.PRUNE_BLOCK
+        vars(_ref("geomesa_tpu.index.prune")).pop("BLOCK_SIZE", None)
+        confs.append(_ref("geomesa_tpu.config"))
+    for c in confs:
+        c.PRUNE_BLOCK.set(BSZ)
+        c.FUSED_QUERY.set(True)
+    yield
+    for c in confs:
+        c.PRUNE_BLOCK.unset()
+        c.FUSED_QUERY.unset()
+
+
+def _columns(n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-170, 170, n)
+    y = rng.uniform(-80, 80, n)
+    base = np.datetime64("2020-01-01T00:00:00", "ms").astype(np.int64)
+    dtg = base + rng.integers(0, 30 * 86400000, n)
+    return {"name": rng.choice(["alpha", "beta", "gamma", "delta"], n),
+            "age": rng.integers(0, 100, n).astype(np.int32),
+            "score": rng.uniform(0, 1, n).astype(np.float32),
+            "flag": rng.random(n) < 0.4,
+            "dtg": dtg, "geom": (x, y)}
+
+
+def _port(cols, dev="cpu"):
+    sft = TSFT.from_spec("fs", SPEC)
+    table = TTable.build(sft, cols)
+    return TPlanner(sft, table, [TZ3(sft, table, dev)])
+
+
+@pytest.fixture(scope="module")
+def world():
+    jsft_mod = _ref("geomesa_tpu.features.sft")
+    jtable = _ref("geomesa_tpu.features.table")
+    jplanner = _ref("geomesa_tpu.index.planner")
+    jspatial = _ref("geomesa_tpu.index.spatial")
+    jconfig = _ref("geomesa_tpu.config")
+    vars(_ref("geomesa_tpu.index.prune")).pop("BLOCK_SIZE", None)
+    cols = _columns(N, 7)
+    jconfig.PRUNE_BLOCK.set(BSZ)
+    tconfig.PRUNE_BLOCK.set(BSZ)
+    try:
+        jsft = jsft_mod.SimpleFeatureType.from_spec("fs", SPEC)
+        jt = jtable.FeatureTable.build(jsft, cols)
+        jp = jplanner.QueryPlanner(jsft, jt, [jspatial.Z3Index(jsft, jt)])
+        return jp, _port(cols)
+    finally:
+        jconfig.PRUNE_BLOCK.unset()
+        tconfig.PRUNE_BLOCK.unset()
+
+
+def _query(mode: str, gate: str) -> str:
+    return f"{MODES[mode]} AND {GATES[gate]}"
+
+
+def _reference_mode(mode: str) -> str:
+    return {"dist_count": "count_refine",
+            "dist_select": "select_refine"}.get(mode, mode)
+
+
+def _run(prog):
+    """A port program's run, with no host sync on the way."""
+    with tscan.host_syncs() as h:
+        out = prog.run()
+    assert h.count == 0
+    return out
+
+
+@pytest.fixture
+def dispatch_syncs(monkeypatch):
+    """The host syncs of every dispatch that ``_fetch`` reads back, one
+    count a dispatch, measured around the dispatch alone (the readback
+    after it is the one wait it is allowed)."""
+    counts = []
+    fetch = tscan._fetch
+
+    def counted(dispatch, *args):
+        with tscan.host_syncs() as h:
+            out = dispatch(*args)
+        counts.append(h.count)
+        return fetch(lambda: out)
+
+    for mod in (tscan, tcompiled, tplanner):
+        monkeypatch.setattr(mod, "_fetch", counted)
+    return counts
+
+
+# -- the block gate -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("gate", list(GATES))
+@pytest.mark.parametrize("mode", ["count", "select_refine", "dist_count"])
+def test_gate_lists_the_reference_alive_blocks(world, gate, mode):
+    """The gate's ascending block list, its clamped starts and its count
+    against the alive set of the reference's per-block summaries and gate
+    formula (``_jit_program``'s ``alive``)."""
+    jc = _ref("geomesa_tpu.index.compiled")
+    jp, tp = world
+    q = _query(mode, gate)
+    jplan, tplan = jp.plan(q), tp.plan(q)
+    summ = {k: np.asarray(v) for k, v in
+            jc._block_summaries(jp.indexes[0], BSZ).items()}
+    g = jc._gate_of(jplan.explain["boxes"], len(jplan.boxes_loose))
+    alive = ((summ["bxmax"][:, None] >= g[None, :, 0])
+             & (summ["bxmin"][:, None] <= g[None, :, 2])
+             & (summ["bymax"][:, None] >= g[None, :, 1])
+             & (summ["bymin"][:, None] <= g[None, :, 3])).any(axis=1)
+    if jplan.windows is not None:
+        blo, bhi = jplan.windows[:, 0], jplan.windows[:, 2]
+        alive &= ((blo <= bhi)[None, :]
+                  & (summ["binmin"][:, None] <= bhi[None, :])
+                  & (summ["binmax"][:, None] >= blo[None, :])).any(axis=1)
+    want = np.flatnonzero(alive)
+    prog = tcompiled.Program(tplan, "count")
+    ids, starts, nblk = prog._gate()
+    k = int(nblk[0])
+    nb = len(alive)
+    assert ids.shape == (nb,) and starts.shape == (nb,)
+    assert k == len(want)
+    assert np.array_equal(ids.numpy()[:k], want)
+    assert (ids.numpy()[k:] == -1).all() and (starts.numpy()[k:] == 0).all()
+    assert np.array_equal(starts.numpy()[:k],
+                          np.clip(want * BSZ, 0, N - BSZ))
+    if gate == "none":
+        assert k == 0
+    elif gate == "all":
+        assert k == nb and k > prog_cap(nb)
+    else:
+        assert 0 < k < nb and want[-1] == nb - 1   # the partial last block
+
+
+def prog_cap(nb: int) -> int:
+    """The reference's pruned-branch capacity at the default fraction."""
+    return tcompiled._pow2(max(4, int(np.ceil(nb * 0.25))))
+
+
+# -- every mode, raw ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("gate", list(GATES))
+@pytest.mark.parametrize("mode", list(MODES))
+def test_program_equals_reference_program(world, gate, mode):
+    """The raw result of every fused mode, value for value, against the
+    reference program's ``dispatch()``."""
+    jc = _ref("geomesa_tpu.index.compiled")
+    jp, tp = world
+    q = _query(mode, gate)
+    rmode = _reference_mode(mode)
+    kw = dict(grid=GRID, width=64, height=32) if rmode == "density" else {}
+    jprog = jc._from_plan(jp, jp.plan(q), rmode, **kw)
+    assert jprog is not None
+    want = jprog.dispatch()
+    tplan = tp.plan(q)
+    refine = tcompiled.refine_spec(tplan) if "refine" in rmode else None
+    got = _run(tcompiled.Program(tplan, rmode, sel_cap=jprog.sel_cap,
+                                 unc_cap=jprog.unc_cap, refine=refine,
+                                 **kw))
+    if rmode == "density":
+        assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+        assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+        assert int(got[1]) == int(want[1])
+        total = int(got[1])
+    else:
+        want = np.atleast_1d(np.asarray(want))
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want)
+        total = int(want[0]) + (int(want[1]) if "refine" in rmode else 0)
+    assert (total == 0) == (gate == "none")
+
+
+@pytest.mark.parametrize("gate", list(GATES))
+def test_union_program_equals_reference(world, gate):
+    """The union program's select and density, raw, against the
+    reference's ``_jit_union_program``."""
+    jc = _ref("geomesa_tpu.index.compiled")
+    jp, tp = world
+    q = UNIONS[gate]
+    jprog = jc._build_union(jp, jp.plan(q), "select", None)
+    want = np.asarray(jprog.dispatch())
+    got = _run(tcompiled.UnionProgram(tp.plan(q), "select",
+                                      sel_cap=jprog.sel_cap))
+    assert np.array_equal(got.numpy(), want)
+    assert (int(want[0]) == 0) == (gate == "none")
+    jprog = jc._build_union(jp, jp.plan(q), "density", None, grid=GRID,
+                            width=64, height=32)
+    jgrid, jcnt = jprog.dispatch()
+    grid, cnt = _run(tcompiled.UnionProgram(tp.plan(q), "density",
+                                            grid=GRID, width=64, height=32))
+    assert int(cnt) == int(jcnt)
+    assert np.array_equal(grid.numpy(), np.asarray(jgrid))
+
+
+def test_select_past_its_capacity(world):
+    """count > sel_cap: the true count and the first sel_cap rows, as the
+    reference returns them (the caller regrows)."""
+    jc = _ref("geomesa_tpu.index.compiled")
+    jp, tp = world
+    q = f"BBOX(geom,-170,-80,170,80) AND {GATES['all']}"
+    jprog = jc._from_plan(jp, jp.plan(q), "select", capacity=1000)
+    want = np.asarray(jprog.dispatch())
+    assert jprog.sel_cap == 1024 and want[0] > 1024
+    got = _run(tcompiled.Program(tp.plan(q), "select", sel_cap=1024))
+    assert np.array_equal(got.numpy(), want)
+    before = tcompiled.STATS["overflow_retries"]
+    rows = tcompiled.try_select(tp, tp.plan(q), 1000)
+    assert tcompiled.STATS["overflow_retries"] == before + 1
+    assert len(rows) == int(want[0])
+
+
+def test_entry_points_and_count_async_make_no_sync(world, dispatch_syncs):
+    """The try_* entry points and both count_async routes answer as the
+    reference does, with no host sync; count_async hands back a device
+    tensor and reads nothing back."""
+    jc = _ref("geomesa_tpu.index.compiled")
+    jp, tp = world
+    q = _query("count", "some")
+    assert tcompiled.try_count(tp, tp.plan(q)) == jc.try_count(jp, jp.plan(q))
+    q = _query("select", "some")
+    assert np.array_equal(tcompiled.try_select(tp, tp.plan(q), None),
+                          jc.try_select(jp, jp.plan(q), None))
+    q = _query("select_refine", "some")
+    assert np.array_equal(tcompiled.try_select_refine(tp, tp.plan(q), None),
+                          jc.try_select_refine(jp, jp.plan(q), None))
+    for q in (f"{BOX} AND {DURING} AND age > 10",
+              f"BBOX(geom,0,0,40,40) AND {DURING} AND age > 20"):
+        prepared = tp.prepare(q)     # the second shape binds a recipe
+        d0 = tscan.ROUNDS.dispatches
+        with tscan.host_syncs() as h:
+            out = prepared.count_async()
+        assert h.count == 0
+        assert isinstance(out, torch.Tensor) and out.dim() == 0
+        assert tscan.ROUNDS.dispatches == d0
+        assert int(out) == jp.count(q)
+    assert isinstance(tp.prepare(f"{BOX} AND {DURING} AND age > 20"),
+                      tcompiled.FusedPrepared)
+    assert dispatch_syncs == [0, 0, 0]
+
+
+def test_staged_selects_compact_in_order(world, dispatch_syncs):
+    """The staged selects (full table and candidate blocks) through
+    ``ordered_compact`` against the reference's ScanKernels, a capacity
+    that overflows and regrows among them, and the raw packed vector of
+    the port's dispatcher against the selected rows."""
+    jp, tp = world
+    q = f"{BOX} AND {DURING} AND age > 10"
+    jplan, tplan = jp.plan(q), tp.plan(q)
+    args = (jplan.primary_kind, jplan.boxes_loose, jplan.windows)
+    jk, tk = jp.indexes[0].kernels, tp.indexes[0].kernels
+    blocks = np.array([0, 3, 5, 11], dtype=np.int32)
+    for cap in (16, 1024):
+        want = jk.select(*args, jplan.residual_device, cap)
+        got = tk.select(*args, tplan.residual_device, cap)
+        assert np.array_equal(got[0], want[0]) and got[1] == want[1]
+        with tscan.host_syncs() as h:
+            raw = tk.prepare_select(*args, tplan.residual_device, cap)()
+        assert h.count == 0
+        assert int(raw[0]) == want[1]
+        k = min(cap, want[1])
+        assert np.array_equal(raw[1: 1 + k].numpy(), want[0][:k])
+        assert (raw[1 + k:] == tk.n).all()
+        want = jk.select_blocks(*args, jplan.residual_device, blocks, BSZ,
+                                cap)
+        got = tk.select_blocks(*args, tplan.residual_device, blocks, BSZ,
+                               cap)
+        assert np.array_equal(got[0], want[0]) and got[1] == want[1] > 0
+    assert dispatch_syncs and not any(dispatch_syncs)
+
+
+# -- the residual program ------------------------------------------------------
+
+
+@pytest.mark.parametrize("r", RESIDUALS)
+def test_residual_program_equals_closure_and_reference(world, r):
+    """Every residual form: the lowered program's mask (``eval_program``)
+    equals the torch closure's and the reference closure's over the
+    device columns, and the fused count and select with it equal the
+    reference program's."""
+    jc = _ref("geomesa_tpu.index.compiled")
+    jscan = _ref("geomesa_tpu.index.scan")
+    jparse = _ref("geomesa_tpu.filter.parser").parse_ecql
+    jnp = _ref("jax.numpy")
+    jp, tp = world
+    tidx, jidx = tp.indexes[0], jp.indexes[0]
+    cols = tidx.device.columns
+    res = tscan.compile_residual(tparse(r), tp.sft, tidx.vocabs, set(cols))
+    jkey, jparams, jfn = jscan.compile_residual(jparse(r), jp.sft,
+                                                jidx.vocabs,
+                                                set(jidx.device.columns))
+    assert res.key == jkey and res.program is not None
+    want = np.asarray(jfn(jidx.device.columns,
+                          [jnp.asarray(p) for p in jparams]))
+    closure = res.fn(cols, [torch.from_numpy(np.asarray(p))
+                            for p in res.params])
+    prog = res.program
+    lowered = tscan.eval_program(cols, prog.words,
+                                 torch.from_numpy(prog.consts), prog.slots,
+                                 tidx.device.n)
+    assert np.array_equal(closure.numpy(), want)
+    assert np.array_equal(lowered.numpy(), want)
+    for mode in ("count", "select"):
+        q = f"{BOX} AND {DURING} AND ({r})"
+        jprog = jc._from_plan(jp, jp.plan(q), mode)
+        got = _run(tcompiled.Program(tp.plan(q), mode,
+                                     sel_cap=jprog.sel_cap))
+        assert np.array_equal(got.numpy(),
+                              np.atleast_1d(np.asarray(jprog.dispatch())))
+
+
+@pytest.mark.parametrize("node,value", [(tir.Include(), True),
+                                        (tir.Exclude(), False)])
+def test_include_exclude_lower(world, node, value):
+    _, tp = world
+    cols = tp.indexes[0].device.columns
+    res = tscan.compile_residual(node, tp.sft, {}, set(cols))
+    n = tp.indexes[0].device.n
+    got = tscan.eval_program(cols, res.program.words,
+                             torch.from_numpy(res.program.consts),
+                             res.program.slots, n)
+    assert torch.equal(got, res.fn(cols, []))
+    assert bool(got.all()) == value and bool(got.any()) == value
+
+
+def test_deep_residual_declines_to_staged(world):
+    """A residual nested past the program's stack has no program: the
+    fused program declines it and the staged path answers exactly."""
+    jp, tp = world
+    r = "age > 1"
+    for k in range(70):   # right-nested, AND and OR in turn: 71 deep
+        r = f"(age <> {k + 200} {'AND' if k % 2 else 'OR'} {r})"
+    cols = tp.indexes[0].device.columns
+    res = tscan.compile_residual(tparse(r), tp.sft, tp.indexes[0].vocabs,
+                                 set(cols))
+    assert res.program is None
+    q = f"{BOX} AND {DURING} AND {r}"
+    assert tp.plan(q).residual_device.program is None
+    assert tcompiled._from_plan(tp.plan(q), "count") is None
+    assert tp.count(q) == jp.count(q)
+
+
+# one more residual column than the fused_scan kernel holds
+WIDE = kscan.MAX_SLOTS + 1
+WIDE_SPEC = (",".join(f"c{k}:Int" for k in range(WIDE))
+             + ",dtg:Date,*geom:Point;geomesa.z3.interval=week")
+
+
+@pytest.fixture(scope="module")
+def wide_world():
+    """Both packages' planners over one table of WIDE Int columns."""
+    jsft_mod = _ref("geomesa_tpu.features.sft")
+    jtable = _ref("geomesa_tpu.features.table")
+    jplanner = _ref("geomesa_tpu.index.planner")
+    jspatial = _ref("geomesa_tpu.index.spatial")
+    jconfig = _ref("geomesa_tpu.config")
+    vars(_ref("geomesa_tpu.index.prune")).pop("BLOCK_SIZE", None)
+    base = _columns(N, 11)
+    rng = np.random.default_rng(13)
+    cols = {f"c{k}": rng.integers(0, 100, N).astype(np.int32)
+            for k in range(WIDE)}
+    cols.update(dtg=base["dtg"], geom=base["geom"])
+    jconfig.PRUNE_BLOCK.set(BSZ)
+    tconfig.PRUNE_BLOCK.set(BSZ)
+    try:
+        jsft = jsft_mod.SimpleFeatureType.from_spec("wide", WIDE_SPEC)
+        jt = jtable.FeatureTable.build(jsft, cols)
+        jp = jplanner.QueryPlanner(jsft, jt, [jspatial.Z3Index(jsft, jt)])
+        sft = TSFT.from_spec("wide", WIDE_SPEC)
+        table = TTable.build(sft, cols)
+        return jp, TPlanner(sft, table, [TZ3(sft, table, "cpu")])
+    finally:
+        jconfig.PRUNE_BLOCK.unset()
+        tconfig.PRUNE_BLOCK.unset()
+
+
+def _wide(ks) -> str:
+    return " AND ".join(f"c{k} < 97" for k in ks)
+
+
+@pytest.mark.parametrize("shape", ["single", "union"])
+def test_wide_residual_declines_to_staged(wide_world, shape):
+    """Residuals that read more columns than the kernel holds: the fused
+    program declines them and the staged path answers as the reference
+    does — a plan whose residual reads WIDE columns, and an OR whose two
+    branches read WIDE columns between them. At the kernel's limit the
+    fused program takes the plan."""
+    jp, tp = wide_world
+    if shape == "single":
+        q = f"{BOX} AND {DURING} AND {_wide(range(WIDE))}"
+        at_limit = f"{BOX} AND {DURING} AND {_wide(range(WIDE - 1))}"
+        assert tcompiled._from_plan(tp.plan(at_limit), "count") is not None
+        assert tp.count(at_limit) == jp.count(at_limit)
+        for mode in ("count", "select"):
+            assert tcompiled._from_plan(tp.plan(q), mode) is None
+        assert tcompiled.try_count(tp, tp.plan(q)) is None
+    else:
+        half = WIDE // 2
+        q = (f"(BBOX(geom,-60,-30,0,0) AND {DURING} AND "
+             f"{_wide(range(half))}) OR (BBOX(geom,-10,-10,60,30) AND "
+             f"{DURING} AND {_wide(range(half, WIDE))})")
+        plan = tp.plan(q)
+        assert isinstance(plan, tcompiled.UnionScanPlan)
+        for mode in ("select", "density"):
+            assert tcompiled._union_from_plan(tp, plan, mode, None) is None
+    want = jp.count(q)
+    assert want > 0 and tp.count(q) == want
+    assert np.array_equal(tp.select_indices(q), jp.select_indices(q))
+
+
+# -- the plain versions against numpy ------------------------------------------
+
+
+@pytest.mark.parametrize("cap", [0, 1, 7, 300, 5000])
+@pytest.mark.parametrize("blocks", [False, True])
+def test_plain_ordered_compact(cap, blocks):
+    """The plain compaction against numpy's nonzero, over a table and over
+    a block list whose slots past n_blocks hold set bytes it must skip."""
+    rng = np.random.default_rng(cap + 3)
+    kw = {}
+    if blocks:
+        starts = np.array([0, 1536, 3000, 4488, 0, 0], dtype=np.int64)
+        m = rng.random(len(starts) * BSZ) < 0.3
+        rows = (starts[:, None] + np.arange(BSZ)[None, :]).reshape(-1)
+        live = m.copy()
+        live[4 * BSZ:] = False
+        kw = dict(starts=torch.from_numpy(starts), bsz=BSZ,
+                  n_blocks=torch.tensor([4], dtype=torch.int32))
+    else:
+        m = rng.random(4001) < 0.3
+        rows = np.arange(len(m))
+        live = m
+    kept = rows[np.flatnonzero(live)][:cap]
+    want = np.full(cap, 99, dtype=np.int32)
+    want[: len(kept)] = kept
+    count, got = kcompact.ordered_compact(torch.from_numpy(m), cap, 99, **kw)
+    assert int(count[0]) == int(live.sum())
+    assert np.array_equal(got.numpy(), want)
+    out = torch.empty(1 + cap, dtype=torch.int32)
+    kcompact.ordered_compact(torch.from_numpy(m), cap, 99, count_out=out[:1],
+                             rows_out=out[1:], **kw)
+    assert int(out[0]) == int(live.sum())
+    assert np.array_equal(out[1:].numpy(), want)
+
+
+def test_fused_query_packs_every_section():
+    """The packed buffer's sections read back as the branches' boxes (as
+    keys), gates, windows (as keys and bins), program words and
+    constants."""
+    boxes = t_fp62([(-10.0, -5.0, 10.0, 5.0), (20.0, 20.0, 30.0, 40.0)])
+    gate = np.array([[-10, -5, 10, 5], [20, 20, 30, 40]], dtype=np.float32)
+    win = np.array([[2600, 5, 2601, 9], [1, 0, 0, 0]], dtype=np.int32)
+    sft = TSFT.from_spec("p", SPEC)
+    res = tscan.compile_residual(tparse("age > 3 AND score < 0.5"), sft, {})
+    res2 = tscan.compile_residual(tparse("name IN ('a')"), sft,
+                                  {"name": ["a", "b"]})
+    q = tscan.FusedQuery([(boxes, gate, win, res.program),
+                          (boxes[:1], gate[:1], None, res2.program)])
+    buf = torch.from_numpy(q.packed)
+    assert len(q.packed) % 16 == 0
+    assert q.branches == [(0, 2, 0, 2, 0, 3), (2, 1, 2, 0, 3, 1)]
+    both = np.concatenate([boxes, boxes[:1]])
+    keys = q.section(buf, "box", torch.int64, 4).numpy()
+    assert np.array_equal(keys, np.stack([tscan.pack62(
+        torch.from_numpy(both[:, 2 * j].copy()),
+        torch.from_numpy(both[:, 2 * j + 1].copy())).numpy()
+        for j in range(4)], axis=1))
+    wkeys = q.section(buf, "wkey", torch.int64, 2).numpy()
+    assert wkeys[0, 0] == (2600 << 32) + 5 + (1 << 31)
+    assert (wkeys[1, 0] > wkeys[1, 1])    # the empty window holds nothing
+    assert np.array_equal(q.section(buf, "gate", torch.float32, 4).numpy(),
+                          np.concatenate([gate, gate[:1]]))
+    assert np.array_equal(q.section(buf, "wbin", torch.int32, 2).numpy(),
+                          win[:, [0, 2]])
+    words = q.section(buf, "prog", torch.int32, 4).numpy()
+    assert np.array_equal(words, q.words) and len(words) == 4
+    assert q.slots == (("age", tscan.SLOT_I32), ("score", tscan.SLOT_F32),
+                       ("name", tscan.SLOT_I32))
+    assert words[3, 1] == 2 and words[3, 2] == 2   # remapped slot, const
+    cn = q.section(buf, "const", torch.int32, 1).numpy().reshape(-1)
+    assert cn[0] == 3 and cn[1] == np.float32(0.5).view(np.int32) \
+        and cn[2] == 0
+
+
+# -- the CUDA kernels against their plain versions (card only) -----------------
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the fused-scan kernels)")
+    return torch.device("cuda")
+
+
+def _planes(n: int, seed: int, dev, valid: bool):
+    """Device planes of a Z3 point table: fp62 and f32 x/y (with ties on a
+    box edge), binned time, residual columns, a sparse __valid__."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-180, 180, n)
+    y = rng.uniform(-90, 90, n)
+    x[: n // 50] = 10.0
+    xi, xl = fp62(x, -180.0, 180.0)
+    yi, yl = fp62(y, -90.0, 90.0)
+    cols = {"xi": xi, "xl": xl, "yi": yi, "yl": yl,
+            "xf": x.astype(np.float32), "yf": y.astype(np.float32),
+            "bin": np.sort(rng.integers(2600, 2606, n)).astype(np.int32),
+            "off": rng.integers(0, 604800, n).astype(np.int32),
+            "age": rng.integers(0, 100, n).astype(np.int32),
+            "score": rng.uniform(0, 1, n).astype(np.float32),
+            "flag": rng.random(n) < 0.4,
+            "name": rng.integers(0, 4, n).astype(np.int32)}
+    if valid:
+        cols["__valid__"] = rng.random(n) < 0.9
+    return {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+
+
+def _geo_boxes(k: int, seed: int):
+    rng = np.random.default_rng(seed)
+    x0 = rng.uniform(-180, 170, k)
+    y0 = rng.uniform(-90, 80, k)
+    w = rng.uniform(0, 60, k)
+    h = rng.uniform(0, 40, k)
+    return [(float(a), float(b), float(min(180, a + c)), float(min(90, b + d)))
+            for a, b, c, d in zip(x0, y0, w, h)]
+
+
+def _fused_query(nbox: int, windows: str, resid, seed: int,
+                 branches: int = 1):
+    sft = TSFT.from_spec("g", SPEC)
+    vocab = {"name": ["alpha", "beta", "gamma", "delta"]}
+    out = []
+    for k in range(branches):
+        geo = _geo_boxes(nbox, seed + k)
+        boxes = tscan.pad_boxes(t_fp62(geo))
+        if windows == "empty_boxes":
+            boxes[:] = tscan.EMPTY_BOX
+        gate = tcompiled._gate_of(geo, len(boxes))
+        w = None
+        if windows == "some":
+            w = np.array([[2601, 1000, 2603, 500], [2605, 7, 2605, 90000],
+                          [1, 0, 0, 0], [1, 0, 0, 0]], dtype=np.int32)
+        elif windows == "empty":
+            w = np.tile(tscan.EMPTY_WINDOW, (2, 1))
+        prog = None
+        if resid:
+            prog = tscan.compile_residual(tparse(resid), sft, vocab).program
+        out.append((boxes, gate, w, prog))
+    return tscan.FusedQuery(out)
+
+
+def _block_list(case: str, nb: int):
+    if case == "all":
+        return np.arange(nb, dtype=np.int32), nb
+    if case == "edge":   # the clamped last block, pads
+        ids = np.array([0, 3, nb - 2, nb - 1], dtype=np.int32)
+    elif case == "none":
+        ids = np.empty(0, dtype=np.int32)
+    else:
+        ids = np.arange(0, nb, 3, dtype=np.int32)
+    full = np.full(nb, -1, dtype=np.int32)
+    full[: len(ids)] = ids
+    return full, len(ids)
+
+
+GPU_CASES = [(n, bsz, nbox, windows, resid, valid, blocks)
+             for n, bsz in ((100_003, 4096), (20_011, 512))
+             for nbox in (1, 4, 64)
+             for windows, resid, valid in (
+                 ("none", None, False), ("some", "age > 10", False),
+                 ("some", "NOT (age > 50 AND (name = 'beta' OR "
+                          "score < 0.5)) AND flag = false", True),
+                 ("empty", None, False), ("empty_boxes", None, False))
+             for blocks in ("all", "edge", "sparse", "none")]
+
+
+def _gpu_case(n, bsz, nbox, windows, resid, valid, blocks, branches=1):
+    dev = _cuda()
+    cols = _planes(n, nbox + bsz, dev, valid)
+    q = _fused_query(nbox, windows, resid, seed=nbox, branches=branches)
+    nb = -(-n // bsz)
+    ids, k = _block_list(blocks, nb)
+    ids = torch.from_numpy(ids).to(dev)
+    nblk = torch.tensor([k], dtype=torch.int32, device=dev)
+    qbuf = torch.from_numpy(q.packed).to(dev)
+    return cols, q, qbuf, ids, nblk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,bsz,nbox,windows,resid,valid,blocks", GPU_CASES)
+def test_cuda_fused_scan_equals_plain(n, bsz, nbox, windows, resid, valid,
+                                      blocks):
+    cols, q, qbuf, ids, nblk = _gpu_case(n, bsz, nbox, windows, resid,
+                                         valid, blocks)
+    k = int(nblk[0])
+    for mode in ("count", "mask"):
+        before = kscan.fused_scan.launches
+        got = kscan.fused_scan(cols, qbuf, q, ids, nblk, bsz, mode)
+        want = tscan.fused_scan(cols, qbuf, q, ids, nblk, bsz, mode)
+        torch.cuda.synchronize()
+        assert kscan.fused_scan.launches == before + 1
+        if mode == "mask":
+            live = k * bsz
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(got[0][:live], want[0][:live])
+        else:
+            assert torch.equal(got, want), mode
+    if windows in ("empty", "empty_boxes"):
+        assert int(want[1]) == 0
+    # select: the mask compacted in order (the program's select)
+    starts = tscan.expand_blocks(cols, ids, bsz, n)[2]
+    for cap in (0, 1, 5000):
+        kw = dict(starts=starts, bsz=bsz, n_blocks=nblk)
+        c, r = kcompact.ordered_compact(got[0], cap, n, **kw)
+        cw, rw = tscan.ordered_compact(want[0], cap, n, **kw)
+        assert torch.equal(c, cw) and torch.equal(r, rw), cap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("branches", [2, 5])
+@pytest.mark.parametrize("blocks", ["all", "edge"])
+def test_cuda_union_scan_equals_plain(branches, blocks):
+    cols, q, qbuf, ids, nblk = _gpu_case(100_003, 4096, 4, "some",
+                                         "age > 30", False, blocks,
+                                         branches=branches)
+    live = int(nblk[0]) * 4096
+    got = kscan.fused_scan(cols, qbuf, q, ids, nblk, 4096, "count")
+    want = tscan.fused_scan(cols, qbuf, q, ids, nblk, 4096, "count")
+    assert torch.equal(got, want)
+    got = kscan.fused_scan(cols, qbuf, q, ids, nblk, 4096, "mask")
+    want = tscan.fused_scan(cols, qbuf, q, ids, nblk, 4096, "mask")
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0][:live], want[0][:live])
+
+
+def _summaries(cols, bsz):
+    index = types.SimpleNamespace(device=types.SimpleNamespace(columns=cols))
+    return tcompiled.block_summaries(index, bsz)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,bsz", [(100_003, 4096), (20_011, 512),
+                                   (3_000_017, 64)])
+@pytest.mark.parametrize("nbox,windows,branches", [
+    (1, "none", 1), (4, "some", 1), (64, "some", 1), (4, "empty", 1),
+    (4, "some", 3)])
+def test_cuda_block_gate_equals_plain(n, bsz, nbox, windows, branches):
+    dev = _cuda()
+    cols = _planes(n, bsz, dev, False)
+    summ = _summaries(cols, bsz)
+    q = _fused_query(nbox, windows, None, seed=nbox, branches=branches)
+    qbuf = torch.from_numpy(q.packed).to(dev)
+    before = kgate.block_gate.launches
+    got = kgate.block_gate(summ, qbuf, q, n, bsz)
+    want = tscan.block_gate(summ, qbuf, q, n, bsz)
+    torch.cuda.synchronize()
+    assert kgate.block_gate.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if windows == "empty":
+        assert int(got[2][0]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [0, 1, 1000, 1 << 16, 1 << 21])
+@pytest.mark.parametrize("where", ["table", "blocks", "none"])
+def test_cuda_ordered_compact_equals_plain(cap, where):
+    dev = _cuda()
+    rng = np.random.default_rng(cap)
+    n = 3_000_017
+    kw = {}
+    if where == "table":
+        m = rng.random(n) < 0.3
+    else:
+        nb, bsz = 1000, 4096
+        starts = np.clip(rng.permutation(nb)[:nb] * bsz, 0, n - bsz)
+        m = rng.random(nb * bsz) < 0.05
+        kw = dict(starts=torch.from_numpy(starts.astype(np.int64)).to(dev),
+                  bsz=bsz, n_blocks=torch.tensor(
+                      [0 if where == "none" else 700], dtype=torch.int32,
+                      device=dev))
+    mask = torch.from_numpy(m).to(dev)
+    before = kcompact.ordered_compact.launches
+    got = kcompact.ordered_compact(mask, cap, -7, **kw)
+    want = tscan.ordered_compact(mask, cap, -7, **kw)
+    torch.cuda.synchronize()
+    assert kcompact.ordered_compact.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_cuda_repeated_calls_take_fresh_epochs():
+    """Back-to-back calls on one stream, growing and shrinking the work
+    and the caps, share the stream's workspace; each agrees with the plain
+    version (a stale status word would read as a published prefix)."""
+    dev = _cuda()
+    n = 300_007
+    cols = _planes(n, 11, dev, False)
+    q = _fused_query(8, "some", "age > 20", seed=3)
+    qbuf = torch.from_numpy(q.packed).to(dev)
+    nb = -(-n // 512)
+    rng = np.random.default_rng(5)
+    outs = []
+    for it in range(24):
+        k = int(rng.integers(0, nb + 1))
+        ids = np.full(nb, -1, dtype=np.int32)
+        ids[:k] = np.sort(rng.choice(nb, k, replace=False))
+        ids = torch.from_numpy(ids).to(dev)
+        nblk = torch.tensor([k], dtype=torch.int32, device=dev)
+        cap = int(rng.choice([0, 10, 5000, 1 << 18]))
+        got = kscan.fused_scan(cols, qbuf, q, ids, nblk, 512, "count")
+        m = torch.from_numpy(rng.random(n) < 0.2).to(dev)
+        c = kcompact.ordered_compact(m, cap, n)
+        outs.append((got, tscan.fused_scan(cols, qbuf, q, ids, nblk, 512,
+                                           "count"),
+                     c, tscan.ordered_compact(m, cap, n)))
+    torch.cuda.synchronize()
+    for got, want, c, cw in outs:
+        assert torch.equal(got, want)
+        assert torch.equal(c[0], cw[0]) and torch.equal(c[1], cw[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("gate", list(GATES))
+def test_cuda_program_equals_cpu(mode, gate):
+    """The store's fused programs on the card (block_gate, fused_scan, the
+    refine or density kernel, ordered_compact) against the same table's on
+    the CPU, raw; the union program too."""
+    dev = _cuda()
+    cols = _columns(N, 7)
+    cpu, gpu = _port(cols), _port(cols, "cuda")
+    rmode = _reference_mode(mode)
+    kw = dict(grid=GRID, width=64, height=32) if rmode == "density" else {}
+    q = _query(mode, gate)
+    progs = []
+    for p in (cpu, gpu):
+        plan = p.plan(q)
+        refine = tcompiled.refine_spec(plan) if "refine" in rmode else None
+        progs.append(tcompiled.Program(plan, rmode, sel_cap=1024,
+                                       unc_cap=64, refine=refine, **kw))
+    counts = (kgate.block_gate.launches, kscan.fused_scan.launches)
+    want, got = progs[0].run(), progs[1].run()
+    torch.cuda.synchronize()
+    assert kgate.block_gate.launches == counts[0] + 1
+    assert kscan.fused_scan.launches == counts[1] + 1
+    if rmode == "density":
+        assert torch.equal(got[0].cpu(), want[0])
+        assert int(got[1]) == int(want[1])
+    else:
+        assert torch.equal(got.cpu(), want)
+    u = [tcompiled.UnionProgram(p.plan(UNIONS[gate]), "select",
+                                sel_cap=1024) for p in (cpu, gpu)]
+    assert torch.equal(u[1].run().cpu(), u[0].run())
+
+
+@pytest.mark.gpu
+def test_cuda_fused_dispatches_make_no_sync():
+    """On the card, CUDA's sync debug mode (``scan.host_syncs``) sees no
+    wait inside the fused programs' runs — every mode and the union
+    program's select and density — nor in 16 ``count_async`` calls, nor in
+    ``try_count``/``try_select``, whose one wait is their pinned
+    readback's event. Each is run once first (kernel builds, block
+    summaries)."""
+    _cuda()
+    gpu = _port(_columns(N, 7), "cuda")
+    runs = []
+    with tscan.host_syncs("cuda") as h:    # the check sees syncs: a
+        torch.zeros(1, device="cuda").item()   # value read back, and a
+        torch.zeros(4).to("cuda")              # pageable upload
+    assert h.count == 2
+    for mode in MODES:
+        rmode = _reference_mode(mode)
+        kw = dict(grid=GRID, width=64, height=32) if rmode == "density" \
+            else {}
+        plan = gpu.plan(_query(mode, "some"))
+        refine = tcompiled.refine_spec(plan) if "refine" in rmode else None
+        runs.append(tcompiled.Program(plan, rmode, sel_cap=1024, unc_cap=64,
+                                      refine=refine, **kw).run)
+    uplan = gpu.plan(UNIONS["some"])
+    for mode, kw in (("select", dict(sel_cap=1024)),
+                     ("density", dict(grid=GRID, width=64, height=32))):
+        runs.append(tcompiled.UnionProgram(uplan, mode, **kw).run)
+    # both count_async routes: the first shape's PreparedQuery over the
+    # fused program, then the recipe's FusedPrepared
+    first = gpu.prepare(f"{BOX} AND {DURING} AND age > 10")
+    recipe = gpu.prepare(f"BBOX(geom,0,0,40,40) AND {DURING} AND age > 20")
+    assert first._fused is not None
+    assert isinstance(recipe, tcompiled.FusedPrepared)
+    for prepared in (first, recipe):
+        runs.append(lambda p=prepared: [p.count_async() for _ in range(16)])
+    plan_c, plan_s = gpu.plan(_query("count", "some")), \
+        gpu.plan(_query("select", "some"))
+    runs.append(lambda: tcompiled.try_count(gpu, plan_c))
+    runs.append(lambda: tcompiled.try_select(gpu, plan_s, None))
+    for run in runs:
+        run()
+        torch.cuda.synchronize()
+        with tscan.host_syncs("cuda") as h:
+            run()
+        torch.cuda.synchronize()
+        assert h.count == 0, run
+
+
+@pytest.mark.gpu
+def test_cuda_refine_kernels_stop_at_the_live_blocks():
+    """pip_refine, dist_refine and grid_scatter with the gate's device
+    count read only the live blocks' candidates: their live flags, counts
+    and grids equal the plain versions'."""
+    dev = _cuda()
+    n, bsz = 100_003, 4096
+    cols = _planes(n, 1, dev, False)
+    nb = -(-n // bsz)
+    ids, k = _block_list("sparse", nb)
+    starts = torch.from_numpy(np.clip(ids.astype(np.int64) * bsz, 0,
+                                      n - bsz)).to(dev)
+    starts[k:] = 0
+    nblk = torch.tensor([k], dtype=torch.int32, device=dev)
+    mask = torch.from_numpy(np.random.default_rng(2).random(nb * bsz)
+                            < 0.5).to(dev)
+    live = k * bsz
+    edges = torch.tensor([[-50, -50, 50, -50], [50, -50, 0, 60],
+                          [0, 60, -50, -50], [1e9, 1e9, 2e9, 1e9]],
+                         dtype=torch.float32, device=dev)
+    kw = dict(mask=mask, starts=starts, bsz=bsz, n_blocks=nblk)
+    got = kpip.pip_refine(cols["xf"], cols["yf"], edges, n_edges=3, **kw)
+    want = tscan.pip_refine(cols["xf"], cols["yf"], edges, n_edges=3, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a[:live], b[:live])
+    bounds = tscan.dist_bounds([10.0, 10.0, 40.0])
+    got = kdist.dist_refine(cols["xf"], cols["yf"], bounds, **kw)
+    want = tscan.dist_refine(cols["xf"], cols["yf"], bounds, **kw)
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(got[0][:live], want[0][:live])
+    grid = torch.tensor(GRID, dtype=torch.float32, device=dev)
+    got = kdensity.grid_scatter(cols["xf"], cols["yf"], mask, None, starts,
+                                bsz, grid, 64, 32, n_blocks=nblk)
+    want = tscan.grid_scatter(cols["xf"], cols["yf"], mask, None, starts,
+                              bsz, grid, 64, 32, n_blocks=nblk)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -227,7 +227,8 @@ def test_rounds_one_readback_per_prepared_count(world):
     """Each ``PreparedQuery.count`` makes one blocking readback (``_fetch``)
     in both packages' ledgers — fused, range-pruned staged and full-mask
     staged, and through the recipe fast path — and ``count_async`` makes
-    none (the port's fused program syncs once inside: ``syncs``)."""
+    none, and no host sync inside ``count_async`` (``scan.host_syncs``:
+    the port's fused program gates, counts and compacts on the device)."""
     jp, tp = world
     cases = [(True, True), (False, True), (False, False)]
     for fused, prune in cases:
@@ -241,11 +242,11 @@ def test_rounds_one_readback_per_prepared_count(world):
             assert tq.count() == jq.count()
             assert tscan.ROUNDS.dispatches - ts[0] == 1
             assert jscan.ROUNDS.dispatches - js[0] == 1
-            syncs = tscan.ROUNDS.syncs
             d0 = tscan.ROUNDS.dispatches
-            tq.count_async()
+            with tscan.host_syncs() as h:
+                tq.count_async()
             assert tscan.ROUNDS.dispatches == d0
-            assert tscan.ROUNDS.syncs - syncs == (1 if fused else 0)
+            assert h.count == 0, (fused, prune, q)
 
 
 def test_planner_timeout_raises_like_reference():

@@ -38,6 +38,7 @@ from geomesa_tpu_torch.index.spatial import XZ2Index as TXZ2
 from geomesa_tpu_torch.index.spatial import XZ3Index as TXZ3
 from geomesa_tpu_torch.index.spatial import _boxes_fp62 as t_fp62
 from geomesa_tpu_torch.kernels import build as tbuild
+from geomesa_tpu_torch.kernels import lookback as tlookback
 from geomesa_tpu_torch.kernels import seg_band as tkernel
 
 POLY = "POLYGON ((-12 30, 10 28, 14 44, -2 50, -12 30))"
@@ -647,8 +648,8 @@ def test_cuda_seg_band_threads_grow_one_workspace():
             errors.append(e)
 
     for _ in range(3):
-        with tkernel._WS_LOCK:
-            tkernel._WS.pop(key, None)
+        with tlookback._LOCK:
+            tlookback._WS.pop(key, None)
         threads = [threading.Thread(target=run, args=(t,)) for t in (0, 1)]
         for th in threads:
             th.start()
@@ -657,7 +658,7 @@ def test_cuda_seg_band_threads_grow_one_workspace():
         torch.cuda.synchronize()
         assert not errors, errors
         assert seen == {stream.cuda_stream}
-        assert tkernel._WS[key][1] >= 4 * (sizes[-1] + 1)
+        assert tlookback._WS[key][1] >= 4 * (sizes[-1] + 1)
     for bid, got in outs[0] + outs[1]:
         want = tscan.seg_band(cols, b, None, None, bid, bsz, edges, None, 64)
         assert torch.equal(got, want), (got[:4], want[:4])

@@ -189,8 +189,9 @@ def test_program_output_equals_reference(world, mode, q):
 @pytest.mark.parametrize("mode", ["count_refine", "select_refine"])
 def test_refine_gathers_no_coordinates(world, monkeypatch, mode):
     """On the pruned branch (a one-day window keeps 3 of 12 blocks) the
-    polygon refine reads xf/yf through the gathered blocks' starts: only
-    the mask's columns are gathered, and the raw result is the
+    program reads every column in place through the alive blocks' starts:
+    the gate lists those blocks on the device, nothing is gathered (the
+    mask's columns no more than xf/yf), and the raw result is the
     reference's, value for value."""
     jp, tp = world
     q = (f"INTERSECTS(geom, {POLY}) AND dtg DURING "
@@ -207,8 +208,14 @@ def test_refine_gathers_no_coordinates(world, monkeypatch, mode):
                              refine=tcompiled.refine_spec(plan))
     assert prog.n_edges == 5
     got = prog.run()
-    assert {"bin", "off", "xi"} <= set(seen)      # the pruned branch ran
-    assert not {"xf", "yf"} & set(seen)
+    assert seen == []
+    ids, starts, nblk = prog._gate()
+    alive = int(nblk[0])
+    assert 0 < alive < ids.shape[0]               # the pruned branch's blocks
+    assert (ids[:alive] >= 0).all() and (ids[alive:] == -1).all()
+    assert torch.equal(starts[:alive],
+                       (ids[:alive].long() * prog.bsz).clamp(
+                           0, prog.n - prog.bsz))
     assert got[0] > 0 and np.array_equal(got.numpy(), want)
 
 
