@@ -1,7 +1,7 @@
 """Two trees of the port timed on one card, in turns.
 
     python3 chip_compare.py PARENT_ROOT CHANGE_ROOT
-        [--phases count,kernels,fused]
+        [--phases count,kernels,fused,fusedk]
         [--rounds 4] [--reps 40] [--n 100000000] [--out FILE] [--device cpu]
 
 One worker process a tree imports ``geomesa_tpu_torch`` from that tree,
@@ -37,6 +37,14 @@ adjacent pair of answers ran on the same card, seconds apart. The phases:
   answer is the p50 of ``--reps`` runs to a device synchronise and, on
   the card, the device activities and device ms a run; both trees must
   give the same raw results (compared by digest).
+- ``fusedk``: ``fused_scan`` and ``ordered_compact`` bare on the same
+  store's tensors (``chip_smoke.fused_kernel_calls``: PERF.md §6's five
+  shapes, the compaction of (c)'s hits at cap 4,096, (b)'s two
+  compactions, 33,554,432 candidates at 1%, 10% and 50% set), and
+  ``block_gate`` over every block with (a)'s gate. An answer is
+  ``chip_smoke.cuda_ms`` over back-to-back calls and the device
+  activities and device ms a call; both trees must give the same outputs
+  (compared by digest).
 
 Prints each answer, then per tree the median of every metric and the
 change-minus-parent median over adjacent pairs; writes all of it to
@@ -343,8 +351,54 @@ def setup_fused(cs, a) -> tuple:
     return ready, answer
 
 
+# -- phase fusedk -----------------------------------------------------------
+
+
+def setup_fusedk(cs, a) -> tuple:
+    import torch
+
+    from geomesa_tpu_torch.index import scan
+    from geomesa_tpu_torch.kernels import gate
+
+    store, _ = _store(cs, a)
+    inp = cs.fused_kernel_inputs(store)
+    calls = {key: (kern, reps, cut) for key, (_, kern, _, _, reps, cut, _)
+             in cs.fused_kernel_calls(
+                 inp, cs.KERNEL_N if a.device == "cuda" else 1 << 16).items()}
+    p = inp["prog_a"]
+    g_args = (inp["summ"], p.qbuf, p.query, inp["n"], inp["bsz"])
+    calls["block_gate"] = (lambda: gate.block_gate(*g_args), 200, None)
+    ready = {}
+    for key, (kern, _, cut) in calls.items():
+        got = kern()
+        got = cut(got) if cut else got
+        ready[key] = _digest(*(got if isinstance(got, tuple) else (got,)))
+    plain = scan.block_gate(*g_args)
+    if any(not torch.equal(x, y) for x, y in zip(gate.block_gate(*g_args),
+                                                 plain)):
+        raise AssertionError("block_gate differs from its plain version")
+
+    def answer() -> dict:
+        out = {}
+        for key, (kern, reps, _) in calls.items():
+            if a.device == "cuda":
+                out[f"{key}_ms"] = cs.cuda_ms(kern, reps)
+                acts, dev_ms = cs.activities_per_call(kern)
+            else:
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    kern()
+                out[f"{key}_ms"] = (time.perf_counter() - t0) * 1e3 / 2
+                acts = dev_ms = None
+            out[f"{key}_activities"] = acts
+            out[f"{key}_device_ms"] = dev_ms
+        return out
+
+    return ready, answer
+
+
 PHASES = {"count": setup_count, "kernels": setup_kernels,
-          "fused": setup_fused}
+          "fused": setup_fused, "fusedk": setup_fusedk}
 
 
 # -- worker and turns -------------------------------------------------------

@@ -53,9 +53,11 @@ Phases, each failing the run (non-zero exit) when it fails:
    program's kernels (``phase_fused_kernels``): block_gate over the
    table's 24,415 blocks with (a)'s gate, fused_scan's count at (a)'s
    alive blocks and over every block and its mask at (b)'s alive blocks,
-   ordered_compact at (c)'s certain hits and over 33,554,432 candidates
-   (``torch.nonzero``'s time beside it), each with its device activities
-   and device time a call;
+   ordered_compact at (c)'s certain hits (caps 65,536 and 4,096), (b)'s
+   hits (cap 0) and uncertain rows (cap 4,096) and over 33,554,432
+   candidates with 1%, 10% and 50% set (``torch.nonzero``'s time beside
+   it), each with its device activities and device time a call, and both
+   kernels' registers and spills;
 7. a profile of each query: device activities, idle share and the host
    syncs made inside it;
 7b. Z2 and the extent indexes (m), on stores of their own: (m1) bench.py
@@ -1372,17 +1374,15 @@ def _time_kernel(label: str, kern, plain, bound: dict, reps: int,
     return r
 
 
-def phase_fused_kernels(store) -> dict:
-    """block_gate, fused_scan and ordered_compact against their plain
-    versions on the main path's tensors: the gate over every block of the
-    100M table with (a)'s gate; the scan's count at (a)'s alive blocks and
-    over every block, and its mask at (b)'s alive blocks; the compaction
-    at (c)'s certain hits (through the gate's starts, its select capacity)
-    and over 33,554,432 candidates (the reference's pruned-branch most),
-    with ``torch.nonzero``'s time beside it."""
+def fused_kernel_inputs(store) -> dict:
+    """The main path's tensors of block_gate, fused_scan and
+    ordered_compact on the 100M store: the block summaries and (a)'s gate;
+    (a)'s alive blocks and every block; (b)'s alive blocks, candidates'
+    mask, its certain hits and uncertain rows (pip_refine), which (c)'s
+    select compacts too."""
     import torch
-    from geomesa_tpu_torch.index import compiled, scan
-    from geomesa_tpu_torch.kernels import compact, fused_scan, gate, pip
+    from geomesa_tpu_torch.index import compiled
+    from geomesa_tpu_torch.kernels import gate, pip
 
     planner = store.planner("gdelt")
     idx = planner.indexes[0]
@@ -1393,21 +1393,43 @@ def phase_fused_kernels(store) -> dict:
     bsz, n = prog_a.bsz, prog_a.n
     summ = compiled.block_summaries(idx, bsz)
     nb = int(summ["bxmin"].shape[0])
-    q, qbuf = prog_a.query, prog_a.qbuf
-    nbox = sum(b[1] for b in q.branches)
-    nwin = sum(b[3] for b in q.branches)
-    out = {}
+    ids_a, _, nblk_a = gate.block_gate(summ, prog_a.qbuf, prog_a.query, n,
+                                       bsz)
+    plan_b = planner.plan(Q_POLY)
+    prog_b = compiled.Program(plan_b, "count_refine", unc_cap=4096,
+                              refine=compiled.refine_spec(plan_b))
+    ids_b, starts_b, nblk_b = prog_b._gate()
+    m_b, _, _ = prog_b._candidates()
+    hit, unc = pip.pip_refine(cols["xf"], cols["yf"], prog_b.edges,
+                              mask=m_b, starts=starts_b, bsz=bsz,
+                              n_edges=prog_b.n_edges, n_blocks=nblk_b)
+    return {"cols": cols, "dev": dev, "bsz": bsz, "n": n, "nb": nb,
+            "summ": summ, "plan_a": plan_a, "prog_a": prog_a,
+            "ids_a": ids_a, "nblk_a": nblk_a,
+            "ids_all": torch.arange(nb, dtype=torch.int32, device=dev),
+            "nblk_all": torch.tensor([nb], dtype=torch.int32, device=dev),
+            "prog_b": prog_b, "ids_b": ids_b, "starts_b": starts_b,
+            "nblk_b": nblk_b, "hit": hit, "unc": unc,
+            "sel": compiled._tier(None)}
 
-    # the gate: summaries in, ids and starts out
-    g_args = (summ, qbuf, q, n, bsz)
-    out["block_gate"] = _time_kernel(
-        f"block_gate over {nb} blocks x (a)'s gate ({nbox} boxes, {nwin} "
-        f"windows)", lambda: gate.block_gate(*g_args),
-        lambda: scan.block_gate(*g_args),
-        _bound(nb * (16 + (8 if "binmin" in summ else 0)) + nb * 12 + 4
-               + qbuf.numel(), nb * (4 * nbox + 3 * nwin)), 200)
-    ids_a, _, nblk_a = gate.block_gate(*g_args)
-    k_a = int(nblk_a[0])
+
+def fused_kernel_calls(inp: dict, big_n: int = KERNEL_N) -> dict:
+    """key → (label, kernel call, plain call, bound, reps, cut, library
+    call) of fused_scan and ordered_compact at PERF.md §6's shapes — the
+    count at (a)'s alive blocks and over every block, the mask at (b)'s,
+    the compaction of (c)'s certain hits at its select capacity and of
+    ``big_n`` candidates with 10% set — and more: (c)'s hits at cap 4,096
+    (beside the select capacity: what the pad and the rows up to it
+    cost), (b)'s two compactions (hits at cap 0, uncertain rows at cap
+    4,096), ``big_n`` candidates with 1% and 50% set. ``cut``
+    trims both results to what the kernel writes."""
+    import torch
+    from geomesa_tpu_torch.index import compiled, scan
+    from geomesa_tpu_torch.kernels import compact, fused_scan
+
+    cols, dev, bsz, n = inp["cols"], inp["dev"], inp["bsz"], inp["n"]
+    plan_a, prog_a = inp["plan_a"], inp["prog_a"]
+    q, qbuf = prog_a.query, prog_a.qbuf
 
     def scan_bound(k: int, ids_q, nblk_q) -> dict:
         """Bytes: the point planes of every candidate; the time planes of
@@ -1430,65 +1452,116 @@ def phase_fused_kernels(store) -> dict:
         return _bound(16 * cand + 8 * counts[0] + rbytes * counts[1]
                       + 4 * k + 4, 4 * cand)
 
-    s_args = (cols, qbuf, q, ids_a, nblk_a, bsz, "count")
-    scans = [_time_kernel(
-        f"fused_scan count at (a)'s {k_a} alive blocks",
-        lambda: fused_scan.fused_scan(*s_args),
-        lambda: scan.fused_scan(*s_args), scan_bound(k_a, ids_a, nblk_a),
-        200)]
-    ids_all = torch.arange(nb, dtype=torch.int32, device=dev)
-    nblk_all = torch.tensor([nb], dtype=torch.int32, device=dev)
-    s_all = (cols, qbuf, q, ids_all, nblk_all, bsz, "count")
-    scans.append(_time_kernel(
-        f"fused_scan count over all {nb} blocks",
-        lambda: fused_scan.fused_scan(*s_all),
-        lambda: scan.fused_scan(*s_all), scan_bound(nb, ids_all, nblk_all),
-        20))
-    plan_b = planner.plan(Q_POLY)
-    prog_b = compiled.Program(plan_b, "count_refine", unc_cap=4096,
-                              refine=compiled.refine_spec(plan_b))
-    ids_b, _, nblk_b = prog_b._gate()
-    k_b = int(nblk_b[0])
-    m_args = (cols, prog_b.qbuf, prog_b.query, ids_b, nblk_b, bsz, "mask")
-    scans.append(_time_kernel(
+    out = {}
+    k_a, nb = int(inp["nblk_a"][0]), inp["nb"]
+    for key, label, ids, nblk, k, reps in (
+            ("scan_a", f"fused_scan count at (a)'s {k_a} alive blocks",
+             inp["ids_a"], inp["nblk_a"], k_a, 200),
+            ("scan_all", f"fused_scan count over all {nb} blocks",
+             inp["ids_all"], inp["nblk_all"], nb, 20)):
+        args = (cols, qbuf, q, ids, nblk, bsz, "count")
+        out[key] = (label, lambda args=args: fused_scan.fused_scan(*args),
+                    lambda args=args: scan.fused_scan(*args),
+                    scan_bound(k, ids, nblk), reps, None, None)
+    prog_b, k_b = inp["prog_b"], int(inp["nblk_b"][0])
+    args = (cols, prog_b.qbuf, prog_b.query, inp["ids_b"], inp["nblk_b"],
+            bsz, "mask")
+    out["scan_b_mask"] = (
         f"fused_scan mask at (b)'s {k_b} alive blocks",
-        lambda: fused_scan.fused_scan(*m_args),
-        lambda: scan.fused_scan(*m_args),
+        lambda: fused_scan.fused_scan(*args),
+        lambda: scan.fused_scan(*args),
         _bound(16 * k_b * bsz + 4 * k_b + k_b * bsz + 4, 4 * k_b * bsz),
-        100, cut=lambda r: (r[0][: k_b * bsz], r[1])))
-    out["fused_scan"] = scans
+        100, lambda r: (r[0][: k_b * bsz], r[1]), None)
 
-    # the compaction at (c)'s certain hits, through the gate's starts
-    plan_c = planner.plan(Q_POLY)
-    sel = compiled._tier(None)
-    prog_c = compiled.Program(plan_c, "select_refine", sel_cap=sel,
-                              unc_cap=4096,
-                              refine=compiled.refine_spec(plan_c))
-    m_c, nblk_c, starts_c = prog_c._candidates()
-    hit, _ = pip.pip_refine(cols["xf"], cols["yf"], prog_c.edges,
-                            mask=m_c, starts=starts_c, bsz=bsz,
-                            n_edges=prog_c.n_edges, n_blocks=nblk_c)
-    k_c = int(nblk_c[0])
-    c_args = (hit, sel, n)
-    c_kw = dict(starts=starts_c, bsz=bsz, n_blocks=nblk_c)
-    live = hit[: k_c * bsz]
-    comps = [_time_kernel(
-        f"ordered_compact at (c)'s certain hits ({k_c} blocks, cap {sel})",
-        lambda: compact.ordered_compact(*c_args, **c_kw),
-        lambda: scan.ordered_compact(*c_args, **c_kw),
-        _bound(k_c * bsz + 8 * k_c + 4 * sel + 4, 0), 100,
-        library=lambda: torch.nonzero(live))]
-    big = torch.from_numpy(np.random.default_rng(21).random(KERNEL_N)
-                           < 0.1).to(dev)
+    kw = dict(starts=inp["starts_b"], bsz=bsz, n_blocks=inp["nblk_b"])
+    for key, label, m, cap in (
+            ("compact_c", f"ordered_compact at (c)'s certain hits ({k_b} "
+             f"blocks, cap {inp['sel']})", inp["hit"], inp["sel"]),
+            ("compact_c_cap4096", f"ordered_compact at (c)'s certain hits "
+             f"({k_b} blocks, cap 4096)", inp["hit"], 4096),
+            ("compact_b_hits", f"ordered_compact at (b)'s certain hits "
+             f"({k_b} blocks, cap 0)", inp["hit"], 0),
+            ("compact_b_unc", f"ordered_compact at (b)'s uncertain rows "
+             f"({k_b} blocks, cap 4096)", inp["unc"], 4096)):
+        live = m[: k_b * bsz]
+        out[key] = (label,
+                    lambda m=m, cap=cap: compact.ordered_compact(m, cap, n,
+                                                                 **kw),
+                    lambda m=m, cap=cap: scan.ordered_compact(m, cap, n,
+                                                              **kw),
+                    _bound(k_b * bsz + 8 * k_b + 4 * cap + 4, 0), 100, None,
+                    lambda live=live: torch.nonzero(live))
     cap = 1 << 16
-    comps.append(_time_kernel(
-        f"ordered_compact over {KERNEL_N} candidates (10% set, cap {cap})",
-        lambda: compact.ordered_compact(big, cap, n),
-        lambda: scan.ordered_compact(big, cap, n),
-        _bound(KERNEL_N + 4 * cap + 4, 0), 50,
-        library=lambda: torch.nonzero(big)))
-    out["ordered_compact"] = comps
-    del big, hit, live
+    for key, pct, seed in (("compact_big", 10, 21), ("compact_big1", 1, 22),
+                           ("compact_big50", 50, 23)):
+        big = torch.from_numpy(np.random.default_rng(seed).random(big_n)
+                               < pct / 100).to(dev)
+        out[key] = (f"ordered_compact over {big_n} candidates ({pct}% set, "
+                    f"cap {cap})",
+                    lambda big=big: compact.ordered_compact(big, cap, n),
+                    lambda big=big: scan.ordered_compact(big, cap, n),
+                    _bound(big_n + 4 * cap + 4, 0), 50, None,
+                    lambda big=big: torch.nonzero(big))
+    return out
+
+
+def kernel_resources(name: str) -> dict:
+    """function → {"registers", "stack", "local"} of a built kernel, read
+    with ``cuobjdump -res-usage`` (a spill shows as stack and local bytes);
+    {} when the toolkit's cuobjdump is missing or refuses."""
+    from geomesa_tpu_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    run = subprocess.run([tool, "-res-usage", build._target(name)[1]],
+                         capture_output=True, text=True)
+    if run.returncode != 0:
+        return {}
+    text = run.stdout
+    out = {}
+    for fn, res in re.findall(r"Function (\S+):\s*\n\s*(.*)", text):
+        got = dict(re.findall(r"(REG|STACK|LOCAL):(\d+)", res))
+        out[fn] = {"registers": int(got.get("REG", -1)),
+                   "stack": int(got.get("STACK", -1)),
+                   "local": int(got.get("LOCAL", -1))}
+    return out
+
+
+def phase_fused_kernels(store) -> dict:
+    """block_gate, fused_scan and ordered_compact against their plain
+    versions on the main path's tensors (``fused_kernel_inputs``): the
+    gate over every block of the 100M table with (a)'s gate; then
+    ``fused_kernel_calls``, with ``torch.nonzero``'s time beside each
+    compaction; and both redesigned kernels' registers and spills."""
+    from geomesa_tpu_torch.index import scan
+    from geomesa_tpu_torch.kernels import compact, fused_scan, gate
+
+    inp = fused_kernel_inputs(store)
+    q, qbuf = inp["prog_a"].query, inp["prog_a"].qbuf
+    nb, summ = inp["nb"], inp["summ"]
+    nbox = sum(b[1] for b in q.branches)
+    nwin = sum(b[3] for b in q.branches)
+    out = {}
+
+    # the gate: summaries in, ids and starts out
+    g_args = (summ, qbuf, q, inp["n"], inp["bsz"])
+    out["block_gate"] = _time_kernel(
+        f"block_gate over {nb} blocks x (a)'s gate ({nbox} boxes, {nwin} "
+        f"windows)", lambda: gate.block_gate(*g_args),
+        lambda: scan.block_gate(*g_args),
+        _bound(nb * (16 + (8 if "binmin" in summ else 0)) + nb * 12 + 4
+               + qbuf.numel(), nb * (4 * nbox + 3 * nwin)), 200)
+    calls = fused_kernel_calls(inp)
+    for mod, prefix in ((fused_scan, "scan"), (compact, "compact")):
+        out[mod.NAME] = [
+            _time_kernel(label, kern, plain, bound, reps, library=lib,
+                         cut=cut)
+            for key, (label, kern, plain, bound, reps, cut, lib)
+            in calls.items() if key.startswith(prefix)]
+        log(f"[kernel] {mod.NAME} resources: "
+            f"{json.dumps(kernel_resources(mod.NAME))}")
+    del calls, inp
+    import torch
     torch.cuda.empty_cache()
     return out
 

@@ -7,7 +7,8 @@ plain PyTorch version (``index.scan.ordered_compact``) for tensors on the
 CPU. There is no fallback: a CUDA tensor either launches the kernel or
 raises. ``ordered_compact.launches`` counts the calls that launched the
 kernel (and nothing else). A call is one launch; its look-back status words
-live in the stream's workspace (``kernels.lookback``). The count and the
+(one a unit of ``UNIT`` candidates) and its full word live in the
+stream's workspace (``kernels.lookback``). The count and the
 rows go to fresh tensors, or into the caller's ``count_out`` / ``rows_out``
 (views of one result vector, so a program's result needs no concatenation).
 """
@@ -30,6 +31,10 @@ REPLACES = "geomesa_tpu/index/compiled.py:555"
 # the C side's OrderedCompactArgs: 14 8-byte slots
 _ARGS = struct.Struct("=14q")
 
+# candidates a unit: 256 threads x 2 vectors x 16 mask bytes (the kernel's
+# look-back holds one status word a unit; csrc/ordered_compact.cu UNIT)
+UNIT = 8192
+
 _FN = None
 
 
@@ -42,9 +47,9 @@ def _bind():
         fn.restype = ctypes.c_int
         lib.ordered_compact_error_string.argtypes = [ctypes.c_int]
         lib.ordered_compact_error_string.restype = ctypes.c_char_p
-        if lib.ordered_compact_tile() != lookback.TILE:
+        if lib.ordered_compact_unit() != UNIT:
             raise RuntimeError("ordered_compact's unit differs from "
-                               "lookback.TILE")
+                               "compact.UNIT")
         _FN = fn
     return _FN
 
@@ -110,11 +115,10 @@ def ordered_compact(mask: torch.Tensor, cap: int, fill: int,
         raise ValueError(f"ordered_compact runs on cuda or cpu, not {dev}")
     fn = _bind()
     slots = 1 if starts is None else int(starts.shape[0])
-    per = ncand if starts is None else int(bsz)
     with build.on_device(dev):
         stream = build.raw_stream(dev)
-        ws, ws_units, epoch = lookback.workspace(
-            dev, stream, slots * lookback.units(per))
+        ws, ws_units, epoch = lookback.workspace(dev, stream,
+                                                 -(-ncand // UNIT))
         args = _ARGS.pack(
             mask.data_ptr(), ncand, 0 if starts is None else starts.data_ptr(),
             0 if n_blocks is None else n_blocks.data_ptr(), slots,

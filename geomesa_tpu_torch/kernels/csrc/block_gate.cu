@@ -49,7 +49,6 @@ struct Params {
   int* ids;
   long long* starts;
   int* count;
-  Space space;
   Ws ws;
 };
 
@@ -63,7 +62,7 @@ block_gate_kernel(const __grid_constant__ Params p) {
   const float4* gate = reinterpret_cast<const float4*>(smem + p.gate);
   const int2* wbin = reinterpret_cast<const int2*>(smem + p.wbin);
 
-  auto alive = [&](const Unit&, int, long long b) -> bool {
+  auto alive = [&](long long b) -> bool {
     const float x0 = __ldg(p.bxmin + b), x1 = __ldg(p.bxmax + b);
     const float y0 = __ldg(p.bymin + b), y1 = __ldg(p.bymax + b);
     const int t0 = p.binmin ? __ldg(p.binmin + b) : 0;
@@ -93,7 +92,7 @@ block_gate_kernel(const __grid_constant__ Params p) {
     const long long s = b * p.bsz;
     p.starts[at] = s > top ? top : s;
   };
-  const unsigned long long cta = ordered_pass(p.space, p.ws, p.nb, alive,
+  const unsigned long long cta = ordered_pass(p.nb, p.ws, p.nb, alive,
                                               emit);
   finish(p.ws, cta, [&](unsigned long long total) {
     if (threadIdx.x == 0) *p.count = (int)total;
@@ -146,20 +145,14 @@ extern "C" int block_gate_launch(const BlockGateArgs* a, void* stream) {
   p.ids = reinterpret_cast<int*>(a->ids);
   p.starts = reinterpret_cast<long long*>(a->starts);
   p.count = reinterpret_cast<int*>(a->count);
-  p.space.ids = nullptr;
-  p.space.starts = nullptr;
-  p.space.nlive = nullptr;
-  p.space.slots = 1;
-  p.space.bsz = a->nb;   // the candidates are the blocks
-  p.space.n = a->nb;
-  p.space.tpb = (int)((a->nb + TILE - 1) / TILE);
-  if (p.space.tpb > a->ws_units) return (int)cudaErrorInvalidValue;
+  const long long units = (a->nb + TILE - 1) / TILE;   // the blocks
+  if (units > a->ws_units) return (int)cudaErrorInvalidValue;
   p.ws = make_ws(a->ws, (unsigned)a->epoch);
   const size_t smem = (size_t)a->qbytes;
   unsigned grid = 1;
   cudaError_t err = persistent_grid(
       reinterpret_cast<const void*>(block_gate_kernel), smem,
-      (int)a->device, p.space.tpb, grid);
+      (int)a->device, units, grid);
   if (err != cudaSuccess) return (int)err;
   block_gate_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();

@@ -36,9 +36,30 @@
 //   stack of booleans kept as the bits of one 64-bit register; its columns
 //   are int32, f32 (compared in f32, IEEE, as the plain version's torch
 //   compare) or bool bytes (compared as 0/1).
-// - A static grid strides over the units (no ticket); one atomic a CTA
-//   adds to the workspace total, and the last CTA writes the count
-//   (lookback.cuh's finish), so no zeroed output is needed.
+// - Bytes in flight: the live candidates are one flat run, and a thread
+//   takes 4 consecutive candidates (a quad) at a time. Where their rows are
+//   16-byte aligned, it loads them with one 16-byte streaming load a point
+//   plane and one 4-byte load of __valid__, all issued before any compare,
+//   and the next quad's loads are issued before this quad's compares (a
+//   register double buffer); __valid__ and the membership are tested after
+//   the loads. A quad that is not aligned (the clamped last block, a view,
+//   a block size that is not a multiple of 4) takes scalar loads, a
+//   candidate at a time. In MASK mode a quad's 4 bytes are one 32-bit
+//   store.
+// - An even split: the live candidates are cut into 1,024-candidate
+//   chunks (a quad a thread), and CTA b of the persistent grid (sized by
+//   the buffers, never by a value read back) takes chunks b, b + grid, ...,
+//   so every CTA's work is equal within one chunk (a stride over
+//   4,096-candidate units gave some CTAs twice the mean) and the CTAs'
+//   loads stay in one moving window of memory (a contiguous run a CTA
+//   was 44% slower over the whole table: PERF.md §6). A CTA with no chunk
+//   stages nothing.
+// - Three CTAs an SM (__launch_bounds__(THREADS, 3)): the double buffer
+//   fits in registers without a spill; four CTAs an SM capped the kernel
+//   at 64 registers and spilled, 32% slower over the whole table and 6%
+//   at (b)'s mask, 5% faster at (a)'s count (PERF.md §6).
+// - One atomic a CTA adds to the workspace total, and the last CTA writes
+//   the count (lookback.cuh's finish), so no zeroed output is needed.
 // - Tests that fail early skip the loads of the later ones (time planes,
 //   residual columns), so a selective box reads only the point planes.
 
@@ -49,6 +70,8 @@ using namespace lookback;
 namespace {
 
 constexpr int MAX_SLOTS = 16;
+constexpr int QUAD = 4;                  // consecutive candidates a load
+constexpr int CHUNK = THREADS * QUAD;    // the split's grain
 
 enum Mode { COUNT = 0, MASK = 1 };
 enum Kind { K_I32 = 0, K_F32 = 1, K_BOOL = 2 };
@@ -72,7 +95,11 @@ struct Params {
   int mode;
   int* out;                 // [count]
   uint8_t* mask;            // MASK: a byte a candidate
-  Space space;
+  const int* ids;           // block ids, padded with -1
+  const int* nlive;         // live blocks on the device
+  long long slots, bsz, n;  // candidates: slots x bsz; table rows
+  int shift;                // log2(bsz) for a power of two, else -1
+  bool vec;                 // quads may take 16-byte loads
   Ws ws;
 };
 
@@ -161,11 +188,10 @@ __device__ __forceinline__ bool run_program(const Query& q, const int4* words,
   return st & 1ull;
 }
 
-// any branch holds at `row`
+// any branch holds at `row`, whose point keys are x, y
 __device__ __forceinline__ bool matches(const Params& p, const Query& q,
+                                        long long x, long long y,
                                         long long row) {
-  const long long x = pack62(__ldg(p.xi + row), __ldg(p.xl + row));
-  const long long y = pack62(__ldg(p.yi + row), __ldg(p.yl + row));
   bool have_t = false;
   long long tk = 0;
   for (int k = 0; k < p.nbranch; ++k) {
@@ -194,46 +220,146 @@ __device__ __forceinline__ bool matches(const Params& p, const Query& q,
   return false;
 }
 
-// COUNT or MASK (p.mode): a static grid over the live units
-__global__ void __launch_bounds__(THREADS)
+// the slot of candidate c and the table row of its block's first candidate
+// (the clamped start); lo, hi: the rows that are the block's own
+__device__ __forceinline__ long long block_of(const Params& p, unsigned c,
+                                              unsigned& slot, long long& lo,
+                                              long long& hi) {
+  slot = p.shift >= 0 ? c >> p.shift : c / (unsigned)p.bsz;
+  const int b = __ldg(p.ids + slot);
+  const long long start = (long long)b * p.bsz;
+  const long long top = p.n > p.bsz ? p.n - p.bsz : 0;
+  lo = start;
+  hi = b < 0 ? start : (start + p.bsz < p.n ? start + p.bsz : p.n);
+  return start < 0 ? 0 : (start > top ? top : start);
+}
+
+// a quad's loads: its rows row0 .. row0 + 3, their point planes and
+// __valid__ bytes, and the member rows' bits
+struct Quad {
+  int4 xi, xl, yi, yl;
+  unsigned valid;
+  unsigned member;   // bit j: row0 + j is its block's own row
+  long long row0;
+  bool vec;          // loaded; else the scalar path
+};
+
+__device__ __forceinline__ int lane_of(const int4& v, int j) {
+  return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
+}
+
+// issue quad q's loads, or mark it for the scalar path
+__device__ __forceinline__ void load_quad(const Params& p, long long q,
+                                          Quad& d) {
+  d.vec = false;
+  if (!p.vec) return;
+  unsigned slot;
+  long long lo, hi;
+  const unsigned c = (unsigned)(q * QUAD);
+  const long long rs = block_of(p, c, slot, lo, hi);
+  d.row0 = rs + (c - slot * (unsigned)p.bsz);
+  if (d.row0 & 3) return;
+  d.vec = true;
+  d.xi = __ldcs(reinterpret_cast<const int4*>(p.xi + d.row0));
+  d.xl = __ldcs(reinterpret_cast<const int4*>(p.xl + d.row0));
+  d.yi = __ldcs(reinterpret_cast<const int4*>(p.yi + d.row0));
+  d.yl = __ldcs(reinterpret_cast<const int4*>(p.yl + d.row0));
+  d.valid = p.valid
+      ? __ldcs(reinterpret_cast<const unsigned*>(p.valid + d.row0))
+      : 0x01010101u;
+  d.member = 0;
+#pragma unroll
+  for (int j = 0; j < QUAD; ++j)
+    d.member |= (unsigned)(d.row0 + j >= lo && d.row0 + j < hi) << j;
+}
+
+// a loaded quad's flags, 0 or 1 a byte
+__device__ __forceinline__ unsigned test_quad(const Params& p,
+                                              const Query& q,
+                                              const Quad& d) {
+  unsigned bytes = 0;
+#pragma unroll
+  for (int j = 0; j < QUAD; ++j) {
+    if (!((d.member >> j) & 1u) || !((d.valid >> (8 * j)) & 0xffu))
+      continue;
+    const long long x = pack62(lane_of(d.xi, j), lane_of(d.xl, j));
+    const long long y = pack62(lane_of(d.yi, j), lane_of(d.yl, j));
+    if (matches(p, q, x, y, d.row0 + j)) bytes |= 1u << (8 * j);
+  }
+  return bytes;
+}
+
+// quad q a candidate at a time (loads behind each test); the flags, 0 or
+// 1 a byte, of its candidates below live
+__device__ __forceinline__ unsigned scalar_quad(const Params& p,
+                                                const Query& q, long long qd,
+                                                long long live) {
+  unsigned bytes = 0;
+  for (int j = 0; j < QUAD; ++j) {
+    const long long c = qd * QUAD + j;
+    if (c >= live) break;
+    unsigned slot;
+    long long lo, hi;
+    const long long rs = block_of(p, (unsigned)c, slot, lo, hi);
+    const long long row = rs + ((unsigned)c - slot * (unsigned)p.bsz);
+    if (row < lo || row >= hi || (p.valid && !p.valid[row])) continue;
+    const long long x = pack62(__ldg(p.xi + row), __ldg(p.xl + row));
+    const long long y = pack62(__ldg(p.yi + row), __ldg(p.yl + row));
+    if (matches(p, q, x, y, row)) bytes |= 1u << (8 * j);
+  }
+  return bytes;
+}
+
+// COUNT or MASK (p.mode): the live candidates' chunks, strided over the grid
+__global__ void __launch_bounds__(THREADS, 3)
 fused_scan_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ const void* s_col[MAX_SLOTS];
   __shared__ int s_kind[MAX_SLOTS];
   __shared__ unsigned s_cnt[WARPS];
-  for (int i = threadIdx.x; i < p.qwords; i += THREADS)
-    reinterpret_cast<int4*>(smem)[i] = __ldg(p.qbuf + i);
-  if (threadIdx.x < p.nslots) {
-    s_col[threadIdx.x] = p.col[threadIdx.x];
-    s_kind[threadIdx.x] = (int)((p.kinds >> (4 * threadIdx.x)) & 15);
-  }
-  __syncthreads();
-  Query q;
-  q.br = reinterpret_cast<const int*>(smem + p.br);
-  q.box = reinterpret_cast<const BoxKeys*>(smem + p.box);
-  q.wkey = reinterpret_cast<const longlong2*>(smem + p.wkey);
-  q.prog = reinterpret_cast<const int4*>(smem + p.prog);
-  q.cn = reinterpret_cast<const int*>(smem + p.cnst);
-  q.col = s_col;
-  q.kind = s_kind;
-
-  auto flag = [&](const Unit& t, int, long long row) -> bool {
-    return row >= t.lo && row < t.hi && (!p.valid || p.valid[row])
-           && matches(p, q, row);
-  };
-
-  const long long units = live_units(p.space);
+  long long k = *p.nlive;
+  k = k < 0 ? 0 : (k < p.slots ? k : p.slots);
+  const long long live = k * p.bsz;
   unsigned cnt = 0;
-  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
-    const Unit t = unit_of(p.space, u);
-#pragma unroll 4
-    for (int k = 0; k < ITEMS; ++k) {
-      const int l = k * THREADS + threadIdx.x;
-      if (l < t.lim) {
-        const bool f = flag(t, l, t.row0 + l);
-        cnt += f;
-        if (p.mode == MASK) p.mask[t.cand0 + l] = (uint8_t)f;
+  if ((long long)blockIdx.x * CHUNK < live) {   // uniform over the CTA
+    for (int i = threadIdx.x; i < p.qwords; i += THREADS)
+      reinterpret_cast<int4*>(smem)[i] = __ldg(p.qbuf + i);
+    if (threadIdx.x < p.nslots) {
+      s_col[threadIdx.x] = p.col[threadIdx.x];
+      s_kind[threadIdx.x] = (int)((p.kinds >> (4 * threadIdx.x)) & 15);
+    }
+    __syncthreads();
+    Query q;
+    q.br = reinterpret_cast<const int*>(smem + p.br);
+    q.box = reinterpret_cast<const BoxKeys*>(smem + p.box);
+    q.wkey = reinterpret_cast<const longlong2*>(smem + p.wkey);
+    q.prog = reinterpret_cast<const int4*>(smem + p.prog);
+    q.cn = reinterpret_cast<const int*>(smem + p.cnst);
+    q.col = s_col;
+    q.kind = s_kind;
+
+    const long long quads = (live + QUAD - 1) / QUAD;
+    const long long step = (long long)gridDim.x * THREADS;
+    long long qd = (long long)blockIdx.x * THREADS + threadIdx.x;
+    Quad cur;
+    if (qd < quads) load_quad(p, qd, cur);
+    while (qd < quads) {
+      const long long qn = qd + step;
+      Quad nxt;
+      if (qn < quads) load_quad(p, qn, nxt);
+      const unsigned bytes =
+          cur.vec ? test_quad(p, q, cur) : scalar_quad(p, q, qd, live);
+      cnt += __popc(bytes);
+      if (p.mode == MASK) {
+        if (qd * QUAD + QUAD <= live) {
+          reinterpret_cast<unsigned*>(p.mask)[qd] = bytes;
+        } else {
+          for (long long c = qd * QUAD; c < live; ++c)
+            p.mask[c] = (uint8_t)((bytes >> (8 * (c - qd * QUAD))) & 1u);
+        }
       }
+      qd = qn;
+      cur = nxt;
     }
   }
   cnt = __reduce_add_sync(FULL, cnt);
@@ -272,7 +398,8 @@ static_assert(sizeof(FusedScanArgs) == 44 * 8, "FusedScanArgs must match _ARGS")
 extern "C" int fused_scan_launch(const FusedScanArgs* a, void* stream) {
   if (a->bsz <= 0 || a->slots < 0 || a->qbytes % 16 || a->epoch == 0
       || a->nslots < 0 || a->nslots > MAX_SLOTS || a->mode < COUNT
-      || a->mode > MASK)
+      || a->mode > MASK || !a->nlive || a->mask % 4
+      || a->slots * a->bsz > 0xffffffffLL)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.xi = reinterpret_cast<const int*>(a->xi);
@@ -297,27 +424,26 @@ extern "C" int fused_scan_launch(const FusedScanArgs* a, void* stream) {
   p.mode = (int)a->mode;
   p.out = reinterpret_cast<int*>(a->out);
   p.mask = reinterpret_cast<uint8_t*>(a->mask);
-  p.space.ids = reinterpret_cast<const int*>(a->ids);
-  p.space.starts = nullptr;
-  p.space.nlive = reinterpret_cast<const int*>(a->nlive);
-  p.space.slots = a->slots;
-  p.space.bsz = a->bsz;
-  p.space.n = a->n;
-  p.space.tpb = (int)((a->bsz + TILE - 1) / TILE);
-  const long long units = a->slots * p.space.tpb;
-  if (units > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  p.ids = reinterpret_cast<const int*>(a->ids);
+  p.nlive = reinterpret_cast<const int*>(a->nlive);
+  p.slots = a->slots;
+  p.bsz = a->bsz;
+  p.n = a->n;
+  p.shift = -1;
+  if ((a->bsz & (a->bsz - 1)) == 0)
+    for (p.shift = 0; (1LL << p.shift) < a->bsz; ++p.shift) {}
+  p.vec = a->bsz % QUAD == 0 && a->xi % 16 == 0 && a->xl % 16 == 0
+          && a->yi % 16 == 0 && a->yl % 16 == 0 && a->valid % 4 == 0;
   p.ws = make_ws(a->ws, (unsigned)a->epoch);
   const size_t smem = (size_t)a->qbytes;
   unsigned grid = 1;
-  cudaError_t err =
-      persistent_grid(reinterpret_cast<const void*>(fused_scan_kernel), smem,
-                      (int)a->device, units, grid);
+  cudaError_t err = persistent_grid(
+      reinterpret_cast<const void*>(fused_scan_kernel), smem, (int)a->device,
+      (a->slots * a->bsz + CHUNK - 1) / CHUNK, grid);
   if (err != cudaSuccess) return (int)err;
   fused_scan_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
-
-extern "C" int fused_scan_tile() { return TILE; }
 
 extern "C" const char* fused_scan_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

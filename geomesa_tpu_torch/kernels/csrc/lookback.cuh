@@ -1,6 +1,6 @@
-// Ordered compaction by decoupled look-back for Hopper (sm_90a), shared by
-// block_gate.cu and ordered_compact.cu; fused_scan.cu takes its candidate
-// space and its end (finish) for the count.
+// Ordered compaction by decoupled look-back for Hopper (sm_90a): the
+// ordered pass of block_gate.cu; ordered_compact.cu takes its look-back,
+// workspace and end (finish), and fused_scan.cu its end for the count.
 //
 // Replaces the fixed-size jnp.nonzero(size=..., fill_value=...) of the
 // reference's fused programs (geomesa_tpu/index/compiled.py:496, :532,
@@ -9,20 +9,8 @@
 // a fill value, and the count of every flagged candidate, in one launch with
 // no host sync.
 //
-// The candidate space. A unit is TILE candidates of one slot; a slot holds
-// bsz candidates, so units are numbered slot-major and unit order is
-// candidate order. A slot is
-//   - a gather block of a block list (ids: block ids padded with -1):
-//     candidate i of slot s reads row clamp(ids[s] * bsz, 0, n - bsz) + i,
-//     a member when it is its block's own row (index/scan.py expand_blocks);
-//   - a gather block through its clamped start (starts): the caller's mask
-//     carries membership;
-//   - or, with neither, the whole table: one slot of n candidates.
-// With `nlive`, a count on the device, only the first *nlive slots are
-// read: a launch is sized by the slots the buffers hold, never by a value
-// read back, and CTAs past the live units find no work.
-//
-// The pass (ordered_pass). A CTA takes units by an atomic ticket, so units
+// The pass (ordered_pass) over candidates 0 .. n - 1, a unit of TILE
+// candidates at a time. A CTA takes units by an atomic ticket, so units
 // start in candidate order; a thread holds ITEMS = 16 candidates of the
 // unit (4,096 candidates a unit: the per-unit ticket, barriers and
 // look-back amortise over them), strided by the CTA width, so a warp's
@@ -64,7 +52,8 @@ constexpr int MAX_DEVICES = 64;
 // warp 0 scans the (item, warp) counts, four a lane
 static_assert(ITEMS * WARPS == 4 * 32, "the rank scan takes 4 counts a lane");
 
-// a stream's workspace: 4 words, then one status word a unit
+// a stream's workspace: 4 words (word 2 is seg_band's, word 3
+// ordered_compact.cu's full word), then one status word a unit
 struct Ws {
   unsigned* ticket;             // units handed out
   unsigned* done;               // CTAs finished
@@ -82,55 +71,6 @@ inline Ws make_ws(long long base, unsigned epoch) {
   s.status = w + 4;
   s.epoch = epoch;
   return s;
-}
-
-struct Space {
-  const int* ids;            // block ids (pad -1), or null
-  const long long* starts;   // clamped block starts, or null
-  const int* nlive;          // live slots on the device, or null: all
-  long long slots;           // slots the buffers hold
-  long long bsz;             // candidates a slot
-  long long n;               // table rows
-  int tpb;                   // units a slot: ceil(bsz / TILE)
-};
-
-// a unit: the table row and candidate index of its first candidate, its
-// candidates (local offsets below lim), and the rows that are members
-struct Unit {
-  long long row0, cand0, lim, lo, hi;
-};
-
-__device__ __forceinline__ long long live_units(const Space& s) {
-  long long sl = s.slots;
-  if (s.nlive) {
-    const long long v = *s.nlive;
-    sl = v < 0 ? 0 : (v < sl ? v : sl);
-  }
-  return sl * s.tpb;
-}
-
-__device__ __forceinline__ Unit unit_of(const Space& s, long long u) {
-  const unsigned slot = (unsigned)u / (unsigned)s.tpb;
-  const long long off0 = ((long long)u - (long long)slot * s.tpb) * TILE;
-  Unit t;
-  t.cand0 = (long long)slot * s.bsz + off0;
-  t.lim = s.bsz - off0 < TILE ? s.bsz - off0 : TILE;
-  t.lo = 0;
-  t.hi = s.n;
-  if (s.ids) {
-    const int b = __ldg(s.ids + slot);
-    const long long start = (long long)b * s.bsz;
-    const long long top = s.n > s.bsz ? s.n - s.bsz : 0;
-    t.row0 = (start < 0 ? 0 : (start > top ? top : start)) + off0;
-    t.lo = start;
-    t.hi = b < 0 ? start : (start + s.bsz < s.n ? start + s.bsz : s.n);
-  } else if (s.starts) {
-    t.row0 = __ldg(s.starts + slot) + off0;
-    t.hi = LLONG_MAX;   // the mask carries membership
-  } else {
-    t.row0 = off0;
-  }
-  return t;
 }
 
 __device__ __forceinline__ unsigned long long load_status(
@@ -189,11 +129,11 @@ __device__ __forceinline__ long long look_back(const Ws& w, long long u,
   return excl;
 }
 
-// The ordered pass over the live units of s: flag(unit, local, row) says
-// whether a candidate is flagged; emit(rank, row) writes the flagged ones
-// of rank below cap. Returns the CTA's flagged count (on thread 0).
+// The ordered pass over candidates 0 .. n - 1: flag(i) says whether
+// candidate i is flagged; emit(rank, i) writes the flagged ones of rank
+// below cap. Returns the CTA's flagged count (on thread 0).
 template <class Flag, class Emit>
-__device__ __forceinline__ unsigned long long ordered_pass(const Space& s,
+__device__ __forceinline__ unsigned long long ordered_pass(long long n,
                                                            const Ws& w,
                                                            long long cap,
                                                            Flag flag,
@@ -203,19 +143,19 @@ __device__ __forceinline__ unsigned long long ordered_pass(const Space& s,
   __shared__ long long s_unit, s_excl;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long units = live_units(s);
+  const long long units = (n + TILE - 1) / TILE;
   unsigned long long cta = 0;
   for (;;) {
     if (threadIdx.x == 0) s_unit = (long long)atomicAdd(w.ticket, 1u);
     __syncthreads();   // also: the previous unit's reads of s_off, s_excl
     const long long u = s_unit;
     if (u >= units) break;   // uniform over the CTA
-    const Unit t = unit_of(s, u);
+    const long long first = u * TILE;
     unsigned bm[ITEMS];
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
-      const int l = k * THREADS + threadIdx.x;
-      bm[k] = __ballot_sync(FULL, l < t.lim && flag(t, l, t.row0 + l));
+      const long long i = first + k * THREADS + threadIdx.x;
+      bm[k] = __ballot_sync(FULL, i < n && flag(i));
       if (lane == 0) s_cnt[k][warp] = __popc(bm[k]);
     }
     __syncthreads();
@@ -257,7 +197,7 @@ __device__ __forceinline__ unsigned long long ordered_pass(const Space& s,
       for (int k = 0; k < ITEMS; ++k) {
         if ((bm[k] >> lane) & 1u) {
           const long long at = excl + s_off[k][warp] + __popc(bm[k] & lower);
-          if (at < cap) emit(at, t.row0 + k * THREADS + threadIdx.x);
+          if (at < cap) emit(at, first + k * THREADS + threadIdx.x);
         }
       }
     }

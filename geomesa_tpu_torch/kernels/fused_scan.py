@@ -48,8 +48,6 @@ def _bind():
         fn.restype = ctypes.c_int
         lib.fused_scan_error_string.argtypes = [ctypes.c_int]
         lib.fused_scan_error_string.restype = ctypes.c_char_p
-        if lib.fused_scan_tile() != lookback.TILE:
-            raise RuntimeError("fused_scan's unit differs from lookback.TILE")
         _FN = fn
     return _FN
 

@@ -1,16 +1,17 @@
 """The per-stream workspace of the kernels that compact in order by
-decoupled look-back: ``block_gate`` and ``ordered_compact``
-(``csrc/lookback.cuh``) and ``seg_band``; ``fused_scan`` keeps its count's
+decoupled look-back: ``block_gate`` (``csrc/lookback.cuh``),
+``ordered_compact`` and ``seg_band``; ``fused_scan`` keeps its count's
 total and done counter in the first words.
 
 A workspace is 4 + units int64 words: a ticket and a done counter, two
-totals, a pad, then one status word a unit (``TILE`` candidates for
-``block_gate`` and ``ordered_compact``, a 1,024-candidate chunk for
-``seg_band``). It is
+totals, ``ordered_compact``'s full word (epoch-tagged: the first unit of a
+call whose inclusive prefix reached the capacity), then one status word a
+unit (``TILE`` candidates for ``block_gate``, ``compact.UNIT`` for
+``ordered_compact``, a 1,024-candidate chunk for ``seg_band``). It is
 zeroed when made; each kernel leaves its counters zero for the next call,
-and each call takes the next epoch, so status words of earlier calls read
-as unpublished. Calls on one stream run in order, so the kernels share
-their stream's workspace. A call holds the workspace tensor it was
+and each call takes the next epoch, so status and full words of earlier
+calls read as unpublished. Calls on one stream run in order, so the kernels
+share their stream's workspace. A call holds the workspace tensor it was
 given until its launch is queued: a grown one replaces it here, and the
 allocator reuses the old block only after that launch on the same stream.
 """
@@ -48,7 +49,7 @@ def workspace(dev: torch.device, stream: int,
             ws = _WS[key] = [torch.zeros(4 + cap, dtype=torch.int64,
                                          device=dev), cap, 0]
         ws[2] += 1
-        if ws[2] > _EPOCH_MAX:   # every 2^32 calls: forget every status word
-            ws[0][4:].zero_()
+        if ws[2] > _EPOCH_MAX:   # every 2^32 calls: forget every epoch's word
+            ws[0][3:].zero_()
             ws[2] = 1
         return ws[0], ws[1], ws[2]

@@ -16,14 +16,20 @@ its capacity; every residual form of ``compile_residual`` (the lowered
 program, the torch closure and the reference's closure give one mask);
 residuals that read more columns than the kernel holds, answered by the
 staged path; and no host sync inside any dispatch (``scan.host_syncs``
-counts the calls that would wait on the card). Tolerance: none — counts,
+counts the calls that would wait on the card); the look-back workspace's
+epochs, growth and wrap, and the compaction's unit against its kernel
+source. Tolerance: none — counts,
 rows, raw program results and unit grids compare exactly. The port runs
 with device="cpu" (the plain versions).
 
 The ``gpu`` tests hold each kernel to its plain version on the card: block
 lists with pads, the clamped last block and no live block, B up to 64
-boxes, empty boxes and windows, residual programs, ``__valid__``, and
-repeated calls on one stream (each takes a fresh epoch); the store's
+boxes, empty boxes and windows, residual programs, ``__valid__``, the
+compaction saturated early, late, at its count and at cap 0, masks with
+every or no byte set, masks and planes that are views at offset 1 (the
+kernels' byte and scalar paths), lengths and block sizes that are not
+multiples of 16 or of 4, and repeated calls on one stream (each takes a
+fresh epoch; a saturated call leaves no full word for the next); the store's
 programs on the card against the same table's on the CPU; and no host sync
 in the fused entry points on the card (CUDA's sync debug mode). They import
 nothing of JAX, so on the card ``python -m pytest --noconftest -m gpu
@@ -561,6 +567,50 @@ def test_plain_ordered_compact(cap, blocks):
     assert np.array_equal(out[1:].numpy(), want)
 
 
+def test_workspace_epochs_wrap_and_forget_tagged_words(monkeypatch):
+    """``kernels.lookback``: a stream's workspace is made zeroed and grows
+    to the units a call asks (a grown one is new and zeroed, so its epochs
+    start again); each call takes the next epoch; when the epoch wraps,
+    every epoch-tagged word (``ordered_compact``'s full word, word 3, and
+    the status words) is zeroed and the counters (words 0-2, which the
+    kernels leave zero) are not touched."""
+    from geomesa_tpu_torch.kernels import lookback
+    monkeypatch.setattr(lookback, "_WS", {})
+    dev = torch.device("cpu")
+    ws, units, epoch = lookback.workspace(dev, 7, 10)
+    assert units >= 10 and ws.shape == (4 + units,) and epoch == 1
+    assert lookback.workspace(dev, 7, 10)[2] == 2
+    big, units, epoch = lookback.workspace(dev, 7, 5000)
+    assert units >= 5000 and big.shape == (4 + units,) and epoch == 1
+    assert big is not ws and not big.any()
+    monkeypatch.setattr(lookback, "_EPOCH_MAX", 3)
+    big[:] = 5
+    assert lookback.workspace(dev, 7, 1)[2] == 2
+    assert lookback.workspace(dev, 7, 1)[2] == 3 and bool((big == 5).all())
+    again, _, epoch = lookback.workspace(dev, 7, 1)
+    assert again is big and epoch == 1
+    assert bool((big[:3] == 5).all()) and not big[3:].any()
+    assert lookback.workspace(dev, 8, 1)[2] == 1   # another stream
+
+
+def test_compact_unit_matches_the_kernel_source():
+    """The wrapper sizes the look-back's status words by ``compact.UNIT``:
+    the kernel's threads x vectors a thread x vector bytes, as
+    ``csrc/lookback.cuh`` and ``csrc/ordered_compact.cu`` declare them
+    (the card checks ``ordered_compact_unit`` too)."""
+    import os
+    import re
+    csrc = os.path.join(os.path.dirname(kcompact.__file__), "csrc")
+    with open(os.path.join(csrc, "lookback.cuh")) as fh:
+        threads = int(re.search(r"constexpr int THREADS = (\d+);",
+                                fh.read()).group(1))
+    with open(os.path.join(csrc, "ordered_compact.cu")) as fh:
+        src = fh.read()
+    vec, v = (int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+              for k in ("VEC", "V"))
+    assert kcompact.UNIT == threads * v * vec
+
+
 def test_fused_query_packs_every_section():
     """The packed buffer's sections read back as the branches' boxes (as
     keys), gates, windows (as keys and bins), program words and
@@ -804,6 +854,137 @@ def test_cuda_ordered_compact_equals_plain(cap, where):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _compact_space(where: str, dev, fill: str, size: int, bsz=None,
+                   offset: int = 0, rate: float = 0.3, seed: int = 0):
+    """A mask of ``size`` table rows, or of ``size`` blocks of ``bsz``
+    candidates through clamped starts of which the first 5/6 are live;
+    ``offset`` bytes into its storage (1: not 16-byte aligned). Returns
+    (mask, keywords, the live set candidates)."""
+    rng = np.random.default_rng(seed)
+    ncand = size if where == "table" else size * bsz
+    if fill == "all":
+        m = np.ones(ncand + offset, dtype=bool)
+    elif fill == "none":
+        m = np.zeros(ncand + offset, dtype=bool)
+    else:
+        m = rng.random(ncand + offset) < rate
+    mask = torch.from_numpy(m).to(dev)[offset:]
+    if where == "table":
+        return mask, {}, int(m[offset:].sum())
+    n = size * bsz + 3 * bsz + 7
+    starts = np.clip(rng.permutation(size + 3)[:size].astype(np.int64) * bsz,
+                     0, n - bsz)
+    k = size - size // 6
+    kw = dict(starts=torch.from_numpy(starts).to(dev), bsz=bsz,
+              n_blocks=torch.tensor([k], dtype=torch.int32, device=dev))
+    return mask, kw, int(m[offset:offset + k * bsz].sum())
+
+
+def _compact_equals_plain(mask, cap, kw, views: bool = False):
+    """ordered_compact on the card against its plain version, once into
+    fresh tensors and, with ``views``, once into views of one vector (the
+    rows 4 bytes past a 16-byte boundary, as a program's result)."""
+    before = kcompact.ordered_compact.launches
+    got = kcompact.ordered_compact(mask, cap, -7, **kw)
+    want = tscan.ordered_compact(mask, cap, -7, **kw)
+    outs = [got]
+    if views:
+        out = torch.full((1 + cap,), 99, dtype=torch.int32,
+                         device=mask.device)
+        kcompact.ordered_compact(mask, cap, -7, count_out=out[:1],
+                                 rows_out=out[1:], **kw)
+        outs.append((out[:1], out[1:]))
+    torch.cuda.synchronize()
+    assert kcompact.ordered_compact.launches == before + len(outs)
+    for c, r in outs:
+        assert torch.equal(c, want[0]) and torch.equal(r, want[1]), cap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["table", "blocks"])
+@pytest.mark.parametrize("cap", ["zero", "one", "below", "at", "above"])
+def test_cuda_ordered_compact_saturates(where, cap):
+    """A dense mask (60% set) saturated early (cap 1), late (one below
+    the count), exactly at the count, not at all (one above) and at cap
+    0: the units past the cap only count, and the count stays every set
+    candidate."""
+    dev = _cuda()
+    mask, kw, count = _compact_space(where, dev, "rate",
+                                     3_000_017 if where == "table" else 700,
+                                     4096, rate=0.6, seed=31)
+    c = {"zero": 0, "one": 1, "below": count - 1, "at": count,
+         "above": count + 1}[cap]
+    _compact_equals_plain(mask, c, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", ["all", "none"])
+@pytest.mark.parametrize("where", ["table", "blocks"])
+@pytest.mark.parametrize("cap", [0, 1000, 1 << 21])
+def test_cuda_ordered_compact_all_and_none_set(fill, where, cap):
+    dev = _cuda()
+    mask, kw, _ = _compact_space(where, dev, fill,
+                                 3_000_017 if where == "table" else 700,
+                                 4096, seed=cap)
+    _compact_equals_plain(mask, cap, kw)
+
+
+ODD_SPACES = [("table", 1_000_003, None), ("table", 16_385, None),
+              ("table", 17, None), ("table", 0, None),
+              ("blocks", 300, 1000), ("blocks", 300, 4099),
+              ("blocks", 2000, 24), ("blocks", 40, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where,size,bsz", ODD_SPACES)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("cap", [5, 1 << 16])
+def test_cuda_ordered_compact_views_and_odd_sizes(where, size, bsz, offset,
+                                                  cap):
+    """A mask that is a view at byte offset 1 (the kernel's byte path),
+    lengths and block sizes that are not multiples of 16 (a unit spans
+    blocks; ragged tails), no candidates, and the rows written into a
+    view 4 bytes past a 16-byte boundary (the fill's head and tail)."""
+    dev = _cuda()
+    mask, kw, _ = _compact_space(where, dev, "rate", size, bsz,
+                                 offset=offset, seed=size + offset)
+    _compact_equals_plain(mask, cap, kw, views=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,bsz", [(100_003, 4096), (50_000, 4096),
+                                   (20_011, 1000), (20_011, 514),
+                                   (20_011, 1001)])
+@pytest.mark.parametrize("view", [False, True])
+@pytest.mark.parametrize("valid", [False, True])
+def test_cuda_fused_scan_views_and_odd_blocks(n, bsz, view, valid):
+    """Planes (and __valid__) that are views at element offset 1 (every
+    quad on the scalar path), a clamped last block that is 16-byte
+    aligned (n = 50,000) or not, block sizes that are not multiples of 16
+    or of 4 (quads across blocks): count, mask and the mask's compaction
+    against the plain versions."""
+    dev = _cuda()
+    cols = _planes(n + 1, bsz, dev, valid)
+    cols = {k: (v[1:] if view else v[:n]) for k, v in cols.items()}
+    q = _fused_query(4, "some", "age > 10", seed=4)
+    qbuf = torch.from_numpy(q.packed).to(dev)
+    nb = -(-n // bsz)
+    for blocks in ("all", "edge", "sparse"):
+        ids, k = _block_list(blocks, nb)
+        ids = torch.from_numpy(ids).to(dev)
+        nblk = torch.tensor([k], dtype=torch.int32, device=dev)
+        got = kscan.fused_scan(cols, qbuf, q, ids, nblk, bsz, "count")
+        want = tscan.fused_scan(cols, qbuf, q, ids, nblk, bsz, "count")
+        assert torch.equal(got, want), blocks
+        got = kscan.fused_scan(cols, qbuf, q, ids, nblk, bsz, "mask")
+        want = tscan.fused_scan(cols, qbuf, q, ids, nblk, bsz, "mask")
+        assert torch.equal(got[1], want[1]), blocks
+        assert torch.equal(got[0][:k * bsz], want[0][:k * bsz]), blocks
+        starts = tscan.expand_blocks(cols, ids, bsz, n)[2]
+        _compact_equals_plain(got[0], 300, dict(starts=starts, bsz=bsz,
+                                                n_blocks=nblk))
+
+
 @pytest.mark.gpu
 def test_cuda_repeated_calls_take_fresh_epochs():
     """Back-to-back calls on one stream, growing and shrinking the work
@@ -834,6 +1015,15 @@ def test_cuda_repeated_calls_take_fresh_epochs():
     for got, want, c, cw in outs:
         assert torch.equal(got, want)
         assert torch.equal(c[0], cw[0]) and torch.equal(c[1], cw[1])
+    # a saturated call (its first unit raises the full word) followed by
+    # calls that do not saturate: a stale full word would skip their units
+    m = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+    pairs = [(cap, kcompact.ordered_compact(m, cap, n))
+             for cap in (1, 1 << 18, 3, n, 0, n)]
+    torch.cuda.synchronize()
+    for cap, (c, r) in pairs:
+        cw, rw = tscan.ordered_compact(m, cap, n)
+        assert torch.equal(c, cw) and torch.equal(r, rw), cap
 
 
 @pytest.mark.gpu
