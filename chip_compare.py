@@ -41,8 +41,12 @@ adjacent pair of answers ran on the same card, seconds apart. The phases:
   store's tensors (``chip_smoke.fused_kernel_calls``: PERF.md §6's five
   shapes, the compaction of (c)'s hits at cap 4,096, (b)'s two
   compactions, 33,554,432 candidates at 1%, 10% and 50% set), and
-  ``block_gate`` over every block with (a)'s gate. An answer is
-  ``chip_smoke.cuda_ms`` over back-to-back calls and the device
+  ``block_gate`` at its three shapes (``chip_smoke.gate_calls``: every
+  block with (a)'s gate and with (h)'s union gate, 244,141 synthetic
+  blocks with (a)'s gate), each checked against its plain version. An
+  answer is ``chip_smoke.cuda_ms`` over back-to-back calls, the host's
+  ms a call (``chip_smoke.host_ms``: the same calls without a sync), the
+  median of single calls between two syncs (``sync_ms``) and the device
   activities and device ms a call; both trees must give the same outputs
   (compared by digest).
 
@@ -354,33 +358,46 @@ def setup_fused(cs, a) -> tuple:
 # -- phase fusedk -----------------------------------------------------------
 
 
+def sync_ms(fn, reps: int) -> float:
+    """The median ms of one call of ``fn`` between two syncs: the latency
+    a lone call sees, its launch included."""
+    import torch
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (
+        lambda: None)
+    ts = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return _median(ts)
+
+
 def setup_fusedk(cs, a) -> tuple:
     import torch
-
-    from geomesa_tpu_torch.index import scan
-    from geomesa_tpu_torch.kernels import gate
 
     store, _ = _store(cs, a)
     inp = cs.fused_kernel_inputs(store)
     calls = {key: (kern, reps, cut) for key, (_, kern, _, _, reps, cut, _)
              in cs.fused_kernel_calls(
                  inp, cs.KERNEL_N if a.device == "cuda" else 1 << 16).items()}
-    p = inp["prog_a"]
-    g_args = (inp["summ"], p.qbuf, p.query, inp["n"], inp["bsz"])
-    calls["block_gate"] = (lambda: gate.block_gate(*g_args), 200, None)
+    gates = cs.gate_calls(inp)
+    for key, (label, kern, plain, _, reps) in gates.items():
+        if any(not torch.equal(x, y) for x, y in zip(kern(), plain())):
+            raise AssertionError(f"{label} differs from its plain version")
+        calls[key] = (kern, reps, None)
     ready = {}
     for key, (kern, _, cut) in calls.items():
         got = kern()
         got = cut(got) if cut else got
         ready[key] = _digest(*(got if isinstance(got, tuple) else (got,)))
-    plain = scan.block_gate(*g_args)
-    if any(not torch.equal(x, y) for x, y in zip(gate.block_gate(*g_args),
-                                                 plain)):
-        raise AssertionError("block_gate differs from its plain version")
 
     def answer() -> dict:
         out = {}
         for key, (kern, reps, _) in calls.items():
+            out[f"{key}_host_ms"] = cs.host_ms(kern, reps)
+            out[f"{key}_sync_ms"] = sync_ms(kern, reps)
             if a.device == "cuda":
                 out[f"{key}_ms"] = cs.cuda_ms(kern, reps)
                 acts, dev_ms = cs.activities_per_call(kern)

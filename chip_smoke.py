@@ -51,13 +51,16 @@ Phases, each failing the run (non-zero exit) when it fails:
    union blocks and the full table with 64 boxes, and at (f)'s count, with
    the passing candidates and the kernel's tile fills; the fused
    program's kernels (``phase_fused_kernels``): block_gate over the
-   table's 24,415 blocks with (a)'s gate, fused_scan's count at (a)'s
-   alive blocks and over every block and its mask at (b)'s alive blocks,
-   ordered_compact at (c)'s certain hits (caps 65,536 and 4,096), (b)'s
-   hits (cap 0) and uncertain rows (cap 4,096) and over 33,554,432
-   candidates with 1%, 10% and 50% set (``torch.nonzero``'s time beside
-   it), each with its device activities and device time a call, and both
-   kernels' registers and spills;
+   table's 24,415 blocks with (a)'s gate and with (h)'s two-branch union
+   gate and over 244,141 blocks resampled from the table's (a billion-row
+   table) with (a)'s gate, each with its alive count (and the cluster
+   size, the CTA width, registers and spills), fused_scan's
+   count at (a)'s alive blocks and over every block and its mask at (b)'s
+   alive blocks, ordered_compact at (c)'s certain hits (caps 65,536 and
+   4,096), (b)'s hits (cap 0) and uncertain rows (cap 4,096) and over
+   33,554,432 candidates with 1%, 10% and 50% set (``torch.nonzero``'s
+   time beside it), each with its device activities and device time a
+   call, and the three kernels' registers and spills;
 7. a profile of each query: device activities, idle share and the host
    syncs made inside it;
 7b. Z2 and the extent indexes (m), on stores of their own: (m1) bench.py
@@ -156,6 +159,10 @@ CONCAVE_WKT = "POLYGON((-10 20, 40 20, 40 60, -10 60, 15 40, -10 20))"
 CONCAVE = [(-10.0, 20.0), (40.0, 20.0), (40.0, 60.0), (-10.0, 60.0),
            (15.0, 40.0), (-10.0, 20.0)]
 KERNEL_N = 8192 * 4096   # cap blocks x block rows: the pruned branch's most
+# block_gate's third shape: a billion-row table's blocks of 4,096 rows
+GATE_ROWS = 1_000_000_000
+GATE_BLOCKS = -(-GATE_ROWS // 4096)
+GATE_SEED = 31
 
 # the main path: the bench.py cfg1 corpus at its full size, the entry()
 # schema, and three queries of the flagship shape
@@ -275,6 +282,22 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """The host's ms a call of ``fn``: back-to-back calls on the host
+    clock with no sync between them (a sync before and after)."""
+    import torch
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (
+        lambda: None)
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    sync()
+    return (t1 - t0) * 1e3 / reps
 
 
 def phase_device():
@@ -1376,10 +1399,10 @@ def _time_kernel(label: str, kern, plain, bound: dict, reps: int,
 
 def fused_kernel_inputs(store) -> dict:
     """The main path's tensors of block_gate, fused_scan and
-    ordered_compact on the 100M store: the block summaries and (a)'s gate;
-    (a)'s alive blocks and every block; (b)'s alive blocks, candidates'
-    mask, its certain hits and uncertain rows (pip_refine), which (c)'s
-    select compacts too."""
+    ordered_compact on the 100M store: the block summaries, (a)'s gate and
+    (h)'s union program (its two-branch gate); (a)'s alive blocks and
+    every block; (b)'s alive blocks, candidates' mask, its certain hits and
+    uncertain rows (pip_refine), which (c)'s select compacts too."""
     import torch
     from geomesa_tpu_torch.index import compiled
     from geomesa_tpu_torch.kernels import gate, pip
@@ -1395,6 +1418,8 @@ def fused_kernel_inputs(store) -> dict:
     nb = int(summ["bxmin"].shape[0])
     ids_a, _, nblk_a = gate.block_gate(summ, prog_a.qbuf, prog_a.query, n,
                                        bsz)
+    prog_h = compiled.UnionProgram(planner.plan(Q_H), "select",
+                                   sel_cap=1 << 16)
     plan_b = planner.plan(Q_POLY)
     prog_b = compiled.Program(plan_b, "count_refine", unc_cap=4096,
                               refine=compiled.refine_spec(plan_b))
@@ -1405,6 +1430,7 @@ def fused_kernel_inputs(store) -> dict:
                               n_edges=prog_b.n_edges, n_blocks=nblk_b)
     return {"cols": cols, "dev": dev, "bsz": bsz, "n": n, "nb": nb,
             "summ": summ, "plan_a": plan_a, "prog_a": prog_a,
+            "prog_h": prog_h,
             "ids_a": ids_a, "nblk_a": nblk_a,
             "ids_all": torch.arange(nb, dtype=torch.int32, device=dev),
             "nblk_all": torch.tensor([nb], dtype=torch.int32, device=dev),
@@ -1505,6 +1531,62 @@ def fused_kernel_calls(inp: dict, big_n: int = KERNEL_N) -> dict:
     return out
 
 
+def gate_summaries(summ: dict, nb: int, seed: int) -> dict:
+    """Summaries of ``nb`` blocks resampled from the table's ``summ``: the
+    blocks drawn from ``seed`` with replacement and kept in table order, so
+    each block's envelope (its centre and widths) and bin range are a real
+    block's, and Z order's runs of neighbouring blocks stay runs, as in a
+    table of the same data with more rows."""
+    import torch
+    rng = np.random.default_rng(seed)
+    src = int(summ["bxmin"].shape[0])
+    pick = torch.from_numpy(np.sort(rng.integers(0, src, nb))).to(
+        summ["bxmin"].device)
+    return {k: v.index_select(0, pick) for k, v in summ.items()}
+
+
+def gate_bound(nb: int, summ: dict, qbuf, query) -> dict:
+    """Bytes: the summaries (16 B a block, 24 with bins), the ids and
+    starts of every block (12 B, the pad too), the count, the query
+    buffer. Operations: 4 f32 compares a (block, gate box) and 3 int
+    compares a (block, window)."""
+    nbox = sum(b[1] for b in query.branches)
+    nwin = sum(b[3] for b in query.branches)
+    return _bound(nb * (16 + (8 if "binmin" in summ else 0)) + nb * 12 + 4
+                  + qbuf.numel(), nb * (4 * nbox + 3 * nwin))
+
+
+def gate_calls(inp: dict) -> dict:
+    """key → (label, kernel call, plain call, bound, reps) of block_gate at
+    its three shapes: (a)'s gate over the 100M table's blocks, (h)'s
+    two-branch union gate over them, and (a)'s gate over GATE_BLOCKS
+    blocks resampled from the table's (``gate_summaries``, a billion-row
+    table at 4,096 rows a block); each label ends with the shape's alive
+    blocks, as the plain version counts them."""
+    from geomesa_tpu_torch.index import scan
+    from geomesa_tpu_torch.kernels import gate
+
+    summ, nb, n, bsz = inp["summ"], inp["nb"], inp["n"], inp["bsz"]
+    pa, ph = inp["prog_a"], inp["prog_h"]
+    big = gate_summaries(summ, GATE_BLOCKS, GATE_SEED)
+    out = {}
+    for key, label, sm, q, qbuf, rows in (
+            ("gate_a", f"block_gate over {nb} blocks x (a)'s gate", summ,
+             pa.query, pa.qbuf, n),
+            ("gate_h", f"block_gate over {nb} blocks x (h)'s two-branch "
+             f"union gate", summ, ph.query, ph.qbuf, n),
+            ("gate_big", f"block_gate over {GATE_BLOCKS} blocks resampled "
+             f"from the table's x (a)'s gate", big, pa.query, pa.qbuf,
+             GATE_ROWS)):
+        args = (sm, qbuf, q, rows, bsz)
+        alive = int(scan.block_gate(*args)[2][0])
+        label = f"{label} ({alive} alive)"
+        out[key] = (label, lambda args=args: gate.block_gate(*args),
+                    lambda args=args: scan.block_gate(*args),
+                    gate_bound(int(sm["bxmin"].shape[0]), sm, qbuf, q), 200)
+    return out
+
+
 def kernel_resources(name: str) -> dict:
     """function → {"registers", "stack", "local"} of a built kernel, read
     with ``cuobjdump -res-usage`` (a spill shows as stack and local bytes);
@@ -1527,30 +1609,63 @@ def kernel_resources(name: str) -> dict:
     return out
 
 
+def gate_host_split(summ: dict, prog, n: int, bsz: int,
+                    reps: int = 2000) -> dict:
+    """Host ms a call of the gate's wrapper on ``summ`` with ``prog``'s
+    gate, and of its parts: the input checks, the ctypes launch replayed
+    with the wrapper's own arguments, and the three ``torch.empty`` of the
+    outputs."""
+    import torch
+    from geomesa_tpu_torch.kernels import gate
+    args = (summ, prog.qbuf, prog.query, n, bsz)
+    real = gate._bind()
+    seen = []
+
+    def spy(packed, stream):
+        seen[:] = [packed, stream]
+        return real(packed, stream)
+    gate._FN = spy
+    try:
+        gate.block_gate(*args)
+    finally:
+        gate._FN = real
+    nb, dev = int(summ["bxmin"].shape[0]), summ["bxmin"].device
+
+    def empties():
+        return (torch.empty(nb, dtype=torch.int32, device=dev),
+                torch.empty(nb, dtype=torch.int64, device=dev),
+                torch.empty(1, dtype=torch.int32, device=dev))
+    out = {key: host_ms(fn, reps) for key, fn in (
+        ("wrapper_ms", lambda: gate.block_gate(*args)),
+        ("checks_ms", lambda: gate._check(summ, prog.qbuf, bsz)),
+        ("launch_ms", lambda: real(*seen)), ("empty_ms", empties))}
+    log(f"[kernel] block_gate host ms a call: {json.dumps(out)}")
+    return out
+
+
 def phase_fused_kernels(store) -> dict:
     """block_gate, fused_scan and ordered_compact against their plain
     versions on the main path's tensors (``fused_kernel_inputs``): the
-    gate over every block of the 100M table with (a)'s gate; then
-    ``fused_kernel_calls``, with ``torch.nonzero``'s time beside each
-    compaction; and both redesigned kernels' registers and spills."""
-    from geomesa_tpu_torch.index import scan
+    gate at its three shapes (``gate_calls``) and its wrapper's host time
+    by part (``gate_host_split``); then ``fused_kernel_calls``, with
+    ``torch.nonzero``'s time beside each compaction; and the three
+    kernels' registers and spills."""
     from geomesa_tpu_torch.kernels import compact, fused_scan, gate
 
     inp = fused_kernel_inputs(store)
-    q, qbuf = inp["prog_a"].query, inp["prog_a"].qbuf
-    nb, summ = inp["nb"], inp["summ"]
-    nbox = sum(b[1] for b in q.branches)
-    nwin = sum(b[3] for b in q.branches)
     out = {}
 
     # the gate: summaries in, ids and starts out
-    g_args = (summ, qbuf, q, inp["n"], inp["bsz"])
-    out["block_gate"] = _time_kernel(
-        f"block_gate over {nb} blocks x (a)'s gate ({nbox} boxes, {nwin} "
-        f"windows)", lambda: gate.block_gate(*g_args),
-        lambda: scan.block_gate(*g_args),
-        _bound(nb * (16 + (8 if "binmin" in summ else 0)) + nb * 12 + 4
-               + qbuf.numel(), nb * (4 * nbox + 3 * nwin)), 200)
+    g_calls = gate_calls(inp)
+    out["block_gate"] = [
+        _time_kernel(label, kern, plain, bound, reps)
+        for label, kern, plain, bound, reps in g_calls.values()]
+    out["block_gate_host"] = gate_host_split(inp["summ"], inp["prog_a"],
+                                             inp["n"], inp["bsz"])
+    log(f"[kernel] block_gate: one cluster of {gate.CLUSTER} CTAs of "
+        f"{gate.THREADS} threads; resources "
+        f"{json.dumps(kernel_resources(gate.NAME))}")
+    del g_calls
     calls = fused_kernel_calls(inp)
     for mod, prefix in ((fused_scan, "scan"), (compact, "compact")):
         out[mod.NAME] = [
@@ -2971,7 +3086,7 @@ def main() -> int:
         "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
         "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
         "library_ms": rows[0]["library_ms"]}
-        for mod, rows in ((gate, [fk["block_gate"]]),
+        for mod, rows in ((gate, fk["block_gate"]),
                           (fused_scan, fk["fused_scan"]),
                           (compact, fk["ordered_compact"]))]}))
     print(smi)

@@ -1,28 +1,22 @@
 // Ordered compaction by decoupled look-back for Hopper (sm_90a): the
-// ordered pass of block_gate.cu; ordered_compact.cu takes its look-back,
-// workspace and end (finish), and fused_scan.cu its end for the count.
+// look-back, workspace and end (finish) of ordered_compact.cu, and the end
+// fused_scan.cu takes for its count.
 //
 // Replaces the fixed-size jnp.nonzero(size=..., fill_value=...) of the
-// reference's fused programs (geomesa_tpu/index/compiled.py:496, :532,
-// :541, :555, :559, :571, :574) and of its staged selects: the flagged
+// reference's fused programs (geomesa_tpu/index/compiled.py:532, :541,
+// :555, :559, :571, :574) and of its staged selects: the flagged
 // candidates' rows in candidate order, the first `cap` of them, padded with
 // a fill value, and the count of every flagged candidate, in one launch with
 // no host sync.
 //
-// The pass (ordered_pass) over candidates 0 .. n - 1, a unit of TILE
-// candidates at a time. A CTA takes units by an atomic ticket, so units
-// start in candidate order; a thread holds ITEMS = 16 candidates of the
-// unit (4,096 candidates a unit: the per-unit ticket, barriers and
-// look-back amortise over them), strided by the CTA width, so a warp's
-// loads coalesce. The unit's flagged candidates rank by a CTA-wide ballot
-// scan: a ballot a (item, warp), and warp 0's exclusive scan of their 128
-// counts. The unit publishes its count in a status word of its own, warp 0
-// sums its predecessors' words from the nearest back until one holds an
-// inclusive prefix (32 a step), and the unit publishes its inclusive
-// prefix; its rows go straight from registers to the output at the
-// exclusive prefix plus their rank. A unit
-// whose exclusive prefix reaches `cap` stops looking back and writes
-// nothing: the prefix it publishes is a lower bound that is itself at least
+// The look-back (look_back). A CTA takes units of candidates by an atomic
+// ticket, so units start in candidate order, and ranks a unit's flagged
+// candidates itself. The unit publishes its count in a status word of its
+// own, warp 0 sums its predecessors' words from the nearest back until one
+// holds an inclusive prefix (32 a step), and the unit publishes its
+// inclusive prefix; its rows go to the output at the exclusive prefix plus
+// their rank. A unit whose exclusive prefix reaches `cap` stops looking
+// back: the prefix it publishes is a lower bound that is itself at least
 // `cap`. A status word is epoch (32 bits) | prefix flag | value (31 bits);
 // the wrapper passes a new epoch each call, so a word of an earlier call
 // reads as unpublished and the workspace needs no memset between calls.
@@ -43,14 +37,10 @@ namespace lookback {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int ITEMS = 16;                // candidates a thread a unit
-constexpr int TILE = THREADS * ITEMS;    // candidates a unit
 constexpr unsigned FULL = 0xffffffffu;
 constexpr unsigned long long PREFIX = 1ull << 31;
 constexpr unsigned long long VALUE_MAX = 0x7fffffffull;
 constexpr int MAX_DEVICES = 64;
-// warp 0 scans the (item, warp) counts, four a lane
-static_assert(ITEMS * WARPS == 4 * 32, "the rank scan takes 4 counts a lane");
 
 // a stream's workspace: 4 words (word 2 is seg_band's, word 3
 // ordered_compact.cu's full word), then one status word a unit
@@ -127,82 +117,6 @@ __device__ __forceinline__ long long look_back(const Ws& w, long long u,
                                                 ? incl : VALUE_MAX));
   }
   return excl;
-}
-
-// The ordered pass over candidates 0 .. n - 1: flag(i) says whether
-// candidate i is flagged; emit(rank, i) writes the flagged ones of rank
-// below cap. Returns the CTA's flagged count (on thread 0).
-template <class Flag, class Emit>
-__device__ __forceinline__ unsigned long long ordered_pass(long long n,
-                                                           const Ws& w,
-                                                           long long cap,
-                                                           Flag flag,
-                                                           Emit emit) {
-  __shared__ int s_cnt[ITEMS][WARPS];   // flagged a (item, warp)
-  __shared__ int s_off[ITEMS][WARPS];   // their exclusive prefix in the unit
-  __shared__ long long s_unit, s_excl;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long units = (n + TILE - 1) / TILE;
-  unsigned long long cta = 0;
-  for (;;) {
-    if (threadIdx.x == 0) s_unit = (long long)atomicAdd(w.ticket, 1u);
-    __syncthreads();   // also: the previous unit's reads of s_off, s_excl
-    const long long u = s_unit;
-    if (u >= units) break;   // uniform over the CTA
-    const long long first = u * TILE;
-    unsigned bm[ITEMS];
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-      const long long i = first + k * THREADS + threadIdx.x;
-      bm[k] = __ballot_sync(FULL, i < n && flag(i));
-      if (lane == 0) s_cnt[k][warp] = __popc(bm[k]);
-    }
-    __syncthreads();
-    if (warp == 0) {
-      // the (item, warp) counts in candidate order, four a lane: an
-      // exclusive scan gives each its offset in the unit
-      const int* cnt = &s_cnt[0][0];
-      int* off = &s_off[0][0];
-      int v[4], sum = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = cnt[4 * lane + j];
-        sum += v[j];
-      }
-      int incl = sum;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(FULL, incl, d);
-        if (lane >= d) incl += y;
-      }
-      int run = incl - sum;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        off[4 * lane + j] = run;
-        run += v[j];
-      }
-      const int agg = __shfl_sync(FULL, incl, 31);
-      const long long excl = look_back(w, u, agg, cap, lane);
-      if (lane == 0) {
-        s_excl = excl;
-        cta += (unsigned)agg;
-      }
-    }
-    __syncthreads();
-    const long long excl = s_excl;
-    if (excl < cap) {   // uniform over the CTA
-      const unsigned lower = (1u << lane) - 1u;
-#pragma unroll
-      for (int k = 0; k < ITEMS; ++k) {
-        if ((bm[k] >> lane) & 1u) {
-          const long long at = excl + s_off[k][warp] + __popc(bm[k] & lower);
-          if (at < cap) emit(at, first + k * THREADS + threadIdx.x);
-        }
-      }
-    }
-  }
-  return cta;
 }
 
 // Every CTA, at its end, with its flagged count `cta` on thread 0: the last

@@ -17,8 +17,8 @@
 // What bounds it on the card: one mask byte a candidate in, 4 bytes a kept
 // row out (the block starts are 8 bytes a slot, amortised over bsz).
 //
-// Design: a mask-specialised ordered pass (block_gate.cu keeps
-// lookback.cuh's generic ordered_pass, whose flag is computed).
+// Design: an ordered pass over mask vectors on lookback.cuh's look-back
+// and end.
 // - The live candidates are one flat run (a unit does not stop at a
 //   block's end), so a unit starts at a multiple of its size and, on a
 //   16-byte-aligned mask, a thread reads its candidates as 16-byte vectors

@@ -3,10 +3,11 @@
 ``block_gate(summ, qbuf, query, n, bsz)`` launches the kernel for tensors
 on a CUDA device and runs the plain PyTorch version
 (``index.scan.block_gate``) for tensors on the CPU. There is no fallback: a
-CUDA tensor either launches the kernel or raises. ``block_gate.launches``
-counts the calls that launched the kernel (and nothing else). A call is one
-launch; it allocates its three outputs, and its look-back status words live
-in the stream's workspace (``kernels.lookback``).
+CUDA tensor either launches the kernel or raises, and so does a cluster
+that does not fit on the card. ``block_gate.launches`` counts the calls
+that launched the kernel (and nothing else). A call is one launch of one
+thread-block cluster of ``CLUSTER`` CTAs of ``THREADS`` threads, a shape
+the kernel fixes.
 """
 
 from __future__ import annotations
@@ -17,14 +18,19 @@ import struct
 import torch
 
 from geomesa_tpu_torch.index import scan
-from geomesa_tpu_torch.kernels import build, lookback
+from geomesa_tpu_torch.kernels import build
 
 NAME = "block_gate"
 SOURCE = "geomesa_tpu_torch/kernels/csrc/block_gate.cu"
 REPLACES = "geomesa_tpu/index/compiled.py:463"
 
-# the C side's BlockGateArgs: 22 8-byte slots
-_ARGS = struct.Struct("=22q")
+# the kernel's cluster shape, as csrc/block_gate.cu fixes it: CTAs of the
+# cluster (a non-portable size) and threads a CTA
+CLUSTER = 16
+THREADS = 512
+
+# the C side's BlockGateArgs: 19 8-byte slots
+_ARGS = struct.Struct("=19q")
 _SUMM = ("bxmin", "bxmax", "bymin", "bymax")
 
 _FN = None
@@ -39,13 +45,11 @@ def _bind():
         fn.restype = ctypes.c_int
         lib.block_gate_error_string.argtypes = [ctypes.c_int]
         lib.block_gate_error_string.restype = ctypes.c_char_p
-        if lib.block_gate_tile() != lookback.TILE:
-            raise RuntimeError("block_gate's unit differs from lookback.TILE")
         _FN = fn
     return _FN
 
 
-def _check(summ, qbuf, bsz) -> int:
+def _check(summ: dict, qbuf: torch.Tensor, bsz: int) -> int:
     """Validate the inputs; return the block count."""
     nb = int(summ["bxmin"].shape[0])
     dev = summ["bxmin"].device
@@ -60,6 +64,8 @@ def _check(summ, qbuf, bsz) -> int:
             if t.dtype is not torch.int32 or t.shape != (nb,):
                 raise TypeError(f"summary {k} must be int32 with {nb} blocks")
             build.placed(t, dev)
+    if ("binmin" in summ) != ("binmax" in summ):
+        raise TypeError("summaries need both binmin and binmax, or neither")
     if qbuf.dtype is not torch.uint8 or qbuf.dim() != 1 or qbuf.shape[0] % 16:
         raise TypeError("qbuf must be a 1-D uint8 tensor of 16-byte words")
     build.placed(qbuf, dev)
@@ -87,21 +93,19 @@ def block_gate(summ: dict, qbuf: torch.Tensor, query: scan.FusedQuery,
     binned = "binmin" in summ
     off = query.offsets
     with build.on_device(dev):
-        stream = build.raw_stream(dev)
-        ws, ws_units, epoch = lookback.workspace(dev, stream,
-                                                 lookback.units(nb))
         args = _ARGS.pack(
             *(summ[k].data_ptr() for k in _SUMM),
             summ["binmin"].data_ptr() if binned else 0,
             summ["binmax"].data_ptr() if binned else 0,
             qbuf.data_ptr(), qbuf.shape[0], off["br"][0], off["gate"][0],
             off["wbin"][0], len(query.branches), nb, int(bsz), int(n),
-            ids.data_ptr(), starts.data_ptr(), count.data_ptr(),
-            ws.data_ptr(), ws_units, epoch, dev.index)
-        rc = fn(args, stream)
+            ids.data_ptr(), starts.data_ptr(), count.data_ptr(), dev.index)
+        rc = fn(args, build.raw_stream(dev))
     if rc != 0:
         msg = build.load(NAME).block_gate_error_string(rc).decode()
-        raise RuntimeError(f"block_gate launch failed: {msg} (cudaError {rc})")
+        raise RuntimeError(f"block_gate launch failed: {msg} (code {rc}; "
+                           f"{CLUSTER} CTAs of {THREADS} threads, {nb} "
+                           f"blocks)")
     block_gate.launches += 1
     return ids, starts, count
 

@@ -1,19 +1,19 @@
 """The per-stream workspace of the kernels that compact in order by
-decoupled look-back: ``block_gate`` (``csrc/lookback.cuh``),
-``ordered_compact`` and ``seg_band``; ``fused_scan`` keeps its count's
-total and done counter in the first words.
+decoupled look-back (``csrc/lookback.cuh``): ``ordered_compact`` and
+``seg_band``; ``fused_scan`` keeps its count's total and done counter in
+the first words.
 
 A workspace is 4 + units int64 words: a ticket and a done counter, two
 totals, ``ordered_compact``'s full word (epoch-tagged: the first unit of a
 call whose inclusive prefix reached the capacity), then one status word a
-unit (``TILE`` candidates for ``block_gate``, ``compact.UNIT`` for
-``ordered_compact``, a 1,024-candidate chunk for ``seg_band``). It is
-zeroed when made; each kernel leaves its counters zero for the next call,
-and each call takes the next epoch, so status and full words of earlier
-calls read as unpublished. Calls on one stream run in order, so the kernels
-share their stream's workspace. A call holds the workspace tensor it was
-given until its launch is queued: a grown one replaces it here, and the
-allocator reuses the old block only after that launch on the same stream.
+unit (``compact.UNIT`` candidates for ``ordered_compact``, a
+1,024-candidate chunk for ``seg_band``). It is zeroed when made; each
+kernel leaves its counters zero for the next call, and each call takes the
+next epoch, so status and full words of earlier calls read as unpublished.
+Calls on one stream run in order, so the kernels share their stream's
+workspace. A call holds the workspace tensor it was given until its launch
+is queued: a grown one replaces it here, and the allocator reuses the old
+block only after that launch on the same stream.
 """
 
 from __future__ import annotations
@@ -23,18 +23,10 @@ from typing import Dict, List, Tuple
 
 import torch
 
-# candidates a unit (csrc/lookback.cuh TILE)
-TILE = 4096
-
 _WS: Dict[Tuple[int, int], List] = {}
 _LOCK = threading.Lock()
 _EPOCH_MAX = (1 << 32) - 1
 _MIN_UNITS = 1024
-
-
-def units(candidates: int) -> int:
-    """Units of ``candidates`` candidates."""
-    return -(-int(candidates) // TILE)
 
 
 def workspace(dev: torch.device, stream: int,

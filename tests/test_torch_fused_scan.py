@@ -17,8 +17,9 @@ program, the torch closure and the reference's closure give one mask);
 residuals that read more columns than the kernel holds, answered by the
 staged path; and no host sync inside any dispatch (``scan.host_syncs``
 counts the calls that would wait on the card); the look-back workspace's
-epochs, growth and wrap, and the compaction's unit against its kernel
-source. Tolerance: none — counts,
+epochs, growth and wrap, the compaction's unit and the gate's cluster
+shape against their kernel sources, and the gate wrapper's checks of its
+inputs. Tolerance: none — counts,
 rows, raw program results and unit grids compare exactly. The port runs
 with device="cpu" (the plain versions).
 
@@ -29,7 +30,11 @@ compaction saturated early, late, at its count and at cap 0, masks with
 every or no byte set, masks and planes that are views at offset 1 (the
 kernels' byte and scalar paths), lengths and block sizes that are not
 multiples of 16 or of 4, and repeated calls on one stream (each takes a
-fresh epoch; a saturated call leaves no full word for the next); the store's
+fresh epoch; a saturated call leaves no full word for the next); the gate
+at its cluster's edges (one block, fewer than a warp, exactly the
+cluster's threads and one more, several load batches a thread, 244,141
+blocks, every and no block alive, three branches, no bins) and a block
+list whose ballots pass the shared memory, which raises; the store's
 programs on the card against the same table's on the CPU; and no host sync
 in the fused entry points on the card (CUDA's sync debug mode). They import
 nothing of JAX, so on the card ``python -m pytest --noconftest -m gpu
@@ -650,6 +655,57 @@ def test_fused_query_packs_every_section():
         and cn[2] == 0
 
 
+
+@pytest.mark.parametrize("name", ["CLUSTER", "THREADS"])
+def test_gate_cluster_shape_matches_the_kernel_source(name):
+    """``gate.CLUSTER`` and ``gate.THREADS``, which the card tests size
+    their block lists by, are the shape ``csrc/block_gate.cu`` fixes."""
+    import os
+    import re
+    with open(os.path.join(os.path.dirname(kgate.__file__), "csrc",
+                           "block_gate.cu")) as fh:
+        src = fh.read()
+    got = re.search(rf"constexpr int {name} = (\d+);", src)
+    assert got is not None and int(got.group(1)) == getattr(kgate, name)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "one_bin", "no_blocks",
+                                 "bin_dtype", "qbuf_dtype", "qbuf_words",
+                                 "block_size"])
+def test_gate_checks_summaries_at_their_first_call(bad):
+    """The wrapper checks its inputs at every call, the first one too:
+    summaries of the wrong type or shape, with one bin plane or with no
+    block, a query buffer that is not 16-byte words of uint8, and a block
+    size below 1 raise; the good inputs answer as the plain version does
+    before and after."""
+    summ = _gate_summaries(40, 3, torch.device("cpu"))
+    q = _fused_query(4, "some", None, seed=7)
+    qbuf = torch.from_numpy(q.packed)
+    want = tscan.block_gate(summ, qbuf, q, 40 * 512, 512)
+    got = kgate.block_gate(summ, qbuf, q, 40 * 512, 512)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    bad_summ, bad_qbuf, bsz = dict(summ), qbuf, 512
+    if bad == "dtype":
+        bad_summ["bymax"] = bad_summ["bymax"].double()
+    elif bad == "shape":
+        bad_summ["binmin"] = bad_summ["binmin"][:-1]
+    elif bad == "one_bin":
+        del bad_summ["binmax"]
+    elif bad == "no_blocks":
+        bad_summ = {k: v[:0] for k, v in summ.items()}
+    elif bad == "bin_dtype":
+        bad_summ["binmax"] = bad_summ["binmax"].long()
+    elif bad == "qbuf_dtype":
+        bad_qbuf = qbuf.view(torch.int32)
+    elif bad == "qbuf_words":
+        bad_qbuf = qbuf[:-8]
+    else:
+        bsz = 0
+    with pytest.raises((TypeError, ValueError)):
+        kgate.block_gate(bad_summ, bad_qbuf, q, 40 * 512, bsz)
+    got = kgate.block_gate(summ, qbuf, q, 40 * 512, 512)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
 # -- the CUDA kernels against their plain versions (card only) -----------------
 
 
@@ -825,6 +881,102 @@ def test_cuda_block_gate_equals_plain(n, bsz, nbox, windows, branches):
         assert torch.equal(a, b)
     if windows == "empty":
         assert int(got[2][0]) == 0
+
+
+def _gate_summaries(nb: int, seed: int, dev, fill: str = "some",
+                    bins: bool = True) -> dict:
+    """Block summaries made from a seed: small random envelopes over the
+    world and bin ranges about ``_fused_query``'s windows (``fill``
+    "some"), every block over the whole world and every bin ("all"), or
+    every block far from any box ("none"); without bins for a table that
+    has none."""
+    rng = np.random.default_rng(seed)
+    cx, cy = rng.uniform(-180, 180, nb), rng.uniform(-90, 90, nb)
+    w, h = rng.uniform(0, 8, nb), rng.uniform(0, 6, nb)
+    env = [cx - w, cx + w, cy - h, cy + h]
+    b0 = rng.integers(2598, 2608, nb)
+    b1 = b0 + rng.integers(0, 3, nb)
+    if fill == "all":
+        env = [np.full(nb, v) for v in (-181.0, 181.0, -91.0, 91.0)]
+        b0, b1 = np.zeros(nb), np.full(nb, 1 << 30)
+    elif fill == "none":
+        env = [np.full(nb, v) for v in (1000.0, 1001.0, 1000.0, 1001.0)]
+    summ = {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+            for k, v in zip(("bxmin", "bxmax", "bymin", "bymax"), env)}
+    if bins:
+        summ["binmin"] = torch.from_numpy(b0.astype(np.int32)).to(dev)
+        summ["binmax"] = torch.from_numpy(b1.astype(np.int32)).to(dev)
+    return summ
+
+
+# name -> (blocks: an int, or a multiple of the cluster's threads plus an
+# offset, fill, bins, boxes, windows, branches)
+GATE_EDGES = {
+    "one_block": (1, "all", True, 4, "some", 1),
+    "one_block_none_alive": (1, "none", True, 4, "some", 1),
+    "below_a_warp": (20, "some", True, 64, "some", 1),
+    "cluster_threads": ((1, 0), "some", True, 4, "some", 1),
+    "cluster_threads_plus_one": ((1, 1), "some", True, 4, "some", 1),
+    "several_a_thread": ((9, 7), "some", True, 4, "some", 1),
+    "table_of_1b_rows": (244_141, "some", True, 4, "some", 1),
+    "all_alive": (24_415, "all", True, 4, "some", 1),
+    "none_alive": (24_415, "none", True, 4, "some", 1),
+    "three_branches_windows": (24_415, "some", True, 4, "some", 3),
+    "three_branches_no_windows": (24_415, "some", True, 4, "none", 3),
+    "no_bins": (24_415, "some", False, 4, "some", 1),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GATE_EDGES))
+def test_cuda_block_gate_layout_edges(case):
+    """The cluster's edges: one block, fewer than a warp, exactly the
+    cluster's threads and one more, several blocks a thread (two load
+    batches), the 244,141 blocks of a billion-row table, every and no
+    block alive, three branches with and without windows, a table without
+    bins; each one launch, equal to the plain version on all three
+    outputs (the pad too)."""
+    dev = _cuda()
+    blocks, fill, bins, nbox, windows, branches = GATE_EDGES[case]
+    if isinstance(blocks, tuple):
+        blocks = blocks[0] * kgate.CLUSTER * kgate.THREADS + blocks[1]
+    bsz = 4096
+    n = blocks * bsz - 123   # a ragged last block: its start clamps
+    summ = _gate_summaries(blocks, blocks, dev, fill, bins)
+    q = _fused_query(nbox, windows, None, seed=7, branches=branches)
+    qbuf = torch.from_numpy(q.packed).to(dev)
+    before = kgate.block_gate.launches
+    got = kgate.block_gate(summ, qbuf, q, n, bsz)
+    want = tscan.block_gate(summ, qbuf, q, n, bsz)
+    torch.cuda.synchronize()
+    assert kgate.block_gate.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    k = int(want[2][0])
+    if fill == "all":
+        assert k == blocks
+    elif fill == "none":
+        assert k == 0
+    elif blocks > 1000:
+        assert 0 < k < blocks
+
+
+@pytest.mark.gpu
+def test_cuda_block_gate_raises_when_the_cluster_does_not_fit():
+    """A block list whose ballots pass the CTA's shared memory has no
+    cluster that fits: the call raises and launches nothing."""
+    dev = _cuda()
+    warps = kgate.THREADS // 32
+    items = 232_448 // (4 * warps) + 1
+    nb = kgate.CLUSTER * kgate.THREADS * items
+    summ = {k: torch.zeros(nb, dtype=torch.float32, device=dev)
+            for k in ("bxmin", "bxmax", "bymin", "bymax")}
+    q = _fused_query(1, "none", None, seed=1)
+    qbuf = torch.from_numpy(q.packed).to(dev)
+    before = kgate.block_gate.launches
+    with pytest.raises(RuntimeError, match="no cluster"):
+        kgate.block_gate(summ, qbuf, q, nb * 4096, 4096)
+    assert kgate.block_gate.launches == before
 
 
 @pytest.mark.gpu
