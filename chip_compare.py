@@ -1,7 +1,7 @@
 """Two trees of the port timed on one card, in turns.
 
     python3 chip_compare.py PARENT_ROOT CHANGE_ROOT
-        [--phases count,kernels,fused,fusedk]
+        [--phases count,kernels,fused,fusedk,staged]
         [--rounds 4] [--reps 40] [--n 100000000] [--out FILE] [--device cpu]
 
 One worker process a tree imports ``geomesa_tpu_torch`` from that tree,
@@ -49,6 +49,12 @@ adjacent pair of answers ran on the same card, seconds apart. The phases:
   median of single calls between two syncs (``sync_ms``) and the device
   activities and device ms a call; both trees must give the same outputs
   (compared by digest).
+- ``staged``: the staged counts of ``chip_smoke.py``'s main path through
+  ``store.count`` on the same store as ``count``: (f) (a window and
+  ``val > 90``, no box, over every block) and (h) (the OR of two boxes).
+  An answer is the p50 of ``--reps`` calls to a device synchronise and,
+  on the card, the device activities and device ms a call; both trees
+  must give the same counts.
 
 Prints each answer, then per tree the median of every metric and the
 change-minus-parent median over adjacent pairs; writes all of it to
@@ -414,8 +420,46 @@ def setup_fusedk(cs, a) -> tuple:
     return ready, answer
 
 
+# -- phase staged -----------------------------------------------------------
+
+
+def setup_staged(cs, a) -> tuple:
+    import torch
+
+    store, _ = _store(cs, a)
+    queries = {"f": cs.Q_F, "h": cs.Q_H}
+    counts = {k: store.count("gdelt", q) for k, q in queries.items()}
+    sync = torch.cuda.synchronize if a.device == "cuda" else (lambda: None)
+    calls = {k: (lambda q=q: store.count("gdelt", q))
+             for k, q in queries.items()}
+    for fn in calls.values():
+        for _ in range(20):
+            fn()
+
+    def answer() -> dict:
+        out = {}
+        for k, fn in calls.items():
+            ts = []
+            for _ in range(a.reps):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            out[f"{k}_p50_ms"] = _median(ts)
+            acts = dev_ms = None
+            if a.device == "cuda":
+                acts, dev_ms = cs.activities_per_call(fn)
+            out[f"{k}_activities"] = acts
+            out[f"{k}_device_ms"] = dev_ms
+        return out
+
+    return counts, answer
+
+
 PHASES = {"count": setup_count, "kernels": setup_kernels,
-          "fused": setup_fused, "fusedk": setup_fusedk}
+          "fused": setup_fused, "fusedk": setup_fusedk,
+          "staged": setup_staged}
 
 
 # -- worker and turns -------------------------------------------------------

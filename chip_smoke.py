@@ -13,14 +13,18 @@ Phases, each failing the run (non-zero exit) when it fails:
 3. pip_refine against its plain PyTorch version on the card at near-edge
    shapes, unmasked and masked, with times and bounds;
 4. the main path: a 100M-point Z3 layer loaded through the port's
-   DataStore and queried — (a) box count, (b) polygon count, (c) polygon
-   select, (d) the flagship 64x64 density of ``__graft_entry__.entry()``
-   through ``store.query(..., hints={"density": ...})`` and through the
-   fused program, (e) query (a) as a 256x256 ``val``-weighted density,
-   (f) a time+attribute count and select and an INCLUDE count on the staged
+   DataStore (the native encoder, its chunks streamed to the card from
+   pinned memory while the next one encodes, the device sort; the load
+   split by stage and its peak device memory) and queried — (a) box
+   count, (b) polygon count, (c) polygon select, (d) the flagship 64x64
+   density of ``__graft_entry__.entry()`` through ``store.query(...,
+   hints={"density": ...})`` (the staged route) and through the fused
+   program, (e) query (a) as a 256x256 ``val``-weighted density, (f) a
+   time+attribute count and select and an INCLUDE count on the staged
    path — each result equal to a numpy oracle computed here, with every
    kernel's launch count read around the run ((a)-(d) through
-   ``block_gate`` and ``fused_scan``, (b) and (c) through
+   ``block_gate`` and ``fused_scan``, the staged (d)-(f) through
+   ``fused_scan``, (b), (c) and (f)'s select through
    ``ordered_compact``);
 5. the serving path (g) on the same store, every answer equal to its numpy
    oracle: (g1) ``planner.prepare`` of (a) — blocking counts and 64
@@ -34,9 +38,9 @@ Phases, each failing the run (non-zero exit) when it fails:
    ``count_many`` — with ``box_count``'s launches read around (g);
 5b. the point layer's other filters (h)-(k) on the same store, every answer
    equal to its numpy oracle, with every kernel's launches read around
-   them: (h) an OR of two box+time branches as a count, as rows (the union
-   program) and as a 64x64 density over both branches (the union
-   program's grid_scatter);
+   them: (h) an OR of two box+time branches as a count (one two-branch
+   ``fused_scan``), as rows (the union program) and as a 64x64 density
+   over both branches (the union program's grid_scatter);
    (i) ``st_distance(geom, POINT) < r`` and ``<= r`` as counts and rows
    (the fused dist refine, ``dist_refine``); (j) ``st_contains`` with
    (b)'s polygon (the fused pip refine) and ``WITHIN`` (the staged scan and
@@ -60,7 +64,11 @@ Phases, each failing the run (non-zero exit) when it fails:
    4,096), (b)'s hits (cap 0) and uncertain rows (cap 4,096) and over
    33,554,432 candidates with 1%, 10% and 50% set (``torch.nonzero``'s
    time beside it), each with its device activities and device time a
-   call, and the three kernels' registers and spills;
+   call, and the three kernels' registers and spills; then each staged
+   mode on its kernel route against the same mode with its kernels'
+   plain versions (``phase_staged_kernels``): (f)'s count, select and
+   row mask over all 24,415 blocks, (d)'s and (e)'s densities on their
+   routes, (h)'s OR count, with times, activities and bounds;
 7. a profile of each query: device activities, idle share and the host
    syncs made inside it;
 7b. Z2 and the extent indexes (m), on stores of their own: (m1) bench.py
@@ -89,9 +97,9 @@ Phases, each failing the run (non-zero exit) when it fails:
 9. the result lines: one JSON object per kernel, the card, and the final
    ``{"ok": true, ...}`` line.
 
-The main path's load prints its split by stage (host keys, uploads, the
-device sort, host planes, the sorted gathers), each timer stopped on a
-device sync.
+The main path's load prints its split by stage (the native encode
+overlapped with the upload, the attribute planes, the device sort, the
+sorted gathers), each timer stopped on a device sync.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero
 without a result when no CUDA card is present.
@@ -646,9 +654,10 @@ def compare_scatter(label: str, cols, mask, starts, bsz, bbox, width: int,
 
 def phase_density_kernel(store) -> list:
     """grid_scatter against its plain version on the tensors query (d)'s
-    staged route hands it (the range-pruned blocks' mask and starts, or
-    the full-table mask) and on the full-table 100M-row mask of the
-    density_compact route, at 64x64 and 256x256, unit and val-weighted."""
+    staged route hands it (``fused_scan``'s mask of the range-pruned
+    blocks, or of every block, with the blocks' starts) and on the
+    full-table 100M-row mask, at 64x64 and 256x256, unit and
+    val-weighted."""
     from geomesa_tpu_torch.index import prune
 
     planner = store.planner("gdelt")
@@ -659,12 +668,17 @@ def phase_density_kernel(store) -> list:
     cols = plan.index.device.columns
     full = kern.mask(*args)
     blocks = planner._pruned_blocks(plan)
+    # (d)'s candidates as its staged route hands them to the scatter (the
+    # fused_scan mask through the blocks' starts), cut to the live blocks
+    m, starts, nblk, bsz = kern._candidates([args], blocks, None if blocks
+                                            is None else int(prune.BLOCK_SIZE))()
+    k = int(nblk[0])
+    m, starts = m[: k * bsz], starts[:k]
     if blocks is None:
-        sets = [("main-path (d) = full-table mask", full, None, None)]
+        sets = [("main-path (d) = full-table candidates", m, starts, bsz),
+                ("full-table mask (d)", full, None, None)]
     else:
-        bsz = int(prune.BLOCK_SIZE)
-        m, _, astart, _ = kern._stage_blocks(*args, blocks, bsz)()
-        sets = [("main-path (d) range-pruned", m, astart, bsz),
+        sets = [("main-path (d) range-pruned", m, starts, bsz),
                 ("full-table mask (d)", full, None, None)]
     out = []
     for label, m, st, bsz in sets:
@@ -939,6 +953,8 @@ def phase_main_path(n: int = N, device: str = "cuda"):
     store.load("gdelt", table)
     sync()
     load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() if device == "cuda" \
+        else None
     planner = store.planner("gdelt")
     idx = planner.indexes[0]
     placed = {k: str(v.device) for k, v in idx.device.columns.items()}
@@ -947,12 +963,17 @@ def phase_main_path(n: int = N, device: str = "cuda"):
     log(f"[main] load (host encode + Z3 sort/gather on the card) "
         f"{load_s:.2f} s; columns {sorted(placed)} on {set(placed.values())}")
     # the load by stage, each timer stopped on a device sync
-    # (Z3Index.build_stages): host keys (_sort_keys), key upload + plane
-    # uploads, device_sort_perm, host_planes, the sorted gathers
-    # (DeviceTable.build_sorted)
+    # (Z3Index.build_stages): the native encode overlapped with the pinned
+    # side-stream upload of its chunks (encode_upload_overlap_s, or
+    # encode_s and upload_s in one shot), the attribute planes (planes_s),
+    # device_sort_perm (sort_s), the sorted gathers and the attribute
+    # planes' uploads (gather_s, upload_s)
     split = dict(idx.build_stages)
     log(f"[main] load split (s): {json.dumps(split)}; the rest of the "
-        f"load {load_s - sum(split.values())} s")
+        f"load {load_s - sum(split.values())} s; peak device memory "
+        f"{load_peak} bytes (the sorted columns "
+        f"{sum(v.numel() * v.element_size() for v in idx.device.columns.values())}"
+        f" bytes, the permutation {idx.perm.numel() * idx.perm.element_size()})")
 
     # the checked run: every kernel's launch count read around it
     counters = {"pip_refine": pip.pip_refine,
@@ -1033,7 +1054,9 @@ def phase_main_path(n: int = N, device: str = "cuda"):
             or q["d_fused"]["grid_scatter"] < 1 or q["e"]["grid_scatter"] < 1
             or q["e_device"]["grid_scatter"] < 1
             or launches["grid_scatter"] == 0
-            or q["f_count"]["box_count"] < 1
+            or any(q[k]["fused_scan"] < 1
+                   for k in ("d", "e", "e_device", "f_count", "f_select"))
+            or q["f_select"]["ordered_compact"] < 1
             or q["f_include"]["box_count"] < 1
             or any(q[k]["block_gate"] < 1 or q[k]["fused_scan"] < 1
                    for k in ("a", "b", "c", "d_fused"))
@@ -1042,9 +1065,11 @@ def phase_main_path(n: int = N, device: str = "cuda"):
             or q["c"]["ordered_compact"] < 1):
         raise AssertionError(f"kernel launches per query {json.dumps(q)}: "
                              "(b), (c) must launch pip_refine and (a) not; "
-                             "(d), (d) fused and (e) grid_scatter; (f)'s "
-                             "counts box_count; (a), (b), (c) and (d) fused "
-                             "block_gate and fused_scan; (b), (c) "
+                             "(d), (d) fused and (e) grid_scatter; the "
+                             "staged (d), (e), (f) count and select "
+                             "fused_scan, (f)'s select ordered_compact, "
+                             "INCLUDE box_count; (a), (b), (c) and (d) "
+                             "fused block_gate and fused_scan; (b), (c) "
                              "ordered_compact and (a) not")
     routes = {lbl: "range-pruned" if planner._pruned_blocks(
         planner.plan(qq)) is not None else "full-mask"
@@ -1080,7 +1105,7 @@ def phase_main_path(n: int = N, device: str = "cuda"):
     log(json.dumps({"main_path": {
         "n": n, "device": device, "gen_s": gen_s, "load_s": load_s, "p50_ms": p50,
         "reps": REPS, "max_memory_allocated": peak,
-        "load_split_s": split,
+        "load_peak_memory_allocated": load_peak, "load_split_s": split,
         "launches_checked_run": launches, "routes": routes}}))
     breakdown(store, sync)
     return launches, store, routes, g_oracle, f_oracle
@@ -1188,6 +1213,7 @@ def phase_filters(store, oracle) -> dict:
             or q["i_le_rows"]["dist_refine"] < 1
             or q["j_contains_count"]["pip_refine"] < 1
             or q["h_density"]["grid_scatter"] < 1
+            or q["h_count"]["fused_scan"] != 1
             or any(q[k]["block_gate"] < 1 or q[k]["fused_scan"] < 1
                    for k in ("h_rows", "h_density", "i_lt_count",
                              "j_contains_count"))
@@ -1195,7 +1221,8 @@ def phase_filters(store, oracle) -> dict:
             or q["h_rows"]["ordered_compact"] < 1):
         raise AssertionError(f"kernel launches per query {json.dumps(q)}: "
                              "(i) must launch dist_refine, (j)'s st_contains "
-                             "pip_refine, (h)'s density grid_scatter; the "
+                             "pip_refine, (h)'s density grid_scatter; "
+                             "(h)'s count one fused_scan; the "
                              "union program (h) and the fused refines (i), "
                              "(j) block_gate and fused_scan; (h)'s and (i)'s "
                              "rows ordered_compact")
@@ -1679,6 +1706,188 @@ def phase_fused_kernels(store) -> dict:
     import torch
     torch.cuda.empty_cache()
     return out
+
+
+class plain_kernels:
+    """A context in which the wrappers of ``fused_scan``, ``ordered_compact``
+    and ``grid_scatter`` run their plain PyTorch versions (on the card's
+    tensors): the staged modes' dispatchers, prepared and called inside it,
+    are their kernel route's yardstick."""
+
+    def __enter__(self):
+        from geomesa_tpu_torch.index import scan
+        from geomesa_tpu_torch.kernels import compact, density, fused_scan
+
+        def compact_plain(mask, cap, fill, starts=None, bsz=None,
+                          n_blocks=None, count_out=None, rows_out=None):
+            c, r = scan.ordered_compact(mask, cap, fill, starts, bsz,
+                                        n_blocks)
+            if count_out is None:
+                return c, r
+            count_out.copy_(c)
+            rows_out.copy_(r)
+            return count_out, rows_out
+
+        self.saved = [(fused_scan, "fused_scan", fused_scan.fused_scan),
+                      (compact, "ordered_compact", compact.ordered_compact),
+                      (density, "grid_scatter", density.grid_scatter)]
+        fused_scan.fused_scan = scan.fused_scan
+        compact.ordered_compact = compact_plain
+        density.grid_scatter = scan.grid_scatter
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def staged_mode_calls(store) -> dict:
+    """key → (label, kernel-route dispatcher, plain dispatcher, bound,
+    reps, cut) of the staged modes at the main path's shapes on the 100M
+    store, each prepared through ``ScanKernels`` as the main path prepares
+    it: (f)'s count (no box, (f)'s week and ``val > 90``, over all
+    24,415 blocks), (f)'s packed select and row mask, (d)'s 64x64 density
+    and (e)'s 256x256 density on the routes the planner gives them (unit
+    weights), and (h)'s OR count (one two-branch ``fused_scan``). The plain
+    dispatcher is the same one prepared and run in ``plain_kernels``."""
+    import torch
+    from geomesa_tpu_torch.index import prune, scan
+
+    planner = store.planner("gdelt")
+    kern = planner.indexes[0].kernels
+    cols, n = kern.cols, kern.n
+    bsz = int(prune.BLOCK_SIZE)
+
+    def args(q):
+        p = planner.plan(q)
+        return (p.primary_kind, p.boxes_loose, p.windows, p.residual_device)
+
+    def both(make):
+        disp = make()
+        with plain_kernels():
+            plain = make()
+
+        def run_plain():
+            with plain_kernels():
+                return plain()
+        return disp, run_plain
+
+    def cand_bound(stages, blocks, extra_bytes: float) -> dict:
+        """Bytes: the point planes of every candidate (when a stage has
+        boxes), the time planes of
+        those in a box and the residual's columns of those in a box and a
+        window (the plain scan of the stages cut to their boxes, and to
+        their boxes and windows), the block ids and ``extra_bytes`` (the
+        mode's mask, rows, grid); operations: a box's 4 key compares a
+        candidate."""
+        sc = kern._scan(stages, blocks, None if blocks is None else bsz)
+        k = int(sc.n_blocks[0])
+        cand = k * sc.bsz
+        counts = []
+        for cut in (lambda st: (*st[:2], None, None),
+                    lambda st: (*st[:3], None)):
+            qq = scan.staged_query(cols, [cut(st) for st in stages])
+            counts.append(int(scan.fused_scan(
+                cols, torch.from_numpy(qq.packed).to(sc.ids.device), qq,
+                sc.ids, sc.n_blocks, sc.bsz, "count")[0]))
+        rbytes = sum(cols[c].element_size() for c, _ in sc.query.slots)
+        planes = 16 * cand if sc.query.points else 0   # none without boxes
+        return _bound(planes + 8 * counts[0] + rbytes * counts[1] + 4 * k
+                      + extra_bytes, 4 * cand), cand
+
+    out = {}
+    f = args(Q_F)
+    nb = -(-n // bsz)
+    bnd, cand = cand_bound([f], None, 4)
+    out["f_count"] = (f"staged count (f) over all {nb} blocks",
+                      *both(lambda: kern.prepare_count(*f)), bnd, 20, None)
+    cap = 1 << 22
+    bnd, _ = cand_bound([f], None, 2 * cand + 4 * cap + 4)
+    out["f_select"] = (f"staged select (f) over all {nb} blocks, cap {cap}",
+                       *both(lambda: kern.prepare_select(*f, cap)), bnd, 10,
+                       None)
+    bnd, _ = cand_bound([f], None, 2 * cand + 2 * n)
+    out["f_mask"] = (f"staged row mask (f) over all {nb} blocks",
+                     *both(lambda: kern.prepare_mask(*f)), bnd, 10, None)
+    for key, q, bbox, w, h in (("d_density", Q_D, D_BBOX, 64, 64),
+                               ("e_density", Q_BOX, E_BBOX, 256, 256)):
+        a = args(q)
+        blocks = planner._pruned_blocks(planner.plan(q))
+        if blocks is None:
+            make = (lambda a=a, bbox=bbox, w=w, h=h:
+                    kern.prepare_density_compact(*a, bbox, w, h, 1 << 17,
+                                                 None))
+            route = f"the table's {nb} blocks"
+        else:
+            make = (lambda a=a, bbox=bbox, w=w, h=h, blocks=blocks:
+                    kern.prepare_density_blocks(*a, bbox, w, h, blocks, bsz,
+                                                None))
+            route = f"the range cover's {len(blocks)} blocks"
+        bnd, cand = cand_bound([a], blocks, 0)
+        live = int(make()()[1])
+        bnd = _bound(bnd["bytes"] + 2 * cand + 8 * live + 4 * w * h,
+                     bnd["ops"] + live * SCATTER_OPS_PER_ROW)
+        out[key] = (f"staged density ({key[0]}) {w}x{h} over {route}",
+                    *both(make), bnd, 20, None)
+    hs = planner._union_stages(planner.plan(Q_H), None)
+    bnd, _ = cand_bound(hs, None, 4)
+    out["h_count"] = (f"staged OR count (h), {len(hs)} branches over all "
+                      f"{nb} blocks",
+                      *both(lambda: kern.prepare_union_count(hs)), bnd, 20,
+                      None)
+    return out
+
+
+def phase_staged_kernels(store) -> list:
+    """Each staged mode of the main path on its kernel route against the
+    same mode with the plain versions of its kernels, on the 100M store
+    (``staged_mode_calls``): equal, or the run fails; with CUDA-event
+    times, device activities and device time a call, and the bound. Then
+    (e)'s ``val`` density on its route, within the f32 summation bound of
+    the plain version's grid."""
+    import torch
+    from geomesa_tpu_torch.index import prune, scan
+    from geomesa_tpu_torch.kernels import fused_scan
+
+    fused_scan.fused_scan.launches = 0
+    calls = staged_mode_calls(store)
+    rows = [_time_kernel(label, kern, plain, bound, reps, cut=cut)
+            for label, kern, plain, bound, reps, cut in calls.values()]
+    if fused_scan.fused_scan.launches == 0:
+        raise AssertionError("the staged modes launched no fused_scan")
+    planner = store.planner("gdelt")
+    kern = planner.indexes[0].kernels
+    p = planner.plan(Q_BOX)
+    a = (p.primary_kind, p.boxes_loose, p.windows, p.residual_device)
+    blocks = planner._pruned_blocks(p)
+
+    def make(wname):
+        if blocks is None:
+            return kern.prepare_density_compact(*a, E_BBOX, 256, 256,
+                                                1 << 17, wname)
+        return kern.prepare_density_blocks(*a, E_BBOX, 256, 256, blocks,
+                                           int(prune.BLOCK_SIZE), wname)
+    kg, kc = make("val")()
+    with plain_kernels():
+        pg, pc = make("val")()
+        unit, _ = make(None)()
+    torch.cuda.synchronize()
+    k = (unit.double() - 1).clamp_min(0) * 2.0 ** -24
+    tol = 2 * k / (1 - k) * pg.double()   # val >= 0: sum|w| is the grid
+    err = float((kg.double() - pg.double()).abs().max())
+    if int(kc) != int(pc) or bool(((kg.double() - pg.double()).abs()
+                                   > tol).any()):
+        raise AssertionError(f"staged density (e) val: kernel route off the "
+                             f"plain version (count {int(kc)} vs {int(pc)}, "
+                             f"max abs err {err})")
+    log(f"[staged] (e) val-weighted 256x256 on its route: count {int(kc)}, "
+        f"within the f32 bound of the plain version (max abs err {err})")
+    rows.append({"label": "staged density (e) 256x256 val", "count": int(kc),
+                 "max_abs_err": err})
+    del calls
+    torch.cuda.empty_cache()
+    return rows
 
 
 def serving_oracle(x, y, dtg) -> dict:
@@ -3026,6 +3235,7 @@ def main() -> int:
     b = phase_box_count_kernel(store, g)
     t = phase_dist_kernel(store)
     fk = phase_fused_kernels(store)
+    phase_staged_kernels(store)
     phase_profile(store, (("g1_prepared_count", g["pq"].count),
                           ("g3_batch64_dispatch", g["disp"]),
                           *filter_queries(store)))

@@ -3,7 +3,8 @@
 ≙ ``geomesa_tpu.config`` (the reference's GeoMesaSystemProperties tier),
 trimmed to the knobs of the ported paths (the Z3 point query, the staged
 scan, density, prepared queries, the serving scheduler with its
-resilience layer, the store's LSM delta tier and merge builds). The names
+resilience layer, the index build and its native encoder, the store's LSM
+delta tier and merge builds). The names
 and defaults are the JAX package's, so one environment configures both. Every property reads
 its environment variable on EACH access (late-bound), falling back to a
 programmatic ``set`` override, then the default.
@@ -218,6 +219,20 @@ RETRY_CAP_MS = _register(
     "Backoff ceiling per retry sleep.")
 
 # -- trace context (trace.py) -------------------------------------------------
+
+# -- the index build (index/spatial.py, native/) ------------------------------
+
+BUILD_STREAM_CHUNK = _register(
+    "GEOMESA_TPU_BUILD_STREAM_CHUNK", 16_777_216, int,
+    "Rows per chunk for the streamed native build: the C++ encoder works "
+    "on chunk i+1 while chunk i uploads in a background thread (encode and "
+    "host->device transfer overlap instead of summing).")
+
+NO_NATIVE = _register(
+    "GEOMESA_TPU_NO_NATIVE", False, _parse_bool,
+    "Disable the native C++ encode path (numpy fallback). NB boolean "
+    "semantics: '0'/'false'/'no'/'off' mean NOT disabled (earlier releases "
+    "treated any non-empty value as disabling).")
 
 LSM_MAX_FRACTION = _register(
     "GEOMESA_TPU_LSM_MAX_FRAC", 0.02, float,

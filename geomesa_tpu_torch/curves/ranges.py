@@ -82,11 +82,13 @@ def _zranges_arrays(
     inclusive z-interval arrays covering the union of boxes.
 
     boxes: per-box, per-dim inclusive int bounds [(lo, hi), ...] in
-    normalized int space. A level-synchronous vectorized numpy BFS (the
-    reference's numpy pass, which its C++ pass matches). Budget rule
-    mirrors sfcurve's maxRanges stop: when expanding the next level would
-    exceed the budget, remaining overlapping cells flush as coarse
-    (uncontained) ranges.
+    normalized int space. The native C++ pass (``native.zranges``, the
+    reference's ``gm_zranges``) runs unless ``GEOMESA_TPU_NO_NATIVE`` is
+    set or its output would overflow; else a level-synchronous vectorized
+    numpy BFS, which the C++ pass matches bit for bit. Budget rule mirrors
+    sfcurve's maxRanges stop: when expanding the next level would exceed
+    the budget, remaining overlapping cells flush as coarse (uncontained)
+    ranges.
     """
     if not boxes:
         return _EMPTY_COVER
@@ -95,6 +97,11 @@ def _zranges_arrays(
 
     blo = np.array([[d[0] for d in b] for b in boxes], dtype=np.int64)  # (B,D)
     bhi = np.array([[d[1] for d in b] for b in boxes], dtype=np.int64)
+
+    from geomesa_tpu_torch import native
+    res = native.zranges(blo, bhi, dims, bits, max_ranges, max_levels)
+    if res is not None:
+        return res
 
     child_bits = np.array(
         [[(c >> d) & 1 for d in range(dims)] for c in range(1 << dims)],

@@ -14,8 +14,10 @@ index-sorted row order —
   - attribute columns: Int/Boolean as is, Float as f32, strings as
                    dictionary codes
 
-The planes are encoded on the host with the reference's numpy semantics
-(the native C++ encoder is not ported yet), then moved to the device. A
+The planes are encoded on the host with the reference's semantics — a
+point layer's by the native C++ encoder (``native``, the index's
+``_build_native``), the rest in numpy, bulk fp62 planes natively — then
+moved to the device. A
 flush of the store's delta tier merges a sorted delta run into the resident
 columns (``DeviceTable.merge_scatter``) through the ``merge_scatter`` CUDA
 kernel (``kernels/merge.py``); ``merge_scatter`` below is its plain
@@ -56,14 +58,23 @@ def sync(device: torch.device) -> None:
 
 def fp62(x, lo: float, hi: float):
     """62-bit fixed-point normalization of a coordinate, split into two int32
-    planes (hi = top 31 bits, lo = bottom 31); the reference's numpy path.
+    planes (hi = top 31 bits, lo = bottom 31); the reference's semantics.
 
     The quantum is (hi-lo)/2^62 ≈ 8e-17 degrees for lon — finer than the f64
     ulp of any real coordinate — so lexicographic (hi, lo) comparison on the
     device reproduces the host's f64 predicate exactly up to ties at the f64
     rounding quantum.
+
+    A bulk encode (one dimension, at least 65,536 values) takes the native
+    one-pass encoder (``native.fp62_planes``, bit-identical) unless
+    ``GEOMESA_TPU_NO_NATIVE`` is set.
     """
     x = np.asarray(x, dtype=np.float64)
+    if x.ndim == 1 and len(x) >= 65536:
+        from geomesa_tpu_torch import native
+        planes = native.fp62_planes(x, float(lo), float(hi))
+        if planes is not None:
+            return planes
     frac = np.clip((x - lo) / (hi - lo), 0.0, 1.0)
     # clamp in int64: float(2^62 - 1) rounds UP to 2^62, so a float-side min
     # would let the domain edge overflow the 31-bit hi plane
@@ -80,15 +91,19 @@ def fp62_lat(y):
 
 
 def host_planes(table: FeatureTable,
-                period: Optional[TimePeriod] = None) -> Dict[str, np.ndarray]:
+                period: Optional[TimePeriod] = None,
+                skip_geom: bool = False,
+                skip_dtg: bool = False) -> Dict[str, np.ndarray]:
     """Unsorted numpy projection of ``table`` onto the device column layout
     (row order = table order; the index applies its sort on the device).
     Same planes, dtypes and values as the reference's ``host_planes``: a
     point layer's fp62 and f32 coordinates, an extent layer's f32 envelope
     (``bxmin``/``bymin``/``bxmax``/``bymax``) and its fp62 planes
-    (``*_i``/``*_l``, exact envelope-overlap tests)."""
+    (``*_i``/``*_l``, exact envelope-overlap tests). ``skip_geom`` /
+    ``skip_dtg`` leave out the geometry / binned-time planes that the
+    native encoder already made."""
     cols: Dict[str, np.ndarray] = {}
-    geom_attr = table.sft.geometry_attribute
+    geom_attr = None if skip_geom else table.sft.geometry_attribute
     if geom_attr is not None:
         garr = table.columns[geom_attr.name]
         if garr.is_points:
@@ -107,7 +122,7 @@ def host_planes(table: FeatureTable,
                 cols[name + "_i"], cols[name + "_l"] = enc(bb[:, k])
 
     dtg_attr = table.sft.dtg_attribute
-    if dtg_attr is not None and period is not None:
+    if dtg_attr is not None and period is not None and not skip_dtg:
         ms = np.asarray(table.columns[dtg_attr.name], dtype=np.int64)
         bins, offs = time_to_binned_time(ms, period)
         cols["bin"] = np.asarray(bins, dtype=np.int32)
@@ -172,13 +187,16 @@ class DeviceTable:
     @classmethod
     def build_sorted(cls, planes: Dict[str, np.ndarray],
                      perm: torch.Tensor,
-                     stages: Dict[str, float]) -> "DeviceTable":
+                     stages: Dict[str, float],
+                     cols: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> "DeviceTable":
         """Upload unsorted host planes one at a time and gather each through
         the device permutation ``perm`` (the index's sort), so at most one
-        unsorted plane is resident beside the sorted table. ``stages``
-        accumulates the synchronised seconds of the uploads (``upload_s``)
-        and of the gathers (``gather_s``)."""
-        cols = {}
+        unsorted plane is resident beside the sorted table; they join the
+        already sorted ``cols`` when given. ``stages`` accumulates the
+        synchronised seconds of the uploads (``upload_s``) and of the
+        gathers (``gather_s``)."""
+        cols = {} if cols is None else dict(cols)
         for k, v in planes.items():
             t0 = time.perf_counter()
             raw = torch.from_numpy(np.ascontiguousarray(v)).to(perm.device)

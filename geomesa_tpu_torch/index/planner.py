@@ -11,8 +11,9 @@ INTERSECTS over a single-segment line layer counts through the
 certainty-band ``seg_band`` kernel, refining only its uncertain rows
 (``_band_intersects_count``). An OR whose single plan would
 need a host residual plans one branch at a time (``UnionScanPlan``) when
-every branch has a spatial primary: the branch masks OR on the device when
-all are device-exact, else the branch row sets union on the host.
+every branch has a spatial primary: the branches OR on the device when
+all are device-exact (one K-branch scan), else the branch row sets union on
+the host.
 ``prepare`` plans once (or binds a known shape's new values through the
 recipe fast path) and hands back a re-executable ``PreparedQuery``. Plan
 shapes that need modules not yet ported raise NotImplementedError naming
@@ -21,12 +22,10 @@ their ROADMAP.md item.
 
 from __future__ import annotations
 
-import functools
 import time
 from typing import List, Optional, Union
 
 import numpy as np
-import torch
 
 from geomesa_tpu_torch import config
 from geomesa_tpu_torch import trace as _trace
@@ -194,14 +193,15 @@ class QueryPlanner:
                               (time.perf_counter() - t1) * 1000, n)
             return n
 
-    def _union_masks(self, plan: UnionScanPlan, auths, idx):
-        """The OR of the branches' staged device masks over ``idx``'s
-        sorted rows (rows two branches share count once)."""
-        return functools.reduce(lambda a, b: a | b, [
-            idx.kernels.mask(bp.primary_kind, bp.boxes_loose, bp.windows,
-                             bp.residual_device)
-            for bp in (self._apply_auths(bp, auths)
-                       for _, bp in plan.branches)])
+    def _union_stages(self, plan: UnionScanPlan, auths) -> list:
+        """The branches of an OR plan as staged scans (primary kind,
+        boxes, windows, device residual), for ``ScanKernels``' OR of
+        stages: one K-branch ``fused_scan`` (rows two branches share count
+        once)."""
+        return [(bp.primary_kind, bp.boxes_loose, bp.windows,
+                 bp.residual_device)
+                for bp in (self._apply_auths(bp, auths)
+                           for _, bp in plan.branches)]
 
     def _count(self, plan: IndexScanPlan, f, auths=None) -> int:
         if plan.empty:
@@ -209,9 +209,9 @@ class QueryPlanner:
         if isinstance(plan, UnionScanPlan):
             idx = plan.same_index_device_exact()
             if idx is not None:
-                # OR of the branch masks on the device, one readback
-                return int(_fetch(lambda: self._union_masks(
-                    plan, auths, idx).sum(dtype=torch.int32)))
+                # the OR of the branches on the device, one readback
+                return idx.kernels.union_count(self._union_stages(plan,
+                                                                  auths))
             return len(self._union_select(plan, auths))
         if plan.residual_host is None:
             # fully device-exact: the fused program, else a staged count
@@ -334,7 +334,8 @@ class QueryPlanner:
             idx = plan.same_index_device_exact()
             if idx is None or plan.empty:
                 return plan, None
-            return plan, self._union_masks(plan, auths, idx)
+            return plan, idx.kernels.union_mask(self._union_stages(plan,
+                                                                   auths))
         if not plan.device_exact:
             return plan, None
         return plan, plan.index.kernels.mask(

@@ -19,7 +19,8 @@ the masked density scatter (``_grid_scatter``
 and ``grid_scatter``, the plain versions of ``kernels/csrc/grid_scatter.cu``),
 the batched box counts (``box_count``, the plain version of
 ``kernels/csrc/box_count.cu``), and ``ScanKernels``, the staged scan modes
-over one index's device table. Every function takes tensors on whatever
+over one index's device table, on a point layer through the fused
+program's kernels (``staged_query``). Every function takes tensors on whatever
 device the caller's table lives on. ``ROUNDS`` counts the host-to-device
 copies (``_dev``) and blocking readbacks (``_fetch``) of the port's query
 paths.
@@ -40,6 +41,7 @@ import torch
 
 from geomesa_tpu_torch import trace as _trace
 from geomesa_tpu_torch.filter import ir
+from geomesa_tpu_torch.index import prune as _prune
 
 
 class _RoundLedger:
@@ -958,11 +960,11 @@ def pad_windows(windows: np.ndarray, min_size: int = 1) -> np.ndarray:
 
 
 def _mask_kernel(primary_kind: str, has_time: bool):
-    """The staged mask fn of one structural signature: the primary (exact
-    fp62 point boxes or envelope overlap, or none), AND the time windows,
-    AND the device residual;
-    all rows when nothing constrains the scan (≙ the reference's
-    ``_mask_kernel``)."""
+    """The staged mask fn of one structural signature, as torch ops: the
+    primary (exact fp62 point boxes or envelope overlap, or none), AND the
+    time windows, AND the device residual; all rows when nothing
+    constrains the scan; AND the table's ``__valid__`` (≙ the reference's
+    ``_mask_kernel``). The route of the stages ``staged_query`` declines."""
     if primary_kind != "none" and primary_kind not in PRIMARY_FNS:
         raise ValueError(f"primary kind {primary_kind}")
 
@@ -979,6 +981,8 @@ def _mask_kernel(primary_kind: str, has_time: bool):
         if m is None:
             r = next(iter(cols.values()))
             m = torch.ones(r.shape[0], dtype=torch.bool, device=r.device)
+        if "__valid__" in cols:
+            m = m & cols["__valid__"]
         return m
 
     return mask
@@ -1040,10 +1044,16 @@ class FusedQuery:
     versions) read in place. ``branches`` are (boxes (B, 8) int32 fp62,
     gate (B, 4) f32 [xmin, ymin, xmax, ymax], windows (T, 4) int32 or None,
     ``ResidualProgram`` or None); a row matches when any branch's boxes,
-    windows and program all hold. Sections, each 16-byte aligned:
+    windows and program all hold. A branch whose boxes (and gate) are None
+    has no spatial test (a staged scan without a primary): every row is in
+    its boxes, and no gate box keeps a block alive for it (the staged scans
+    that use it take no gate). ``points`` is False when no branch has
+    boxes: the scan then reads no point plane. Sections, each 16-byte
+    aligned:
 
     - ``br``: one int32 row a branch, [box0, nbox, win0, nwin, prog0,
-      nprog, 0, 0] (first rows and counts in the sections below);
+      nprog, boxless, 0] (first rows and counts in the sections below;
+      ``boxless`` 1 for a branch without a spatial test);
     - ``box``: int64 (ΣB, 4) keys [xlo, xhi, ylo, yhi] (``pack62``);
     - ``gate``: f32 (ΣB, 4);
     - ``wkey``: int64 (ΣT, 2) keys [lo, hi]; ``wbin``: int32 (ΣT, 2)
@@ -1061,13 +1071,17 @@ class FusedQuery:
         slots: Dict[str, tuple] = {}
         nbox = nwin = nprog = ncon = 0
         self.branches = []
+        self.boxless = []
         for boxes, gate, windows, prog in branches:
-            boxes = np.asarray(boxes, dtype=np.int32).reshape(-1, 8)
+            boxless = boxes is None
+            boxes = np.zeros((0, 8), np.int32) if boxless \
+                else np.asarray(boxes, dtype=np.int32).reshape(-1, 8)
             B, T = len(boxes), 0 if windows is None else len(windows)
             secs["box"].append(np.stack([
                 _pack62_np(boxes[:, 2 * j], boxes[:, 2 * j + 1])
                 for j in range(4)], axis=1))
-            secs["gate"].append(np.asarray(gate, dtype=np.float32))
+            secs["gate"].append(np.zeros((0, 4), np.float32) if gate is None
+                                else np.asarray(gate, dtype=np.float32))
             if T:
                 w = np.asarray(windows, dtype=np.int32)
                 secs["wkey"].append(np.stack([_pack62_np(w[:, 0], w[:, 1]),
@@ -1091,10 +1105,13 @@ class FusedQuery:
                 ncon += len(prog.consts)
             rec = (nbox, B, nwin, T, nprog, L)
             self.branches.append(rec)
-            secs["br"].append(np.array([*rec, 0, 0], dtype=np.int32))
+            self.boxless.append(boxless)
+            secs["br"].append(np.array([*rec, int(boxless), 0],
+                                       dtype=np.int32))
             nbox, nwin, nprog = nbox + B, nwin + T, nprog + L
         self.slots = tuple((name, kind) for name, (_, kind) in slots.items())
         self.has_time = nwin > 0
+        self.points = not all(self.boxless)
         parts, off = [], 0
         self.offsets: Dict[str, Tuple[int, int]] = {}   # name -> (at, bytes)
         for k, v in secs.items():
@@ -1185,9 +1202,9 @@ def fused_scan(cols, qbuf: torch.Tensor, query: FusedQuery, ids: torch.Tensor,
     bsz``, read in place; it matches when it is a member of its block
     (``expand_blocks``' rule) among the first ``n_blocks`` slots, the
     table's ``__valid__`` holds, and for some
-    branch of ``query`` its point lies in any box, its (bin, off) in any
-    window, and its residual program holds (boxes and windows compare
-    ``pack62`` keys). By ``mode``:
+    branch of ``query`` its point lies in any box (always, in a branch
+    without boxes), its (bin, off) in any window, and its residual program
+    holds (boxes and windows compare ``pack62`` keys). By ``mode``:
 
     - ``count``: int32 (1,) matches;
     - ``mask``: (bool (slots * bsz,) match per candidate, int32 (1,)).
@@ -1208,13 +1225,16 @@ def fused_scan(cols, qbuf: torch.Tensor, query: FusedQuery, ids: torch.Tensor,
     consts = query.section(qbuf, "const", torch.int32, 1).reshape(-1)
     # the predicates over the table's rows in place; each candidate then
     # takes its row's flag
-    x = pack62(cols["xi"], cols["xl"])
-    y = pack62(cols["yi"], cols["yl"])
+    if query.points:
+        x = pack62(cols["xi"], cols["xl"])
+        y = pack62(cols["yi"], cols["yl"])
     t = pack62(cols["bin"], cols["off"]) if query.has_time else None
     m = None
-    for b0, B, w0, T, p0, L in query.branches:
+    for (b0, B, w0, T, p0, L), boxless in zip(query.branches,
+                                              query.boxless):
         q = boxes[b0: b0 + B]
-        bm = torch.zeros_like(x, dtype=torch.bool)
+        bm = torch.full((n,), boxless, dtype=torch.bool,
+                        device=qbuf.device)
         for j in range(B):
             bm |= ((x >= q[j, 0]) & (x <= q[j, 1])
                    & (y >= q[j, 2]) & (y <= q[j, 3]))
@@ -1263,6 +1283,63 @@ def ordered_compact(mask: torch.Tensor, cap: int, fill: int,
             _ordered(m, cap, rows, fill))
 
 
+def staged_query(cols, stages) -> Optional[FusedQuery]:
+    """The packed query of staged scans over a point layer's ``cols``, one
+    ``FusedQuery`` branch a stage ``(primary_kind, boxes, windows,
+    residual)`` (a row matches when any stage holds), or None when the
+    stages take the torch ops (``_mask_kernel``): the table has no point
+    planes, a stage has the envelope primary ``bbox_overlap`` (the kernel
+    compares point keys), a residual has no program (deeper than
+    ``MAX_PROGRAM_DEPTH``), or the residuals read more columns than
+    ``fused_scan.MAX_SLOTS`` or pack past ``compiled.QUERY_MAX_BYTES`` —
+    the fused program's declines. Primary ``"none"`` is a branch without
+    boxes (every row is in; a query of such branches alone reads no point
+    plane). The gate section, which only ``block_gate`` reads, is
+    zeros."""
+    from geomesa_tpu_torch.index.compiled import QUERY_MAX_BYTES
+    from geomesa_tpu_torch.kernels.fused_scan import MAX_SLOTS
+    if "xi" not in cols:
+        return None
+    branches = []
+    for primary_kind, boxes, windows, residual in stages:
+        if primary_kind == "none":
+            boxes = None
+        elif primary_kind != "point_boxes":
+            if primary_kind in PRIMARY_FNS:
+                return None
+            raise ValueError(f"primary kind {primary_kind}")
+        prog = None
+        if residual is not None and residual[2] is not None:
+            prog = getattr(residual, "program", None)
+            if prog is None:
+                return None
+        gate = None
+        if boxes is not None:
+            boxes = np.asarray(boxes, dtype=np.int32).reshape(-1, 8)
+            gate = np.zeros((len(boxes), 4), np.float32)
+        branches.append((boxes, gate, windows, prog))
+    try:
+        query = FusedQuery(branches)
+    except Unsupported:       # one column read as two kinds
+        return None
+    if len(query.slots) > MAX_SLOTS or len(query.packed) > QUERY_MAX_BYTES:
+        return None
+    return query
+
+
+class _Scan(NamedTuple):
+    """A staged scan on the kernel route: the packed query, its device
+    copy, and the candidate space — int32 block ``ids`` (pad -1), their
+    int64 clamped first rows ``starts`` (0 in the pad), the int32 (1,)
+    device count of live blocks ``n_blocks``, the block size ``bsz``."""
+    query: FusedQuery
+    qbuf: torch.Tensor
+    ids: torch.Tensor
+    starts: torch.Tensor
+    n_blocks: torch.Tensor
+    bsz: int
+
+
 class ScanKernels:
     """The staged scan modes over one index's device table (≙ the
     reference's ``ScanKernels``): ``count``, ``mask``, ``count_blocks``,
@@ -1270,32 +1347,41 @@ class ScanKernels:
     ``select`` (the packed select), ``density_compact`` and
     ``density_blocks``, each with the reference's arguments — a primary
     kind, pow2-padded fp62 boxes, pow2-padded time windows and the compiled
-    residual ``(key, params, fn)``.
+    residual — and the OR of several such stages (``union_count``,
+    ``union_mask``).
 
     PyTorch runs eagerly, so nothing is compiled or cached per signature:
     the ``prepare_*`` methods stage the query constants on the table's
     device once and return zero-arg dispatchers whose results stay on the
     device (the reference's prepared-statement pattern); the blocking
-    methods read results back. Block modes take the host cover's block ids
-    (``index.prune``) and re-apply the full exact mask to every gathered
-    row."""
+    methods read results back.
+
+    A point layer's stage runs on the ``fused_scan`` kernel
+    (``staged_query`` packs the stages into one buffer, uploaded once a
+    prepare), which reads a candidate space of gather blocks in place:
+    every block of the table (``GEOMESA_TPU_PRUNE_BLOCK`` rows, ids
+    ``arange(ceil(n / bsz))``) in the full-table modes, the host cover's
+    padded blocks in the block modes. Candidate i is row ``clamp(ids[i //
+    bsz] * bsz) + i % bsz``; the last partial block re-reads a suffix of
+    the block before it, and membership masks the re-reads. The selects
+    compact that mask with ``ordered_compact`` and the densities scatter it
+    with ``grid_scatter``, both through the blocks' starts; a count with a
+    residual is ``fused_scan``'s count, one without is ``box_count``'s,
+    and per-box counts are ``box_count``'s behind ``fused_scan``'s mask of
+    the residual alone; an OR of stages is one K-branch ``fused_scan``. The stages
+    ``staged_query`` declines keep the torch ops (``_mask_kernel`` over
+    ``expand_blocks``' gather), and their counts ``box_count`` behind a
+    torch residual mask."""
 
     def __init__(self, device_cols: Dict[str, torch.Tensor]):
         self.cols = device_cols
         first = next(iter(device_cols.values()))
         self.n = int(first.shape[0])
         self.device = first.device
+        self._tables: Dict[int, tuple] = {}   # bsz -> the table's blocks
 
     def _dev(self, a) -> Optional[torch.Tensor]:
         return _dev(a, self.device)
-
-    def _stage(self, primary_kind, boxes, windows, residual):
-        """Constants on the device → mask fn over a dict of columns."""
-        kernel = _mask_kernel(primary_kind, windows is not None)
-        b, w = self._dev(boxes), self._dev(windows)
-        rp = [self._dev(p) for p in residual[1]] if residual else []
-        fn = residual[2] if residual else None
-        return lambda cols: kernel(cols, b, w, rp, fn)
 
     def _pad_blocks(self, blocks: np.ndarray) -> np.ndarray:
         nb = max(8, 1 << max(0, (len(blocks) - 1)).bit_length())
@@ -1303,32 +1389,145 @@ class ScanKernels:
         out[: len(blocks)] = blocks
         return out
 
+    # the kernel route -------------------------------------------------------
+
+    def _space(self, ids: np.ndarray, live: int, bsz: int) -> tuple:
+        """(ids, starts, n_blocks) of a block list, on the device."""
+        starts = np.where(ids >= 0, np.clip(ids.astype(np.int64) * bsz, 0,
+                                            max(0, self.n - bsz)), 0)
+        return (self._dev(ids.astype(np.int32)), self._dev(starts),
+                self._dev(np.array([live], dtype=np.int32)))
+
+    def _scan(self, stages, blocks: Optional[np.ndarray] = None,
+              block_size: Optional[int] = None) -> Optional[_Scan]:
+        """The kernel route of ``stages`` over the table's blocks, or over
+        the padded host cover ``blocks`` of ``block_size`` rows; None when
+        the stages keep the torch ops (``staged_query``, or a table without
+        rows). A cover's block may not be larger than the table."""
+        if blocks is not None and block_size > self.n:
+            raise ValueError(f"blocks of {block_size} rows over a table of "
+                             f"{self.n}")
+        if self.n == 0:
+            return None
+        query = staged_query(self.cols, stages)
+        if query is None:
+            return None
+        if blocks is None:
+            bsz = min(int(_prune.BLOCK_SIZE), self.n)
+            space = self._tables.get(bsz)
+            if space is None:
+                nb = -(-self.n // bsz)
+                space = self._tables[bsz] = self._space(
+                    np.arange(nb, dtype=np.int32), nb, bsz)
+        else:
+            bsz = int(block_size)
+            space = self._space(self._pad_blocks(blocks), len(blocks), bsz)
+        return _Scan(query, self._dev(query.packed), *space, bsz)
+
+    def _kernel_mask(self, sc: _Scan) -> torch.Tensor:
+        """The candidate mask of a kernel-route scan (one launch)."""
+        from geomesa_tpu_torch.kernels.fused_scan import fused_scan
+        return fused_scan(self.cols, sc.qbuf, sc.query, sc.ids, sc.n_blocks,
+                          sc.bsz, "mask")[0]
+
+    def _kernel_count(self, sc: _Scan) -> torch.Tensor:
+        """The 0-d int32 count of a kernel-route scan (one launch)."""
+        from geomesa_tpu_torch.kernels.fused_scan import fused_scan
+        return fused_scan(self.cols, sc.qbuf, sc.query, sc.ids, sc.n_blocks,
+                          sc.bsz, "count").reshape(())
+
+    def _row_mask(self, m: torch.Tensor, bsz: int) -> torch.Tensor:
+        """The (n,) row mask of a candidate mask over every block of the
+        table: the last block's re-read rows taken out by one ``torch.cat``
+        of two views (none when ``bsz`` divides n)."""
+        reread = m.shape[0] - self.n
+        if reread == 0:
+            return m
+        cut = m.shape[0] - bsz
+        return torch.cat([m[:cut], m[cut + reread:]])
+
+    def _candidates(self, stages, blocks: Optional[np.ndarray] = None,
+                    block_size: Optional[int] = None):
+        """Zero-arg dispatcher → (candidate mask, starts, n_blocks, bsz) of
+        ``stages`` over the table, or over the padded cover ``blocks``: the
+        kernel route's, or the torch ops' (the row mask with starts,
+        n_blocks and bsz None over the table; over a cover the gathered
+        mask with its clamped starts, the pads not members)."""
+        sc = self._scan(stages, blocks, block_size)
+        if sc is not None:
+            return lambda: (self._kernel_mask(sc), sc.starts, sc.n_blocks,
+                            sc.bsz)
+        masks = [self._stage(*st) for st in stages]
+        if blocks is None:
+            return lambda: (functools.reduce(
+                lambda a, b: a | b, [m(self.cols) for m in masks]),
+                None, None, None)
+        db = self._dev(self._pad_blocks(blocks))
+
+        def run():
+            valid, _, astart, g = expand_blocks(self.cols, db, block_size,
+                                                self.n)
+            m = functools.reduce(lambda a, b: a | b, [f(g) for f in masks])
+            return m & valid, astart, None, block_size
+        return run
+
+    # the torch-ops route ----------------------------------------------------
+
+    def _stage(self, primary_kind, boxes, windows, residual):
+        """Constants on the device → torch-ops mask fn over a dict of
+        columns."""
+        kernel = _mask_kernel(primary_kind, windows is not None)
+        b, w = self._dev(boxes), self._dev(windows)
+        rp = [self._dev(p) for p in residual[1]] if residual else []
+        fn = residual[2] if residual else None
+        return lambda cols: kernel(cols, b, w, rp, fn)
+
     def _stage_count(self, primary_kind, boxes, windows, residual,
                      blocks: Optional[np.ndarray] = None,
                      block_size: Optional[int] = None,
                      per_box: bool = False):
-        """Constants on the device → zero-arg dispatcher of the
-        ``box_count`` kernel: per-box counts ((B,) int32) or the any-box
-        count (0-d int32), over the table or the padded candidate blocks.
-        The residual runs as torch ops first, into a mask of the
-        candidates (over the gathered residual columns only in the block
-        case); membership, windows, ``__valid__`` and boxes are the
-        kernel's."""
+        """Constants on the device → zero-arg count dispatcher: per-box
+        counts ((B,) int32) or the any-box count (0-d int32), over the
+        table or the padded candidate blocks. An any-box count with a
+        residual is one ``fused_scan`` count on the kernel route; the rest
+        is the ``box_count`` kernel, behind a mask of the candidates that a
+        residual makes first: ``fused_scan``'s mask of the residual alone
+        (a boxless stage) on the kernel route, else torch ops (over the
+        gathered residual columns in the block case); membership, windows,
+        ``__valid__`` and boxes are the kernel's."""
         from geomesa_tpu_torch.kernels.box_count import box_count as kernel
         if (primary_kind != "none" and primary_kind not in PRIMARY_FNS) \
                 or (per_box and primary_kind == "none"):
             raise ValueError(f"primary kind {primary_kind}")
+        fn = residual[2] if residual else None
+        resid_of = None
+        if fn is not None:
+            if not per_box:
+                sc = self._scan([(primary_kind, boxes, windows, residual)],
+                                blocks, block_size)
+                if sc is not None:
+                    return lambda: self._kernel_count(sc)
+            sc = self._scan([("none", None, None, residual)], blocks,
+                            block_size)
+            if sc is not None:
+                if blocks is None:
+                    resid_of = lambda: self._row_mask(  # noqa: E731
+                        self._kernel_mask(sc), sc.bsz)
+                else:   # the cover's layout: box_count's membership skips
+                    resid_of = lambda: self._kernel_mask(sc)  # noqa: E731
         envelope = primary_kind == "bbox_overlap"
         b = self._dev(boxes) if primary_kind != "none" else None
         w = self._dev(windows)
-        fn = residual[2] if residual else None
-        rp = [self._dev(p) for p in residual[1]] if residual else []
+        rp = [self._dev(p) for p in residual[1]] \
+            if residual and resid_of is None else []
         db = None if blocks is None else self._dev(self._pad_blocks(blocks))
         cols, n = self.cols, self.n
 
         def run():
             rm = None
-            if fn is not None:
+            if resid_of is not None:
+                rm = resid_of()
+            elif fn is not None:
                 if db is None:
                     rm = fn(cols, rp)
                 else:
@@ -1337,32 +1536,19 @@ class ScanKernels:
                           envelope)
         return run
 
-    def _stage_blocks(self, primary_kind, boxes, windows, residual,
-                      blocks: np.ndarray, block_size: int):
-        """→ zero-arg fn giving (mask, row ids, clamped starts, gather) over
-        the padded candidate blocks."""
-        mask_of = self._stage(primary_kind, boxes, windows, residual)
-        db = self._dev(self._pad_blocks(blocks))
-
-        def run():
-            valid, rows, astart, g = expand_blocks(self.cols, db, block_size,
-                                                   self.n)
-            return mask_of(g) & valid, rows, astart, g
-        return run
-
     # full-table modes -------------------------------------------------------
 
     def prepare_mask(self, primary_kind, boxes, windows, residual):
-        """Zero-arg mask dispatcher (device constants pre-staged)."""
-        mask_of = self._stage(primary_kind, boxes, windows, residual)
-        return lambda: mask_of(self.cols)
+        """Zero-arg dispatcher → the (n,) bool mask over the table's rows
+        (device constants pre-staged)."""
+        return self.prepare_union_mask(
+            [(primary_kind, boxes, windows, residual)])
 
     def mask(self, primary_kind, boxes, windows, residual) -> torch.Tensor:
         return self.prepare_mask(primary_kind, boxes, windows, residual)()
 
     def prepare_count(self, primary_kind, boxes, windows, residual):
-        """Zero-arg count dispatcher → 0-d int32 device tensor (the
-        ``box_count`` kernel's any-box count)."""
+        """Zero-arg count dispatcher → 0-d int32 device tensor."""
         return self._stage_count(primary_kind, boxes, windows, residual)
 
     def count(self, primary_kind, boxes, windows, residual) -> int:
@@ -1386,23 +1572,29 @@ class ScanKernels:
                                                residual))
         return out.cpu().numpy()[: len(boxes)]
 
+    def _prepare_select(self, stage, blocks, block_size, capacity: int):
+        from geomesa_tpu_torch.kernels.compact import ordered_compact
+        disp = self._candidates([stage], blocks, block_size)
+        n = self.n
+
+        def run():
+            m, starts, nblk, bsz = disp()
+            out = torch.empty(1 + capacity, dtype=torch.int32,
+                              device=self.device)
+            ordered_compact(m, capacity, n, starts=starts, bsz=bsz,
+                            n_blocks=nblk, count_out=out[:1],
+                            rows_out=out[1:])
+            return out
+        return run
+
     def prepare_select(self, primary_kind, boxes, windows, residual,
                        capacity: int):
         """Zero-arg packed-select dispatcher → int32 [count, ascending
         positions × capacity, padded with n] (the reference's
         ``select_packed`` mode): the mask, then the ``ordered_compact``
-        kernel."""
-        from geomesa_tpu_torch.kernels.compact import ordered_compact
-        disp = self.prepare_mask(primary_kind, boxes, windows, residual)
-        n = self.n
-
-        def run():
-            out = torch.empty(1 + capacity, dtype=torch.int32,
-                              device=self.device)
-            ordered_compact(disp(), capacity, n, count_out=out[:1],
-                            rows_out=out[1:])
-            return out
-        return run
+        kernel (through the blocks' starts on the kernel route)."""
+        return self._prepare_select((primary_kind, boxes, windows, residual),
+                                    None, None, capacity)
 
     def select(self, primary_kind, boxes, windows, residual, capacity: int):
         """(sorted positions int64, true count); grows the capacity and
@@ -1416,12 +1608,44 @@ class ScanKernels:
                 return out[1: 1 + cnt].astype(np.int64), cnt
             capacity = 1 << int(np.ceil(np.log2(cnt)))
 
+    # the OR of stages -------------------------------------------------------
+
+    def prepare_union_count(self, stages):
+        """Zero-arg dispatcher → 0-d int32 count of the rows that any of
+        ``stages`` ((primary_kind, boxes, windows, residual) each) holds,
+        rows that several hold counted once (≙ the sum of the reference's
+        OR of masks): one K-branch ``fused_scan`` count over the table's
+        blocks, or the sum of the torch ops' OR of masks."""
+        sc = self._scan(stages)
+        if sc is not None:
+            return lambda: self._kernel_count(sc)
+        disp = self.prepare_union_mask(stages)
+        return lambda: disp().sum(dtype=torch.int32)
+
+    def union_count(self, stages) -> int:
+        return int(_fetch(self.prepare_union_count(stages)))
+
+    def prepare_union_mask(self, stages):
+        """Zero-arg dispatcher → the (n,) bool row mask of the OR of
+        ``stages``: the K-branch ``fused_scan`` mask over the table's
+        blocks mapped to rows (``_row_mask``), or the OR of the torch ops'
+        masks."""
+        disp = self._candidates(stages)
+
+        def run():
+            m, _, _, bsz = disp()
+            return m if bsz is None else self._row_mask(m, bsz)
+        return run
+
+    def union_mask(self, stages) -> torch.Tensor:
+        return self.prepare_union_mask(stages)()
+
     # range-pruned block modes -----------------------------------------------
 
     def prepare_count_blocks(self, primary_kind, boxes, windows, residual,
                              blocks: np.ndarray, block_size: int):
-        """Zero-arg pruned-count dispatcher → 0-d int32 device tensor (the
-        ``box_count`` kernel's any-box count over the candidate blocks)."""
+        """Zero-arg pruned-count dispatcher → 0-d int32 device tensor over
+        the candidate blocks."""
         return self._stage_count(primary_kind, boxes, windows, residual,
                                  blocks, block_size)
 
@@ -1453,21 +1677,10 @@ class ScanKernels:
                               blocks: np.ndarray, block_size: int,
                               capacity: int):
         """Zero-arg pruned packed-select dispatcher → int32 [count, ascending
-        positions × capacity, padded with n]: the mask over the gathered
+        positions × capacity, padded with n]: the mask over the candidate
         blocks, then the ``ordered_compact`` kernel through their starts."""
-        from geomesa_tpu_torch.kernels.compact import ordered_compact
-        run = self._stage_blocks(primary_kind, boxes, windows, residual,
-                                 blocks, block_size)
-        n = self.n
-
-        def go():
-            m, _, astart, _ = run()
-            out = torch.empty(1 + capacity, dtype=torch.int32,
-                              device=self.device)
-            ordered_compact(m, capacity, n, starts=astart, bsz=block_size,
-                            count_out=out[:1], rows_out=out[1:])
-            return out
-        return go
+        return self._prepare_select((primary_kind, boxes, windows, residual),
+                                    blocks, block_size, capacity)
 
     def select_blocks(self, primary_kind, boxes, windows, residual,
                       blocks: np.ndarray, block_size: int, capacity: int):
@@ -1540,44 +1753,43 @@ class ScanKernels:
 
     # density ----------------------------------------------------------------
 
-    def _grid_of(self, grid_bbox) -> torch.Tensor:
-        # f64 bounds round to f32 the way the reference stages them
-        return self._dev(np.asarray(grid_bbox, dtype=np.float32))
-
     def prepare_density_compact(self, primary_kind, boxes, windows, residual,
                                 grid_bbox, width: int, height: int,
                                 cap: int, wname: Optional[str]):
         """Zero-arg dispatcher → ((H, W) f32 grid, 0-d int32 match count),
         both on the device. The reference compacts up to ``cap`` matching
         rows before its scatter (a TPU scatter prices per update); the card
-        scatters straight from the full-table mask. ``cap`` stays in the
-        API so the caller's overflow check (count > cap → restage) behaves
-        as the reference's."""
-        from geomesa_tpu_torch.kernels.density import grid_scatter as kernel
+        scatters straight from the table's candidate mask (through the
+        blocks' starts on the kernel route). ``cap`` stays in the API so
+        the caller's overflow check (count > cap → restage) behaves as the
+        reference's."""
         del cap
-        disp = self.prepare_mask(primary_kind, boxes, windows, residual)
-        g = self._grid_of(grid_bbox)
-        w = self.cols[wname] if wname else None
-        cols = self.cols
-        return lambda: kernel(cols["xf"], cols["yf"], disp(), w, None, None,
-                              g, width, height)
+        return self._prepare_density((primary_kind, boxes, windows, residual),
+                                     None, None, grid_bbox, width, height,
+                                     wname)
 
     def prepare_density_blocks(self, primary_kind, boxes, windows, residual,
                                grid_bbox, width: int, height: int,
                                blocks: np.ndarray, block_size: int,
                                wname: Optional[str]):
         """Zero-arg dispatcher for the range-pruned heat-map: the scatter
-        reads the candidates' coordinates (and weights) through the gathered
-        blocks' starts."""
+        reads the candidates' coordinates (and weights) through the
+        candidate blocks' starts."""
+        return self._prepare_density((primary_kind, boxes, windows, residual),
+                                     blocks, block_size, grid_bbox, width,
+                                     height, wname)
+
+    def _prepare_density(self, stage, blocks, block_size, grid_bbox,
+                         width: int, height: int, wname: Optional[str]):
         from geomesa_tpu_torch.kernels.density import grid_scatter as kernel
-        run = self._stage_blocks(primary_kind, boxes, windows, residual,
-                                 blocks, block_size)
-        g = self._grid_of(grid_bbox)
+        disp = self._candidates([stage], blocks, block_size)
+        # f64 bounds round to f32 the way the reference stages them
+        g = self._dev(np.asarray(grid_bbox, dtype=np.float32))
         w = self.cols[wname] if wname else None
         cols = self.cols
 
-        def go():
-            m, _, astart, _ = run()
-            return kernel(cols["xf"], cols["yf"], m, w, astart, block_size,
-                          g, width, height)
-        return go
+        def run():
+            m, starts, nblk, bsz = disp()
+            return kernel(cols["xf"], cols["yf"], m, w, starts, bsz, g,
+                          width, height, n_blocks=nblk)
+        return run

@@ -10,10 +10,16 @@ range pruning:
   - ``Z2Index``  point, z2 order (Z2IndexKeySpace.scala:29);
   - ``XZ2Index`` extent, xz2 order (XZ2IndexKeySpace.scala:28).
 
-The keys are encoded on the host (numpy, the reference's ``_sort_keys``),
-the stable sort runs on the device (``device_sort_perm``), and every query
-column gathers through the permutation once (``build_stages`` holds each
-build's synchronised stage seconds). ``plan`` turns a filter into padded
+A point layer builds as the reference's ``_build_native`` does: the
+native C++ encoder (``geomesa_tpu_torch.native``) makes every plane and
+key in one host pass; above ``GEOMESA_TPU_BUILD_STREAM_CHUNK`` rows it
+encodes chunk i+1 while chunk i goes up to the card from pinned memory on
+a side stream (``_stream_encode_upload``). Other layers, and calendar
+periods, encode their keys in numpy (``_sort_keys``) and their planes with
+``host_planes``. Every build sorts on the device (``device_sort_perm``,
+stable, the order of ``np.lexsort``) and gathers every query column
+through the permutation once (``build_stages`` holds each build's
+synchronised stage seconds). ``plan`` turns a filter into padded
 fp62 boxes — a point-in-box primary on point layers, an envelope-overlap
 primary (``bbox_overlap``) on extent layers — exact binned-time windows and
 a residual split between the device and the host; ``candidate_blocks``
@@ -26,12 +32,15 @@ also builds incrementally from a grown table (``merge_from``, the
 
 from __future__ import annotations
 
+import queue
+import threading
 import time
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from geomesa_tpu_torch import config
 from geomesa_tpu_torch.curves.binnedtime import (TimePeriod, max_offset,
                                                  time_to_binned_time)
 from geomesa_tpu_torch.curves.sfc import Z2SFC, Z3SFC
@@ -74,6 +83,127 @@ def device_sort_perm(keys: Sequence[torch.Tensor]) -> torch.Tensor:
         p = torch.sort(kk, stable=True).indices
         perm = p if perm is None else perm.index_select(0, p)
     return perm
+
+
+class _ChunkUploader:
+    """The device planes of a streamed build, filled chunk by chunk: each
+    plane is one ``n``-row device tensor, and chunk i copies into its rows.
+    On the card a chunk goes through one of two pinned staging sets, used
+    in turns (set i % 2 waits for the copies of chunk i - 2), with
+    ``non_blocking`` copies on a side stream; ``finish`` makes the current
+    stream wait for them (an event) before anything reads the planes."""
+
+    def __init__(self, n: int, chunk_rows: int, dev: torch.device):
+        self.n = n
+        self.chunk_rows = chunk_rows
+        self.dev = dev
+        self.planes: Optional[Dict[str, torch.Tensor]] = None
+        self.cuda = dev.type == "cuda"
+        self.side = torch.cuda.Stream(dev) if self.cuda else None
+        self.staging: List[Optional[Dict[str, torch.Tensor]]] = [None, None]
+        self.done: List[Optional[torch.cuda.Event]] = [None, None]
+
+    def put(self, i: int, a: int, enc: Dict[str, np.ndarray]) -> None:
+        """Copy chunk ``i`` (host planes ``enc``, starting at row ``a``)."""
+        src = {k: torch.from_numpy(v) for k, v in enc.items()}
+        if self.planes is None:
+            self.planes = {k: torch.empty(self.n, dtype=v.dtype,
+                                          device=self.dev)
+                           for k, v in src.items()}
+        m = len(next(iter(enc.values())))
+        if not self.cuda:
+            for k, v in src.items():
+                self.planes[k][a: a + m].copy_(v)
+            return
+        j = i % 2
+        if self.done[j] is not None:
+            self.done[j].synchronize()
+        if self.staging[j] is None:
+            self.staging[j] = {k: torch.empty(self.chunk_rows, dtype=v.dtype,
+                                              pin_memory=True)
+                               for k, v in src.items()}
+        with torch.cuda.device(self.dev), torch.cuda.stream(self.side):
+            for k, v in src.items():
+                buf = self.staging[j][k][:m]
+                buf.copy_(v)
+                self.planes[k][a: a + m].copy_(buf, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self.side)
+            self.done[j] = ev
+
+    def finish(self) -> Dict[str, torch.Tensor]:
+        """The filled planes, ordered before the current stream's next
+        work."""
+        if self.cuda:
+            for ev in self.done:
+                if ev is not None:
+                    torch.cuda.current_stream(self.dev).wait_event(ev)
+        return self.planes
+
+
+def _stream_encode_upload(encode_chunk: Callable, n: int, chunk_rows: int,
+                          dev: torch.device):
+    """Chunked native encode overlapped with the upload (≙ the reference's
+    ``_stream_encode_upload``, ``geomesa_tpu/index/spatial.py:57``, without
+    its mesh-sharded variant): this thread encodes chunk i+1 (the C++
+    encoder releases the GIL) while an uploader thread copies chunk i into
+    the device planes (``_ChunkUploader``), through a queue of two chunks.
+
+    ``encode_chunk(lo, hi)`` → plane dict, or None when the native path
+    declines that input. Returns ({plane: device tensor}, [host chunks of
+    ``z`` and ``bin16``]), or None when a chunk declines. An upload error
+    is kept while the uploader goes on draining the queue (so the encoder
+    never blocks on a full queue), and re-raised here."""
+    q: "queue.Queue" = queue.Queue(maxsize=2)
+    up = _ChunkUploader(n, chunk_rows, dev)
+    state: dict = {"error": None}
+
+    def uploader():
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            if state["error"] is not None:
+                continue
+            try:
+                up.put(*item)
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                state["error"] = e
+
+    th = threading.Thread(target=uploader, daemon=True)
+    th.start()
+    host_kept: List[dict] = []
+    failed = False
+    try:
+        for i, a in enumerate(range(0, n, chunk_rows)):
+            if state["error"] is not None:
+                break
+            enc = encode_chunk(a, min(n, a + chunk_rows))
+            if enc is None:
+                failed = True
+                break
+            host_kept.append({k: enc[k] for k in ("z", "bin16") if k in enc})
+            q.put((i, a, {k: v for k, v in enc.items()
+                          if k not in ("zhi", "zlo")}))
+    finally:
+        q.put(None)
+        th.join()
+    if state["error"] is not None:
+        raise state["error"]
+    if failed or up.planes is None:
+        return None
+    return up.finish(), host_kept
+
+
+def _query_column(name: str, t):
+    """A build plane's device column (name, values): ``bin16`` lands as the
+    int32 ``bin`` column, the sort key ``z`` is not a column (≙ the
+    reference's ``_as_query_column``)."""
+    if name == "z":
+        return None, None
+    if name == "bin16":
+        return "bin", t.to(torch.int32)
+    return name, t
 
 
 def _strip_handled(f: ir.Filter, geom: Optional[str], dtg: Optional[str],
@@ -155,26 +285,10 @@ class BaseSpatialIndex:
         self.dtg = dtg.name if dtg is not None else None
         self.period = TimePeriod.parse(sft.z3_interval) \
             if self.dtg is not None else None
-        # the build by stage, each timer stopped on a device sync: host
-        # keys, key upload + plane uploads, the device sort, host planes,
-        # the sorted gathers
-        st: Dict[str, float] = {}
-        t0 = time.perf_counter()
-        keys = self._sort_keys()
-        t1 = time.perf_counter()
-        dkeys = [torch.from_numpy(np.ascontiguousarray(k)).to(dev)
-                 for k in keys]
-        sync(dev)
-        t2 = time.perf_counter()
-        self.perm = device_sort_perm(dkeys)
-        del dkeys
-        sync(dev)
-        t3 = time.perf_counter()
-        planes = host_planes(table, self.period)
-        st.update(keys_s=t1 - t0, upload_s=t2 - t1, sort_s=t3 - t2,
-                  planes_s=time.perf_counter() - t3)
-        self.device = DeviceTable.build_sorted(planes, self.perm, st)
-        self.build_stages = st
+        # the build by stage, each timer stopped on a device sync
+        self.build_stages: Dict[str, float] = {}
+        if not self._build_native(dev):
+            self._build_numpy(dev)
         self.kernels = ScanKernels(self.device.columns)
         self.vocabs = {
             name: col.vocab for name, col in table.columns.items()
@@ -189,6 +303,106 @@ class BaseSpatialIndex:
         """Integer key planes, major → minor; sets the index's host key
         arrays (``_z`` or ``_xz``, and ``_bins`` on temporal indexes)."""
         raise NotImplementedError
+
+    def _build_numpy(self, dev: torch.device) -> None:
+        """The build from numpy keys and planes: host keys
+        (``_sort_keys``), their upload and the device sort, host planes,
+        then each plane's upload and gather (stages ``keys_s``,
+        ``upload_s``, ``sort_s``, ``planes_s``, ``gather_s``)."""
+        st = self.build_stages
+        t0 = time.perf_counter()
+        keys = self._sort_keys()
+        t1 = time.perf_counter()
+        dkeys = [torch.from_numpy(np.ascontiguousarray(k)).to(dev)
+                 for k in keys]
+        sync(dev)
+        t2 = time.perf_counter()
+        self.perm = device_sort_perm(dkeys)
+        del dkeys
+        sync(dev)
+        t3 = time.perf_counter()
+        planes = host_planes(self.table, self.period)
+        st.update(keys_s=t1 - t0, upload_s=t2 - t1, sort_s=t3 - t2,
+                  planes_s=time.perf_counter() - t3)
+        self.device = DeviceTable.build_sorted(planes, self.perm, st)
+
+    def _build_native(self, dev: torch.device) -> bool:
+        """The build through the native encoder (point layers); False when
+        the layer has none or declines it, and the numpy build runs."""
+        return False
+
+    def _native_build(self, encode_chunk: Callable, n: int,
+                      key_names: Sequence[str], dev: torch.device) -> bool:
+        """The native build (≙ the reference's ``_build_native``,
+        ``_stream_build`` and ``_finish_native``,
+        ``geomesa_tpu/index/spatial.py:510-610``): ``encode_chunk(lo, hi)``
+        encodes rows [lo, hi) into every plane and key, or returns None
+        when the native path declines the input (then False: the numpy
+        build runs). Streamed past ``GEOMESA_TPU_BUILD_STREAM_CHUNK`` rows
+        (``_stream_encode_upload``, stage ``encode_upload_overlap_s``),
+        else one encode (``encode_s``); then the attribute planes
+        (``planes_s``), the device sort on ``key_names`` (``sort_s``) and
+        the gathers (``upload_s``, ``gather_s``)."""
+        st = self.build_stages
+        chunk = config.BUILD_STREAM_CHUNK.get()
+        t0 = time.perf_counter()
+        if n > chunk:
+            res = _stream_encode_upload(encode_chunk, n, chunk, dev)
+            if res is None:
+                return False
+            planes, kept = res
+            z = np.concatenate([h["z"] for h in kept])
+            bins = np.concatenate([h["bin16"] for h in kept]) \
+                if "bin16" in kept[0] else None
+            del kept
+            st["encode_upload_overlap_s"] = time.perf_counter() - t0
+        else:
+            enc = encode_chunk(0, n)
+            if enc is None:
+                return False
+            planes = {k: v for k, v in enc.items() if k not in ("zhi", "zlo")}
+            z, bins = enc["z"], enc.get("bin16")
+            del enc
+            st["encode_s"] = time.perf_counter() - t0
+        self._z = z
+        if bins is not None:
+            self._bins = bins.astype(np.int32)
+        t1 = time.perf_counter()
+        extra = host_planes(self.table, self.period, skip_geom=True,
+                            skip_dtg=True)
+        st["planes_s"] = time.perf_counter() - t1
+        self._finish_native(planes, key_names, dev)
+        self.device = DeviceTable.build_sorted(extra, self.perm, st,
+                                               self.device.columns)
+        return True
+
+    def _finish_native(self, planes: dict, key_names: Sequence[str],
+                       dev: torch.device) -> None:
+        """Native planes (host arrays, or device tensors from the streamed
+        upload) uploaded, sorted on the device by ``device_sort_perm`` over
+        ``key_names`` and gathered one plane at a time, each unsorted plane
+        freed after its gather."""
+        st = self.build_stages
+        t0 = time.perf_counter()
+        planes = {k: v if torch.is_tensor(v)
+                  else torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                  for k, v in planes.items()}
+        sync(dev)
+        t1 = time.perf_counter()
+        self.perm = device_sort_perm([planes[k] for k in key_names])
+        sync(dev)
+        t2 = time.perf_counter()
+        cols = {}
+        for k in list(planes):
+            name, col = _query_column(k, planes.pop(k))
+            if name is not None:
+                cols[name] = col.index_select(0, self.perm)
+            del col
+        sync(dev)
+        st.update(upload_s=st.get("upload_s", 0.0) + t1 - t0, sort_s=t2 - t1,
+                  gather_s=st.get("gather_s", 0.0)
+                  + time.perf_counter() - t2)
+        self.device = DeviceTable(int(self.perm.shape[0]), cols)
 
     # host sorted keys (range pruning) -------------------------------------
 
@@ -497,6 +711,23 @@ class Z3Index(BaseSpatialIndex):
         self._bins = np.asarray(bins, dtype=np.int32)
         return [self._bins, self._z]
 
+    def _build_native(self, dev: torch.device) -> bool:
+        """The native build (≙ the reference's ``Z3Index._build_native``):
+        ``native.z3_encode`` over the points and dates, the sort on
+        (``bin16``, ``z``) — the order of (bin, z3) and of the reference's
+        (bin16, zhi, zlo)."""
+        from geomesa_tpu_torch import native
+        garr = self.table.geometry()
+        if not (garr.is_points and native.enabled()):
+            return False
+        x, y = garr.point_xy()
+        ms = np.asarray(self.table.columns[self.dtg], dtype=np.int64)
+        self._sfc = Z3SFC.apply(self.period)
+        period = self.period.value
+        return self._native_build(
+            lambda a, b: native.z3_encode(x[a:b], y[a:b], ms[a:b], period),
+            len(x), ("bin16", "z"), dev)
+
     @property
     def sorted_z(self) -> np.ndarray:
         return self._sorted_plane("_sorted_z", self._z)
@@ -524,6 +755,19 @@ class Z2Index(BaseSpatialIndex):
         x, y = self.table.geometry().point_xy()
         self._z = Z2SFC().index(x, y, lenient=True)
         return _split63(self._z)
+
+    def _build_native(self, dev: torch.device) -> bool:
+        """The native build (≙ the reference's ``Z2Index._build_native``):
+        ``native.z2_encode``, the sort on ``z`` (the order of its three
+        21-bit planes and of the reference's (zhi, zlo))."""
+        from geomesa_tpu_torch import native
+        garr = self.table.geometry()
+        if not (garr.is_points and native.enabled()):
+            return False
+        x, y = garr.point_xy()
+        return self._native_build(
+            lambda a, b: native.z2_encode(x[a:b], y[a:b]), len(x), ("z",),
+            dev)
 
     @property
     def sorted_z(self) -> np.ndarray:

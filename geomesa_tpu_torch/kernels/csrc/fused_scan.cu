@@ -12,7 +12,10 @@
 // gathered copy); it matches when it is its block's own row, __valid__
 // holds, and for some branch its point lies in any box, its (bin, off) in
 // any window and its residual program holds. Only the first *nlive blocks
-// (block_gate.cu's count) are read.
+// (block_gate.cu's count) are read. A branch flagged boxless (the staged
+// scans of a plan without a spatial primary: the reference's _mask_kernel
+// with primary "none", index/scan.py:368) has no box test, and a query of
+// such branches alone reads no point plane (the kernel's BOXLESS form).
 //
 // Modes: COUNT writes the int32 count; MASK writes one byte a candidate of
 // the live blocks (the input of the refine and density kernels and of
@@ -21,8 +24,10 @@
 //
 // What bounds it on the card: per candidate 16 bytes of fp62 point planes
 // and, where a box holds, 8 bytes of time planes and the residual's
-// columns; per (candidate, box) two 64-bit key compares a coordinate. MASK
-// writes a byte a candidate. Boxes of a few rows leave it bound by bytes.
+// columns (every branch boxless: the time planes and the residual's
+// columns for every candidate); per (candidate, box) two 64-bit key
+// compares a coordinate. MASK writes a byte a candidate. Boxes of a few
+// rows leave it bound by bytes.
 //
 // Design:
 // - Keys, not pairs: the host packs each box bound and window bound as the
@@ -46,6 +51,18 @@
 //   a block size that is not a multiple of 4) takes scalar loads, a
 //   candidate at a time. In MASK mode a quad's 4 bytes are one 32-bit
 //   store.
+// - A query without boxes (every branch boxless, as the staged scans of a
+//   plan without a spatial primary) needs every candidate's time planes
+//   and residual columns, so a quad is tested as one: the vector loads
+//   take the time planes and the residual's first two columns (yi, yl;
+//   the others load at the test, 16 bytes at a time where aligned), and
+//   each branch row, window key and program word is read and decoded once
+//   a quad, its compares made for the four lanes together (four stacks,
+//   one a lane). Decoding a candidate at a time held the boxless scan at
+//   the same device time whether or not its column was a vector load. The
+//   form is a template instantiation of its own (BOXLESS): in one body
+//   with the boxed form it spilled the boxed form's registers, 3-4% slower
+//   at the boxed shapes (PERF.md section 6).
 // - An even split: the live candidates are cut into 1,024-candidate
 //   chunks (a quad a thread), and CTA b of the persistent grid (sized by
 //   the buffers, never by a value read back) takes chunks b, b + grid, ...,
@@ -92,6 +109,8 @@ struct Params {
   int qwords;               // 16-byte words of qbuf
   int br, box, wkey, prog, cnst;   // byte offsets of the sections
   int nbranch;
+  int npre;                 // boxless: residual slots in the quad's loads
+  unsigned aligned;         // bit k: residual slot k loads 16 (bool 4) bytes
   int mode;
   int* out;                 // [count]
   uint8_t* mask;            // MASK: a byte a candidate
@@ -196,7 +215,7 @@ __device__ __forceinline__ bool matches(const Params& p, const Query& q,
   long long tk = 0;
   for (int k = 0; k < p.nbranch; ++k) {
     const int* r = q.br + 8 * k;
-    bool in = false;
+    bool in = r[6] != 0;   // a boxless branch: every row is in its boxes
     for (int j = r[0], e = r[0] + r[1]; j < e && !in; ++j) {
       const BoxKeys b = q.box[j];
       in = (x >= b.xlo) & (x <= b.xhi) & (y >= b.ylo) & (y <= b.yhi);
@@ -234,8 +253,10 @@ __device__ __forceinline__ long long block_of(const Params& p, unsigned c,
   return start < 0 ? 0 : (start > top ? top : start);
 }
 
-// a quad's loads: its rows row0 .. row0 + 3, their point planes and
-// __valid__ bytes, and the member rows' bits
+// a quad's loads: its rows row0 .. row0 + 3, their point planes (or, in a
+// query without boxes, their time planes bin and off in xi and xl and the
+// residual's slots 0 and 1 in yi and yl) and __valid__ bytes, and the
+// member rows' bits
 struct Quad {
   int4 xi, xl, yi, yl;
   unsigned valid;
@@ -248,7 +269,27 @@ __device__ __forceinline__ int lane_of(const int4& v, int j) {
   return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
 }
 
+// residual slot `slot` at rows row0 .. row0 + 3 (bool bytes widened to
+// 0/1 ints), in one load where the column is aligned
+__device__ __forceinline__ int4 load_slot(const Params& p, int slot,
+                                          long long row0) {
+  const bool b = ((p.kinds >> (4 * slot)) & 15) == K_BOOL;
+  const bool vec = (p.aligned >> slot) & 1u;
+  if (b) {
+    const uint8_t* c = static_cast<const uint8_t*>(p.col[slot]) + row0;
+    if (!vec)
+      return make_int4(__ldg(c), __ldg(c + 1), __ldg(c + 2), __ldg(c + 3));
+    const unsigned u = __ldcs(reinterpret_cast<const unsigned*>(c));
+    return make_int4(u & 0xffu, (u >> 8) & 0xffu, (u >> 16) & 0xffu, u >> 24);
+  }
+  const int* c = static_cast<const int*>(p.col[slot]) + row0;
+  if (!vec)
+    return make_int4(__ldg(c), __ldg(c + 1), __ldg(c + 2), __ldg(c + 3));
+  return __ldcs(reinterpret_cast<const int4*>(c));
+}
+
 // issue quad q's loads, or mark it for the scalar path
+template <bool BOXLESS>
 __device__ __forceinline__ void load_quad(const Params& p, long long q,
                                           Quad& d) {
   d.vec = false;
@@ -260,10 +301,18 @@ __device__ __forceinline__ void load_quad(const Params& p, long long q,
   d.row0 = rs + (c - slot * (unsigned)p.bsz);
   if (d.row0 & 3) return;
   d.vec = true;
-  d.xi = __ldcs(reinterpret_cast<const int4*>(p.xi + d.row0));
-  d.xl = __ldcs(reinterpret_cast<const int4*>(p.xl + d.row0));
-  d.yi = __ldcs(reinterpret_cast<const int4*>(p.yi + d.row0));
-  d.yl = __ldcs(reinterpret_cast<const int4*>(p.yl + d.row0));
+  if (!BOXLESS) {
+    d.xi = __ldcs(reinterpret_cast<const int4*>(p.xi + d.row0));
+    d.xl = __ldcs(reinterpret_cast<const int4*>(p.xl + d.row0));
+    d.yi = __ldcs(reinterpret_cast<const int4*>(p.yi + d.row0));
+    d.yl = __ldcs(reinterpret_cast<const int4*>(p.yl + d.row0));
+  } else {   // no box: the time planes and residual columns take them
+    const int4 z = make_int4(0, 0, 0, 0);
+    d.xi = p.bin ? __ldcs(reinterpret_cast<const int4*>(p.bin + d.row0)) : z;
+    d.xl = p.bin ? __ldcs(reinterpret_cast<const int4*>(p.off + d.row0)) : z;
+    d.yi = p.npre > 0 ? load_slot(p, 0, d.row0) : z;
+    d.yl = p.npre > 1 ? load_slot(p, 1, d.row0) : z;
+  }
   d.valid = p.valid
       ? __ldcs(reinterpret_cast<const unsigned*>(p.valid + d.row0))
       : 0x01010101u;
@@ -289,8 +338,126 @@ __device__ __forceinline__ unsigned test_quad(const Params& p,
   return bytes;
 }
 
+// the lanes (bit j: lane j) where compare c of a's four lanes with b holds
+template <typename T>
+__device__ __forceinline__ unsigned cmp4(int c, T a0, T a1, T a2, T a3,
+                                         T b) {
+#define GM_LANES(OP)                                                    \
+  ((unsigned)(a0 OP b) | (unsigned)(a1 OP b) << 1 |                     \
+   (unsigned)(a2 OP b) << 2 | (unsigned)(a3 OP b) << 3)
+  switch (c) {
+    case 0: return GM_LANES(==);
+    case 1: return GM_LANES(!=);
+    case 2: return GM_LANES(<);
+    case 3: return GM_LANES(<=);
+    case 4: return GM_LANES(>);
+    default: return GM_LANES(>=);
+  }
+#undef GM_LANES
+}
+
+// residual slot `slot` at the quad's four rows
+__device__ __forceinline__ int4 slot_lanes(const Params& p, const Quad& d,
+                                           int slot) {
+  if (slot < p.npre) return slot == 0 ? d.yi : d.yl;
+  return load_slot(p, slot, d.row0);
+}
+
+// the residual program words[0, len) at a quad's four rows: the lanes
+// where it holds. One stack a lane, top at bit 0, each word decoded once.
+__device__ __forceinline__ unsigned run_program4(const Params& p,
+                                                 const Query& q,
+                                                 const int4* words, int len,
+                                                 const Quad& d) {
+  unsigned long long s0 = 0ull, s1 = 0ull, s2 = 0ull, s3 = 0ull;
+  for (int i = 0; i < len; ++i) {
+    const int4 w = words[i];
+    unsigned v;
+    switch (w.x) {
+      case OP_TRUE: v = 15u; break;
+      case OP_FALSE: v = 0u; break;
+      case OP_AND:
+        s0 = (s0 >> 2) << 1 | (s0 & (s0 >> 1) & 1ull);
+        s1 = (s1 >> 2) << 1 | (s1 & (s1 >> 1) & 1ull);
+        s2 = (s2 >> 2) << 1 | (s2 & (s2 >> 1) & 1ull);
+        s3 = (s3 >> 2) << 1 | (s3 & (s3 >> 1) & 1ull);
+        continue;
+      case OP_OR:
+        s0 = (s0 >> 2) << 1 | ((s0 | (s0 >> 1)) & 1ull);
+        s1 = (s1 >> 2) << 1 | ((s1 | (s1 >> 1)) & 1ull);
+        s2 = (s2 >> 2) << 1 | ((s2 | (s2 >> 1)) & 1ull);
+        s3 = (s3 >> 2) << 1 | ((s3 | (s3 >> 1)) & 1ull);
+        continue;
+      case OP_NOT:
+        s0 ^= 1ull;
+        s1 ^= 1ull;
+        s2 ^= 1ull;
+        s3 ^= 1ull;
+        continue;
+      case OP_CMP: {
+        const int4 a = slot_lanes(p, d, w.y);
+        v = q.kind[w.y] == K_F32
+                ? cmp4(w.z, __int_as_float(a.x), __int_as_float(a.y),
+                       __int_as_float(a.z), __int_as_float(a.w),
+                       __int_as_float(q.cn[w.w]))
+                : cmp4(w.z, a.x, a.y, a.z, a.w, q.cn[w.w]);
+        break;
+      }
+      default: {   // OP_IN
+        const int4 a = slot_lanes(p, d, w.y);
+        v = 0u;
+        for (int j = 0; j < w.w; ++j) v |= cmp4(0, a.x, a.y, a.z, a.w,
+                                                q.cn[w.z + j]);
+      }
+    }
+    s0 = s0 << 1 | (v & 1u);
+    s1 = s1 << 1 | ((v >> 1) & 1u);
+    s2 = s2 << 1 | ((v >> 2) & 1u);
+    s3 = s3 << 1 | ((v >> 3) & 1u);
+  }
+  return (unsigned)(s0 & 1ull) | (unsigned)(s1 & 1ull) << 1
+         | (unsigned)(s2 & 1ull) << 2 | (unsigned)(s3 & 1ull) << 3;
+}
+
+// a loaded quad's flags in a query without boxes (time planes in xi, xl),
+// 0 or 1 a byte: each branch's windows and program for the four lanes
+__device__ __forceinline__ unsigned test_quad_boxless(const Params& p,
+                                                      const Query& q,
+                                                      const Quad& d) {
+  unsigned live = 0;
+#pragma unroll
+  for (int j = 0; j < QUAD; ++j)
+    live |= (unsigned)(((d.member >> j) & 1u)
+                       && ((d.valid >> (8 * j)) & 0xffu)) << j;
+  unsigned hit = 0;
+  for (int k = 0; k < p.nbranch && (live & ~hit); ++k) {
+    const int* r = q.br + 8 * k;
+    unsigned in = live & ~hit;
+    if (r[3] > 0) {   // the time keys live only here (registers)
+      const long long t0 = pack62(d.xi.x, d.xl.x);
+      const long long t1 = pack62(d.xi.y, d.xl.y);
+      const long long t2 = pack62(d.xi.z, d.xl.z);
+      const long long t3 = pack62(d.xi.w, d.xl.w);
+      unsigned win = 0;
+      for (int j = r[2], e = r[2] + r[3]; j < e && (in & ~win); ++j) {
+        const longlong2 w = q.wkey[j];
+        win |= (unsigned)((t0 >= w.x) & (t0 <= w.y))
+               | (unsigned)((t1 >= w.x) & (t1 <= w.y)) << 1
+               | (unsigned)((t2 >= w.x) & (t2 <= w.y)) << 2
+               | (unsigned)((t3 >= w.x) & (t3 <= w.y)) << 3;
+      }
+      in &= win;
+    }
+    if (in && r[5] > 0) in &= run_program4(p, q, q.prog + r[4], r[5], d);
+    hit |= in;
+  }
+  return (hit & 1u) | ((hit >> 1) & 1u) << 8 | ((hit >> 2) & 1u) << 16
+         | ((hit >> 3) & 1u) << 24;
+}
+
 // quad q a candidate at a time (loads behind each test); the flags, 0 or
 // 1 a byte, of its candidates below live
+template <bool BOXLESS>
 __device__ __forceinline__ unsigned scalar_quad(const Params& p,
                                                 const Query& q, long long qd,
                                                 long long live) {
@@ -303,14 +470,19 @@ __device__ __forceinline__ unsigned scalar_quad(const Params& p,
     const long long rs = block_of(p, (unsigned)c, slot, lo, hi);
     const long long row = rs + ((unsigned)c - slot * (unsigned)p.bsz);
     if (row < lo || row >= hi || (p.valid && !p.valid[row])) continue;
-    const long long x = pack62(__ldg(p.xi + row), __ldg(p.xl + row));
-    const long long y = pack62(__ldg(p.yi + row), __ldg(p.yl + row));
+    const long long x =
+        BOXLESS ? 0 : pack62(__ldg(p.xi + row), __ldg(p.xl + row));
+    const long long y =
+        BOXLESS ? 0 : pack62(__ldg(p.yi + row), __ldg(p.yl + row));
     if (matches(p, q, x, y, row)) bytes |= 1u << (8 * j);
   }
   return bytes;
 }
 
-// COUNT or MASK (p.mode): the live candidates' chunks, strided over the grid
+// COUNT or MASK (p.mode): the live candidates' chunks, strided over the
+// grid. BOXLESS: every branch is boxless (its own instantiation, so the
+// boxed form keeps its registers)
+template <bool BOXLESS>
 __global__ void __launch_bounds__(THREADS, 3)
 fused_scan_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -342,13 +514,15 @@ fused_scan_kernel(const __grid_constant__ Params p) {
     const long long step = (long long)gridDim.x * THREADS;
     long long qd = (long long)blockIdx.x * THREADS + threadIdx.x;
     Quad cur;
-    if (qd < quads) load_quad(p, qd, cur);
+    if (qd < quads) load_quad<BOXLESS>(p, qd, cur);
     while (qd < quads) {
       const long long qn = qd + step;
       Quad nxt;
-      if (qn < quads) load_quad(p, qn, nxt);
+      if (qn < quads) load_quad<BOXLESS>(p, qn, nxt);
       const unsigned bytes =
-          cur.vec ? test_quad(p, q, cur) : scalar_quad(p, q, qd, live);
+          !cur.vec ? scalar_quad<BOXLESS>(p, q, qd, live)
+                   : (BOXLESS ? test_quad_boxless(p, q, cur)
+                              : test_quad(p, q, cur));
       cnt += __popc(bytes);
       if (p.mode == MASK) {
         if (qd * QUAD + QUAD <= live) {
@@ -381,12 +555,12 @@ struct FusedScanArgs {
   long long xi, xl, yi, yl, bin, off, valid;
   long long col[MAX_SLOTS];
   long long kinds, nslots;
-  long long qbuf, qbytes, br, box, wkey, prog, cnst, nbranch;
+  long long qbuf, qbytes, br, box, wkey, prog, cnst, nbranch, points;
   long long ids, nlive, slots, bsz, n;
   long long mode, out, mask;
   long long ws, epoch, device;
 };
-static_assert(sizeof(FusedScanArgs) == 44 * 8, "FusedScanArgs must match _ARGS");
+static_assert(sizeof(FusedScanArgs) == 45 * 8, "FusedScanArgs must match _ARGS");
 
 
 // Scans the candidates of the first *nlive of the `slots` blocks of `ids`
@@ -432,16 +606,26 @@ extern "C" int fused_scan_launch(const FusedScanArgs* a, void* stream) {
   p.shift = -1;
   if ((a->bsz & (a->bsz - 1)) == 0)
     for (p.shift = 0; (1LL << p.shift) < a->bsz; ++p.shift) {}
-  p.vec = a->bsz % QUAD == 0 && a->xi % 16 == 0 && a->xl % 16 == 0
-          && a->yi % 16 == 0 && a->yl % 16 == 0 && a->valid % 4 == 0;
+  p.vec = a->bsz % QUAD == 0 && a->valid % 4 == 0
+          && (a->points ? a->xi % 16 == 0 && a->xl % 16 == 0
+                             && a->yi % 16 == 0 && a->yl % 16 == 0
+                       : a->bin % 16 == 0 && a->off % 16 == 0);
+  p.aligned = 0;   // the residual slots that load a quad at a time
+  for (int k = 0; k < p.nslots; ++k) {
+    const bool b = ((a->kinds >> (4 * k)) & 15) == K_BOOL;
+    p.aligned |= (unsigned)(a->col[k] % (b ? 4 : 16) == 0) << k;
+  }
+  p.npre = 0;   // of them, the leading two take the double buffer
+  while (!a->points && p.npre < 2 && ((p.aligned >> p.npre) & 1u)) ++p.npre;
   p.ws = make_ws(a->ws, (unsigned)a->epoch);
   const size_t smem = (size_t)a->qbytes;
   unsigned grid = 1;
+  auto kernel = a->points ? fused_scan_kernel<false> : fused_scan_kernel<true>;
   cudaError_t err = persistent_grid(
-      reinterpret_cast<const void*>(fused_scan_kernel), smem, (int)a->device,
+      reinterpret_cast<const void*>(kernel), smem, (int)a->device,
       (a->slots * a->bsz + CHUNK - 1) / CHUNK, grid);
   if (err != cudaSuccess) return (int)err;
-  fused_scan_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(p);
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -8,7 +8,9 @@ fallback: a CUDA tensor either launches the kernel or raises.
 nothing else). A call is one launch; it allocates only its outputs, and the
 count's total and done counter live in the stream's workspace
 (``kernels.lookback``). A select is this kernel's mask compacted by
-``ordered_compact``.
+``ordered_compact``. The fused program and the staged scan modes of a
+point layer (``index.scan.ScanKernels``) both launch it; a query whose
+branches have no boxes (``FusedQuery.points`` False) reads no point plane.
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ _KIND_DTYPES = {scan.SLOT_I32: torch.int32, scan.SLOT_F32: torch.float32,
 _POINT = ("xi", "xl", "yi", "yl")
 _TIME = ("bin", "off")
 
-# the C side's FusedScanArgs: 44 8-byte slots
-_ARGS = struct.Struct("=44q")
+# the C side's FusedScanArgs: 45 8-byte slots
+_ARGS = struct.Struct("=45q")
 
 _FN = None
 
@@ -127,7 +129,7 @@ def fused_scan(cols: Mapping[str, torch.Tensor], qbuf: torch.Tensor,
             *col, *([0] * (MAX_SLOTS - len(col))), kinds, len(col),
             qbuf.data_ptr(), qbuf.shape[0], off["br"][0], off["box"][0],
             off["wkey"][0], off["prog"][0], off["const"][0],
-            len(query.branches),
+            len(query.branches), int(query.points),
             ids.data_ptr(), n_blocks.data_ptr(), slots, bsz, n,
             _MODES[mode], out.data_ptr(), mask.data_ptr() if slots * bsz
             and mode == "mask" else 0, ws.data_ptr(), epoch, dev.index)

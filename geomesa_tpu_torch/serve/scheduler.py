@@ -49,8 +49,9 @@ reaches the breaker and the caller's future; a request with (almost) no
 budget left — or any count while the breaker is open — degrades to the
 stats estimator where the planner has one (the port's planners have none
 yet, ROADMAP.md Queue 1 item 12, so such requests run or cancel exactly).
-A worker that dies fails every outstanding future with SchedulerCrashed;
-shutdown fails what it leaves with SchedulerShutdown.
+A worker that dies fails every outstanding future with SchedulerCrashed,
+and so every request submitted while or after it dies; shutdown fails
+what it leaves with SchedulerShutdown.
 
 Left out until the observability plane is ported (ROADMAP.md Queue 1
 item 15): ``obs.install()``, the flight recorder's wide events, the
@@ -361,7 +362,7 @@ class QueryScheduler:
         explicit one and any ambient request deadline. ``tenant`` labels
         the request for admission's fair share (falls back to the first
         sorted auth, then 'default')."""
-        if not self._running:
+        if not self._running and self._crash_error is None:
             raise RuntimeError("scheduler is shut down")
         f_ir = parse_ecql(f) if isinstance(f, str) else f
         auths_key = None if auths is None \
@@ -397,6 +398,11 @@ class QueryScheduler:
             raise
         self._track(req, cls)
         self._queue.put((_RANKS[cls], next(self._seq), req))
+        if self._crash_error is not None:
+            # a worker died before or while this request queued (its
+            # handler's sweep of the outstanding requests may have missed
+            # it): no worker will resolve it, so it fails as they did
+            self._fail(req, self._crash_error)
         return req
 
     def count(self, type_name: str, f: Union[str, ir.Filter] = "INCLUDE",

@@ -295,6 +295,48 @@ def test_density_routes_equal_reference(world, q, route, shape):
     assert (got.bbox, got.width, got.height) == (want.bbox, w, h)
 
 
+STAGED = [
+    (Q_PRUNED, "pruned"),
+    (f"BBOX(geom, -60, -30, 60, 30) AND {DURING} AND age > 10", "compact"),
+    (f"{DURING} AND age > 90", "compact"),
+    ("age < 30", "compact"),
+    (DURING, "compact"),
+    ("INCLUDE", "compact"),
+]
+
+
+@pytest.mark.parametrize("weight", [None, "age"])
+@pytest.mark.parametrize("q,route", STAGED, ids=[q for q, _ in STAGED])
+def test_staged_density_runs_on_the_kernel(world, q, route, weight,
+                                           monkeypatch):
+    """The staged density of a point layer scatters ``fused_scan``'s mask
+    through the blocks' starts: no torch-ops mask and no column gather,
+    for plans with a box, with windows only, a residual only, or nothing
+    (primary "none" is the whole box). Unit grids byte for byte, and
+    ``age`` grids (small integers, exact in f32 in any order)."""
+    from geomesa_tpu_torch.index import scan as tscan
+    jdensity = _ref("geomesa_tpu.aggregates.density")
+    jp, tp = world
+    assert _route(tp, tp.plan(q)) == route
+    want = jdensity.density(jp, q, BBOX, 64, 64, weight)
+
+    def refuse(*a, **k):
+        raise AssertionError("the torch-ops route ran")
+    monkeypatch.setattr(tscan, "_mask_kernel", refuse)
+    monkeypatch.setattr(tscan._Gather, "__getitem__", refuse)
+    masks = []
+    kmask = tscan.ScanKernels._kernel_mask
+    monkeypatch.setattr(tscan.ScanKernels, "_kernel_mask",
+                        lambda self, sc: masks.append(sc.bsz)
+                        or kmask(self, sc))
+    run = tdensity.prepare_density(tp, q, BBOX, 64, 64, weight)
+    got = run()
+    assert masks and set(masks) == {512}
+    assert got.weights.dtype == np.float32
+    assert np.array_equal(got.weights, want.weights), q
+    assert got.weights.sum() > 0
+
+
 def assert_nonneg_weighted_close(got, want, unit):
     """The weighted bound for weights >= 0, whose |w| sums are the grids
     themselves (each within gamma(n-1) of the exact sum)."""

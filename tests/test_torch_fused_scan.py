@@ -748,16 +748,21 @@ def _geo_boxes(k: int, seed: int):
 
 
 def _fused_query(nbox: int, windows: str, resid, seed: int,
-                 branches: int = 1):
+                 branches: int = 1, boxless_all: bool = False):
+    """A packed query of ``branches`` branches of ``nbox`` random boxes
+    each; ``nbox`` 0: the first branch has no boxes (a staged scan without
+    a primary), the others one box (none either with ``boxless_all``)."""
     sft = TSFT.from_spec("g", SPEC)
     vocab = {"name": ["alpha", "beta", "gamma", "delta"]}
     out = []
     for k in range(branches):
-        geo = _geo_boxes(nbox, seed + k)
+        geo = _geo_boxes(max(1, nbox), seed + k)
         boxes = tscan.pad_boxes(t_fp62(geo))
         if windows == "empty_boxes":
             boxes[:] = tscan.EMPTY_BOX
         gate = tcompiled._gate_of(geo, len(boxes))
+        if nbox == 0 and (k == 0 or boxless_all):
+            boxes = gate = None
         w = None
         if windows == "some":
             w = np.array([[2601, 1000, 2603, 500], [2605, 7, 2605, 90000],
@@ -787,13 +792,14 @@ def _block_list(case: str, nb: int):
 
 GPU_CASES = [(n, bsz, nbox, windows, resid, valid, blocks)
              for n, bsz in ((100_003, 4096), (20_011, 512))
-             for nbox in (1, 4, 64)
+             for nbox in (0, 1, 4, 64)
              for windows, resid, valid in (
                  ("none", None, False), ("some", "age > 10", False),
                  ("some", "NOT (age > 50 AND (name = 'beta' OR "
                           "score < 0.5)) AND flag = false", True),
                  ("empty", None, False), ("empty_boxes", None, False))
-             for blocks in ("all", "edge", "sparse", "none")]
+             for blocks in ("all", "edge", "sparse", "none")
+             if not (nbox == 0 and windows == "empty_boxes")]
 
 
 def _gpu_case(n, bsz, nbox, windows, resid, valid, blocks, branches=1):
@@ -839,10 +845,11 @@ def test_cuda_fused_scan_equals_plain(n, bsz, nbox, windows, resid, valid,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("nbox", [0, 4], ids=["boxless_first", "boxes"])
 @pytest.mark.parametrize("branches", [2, 5])
 @pytest.mark.parametrize("blocks", ["all", "edge"])
-def test_cuda_union_scan_equals_plain(branches, blocks):
-    cols, q, qbuf, ids, nblk = _gpu_case(100_003, 4096, 4, "some",
+def test_cuda_union_scan_equals_plain(branches, blocks, nbox):
+    cols, q, qbuf, ids, nblk = _gpu_case(100_003, 4096, nbox, "some",
                                          "age > 30", False, blocks,
                                          branches=branches)
     live = int(nblk[0]) * 4096
@@ -1138,6 +1145,55 @@ def test_cuda_fused_scan_views_and_odd_blocks(n, bsz, view, valid):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("resid", [
+    "score < 0.5", "flag = false AND age > 10",
+    "name IN ('beta', 'delta') OR score >= 0.25",
+    "NOT (age > 50 AND (name = 'beta' OR score < 0.5)) AND flag = false"])
+@pytest.mark.parametrize("windows", ["none", "some"])
+@pytest.mark.parametrize("shape", ["aligned", "view", "column_views",
+                                   "one_block"])
+@pytest.mark.parametrize("branches", [1, 3])
+def test_cuda_boxless_scan_reads_residual_slots_in_quads(resid, windows,
+                                                         shape, branches):
+    """A query of boxless branches tests a quad at a time, its residual's
+    columns (f32, bool and int32 slots, two of them in the quads' vector
+    loads) read for the four lanes: count, mask and its compaction against
+    the plain versions, with planes that are aligned, views at element
+    offset 1 (the scalar path), aligned planes with residual columns that
+    are views (each column's lanes loaded one at a time), and a table of
+    one block of n rows (the staged scan of a table under one block); one
+    branch, and three ORed."""
+    dev = _cuda()
+    n, bsz = {"aligned": (100_003, 4096), "view": (20_011, 512),
+              "column_views": (20_011, 512),
+              "one_block": (3_000, 3_000)}[shape]
+    cols = _planes(n + 1, 7, dev, True)
+    shifted = {"view": set(cols),
+               "column_views": {"age", "score", "flag", "name"}}.get(
+                   shape, set())
+    cols = {k: (v[1:] if k in shifted else v[:n]) for k, v in cols.items()}
+    q = _fused_query(0, windows, resid, seed=3, branches=branches,
+                     boxless_all=True)
+    assert not q.points
+    qbuf = torch.from_numpy(q.packed).to(dev)
+    nb = -(-n // bsz)
+    for blocks in ("all", "edge", "sparse") if nb >= 4 else ("all",):
+        ids, k = _block_list(blocks, nb)
+        ids = torch.from_numpy(ids).to(dev)
+        nblk = torch.tensor([k], dtype=torch.int32, device=dev)
+        got = kscan.fused_scan(cols, qbuf, q, ids, nblk, bsz, "count")
+        want = tscan.fused_scan(cols, qbuf, q, ids, nblk, bsz, "count")
+        assert torch.equal(got, want), blocks
+        got = kscan.fused_scan(cols, qbuf, q, ids, nblk, bsz, "mask")
+        want = tscan.fused_scan(cols, qbuf, q, ids, nblk, bsz, "mask")
+        assert torch.equal(got[1], want[1]), blocks
+        assert torch.equal(got[0][:k * bsz], want[0][:k * bsz]), blocks
+        starts = tscan.expand_blocks(cols, ids, bsz, n)[2]
+        _compact_equals_plain(got[0], 300, dict(starts=starts, bsz=bsz,
+                                                n_blocks=nblk))
+
+
+@pytest.mark.gpu
 def test_cuda_repeated_calls_take_fresh_epochs():
     """Back-to-back calls on one stream, growing and shrinking the work
     and the caps, share the stream's workspace; each agrees with the plain
@@ -1296,3 +1352,77 @@ def test_cuda_refine_kernels_stop_at_the_live_blocks():
     want = tscan.grid_scatter(cols["xf"], cols["yf"], mask, None, starts,
                               bsz, grid, 64, 32, n_blocks=nblk)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# the staged modes' stages on the kernel route: a box with windows and a
+# residual, windows and a residual without a box (the whole box), nothing
+# but a residual, and INCLUDE
+STAGED_QUERIES = [f"{BOX} AND {DURING} AND age > 10 AND flag = true",
+                  f"{DURING} AND score >= 0.25 AND name <> 'beta'",
+                  "age IN (3, 5, 7, 11)", "INCLUDE"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", STAGED_QUERIES)
+def test_cuda_staged_modes_equal_cpu(q):
+    """Every staged mode on the card's kernel route (fused_scan, then
+    ordered_compact or grid_scatter) against the same table's on the CPU,
+    raw: counts, row masks, packed selects, grids and their counts, over
+    the table's blocks and over a cover with the clamped last block and
+    pads; and the OR of two stages. Each mode launches fused_scan."""
+    _cuda()
+    cols = _columns(N, 7)
+    cpu, gpu = _port(cols), _port(cols, "cuda")
+    kc, kg = cpu.indexes[0].kernels, gpu.indexes[0].kernels
+    a = [(p.primary_kind, p.boxes_loose, p.windows, p.residual_device)
+         for p in (cpu.plan(q), gpu.plan(q))]
+    assert tscan.staged_query(kg.cols, [a[1]]) is not None
+    blocks = np.array([0, 2, 3, 11], dtype=np.int32)   # 11: the last block
+    runs = [
+        lambda k, s: k.prepare_mask(*s)(),
+        lambda k, s: k.prepare_select(*s, 1024)(),
+        lambda k, s: k.prepare_select_blocks(*s, blocks, BSZ, 1024)(),
+        lambda k, s: k.prepare_density_compact(*s, GRID, 64, 32, 1 << 17,
+                                               None)(),
+        lambda k, s: k.prepare_density_blocks(*s, GRID, 64, 32, blocks, BSZ,
+                                              "age")(),
+        lambda k, s: k.prepare_union_count(
+            [s, k is kg and a[1] or a[0]])(),
+    ]
+    if a[0][3] is not None:
+        runs += [lambda k, s: k.prepare_count(*s)(),
+                 lambda k, s: k.prepare_count_blocks(*s, blocks, BSZ)()]
+    for run in runs:
+        before = kscan.fused_scan.launches
+        want, got = run(kc, a[0]), run(kg, a[1])
+        torch.cuda.synchronize()
+        assert kscan.fused_scan.launches == before + 1
+        for w, g in zip(want if isinstance(want, tuple) else (want,),
+                        got if isinstance(got, tuple) else (got,)):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_cuda_staged_dispatches_make_no_sync():
+    """The staged modes' prepared dispatchers on the card make no host
+    sync (CUDA's sync debug mode): the row mask, the count, the OR count,
+    the selects and the densities."""
+    _cuda()
+    gpu = _port(_columns(N, 7), "cuda")
+    k = gpu.indexes[0].kernels
+    s = [(p.primary_kind, p.boxes_loose, p.windows, p.residual_device)
+         for p in (gpu.plan(q) for q in STAGED_QUERIES[:2])]
+    blocks = np.array([1, 4, 11], dtype=np.int32)
+    runs = [k.prepare_mask(*s[0]), k.prepare_count(*s[1]),
+            k.prepare_union_count(s), k.prepare_select(*s[1], 1024),
+            k.prepare_select_blocks(*s[0], blocks, BSZ, 1024),
+            k.prepare_density_compact(*s[1], GRID, 64, 32, 1 << 17, None),
+            k.prepare_density_blocks(*s[0], GRID, 64, 32, blocks, BSZ,
+                                     "score")]
+    for run in runs:
+        run()
+        torch.cuda.synchronize()
+        with tscan.host_syncs("cuda") as h:
+            run()
+        torch.cuda.synchronize()
+        assert h.count == 0, run

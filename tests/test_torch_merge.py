@@ -538,3 +538,43 @@ def test_cuda_store_flush_merges_through_the_kernel():
         assert stores["cuda"].count("t", q) == stores["cpu"].count("t", q)
         assert np.array_equal(stores["cuda"].query("t", q).indices,
                               stores["cpu"].query("t", q).indices)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [1000, 4096, 1 << 30])
+def test_cuda_native_build_equals_cpu(chunk):
+    """The native build on the card — the encode of chunk i+1 overlapped
+    with chunk i's pinned side-stream upload, the device sort and the
+    gathers — against the same table's build on the CPU: one permutation
+    and byte-equal columns and host keys (``chunk`` past the table: one
+    encode and one upload)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType as TSFT
+    from geomesa_tpu_torch.index.spatial import Z3Index
+    n = 20_011
+    rng = np.random.default_rng(3)
+    x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+    base = np.datetime64("2020-01-01T00:00:00", "ms").astype(np.int64)
+    dtg = base + rng.integers(0, 60 * 86400000, n)
+    dup = np.arange(0, n, 7)[1:]
+    x[dup], y[dup], dtg[dup] = x[dup - 1], y[dup - 1], dtg[dup - 1]
+    sft = TSFT.from_spec("t", "val:Int,dtg:Date,*geom:Point;"
+                         "geomesa.z3.interval=week")
+    table = TTable.build(sft, {"val": rng.integers(0, 9, n).astype(np.int32),
+                               "dtg": dtg, "geom": (x, y)})
+    tconfig.BUILD_STREAM_CHUNK.set(chunk)
+    try:
+        gpu, cpu = Z3Index(sft, table, "cuda"), Z3Index(sft, table, "cpu")
+    finally:
+        tconfig.BUILD_STREAM_CHUNK.unset()
+    first = "encode_upload_overlap_s" if chunk < n else "encode_s"
+    assert first in gpu.build_stages
+    assert torch.equal(gpu.perm.cpu(), cpu.perm)
+    assert list(gpu.device.columns) == list(cpu.device.columns)
+    for k, v in cpu.device.columns.items():
+        assert torch.equal(gpu.device.columns[k].cpu(), v), k
+    assert np.array_equal(gpu._z, cpu._z)
+    assert np.array_equal(gpu._bins, cpu._bins)
+    keys = [cpu._bins, cpu._z]
+    assert np.array_equal(cpu.perm.numpy(), np.lexsort(tuple(reversed(keys))))

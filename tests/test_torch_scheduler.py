@@ -378,6 +378,26 @@ def test_killed_collector_fails_outstanding_futures(world):
         s.shutdown(timeout=2)
 
 
+def test_submit_after_a_worker_death_fails_with_its_crash(world):
+    """A request submitted once the collector has died resolves with the
+    crash (no worker is left to resolve it, and it must not hang)."""
+    _, tp = world
+    faults = _pkg(True, "durability.faults")
+    sched = _pkg(True, "serve.scheduler")
+    s = _sched(True, tp, window_us=200)
+    try:
+        faults.arm_serve_crash("sched.collect", at=1)
+        with pytest.raises(sched.SchedulerCrashed):
+            s.submit("t", BOX).result(timeout=WAIT)
+        assert not s.healthy()
+        late = s.submit("t", BOX)
+        with pytest.raises(sched.SchedulerCrashed) as ei:
+            late.result(timeout=WAIT)
+        assert ei.value.worker == "collector"
+    finally:
+        s.shutdown(timeout=2)
+
+
 def test_killed_completer_fails_outstanding_futures(world):
     _, tp = world
     faults = _pkg(True, "durability.faults")

@@ -182,6 +182,43 @@ def test_union_scan_mask(gauss):
     assert np.array_equal(np.sort(perm[mask.numpy()]), np.flatnonzero(m))
 
 
+UNION_COUNTS = [
+    f"{BOX_A} OR {BOX_B}",
+    f"{BOX_A} AND {DURING} OR {BOX_B} AND {DURING} AND val > 50",
+    "BBOX(geom, -5, -5, 5, 5) OR BBOX(geom, -5, -5, 5, 5) AND val > 20",
+    f"{BOX_A} OR {BOX_B} OR BBOX(geom, -15, 0, 10, 20) AND name = 'b'",
+]
+
+
+@pytest.mark.parametrize("q", UNION_COUNTS)
+def test_union_count_is_one_kbranch_scan(gauss, q, monkeypatch):
+    """The OR count of a device-exact union: one K-branch ``fused_scan``
+    count over the table's blocks (no OR of masks, no torch ops), rows
+    that branches share counted once, equal to the reference's sum of its
+    OR of masks; the union's row mask (``scan_mask``) too."""
+    from geomesa_tpu_torch.index import scan as tscan
+    jp, tp, _ = gauss
+    plan = tp.plan(q)
+    idx = plan.same_index_device_exact()
+    assert isinstance(plan, UnionScanPlan) and idx is not None
+    counts = []
+    kcount = tscan.ScanKernels._kernel_count
+    monkeypatch.setattr(tscan.ScanKernels, "_kernel_count",
+                        lambda self, sc: counts.append(
+                            len(sc.query.branches)) or kcount(self, sc))
+
+    def refuse(*a, **k):
+        raise AssertionError("the torch-ops route ran")
+    monkeypatch.setattr(tscan, "_mask_kernel", refuse)
+    want = jp.count(q)
+    assert want > 0 and tp.count(q) == want
+    assert counts == [len(plan.branches)]
+    _, jmask = jp.scan_mask(q)
+    _, tmask = tp.scan_mask(q)
+    assert np.array_equal(tmask.numpy(), np.asarray(jmask))
+    assert int(tmask.sum()) == want
+
+
 # -- the acceptance shapes, fused and staged -----------------------------------
 
 UNION_FILTERS = [
