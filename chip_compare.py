@@ -1,7 +1,7 @@
 """Two trees of the port timed on one card, in turns.
 
     python3 chip_compare.py PARENT_ROOT CHANGE_ROOT
-        [--phases count,kernels,fused,fusedk,staged]
+        [--phases count,kernels,fused,fusedk,staged,rows]
         [--rounds 4] [--reps 40] [--n 100000000] [--out FILE] [--device cpu]
 
 One worker process a tree imports ``geomesa_tpu_torch`` from that tree,
@@ -55,6 +55,11 @@ adjacent pair of answers ran on the same card, seconds apart. The phases:
   An answer is the p50 of ``--reps`` calls to a device synchronise and,
   on the card, the device activities and device ms a call; both trees
   must give the same counts.
+- ``rows``: the rows path through ``store.count`` and ``store.query`` on
+  the same store as ``count``: (b)'s and (i)'s counts and (c)'s, (h)'s,
+  (i)'s and (j)'s rows. An answer is the p50 of ``--reps`` calls to a
+  device synchronise and, on the card, the device activities and device
+  ms a call; both trees must give the same answers (compared by digest).
 
 Prints each answer, then per tree the median of every metric and the
 change-minus-parent median over adjacent pairs; writes all of it to
@@ -457,9 +462,51 @@ def setup_staged(cs, a) -> tuple:
     return counts, answer
 
 
+def setup_rows(cs, a) -> tuple:
+    """The rows path through the tree's store on the same store as
+    ``count``: (b)'s and (i)'s counts (their uncertain rows mapped) and
+    (c)'s, (h)'s, (i)'s and (j)'s rows (``store.query(...).indices``), each
+    a p50 of ``--reps`` calls to a device synchronise and, on the card, its
+    device activities and device ms a call; the answers compared by
+    digest."""
+    import torch
+
+    store, _ = _store(cs, a)
+    calls = {"b_count": lambda: store.count("gdelt", cs.Q_POLY),
+             "i_count": lambda: store.count("gdelt", cs.Q_I_LT),
+             "c_rows": lambda: store.query("gdelt", cs.Q_POLY).indices,
+             "h_rows": lambda: store.query("gdelt", cs.Q_H).indices,
+             "i_rows": lambda: store.query("gdelt", cs.Q_I_LT).indices,
+             "j_rows": lambda: store.query("gdelt",
+                                           cs.Q_J_CONTAINS).indices}
+    ready = {k: hashlib.sha256(np.asarray(fn()).tobytes()).hexdigest()[:16]
+             for k, fn in calls.items()}
+    sync = torch.cuda.synchronize if a.device == "cuda" else (lambda: None)
+
+    def answer() -> dict:
+        out = {}
+        for k, fn in calls.items():
+            ts = []
+            for _ in range(a.reps):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            out[f"{k}_p50_ms"] = _median(ts)
+            acts = dev_ms = None
+            if a.device == "cuda":
+                acts, dev_ms = cs.activities_per_call(fn, calls=3)
+            out[f"{k}_activities"] = acts
+            out[f"{k}_device_ms"] = dev_ms
+        return out
+
+    return ready, answer
+
+
 PHASES = {"count": setup_count, "kernels": setup_kernels,
           "fused": setup_fused, "fusedk": setup_fusedk,
-          "staged": setup_staged}
+          "staged": setup_staged, "rows": setup_rows}
 
 
 # -- worker and turns -------------------------------------------------------

@@ -84,6 +84,17 @@ Phases, each failing the run (non-zero exit) when it fails:
    share of the band count; then ``seg_band`` against its plain version at
    (m1)'s candidate blocks and at 33,554,432 near-edge segments, and
    ``box_count``'s envelope mode at (m1)'s box and 64 boxes;
+7c. authorizations, feature ids, shaping and the rows path (n)
+   (``phase_auths``): a store of its own over the same 100M points, each
+   labelled with one of 8 seed-drawn visibility expressions; (a)-(d) under
+   auths that allow some, all and none of them, (h)'s OR, an IN of 1,000
+   feature ids alone and with (a)'s box, (a) sorted, limited, transformed
+   and reprojected — every answer equal to a numpy oracle that evaluates
+   the expressions itself, every kernel's launches read around, and
+   ``fused_scan``'s VIS form against its plain version; then on the main
+   store (c)'s, (h)'s, (i)'s and (j)'s rows with the host permutation not
+   cached (host syncs, device activities), and the first select of more
+   than 2^20 rows with its one permutation read-back;
 8. the write path (l) on the same store, after every other phase (the
    corpus changes under it): 20 appends of 100,000 rows into the LSM delta
    tier, (a)-(d) and (g3)'s 64 boxes through ``count_many`` over main +
@@ -230,6 +241,12 @@ L_BATCHES = 20
 L_BATCH = 100_000
 L_SEED = 77
 L_STORE_N = 1_000_000
+# (n): visibility labels, authorizations, feature ids, the shaping hints
+# and the rows path on the cfg1 corpus: each row labelled with one of 8
+# expressions drawn from N_SEED over N_LABELS, an IN of N_FIDS ids
+N_SEED = 88
+N_LABELS = ("admin", "ops", "user", "intel", "ext")
+N_FIDS = 1000
 
 
 def box_query(box, days) -> str:
@@ -931,6 +948,10 @@ def phase_main_path(n: int = N, device: str = "cuda"):
     g_oracle["a"] = want_box
     g_oracle["b_rows"] = want_rows
     g_oracle["d_grid"] = want_d
+    # (n)'s oracles start from these rows
+    g_oracle["a_rows"] = rows_e
+    g_oracle["d_rows"] = rows_d
+    g_oracle["f_rows"] = want_f
     f_oracle = filters_oracle(x, y, val, tmask, len(want_rows))
     del tmask, cand, sel_a
     log(f"[main] numpy oracle in {time.perf_counter() - t0:.2f} s: "
@@ -3095,6 +3116,356 @@ def phase_extent_kernels(m1: dict) -> dict:
     return {"seg_band": seg, "box_count": box}
 
 
+def vis_expressions(seed: int = N_SEED):
+    """8 distinct visibility expressions drawn from a seed, as sorted
+    (text, tree) pairs: a label, an AND or an OR of two labels, or
+    label&(label|label). None is public, so a set of auths can allow none.
+    The tree is the oracle's own form of the expression."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    while len(out) < 8:
+        a, b, c = (str(v) for v in rng.choice(N_LABELS, 3, replace=False))
+        form = int(rng.integers(0, 4))
+        text, tree = ((a, a), (f"{a}&{b}", ("&", [a, b])),
+                      (f"{a}|{b}", ("|", [a, b])),
+                      (f"{a}&({b}|{c})", ("&", [a, ("|", [b, c])])))[form]
+        out.setdefault(text, tree)
+    return sorted(out.items())
+
+
+def oracle_visible(tree, auths) -> bool:
+    """The oracle's evaluation of an expression tree under ``auths``."""
+    if isinstance(tree, str):
+        return tree in auths
+    op, kids = tree
+    return (all if op == "&" else any)(oracle_visible(k, auths)
+                                       for k in kids)
+
+
+def vis_scan_bound(cols, plan, ids, nblk, bsz: int, k: int) -> dict:
+    """``fused_scan``'s bound in its VIS form at ``k`` live blocks of
+    ``plan`` (a box, windows, a residual, the allowed codes): bytes — the
+    point planes of every candidate; the time planes and the ``__vis__``
+    code of those in a box; the residual's columns of those in a box and a
+    window (counted by the plain scan of the query cut to its boxes, and
+    to its boxes and windows); the block ids; the count. Operations: one
+    box's 4 key compares a candidate."""
+    import torch
+    from geomesa_tpu_torch.index import compiled, scan
+    dev = cols["xi"].device
+    boxes, windows = plan.boxes_loose, plan.windows
+    gate_ = compiled._gate_of(plan.explain["boxes"], len(boxes))
+    counts = []
+    for parts in ((boxes, gate_, None, None), (boxes, gate_, windows, None)):
+        qq = scan.FusedQuery([parts])
+        counts.append(int(scan.fused_scan(
+            cols, torch.from_numpy(qq.packed).to(dev), qq, ids, nblk, bsz,
+            "count")[0]))
+    rbytes = sum(cols[c].element_size()
+                 for c, _ in plan.residual_device.program.slots)
+    cand = k * bsz
+    return _bound(16 * cand + (8 + 4) * counts[0] + rbytes * counts[1]
+                  + 4 * k + 4, 4 * cand)
+
+
+def phase_auths(store, oracle, f_oracle) -> dict:
+    """(n) on the cfg1 corpus: a store of its own over the main store's
+    100M points and columns, each row labelled with one of 8 seed-drawn
+    visibility expressions (passed dictionary-encoded, codes and sorted
+    vocabulary, as ``FeatureTable.build`` takes a string column), and three
+    sets of auths: one that allows some of the 8, one that allows all, one
+    that allows none. Every answer equals a numpy oracle that evaluates the
+    expressions itself (``oracle_visible``):
+
+    - (n1) (a)'s count, (b)'s polygon count, (c)'s select and (d)'s 64x64
+      density under each set, with every kernel's launches read around
+      (n1)-(n4) (``fused_scan``'s VIS form and ``pip_refine`` must launch);
+    - (n2) (h)'s OR as a count and as rows under the first set;
+    - (n3) an ``IN`` of 1,000 seed-drawn feature ids, alone and ANDed with
+      (a)'s box, with and without the first set;
+    - (n4) (a)'s filter sorted on ``-val`` then ``dtg``, limited to 1,000,
+      transformed to ``["val", "geom"]`` and reprojected to EPSG:3857,
+      with and without the first set;
+    - (n5) on the main store, the rows path: (c)'s, (h)'s, (i)'s and (j)'s
+      rows and (b)'s, (i)'s and (j)'s counts with the host permutation not
+      cached (each mapping a device gather), their host syncs (CUDA's
+      sync debug mode) and device activities, then the first select of
+      more than 2^20 rows ((f)'s) with its one permutation read-back and
+      the host memory of the cache;
+
+    then ``fused_scan``'s VIS form against its plain version at (a)'s
+    alive blocks and over every block (on the card). ``store``'s device
+    runs it (``cpu``: a dry run of the protocol, without the kernel
+    timings and profiles). Returns the launches and the VIS rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from geomesa_tpu_torch import DataStoreFinder
+    from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
+    from geomesa_tpu_torch.index import compiled, scan
+    from geomesa_tpu_torch.index.spatial import _row_gather
+    from geomesa_tpu_torch.kernels import (box_count, compact, density,
+                                           fused_scan, gate, pip)
+
+    cuda = store.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    main = store.planner("gdelt").table
+    n = len(main)
+    x, y = main.geometry().point_xy()
+    val = np.asarray(main.columns["val"])
+    dtg = np.asarray(main.columns["dtg"])
+    exprs = vis_expressions()
+    vocab = [t for t, _ in exprs]
+    codes = np.random.default_rng(N_SEED).integers(0, len(vocab), n) \
+        .astype(np.int32)
+    sets = {"all": list(N_LABELS), "none": []}
+    sets["some"] = next(a for a in (["admin"], ["admin", "ops"], ["ops"],
+                                    ["user", "intel"], ["ext"], ["intel"])
+                        if 0 < sum(oracle_visible(t, a) for _, t in exprs)
+                        < len(exprs))
+    luts = {k: np.array([oracle_visible(t, a) for _, t in exprs])
+            for k, a in sets.items()}
+    if not luts["all"].all() or luts["none"].any():
+        raise AssertionError(f"auths sets {sets} do not allow all / none")
+    some = sets["some"]
+    ok_some = luts["some"][codes]
+
+    t0 = time.perf_counter()
+    vstore = DataStoreFinder.get_data_store(type="torch",
+                                            device=store.device)
+    sft = vstore.create_schema("gvis", SPEC)
+    vstore.load("gvis", FeatureTable.build(
+        sft, {k: main.columns[k] for k in ("name", "val", "dtg", "geom")},
+        visibilities=StringColumn(codes, vocab)))
+    sync()
+    load_s = time.perf_counter() - t0
+    vplanner = vstore.planner("gvis")
+    vidx = vplanner.indexes[0]
+    if "__vis__" not in vidx.device.columns:
+        raise AssertionError("(n) the store has no __vis__ plane")
+    log(f"[auths] (n) store of {n} rows labelled with {json.dumps(vocab)} "
+        f"loaded in {load_s} s; auths sets {json.dumps(sets)}, the first "
+        f"allowing {int(luts['some'].sum())} of {len(vocab)}")
+
+    counters = {"pip_refine": pip.pip_refine,
+                "grid_scatter": density.grid_scatter,
+                "box_count": box_count.box_count,
+                "block_gate": gate.block_gate,
+                "fused_scan": fused_scan.fused_scan,
+                "ordered_compact": compact.ordered_compact}
+    for c in counters.values():
+        c.launches = 0
+    fused_scan.fused_scan.vis_launches = 0
+    a_rows, b_rows, d_rows = oracle["a_rows"], oracle["b_rows"], \
+        oracle["d_rows"]
+    checks, answers = {}, {}
+
+    # (n1) the main path's queries under each set of auths
+    for key, auths in sets.items():
+        ok = luts[key][codes]
+        vis_before = fused_scan.fused_scan.vis_launches
+        pip_before = pip.pip_refine.launches
+        got_a = vstore.count("gvis", Q_BOX, auths=auths)
+        got_b = vstore.count("gvis", Q_POLY, auths=auths)
+        got_c = vstore.query("gvis", Q_POLY, auths=auths).indices
+        got_d = vstore.query("gvis", Q_D, hints=density_hint(D_BBOX, 64, 64),
+                             auths=auths).weights
+        want_b = b_rows[ok[b_rows]]
+        want_d = oracle_density(x, y, d_rows[ok[d_rows]], D_BBOX, 64, 64)
+        checks[f"n1_{key}"] = (
+            got_a == int(ok[a_rows].sum()) and got_b == len(want_b)
+            and np.array_equal(got_c, want_b)
+            and np.array_equal(got_d, want_d.astype(np.float32)))
+        answers[f"n1_{key}"] = {
+            "a": got_a, "b": got_b, "c_rows": len(got_c),
+            "d_sum": float(got_d.sum()),
+            "vis_launches": fused_scan.fused_scan.vis_launches - vis_before,
+            "pip_refine": pip.pip_refine.launches - pip_before}
+    if cuda and (answers["n1_some"]["vis_launches"] < 4
+                 or answers["n1_some"]["pip_refine"] < 2
+                 or answers["n1_all"]["vis_launches"] != 0
+                 or answers["n1_none"]["vis_launches"] != 0):
+        raise AssertionError(f"(n1) launches {json.dumps(answers)}: the "
+                             "first auths must launch fused_scan's VIS "
+                             "form for (a)-(d) and pip_refine for (b), (c); "
+                             "all and none not the VIS form")
+
+    # (n2) (h)'s OR under the first set
+    h_rows = f_oracle["h_rows"]
+    want_h = h_rows[ok_some[h_rows]]
+    got_hc = vstore.count("gvis", Q_H, auths=some)
+    got_hr = vstore.query("gvis", Q_H, auths=some).indices
+    checks["n2"] = got_hc == len(want_h) and np.array_equal(got_hr, want_h)
+    answers["n2"] = {"count": got_hc, "rows": len(got_hr)}
+
+    # (n3) feature ids
+    fid_rows = np.sort(np.random.default_rng(N_SEED + 1).choice(
+        n, N_FIDS, replace=False))
+    q_fid = "IN (" + ", ".join(f"'{r}'" for r in fid_rows) + ")"
+    in_a = np.zeros(n, dtype=bool)
+    in_a[a_rows] = True
+    for label, q, auths, want in (
+            ("fid", q_fid, None, fid_rows),
+            ("fid_auths", q_fid, some, fid_rows[ok_some[fid_rows]]),
+            ("fid_box", f"{q_fid} AND {Q_BOX}", None,
+             fid_rows[in_a[fid_rows]]),
+            ("fid_box_auths", f"{q_fid} AND {Q_BOX}", some,
+             fid_rows[in_a[fid_rows] & ok_some[fid_rows]])):
+        got_n = vstore.count("gvis", q, auths=auths)
+        got_r = vstore.query("gvis", q, auths=auths).indices
+        checks[f"n3_{label}"] = got_n == len(want) \
+            and np.array_equal(got_r, want)
+        answers[f"n3_{label}"] = got_n
+    del in_a
+
+    # (n4) the shaping hints on (a)'s filter
+    hints = {"sort": ["-val", "dtg"], "limit": 1000,
+             "transform": ["val", "geom"], "crs": "EPSG:3857"}
+    R = 6378137.0
+    for label, auths in (("shaped", None), ("shaped_auths", some)):
+        rows = a_rows if auths is None else a_rows[ok_some[a_rows]]
+        want = rows[np.lexsort((rows, dtg[rows], -val[rows].astype(
+            np.int64)))][:1000]
+        res = vstore.query("gvis", Q_BOX, hints=dict(hints), auths=auths)
+        gx, gy = res.table.geometry().point_xy()
+        wy = np.clip(y[want], -85.051128779806604, 85.051128779806604)
+        checks[f"n4_{label}"] = (
+            np.array_equal(res.indices, want)
+            and [a.name for a in res.table.sft.attributes] == ["val", "geom"]
+            and np.array_equal(np.asarray(res.table.columns["val"]),
+                               val[want])
+            and np.allclose(gx, R * np.radians(x[want]), rtol=1e-12, atol=0)
+            and np.allclose(gy, R * np.log(np.tan(np.pi / 4
+                                                  + np.radians(wy) / 2)),
+                            rtol=1e-12, atol=0))
+        answers[f"n4_{label}"] = len(res.indices)
+    sync()
+    launches = {k: c.launches for k, c in counters.items()}
+    vis_launches = fused_scan.fused_scan.vis_launches
+    if not all(checks.values()):
+        raise AssertionError(f"(n) differs from its oracles: "
+                             f"{[k for k, v in checks.items() if not v]}; "
+                             f"{json.dumps(answers)}")
+    log(f"[auths] (n1)-(n4) equal to their oracles: {json.dumps(answers)}; "
+        f"launches {json.dumps(launches)}, of them fused_scan's VIS form "
+        f"{vis_launches}")
+
+    p50 = {}
+    for label, fn in (
+            ("a_count", lambda: vstore.count("gvis", Q_BOX, auths=some)),
+            ("b_count", lambda: vstore.count("gvis", Q_POLY, auths=some)),
+            ("c_rows", lambda: vstore.query("gvis", Q_POLY, auths=some)),
+            ("d_density", lambda: vstore.query(
+                "gvis", Q_D, hints=density_hint(D_BBOX, 64, 64),
+                auths=some)),
+            ("h_count", lambda: vstore.count("gvis", Q_H, auths=some)),
+            ("fid_count", lambda: vstore.count("gvis", q_fid, auths=some)),
+            ("shaped", lambda: vstore.query("gvis", Q_BOX,
+                                            hints=dict(hints),
+                                            auths=some))):
+        p50[label] = timed(fn, sync, REPS)[0]
+
+    # fused_scan's VIS form against its plain version, (a) under the first
+    # set of auths
+    plan_v = vplanner._apply_auths(vplanner.plan(Q_BOX), some)
+    prog_v = compiled.Program(plan_v, "count")
+    if not prog_v.query.vis:
+        raise AssertionError("(n) (a)'s program has no vis section")
+    cols, bsz = vidx.device.columns, prog_v.bsz
+    ids_a, _, nblk_a = prog_v._gate()
+    nb = -(-n // bsz)
+    ids_all = torch.arange(nb, dtype=torch.int32, device=cols["xi"].device)
+    nblk_all = torch.tensor([nb], dtype=torch.int32, device=ids_all.device)
+    vis_rows = []
+    k_a = int(nblk_a[0])
+    for label, ids, nblk, k, reps in () if not cuda else (
+            (f"fused_scan VIS count at (a)'s {k_a} alive blocks", ids_a,
+             nblk_a, k_a, 200),
+            (f"fused_scan VIS count over all {nb} blocks", ids_all,
+             nblk_all, nb, 20)):
+        args = (cols, prog_v.qbuf, prog_v.query, ids, nblk, bsz, "count")
+        vis_rows.append(_time_kernel(
+            label, lambda args=args: fused_scan.fused_scan(*args),
+            lambda args=args: scan.fused_scan(*args),
+            vis_scan_bound(cols, plan_v, ids, nblk, bsz, k), reps))
+    del vstore, vplanner, vidx, cols, prog_v, plan_v
+    torch.cuda.empty_cache()
+
+    # (n5) the rows path on the main store: first with no host permutation
+    # cached (every set below 2^20 rows, so each mapping is a device
+    # gather), then (h)'s rows, past 2^20, which read it back once
+    idx = store.planner("gdelt").indexes[0]
+    idx._perm_cache = None
+    idx.build_stages.pop("perm_readback_s", None)
+
+    def measure(fn) -> dict:
+        fn()
+        sync()
+        with scan.host_syncs(store.device) as hs:
+            fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CPU]
+                     + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        names = sorted({e.name for e in dev})
+        return {"host_syncs": hs.count, "device_activities": len(dev),
+                "device_busy_ms": busy, "wall_ms_profiled": wall_ms,
+                "idle_share": 1.0 - busy / wall_ms,
+                "pageable": [m for m in names if "Pageable" in m],
+                "copies": [m for m in names if "Memcpy" in m],
+                "p50_ms": timed(fn, sync, REPS)[0]}
+
+    rows_path = {}
+    for label, fn in (
+            ("b_count", lambda: store.count("gdelt", Q_POLY)),
+            ("c_rows", lambda: store.query("gdelt", Q_POLY).indices),
+            ("i_lt_count", lambda: store.count("gdelt", Q_I_LT)),
+            ("i_lt_rows", lambda: store.query("gdelt", Q_I_LT).indices),
+            ("j_contains_count", lambda: store.count("gdelt",
+                                                     Q_J_CONTAINS)),
+            ("j_contains_rows", lambda: store.query(
+                "gdelt", Q_J_CONTAINS).indices)):
+        rows_path[label] = measure(fn)
+    cached_after_small = idx._perm_cache is not None
+    sync()
+    t0 = time.perf_counter()
+    got_h = store.query("gdelt", Q_H).indices
+    first_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(got_h, h_rows) or idx._perm_cache is None:
+        raise AssertionError("(n5) (h)'s rows differ from their oracle or "
+                             "left no host permutation")
+    perm_read = {"rows": len(got_h), "first_select_ms": first_ms,
+                 "perm_readback_s": idx.build_stages["perm_readback_s"],
+                 "host_perm_bytes": int(idx._perm_cache.nbytes),
+                 "cached_after_small_sets": cached_after_small}
+    rows_path["h_rows_cached"] = measure(lambda: store.query(
+        "gdelt", Q_H).indices)
+    # the mapping alone at (h)'s positions, by each route of the rule
+    prog_h = compiled.UnionProgram(store.planner("gdelt").plan(Q_H),
+                                   "select", sel_cap=1 << 21)
+    out_h = scan._fetch(prog_h.run).numpy()
+    pos_h = out_h[1: 1 + int(out_h[0])].astype(np.int64)
+    perm_read["map_ms_host_perm"] = timed(lambda: idx.host_perm[pos_h],
+                                          sync, REPS)[0]
+    perm_read["map_ms_device_gather"] = timed(
+        lambda: _row_gather(idx.perm, pos_h), sync, REPS)[0]
+    rows_path["f_rows_cached"] = measure(lambda: store.query(
+        "gdelt", Q_F).indices)
+    log(json.dumps({"auths": {
+        "n": n, "load_s": load_s, "vocab": vocab, "sets": sets,
+        "answers": answers, "p50_ms_first_auths": p50,
+        "launches_checked_run": launches, "vis_launches": vis_launches,
+        "rows_path": rows_path, "perm_readback": perm_read}}))
+    return {"launches": launches, "vis_launches": vis_launches,
+            "vis_rows": vis_rows}
+
+
 def queries(store):
     """The main path's queries as (label, zero-arg fn), for the timings and
     the profile."""
@@ -3239,6 +3610,8 @@ def main() -> int:
     phase_profile(store, (("g1_prepared_count", g["pq"].count),
                           ("g3_batch64_dispatch", g["disp"]),
                           *filter_queries(store)))
+    nres = phase_auths(store, g_oracle, f_oracle)
+    nl = nres["launches"]
     m = phase_extent(store.planner("gdelt").table)
     mk = phase_extent_kernels(m.pop("m1_state"))
     w = phase_write(store, g_oracle)
@@ -3252,20 +3625,22 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": pip.NAME, "route": "cuda", "source": pip.SOURCE,
         "replaces": pip.REPLACES,
-        "launches": launches["pip_refine"] + f["pip_refine"],
+        "launches": launches["pip_refine"] + f["pip_refine"]
+        + nl["pip_refine"],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None}, {
         "name": density.NAME, "route": "cuda", "source": density.SOURCE,
         "replaces": density.REPLACES,
-        "launches": launches["grid_scatter"] + f["grid_scatter"],
+        "launches": launches["grid_scatter"] + f["grid_scatter"]
+        + nl["grid_scatter"],
         "max_abs_err": max(r["max_abs_err"] for r in d), "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"]}, {
         "name": box_count.NAME, "route": "cuda", "source": box_count.SOURCE,
         "replaces": box_count.REPLACES,
         "launches": launches["box_count"] + g["r"]["box_count_launches"]
-        + f["box_count"] + m["launches"]["box_count"],
+        + f["box_count"] + nl["box_count"] + m["launches"]["box_count"],
         "max_abs_err": max(r["max_abs_err"] for r in b + mk["box_count"]),
         "ms": bhead["ms"],
         "plain_ms": bhead["plain_ms"], "bound_ms": bhead["bound_ms"],
@@ -3291,14 +3666,24 @@ def main() -> int:
         "bound_by": mk["seg_band"][0]["bound_by"], "library_ms": None}] + [{
         "name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
         "replaces": mod.REPLACES,
-        "launches": launches[mod.NAME] + f[mod.NAME],
+        "launches": launches[mod.NAME] + f[mod.NAME] + nl[mod.NAME],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
         "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
         "library_ms": rows[0]["library_ms"]}
         for mod, rows in ((gate, fk["block_gate"]),
                           (fused_scan, fk["fused_scan"]),
-                          (compact, fk["ordered_compact"]))]}))
+                          (compact, fk["ordered_compact"]))] + [{
+        # fused_scan's VIS form (a query under authorizations): its
+        # launches are (n)'s, also counted in fused_scan's above
+        "name": f"{fused_scan.NAME}_vis", "route": "cuda",
+        "source": fused_scan.SOURCE, "replaces": fused_scan.REPLACES_VIS,
+        "launches": nres["vis_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in nres["vis_rows"]),
+        "ms": nres["vis_rows"][0]["ms"],
+        "plain_ms": nres["vis_rows"][0]["plain_ms"],
+        "bound_ms": nres["vis_rows"][0]["bound_ms"],
+        "bound_by": nres["vis_rows"][0]["bound_by"], "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -75,11 +75,11 @@ def prepare_density(planner, f, bbox, width: int = 256, height: int = 256,
     host (``_host_density``). An OR plan (``UnionScanPlan``) renders unit
     weights in one union program (``compiled.try_union_density``) when
     every branch is device-exact on one index, else through the host."""
-    if auths is not None:
-        raise not_ported("visibility authorizations", 10)
     if not planner.table.geometry().is_points:
         raise not_ported("density over extent layers", 9)
-    plan = planner.plan(f)
+    # auths fold into the device scan as the allowed visibility codes (≙
+    # the reference's density under auths, VisibilityFilter on the scan)
+    plan = planner._apply_auths(planner.plan(f), auths)
     shape = (height, width)
 
     def run_empty():
@@ -95,7 +95,7 @@ def prepare_density(planner, f, bbox, width: int = 256, height: int = 256,
                                            height)
             if out is None:
                 return _host_density(planner, f, plan, bbox, width, height,
-                                     weight_attr)
+                                     weight_attr, auths)
             return DensityGrid(tuple(bbox), width, height, out[0])
         return run_union
 
@@ -141,7 +141,7 @@ def prepare_density(planner, f, bbox, width: int = 256, height: int = 256,
             state["cap"] = None  # gather scan — no compaction to overflow
             _stage_pack(len(blocks) * _prune.BLOCK_SIZE)
         else:
-            cnt = planner._count(plan, f)
+            cnt = planner._count(plan, f, auths)
             _stage_compact(cnt)
             _stage_pack(cnt)
 
@@ -182,7 +182,7 @@ def prepare_density(planner, f, bbox, width: int = 256, height: int = 256,
 
     def run_host():
         return _host_density(planner, f, plan, bbox, width, height,
-                             weight_attr)
+                             weight_attr, auths)
     return run_host
 
 
@@ -216,10 +216,10 @@ def host_grid(table, rows: np.ndarray, bbox, width: int, height: int,
 
 
 def _host_density(planner, f, plan, bbox, width, height,
-                  weight_attr) -> DensityGrid:
+                  weight_attr, auths=None) -> DensityGrid:
     """Host route (≙ LocalQueryRunner's density transform): the selected
     rows snapped on the host."""
-    rows = planner.select_indices(f, plan=plan)
+    rows = planner.select_indices(f, plan=plan, auths=auths)
     return DensityGrid(tuple(bbox), width, height,
                        host_grid(planner.table, rows, bbox, width, height,
                                  weight_attr))

@@ -6,11 +6,15 @@
     store.load("gdelt", FeatureTable.build(sft, columns))
     store.load("gdelt", more)             # lands in the LSM delta tier
     with store.get_writer("gdelt") as w:  # row appends, the same path
-        w.write(name="a", val=1, dtg=..., geom="POINT (1 2)")
+        w.write(name="a", val=1, dtg=..., geom="POINT (1 2)",
+                vis="admin&(user|ops)")
     store.count("gdelt", "BBOX(geom, ...) AND dtg DURING ...")
     store.query("gdelt", "INTERSECTS(geom, POLYGON(...)) AND ...").indices
     store.query("gdelt", "dtg DURING ...", hints={"density": {
         "bbox": (-60, -30, 60, 30), "width": 64, "height": 64}}).weights
+    store.count("gdelt", "IN ('gdelt.1', 'gdelt.7')", auths=["admin"])
+    store.query("gdelt", "BBOX(...)", hints={"sort": ["-val", "dtg"],
+        "limit": 1000, "transform": ["val", "geom"], "crs": "EPSG:3857"})
     store.flush("gdelt")                  # merge the delta into the index
     store.upsert("gdelt", batch)          # put by fid
     store.remove_features("gdelt", "val = 7")
@@ -30,7 +34,10 @@ selects and density grids merge in exactly; a flush (explicit, past the
 threshold, or before ``planner()`` hands out a planner) merges the delta
 into the index by the incremental merge build (``Z3Index.merge_from``, the
 ``merge_scatter`` CUDA kernel; the other indexes rebuild in full), and the
-destructive mutations rebuild it.
+destructive mutations rebuild it. Features carry visibility labels (the
+writer's ``vis``, ``FeatureTable.build(..., visibilities=...)``), and every
+read takes the caller's ``auths``; feature-id filters and the shaping hints
+(sort, limit, transform, crs) answer as the reference's.
 Every other store feature raises NotImplementedError naming its
 ROADMAP.md item.
 """
@@ -57,8 +64,11 @@ from geomesa_tpu_torch.filter.parser import parse_ecql
 from geomesa_tpu_torch.index.api import QueryResult, not_ported
 from geomesa_tpu_torch.index.device import resolve
 from geomesa_tpu_torch.index.planner import QueryPlanner
+from geomesa_tpu_torch.index.shaping import (reproject_table, shape_local,
+                                             shape_rows, transform_table)
 from geomesa_tpu_torch.index.spatial import index_class
 from geomesa_tpu_torch.metrics import REGISTRY as _metrics
+from geomesa_tpu_torch.security.visibility import allowed_codes
 from geomesa_tpu_torch.serve.resilience import deadline as _rdl
 
 # store incarnations: every store (and every bare-planner scheduler
@@ -82,13 +92,13 @@ class FeatureWriter:
         self.sft = store.schemas[type_name]
         self._rows: List[dict] = []
         self._fids: List[Optional[str]] = []
+        self._vis: List[str] = []
 
     def write(self, fid: Optional[str] = None, vis: str = "",
               **attributes) -> str:
         """Buffer one feature; returns its fid (``<type>.<n>`` when none is
-        given). ``vis``: visibility labels are not ported yet."""
-        if vis:
-            raise not_ported("visibility labels", 10)
+        given). ``vis``: the feature's visibility expression ('' = public;
+        ≙ ``geomesa_tpu/datastore.py:65-67``)."""
         missing = [a.name for a in self.sft.attributes
                    if a.name not in attributes]
         if missing:
@@ -97,6 +107,7 @@ class FeatureWriter:
         if fid is None:
             fid = f"{self.type_name}.{self.store._fid_counter(self.type_name)}"
         self._fids.append(fid)
+        self._vis.append(vis)
         return fid
 
     def flush(self) -> None:
@@ -107,9 +118,11 @@ class FeatureWriter:
             vals = [row[a.name] for row in self._rows]
             cols[a.name] = GeometryArray.from_rows(vals) \
                 if a.is_geometry else vals
-        batch = FeatureTable.build(self.sft, cols, fids=self._fids)
+        vis = self._vis if any(self._vis) else None
+        batch = FeatureTable.build(self.sft, cols, fids=self._fids,
+                                   visibilities=vis)
         self.store._append(self.type_name, batch)
-        self._rows, self._fids = [], []
+        self._rows, self._fids, self._vis = [], [], []
 
     def __enter__(self):
         return self
@@ -376,7 +389,8 @@ class TorchDataStore:
                     cols[name] = arr
             self._bump_generation(type_name)
             self.tables[type_name] = FeatureTable(
-                table.sft, cols, _n=len(table), _fids=table._fids)
+                table.sft, cols, _n=len(table), _fids=table._fids,
+                visibility=table.visibility)
             self._rebuild_indexes(type_name)
             return int(len(rows))
 
@@ -481,14 +495,16 @@ class TorchDataStore:
     def _delta_rows(self, delta: Optional[FeatureTable], f,
                     auths) -> np.ndarray:
         """Matching rows of a snapshotted delta run, evaluated on the host
-        in f64 (the delta is bounded small, so brute force is exact)."""
+        in f64 (the delta is bounded small, so brute force is exact), and
+        visible to ``auths`` (≙ ``geomesa_tpu/datastore.py:495-517``)."""
         if delta is None:
             return np.empty(0, dtype=np.int64)
-        if auths is not None:
-            raise not_ported("visibility labels and query authorizations",
-                             10)
         fir = parse_ecql(f) if isinstance(f, str) else f
-        return np.flatnonzero(evaluate(fir, delta))
+        rows = np.flatnonzero(evaluate(fir, delta))
+        if auths is not None and delta.visibility is not None and len(rows):
+            allowed = allowed_codes(delta.visibility.vocab, auths)
+            rows = rows[np.isin(delta.visibility.codes[rows], allowed)]
+        return rows
 
     def count(self, type_name: str, f: Union[str, ir.Filter] = "INCLUDE",
               auths: Optional[list] = None,
@@ -594,33 +610,55 @@ class TorchDataStore:
                 self._scheduler = None
 
     def query(self, type_name: str, f: Union[str, ir.Filter] = "INCLUDE",
-              hints: Optional[dict] = None
+              hints: Optional[dict] = None, auths: Optional[list] = None,
+              deadline_ms: Optional[float] = None
               ) -> Union[QueryResult, DensityGrid]:
-        """Rows of a filter as a QueryResult; with ``hints={"density":
-        {"bbox", "width", "height", "weight"}}`` a DensityGrid heat map of
-        the matches instead (width/height default to 256, weight to None).
-        A pending delta merges in inline, as in the reference
-        (``geomesa_tpu/datastore.py:927-1027``): its rows stack above the
-        main table's (``indices`` past ``len(main table)``), and a density
-        adds the delta's host grid onto the device grid."""
-        hints = hints or {}
-        unknown = set(hints) - {"density"}
+        """Rows of a filter visible to ``auths`` as a QueryResult; hints
+        switch the result form as the reference's (≙
+        ``geomesa_tpu/datastore.py:900-1027``):
+
+          hints["density"]   = {"bbox", "width", "height", "weight"}
+                               → DensityGrid (width/height 256, weight None
+                               by default)
+          hints["sort"]      = attr | "-attr" | [specs] (stable, major-first)
+          hints["limit"]     = n (applied before hydration)
+          hints["transform"] = ["attr", "out=expr(...)"] (projected type)
+          hints["crs"]       = "EPSG:3857" (output reprojection)
+
+        The shaping hints (sort, limit, transform, crs) compose. A pending
+        delta merges in inline: its rows stack above the main table's
+        (``indices`` past ``len(main table)``), a density adds the
+        delta's host grid onto the device grid, and shaping sorts and
+        limits main and delta rows together. ``bin``, ``stats`` and
+        ``sample`` are ROADMAP.md Queue 1 item 12."""
+        with _rdl.scope(deadline_ms):
+            return self._query_impl(type_name, f, hints or {}, auths)
+
+    def _query_impl(self, type_name, f, hints, auths):
+        shaping = {"sort", "limit", "transform", "crs"}
+        aggregations = set(hints) & {"bin", "stats", "sample"}
+        if aggregations:
+            raise not_ported(f"query hints {sorted(aggregations)}", 12)
+        unknown = set(hints) - shaping - {"density"}
         if unknown:
-            raise not_ported(f"query hints {sorted(unknown)}", 10)
+            raise ValueError(f"Unknown hints: {sorted(unknown)}")
         planner, delta = self._snapshot(type_name)
         if "density" in hints:
             d = dict(hints["density"])
             grid = density(planner, f, d["bbox"], d.get("width", 256),
-                           d.get("height", 256), d.get("weight"))
+                           d.get("height", 256), d.get("weight"),
+                           auths=auths)
             if delta is not None:
                 grid.weights = grid.weights + host_grid(
-                    delta, self._delta_rows(delta, f, None), d["bbox"],
+                    delta, self._delta_rows(delta, f, auths), d["bbox"],
                     grid.width, grid.height, d.get("weight"))
             return grid
-        res = planner.query(f)
+        if hints:
+            return self._shaped(planner, delta, f, hints, auths)
+        res = planner.query(f, auths=auths)
         if delta is None:
             return res
-        drows = self._delta_rows(delta, f, None)
+        drows = self._delta_rows(delta, f, auths)
         n_main = len(planner.table)
         rows = np.concatenate([res.indices, drows + n_main])
         sub = FeatureTable.concat([res.table, delta.take(drows)]) \
@@ -628,6 +666,31 @@ class TorchDataStore:
         if res.plan is not None:
             res.plan.explain["stacked_rows_base"] = n_main
         return QueryResult(rows, sub, res.plan)
+
+    def _shaped(self, planner, delta, f, hints, auths) -> QueryResult:
+        """The shaping hints (≙ ``geomesa_tpu/datastore.py:948-973``): sort
+        and limit on row indices before hydration, over main and delta
+        rows together when a delta is pending (merged inline, no flush),
+        then the transform and the reprojection of the hydrated rows."""
+        plan = planner.plan(f)
+        rows = planner.select_indices(f, plan=plan, auths=auths)
+        if delta is None:
+            rows = shape_rows(planner.table, rows, hints.get("sort"),
+                              hints.get("limit"))
+            sub = planner.table.take(rows)
+        else:
+            drows = self._delta_rows(delta, f, auths)
+            sub = FeatureTable.concat(
+                [planner.table.take(rows), delta.take(drows)])
+            rows = np.concatenate([rows, drows + len(planner.table)])
+            local = shape_local(sub, hints.get("sort"), hints.get("limit"))
+            rows = rows[local]
+            sub = sub.take(local)
+        if "transform" in hints:
+            sub = transform_table(sub, hints["transform"])
+        if "crs" in hints:
+            sub = reproject_table(sub, hints["crs"])
+        return QueryResult(rows, sub, plan)
 
 
 class DataStoreFinder:

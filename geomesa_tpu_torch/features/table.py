@@ -7,7 +7,9 @@ dictionary codes (int32) + a sorted vocab, exactly the reference's
 ``StringColumn.encode`` so device codes agree across both packages.
 Feature ids are explicit strings or implicit (fid == str(row)); both stay
 in the lazy ``FidRuns`` form across ``take`` and ``concat`` and read back
-exactly as the reference's materialized ``fids`` array.
+exactly as the reference's materialized ``fids`` array. Per-feature
+visibility expressions (geomesa-security) are one more dictionary-encoded
+column, ``visibility``, carried by ``take`` and ``concat``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ class StringColumn:
 
     def __len__(self) -> int:
         return len(self.codes)
+
+    def decode(self, idx) -> List[str]:
+        return [self.vocab[c] for c in self.codes[idx]]
 
     @classmethod
     def encode(cls, values: Sequence[str]) -> "StringColumn":
@@ -189,6 +194,9 @@ class FeatureTable:
     _n: int = 0
     # feature ids; None = implicit (fid == str(row))
     _fids: Optional[FidRuns] = None
+    # per-feature visibility expressions, dictionary-encoded ('' = public;
+    # None = no labels: every row public)
+    visibility: Optional[StringColumn] = None
 
     def __len__(self) -> int:
         return self._n
@@ -210,11 +218,16 @@ class FeatureTable:
 
     @classmethod
     def build(cls, sft: SimpleFeatureType, data: Dict[str, object],
-              fids: Optional[Sequence[str]] = None) -> "FeatureTable":
+              fids=None,
+              visibilities: Optional[Sequence[str]] = None
+              ) -> "FeatureTable":
         """data: attribute name → column values. Geometries are a
         GeometryArray, an (x, y) point array tuple or a list of WKT;
         strings encode to dictionaries (or arrive as a StringColumn).
-        ``fids``: explicit feature ids (default: implicit, str(row))."""
+        ``fids``: explicit feature ids, or a ``FidRuns`` kept as it is
+        (default: implicit, str(row)). ``visibilities``: per-feature
+        visibility expressions ('' = public), dictionary-encoded as the
+        reference's ``geomesa_tpu/features/table.py:94-142``."""
         columns: Dict[str, object] = {}
         n = None
         for attr in sft.attributes:
@@ -248,10 +261,17 @@ class FeatureTable:
         n = n or 0
         runs = None
         if fids is not None:
-            runs = FidRuns.explicit(fids)
+            runs = fids if isinstance(fids, FidRuns) \
+                else FidRuns.explicit(fids)
             if len(runs) != n:
                 raise ValueError("fids length mismatch")
-        return cls(sft, columns, _n=n, _fids=runs)
+        vis = None
+        if visibilities is not None:
+            if len(visibilities) != n:
+                raise ValueError("visibilities length mismatch")
+            vis = visibilities if isinstance(visibilities, StringColumn) \
+                else StringColumn.encode(visibilities)
+        return cls(sft, columns, _n=n, _fids=runs, visibility=vis)
 
     def column(self, name: str):
         return self.columns[name]
@@ -273,14 +293,18 @@ class FeatureTable:
                 cols[name] = StringColumn(col.codes[idx], col.vocab)
             else:
                 cols[name] = col[idx]
+        vis = None if self.visibility is None else StringColumn(
+            self.visibility.codes[idx], self.visibility.vocab)
         return FeatureTable(self.sft, cols, _n=len(idx),
-                            _fids=self.fid_runs.take(idx))
+                            _fids=self.fid_runs.take(idx), visibility=vis)
 
     @staticmethod
     def concat(tables: Sequence["FeatureTable"]) -> "FeatureTable":
         """Concatenate tables sharing a schema (≙
         ``geomesa_tpu/features/table.py:193``): strings over the union
-        vocab, fids as the runs of every part."""
+        vocab, fids as the runs of every part; the visibility column over
+        the union of the parts' vocabularies, a part without labels public
+        ('')."""
         if not tables:
             raise ValueError("No tables")
         sft = tables[0].sft
@@ -295,4 +319,11 @@ class FeatureTable:
             else:
                 cols[attr.name] = np.concatenate(parts)
         runs = FidRuns([r for t in tables for r in t.fid_runs.runs])
-        return FeatureTable(sft, cols, _n=len(runs), _fids=runs)
+        vis = None
+        if any(t.visibility is not None for t in tables):
+            vis = StringColumn.concat([
+                t.visibility if t.visibility is not None
+                else StringColumn(np.zeros(len(t), np.int32), [""])
+                for t in tables])
+        return FeatureTable(sft, cols, _n=len(runs), _fids=runs,
+                            visibility=vis)

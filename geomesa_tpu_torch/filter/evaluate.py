@@ -4,8 +4,8 @@
 the table's rows; ``evaluate_at`` evaluates only at the given candidate rows
 (the refine path: the rows the device's f32 certainty bands left uncertain
 re-evaluate here in exact f64, geometry predicates batched through
-``geom_batch``). Feature-id filters raise NotImplementedError naming their
-ROADMAP.md item.
+``geom_batch``). Feature-id filters test the table's ids
+(``FidRuns.isin``).
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
 from geomesa_tpu_torch.filter import geom_batch as gb
 from geomesa_tpu_torch.filter import geom_numpy as gn
 from geomesa_tpu_torch.filter import ir
-from geomesa_tpu_torch.index.api import not_ported
 
 
 def evaluate(f: ir.Filter, table: FeatureTable) -> np.ndarray:
@@ -118,7 +117,10 @@ def _eval(f: ir.Filter, table: FeatureTable,
         from geomesa_tpu_torch.geom.functions import eval_filter_node
         return eval_filter_node(f, table, rows, kernels=False)
     if isinstance(f, ir.FidFilter):
-        raise not_ported("feature-id lookups", 10)
+        # ≙ ``geomesa_tpu/filter/evaluate.py:90``: the rows whose fid is
+        # listed, without materializing implicit ids
+        runs = table.fid_runs if rows is None else table.fid_runs.take(rows)
+        return runs.isin(list(f.fids))
     raise NotImplementedError(f"Cannot evaluate {type(f).__name__}")
 
 

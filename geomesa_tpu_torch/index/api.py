@@ -31,7 +31,7 @@ class IndexScanPlan:
     """
 
     index: object
-    primary_kind: str        # "point_boxes" | "bbox_overlap" | "none"
+    primary_kind: str        # "point_boxes" | "bbox_overlap" | "none" | "fid"
     boxes_loose: Optional[np.ndarray] = None       # (B,8) int32 fp62 planes
     windows: Optional[np.ndarray] = None           # (T,4) int32 exact bin/off
     residual_device: Optional[tuple] = None        # (key, params, fn)
@@ -43,6 +43,8 @@ class IndexScanPlan:
     blocks: object = False
     # heuristic strategy cost (the index's ``_cost``; lower is better)
     cost: float = 0.0
+    # the whole filter, where execution needs it (the feature-id plan)
+    full_filter: Optional[ir.Filter] = None
 
     @property
     def device_exact(self) -> bool:

@@ -26,6 +26,13 @@ For a point_boxes plan the program
    device and stops there, so nothing is sized by a value read back and
    the program makes no host sync (``scan.host_syncs`` counts none).
 
+Under authorizations the query buffer carries the allowed visibility
+codes as a bitmap (``scan.FusedQuery``'s ``vis`` section, ≙ the
+reference's ``vis`` section), which ``fused_scan`` tests against the
+``__vis__`` plane; the union program folds the auths branch by branch and
+drops a branch they leave empty, and the recipe cache is keyed by (shape,
+sorted auths).
+
 The uncertain sliver re-evaluates on the host in exact f64. An OR whose
 branches are all device-exact on one index runs as one ``UnionProgram``:
 the branch gates and masks OR inside the same kernels (select and
@@ -79,8 +86,8 @@ from geomesa_tpu_torch.index.api import IndexScanPlan, UnionScanPlan
 from geomesa_tpu_torch.index.scan import (EDGE_PAD, FusedQuery, Residual,
                                           Unsupported, _dev, _fetch,
                                           compile_residual, dist_bounds,
-                                          pad_boxes, pad_windows,
-                                          split_residual)
+                                          fold_vis, pad_boxes, pad_windows,
+                                          shared_vis, split_residual)
 from geomesa_tpu_torch.index.spatial import _boxes_fp62, _strip_handled
 from geomesa_tpu_torch.kernels.compact import ordered_compact
 from geomesa_tpu_torch.kernels.density import grid_scatter
@@ -305,8 +312,11 @@ class Program:
     def _bind_common(self, index, mode: str, sel_cap: int, grid, width: int,
                      height: int, branches) -> None:
         """Binds what every program has; ``branches`` are (boxes, gate,
-        windows, residual) and pack into the one query buffer. Raises
-        Unsupported when a residual has no program, the residuals read more
+        windows, residual) and pack into the one query buffer, with the
+        allowed visibility codes of residuals folded under authorizations
+        (``scan.fold_vis``) as its ``vis`` section. Raises Unsupported when
+        the branches' allowed codes differ, a residual has no program, the
+        residuals read more
         columns than ``fused_scan.MAX_SLOTS`` or the buffer is past
         ``QUERY_MAX_BYTES`` (the caller serves the plan staged)."""
         self.index = index
@@ -320,7 +330,9 @@ class Program:
                 raise Unsupported("residual deeper than the program stack")
             progs.append((boxes, gate, windows,
                           None if res is None else res.program))
-        self.query = FusedQuery(progs)
+        # the allowed visibility codes: one section of the query (≙ the
+        # reference's ``vis``, ``geomesa_tpu/index/compiled.py:655-660``)
+        self.query = FusedQuery(progs, shared_vis([b[3] for b in branches]))
         if len(self.query.slots) > MAX_SLOTS:
             raise Unsupported(f"residuals read {len(self.query.slots)} "
                               f"columns, past the kernel's {MAX_SLOTS}")
@@ -398,12 +410,20 @@ class UnionProgram(Program):
     and the kernels OR them per candidate."""
 
     def __init__(self, plan: UnionScanPlan, mode: str, sel_cap: int = 0,
-                 grid=None, width: int = 0, height: int = 0):
-        index = plan.same_index_device_exact()
-        self._bind_common(index, mode, sel_cap, grid, width, height, [
-            (bp.boxes_loose,
-             _gate_of(bp.explain["boxes"], len(bp.boxes_loose)),
-             bp.windows, bp.residual_device) for _, bp in plan.branches])
+                 grid=None, width: int = 0, height: int = 0,
+                 branches=None):
+        """``branches``: the branch plans to bind, when not the plan's own
+        (``_union_from_plan`` passes them folded under the caller's
+        authorizations, the empty ones dropped)."""
+        if branches is None:
+            branches = [bp for _, bp in plan.branches]
+        self._bind_common(plan.same_index_device_exact(), mode, sel_cap,
+                          grid, width, height, [
+                              (bp.boxes_loose,
+                               _gate_of(bp.explain["boxes"],
+                                        len(bp.boxes_loose)),
+                               bp.windows, bp.residual_device)
+                              for bp in branches])
 
 
 # -- qualification and execution ----------------------------------------------
@@ -571,23 +591,32 @@ def _union_from_plan(planner, plan: UnionScanPlan, mode: str, auths,
                      ) -> Optional[UnionProgram]:
     """The union program of an OR plan, or None when a branch is not a
     device-exact point-box scan on the shared index (≙ the reference's
-    ``_build_union`` declines; the per-branch path then serves it)."""
+    ``_build_union`` declines; the per-branch path then serves it). The
+    branches fold the auths one by one, and a branch that they leave
+    empty drops out (``geomesa_tpu/index/compiled.py:1089-1092``); None
+    when none is left."""
     if not config.FUSED_QUERY.get():
         return None
     idx = plan.same_index_device_exact()
     if idx is None or idx.device.n < 4 * int(_prune.BLOCK_SIZE):
         return None
+    branches = []
     for _, bp in plan.branches:
         bp = planner._apply_auths(bp, auths)
+        if bp.empty:
+            continue
         boxes_geo = bp.explain.get("boxes")
         if bp.primary_kind != "point_boxes" or bp.boxes_loose is None \
                 or not boxes_geo or len(boxes_geo) > len(bp.boxes_loose):
             return None
+        branches.append(bp)
+    if not branches:
+        return None
     sel_cap = min(_tier(capacity), _pow2(idx.device.n)) \
         if mode == "select" else 0
     try:
         return UnionProgram(plan, mode, sel_cap=sel_cap, grid=grid,
-                            width=width, height=height)
+                            width=width, height=height, branches=branches)
     except Unsupported:
         return None
 
@@ -755,9 +784,9 @@ class Recipe:
     returns None and the planner serves the query exactly."""
 
     __slots__ = ("index", "sft", "geom", "dtg", "period", "vocabs",
-                 "n_boxes", "n_windows", "res_key", "template_plan")
+                 "n_boxes", "n_windows", "res_key", "vis", "template_plan")
 
-    def __init__(self, plan, planner, res_key):
+    def __init__(self, plan, planner, res_key, vis=None):
         self.index = plan.index
         self.sft = planner.sft
         self.geom = plan.index.geom
@@ -767,6 +796,9 @@ class Recipe:
         self.n_boxes = len(plan.boxes_loose)
         self.n_windows = 0 if plan.windows is None else len(plan.windows)
         self.res_key = res_key
+        # the allowed visibility codes the shape was folded with (None: no
+        # visibility test), re-folded into every bind
+        self.vis = vis
         self.template_plan = plan
 
     def bind(self, f: ir.Filter):
@@ -811,9 +843,10 @@ class Recipe:
 
 def _rebind(recipe: Recipe, boxes, gate, windows, dev_ir) -> Optional[Program]:
     """The count program of a bound query: recompile the device residual
-    over the index's columns and build the program from the values. None
-    when the residual's structure key drifted from the recipe's, or the
-    table is under four blocks (the fused program declines it)."""
+    over the index's columns, fold the recipe's allowed visibility codes
+    into it, and build the program from the values. None when the
+    residual's structure key drifted from the recipe's, or the table is
+    under four blocks (the fused program declines it)."""
     index = recipe.index
     if index.device.n < 4 * int(_prune.BLOCK_SIZE):
         return None
@@ -821,6 +854,8 @@ def _rebind(recipe: Recipe, boxes, gate, windows, dev_ir) -> Optional[Program]:
         residual = compile_residual(dev_ir, recipe.sft, recipe.vocabs,
                                     set(index.device.columns)) \
             if dev_ir is not None else None
+        if recipe.vis is not None:
+            residual = fold_vis(residual, recipe.vis)
         if (residual[0] if residual is not None else "none") \
                 != recipe.res_key:
             return None   # structure drift: stay on the planner's path
@@ -935,7 +970,9 @@ def note_shape(planner, plan, f: ir.Filter, auths,
     if prog is None:
         cache.put(ck, None)
         return
-    cache.put(ck, Recipe(plan, planner, prog.res_key))
+    res = plan.residual_device
+    cache.put(ck, Recipe(plan, planner, prog.res_key,
+                         None if res is None else res.vis))
 
 
 # -- startup warming ----------------------------------------------------------

@@ -99,7 +99,8 @@ def host_planes(table: FeatureTable,
     Same planes, dtypes and values as the reference's ``host_planes``: a
     point layer's fp62 and f32 coordinates, an extent layer's f32 envelope
     (``bxmin``/``bymin``/``bxmax``/``bymax``) and its fp62 planes
-    (``*_i``/``*_l``, exact envelope-overlap tests). ``skip_geom`` /
+    (``*_i``/``*_l``, exact envelope-overlap tests), and the visibility
+    codes ``__vis__`` of a labelled table. ``skip_geom`` /
     ``skip_dtg`` leave out the geometry / binned-time planes that the
     native encoder already made."""
     cols: Dict[str, np.ndarray] = {}
@@ -127,6 +128,10 @@ def host_planes(table: FeatureTable,
         bins, offs = time_to_binned_time(ms, period)
         cols["bin"] = np.asarray(bins, dtype=np.int32)
         cols["off"] = np.asarray(offs, dtype=np.int32)
+
+    if table.visibility is not None:
+        # dictionary codes; query-time auths shrink to an allowed-code set
+        cols["__vis__"] = np.asarray(table.visibility.codes, dtype=np.int32)
 
     group = table.sft.device_column_group
     for attr in table.sft.attributes:
@@ -272,7 +277,9 @@ class DeviceTable:
         st["upload_s"] = t1 - t0
         st["kernel_s"] = t2 - t1
         st["stale_s"] = time.perf_counter() - t2
-        cols = {k: merged[k] for k in old.columns if k in merged}
+        # a stale column the old table lacked (its first visibility
+        # labels) joins the merged table
+        cols = {k: merged[k] for k in [*old.columns, *stale] if k in merged}
         return cls(old.n + len(r), cols), new_perm
 
 

@@ -13,7 +13,9 @@ certainty-band ``seg_band`` kernel, refining only its uncertain rows
 need a host residual plans one branch at a time (``UnionScanPlan``) when
 every branch has a spatial primary: the branches OR on the device when
 all are device-exact (one K-branch scan), else the branch row sets union on
-the host.
+the host. A feature-id filter is answered from the table's ids (the id
+index). Authorizations fold into the device stage as the allowed
+visibility codes (``_apply_auths``).
 ``prepare`` plans once (or binds a known shape's new values through the
 recipe fast path) and hands back a re-executable ``PreparedQuery``. Plan
 shapes that need modules not yet ported raise NotImplementedError naming
@@ -22,10 +24,12 @@ their ROADMAP.md item.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import List, Optional, Union
 
 import numpy as np
+import torch
 
 from geomesa_tpu_torch import config
 from geomesa_tpu_torch import trace as _trace
@@ -39,9 +43,10 @@ from geomesa_tpu_torch.filter.parser import parse_ecql
 from geomesa_tpu_torch.index import compiled as _fused
 from geomesa_tpu_torch.index import prune as _prune
 from geomesa_tpu_torch.index.api import (IndexScanPlan, QueryResult,
-                                         UnionScanPlan, not_ported)
+                                         UnionScanPlan)
 from geomesa_tpu_torch.index.guards import Deadline
-from geomesa_tpu_torch.index.scan import _fetch
+from geomesa_tpu_torch.index.scan import _fetch, fold_vis
+from geomesa_tpu_torch.security.visibility import allowed_codes
 from geomesa_tpu_torch.serve.resilience import deadline as _rdl
 
 _SELECT_CAP = 1 << 16
@@ -83,7 +88,9 @@ class QueryPlanner:
         if isinstance(f, str):
             f = parse_ecql(f)
         if isinstance(f, ir.FidFilter):
-            raise not_ported("feature-id lookups", 10)
+            # ≙ the id index: the rows whose fids are listed
+            return IndexScanPlan(None, "fid", full_filter=f, cost=0.5,
+                                 explain={"index": "id", "fids": f.fids})
         if not self.indexes:
             raise ValueError(f"No indexes for {self.sft.name}")
         plan = self._choose(f)
@@ -149,11 +156,47 @@ class QueryPlanner:
     # -- visibility and audit ------------------------------------------------
 
     def _apply_auths(self, plan: IndexScanPlan, auths) -> IndexScanPlan:
-        """The plan under the caller's authorizations: ``None`` is the
-        identity; visibility labels are not ported yet."""
-        if auths is None:
+        """The plan under the caller's authorizations (≙ the reference's
+        ``_apply_auths``, ``geomesa_tpu/index/planner.py:254-296``): each
+        distinct visibility expression evaluates once on the host
+        (``allowed_codes``) and the allowed codes fold into the device
+        residual (``scan.fold_vis``), which the fused and staged scans test
+        against the ``__vis__`` plane. ``None`` auths, a table without
+        labels, an empty plan and a plan already folded pass as they are;
+        an OR folds its branches at execution. When every expression is
+        allowed nothing folds; when none is, the plan is empty. The
+        ``__vis_applied__`` mark goes on a copy of ``explain``, so a plan
+        that is reused (a prepared query, a cache, a union branch) folds
+        again under other auths."""
+        if auths is None or self.table.visibility is None or plan.empty \
+                or plan.explain.get("__vis_applied__"):
             return plan
-        raise not_ported("visibility labels and query authorizations", 10)
+        if isinstance(plan, UnionScanPlan):
+            return plan
+        marked = dict(plan.explain, __vis_applied__=True)
+        vocab = self.table.visibility.vocab
+        allowed = allowed_codes(vocab, auths)
+        if len(allowed) == len(vocab):
+            return dataclasses.replace(plan, explain=marked)
+        if len(allowed) == 0:
+            return dataclasses.replace(plan, empty=True, explain=marked)
+        return dataclasses.replace(
+            plan, explain=marked,
+            residual_device=fold_vis(plan.residual_device, allowed))
+
+    def _fid_vis_filter(self, rows: np.ndarray, auths) -> np.ndarray:
+        """The rows of a feature-id lookup that the auths may see (≙
+        ``geomesa_tpu/index/planner.py:298``)."""
+        if auths is None or self.table.visibility is None or len(rows) == 0:
+            return rows
+        allowed = allowed_codes(self.table.visibility.vocab, auths)
+        return rows[np.isin(self.table.visibility.codes[rows], allowed)]
+
+    def _fid_rows(self, f: ir.FidFilter) -> np.ndarray:
+        """Ascending rows whose fids are listed (≙ the reference's
+        ``_fid_rows``, ``geomesa_tpu/index/planner.py:576``): ``np.isin``
+        on the ids, without materializing the implicit ones."""
+        return np.flatnonzero(self.table.fid_runs.isin(list(f.fids)))
 
     def _write_audit(self, plan, f, plan_ms: float, scan_ms: float,
                      hits: int) -> None:
@@ -197,11 +240,11 @@ class QueryPlanner:
         """The branches of an OR plan as staged scans (primary kind,
         boxes, windows, device residual), for ``ScanKernels``' OR of
         stages: one K-branch ``fused_scan`` (rows two branches share count
-        once)."""
+        once). A branch that the auths leave empty drops out."""
         return [(bp.primary_kind, bp.boxes_loose, bp.windows,
                  bp.residual_device)
                 for bp in (self._apply_auths(bp, auths)
-                           for _, bp in plan.branches)]
+                           for _, bp in plan.branches) if not bp.empty]
 
     def _count(self, plan: IndexScanPlan, f, auths=None) -> int:
         if plan.empty:
@@ -210,9 +253,12 @@ class QueryPlanner:
             idx = plan.same_index_device_exact()
             if idx is not None:
                 # the OR of the branches on the device, one readback
-                return idx.kernels.union_count(self._union_stages(plan,
-                                                                  auths))
+                stages = self._union_stages(plan, auths)
+                return idx.kernels.union_count(stages) if stages else 0
             return len(self._union_select(plan, auths))
+        if plan.primary_kind == "fid":
+            return len(self._fid_vis_filter(
+                self._fid_rows(plan.full_filter), auths))
         if plan.residual_host is None:
             # fully device-exact: the fused program, else a staged count
             fused = _fused.try_count(self, plan)
@@ -281,11 +327,15 @@ class QueryPlanner:
         """Matching row indices (ascending) into the table. ``capacity``:
         expected match-count hint that sizes the first select."""
         if plan is None:
-            plan = self._apply_auths(self.plan(f), auths)
+            plan = self.plan(f)
+        plan = self._apply_auths(plan, auths)
         if plan.empty:
             return np.empty(0, dtype=np.int64)
         if isinstance(plan, UnionScanPlan):
             return self._union_select(plan, auths)
+        if plan.primary_kind == "fid":
+            return self._fid_vis_filter(self._fid_rows(plan.full_filter),
+                                        auths)
         if plan.residual_host is None:
             pos = _fused.try_select(self, plan, capacity)
             if pos is not None:
@@ -334,17 +384,20 @@ class QueryPlanner:
             idx = plan.same_index_device_exact()
             if idx is None or plan.empty:
                 return plan, None
-            return plan, idx.kernels.union_mask(self._union_stages(plan,
-                                                                   auths))
+            stages = self._union_stages(plan, auths)
+            if not stages:
+                return plan, torch.zeros(idx.kernels.n, dtype=torch.bool,
+                                         device=idx.kernels.device)
+            return plan, idx.kernels.union_mask(stages)
         if not plan.device_exact:
             return plan, None
         return plan, plan.index.kernels.mask(
             plan.primary_kind, plan.boxes_loose, plan.windows,
             plan.residual_device)
 
-    def query(self, f: Union[str, ir.Filter]) -> QueryResult:
+    def query(self, f: Union[str, ir.Filter], auths=None) -> QueryResult:
         plan = self.plan(f)
-        rows = self.select_indices(f, plan=plan)
+        rows = self.select_indices(f, plan=plan, auths=auths)
         return QueryResult(rows, self.table.take(rows), plan)
 
     # -- helpers -------------------------------------------------------------

@@ -717,11 +717,72 @@ class Residual(NamedTuple):
     """A compiled device residual: its structure ``key``, its constants
     ``params``, the torch closure ``fn(cols, params)`` and the same
     predicate as a ``program`` (None when it is deeper than
-    ``MAX_PROGRAM_DEPTH``)."""
+    ``MAX_PROGRAM_DEPTH``). A residual folded with the caller's
+    authorizations (``fold_vis``) also carries the allowed visibility
+    codes ``vis``; its ``fn`` tests them, its ``program`` does not (the
+    fused scan tests them as a section of its own)."""
     key: str
     params: list
     fn: Optional[Callable]
     program: Optional[ResidualProgram]
+    vis: Optional[np.ndarray] = None
+
+
+# the program of a residual that is only a visibility test
+_NO_PROGRAM = ResidualProgram(np.zeros((0, 4), np.int32),
+                              np.zeros(0, np.int32), (), 0)
+
+
+def fold_vis(residual: Optional[Residual], allowed) -> Residual:
+    """``residual`` ANDed with the visibility test "the row's ``__vis__``
+    code is one of ``allowed``" (≙ the reference's auths fold,
+    ``geomesa_tpu/index/planner.py:283-296``): the key becomes
+    ``vis{P}&(key)`` and the params gain the allowed codes padded to a
+    power of two P with -1, as the reference's, so the structure keys of
+    both packages agree; ``fn`` ANDs ``torch.isin`` on ``__vis__``;
+    ``program`` stays the residual's own (empty without one) and ``vis``
+    holds the allowed codes."""
+    allowed = np.asarray(allowed, dtype=np.int32).reshape(-1)
+    size = max(1, 1 << max(0, len(allowed) - 1).bit_length())
+    padded = np.full(size, -1, dtype=np.int32)
+    padded[: len(allowed)] = allowed
+    if residual is None:
+        key, params, fn, program = "none", [], None, _NO_PROGRAM
+    else:
+        key, params, fn, program = residual[:4]
+    i = len(params)
+
+    def fn2(cols, p, fn=fn, i=i):
+        m = torch.isin(cols["__vis__"], p[i])
+        return m if fn is None else m & fn(cols, p)
+
+    return Residual(f"vis{size}&({key})", list(params) + [padded], fn2,
+                    program, allowed)
+
+
+def shared_vis(residuals) -> Optional[np.ndarray]:
+    """The allowed visibility codes the ``residuals`` (of a query's
+    branches, each a ``Residual`` or None) were folded with, or None when
+    none was; raises Unsupported when they differ (one visibility test a
+    query)."""
+    vis = [getattr(r, "vis", None) for r in residuals]
+    if any((v is None) != (vis[0] is None)
+           or (v is not None and not np.array_equal(v, vis[0]))
+           for v in vis):
+        raise Unsupported("branches under different authorizations")
+    return vis[0] if vis else None
+
+
+def vis_member(codes: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    """Which ``codes`` have their bit set in the bitmap ``words`` (int32,
+    bit c % 32 of word c // 32; a code past the bitmap is not in it): the
+    ``vis`` section's test, in torch ops."""
+    nbits = int(words.shape[0]) * 32
+    c = codes.to(torch.int64)
+    inside = (c >= 0) & (c < nbits)
+    c = c.clamp(0, nbits - 1)
+    bit = (words.to(torch.int64).index_select(0, c >> 5) >> (c & 31)) & 1
+    return inside & (bit == 1)
 
 
 def compile_residual(f: Optional[ir.Filter], sft,
@@ -1060,14 +1121,29 @@ class FusedQuery:
       [bin_lo, bin_hi] (the block gate's);
     - ``prog``: int32 (ΣL, 4) program words, slots numbered in ``slots``
       (shared by the branches), constant indices into ``const``;
-    - ``const``: int32 (ΣC,).
+    - ``const``: int32 (ΣC,);
+    - ``vis``: with ``vis`` (the allowed visibility codes of the caller's
+      authorizations), a bitmap over the codes, bit c % 32 of int32 word
+      c // 32, as long as the largest allowed code needs: a row matches
+      only when its ``__vis__`` code's bit is set (≙ the reference's
+      ``vis`` section, ``geomesa_tpu/index/compiled.py:482-485``, one test
+      for the whole query however many branches it has).
 
     ``slots`` lists the residual columns ((name, kind), ...)."""
 
-    def __init__(self, branches):
+    def __init__(self, branches, vis=None):
         secs: Dict[str, list] = {k: [] for k in
                                  ("br", "box", "gate", "wkey", "wbin",
-                                  "prog", "const")}
+                                  "prog", "const", "vis")}
+        self.vis = vis is not None
+        if self.vis:
+            codes = np.asarray(vis, dtype=np.int64).reshape(-1)
+            codes = codes[codes >= 0]
+            nbits = int(codes.max()) + 1 if len(codes) else 1
+            words = np.zeros(-(-nbits // 32), dtype=np.uint32)
+            np.bitwise_or.at(words, codes >> 5,
+                             np.left_shift(1, codes & 31).astype(np.uint32))
+            secs["vis"].append(words.view(np.int32))
         slots: Dict[str, tuple] = {}
         nbox = nwin = nprog = ncon = 0
         self.branches = []
@@ -1201,7 +1277,8 @@ def fused_scan(cols, qbuf: torch.Tensor, query: FusedQuery, ids: torch.Tensor,
     ``nonzero`` is ``ordered_compact`` of the mask). Candidate i is row ``clamp(ids[i // bsz] * bsz) + i %
     bsz``, read in place; it matches when it is a member of its block
     (``expand_blocks``' rule) among the first ``n_blocks`` slots, the
-    table's ``__valid__`` holds, and for some
+    table's ``__valid__`` holds, its ``__vis__`` code is in the query's
+    ``vis`` bitmap (when it has one), and for some
     branch of ``query`` its point lies in any box (always, in a branch
     without boxes), its (bin, off) in any window, and its residual program
     holds (boxes and windows compare ``pack62`` keys). By ``mode``:
@@ -1246,6 +1323,10 @@ def fused_scan(cols, qbuf: torch.Tensor, query: FusedQuery, ids: torch.Tensor,
         m = bm if m is None else m | bm
     if "__valid__" in cols:
         m = m & cols["__valid__"]
+    if query.vis:
+        m = m & vis_member(cols["__vis__"],
+                           query.section(qbuf, "vis", torch.int32, 1)
+                           .reshape(-1))
     m = m.index_select(0, rows) & member
     count = m.sum(dtype=torch.int32).reshape(1)
     if mode == "count":
@@ -1295,10 +1376,18 @@ def staged_query(cols, stages) -> Optional[FusedQuery]:
     the fused program's declines. Primary ``"none"`` is a branch without
     boxes (every row is in; a query of such branches alone reads no point
     plane). The gate section, which only ``block_gate`` reads, is
-    zeros."""
+    zeros. Residuals folded with authorizations (``fold_vis``) give the
+    query its ``vis`` section; stages whose allowed codes differ take the
+    torch ops."""
     from geomesa_tpu_torch.index.compiled import QUERY_MAX_BYTES
     from geomesa_tpu_torch.kernels.fused_scan import MAX_SLOTS
     if "xi" not in cols:
+        return None
+    try:
+        vis = shared_vis([st[3] for st in stages])
+    except Unsupported:
+        return None
+    if vis is not None and "__vis__" not in cols:
         return None
     branches = []
     for primary_kind, boxes, windows, residual in stages:
@@ -1319,7 +1408,7 @@ def staged_query(cols, stages) -> Optional[FusedQuery]:
             gate = np.zeros((len(boxes), 4), np.float32)
         branches.append((boxes, gate, windows, prog))
     try:
-        query = FusedQuery(branches)
+        query = FusedQuery(branches, vis)
     except Unsupported:       # one column read as two kinds
         return None
     if len(query.slots) > MAX_SLOTS or len(query.packed) > QUERY_MAX_BYTES:

@@ -54,9 +54,9 @@ from geomesa_tpu_torch.index import prune as _p
 from geomesa_tpu_torch.index.api import IndexScanPlan, not_ported
 from geomesa_tpu_torch.index.device import (DeviceTable, fp62_lat, fp62_lon,
                                             host_planes, resolve, sync)
-from geomesa_tpu_torch.index.scan import (ScanKernels, compile_residual,
-                                          pad_boxes, pad_windows,
-                                          split_residual)
+from geomesa_tpu_torch.index.scan import (Readback, ScanKernels, _dev,
+                                          compile_residual, pad_boxes,
+                                          pad_windows, split_residual)
 
 _MASK21 = (1 << 21) - 1
 
@@ -193,6 +193,22 @@ def _stream_encode_upload(encode_chunk: Callable, n: int, chunk_rows: int,
     if failed or up.planes is None:
         return None
     return up.finish(), host_kept
+
+
+def _row_gather(dev_perm: torch.Tensor, idx: np.ndarray) -> np.ndarray:
+    """``dev_perm[idx]`` gathered on the device (≙ the reference's
+    ``_row_gather``, ``geomesa_tpu/index/spatial.py:216``): the positions
+    padded to a power of two (at least 8) go up from pinned memory, and
+    the rows come back into pinned memory behind an event (``scan._dev``,
+    ``scan.Readback``), so the host waits for this copy alone and nothing
+    crosses through pageable memory."""
+    if len(idx) == 0:
+        return np.empty(0, dtype=np.int64)
+    cap = max(8, 1 << max(0, len(idx) - 1).bit_length())
+    pad = np.zeros(cap, dtype=np.int64)
+    pad[: len(idx)] = idx
+    rows = dev_perm.index_select(0, _dev(pad, dev_perm.device))
+    return Readback(rows).wait()[: len(idx)].astype(np.int64)
 
 
 def _query_column(name: str, t):
@@ -494,11 +510,37 @@ class BaseSpatialIndex:
         matches), or None when the decomposition explodes."""
         raise NotImplementedError
 
+    # the rows path: sorted positions → table rows ------------------------
+
+    # a request past this many positions reads the whole permutation back
+    # (the reference's rule, ``geomesa_tpu/index/spatial.py:492``)
+    ROW_GATHER_MAX = 1 << 20
+    # the host permutation, once read back (``host_perm``)
+    _perm_cache: Optional[np.ndarray] = None
+
+    @property
+    def host_perm(self) -> np.ndarray:
+        """The host copy of the sort permutation (sorted position → table
+        row), read back from the device once and kept (≙ the reference's
+        ``perm``, ``geomesa_tpu/index/spatial.py:431-439``). The seconds of
+        that one read-back are ``build_stages["perm_readback_s"]``."""
+        if self._perm_cache is None:
+            t0 = time.perf_counter()
+            self._perm_cache = self.perm.cpu().numpy()
+            self.build_stages["perm_readback_s"] = time.perf_counter() - t0
+        return self._perm_cache
+
     def map_rows(self, idx: np.ndarray) -> np.ndarray:
-        """Sorted positions → table rows (gathered on the device)."""
-        idx = torch.as_tensor(np.asarray(idx, dtype=np.int64),
-                              device=self.perm.device)
-        return self.perm.index_select(0, idx).cpu().numpy()
+        """Sorted positions → table rows, by the reference's rule
+        (``geomesa_tpu/index/spatial.py:485-494``): the cached host
+        permutation once it exists; a request of more than
+        ``ROW_GATHER_MAX`` positions reads the whole permutation back once,
+        into that cache; a smaller one gathers on the device
+        (``_row_gather``)."""
+        idx = np.asarray(idx, dtype=np.int64)
+        if self._perm_cache is not None or len(idx) > self.ROW_GATHER_MAX:
+            return self.host_perm[idx]
+        return _row_gather(self.perm, idx)
 
     # certified segment predicates ------------------------------------------
 
@@ -604,7 +646,10 @@ class Z3Index(BaseSpatialIndex):
         ``searchsorted`` with ties to the residents (``side="right"``); the
         host key planes merge by direct placement; the device columns and
         the permutation merge in one ``merge_scatter`` launch, moving only
-        delta-sized data over the host link. The result is bitwise the full
+        delta-sized data over the host link; a cached host permutation
+        (``host_perm``) merges by the same placement, so it survives the
+        flush. Dictionary columns whose vocabulary grew, and the visibility
+        codes, rebuild from the merged codes. The result is bitwise the full
         rebuild's: the merged order is the stable lexsort of the
         concatenated keys (residents keep their order, delta rows keep
         theirs, ties go to the smaller table row — a resident)."""
@@ -643,13 +688,16 @@ class Z3Index(BaseSpatialIndex):
         t2 = time.perf_counter()
 
         # 4. host key planes: delta row j lands at r[j] + j, the residents
-        # fill the rest in order
+        # fill the rest in order; so does a cached host permutation (the
+        # device one merges in step 7 in either case)
         is_delta = np.zeros(n_new, dtype=bool)
         is_delta[r + np.arange(n_delta, dtype=np.int64)] = True
         self._z = np.concatenate([old._z, z_d])
         self._bins = np.concatenate([old._bins, bins_d])
-        for attr, res, dl in (("_sorted_z", old_z, z_sd),
-                              ("_sorted_bins", old_b, b_sd)):
+        runs = [("_sorted_z", old_z, z_sd), ("_sorted_bins", old_b, b_sd)]
+        if old._perm_cache is not None:
+            runs.append(("_perm_cache", old._perm_cache, n_old + p_d))
+        for attr, res, dl in runs:
             merged = np.empty(n_new, dtype=res.dtype)
             merged[~is_delta] = res
             merged[is_delta] = dl
@@ -668,6 +716,14 @@ class Z3Index(BaseSpatialIndex):
                  and old.vocabs.get(name) != self.vocabs[name]]
         full_codes = {name: merged_table.columns[name].codes
                       for name in stale}
+        # the visibility codes likewise, and when the old table had none
+        # (≙ ``geomesa_tpu/index/spatial.py:790-796``)
+        old_vis, new_vis = old.table.visibility, merged_table.visibility
+        if new_vis is not None and (
+                "__vis__" not in old.device.columns or old_vis is None
+                or old_vis.vocab != new_vis.vocab):
+            stale.append("__vis__")
+            full_codes["__vis__"] = new_vis.codes
         t4 = time.perf_counter()
 
         # 6. the delta's device planes, in delta-sorted order
@@ -678,7 +734,8 @@ class Z3Index(BaseSpatialIndex):
         # 7. one merge_scatter launch: every column and the permutation
         self.device, self.perm = DeviceTable.merge_scatter(
             old.device, delta_planes, r, stale=stale, full_codes=full_codes,
-            perm_pair=(old.perm, n_old + p_d), stages=st)
+            perm_pair=(old.perm, n_old + p_d),
+            host_perm=self._perm_cache, stages=st)
 
         # 8. the staged scan modes over the merged columns
         self.kernels = ScanKernels(self.device.columns)

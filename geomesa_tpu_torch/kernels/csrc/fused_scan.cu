@@ -16,6 +16,10 @@
 // scans of a plan without a spatial primary: the reference's _mask_kernel
 // with primary "none", index/scan.py:368) has no box test, and a query of
 // such branches alone reads no point plane (the kernel's BOXLESS form).
+// A query under authorizations also tests the row's visibility code
+// (__vis__) against the allowed codes, once for the whole query (the
+// reference's vis section, compiled.py:482-485 and :994-997, and the staged
+// modes' folded residual, planner.py:283-296; the kernel's VIS form).
 //
 // Modes: COUNT writes the int32 count; MASK writes one byte a candidate of
 // the live blocks (the input of the refine and density kernels and of
@@ -26,8 +30,9 @@
 // and, where a box holds, 8 bytes of time planes and the residual's
 // columns (every branch boxless: the time planes and the residual's
 // columns for every candidate); per (candidate, box) two 64-bit key
-// compares a coordinate. MASK writes a byte a candidate. Boxes of a few
-// rows leave it bound by bytes.
+// compares a coordinate; in the VIS form 4 bytes of __vis__ more a
+// candidate. MASK writes a byte a candidate. Boxes of a few rows leave it
+// bound by bytes.
 //
 // Design:
 // - Keys, not pairs: the host packs each box bound and window bound as the
@@ -79,6 +84,15 @@
 //   the count (lookback.cuh's finish), so no zeroed output is needed.
 // - Tests that fail early skip the loads of the later ones (time planes,
 //   residual columns), so a selective box reads only the point planes.
+// - Visibility as a bitmap: the allowed codes are one bit a code in the
+//   query buffer (index/scan.py FusedQuery's vis section, staged in shared
+//   memory with the rest), and the __vis__ plane is one more 16-byte load
+//   of the quad, beside __valid__: 4 bytes and one shared-memory bit probe
+//   a candidate, before the boxes. A list of allowed codes would cost a
+//   compare a code a candidate, and a residual slot would take one of the
+//   user's MAX_SLOTS columns. The VIS form is a template instantiation of
+//   its own, so a query without authorizations runs the code it ran before
+//   (its registers and spills unchanged).
 
 #include "lookback.cuh"
 
@@ -108,6 +122,8 @@ struct Params {
   const int4* qbuf;
   int qwords;               // 16-byte words of qbuf
   int br, box, wkey, prog, cnst;   // byte offsets of the sections
+  const int* vis_col;       // VIS: the __vis__ codes per table row
+  int vis, vis_words;       // VIS: the bitmap's byte offset and words
   int nbranch;
   int npre;                 // boxless: residual slots in the quad's loads
   unsigned aligned;         // bit k: residual slot k loads 16 (bool 4) bytes
@@ -135,7 +151,15 @@ struct Query {
   const int* cn;
   const void* const* col;
   const int* kind;
+  const unsigned* vis;   // VIS: the allowed codes' bitmap
+  int vis_bits;
 };
+
+// code c is allowed: its bit is set in the bitmap (codes past it are not)
+__device__ __forceinline__ bool vis_ok(const Query& q, int c) {
+  return (unsigned)c < (unsigned)q.vis_bits
+         && ((q.vis[(unsigned)c >> 5] >> (c & 31)) & 1u);
+}
 
 __device__ __forceinline__ bool cmp_as(int c, float a, float b) {
   switch (c) {
@@ -259,6 +283,7 @@ __device__ __forceinline__ long long block_of(const Params& p, unsigned c,
 // member rows' bits
 struct Quad {
   int4 xi, xl, yi, yl;
+  int4 vc;           // VIS: the rows' __vis__ codes
   unsigned valid;
   unsigned member;   // bit j: row0 + j is its block's own row
   long long row0;
@@ -289,7 +314,7 @@ __device__ __forceinline__ int4 load_slot(const Params& p, int slot,
 }
 
 // issue quad q's loads, or mark it for the scalar path
-template <bool BOXLESS>
+template <bool BOXLESS, bool VIS>
 __device__ __forceinline__ void load_quad(const Params& p, long long q,
                                           Quad& d) {
   d.vec = false;
@@ -316,6 +341,7 @@ __device__ __forceinline__ void load_quad(const Params& p, long long q,
   d.valid = p.valid
       ? __ldcs(reinterpret_cast<const unsigned*>(p.valid + d.row0))
       : 0x01010101u;
+  if (VIS) d.vc = __ldcs(reinterpret_cast<const int4*>(p.vis_col + d.row0));
   d.member = 0;
 #pragma unroll
   for (int j = 0; j < QUAD; ++j)
@@ -323,6 +349,7 @@ __device__ __forceinline__ void load_quad(const Params& p, long long q,
 }
 
 // a loaded quad's flags, 0 or 1 a byte
+template <bool VIS>
 __device__ __forceinline__ unsigned test_quad(const Params& p,
                                               const Query& q,
                                               const Quad& d) {
@@ -331,6 +358,7 @@ __device__ __forceinline__ unsigned test_quad(const Params& p,
   for (int j = 0; j < QUAD; ++j) {
     if (!((d.member >> j) & 1u) || !((d.valid >> (8 * j)) & 0xffu))
       continue;
+    if (VIS && !vis_ok(q, lane_of(d.vc, j))) continue;
     const long long x = pack62(lane_of(d.xi, j), lane_of(d.xl, j));
     const long long y = pack62(lane_of(d.yi, j), lane_of(d.yl, j));
     if (matches(p, q, x, y, d.row0 + j)) bytes |= 1u << (8 * j);
@@ -421,6 +449,7 @@ __device__ __forceinline__ unsigned run_program4(const Params& p,
 
 // a loaded quad's flags in a query without boxes (time planes in xi, xl),
 // 0 or 1 a byte: each branch's windows and program for the four lanes
+template <bool VIS>
 __device__ __forceinline__ unsigned test_quad_boxless(const Params& p,
                                                       const Query& q,
                                                       const Quad& d) {
@@ -428,7 +457,8 @@ __device__ __forceinline__ unsigned test_quad_boxless(const Params& p,
 #pragma unroll
   for (int j = 0; j < QUAD; ++j)
     live |= (unsigned)(((d.member >> j) & 1u)
-                       && ((d.valid >> (8 * j)) & 0xffu)) << j;
+                       && ((d.valid >> (8 * j)) & 0xffu)
+                       && (!VIS || vis_ok(q, lane_of(d.vc, j)))) << j;
   unsigned hit = 0;
   for (int k = 0; k < p.nbranch && (live & ~hit); ++k) {
     const int* r = q.br + 8 * k;
@@ -457,7 +487,7 @@ __device__ __forceinline__ unsigned test_quad_boxless(const Params& p,
 
 // quad q a candidate at a time (loads behind each test); the flags, 0 or
 // 1 a byte, of its candidates below live
-template <bool BOXLESS>
+template <bool BOXLESS, bool VIS>
 __device__ __forceinline__ unsigned scalar_quad(const Params& p,
                                                 const Query& q, long long qd,
                                                 long long live) {
@@ -470,6 +500,7 @@ __device__ __forceinline__ unsigned scalar_quad(const Params& p,
     const long long rs = block_of(p, (unsigned)c, slot, lo, hi);
     const long long row = rs + ((unsigned)c - slot * (unsigned)p.bsz);
     if (row < lo || row >= hi || (p.valid && !p.valid[row])) continue;
+    if (VIS && !vis_ok(q, __ldg(p.vis_col + row))) continue;
     const long long x =
         BOXLESS ? 0 : pack62(__ldg(p.xi + row), __ldg(p.xl + row));
     const long long y =
@@ -481,8 +512,8 @@ __device__ __forceinline__ unsigned scalar_quad(const Params& p,
 
 // COUNT or MASK (p.mode): the live candidates' chunks, strided over the
 // grid. BOXLESS: every branch is boxless (its own instantiation, so the
-// boxed form keeps its registers)
-template <bool BOXLESS>
+// boxed form keeps its registers); VIS: the query tests visibility
+template <bool BOXLESS, bool VIS>
 __global__ void __launch_bounds__(THREADS, 3)
 fused_scan_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -509,20 +540,22 @@ fused_scan_kernel(const __grid_constant__ Params p) {
     q.cn = reinterpret_cast<const int*>(smem + p.cnst);
     q.col = s_col;
     q.kind = s_kind;
+    q.vis = reinterpret_cast<const unsigned*>(smem + p.vis);
+    q.vis_bits = p.vis_words * 32;
 
     const long long quads = (live + QUAD - 1) / QUAD;
     const long long step = (long long)gridDim.x * THREADS;
     long long qd = (long long)blockIdx.x * THREADS + threadIdx.x;
     Quad cur;
-    if (qd < quads) load_quad<BOXLESS>(p, qd, cur);
+    if (qd < quads) load_quad<BOXLESS, VIS>(p, qd, cur);
     while (qd < quads) {
       const long long qn = qd + step;
       Quad nxt;
-      if (qn < quads) load_quad<BOXLESS>(p, qn, nxt);
+      if (qn < quads) load_quad<BOXLESS, VIS>(p, qn, nxt);
       const unsigned bytes =
-          !cur.vec ? scalar_quad<BOXLESS>(p, q, qd, live)
-                   : (BOXLESS ? test_quad_boxless(p, q, cur)
-                              : test_quad(p, q, cur));
+          !cur.vec ? scalar_quad<BOXLESS, VIS>(p, q, qd, live)
+                   : (BOXLESS ? test_quad_boxless<VIS>(p, q, cur)
+                              : test_quad<VIS>(p, q, cur));
       cnt += __popc(bytes);
       if (p.mode == MASK) {
         if (qd * QUAD + QUAD <= live) {
@@ -550,17 +583,18 @@ fused_scan_kernel(const __grid_constant__ Params p) {
 }  // namespace
 
 // The launch's arguments as the wrapper packs them (kernels/fused_scan.py
-// _ARGS): 8-byte slots, pointers 0 for none.
+// _ARGS): 8-byte slots, pointers 0 for none. vis_col 0: no visibility test.
 struct FusedScanArgs {
   long long xi, xl, yi, yl, bin, off, valid;
   long long col[MAX_SLOTS];
   long long kinds, nslots;
   long long qbuf, qbytes, br, box, wkey, prog, cnst, nbranch, points;
+  long long vis_col, vis, vis_words;
   long long ids, nlive, slots, bsz, n;
   long long mode, out, mask;
   long long ws, epoch, device;
 };
-static_assert(sizeof(FusedScanArgs) == 45 * 8, "FusedScanArgs must match _ARGS");
+static_assert(sizeof(FusedScanArgs) == 48 * 8, "FusedScanArgs must match _ARGS");
 
 
 // Scans the candidates of the first *nlive of the `slots` blocks of `ids`
@@ -573,7 +607,9 @@ extern "C" int fused_scan_launch(const FusedScanArgs* a, void* stream) {
   if (a->bsz <= 0 || a->slots < 0 || a->qbytes % 16 || a->epoch == 0
       || a->nslots < 0 || a->nslots > MAX_SLOTS || a->mode < COUNT
       || a->mode > MASK || !a->nlive || a->mask % 4
-      || a->slots * a->bsz > 0xffffffffLL)
+      || a->slots * a->bsz > 0xffffffffLL
+      || (a->vis_col && (a->vis_words <= 0 || a->vis < 0 || a->vis % 16
+                         || a->vis + 4 * a->vis_words > a->qbytes)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.xi = reinterpret_cast<const int*>(a->xi);
@@ -594,6 +630,9 @@ extern "C" int fused_scan_launch(const FusedScanArgs* a, void* stream) {
   p.wkey = (int)a->wkey;
   p.prog = (int)a->prog;
   p.cnst = (int)a->cnst;
+  p.vis_col = reinterpret_cast<const int*>(a->vis_col);
+  p.vis = (int)a->vis;
+  p.vis_words = a->vis_col ? (int)a->vis_words : 0;
   p.nbranch = (int)a->nbranch;
   p.mode = (int)a->mode;
   p.out = reinterpret_cast<int*>(a->out);
@@ -606,7 +645,7 @@ extern "C" int fused_scan_launch(const FusedScanArgs* a, void* stream) {
   p.shift = -1;
   if ((a->bsz & (a->bsz - 1)) == 0)
     for (p.shift = 0; (1LL << p.shift) < a->bsz; ++p.shift) {}
-  p.vec = a->bsz % QUAD == 0 && a->valid % 4 == 0
+  p.vec = a->bsz % QUAD == 0 && a->valid % 4 == 0 && a->vis_col % 16 == 0
           && (a->points ? a->xi % 16 == 0 && a->xl % 16 == 0
                              && a->yi % 16 == 0 && a->yl % 16 == 0
                        : a->bin % 16 == 0 && a->off % 16 == 0);
@@ -620,7 +659,10 @@ extern "C" int fused_scan_launch(const FusedScanArgs* a, void* stream) {
   p.ws = make_ws(a->ws, (unsigned)a->epoch);
   const size_t smem = (size_t)a->qbytes;
   unsigned grid = 1;
-  auto kernel = a->points ? fused_scan_kernel<false> : fused_scan_kernel<true>;
+  const bool vis = a->vis_col != 0;
+  auto kernel = a->points
+      ? (vis ? fused_scan_kernel<false, true> : fused_scan_kernel<false, false>)
+      : (vis ? fused_scan_kernel<true, true> : fused_scan_kernel<true, false>);
   cudaError_t err = persistent_grid(
       reinterpret_cast<const void*>(kernel), smem, (int)a->device,
       (a->slots * a->bsz + CHUNK - 1) / CHUNK, grid);

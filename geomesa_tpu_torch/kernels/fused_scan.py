@@ -10,7 +10,10 @@ count's total and done counter live in the stream's workspace
 (``kernels.lookback``). A select is this kernel's mask compacted by
 ``ordered_compact``. The fused program and the staged scan modes of a
 point layer (``index.scan.ScanKernels``) both launch it; a query whose
-branches have no boxes (``FusedQuery.points`` False) reads no point plane.
+branches have no boxes (``FusedQuery.points`` False) reads no point plane,
+and a query under authorizations (``FusedQuery.vis``) reads the table's
+``__vis__`` codes and tests them against its bitmap (the kernel's VIS
+form; ``vis_launches`` counts those launches among ``launches``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from geomesa_tpu_torch.kernels import build, lookback
 NAME = "fused_scan"
 SOURCE = "geomesa_tpu_torch/kernels/csrc/fused_scan.cu"
 REPLACES = "geomesa_tpu/index/compiled.py:476"
+# the VIS form: the fused mask's visibility test
+REPLACES_VIS = "geomesa_tpu/index/compiled.py:482"
 
 MAX_SLOTS = 16
 _MODES = {"count": 0, "mask": 1}
@@ -35,8 +40,8 @@ _KIND_DTYPES = {scan.SLOT_I32: torch.int32, scan.SLOT_F32: torch.float32,
 _POINT = ("xi", "xl", "yi", "yl")
 _TIME = ("bin", "off")
 
-# the C side's FusedScanArgs: 45 8-byte slots
-_ARGS = struct.Struct("=45q")
+# the C side's FusedScanArgs: 48 8-byte slots
+_ARGS = struct.Struct("=48q")
 
 _FN = None
 
@@ -79,6 +84,11 @@ def _check(cols, qbuf, query, ids, n_blocks, bsz, mode) -> int:
         if valid.dtype is not torch.bool or valid.shape != (n,):
             raise TypeError(f"__valid__ must be bool with {n} rows")
         build.placed(valid, dev)
+    if query.vis:
+        vis = cols["__vis__"]
+        if vis.dtype is not torch.int32 or vis.shape != (n,):
+            raise TypeError(f"__vis__ must be int32 with {n} rows")
+        build.placed(vis, dev)
     if qbuf.dtype is not torch.uint8 or qbuf.dim() != 1 or qbuf.shape[0] % 16:
         raise TypeError("qbuf must be a 1-D uint8 tensor of 16-byte words")
     if ids.dtype is not torch.int32 or ids.dim() != 1:
@@ -118,6 +128,8 @@ def fused_scan(cols: Mapping[str, torch.Tensor], qbuf: torch.Tensor,
         kinds |= kind << (4 * j)
     valid = cols["__valid__"] if "__valid__" in cols else None
     off = query.offsets
+    vis = (cols["__vis__"].data_ptr(), off["vis"][0], off["vis"][1] // 4) \
+        if query.vis else (0, 0, 0)
     with build.on_device(dev):
         stream = build.raw_stream(dev)
         ws, _, epoch = lookback.workspace(dev, stream, 0)
@@ -129,7 +141,7 @@ def fused_scan(cols: Mapping[str, torch.Tensor], qbuf: torch.Tensor,
             *col, *([0] * (MAX_SLOTS - len(col))), kinds, len(col),
             qbuf.data_ptr(), qbuf.shape[0], off["br"][0], off["box"][0],
             off["wkey"][0], off["prog"][0], off["const"][0],
-            len(query.branches), int(query.points),
+            len(query.branches), int(query.points), *vis,
             ids.data_ptr(), n_blocks.data_ptr(), slots, bsz, n,
             _MODES[mode], out.data_ptr(), mask.data_ptr() if slots * bsz
             and mode == "mask" else 0, ws.data_ptr(), epoch, dev.index)
@@ -138,7 +150,10 @@ def fused_scan(cols: Mapping[str, torch.Tensor], qbuf: torch.Tensor,
         msg = build.load(NAME).fused_scan_error_string(rc).decode()
         raise RuntimeError(f"fused_scan launch failed: {msg} (cudaError {rc})")
     fused_scan.launches += 1
+    if query.vis:
+        fused_scan.vis_launches += 1
     return (mask, out) if mode == "mask" else out
 
 
 fused_scan.launches = 0
+fused_scan.vis_launches = 0

@@ -413,14 +413,23 @@ def test_prepare_density_dispatch_packed_and_ladder(world, monkeypatch):
     assert trun().weights[0, 0] > 255
 
 
+def jdensity_mod():
+    return _ref("geomesa_tpu.aggregates.density")
+
+
 def test_density_empty_and_unported(world):
     jp, tp = world
     empty = tdensity.density(
         tp, "BBOX(geom, -60, -30, 60, 30) AND dtg DURING "
         "2021-03-01T00:00:00Z/2021-03-09T00:00:00Z", BBOX, 8, 8)
     assert empty.weights.shape == (8, 8) and not empty.weights.any()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tdensity.density(tp, "INCLUDE", BBOX, 8, 8, auths=["admin"])
+    # auths over a table without visibility labels (once refused as
+    # ROADMAP.md Queue 1 item 10): every row is public, as the reference
+    want = jdensity_mod().density(jp, "INCLUDE", BBOX, 8, 8,
+                                  auths=["admin"]).weights
+    assert np.array_equal(tdensity.density(tp, "INCLUDE", BBOX, 8, 8,
+                                           auths=["admin"]).weights,
+                          np.asarray(want))
     # an OR with a host-refined branch (ROADMAP.md Queue 1 item 3, now
     # ported): the per-branch select and the host grid, as the reference
     jdensity = _ref("geomesa_tpu.aggregates.density")
@@ -447,7 +456,7 @@ def test_store_density_hint(world):
     assert_nonneg_weighted_close(grid.weights, want.weights, unit.weights)
     default = store.query("d", q, hints={"density": {"bbox": BBOX}})
     assert default.weights.shape == (256, 256)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         store.query("d", q, hints={"stats": "Count()"})
 
 

@@ -1426,3 +1426,138 @@ def test_cuda_staged_dispatches_make_no_sync():
             run()
         torch.cuda.synchronize()
         assert h.count == 0, run
+
+
+# -- the visibility section (the VIS form) ------------------------------------
+
+# allowed visibility codes over a vocabulary of V codes: one code, every
+# code, none, codes past the first bitmap word, a sparse set
+VIS_CASES = {"one": (1, [0]), "all": (40, list(range(40))),
+             "none": (40, []), "past_32": (40, [0, 31, 32, 33, 39]),
+             "sparse": (70, [3, 17, 32, 45, 63, 64, 69])}
+
+
+def _vis_query(nbox: int, windows: str, resid, case: str, branches=1):
+    """(query with the allowed codes of ``case`` as its ``vis`` section,
+    the same query without it, the vocabulary size): ``branches`` branches
+    of ``nbox`` random boxes each (``nbox`` 0: every branch boxless)."""
+    sft = TSFT.from_spec("g", SPEC)
+    vocab, allowed = VIS_CASES[case]
+    out = []
+    for k in range(branches):
+        geo = _geo_boxes(max(1, nbox), nbox + 11 + k)
+        boxes = tscan.pad_boxes(t_fp62(geo))
+        gate = tcompiled._gate_of(geo, len(boxes))
+        if nbox == 0:
+            boxes = gate = None
+        w = None
+        if windows == "some":
+            w = np.array([[2601, 1000, 2603, 500], [2605, 7, 2605, 90000],
+                          [1, 0, 0, 0], [1, 0, 0, 0]], dtype=np.int32)
+        prog = tscan.compile_residual(
+            tparse(resid), sft,
+            {"name": ["alpha", "beta", "gamma", "delta"]}).program \
+            if resid else None
+        out.append((boxes, gate, w, prog))
+    return (tscan.FusedQuery(out, np.asarray(allowed, np.int32)),
+            tscan.FusedQuery(out), vocab)
+
+
+@pytest.mark.parametrize("case", sorted(VIS_CASES))
+@pytest.mark.parametrize("nbox", [0, 4], ids=["boxless", "boxes"])
+def test_plain_vis_section_equals_isin(case, nbox):
+    """The plain ``fused_scan`` under a ``vis`` section keeps exactly the
+    rows whose ``__vis__`` code is allowed (``np.isin``) among the rows it
+    keeps without one; the bitmap is as long as the largest allowed code
+    needs."""
+    n, bsz = 20_011, 512
+    cols = _planes(n, 5, "cpu", True)
+    q, plain_q, vocab = _vis_query(nbox, "some", "age > 10", case)
+    assert q.vis and not plain_q.vis
+    codes = np.random.default_rng(8).integers(0, vocab, n).astype(np.int32)
+    cols["__vis__"] = torch.from_numpy(codes)
+    nb = -(-n // bsz)
+    ids, k = _block_list("edge", nb)
+    ids = torch.from_numpy(ids)
+    nblk = torch.tensor([k], dtype=torch.int32)
+    m, c = tscan.fused_scan(cols, torch.from_numpy(q.packed), q, ids, nblk,
+                            bsz, "mask")
+    m0, _ = tscan.fused_scan(cols, torch.from_numpy(plain_q.packed),
+                             plain_q, ids, nblk, bsz, "mask")
+    rows = tscan.expand_blocks(cols, ids, bsz, n)[1]
+    allowed = np.isin(codes, VIS_CASES[case][1])
+    want = m0.numpy() & allowed[rows.numpy()]
+    assert np.array_equal(m.numpy(), want) and int(c) == int(want.sum())
+    top = max(VIS_CASES[case][1], default=0)
+    assert q.offsets["vis"][1] // 4 == top // 32 + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(VIS_CASES))
+@pytest.mark.parametrize("nbox,windows,resid", [
+    (4, "some", "age > 10"), (64, "none", None),
+    (0, "some", "flag = false AND age > 10"), (0, "none", None)],
+    ids=["boxes", "many_boxes", "boxless", "boxless_bare"])
+@pytest.mark.parametrize("shape", ["aligned", "view", "vis_view"])
+def test_cuda_vis_scan_equals_plain(case, nbox, windows, resid, shape):
+    """The VIS form against the plain version in both instantiations
+    (boxes: the boxed form; boxless: every branch without boxes), for one
+    allowed code, every code, none, codes past 32 and a sparse set, with
+    aligned planes (the quads' vector loads), planes that are views at
+    offset 1 (the scalar path) and a ``__vis__`` plane alone at offset 1
+    (vector loads declined for the call): count, mask and its compaction,
+    one VIS launch each."""
+    dev = _cuda()
+    n, bsz = (100_003, 4096) if shape == "aligned" else (20_011, 512)
+    cols = _planes(n + 1, 9, dev, True)
+    q, _, vocab = _vis_query(nbox, windows, resid, case, branches=2)
+    codes = np.random.default_rng(6).integers(0, vocab, n + 1)
+    cols["__vis__"] = torch.from_numpy(codes.astype(np.int32)).to(dev)
+    shifted = {"view": set(cols), "vis_view": {"__vis__"}}.get(shape, set())
+    cols = {k: (v[1:] if k in shifted else v[:n]) for k, v in cols.items()}
+    qbuf = torch.from_numpy(q.packed).to(dev)
+    nb = -(-n // bsz)
+    for blocks in ("all", "edge", "sparse"):
+        ids, k = _block_list(blocks, nb)
+        ids = torch.from_numpy(ids).to(dev)
+        nblk = torch.tensor([k], dtype=torch.int32, device=dev)
+        before = kscan.fused_scan.vis_launches
+        got = kscan.fused_scan(cols, qbuf, q, ids, nblk, bsz, "count")
+        want = tscan.fused_scan(cols, qbuf, q, ids, nblk, bsz, "count")
+        assert torch.equal(got, want), blocks
+        assert kscan.fused_scan.vis_launches == before + 1
+        got = kscan.fused_scan(cols, qbuf, q, ids, nblk, bsz, "mask")
+        want = tscan.fused_scan(cols, qbuf, q, ids, nblk, bsz, "mask")
+        assert torch.equal(got[1], want[1]), blocks
+        assert torch.equal(got[0][:k * bsz], want[0][:k * bsz]), blocks
+        if case == "none":
+            assert int(want[1]) == 0
+        starts = tscan.expand_blocks(cols, ids, bsz, n)[2]
+        _compact_equals_plain(got[0], 300, dict(starts=starts, bsz=bsz,
+                                                n_blocks=nblk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [
+    "BBOX(geom,-60,-30,60,30) AND dtg DURING "
+    "2020-01-03T00:00:00Z/2020-01-15T00:00:00Z",
+    "dtg DURING 2020-01-03T00:00:00Z/2020-01-15T00:00:00Z AND age > 50",
+    "BBOX(geom,-60,-30,0,0) OR BBOX(geom,-10,-10,60,30)"])
+@pytest.mark.parametrize("auths", [["admin"], [], ["admin", "ops"]],
+                         ids=str)
+def test_cuda_store_under_auths_equals_cpu(q, auths):
+    """The store's count and select under auths on the card (the fused,
+    staged and union programs with their vis section) equal the CPU's."""
+    dev = _cuda()
+    cols = _columns(20_000, 21)
+    vis = np.random.default_rng(21).choice(
+        ["", "admin", "admin&ops", "user|ops", "ops"], 20_000)
+    out = []
+    for d in ("cpu", dev):
+        sft = TSFT.from_spec("v", SPEC)
+        t = TTable.build(sft, cols, visibilities=vis)
+        p = TPlanner(sft, t, [TZ3(sft, t, d)])
+        out.append((p.count(q, auths=auths),
+                    p.select_indices(q, auths=auths)))
+    assert out[0][0] == out[1][0]
+    assert np.array_equal(out[0][1], out[1][1])

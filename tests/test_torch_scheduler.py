@@ -467,13 +467,17 @@ def test_store_replaces_unhealthy_scheduler(store):
 
 
 def test_auths_fail_one_request_naming_roadmap(world):
+    """Requests with auths (once failed as ROADMAP.md Queue 1 item 10) run,
+    keyed by their auths in the plan cache; over a table without
+    visibility labels every auths see every row. Labelled tables:
+    ``tests/test_torch_security.py``."""
     _, tp = world
     s = _sched(True, tp, window_us=200)
     try:
         req = s.submit("t", BOX, auths=["admin"])
-        with pytest.raises(NotImplementedError, match="item 10"):
-            req.result(timeout=WAIT)
+        assert req.result(timeout=WAIT) == tp.count(BOX, auths=["admin"])
         assert s.count("t", BOX, timeout=WAIT) == tp.count(BOX)
+        assert {k[-1] for k in s.plans._d} >= {("admin",), None}
     finally:
         s.shutdown()
 

@@ -240,13 +240,26 @@ def _store(n=6000):
     return store
 
 
-@pytest.mark.parametrize("q,item", [
-    ("IN ('1', '2')", "item 10"),
+@pytest.mark.parametrize("spec,item", [
+    (SPEC.replace("age:Int", "age:Int:index=true"), "item 10"),
+    (SPEC + ",geomesa.indices='z3,attr:age'", "item 10"),
 ])
-def test_outside_slice_raises_naming_roadmap(q, item):
-    store = _store(600)
+def test_outside_slice_raises_naming_roadmap(spec, item):
+    """The attribute and configured indexes stay outside the slice
+    (ROADMAP.md Queue 1 item 10's rest)."""
+    store = DataStoreFinder.get_data_store(type="torch", device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        store.count("fq", q)
+        store.create_schema("fq", spec)
+
+
+@pytest.mark.parametrize("q", ["IN ('1', '2')", "IN ('1', '2', 'x', '5999')",
+                               f"IN ('3', '40', '41') AND {BOX}"])
+def test_fid_lookups_match_reference(world, q):
+    """Feature-id lookups (once refused as ROADMAP.md Queue 1 item 10)
+    answer as the reference does, through the planner and the store."""
+    jp, tp = world
+    _parity(jp, tp, q)
+    assert _store(6000).count("fq", q) == jp.count(q)
 
 
 @pytest.mark.parametrize("q", [
@@ -262,9 +275,13 @@ def test_former_outside_slice_cases_match_reference(world, q):
 
 
 def test_prepare_with_auths_raises_naming_roadmap():
+    """Prepared queries under auths (once refused as ROADMAP.md Queue 1
+    item 10): a table without visibility labels is public, so every auths
+    see every row; labelled tables: ``tests/test_torch_security.py``."""
     planner = _store(600).planner("fq")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        planner.prepare(BOX, auths=["admin"])
+    for auths in (["admin"], []):
+        assert planner.prepare(BOX, auths=auths).count() \
+            == planner.count(BOX)
 
 
 def test_store_count_and_query(world):

@@ -197,9 +197,15 @@ def test_writer_appends_take_delta_path():
     q = "BBOX(geom, 0.9, 1.9, 1.1, 2.1) AND v < 50"
     assert ts.count("t", q) == js.count("t", q) == 50
     assert sorted(map(str, ts.query("t", q).table.fids)) == sorted(jf)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ts.get_writer("t").write(v=1, dtg=np.datetime64("2022-01-02"),
-                                 geom="POINT (1 2)", vis="secret")
+    # visibility labels on written rows (once refused as ROADMAP.md
+    # Queue 1 item 10), in the delta tier under auths, as the reference
+    for store in (js, ts):
+        with store.get_writer("t") as w:
+            w.write(v=1, dtg=np.datetime64("2022-01-02"),
+                    geom="POINT (1 2)", vis="secret")
+    for auths in (None, [], ["secret"]):
+        assert ts.count("t", q, auths=auths) == js.count("t", q, auths=auths)
+    assert ts.count("t", q, auths=[]) == 50
 
 
 def test_upsert_without_collision_lands_in_delta_tier():
