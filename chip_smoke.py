@@ -95,6 +95,22 @@ Phases, each failing the run (non-zero exit) when it fails:
    store (c)'s, (h)'s, (i)'s and (j)'s rows with the host permutation not
    cached (host syncs, device activities), and the first select of more
    than 2^20 rows with its one permutation read-back;
+7d. stats, BIN, sampling and KNN (o) on the main store, before the write
+   path changes its corpus (``phase_process``, ``{"process": ...}`` line):
+   bench.py cfg4's ``knn(planner, 2.0 + 0.03 i, 48.0, 10)`` warm and six
+   reps (p50, plan rounds and dispatches a query, the k-th distance), k =
+   2048 (the device cap), k = 2500 (the radius fallback), k = 10 under
+   (a)'s filter and inside a box far from the point (the full-table
+   kernel) — each against a numpy f64 brute force; the ``stats`` hint
+   (Count, Histogram, Z2Histogram, Enumeration, GroupBy, MinMax) over (a)
+   and INCLUDE against numpy with the reference's f32 binning; the store's
+   battery, estimated and exact counts of (a) and (f); (a)'s BIN records
+   (bytes) and its 1-in-100 sample by name — every kernel's launches read
+   around it; then ``masked_hist`` (each form, at (a)'s mask and over the
+   whole table) and ``topk_nearest`` (FULL at m = 32 and 4,096 over the
+   100M rows, BLOCKS at cfg4's cover) against their plain versions, with
+   ``torch.bincount``'s and ``torch.topk``'s times beside them
+   (``phase_process_kernels``);
 8. the write path (l) on the same store, after every other phase (the
    corpus changes under it): 20 appends of 100,000 rows into the LSM delta
    tier, (a)-(d) and (g3)'s 64 boxes through ``count_many`` over main +
@@ -110,7 +126,11 @@ Phases, each failing the run (non-zero exit) when it fails:
 
 The main path's load prints its split by stage (the native encode
 overlapped with the upload, the attribute planes, the device sort, the
-sorted gathers), each timer stopped on a device sync.
+sorted gathers), each timer stopped on a device sync, and beside it the
+sketch battery's seconds at its first read after the load. Every
+``[kernel]`` line gives, beside the CUDA-event time, the device time a call
+by kernel name from the same profiler session as its activities (events
+recorded, mean ms).
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero
 without a result when no CUDA card is present.
@@ -118,6 +138,7 @@ without a result when no CUDA card is present.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import re
@@ -554,14 +575,18 @@ def phase_kernel_main_inputs(store) -> dict:
     return r
 
 
-def activities_per_call(fn, calls: int = 10):
+def activities_per_call(fn, calls: int = 10, by_kernel: bool = False):
     """(device activities, their summed device ms) a warm call of ``fn`` —
     kernels, copies, memsets — from torch.profiler over ``calls`` calls (a
     profile of one call of a few µs sometimes comes back without device
     events); (None, None) when the profiler recorded no device activity.
     The device time excludes the host's part of the call, which the
     CUDA-event times of back-to-back calls include when the host is the
-    slower side."""
+    slower side. ``by_kernel`` adds, from the same session, kernel name →
+    [events recorded, mean device ms an event]: a one-kernel wrapper's
+    device time a call even where the profiler drops some events (then
+    fewer events than calls are recorded, and their mean still reads one
+    call's kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -573,10 +598,19 @@ def activities_per_call(fn, calls: int = 10):
         torch.cuda.synchronize()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
+    per = {}
+    for e in dev:
+        if "Memset" not in e.name and "Memcpy" not in e.name:
+            k = per.setdefault(e.name[:80], [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us() / 1e3
+    per = {k: [c, t / c] for k, (c, t) in per.items()}
     if not dev:   # the profiler recorded no device activity: not measured
-        return None, None
-    return (len(dev) / calls,
-            sum(e.time_range.elapsed_us() for e in dev) / 1e3 / calls)
+        acts, dev_ms = None, None
+    else:
+        acts = len(dev) / calls
+        dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / calls
+    return (acts, dev_ms, per) if by_kernel else (acts, dev_ms)
 
 
 def scatter_bound(n: int, live: int, weighted: bool, cells: int,
@@ -990,8 +1024,21 @@ def phase_main_path(n: int = N, device: str = "cuda"):
     # device_sort_perm (sort_s), the sorted gathers and the attribute
     # planes' uploads (gather_s, upload_s)
     split = dict(idx.build_stages)
+    # the sketch battery, observed over the whole table at its first read
+    # (GeoMesaStats.defer): a stage after the load, not in it
+    battery = store.stats("gdelt")
+    if battery.observed:
+        raise AssertionError("the load observed the battery: it should wait "
+                             "for its first read")
+    t0 = time.perf_counter()
+    battery.cached   # the first read observes it
+    battery_s = time.perf_counter() - t0
+    log(f"[main] the battery's sketches, each observed side by side (s): "
+        f"{json.dumps(battery.update_split_s)}")
     log(f"[main] load split (s): {json.dumps(split)}; the rest of the "
-        f"load {load_s - sum(split.values())} s; peak device memory "
+        f"load {load_s - sum(split.values())} s; the battery at its first "
+        f"read after the load: stats_battery_s {battery_s} "
+        f"(update_s {battery.update_s}); peak device memory "
         f"{load_peak} bytes (the sorted columns "
         f"{sum(v.numel() * v.element_size() for v in idx.device.columns.values())}"
         f" bytes, the permutation {idx.perm.numel() * idx.perm.element_size()})")
@@ -1430,18 +1477,20 @@ def _time_kernel(label: str, kern, plain, bound: dict, reps: int,
     if cut is not None:
         got, want = cut(got), cut(want)
     err = _equal_or_raise(label, got, want)
-    acts, dev_ms = activities_per_call(kern)
+    acts, dev_ms, by_kernel = activities_per_call(kern, 50, by_kernel=True)
     ms = cuda_ms(kern, reps)
     plain_ms = cuda_ms(plain, max(1, reps // 10))
     lib_ms = None if library is None else cuda_ms(library, max(1, reps // 5))
     r = {"label": label, "ms": ms, "plain_ms": plain_ms,
          "library_ms": lib_ms, "activities_per_call": acts,
-         "device_ms_per_call": dev_ms, "max_abs_err": err, **bound}
+         "device_ms_per_call": dev_ms, "device_ms_by_kernel": by_kernel,
+         "max_abs_err": err, **bound}
     log(f"[kernel] {label}: equal to the plain version, kernel {ms} ms, "
         f"plain {plain_ms} ms, library {lib_ms} ms, bound {r['bound_ms']} ms "
         f"({r['bound_by']}; bytes {r['bytes_ms']} ms, operations "
         f"{r['ops_ms']} ms), {acts} device activities a call ({dev_ms} ms of "
-        f"device time)")
+        f"device time; by kernel, events recorded and mean ms: "
+        f"{json.dumps(by_kernel)})")
     return r
 
 
@@ -3466,6 +3515,440 @@ def phase_auths(store, oracle, f_oracle) -> dict:
             "vis_rows": vis_rows}
 
 
+# -- (o) stats, BIN, sampling and KNN on the main store ------------------------
+
+O_STATS = ('Count();Histogram("val",20,0,100);Z2Histogram("geom",5);'
+           'Enumeration("name");GroupBy("name",Count());MinMax("val")')
+O_VOCAB = ("a", "b", "c")          # the main store's name vocabulary
+O_Q = (2.0, 48.0)                  # bench.py cfg4's KNN point
+O_REPS = 6                         # cfg4's reps: 2.0 + 0.03 * i, 48.0
+EARTH_R_M = 6371008.8
+# the full-table route: a box far from the query point — knn's first
+# bboxes around the point meet it nowhere, so their plans are empty, the
+# range cover declines, and the k nearest come from the full-table kernel
+O_FAR_BOX = (100.0, -20.0, 110.0, -10.0)
+Q_O_FAR = "BBOX(geom, {}, {}, {}, {})".format(*O_FAR_BOX)
+
+
+def haversine_np(x1, y1, x2, y2) -> np.ndarray:
+    """Great-circle metres in f64, numpy (process/geo.py's formula)."""
+    lon1, lat1, lon2, lat2 = (np.radians(np.asarray(a, dtype=np.float64))
+                              for a in (x1, y1, x2, y2))
+    dlat = lat2 - lat1
+    dlon = lon2 - lon1
+    a = np.sin(dlat / 2) ** 2 + np.cos(lat1) * np.cos(lat2) \
+        * np.sin(dlon / 2) ** 2
+    return 2 * EARTH_R_M * np.arcsin(np.sqrt(np.clip(a, 0.0, 1.0)))
+
+
+def knn_oracle(x, y, q, k: int, dk: float, keep=None):
+    """(rows, f64 metres) of the k points nearest q by numpy brute force:
+    f64 haversine, argpartition, then a stable sort (ties by row). Only
+    rows within dk's latitude band are measured — a great-circle distance
+    is at least R times the latitude difference, so every row within dk of
+    q lies in the band — where dk is the checked answer's k-th distance:
+    once the answer's rows and distances equal the oracle's, its k rows
+    lie within dk, so the true k nearest do too."""
+    band = dk / EARTH_R_M * 180.0 / np.pi * (1 + 1e-6) + 1e-9
+    rows = keep if keep is not None else None
+    if rows is None:
+        rows = np.flatnonzero(np.abs(y - q[1]) <= band)
+    else:
+        rows = rows[np.abs(y[rows] - q[1]) <= band]
+    d = haversine_np(x[rows], y[rows], q[0], q[1])
+    take = min(k, len(d))
+    part = np.argpartition(d, take - 1)[:take]
+    order = part[np.argsort(d[part], kind="stable")]
+    return rows[order], d[order]
+
+
+def boxes_rows(x, y, boxes) -> np.ndarray:
+    """Ascending rows inside any of ``boxes`` (inclusive edges): the
+    one-degree cells the boxes touch first, then the exact test."""
+    cell = ((np.floor(y).astype(np.int64) + 90) * 361
+            + np.floor(x).astype(np.int64) + 180)
+    hit = np.zeros(182 * 361, dtype=bool)
+    for a, b, c, d in boxes:
+        for cy in range(int(np.floor(b)), int(np.floor(d)) + 1):
+            for cx in range(int(np.floor(a)), int(np.floor(c)) + 1):
+                hit[(cy + 90) * 361 + cx + 180] = True
+    cand = np.flatnonzero(hit[cell])
+    keep = np.zeros(len(cand), dtype=bool)
+    for a, b, c, d in boxes:
+        keep |= (x[cand] >= a) & (x[cand] <= c) & (y[cand] >= b) \
+            & (y[cand] <= d)
+    return cand[keep]
+
+
+def check_knn(label, got, x, y, q, k, keep=None) -> float:
+    rows, dists = got
+    if len(rows) != (k if keep is None else min(k, len(keep))):
+        raise AssertionError(f"(o) {label}: {len(rows)} rows for k={k}")
+    want_rows, want_d = knn_oracle(x, y, q, k, float(dists[-1]), keep)
+    if not np.array_equal(rows, want_rows) \
+            or dists.tobytes() != want_d.tobytes():
+        raise AssertionError(f"(o) {label}: rows or distances differ from "
+                             f"the numpy brute force")
+    return float(dists[-1])
+
+
+def stats_oracle(x, y, val, name, rows) -> dict:
+    """The (o) spec's leaves over ``rows`` (None: every row), numpy: the
+    device kinds with the reference's f32 arithmetic (Histogram: (f32(v) -
+    lo) / (hi - lo) * bins; Z2: (x + 180) * f32(1/360) * g), truncated and
+    clipped; MinMax by min, max and the distinct count."""
+    f32 = np.float32
+    v = val if rows is None else val[rows]
+    xs = x if rows is None else x[rows]
+    ys = y if rows is None else y[rows]
+    codes = name if rows is None else name[rows]
+
+    def clip_trunc(a, bins):
+        return np.clip(np.nan_to_num(a, nan=0.0), 0, bins - 1).astype(np.int64)
+    frac = (v.astype(f32) - f32(0)) / (f32(100) - f32(0))
+    hist = np.bincount(clip_trunc(frac * f32(20), 20), minlength=20)
+    g = 32
+    ix = clip_trunc((xs.astype(f32) + f32(180)) * (f32(1) / f32(360))
+                    * f32(g), g)
+    iy = clip_trunc((ys.astype(f32) + f32(90)) * (f32(1) / f32(180))
+                    * f32(g), g)
+    grid = np.bincount(iy * g + ix, minlength=g * g)
+    counts = np.bincount(codes, minlength=len(O_VOCAB))
+    by_name = {O_VOCAB[i]: int(c) for i, c in enumerate(counts) if c}
+    return {"count": int(len(v)), "hist": hist.tolist(),
+            "grid": grid.tolist(), "enum": by_name,
+            "min": int(v.min()), "max": int(v.max()),
+            "distinct": int(np.count_nonzero(np.bincount(
+                v.astype(np.int64) - int(v.min()))))}
+
+
+def check_stats(label, stat, want) -> dict:
+    leaves = stat.stats
+    got = {"count": leaves[0].count, "hist": leaves[1].counts.tolist(),
+           "grid": leaves[2].counts.ravel().tolist(),
+           "enum": dict(leaves[3].counts),
+           "groupby": {k: s.count for k, s in leaves[4].groups.items()},
+           "min": leaves[5].min, "max": leaves[5].max,
+           "cardinality": leaves[5].cardinality}
+    for key in ("count", "hist", "grid", "enum", "min", "max"):
+        if got[key] != want[key]:
+            raise AssertionError(f"(o) stats {label}: {key} {got[key]} != "
+                                 f"oracle {want[key]}")
+    if got["groupby"] != want["enum"]:
+        raise AssertionError(f"(o) stats {label}: GroupBy {got['groupby']} "
+                             f"!= oracle {want['enum']}")
+    if abs(got["cardinality"] - want["distinct"]) > max(2, 0.05
+                                                          * want["distinct"]):
+        raise AssertionError(f"(o) stats {label}: MinMax cardinality "
+                             f"{got['cardinality']} far from the "
+                             f"{want['distinct']} distinct values")
+    return {"count": got["count"], "cardinality": got["cardinality"],
+            "distinct": want["distinct"]}
+
+
+def bin_oracle(x, y, dtg, name, rows) -> bytes:
+    """(a)'s BIN records, track = blake2b of the name & 0x7FFFFFFF, sorted
+    by dtg (stable), packed as the 16-byte wire records."""
+    import hashlib
+    ids = np.array([int.from_bytes(hashlib.blake2b(
+        v.encode(), digest_size=8).digest(), "little") & 0x7FFFFFFF
+        for v in O_VOCAB], dtype=np.int64).astype(np.int32)
+    out = np.empty(len(rows), dtype=[("track", "<i4"), ("dtg", "<i4"),
+                                     ("lat", "<f4"), ("lon", "<f4")])
+    out["track"] = ids[name[rows]]
+    out["dtg"] = (dtg[rows] // 1000).astype(np.int32)
+    out["lat"] = y[rows].astype(np.float32)
+    out["lon"] = x[rows].astype(np.float32)
+    return out[np.argsort(out["dtg"], kind="stable")].tobytes()
+
+
+def sample_oracle(name, rows, n: int) -> np.ndarray:
+    """Every n-th row of each name's run, in row order."""
+    keys = name[rows]
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    starts = np.r_[0, np.nonzero(np.diff(sk))[0] + 1]
+    pos = np.arange(len(rows)) - np.repeat(starts,
+                                           np.diff(np.r_[starts, len(rows)]))
+    return np.sort(rows[order[pos % n == 0]])
+
+
+def phase_process(store, g_oracle) -> dict:
+    """(o): bench.py cfg4's KNN, the stats hint, the store's battery, BIN
+    and sampling on the main 100M-point store, before the write path
+    changes its corpus — every answer against numpy, every kernel's
+    launches counted from 0 around the phase."""
+    import torch
+    from geomesa_tpu_torch.kernels import (box_count, compact, density,
+                                           dist, fused_scan, gate, hist,
+                                           merge, pip, seg_band, topk)
+    from geomesa_tpu_torch.metrics import REGISTRY
+    from geomesa_tpu_torch.process import knn
+    table = store.tables["gdelt"]
+    x, y = table.geometry().point_xy()
+    val = np.asarray(table.columns["val"])
+    dtg = np.asarray(table.columns["dtg"])
+    name = table.columns["name"].codes
+    if list(table.columns["name"].vocab) != list(O_VOCAB):
+        raise AssertionError("(o) the main store's name vocabulary moved")
+    rows_a = g_oracle["a_rows"]
+    rows_f = g_oracle["f_rows"]
+    planner = store.planner("gdelt")
+    counters = {"pip_refine": pip.pip_refine,
+                "grid_scatter": density.grid_scatter,
+                "box_count": box_count.box_count,
+                "dist_refine": dist.dist_refine,
+                "merge_scatter": merge.merge_scatter,
+                "seg_band": seg_band.seg_band,
+                "block_gate": gate.block_gate,
+                "fused_scan": fused_scan.fused_scan,
+                "ordered_compact": compact.ordered_compact,
+                "masked_hist": hist.masked_hist,
+                "topk_nearest": topk.topk_nearest}
+    for c in counters.values():
+        c.launches = 0
+    for f in hist.masked_hist.form_launches:
+        hist.masked_hist.form_launches[f] = 0
+    for f in topk.topk_nearest.form_launches:
+        topk.topk_nearest.form_launches[f] = 0
+    out = {}
+
+    def kc():
+        c = REGISTRY.snapshot()["counters"]
+        return c.get("knn.plan_rounds", 0), c.get("knn.device_dispatches", 0)
+
+    # KNN as bench.py cfg4 runs it (bench.py:812-846)
+    c0 = kc()
+    t0 = time.perf_counter()
+    got = knn(planner, *O_Q, 10)
+    warm_s = time.perf_counter() - t0
+    kth = [check_knn("k=10 warm", got, x, y, O_Q, 10)]
+    lat = []
+    for i in range(O_REPS):
+        q = (O_Q[0] + 0.03 * i, O_Q[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = knn(planner, *q, 10)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        kth.append(check_knn(f"k=10 at {q}", got, x, y, q, 10))
+    c1 = kc()
+    nq = O_REPS + 1
+    out["cfg4"] = {"warm_s": warm_s, "p50_ms": float(np.median(lat)),
+                   "ms": lat, "kth_m": kth,
+                   "plan_rounds_per_query": (c1[0] - c0[0]) / nq,
+                   "dispatches_per_query": (c1[1] - c0[1]) / nq}
+    cases = {}
+    for label, q, k, f, keep in (
+            ("k=2048 (the device cap)", O_Q, 2048, None, None),
+            ("k=2500 (the radius fallback)", O_Q, 2500, None, None),
+            ("k=10 with (a)'s filter", O_Q, 10, Q_BOX, rows_a),
+            ("k=10 in a far box (the full table)", O_Q, 10, Q_O_FAR,
+             boxes_rows(x, y, [O_FAR_BOX]))):
+        full0 = topk.topk_nearest.form_launches["full"]
+        c0 = kc()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = knn(planner, *q, k, f=f)
+        ms = (time.perf_counter() - t0) * 1e3
+        c1 = kc()
+        cases[label] = {"ms": ms, "kth_m": check_knn(label, got, x, y, q, k,
+                                                     keep),
+                        "plan_rounds": c1[0] - c0[0],
+                        "dispatches": c1[1] - c0[1],
+                        "full_table_launches":
+                            topk.topk_nearest.form_launches["full"] - full0}
+    if cases["k=10 in a far box (the full table)"][
+            "full_table_launches"] < 1:
+        raise AssertionError("(o) the far box's query did not take the "
+                             "full-table route")
+    out["knn"] = cases
+    log(f"[o] knn cfg4 p50 {out['cfg4']['p50_ms']} ms (warm "
+        f"{warm_s} s), plan rounds {out['cfg4']['plan_rounds_per_query']} "
+        f"and dispatches {out['cfg4']['dispatches_per_query']} a query, "
+        f"k-th {kth[0]} m; {json.dumps(cases)}: equal to the numpy brute "
+        f"force")
+
+    # the stats hint over (a) and over INCLUDE
+    st = {}
+    for label, f, rows in (("a", Q_BOX, rows_a), ("include", "INCLUDE",
+                                                  None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stat = store.query("gdelt", f, hints={"stats": O_STATS})
+        ms = (time.perf_counter() - t0) * 1e3
+        st[label] = dict(check_stats(label, stat,
+                                     stats_oracle(x, y, val, name, rows)),
+                         ms=ms)
+    out["stats"] = st
+    battery = store.stats("gdelt")
+    est = {}
+    for label, f, rows in (("a", Q_BOX, rows_a), ("f", Q_F, rows_f)):
+        exact = battery.get_count(f, exact=True)
+        if exact != len(rows):
+            raise AssertionError(f"(o) exact count ({label}) {exact} != "
+                                 f"{len(rows)}")
+        est[label] = {"estimated": battery.get_count(f), "exact": exact}
+    out["estimates"] = est
+    log(f"[o] stats hint {json.dumps(st)}: equal to numpy; the battery's "
+        f"estimated and exact counts {json.dumps(est)}")
+
+    # BIN and sampling over (a)
+    t0 = time.perf_counter()
+    b = store.query("gdelt", Q_BOX, hints={"bin": {"track": "name",
+                                                   "sort": True}})
+    bin_ms = (time.perf_counter() - t0) * 1e3
+    if b.tobytes() != bin_oracle(x, y, dtg, name, rows_a):
+        raise AssertionError("(o) (a)'s BIN records differ from numpy")
+    t0 = time.perf_counter()
+    s = store.query("gdelt", Q_BOX, hints={"sample": {"n": 100,
+                                                      "by": "name"}})
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(s.indices, sample_oracle(name, rows_a, 100)):
+        raise AssertionError("(o) (a)'s sample differs from the numpy "
+                             "stride")
+    out["bin"] = {"records": len(b), "ms": bin_ms}
+    out["sample"] = {"rows": len(s.indices), "ms": sample_ms}
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    if launches["masked_hist"] < 1 or launches["topk_nearest"] < 1 \
+            or launches["fused_scan"] < 1:
+        raise AssertionError(f"(o) launches {json.dumps(launches)}: the "
+                             "stats hint must launch masked_hist and knn "
+                             "topk_nearest, both behind fused_scan")
+    out["launches"] = launches
+    out["form_launches"] = {"masked_hist": dict(
+        hist.masked_hist.form_launches), "topk_nearest": dict(
+        topk.topk_nearest.form_launches)}
+    log(json.dumps({"process": out}))
+    return out
+
+
+def hist_bound(n: int, live: int, col_bytes: int, bins: int) -> dict:
+    """The function's own bytes: each row's mask byte, the column bytes of
+    the ``live`` rows whose mask is set (no other row's bin is needed),
+    the bins written once; a handful of f32 operations a live row."""
+    return _bound(n + live * col_bytes + 4 * bins, 8 * live)
+
+
+def topk_bound(n: int, m: int, live: int, start_bytes: int = 0) -> dict:
+    """The function's own bytes: each candidate's mask byte, 8 bytes of
+    coordinates of the ``live`` candidates whose mask is set, the block
+    starts (BLOCKS), the m pairs out; ~40 f32 operations a live candidate
+    (the haversine's transcendental functions). The first design's own
+    scratch (a 4-byte key a candidate, written once and read by the three
+    passes after the first) is not the function's: it stands beside the
+    bound as ``design_bytes``."""
+    return {**_bound(n + live * 8 + start_bytes + m * 8, 40 * live),
+            "design_bytes": n * 4 * 4}
+
+
+def phase_process_kernels(store) -> dict:
+    """``masked_hist`` (each form) and ``topk_nearest`` (FULL and BLOCKS)
+    against their plain versions on the main path's tensors, with times,
+    bounds, device activities and the library call's time."""
+    import torch
+    from geomesa_tpu_torch.aggregates import stats_scan
+    from geomesa_tpu_torch.index import prune, scan
+    from geomesa_tpu_torch.kernels import hist, topk
+    knn_mod = importlib.import_module("geomesa_tpu_torch.process.knn")
+    planner = store.planner("gdelt")
+    cols = planner.indexes[0].device.columns
+    n = int(cols["xf"].shape[0])
+    rows = {"masked_hist": [], "topk_nearest": []}
+    for mlabel, f in (("(a)'s mask", Q_BOX), ("the full table's mask",
+                                               "INCLUDE")):
+        _, mask = planner.scan_mask(f)
+        live = int(mask.sum())
+        for form, cs, kw, nbins, cb in (
+                ("hist", (cols["val"],), {"lo": 0.0, "hi": 100.0,
+                                          "bins": 20}, 20, 4),
+                ("grid", (cols["xf"], cols["yf"]), {"bins": 32}, 1024, 8),
+                ("bincount", (cols["name"],), {"bins": 3}, 3, 4)):
+            # the masked bin indices torch.bincount counts
+            if form == "hist":
+                bi = stats_scan._bin_index(
+                    (cs[0].float() - 0.0) / 100.0 * 20.0, 20)
+            elif form == "grid":
+                bi = (stats_scan._bin_index((cs[1] + 90.0) * stats_scan.INV180
+                                            * 32.0, 32) * 32
+                      + stats_scan._bin_index((cs[0] + 180.0)
+                                              * stats_scan.INV360 * 32.0, 32))
+            else:
+                bi = cs[0].long()
+            sel = bi[mask]
+            r = _time_kernel(
+                f"masked_hist {form} at {mlabel} ({live} of {n} rows set)",
+                lambda form=form, cs=cs, kw=kw, mask=mask:
+                    hist.masked_hist(form, mask, *cs, **kw),
+                lambda form=form, cs=cs, kw=kw, mask=mask:
+                    stats_scan.masked_hist(form, mask, *cs, **kw),
+                hist_bound(n, live, cb, nbins), 20,
+                library=lambda sel=sel, nbins=nbins: torch.bincount(
+                    sel, minlength=nbins))
+            r.update(form=form, live=live)
+            rows["masked_hist"].append(r)
+            del bi, sel
+    # topk_nearest FULL over the table at m = 32 and 4096
+    _, mask = planner.scan_mask("INCLUDE")
+    q = torch.tensor(O_Q, dtype=torch.float32, device=cols["xf"].device)
+    dmask = torch.where(mask, scan.haversine_f32(cols["xf"], cols["yf"], q),
+                        torch.tensor(float("inf"), device=q.device))
+    for m in (32, 4096):
+        r = _time_kernel(
+            f"topk_nearest FULL m={m} over {n} rows",
+            lambda m=m: topk.topk_nearest(cols["xf"], cols["yf"], mask,
+                                          *O_Q, m),
+            lambda m=m: scan.topk_nearest(cols["xf"], cols["yf"], mask,
+                                          *O_Q, m),
+            topk_bound(n, m, int(mask.sum())), 10,
+            library=lambda m=m: torch.topk(dmask, m, largest=False))
+        r.update(form="full", m=m)
+        rows["topk_nearest"].append(r)
+    del dmask
+    # BLOCKS at cfg4's candidate blocks: the cover knn's memoised radius
+    # gives at (2, 48), padded as knn pads it
+    memo = knn_mod._memo_for(planner)
+    # the radius cfg4's k=10 queries landed on; 100 km where they took
+    # the full table (a smaller table)
+    radius = memo["radii"].get(max(32 * 10, 2048), 100_000.0)
+    geom = planner.sft.geometry_attribute.name
+    from geomesa_tpu_torch.filter import ir
+    from geomesa_tpu_torch.process.geo import expand_bbox
+    plan_r = planner.plan(ir.BBox(geom, *expand_bbox(*O_Q, radius)))
+    blocks = planner._pruned_blocks(plan_r)
+    if blocks is None or len(blocks) == 0:
+        raise AssertionError("(o) cfg4's cover declined at its memo radius")
+    kern = planner.indexes[0].kernels
+    tier = knn_mod._stable_tier_blocks({"tier": 0}, blocks)
+    disp = kern._candidates([(plan_r.primary_kind, plan_r.boxes_loose,
+                              plan_r.windows, plan_r.residual_device)],
+                            tier, prune.BLOCK_SIZE)
+    bmask, starts, _, bsz = disp()
+    nc = int(bmask.shape[0])
+    brows = scan.block_rows(starts, bsz)
+    bq = torch.where(bmask, scan.haversine_f32(
+        cols["xf"].index_select(0, brows), cols["yf"].index_select(0, brows),
+        q), torch.tensor(float("inf"), device=q.device))
+    r = _time_kernel(
+        f"topk_nearest BLOCKS m=32 over cfg4's {len(blocks)} cover blocks "
+        f"({len(tier)} with the tier's pad, {nc} candidates, "
+        f"{int(bmask.sum())} set)",
+        lambda: topk.topk_nearest(cols["xf"], cols["yf"], bmask, *O_Q, 32,
+                                  starts, bsz),
+        lambda: scan.topk_nearest(cols["xf"], cols["yf"], bmask, *O_Q, 32,
+                                  starts, bsz),
+        topk_bound(nc, 32, int(bmask.sum()),
+                   starts.numel() * starts.element_size()), 50,
+        library=lambda: torch.topk(bq, 32, largest=False))
+    r.update(form="blocks", m=32, blocks=len(blocks), radius_m=radius)
+    rows["topk_nearest"].append(r)
+    for name in ("masked_hist", "topk_nearest"):
+        log(f"[kernel] {name} registers and spills: "
+            f"{json.dumps(kernel_resources(name))}")
+    log(json.dumps({"process_kernels": rows}))
+    return rows
+
+
 def queries(store):
     """The main path's queries as (label, zero-arg fn), for the timings and
     the profile."""
@@ -3594,6 +4077,7 @@ def phase_profile(store, extra=()) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     smi, name = phase_device()
     log(f"[device] nvidia-smi: {smi}")
     phase_build()
@@ -3614,11 +4098,13 @@ def main() -> int:
     nl = nres["launches"]
     m = phase_extent(store.planner("gdelt").table)
     mk = phase_extent_kernels(m.pop("m1_state"))
+    o = phase_process(store, g_oracle)
+    ok = phase_process_kernels(store)
     w = phase_write(store, g_oracle)
     import torch
     from geomesa_tpu_torch.kernels import (box_count, compact, density,
-                                           dist, fused_scan, gate, merge,
-                                           pip, seg_band)
+                                           dist, fused_scan, gate, hist,
+                                           merge, pip, seg_band, topk)
     head = d[0]   # (d)'s own inputs, 64x64, unit weights
     bhead = b[0]  # (g3)'s batch over the union of its covers
     thead = t[0]  # (i)'s own inputs
@@ -3683,7 +4169,18 @@ def main() -> int:
         "ms": nres["vis_rows"][0]["ms"],
         "plain_ms": nres["vis_rows"][0]["plain_ms"],
         "bound_ms": nres["vis_rows"][0]["bound_ms"],
-        "bound_by": nres["vis_rows"][0]["bound_by"], "library_ms": None}]}))
+        "bound_by": nres["vis_rows"][0]["bound_by"], "library_ms": None}] + [{
+        # (o)'s kernels: launches from the phase's run, the rest from the
+        # first row (FULL / (a)'s mask) of each kernel's comparisons
+        "name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
+        "replaces": mod.REPLACES, "launches": o["launches"][mod.NAME],
+        "max_abs_err": max(r["max_abs_err"] for r in ok[mod.NAME]),
+        "ms": ok[mod.NAME][0]["ms"], "plain_ms": ok[mod.NAME][0]["plain_ms"],
+        "bound_ms": ok[mod.NAME][0]["bound_ms"],
+        "bound_by": ok[mod.NAME][0]["bound_by"],
+        "library_ms": ok[mod.NAME][0]["library_ms"]}
+        for mod in (hist, topk)]}))
+    log(f"[done] every phase passed in {time.perf_counter() - t_start} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

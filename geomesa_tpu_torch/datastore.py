@@ -15,6 +15,11 @@
     store.count("gdelt", "IN ('gdelt.1', 'gdelt.7')", auths=["admin"])
     store.query("gdelt", "BBOX(...)", hints={"sort": ["-val", "dtg"],
         "limit": 1000, "transform": ["val", "geom"], "crs": "EPSG:3857"})
+    store.query("gdelt", "BBOX(...)", hints={"stats": 'Count();MinMax("val")'})
+    store.query("gdelt", "BBOX(...)", hints={"bin": {"track": "name"}})
+    store.query("gdelt", "BBOX(...)", hints={"sample": {"n": 10, "by": "name"}})
+    store.stats("gdelt").get_count("BBOX(...)")   # estimated from sketches
+    knn(store.planner("gdelt"), 2.0, 48.0, 10)    # geomesa_tpu_torch.process
     store.flush("gdelt")                  # merge the delta into the index
     store.upsert("gdelt", batch)          # put by fid
     store.remove_features("gdelt", "val = 7")
@@ -36,8 +41,14 @@ into the index by the incremental merge build (``Z3Index.merge_from``, the
 ``merge_scatter`` CUDA kernel; the other indexes rebuild in full), and the
 destructive mutations rebuild it. Features carry visibility labels (the
 writer's ``vis``, ``FeatureTable.build(..., visibilities=...)``), and every
-read takes the caller's ``auths``; feature-id filters and the shaping hints
-(sort, limit, transform, crs) answer as the reference's.
+read takes the caller's ``auths``; feature-id filters, the shaping hints
+(sort, limit, transform, crs) and the aggregation hints (stats, bin,
+sample) answer as the reference's. Every full build gives the type a
+fresh sketch battery, observed at its first read (``store.stats(type)``:
+cached estimates, exact stat scans through the ``masked_hist`` kernel),
+which a merge build carries over and the planner would price plans by
+where several indexes plan; ``geomesa_tpu_torch.process`` (KNN through the
+``topk_nearest`` kernel, proximity, tube, ...) runs on ``store.planner``.
 Every other store feature raises NotImplementedError naming its
 ROADMAP.md item.
 """
@@ -54,7 +65,9 @@ import numpy as np
 
 from geomesa_tpu_torch import config
 from geomesa_tpu_torch import trace as _trace
+from geomesa_tpu_torch.aggregates.bin import bin_records
 from geomesa_tpu_torch.aggregates.density import DensityGrid, density, host_grid
+from geomesa_tpu_torch.aggregates.sampling import sample_rows
 from geomesa_tpu_torch.features.geometry import GeometryArray
 from geomesa_tpu_torch.features.sft import SimpleFeatureType
 from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
@@ -70,6 +83,7 @@ from geomesa_tpu_torch.index.spatial import index_class
 from geomesa_tpu_torch.metrics import REGISTRY as _metrics
 from geomesa_tpu_torch.security.visibility import allowed_codes
 from geomesa_tpu_torch.serve.resilience import deadline as _rdl
+from geomesa_tpu_torch.stats.store import GeoMesaStats
 
 # store incarnations: every store (and every bare-planner scheduler
 # binding) draws a process-unique epoch that salts the scheduler's cache
@@ -150,6 +164,10 @@ class TorchDataStore:
         self.schemas: Dict[str, SimpleFeatureType] = {}
         self.tables: Dict[str, Optional[FeatureTable]] = {}
         self.planners: Dict[str, QueryPlanner] = {}
+        # per-type sketch battery (≙ the reference's ``_stats``): a fresh
+        # GeoMesaStats with every full build (observed at its first read),
+        # carried over by a merge build
+        self._stats: Dict[str, GeoMesaStats] = {}
         # LSM delta tier: recent appends held as a small host-side run that
         # queries merge in exactly; flushed into the device-indexed main
         # table past the flush threshold (≙ the Lambda store's hot tier)
@@ -197,21 +215,28 @@ class TorchDataStore:
             raise KeyError(type_name)
         return FeatureWriter(self, type_name)
 
-    def load(self, type_name: str, table: FeatureTable) -> None:
+    def load(self, type_name: str, table: FeatureTable,
+             stats_cached: Optional[dict] = None) -> None:
         """Append a prebuilt columnar table: the first load builds the
         type's spatial index on the device, later ones take the LSM append
-        path."""
-        self._append(type_name, table)
+        path. ``stats_cached`` (a ``GeoMesaStats.cached`` of sketches, the
+        reference's ``from_dict`` ones too) restores a checkpointed battery
+        instead of re-observing: a later load carrying one flushes through
+        (≙ ``geomesa_tpu/datastore.py:274-279``)."""
+        self._append(type_name, table, stats_cached)
 
-    def _append(self, type_name: str, batch: FeatureTable) -> None:
+    def _append(self, type_name: str, batch: FeatureTable,
+                stats_cached: Optional[dict] = None) -> None:
         with self._lock:
-            self._append_apply(type_name, batch)
+            self._append_apply(type_name, batch, stats_cached)
 
-    def _append_apply(self, type_name: str, batch: FeatureTable) -> None:
+    def _append_apply(self, type_name: str, batch: FeatureTable,
+                      stats_cached: Optional[dict] = None) -> None:
         """The LSM append (≙ ``geomesa_tpu/datastore.py:274-349``): a batch
         lands in the host-side delta run while the run stays within
-        ``max(50_000, LSM_MAX_FRACTION × main rows)``; past it the delta
-        flushes through with the batch. Callers hold the lock."""
+        ``max(50_000, LSM_MAX_FRACTION × main rows)``; past it (or with a
+        ``stats_cached`` battery to land) the delta flushes through with
+        the batch. Callers hold the lock."""
         _metrics.inc("ingest.features", len(batch))
         self._bump_generation(type_name)
         # already-expired incoming rows never land
@@ -221,34 +246,41 @@ class TorchDataStore:
             self.tables[type_name] = batch
             self.deltas[type_name] = None
             with _trace.span("ingest.index_build", kind="aggregate"):
-                self._rebuild_indexes(type_name)
+                self._rebuild_indexes(type_name, stats_cached)
             return
         delta = self.deltas.get(type_name)
         merged_delta = batch if delta is None \
             else FeatureTable.concat([delta, batch])
         threshold = max(50_000, int(config.LSM_MAX_FRACTION.get()
                                     * len(current)))
-        if len(merged_delta) > threshold:
+        if stats_cached is not None or len(merged_delta) > threshold:
             _metrics.inc("ingest.flushes")
             self.deltas[type_name] = None
-            self._merge_in(type_name, current, merged_delta)
+            self._merge_in(type_name, current, merged_delta, stats_cached)
         else:
+            # the battery stays main-table-only while a delta is pending
+            # (as the reference's); the next flush carries or re-observes it
             _metrics.inc("ingest.delta_appends")
             self.deltas[type_name] = merged_delta
 
     def _merge_in(self, type_name: str, current: FeatureTable,
-                  delta: FeatureTable) -> None:
+                  delta: FeatureTable,
+                  stats_cached: Optional[dict] = None) -> None:
         """Main table + delta, aged off, installed: by the incremental merge
         build when nothing aged off, else by a full rebuild."""
         n_old = len(current)
         merged = FeatureTable.concat([current, delta])
         merged, n_exp = self._apply_age_off(type_name, merged)
+        if n_exp:
+            # checkpointed sketches describe rows age-off just dropped
+            stats_cached = None
         with _trace.span("ingest.index_build", kind="aggregate"):
             # age-off drops invalidate the resident sorted run's row
             # identity — only a clean append merges incrementally
-            if n_exp or not self._merge_rebuild(type_name, merged, n_old):
+            if n_exp or not self._merge_rebuild(type_name, merged, n_old,
+                                                stats_cached):
                 self.tables[type_name] = merged
-                self._rebuild_indexes(type_name)
+                self._rebuild_indexes(type_name, stats_cached)
 
     def flush(self, type_name: str) -> None:
         """Merge the delta run into the main device index (≙
@@ -419,18 +451,45 @@ class TorchDataStore:
 
     # -- index builds --------------------------------------------------------
 
-    def _rebuild_indexes(self, type_name: str) -> None:
+    def _rebuild_indexes(self, type_name: str,
+                         stats_cached: Optional[dict] = None) -> None:
         """Full build of the type's spatial index over its main table — the
         first of ``INDEX_CLASSES`` that supports the schema (Z3, XZ3, Z2,
-        XZ2; ≙ ``geomesa_tpu/datastore.py:519-535``) — swapped in once
-        built (callers hold the lock)."""
+        XZ2; ≙ ``geomesa_tpu/datastore.py:519-555``) — and a fresh sketch
+        battery over it (``GeoMesaStats.update`` at its first read, or
+        ``stats_cached`` restored), both swapped in once built (callers hold
+        the lock)."""
         sft = self.schemas[type_name]
         table = self.tables[type_name]
-        self.planners[type_name] = QueryPlanner(
-            sft, table, [index_class(sft)(sft, table, self.device)])
+        stats = GeoMesaStats(sft)
+        planner = QueryPlanner(
+            sft, table, [index_class(sft)(sft, table, self.device)],
+            stats=stats)
+        self._install_battery(stats, planner, table, stats_cached, None)
+        self._stats[type_name] = stats
+        self.planners[type_name] = planner
+
+    @staticmethod
+    def _install_battery(stats: GeoMesaStats, planner: QueryPlanner,
+                         table: FeatureTable, stats_cached: Optional[dict],
+                         carried: Optional[GeoMesaStats]) -> None:
+        """Fill a new planner's battery: a checkpoint's sketches restored,
+        else a merge build's pre-flush battery carried over (it
+        under-describes only the delta rows, the drift readers accept while
+        a delta is pending), else the whole table's, observed at its first
+        read (``GeoMesaStats.defer``) so that the build does not wait on
+        it."""
+        stats.planner = planner
+        if stats_cached is not None:
+            stats.cached = stats_cached
+        elif carried is not None:
+            stats.carry(carried, table)
+        else:
+            stats.defer(table)
 
     def _merge_rebuild(self, type_name: str, merged: FeatureTable,
-                       n_old: int) -> bool:
+                       n_old: int,
+                       stats_cached: Optional[dict] = None) -> bool:
         """Incremental flush (≙ ``geomesa_tpu/datastore.py:574-647``): merge
         the freshly sorted delta run into the resident index
         (``Z3Index.merge_from``) instead of re-sorting the whole table.
@@ -465,9 +524,14 @@ class TorchDataStore:
                          type=type_name):
             indexes = [type(idx).merge_from(idx, merged, n_old)
                        for idx in old_planner.indexes]
+            stats = GeoMesaStats(self.schemas[type_name])
+            planner = QueryPlanner(self.schemas[type_name], merged, indexes,
+                                   stats=stats)
+            self._install_battery(stats, planner, merged, stats_cached,
+                                  self._stats.get(type_name))
             self.tables[type_name] = merged
-            self.planners[type_name] = QueryPlanner(
-                self.schemas[type_name], merged, indexes)
+            self._stats[type_name] = stats
+            self.planners[type_name] = planner
         _metrics.inc("ingest.merge_builds")
         return True
 
@@ -485,6 +549,13 @@ class TorchDataStore:
         if type_name not in self.planners:
             raise ValueError(f"No data written to {type_name}")
         return self.planners[type_name]
+
+    def stats(self, type_name: str) -> GeoMesaStats:
+        """The type's sketch battery and exact stat scans (≙
+        ``geomesa_tpu/datastore.py:1064``, GeoMesaDataStore.stats); a
+        pending delta flushes first, as ``planner()`` does."""
+        self.planner(type_name)
+        return self._stats[type_name]
 
     def _snapshot(self, type_name: str):
         """One consistent (planner, delta) pair, captured under the lock;
@@ -620,6 +691,11 @@ class TorchDataStore:
           hints["density"]   = {"bbox", "width", "height", "weight"}
                                → DensityGrid (width/height 256, weight None
                                by default)
+          hints["bin"]       = {"track": attr, "label": attr?, "sort": bool}
+                               → packed BIN records
+          hints["stats"]     = stat spec string → Stat sketch
+          hints["sample"]    = n | {"n": n, "by": attr?} → sampled
+                               QueryResult
           hints["sort"]      = attr | "-attr" | [specs] (stable, major-first)
           hints["limit"]     = n (applied before hydration)
           hints["transform"] = ["attr", "out=expr(...)"] (projected type)
@@ -630,18 +706,19 @@ class TorchDataStore:
         (``indices`` past ``len(main table)``), a density adds the
         delta's host grid onto the device grid, and shaping sorts and
         limits main and delta rows together. ``bin``, ``stats`` and
-        ``sample`` are ROADMAP.md Queue 1 item 12."""
+        ``sample`` read ``planner()``, which flushes a pending delta
+        first (≙ ``geomesa_tpu/datastore.py:994-1011``); with them the
+        shaping hints are ignored, as the reference's."""
         with _rdl.scope(deadline_ms):
             return self._query_impl(type_name, f, hints or {}, auths)
 
     def _query_impl(self, type_name, f, hints, auths):
         shaping = {"sort", "limit", "transform", "crs"}
-        aggregations = set(hints) & {"bin", "stats", "sample"}
-        if aggregations:
-            raise not_ported(f"query hints {sorted(aggregations)}", 12)
-        unknown = set(hints) - shaping - {"density"}
+        unknown = set(hints) - shaping - {"density", "bin", "stats", "sample"}
         if unknown:
             raise ValueError(f"Unknown hints: {sorted(unknown)}")
+        if hints and not shaping.issuperset(hints) and "density" not in hints:
+            return self._aggregate(type_name, f, hints, auths)
         planner, delta = self._snapshot(type_name)
         if "density" in hints:
             d = dict(hints["density"])
@@ -666,6 +743,24 @@ class TorchDataStore:
         if res.plan is not None:
             res.plan.explain["stacked_rows_base"] = n_main
         return QueryResult(rows, sub, res.plan)
+
+    def _aggregate(self, type_name, f, hints, auths):
+        """The ``bin``, ``stats`` and ``sample`` hints (≙
+        ``geomesa_tpu/datastore.py:994-1011``), over the merged state."""
+        planner = self.planner(type_name)
+        if "bin" in hints:
+            b = dict(hints["bin"])
+            return bin_records(planner, f, b["track"], b.get("label"),
+                               b.get("sort", False), auths=auths)
+        if "stats" in hints:
+            return self.stats(type_name).run_stat(hints["stats"], f,
+                                                  auths=auths)
+        s = hints["sample"]
+        s = {"n": s} if isinstance(s, int) else dict(s)
+        plan = planner.plan(f)
+        rows = sample_rows(planner, f, s["n"], s.get("by"), plan=plan,
+                           auths=auths)
+        return QueryResult(rows, planner.table.take(rows), plan)
 
     def _shaped(self, planner, delta, f, hints, auths) -> QueryResult:
         """The shaping hints (≙ ``geomesa_tpu/datastore.py:948-973``): sort

@@ -201,3 +201,13 @@ def and_filters(filters: Sequence[Filter]) -> Filter:
     if any(isinstance(f, Exclude) for f in fs):
         return Exclude()
     return fs[0] if len(fs) == 1 else And(fs)
+
+
+def or_filters(filters: Sequence[Filter]) -> Filter:
+    """Combine, dropping EXCLUDEs (the reference's ``or_filters``)."""
+    fs = [f for f in filters if not isinstance(f, Exclude)]
+    if not fs:
+        return Exclude()
+    if any(isinstance(f, Include) for f in fs):
+        return Include()
+    return fs[0] if len(fs) == 1 else Or(fs)

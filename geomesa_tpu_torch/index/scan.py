@@ -592,6 +592,58 @@ def grid_scatter(xf: torch.Tensor, yf: torch.Tensor, mask: torch.Tensor,
     return out, mask.sum(dtype=torch.int32)
 
 
+# -- KNN distance + ordered top-m (plain version of topk_nearest.cu) --------
+
+_EARTH_R_M = 6371008.8
+# the reference's f32 constants of ``_haversine_f32``
+HAVERSINE_RAD = float(np.float32(np.pi / 180.0))
+HAVERSINE_TWO_R = float(np.float32(2 * _EARTH_R_M))
+
+
+def haversine_f32(lon: torch.Tensor, lat: torch.Tensor,
+                  q: torch.Tensor) -> torch.Tensor:
+    """Great-circle metres in f32 from the f32 query point ``q`` = (qlon,
+    qlat), the reference's ``_haversine_f32`` operation for operation (its
+    ``/ 2`` a multiplication by 0.5, as XLA makes it)."""
+    qlon, qlat = q[0], q[1]
+    la1 = lat * HAVERSINE_RAD
+    la2 = qlat * HAVERSINE_RAD
+    dla = (qlat - lat) * HAVERSINE_RAD
+    dlo = (qlon - lon) * HAVERSINE_RAD
+    s1 = torch.sin(dla * 0.5)
+    s2 = torch.sin(dlo * 0.5)
+    a = s1 * s1 + torch.cos(la1) * torch.cos(la2) * (s2 * s2)
+    return HAVERSINE_TWO_R * torch.asin(torch.sqrt(a.clamp(0.0, 1.0)))
+
+
+def topk_nearest(xf: torch.Tensor, yf: torch.Tensor, mask: torch.Tensor,
+                 qx: float, qy: float, m: int,
+                 starts: Optional[torch.Tensor] = None,
+                 bsz: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """((m,) f32 distances, (m,) int32 positions) of the m candidates
+    nearest (qx, qy) (f32 values): ``haversine_f32`` of every candidate,
+    +inf where ``mask`` is unset, ascending by (distance, candidate) — the
+    order ``lax.top_k(-d, m)`` gives, equal distances (the +inf past the
+    matches too) lower candidate first (≙ the reference's modes ``topk`` and
+    ``topk_blocks``). Candidate i is row i, or with block ``starts`` row
+    ``starts[i // bsz] + i % bsz``, and that row is its position.
+
+    The plain PyTorch version of the ``topk_nearest`` CUDA kernel: the
+    distances, then a stable sort. The CPU path, and the kernel's yardstick
+    on the card."""
+    rows = None
+    if starts is not None:
+        rows = block_rows(starts, bsz)
+        xf, yf = xf.index_select(0, rows), yf.index_select(0, rows)
+    q = torch.tensor([qx, qy], dtype=torch.float32, device=xf.device)
+    d = torch.where(mask, haversine_f32(xf, yf, q),
+                    torch.tensor(float("inf"), device=xf.device))
+    order = torch.sort(d, stable=True).indices[:m]
+    pos = order if rows is None else rows.index_select(0, order)
+    return d.index_select(0, order), pos.to(torch.int32)
+
+
 # -- batched box counts (plain version of kernels/csrc/box_count.cu) --------
 
 
@@ -1839,6 +1891,60 @@ class ScanKernels:
         if n_unc > unc_cap:
             return certain, None
         return certain, out[2: 2 + n_unc].astype(np.int64)
+
+    # KNN ----------------------------------------------------------------------
+
+    def prepare_topk_nearest(self, primary_kind, boxes, windows, residual,
+                             qx: float, qy: float, m: int):
+        """Zero-arg dispatcher → ((m,) f32 distances, (m,) int32 row
+        positions) on the device of the m masked rows nearest (qx, qy) over
+        the table (≙ the reference's mode ``topk``): the row mask, then the
+        ``topk_nearest`` kernel. Distances are +inf past the matches."""
+        from geomesa_tpu_torch.kernels.topk import topk_nearest as kernel
+        if not 1 <= m <= self.n:
+            raise ValueError(f"m = {m} over a table of {self.n} rows")
+        disp = self.prepare_mask(primary_kind, boxes, windows, residual)
+        cols = self.cols
+        return lambda: kernel(cols["xf"], cols["yf"], disp(), qx, qy, m)
+
+    def topk_nearest(self, primary_kind, boxes, windows, residual,
+                     qx: float, qy: float, m: int):
+        """(distances_m f32, sorted-order positions int32) of the m nearest
+        masked rows to (qx, qy) — one readback. Distances are +inf past the
+        number of matching rows."""
+        d, pos = _fetch(self.prepare_topk_nearest(
+            primary_kind, boxes, windows, residual, qx, qy, m))
+        return d.cpu().numpy(), pos.cpu().numpy()
+
+    def prepare_topk_nearest_blocks(self, primary_kind, boxes, windows,
+                                    residual, qx: float, qy: float, m: int,
+                                    blocks: np.ndarray, block_size: int):
+        """Zero-arg dispatcher for the pruned KNN (≙ the reference's mode
+        ``topk_blocks``): the candidate mask over the padded cover blocks
+        (``fused_scan`` on the kernel route), then the ``topk_nearest``
+        kernel through the blocks' starts; ``m`` is capped at the
+        candidates (padded blocks × ``block_size``)."""
+        from geomesa_tpu_torch.kernels.topk import topk_nearest as kernel
+        m = min(m, len(self._pad_blocks(blocks)) * block_size)
+        disp = self._candidates([(primary_kind, boxes, windows, residual)],
+                                blocks, block_size)
+        cols = self.cols
+
+        def run():
+            mask, starts, _, bsz = disp()
+            return kernel(cols["xf"], cols["yf"], mask, qx, qy, m,
+                          starts, bsz)
+        return run
+
+    def topk_nearest_blocks(self, primary_kind, boxes, windows, residual,
+                            qx: float, qy: float, m: int,
+                            blocks: np.ndarray, block_size: int):
+        """Pruned variant of ``topk_nearest``: distances + top-m over the
+        candidate blocks only, positions mapped through their rows."""
+        d, pos = _fetch(self.prepare_topk_nearest_blocks(
+            primary_kind, boxes, windows, residual, qx, qy, m, blocks,
+            block_size))
+        return d.cpu().numpy(), pos.cpu().numpy()
 
     # density ----------------------------------------------------------------
 

@@ -574,7 +574,8 @@ class BaseSpatialIndex:
         ext = extract_bboxes(f, self.geom)
         iv = extract_intervals(f, self.dtg) if self.dtg is not None else None
         if len(ext.boxes) == 0 or (iv is not None and len(iv.intervals) == 0):
-            return IndexScanPlan(self, "none", empty=True, cost=0.0)
+            return IndexScanPlan(self, "none", empty=True, full_filter=f,
+                                 cost=0.0)
 
         residual = _strip_handled(f, self.geom, self.dtg, self.points)
 
@@ -607,6 +608,7 @@ class BaseSpatialIndex:
             windows=windows,
             residual_device=compiled,
             residual_host=host_res,
+            full_filter=f,
             cost=self._cost(ext, iv),
             explain={"index": self.name, "boxes": ext.boxes,
                      "intervals": None if iv is None else iv.intervals,

@@ -1,9 +1,9 @@
 """Graceful degradation: approximate answers when exact ones can't land.
 
 Copied from ``geomesa_tpu.serve.resilience.degrade`` (host-only) with its
-imports pointed at this package. The port has no stats battery yet
-(ROADMAP.md Queue 1 item 12), so ``estimate`` returns None for its planners,
-as the reference's does for a bare planner.
+imports pointed at this package. A store's planners carry the type's stats
+battery (``stats/``), so ``estimate`` prices their counts as the
+reference's does; a bare planner (none) gets None, as the reference's.
 
 When a count request reaches dispatch with (almost) no deadline budget left,
 or the device-dispatch breaker is open, an exact answer is off the table —

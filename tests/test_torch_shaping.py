@@ -132,9 +132,23 @@ def test_reference_shaping_cases(stores):
 
 @pytest.mark.parametrize("hint", ["stats", "bin", "sample"])
 def test_aggregation_hints_name_their_roadmap_item(stores, hint):
-    _, ts = stores
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ts.query("s", Q, hints={hint: "Count()"})
+    """The aggregation hints, once ROADMAP.md Queue 1 item 12, now answer
+    as the reference's (with the shaping hints beside them ignored, as
+    there), under auths too."""
+    js, ts = stores
+    value = {"stats": 'Count();Enumeration("name")',
+             "bin": {"track": "name", "sort": True},
+             "sample": {"n": 3, "by": "name"}}[hint]
+    for auths in (None, ["admin"]):
+        q = {hint: value, "sort": "v", "limit": 5}
+        got = ts.query("s", Q, hints=q, auths=auths)
+        want = js.query("s", Q, hints=q, auths=auths)
+        if hint == "stats":
+            assert got.to_dict() == want.to_dict()
+        elif hint == "bin":
+            assert got.tobytes() == want.tobytes()
+        else:
+            assert np.array_equal(got.indices, want.indices)
 
 
 def test_unknown_hint_raises_as_reference(stores):

@@ -319,7 +319,12 @@ def test_port_imports_neither_jax_nor_reference():
         "geomesa_tpu_torch.serve.resilience, geomesa_tpu_torch.metrics, "
         "geomesa_tpu_torch.trace, geomesa_tpu_torch.index.guards, "
         "geomesa_tpu_torch.durability.faults, "
-        "geomesa_tpu_torch.kernels.box_count\n"
+        "geomesa_tpu_torch.kernels.box_count, "
+        "geomesa_tpu_torch.kernels.hist, geomesa_tpu_torch.kernels.topk, "
+        "geomesa_tpu_torch.stats, geomesa_tpu_torch.process, "
+        "geomesa_tpu_torch.aggregates.stats_scan, "
+        "geomesa_tpu_torch.aggregates.bin, "
+        "geomesa_tpu_torch.aggregates.sampling\n"
         "from geomesa_tpu_torch.features.table import FeatureTable\n"
         "s = DataStoreFinder.get_data_store(type='torch', device='cpu')\n"
         "sft = s.create_schema('t', 'val:Int,dtg:Date,*geom:Point')\n"
@@ -328,6 +333,8 @@ def test_port_imports_neither_jax_nor_reference():
         " 'dtg': 1577836800000 + r.integers(0, 10**9, 500),"
         " 'geom': (r.uniform(-50, 50, 500), r.uniform(-50, 50, 500))}))\n"
         "print(s.count('t', 'BBOX(geom, -10, -10, 10, 10) AND val > 2'))\n"
+        "s.query('t', 'val > 2', hints={'stats': 'Count();MinMax(\"val\")'})\n"
+        "geomesa_tpu_torch.process.knn(s.planner('t'), 0.0, 0.0, 5)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'geomesa_tpu' or m.startswith('geomesa_tpu.')]\n"
         "assert not bad, bad\n")
