@@ -1,7 +1,7 @@
 """Two trees of the port timed on one card, in turns.
 
     python3 chip_compare.py PARENT_ROOT CHANGE_ROOT
-        [--phases count,kernels,fused,fusedk,staged,rows]
+        [--phases count,kernels,fused,fusedk,staged,rows,process,knn,m3]
         [--rounds 4] [--reps 40] [--n 100000000] [--out FILE] [--device cpu]
 
 One worker process a tree imports ``geomesa_tpu_torch`` from that tree,
@@ -60,6 +60,23 @@ adjacent pair of answers ran on the same card, seconds apart. The phases:
   (i)'s and (j)'s rows. An answer is the p50 of ``--reps`` calls to a
   device synchronise and, on the card, the device activities and device
   ms a call; both trees must give the same answers (compared by digest).
+- ``process``: ``masked_hist`` and ``topk_nearest`` bare on the same
+  store's tensors (``chip_smoke.process_kernel_calls``: HIST, GRID and
+  BINCOUNT at (a)'s mask and over every row; the top-m FULL at m = 32 and
+  4,096 over the table and BLOCKS at m = 32 on cfg4's cover, whose radius
+  one cfg4 query memoises first). An answer is ``chip_smoke.cuda_ms`` over
+  back-to-back calls, the median of lone calls between two syncs and, on
+  the card, the device activities and device ms a call; both trees must
+  give the same outputs, distances bit for bit (compared by digest).
+- ``knn``: knn end to end on the same store as ``count``: cfg4's k = 10
+  at its six query points, k = 2,048 at cfg4's point and (o)'s stats
+  hint over (a). An answer is the p50 of ``--reps`` calls to a device
+  synchronise (10 for the stats hint); both trees must give the same
+  rows and distances (compared by digest).
+- ``m3``: ``chip_smoke.py``'s (m3), 500,000 quadrilaterals in an XZ2
+  layer of their own: its polygon's prepared count, ``store.count`` and
+  prepared rows, each the p50 of ``--reps`` calls to a device
+  synchronise; both trees must give the same count.
 
 Prints each answer, then per tree the median of every metric and the
 change-minus-parent median over adjacent pairs; writes all of it to
@@ -504,9 +521,164 @@ def setup_rows(cs, a) -> tuple:
     return ready, answer
 
 
+# -- phase process ----------------------------------------------------------
+
+
+def setup_process(cs, a) -> tuple:
+    """``masked_hist`` and ``topk_nearest`` bare on the same store's tensors
+    (``chip_smoke.process_kernel_calls``: each histogram form at (a)'s mask
+    and over every row, the top-m FULL at m = 32 and 4,096 over the table
+    and BLOCKS at m = 32 on cfg4's cover, after one cfg4 query seeds knn's
+    radius memo), each checked against its plain version; an answer is
+    ``chip_smoke.cuda_ms`` over back-to-back calls, the median of lone
+    calls between two syncs and, on the card, the device activities and
+    device ms a call; both trees must give the same outputs (digests)."""
+    import torch
+
+    from geomesa_tpu_torch import process
+    from geomesa_tpu_torch.kernels import build, topk
+
+    store, _ = _store(cs, a)
+    process.knn(store.planner("gdelt"), *cs.O_Q, 10)
+    # the tree's keys pass, as built (stderr: the trees' outputs must agree)
+    print(json.dumps({"keys_pass_sass": cs.sass_keys_pass(
+        build._target(topk.NAME)[1])}), file=sys.stderr, flush=True)
+    calls = {}
+    ready = {}
+    for c in cs.process_kernel_calls(store):
+        got, want = c["call"](), c["plain"]()
+        if c["cut"] is not None:
+            got, want = c["cut"](got), c["cut"](want)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if any(not torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"{c['label']} differs from its plain "
+                                 "version")
+        ready[c["key"]] = _digest(*got)
+        calls[c["key"]] = (c["call"], c["reps"])
+
+    def answer() -> dict:
+        out = {}
+        for key, (kern, reps) in calls.items():
+            out[f"{key}_sync_ms"] = sync_ms(kern, reps)
+            if a.device == "cuda":
+                out[f"{key}_ms"] = cs.cuda_ms(kern, reps)
+                acts, dev_ms = cs.activities_per_call(kern)
+            else:
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    kern()
+                out[f"{key}_ms"] = (time.perf_counter() - t0) * 1e3 / 2
+                acts = dev_ms = None
+            out[f"{key}_activities"] = acts
+            out[f"{key}_device_ms"] = dev_ms
+        return out
+
+    return ready, answer
+
+
+# -- phase knn ----------------------------------------------------------------
+
+
+def setup_knn(cs, a) -> tuple:
+    """knn end to end on the same store as ``count``, as ``chip_smoke.py``'s
+    (o) drives it: cfg4's k = 10 at its six query points (2.0 + 0.03 i,
+    48.0), k = 2,048 (the device cap) at cfg4's point, and the (o) stats
+    hint over (a). An answer is the p50 of ``--reps`` calls to a device
+    synchronise (10 for the stats hint); both trees must give the same
+    rows and distances (compared by digest)."""
+    import torch
+
+    from geomesa_tpu_torch import process
+
+    store, _ = _store(cs, a)
+    planner = store.planner("gdelt")
+    points = [(cs.O_Q[0] + 0.03 * i, cs.O_Q[1]) for i in range(cs.O_REPS)]
+    h = hashlib.sha256()
+    for q, k in [(q, 10) for q in points] + [(cs.O_Q, 2048)]:
+        rows, dists = process.knn(planner, *q, k)
+        h.update(np.asarray(rows).tobytes())
+        h.update(np.asarray(dists).tobytes())
+    stat = store.query("gdelt", cs.Q_BOX, hints={"stats": cs.O_STATS})
+    h.update(json.dumps(stat.to_dict() if hasattr(stat, "to_dict")
+                        else str(stat), sort_keys=True,
+                        default=str).encode())
+    sync = torch.cuda.synchronize if a.device == "cuda" else (lambda: None)
+    turn = iter(range(1 << 62))
+    stages = {
+        "knn_k10": (lambda: process.knn(
+            planner, *points[next(turn) % len(points)], 10), a.reps),
+        "knn_k2048": (lambda: process.knn(planner, *cs.O_Q, 2048), a.reps),
+        "stats_hint_a": (lambda: store.query(
+            "gdelt", cs.Q_BOX, hints={"stats": cs.O_STATS}), 10)}
+
+    def answer() -> dict:
+        out = {}
+        for label, (fn, reps) in stages.items():
+            ts = []
+            for _ in range(reps):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            out[f"{label}_p50_ms"] = _median(ts)
+        return out
+
+    return {"digest": h.hexdigest()[:16]}, answer
+
+
+# -- phase m3 -----------------------------------------------------------------
+
+
+def setup_m3(cs, a) -> tuple:
+    """``chip_smoke.py``'s (m3): 500,000 small convex quadrilaterals (XZ2)
+    on a store of their own, its polygon's count (prepared, and through
+    ``store.count``) and rows (prepared). An answer is the p50 of
+    ``--reps`` calls to a device synchronise; both trees must give the
+    same count."""
+    import torch
+
+    from geomesa_tpu_torch.features.geometry import POLYGON, GeometryArray
+
+    n = cs.M_POLY_N if a.device == "cuda" else 20_000
+    rings = cs.quads(n, cs.M_SEED + 2)
+    want = int(np.count_nonzero(cs.oracle_quads(rings, cs.M_RING)))
+    lv = np.arange(n + 1, dtype=np.int64)
+    garr = GeometryArray(np.full(n, POLYGON, dtype=np.int8), lv, lv,
+                         5 * lv, rings.reshape(-1, 2))
+    store, planner, _, _ = cs.extent_store(a.device, "parcels",
+                                           "*geom:Polygon", {"geom": garr})
+    got = store.count("parcels", cs.Q_M1)
+    if got != want:
+        raise AssertionError(f"(m3) {got}, oracle {want}")
+    pq = planner.prepare(cs.Q_M1)
+    sync = torch.cuda.synchronize if a.device == "cuda" else (lambda: None)
+    stages = {"prepared_count": pq.count,
+              "count": lambda: store.count("parcels", cs.Q_M1),
+              "prepared_rows": pq.select_indices}
+
+    def answer() -> dict:
+        out = {}
+        for label, fn in stages.items():
+            fn()
+            ts = []
+            for _ in range(a.reps):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            out[f"{label}_p50_ms"] = _median(ts)
+        return out
+
+    return {"count": got}, answer
+
+
 PHASES = {"count": setup_count, "kernels": setup_kernels,
           "fused": setup_fused, "fusedk": setup_fusedk,
-          "staged": setup_staged, "rows": setup_rows}
+          "staged": setup_staged, "rows": setup_rows,
+          "process": setup_process, "knn": setup_knn, "m3": setup_m3}
 
 
 # -- worker and turns -------------------------------------------------------

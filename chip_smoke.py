@@ -110,7 +110,8 @@ Phases, each failing the run (non-zero exit) when it fails:
    whole table) and ``topk_nearest`` (FULL at m = 32 and 4,096 over the
    100M rows, BLOCKS at cfg4's cover) against their plain versions, with
    ``torch.bincount``'s and ``torch.topk``'s times beside them
-   (``phase_process_kernels``);
+   (``phase_process_kernels``), ``topk_nearest``'s one-cluster and grid
+   routes at 2^19 to 2^22 candidates, and its keys pass's SASS;
 8. the write path (l) on the same store, after every other phase (the
    corpus changes under it): 20 appends of 100,000 rows into the LSM delta
    tier, (a)-(d) and (g3)'s 64 boxes through ``count_many`` over main +
@@ -3711,6 +3712,8 @@ def phase_process(store, g_oracle) -> dict:
         hist.masked_hist.form_launches[f] = 0
     for f in topk.topk_nearest.form_launches:
         topk.topk_nearest.form_launches[f] = 0
+    for r in topk.topk_nearest.route_launches:
+        topk.topk_nearest.route_launches[r] = 0
     out = {}
 
     def kc():
@@ -3818,7 +3821,8 @@ def phase_process(store, g_oracle) -> dict:
     out["launches"] = launches
     out["form_launches"] = {"masked_hist": dict(
         hist.masked_hist.form_launches), "topk_nearest": dict(
-        topk.topk_nearest.form_launches)}
+        topk.topk_nearest.form_launches), "topk_nearest_routes": dict(
+        topk.topk_nearest.route_launches)}
     log(json.dumps({"process": out}))
     return out
 
@@ -3834,29 +3838,46 @@ def topk_bound(n: int, m: int, live: int, start_bytes: int = 0) -> dict:
     """The function's own bytes: each candidate's mask byte, 8 bytes of
     coordinates of the ``live`` candidates whose mask is set, the block
     starts (BLOCKS), the m pairs out; ~40 f32 operations a live candidate
-    (the haversine's transcendental functions). The first design's own
-    scratch (a 4-byte key a candidate, written once and read by the three
-    passes after the first) is not the function's: it stands beside the
-    bound as ``design_bytes``."""
+    (the haversine's transcendental functions). The design's own scratch
+    is not the function's: it stands beside the bound as ``design_bytes``
+    — the grid route's keys, written once and read once by the level pass
+    that hands the prefix over (8 bytes a candidate; more only when more
+    than a million composites share a 12-bit digit), none on the
+    one-cluster route."""
+    from geomesa_tpu_torch.kernels import topk
+    # the wrapper's route (an older tree, timed by chip_compare.py, has
+    # none); BLOCKS calls pass their starts' bytes
+    cmax = getattr(topk, "CLUSTER_MAX" if start_bytes
+                   else "FULL_CLUSTER_MAX", 0)
+    grid_route = n > cmax
     return {**_bound(n + live * 8 + start_bytes + m * 8, 40 * live),
-            "design_bytes": n * 4 * 4}
+            "design_bytes": n * 8 if grid_route else 0}
 
 
-def phase_process_kernels(store) -> dict:
-    """``masked_hist`` (each form) and ``topk_nearest`` (FULL and BLOCKS)
-    against their plain versions on the main path's tensors, with times,
-    bounds, device activities and the library call's time."""
+def process_kernel_calls(store) -> list:
+    """The ``masked_hist`` and ``topk_nearest`` calls of (o) on the main
+    store's tensors, as dicts of kernel, label, key, call, plain version,
+    bound, reps, library call and ``cut`` (the results compared bit for
+    bit: distances as their bits): each ``masked_hist`` form at (a)'s mask
+    and over every row, ``topk_nearest`` FULL at m = 32 and 4,096 over the
+    table and BLOCKS at m = 32 on cfg4's cover (knn's memoised radius: run
+    cfg4's query first, or the cover falls back to 100 km)."""
     import torch
     from geomesa_tpu_torch.aggregates import stats_scan
+    from geomesa_tpu_torch.filter import ir
     from geomesa_tpu_torch.index import prune, scan
     from geomesa_tpu_torch.kernels import hist, topk
+    from geomesa_tpu_torch.process.geo import expand_bbox
     knn_mod = importlib.import_module("geomesa_tpu_torch.process.knn")
     planner = store.planner("gdelt")
     cols = planner.indexes[0].device.columns
     n = int(cols["xf"].shape[0])
-    rows = {"masked_hist": [], "topk_nearest": []}
-    for mlabel, f in (("(a)'s mask", Q_BOX), ("the full table's mask",
-                                               "INCLUDE")):
+    calls = []
+
+    def bits(r):
+        return r[0].view(torch.int32), r[1]
+    for mkey, mlabel, f in (("a", "(a)'s mask", Q_BOX),
+                            ("all", "the full table's mask", "INCLUDE")):
         _, mask = planner.scan_mask(f)
         live = int(mask.sum())
         for form, cs, kw, nbins, cb in (
@@ -3876,35 +3897,35 @@ def phase_process_kernels(store) -> dict:
             else:
                 bi = cs[0].long()
             sel = bi[mask]
-            r = _time_kernel(
-                f"masked_hist {form} at {mlabel} ({live} of {n} rows set)",
-                lambda form=form, cs=cs, kw=kw, mask=mask:
+            del bi
+            calls.append({
+                "kernel": "masked_hist", "key": f"hist_{form}_{mkey}",
+                "label": f"masked_hist {form} at {mlabel} ({live} of {n} "
+                         f"rows set)",
+                "call": lambda form=form, cs=cs, kw=kw, mask=mask:
                     hist.masked_hist(form, mask, *cs, **kw),
-                lambda form=form, cs=cs, kw=kw, mask=mask:
+                "plain": lambda form=form, cs=cs, kw=kw, mask=mask:
                     stats_scan.masked_hist(form, mask, *cs, **kw),
-                hist_bound(n, live, cb, nbins), 20,
-                library=lambda sel=sel, nbins=nbins: torch.bincount(
-                    sel, minlength=nbins))
-            r.update(form=form, live=live)
-            rows["masked_hist"].append(r)
-            del bi, sel
+                "bound": hist_bound(n, live, cb, nbins), "reps": 20,
+                "library": lambda sel=sel, nbins=nbins: torch.bincount(
+                    sel, minlength=nbins),
+                "cut": None, "extra": {"form": form, "live": live}})
     # topk_nearest FULL over the table at m = 32 and 4096
     _, mask = planner.scan_mask("INCLUDE")
     q = torch.tensor(O_Q, dtype=torch.float32, device=cols["xf"].device)
     dmask = torch.where(mask, scan.haversine_f32(cols["xf"], cols["yf"], q),
                         torch.tensor(float("inf"), device=q.device))
     for m in (32, 4096):
-        r = _time_kernel(
-            f"topk_nearest FULL m={m} over {n} rows",
-            lambda m=m: topk.topk_nearest(cols["xf"], cols["yf"], mask,
-                                          *O_Q, m),
-            lambda m=m: scan.topk_nearest(cols["xf"], cols["yf"], mask,
-                                          *O_Q, m),
-            topk_bound(n, m, int(mask.sum())), 10,
-            library=lambda m=m: torch.topk(dmask, m, largest=False))
-        r.update(form="full", m=m)
-        rows["topk_nearest"].append(r)
-    del dmask
+        calls.append({
+            "kernel": "topk_nearest", "key": f"topk_full_{m}",
+            "label": f"topk_nearest FULL m={m} over {n} rows",
+            "call": lambda m=m: topk.topk_nearest(cols["xf"], cols["yf"],
+                                                  mask, *O_Q, m),
+            "plain": lambda m=m: scan.topk_nearest(cols["xf"], cols["yf"],
+                                                   mask, *O_Q, m),
+            "bound": topk_bound(n, m, int(mask.sum())), "reps": 10,
+            "library": lambda m=m: torch.topk(dmask, m, largest=False),
+            "cut": bits, "extra": {"form": "full", "m": m}})
     # BLOCKS at cfg4's candidate blocks: the cover knn's memoised radius
     # gives at (2, 48), padded as knn pads it
     memo = knn_mod._memo_for(planner)
@@ -3912,8 +3933,6 @@ def phase_process_kernels(store) -> dict:
     # the full table (a smaller table)
     radius = memo["radii"].get(max(32 * 10, 2048), 100_000.0)
     geom = planner.sft.geometry_attribute.name
-    from geomesa_tpu_torch.filter import ir
-    from geomesa_tpu_torch.process.geo import expand_bbox
     plan_r = planner.plan(ir.BBox(geom, *expand_bbox(*O_Q, radius)))
     blocks = planner._pruned_blocks(plan_r)
     if blocks is None or len(blocks) == 0:
@@ -3929,24 +3948,127 @@ def phase_process_kernels(store) -> dict:
     bq = torch.where(bmask, scan.haversine_f32(
         cols["xf"].index_select(0, brows), cols["yf"].index_select(0, brows),
         q), torch.tensor(float("inf"), device=q.device))
-    r = _time_kernel(
-        f"topk_nearest BLOCKS m=32 over cfg4's {len(blocks)} cover blocks "
-        f"({len(tier)} with the tier's pad, {nc} candidates, "
-        f"{int(bmask.sum())} set)",
-        lambda: topk.topk_nearest(cols["xf"], cols["yf"], bmask, *O_Q, 32,
-                                  starts, bsz),
-        lambda: scan.topk_nearest(cols["xf"], cols["yf"], bmask, *O_Q, 32,
-                                  starts, bsz),
-        topk_bound(nc, 32, int(bmask.sum()),
-                   starts.numel() * starts.element_size()), 50,
-        library=lambda: torch.topk(bq, 32, largest=False))
-    r.update(form="blocks", m=32, blocks=len(blocks), radius_m=radius)
-    rows["topk_nearest"].append(r)
+    calls.append({
+        "kernel": "topk_nearest", "key": "topk_blocks_32",
+        "label": f"topk_nearest BLOCKS m=32 over cfg4's {len(blocks)} cover "
+                 f"blocks ({len(tier)} with the tier's pad, {nc} "
+                 f"candidates, {int(bmask.sum())} set)",
+        "call": lambda: topk.topk_nearest(cols["xf"], cols["yf"], bmask,
+                                          *O_Q, 32, starts, bsz),
+        "plain": lambda: scan.topk_nearest(cols["xf"], cols["yf"], bmask,
+                                           *O_Q, 32, starts, bsz),
+        "bound": topk_bound(nc, 32, int(bmask.sum()),
+                            starts.numel() * starts.element_size()),
+        "reps": 50, "library": lambda: torch.topk(bq, 32, largest=False),
+        "cut": bits, "extra": {"form": "blocks", "m": 32,
+                               "blocks": len(blocks), "radius_m": radius}})
+    return calls
+
+
+def topk_routes(store) -> list:
+    """``topk_nearest``'s two routes at 2^19 to 2^22 candidates, m = 32:
+    FULL over the first n rows of the table, and BLOCKS over n / 4,096
+    blocks of 4,096 rows at random block starts in the table; every
+    candidate set, one in a hundred and one in four hundred (cfg4's
+    cover sets 2,627 of 1,048,576); each route forced through the
+    wrapper's threshold of its form (``FULL_CLUSTER_MAX``,
+    ``CLUSTER_MAX``), kernel ms by CUDA events and the results equal. The
+    dense rows show the one cluster past its listing capacity (every pass
+    computes the keys again), the sparse ones its reach."""
+    import torch
+    from geomesa_tpu_torch.kernels import topk
+    cols = store.planner("gdelt").indexes[0].device.columns
+    dev = cols["xf"].device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    keep = topk.FULL_CLUSTER_MAX, topk.CLUSTER_MAX
+    bsz = 4096
+    nrows = cols["xf"].shape[0]
+    out = []
+    try:
+        for form in ("full", "blocks"):
+            for n in (1 << 19, 1 << 20, 1 << 21, 1 << 22):
+                if form == "full":
+                    x, y, kw = cols["xf"][:n], cols["yf"][:n], {}
+                else:
+                    x, y = cols["xf"], cols["yf"]
+                    ids = torch.randperm(nrows // bsz, generator=gen,
+                                         device=dev)[:n // bsz]
+                    kw = {"starts": torch.sort(ids).values * bsz,
+                          "bsz": bsz}
+                for dense in (1.0, 0.01, 0.0025):
+                    mask = (torch.ones(n, dtype=torch.bool, device=dev)
+                            if dense == 1.0 else
+                            torch.rand(n, generator=gen, device=dev) < dense)
+                    row = {"form": form, "n": n, "set": dense}
+                    got = {}
+                    for route, cmax in (("cluster", n), ("grid", n - 1)):
+                        topk.FULL_CLUSTER_MAX = topk.CLUSTER_MAX = cmax
+                        call = lambda: topk.topk_nearest(x, y, mask, *O_Q,
+                                                         32, **kw)
+                        got[route] = call()
+                        row[f"{route}_ms"] = cuda_ms(call, 20)
+                    if not (torch.equal(got["cluster"][0].view(torch.int32),
+                                        got["grid"][0].view(torch.int32))
+                            and torch.equal(got["cluster"][1],
+                                            got["grid"][1])):
+                        raise AssertionError(f"topk_nearest's routes "
+                                             f"differ at {row}")
+                    out.append(row)
+    finally:
+        topk.FULL_CLUSTER_MAX, topk.CLUSTER_MAX = keep
+    log(f"[kernel] topk_nearest routes (m = 32; the wrapper's "
+        f"FULL_CLUSTER_MAX {keep[0]}, CLUSTER_MAX {keep[1]}): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def phase_process_kernels(store) -> dict:
+    """``masked_hist`` (each form) and ``topk_nearest`` (FULL and BLOCKS)
+    against their plain versions on the main path's tensors, with times,
+    bounds, device activities and the library call's time; the top-m's
+    two routes around their threshold."""
+    rows = {"masked_hist": [], "topk_nearest": []}
+    for c in process_kernel_calls(store):
+        r = _time_kernel(c["label"], c["call"], c["plain"], c["bound"],
+                         c["reps"], library=c["library"], cut=c["cut"])
+        r.update(c["extra"])
+        rows[c["kernel"]].append(r)
+    topk_routes(store)
     for name in ("masked_hist", "topk_nearest"):
         log(f"[kernel] {name} registers and spills: "
             f"{json.dumps(kernel_resources(name))}")
+    log(f"[kernel] topk_nearest keys pass SASS: "
+        f"{json.dumps(sass_keys_pass())}")
     log(json.dumps({"process_kernels": rows}))
     return rows
+
+
+def sass_keys_pass(so_path=None):
+    """The FULL keys pass of a built ``topk_nearest`` (the function whose
+    name holds ``keys_kernel`` and ``ILb0E``): its static SASS instructions
+    and opcode counts, and the instructions over the 4 candidates its loop
+    computes a pass (a static count: the transcendental functions' slow
+    paths, never taken at these inputs, are in it). None when cuobjdump is
+    missing or no such function is found."""
+    from geomesa_tpu_torch.kernels import build, topk
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    so_path = so_path or build._target(topk.NAME)[1]
+    if not os.path.exists(tool) or not os.path.exists(so_path):
+        return None
+    text = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                          text=True).stdout
+    for fn in text.split("Function : ")[1:]:
+        name = fn.split()[0]
+        if "keys_kernel" in name and "ILb0E" in name:
+            ops = {}
+            for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", fn):
+                o = re.sub(r"^@!?U?P\w+\s+", "", op.strip()).split()[0]
+                ops[o] = ops.get(o, 0) + 1
+            total = sum(ops.values())
+            top = dict(sorted(ops.items(), key=lambda kv: -kv[1])[:12])
+            return {"function": name, "instructions": total,
+                    "per_candidate": total / 4, "top_opcodes": top}
+    return None
 
 
 def queries(store):

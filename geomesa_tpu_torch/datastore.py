@@ -95,6 +95,13 @@ def _next_epoch() -> str:
     return f"{os.getpid():x}d{next(_EPOCHS)}"
 
 
+def _timeout_ms(sft) -> Optional[float]:
+    """The schema's ``geomesa.query.timeout`` (ms) for its planners, as the
+    reference's full and merge builds read it; None when unset."""
+    timeout = sft.user_data.get("geomesa.query.timeout")
+    return float(timeout) if timeout else None
+
+
 class FeatureWriter:
     """Batch appender (≙ ``geomesa_tpu/datastore.py:50``): collects rows on
     the host; ``flush`` (or leaving the ``with`` block) builds one columnar
@@ -464,7 +471,7 @@ class TorchDataStore:
         stats = GeoMesaStats(sft)
         planner = QueryPlanner(
             sft, table, [index_class(sft)(sft, table, self.device)],
-            stats=stats)
+            timeout_ms=_timeout_ms(sft), stats=stats)
         self._install_battery(stats, planner, table, stats_cached, None)
         self._stats[type_name] = stats
         self.planners[type_name] = planner
@@ -478,7 +485,8 @@ class TorchDataStore:
         under-describes only the delta rows, the drift readers accept while
         a delta is pending), else the whole table's, observed at its first
         read (``GeoMesaStats.defer``) so that the build does not wait on
-        it."""
+        it; a degraded count that finds it unobserved declines and starts
+        that observe on a thread (``degrade.eligible``)."""
         stats.planner = planner
         if stats_cached is not None:
             stats.cached = stats_cached
@@ -526,6 +534,8 @@ class TorchDataStore:
                        for idx in old_planner.indexes]
             stats = GeoMesaStats(self.schemas[type_name])
             planner = QueryPlanner(self.schemas[type_name], merged, indexes,
+                                   timeout_ms=_timeout_ms(
+                                       self.schemas[type_name]),
                                    stats=stats)
             self._install_battery(stats, planner, merged, stats_cached,
                                   self._stats.get(type_name))

@@ -35,9 +35,10 @@ def _bind(lib: ctypes.CDLL):
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         f = ctypes.c_float
-        fn.argtypes = [i, p, p, p, ctypes.c_longlong, f, f, f, f, i, i, p, p]
+        fn.argtypes = [i, p, p, p, ctypes.c_longlong, f, f, f, f, i, i, p, i,
+                       p]
         # (form, a, b, mask, n, lo, hi, inv_x, inv_y, bins, nbins, out,
-        #  stream)
+        #  device, stream)
         fn.restype = ctypes.c_int
         lib.masked_hist_error_string.argtypes = [ctypes.c_int]
         lib.masked_hist_error_string.restype = ctypes.c_char_p
@@ -109,7 +110,7 @@ def masked_hist(form: str, mask: torch.Tensor, *cols: torch.Tensor,
         rc = fn(code, cols[0].data_ptr(),
                 cols[1].data_ptr() if form == "grid" else None,
                 mask.data_ptr(), n, lo, hi, _plain.INV360, _plain.INV180,
-                bins, nbins, out.data_ptr(), build.raw_stream(dev))
+                bins, nbins, out.data_ptr(), dev.index, build.raw_stream(dev))
     if rc != 0:
         msg = lib.masked_hist_error_string(rc).decode()
         raise RuntimeError(f"masked_hist launch failed: {msg} "

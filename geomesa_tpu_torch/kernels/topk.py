@@ -7,16 +7,21 @@ int32), for tensors on a CUDA device, and runs the plain PyTorch version
 (``index.scan.topk_nearest``) for tensors on the CPU. Without ``starts``
 (FULL) candidate i is row i of ``xf``/``yf``; with the int64 block
 ``starts`` and ``bsz`` (BLOCKS) it is row ``starts[i // bsz] + i % bsz``,
-and that row is its position. There is no fallback: a CUDA tensor either
-launches the kernel or raises. ``topk_nearest.launches`` counts calls that
-launched the kernel's passes (and nothing else), ``form_launches`` the same
-by form.
+and that row is its position. At most ``CLUSTER_MAX`` candidates of a
+BLOCKS call and ``FULL_CLUSTER_MAX`` of a FULL call take the kernel's
+one-cluster route (one launch), more its grid route (the keys pass, four
+level passes and the cluster's finish, with a per-stream workspace
+whose calls enqueue one at a time). There is no fallback: a CUDA tensor
+either launches the kernel or raises. ``topk_nearest.launches`` counts
+calls that launched the kernel (and nothing else), ``form_launches`` the
+same by form and ``route_launches`` by route.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import threading
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,10 +34,26 @@ SOURCE = "geomesa_tpu_torch/kernels/csrc/topk_nearest.cu"
 REPLACES = "geomesa_tpu/index/scan.py:809"
 # the kernel's sort holds at most this many pairs (knn's largest margin)
 MAX_M = 4096
-# the radix passes' histogram words (bits 31..21, 20..10, 9..0) and the
-# slot counter
-_HIST_WORDS = 2048 + 2048 + 1024 + 1
-_CTAS_PER_SM = 4
+# the one cluster's shape (csrc/topk_nearest.cu CLUSTER x CAPC): set
+# candidates it lists, CAPC a CTA, and computes once; past that every pass
+# computes their keys again
+CLUSTER, CAPC = 16, 6144
+# BLOCKS calls (a range cover, selective) of at most CLUSTER_MAX candidates
+# take the one-cluster route (one launch, no workspace), FULL calls (any
+# mask) only up to what the cluster lists whole, CLUSTER x CAPC; larger
+# ones the grid route (its keys pass on every SM). The route cannot see
+# the mask's density: the cluster wins on sparse masks and loses 2-5x on
+# dense ones, so BLOCKS take it up to the cover measured sparse, cfg4's
+# 1,048,576 candidates. PERF.md §6 has both routes' times on either side.
+CLUSTER_MAX = 1 << 20
+FULL_CLUSTER_MAX = CLUSTER * CAPC
+# (device index, stream) -> the grid route's workspace (histogram, ticket,
+# state, pairs, buffer), zero between calls: the kernels zero what they
+# used. The stream's calls share it: the library enqueues each call's
+# passes under a lock of the device, so that no other thread's call lands
+# between them, and the stream runs them in that order.
+_WS: Dict[Tuple[int, int], torch.Tensor] = {}
+_WS_LOCK = threading.Lock()
 
 
 def _bind(lib: ctypes.CDLL):
@@ -40,13 +61,28 @@ def _bind(lib: ctypes.CDLL):
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_uint, f, f,
-                       f, f, i, i, p, p, p, p, p, p, p]
-        # (xf, yf, mask, starts, bsz, n, qx, qy, rad, two_r, m, grid, keys,
-        #  hist, eq, pairs, dist, pos, stream)
+                       f, f, i, i, p, p, p, p, i, p]
+        # (xf, yf, mask, starts, bsz, n, qx, qy, rad, two_r, m, route,
+        #  keys, ws, dist, pos, device, stream)
         fn.restype = ctypes.c_int
         lib.topk_nearest_error_string.argtypes = [ctypes.c_int]
         lib.topk_nearest_error_string.restype = ctypes.c_char_p
+        lib.topk_nearest_ws_bytes.argtypes = []
+        lib.topk_nearest_ws_bytes.restype = ctypes.c_longlong
     return fn
+
+
+def _workspace(lib: ctypes.CDLL, dev: torch.device, stream: int
+               ) -> torch.Tensor:
+    """The zeroed workspace of ``stream`` on ``dev``, made (zeroed once) on
+    first use."""
+    key = (dev.index, stream)
+    with _WS_LOCK:
+        t = _WS.get(key)
+        if t is None:
+            words = -(-int(lib.topk_nearest_ws_bytes()) // 8)
+            t = _WS[key] = torch.zeros(words, dtype=torch.int64, device=dev)
+        return t
 
 
 def _check(xf, yf, mask, m, starts, bsz) -> int:
@@ -79,17 +115,6 @@ def _check(xf, yf, mask, m, starts, bsz) -> int:
     return n
 
 
-_SMS = {}
-
-
-def _grid(dev: torch.device, n: int) -> int:
-    sms = _SMS.get(dev.index)
-    if sms is None:
-        sms = _SMS[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return max(1, min(sms * _CTAS_PER_SM, -(-n // 4096)))
-
-
 def topk_nearest(xf: torch.Tensor, yf: torch.Tensor, mask: torch.Tensor,
                  qx: float, qy: float, m: int,
                  starts: Optional[torch.Tensor] = None,
@@ -109,30 +134,39 @@ def topk_nearest(xf: torch.Tensor, yf: torch.Tensor, mask: torch.Tensor,
     m = int(m)
     if m > MAX_M:
         raise ValueError(f"m = {m} exceeds the kernel's {MAX_M}")
-    grid = _grid(dev, n)
-    keys = torch.empty(n, dtype=torch.int32, device=dev)
-    words = torch.zeros(_HIST_WORDS + grid, dtype=torch.int32, device=dev)
-    pairs = torch.empty(m, dtype=torch.int64, device=dev)
+    route = 0 if n <= (FULL_CLUSTER_MAX if starts is None
+                       else CLUSTER_MAX) else 1
     dist = torch.empty(m, dtype=torch.float32, device=dev)
     pos = torch.empty(m, dtype=torch.int32, device=dev)
     lib = build.load(NAME)
     fn = _bind(lib)
+    keys = ws = None
     with build.on_device(dev):
+        stream = build.raw_stream(dev)
+        if route:
+            keys = torch.empty(n + 3, dtype=torch.int32, device=dev)
+            ws = _workspace(lib, dev, stream)
         rc = fn(xf.data_ptr(), yf.data_ptr(), mask.data_ptr(),
                 None if starts is None else starts.data_ptr(),
                 int(bsz or 0), n, qx, qy, scan.HAVERSINE_RAD,
-                scan.HAVERSINE_TWO_R, m, grid, keys.data_ptr(),
-                words.data_ptr(), words[_HIST_WORDS:].data_ptr(),
-                pairs.data_ptr(), dist.data_ptr(), pos.data_ptr(),
-                build.raw_stream(dev))
+                scan.HAVERSINE_TWO_R, m, route,
+                None if keys is None else keys.data_ptr(),
+                None if ws is None else ws.data_ptr(), dist.data_ptr(),
+                pos.data_ptr(), dev.index, stream)
     if rc != 0:
+        if route:
+            # a pass that did not run leaves the workspace unknown
+            with _WS_LOCK:
+                _WS.pop((dev.index, stream), None)
         msg = lib.topk_nearest_error_string(rc).decode()
         raise RuntimeError(f"topk_nearest launch failed: {msg} "
                            f"(cudaError {rc})")
     topk_nearest.launches += 1
     topk_nearest.form_launches["full" if starts is None else "blocks"] += 1
+    topk_nearest.route_launches["grid" if route else "cluster"] += 1
     return dist, pos
 
 
 topk_nearest.launches = 0
 topk_nearest.form_launches = {"full": 0, "blocks": 0}
+topk_nearest.route_launches = {"cluster": 0, "grid": 0}

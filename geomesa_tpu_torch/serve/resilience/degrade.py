@@ -3,7 +3,9 @@
 Copied from ``geomesa_tpu.serve.resilience.degrade`` (host-only) with its
 imports pointed at this package. A store's planners carry the type's stats
 battery (``stats/``), so ``estimate`` prices their counts as the
-reference's does; a bare planner (none) gets None, as the reference's.
+reference's does; a bare planner (none), or one whose battery is not
+observed yet, gets None, as the reference's bare planner; the latter's
+observe starts on a thread.
 
 When a count request reaches dispatch with (almost) no deadline budget left,
 or the device-dispatch breaker is open, an exact answer is off the table —
@@ -48,9 +50,17 @@ def is_approximate(value) -> bool:
 def eligible(planner) -> bool:
     """Can this planner's type degrade? Needs a populated stats battery
     (bare bench planners have none) — the estimator answers any filter
-    from there (unknown shapes conservatively estimate high)."""
+    from there (unknown shapes conservatively estimate high). A battery
+    not observed yet declines at once (the exact route answers, as for a
+    bare planner) and starts its observe on a thread: a degraded count
+    never waits on it."""
     stats = getattr(planner, "stats", None)
-    return stats is not None and getattr(stats, "total", 0) > 0
+    if stats is None:
+        return False
+    if not getattr(stats, "observed", True):
+        stats.observe_in_background()
+        return False
+    return getattr(stats, "total", 0) > 0
 
 
 def estimate(planner, f_ir, reason: str) -> Optional[ApproximateCount]:

@@ -3,9 +3,11 @@
 Copied from ``geomesa_tpu.stats.store`` (host-only) with its imports pointed
 at this package; ``update`` observes the battery's sketches concurrently
 (each into its own sketch, inserted in the specs' order), ``defer`` leaves
-that to the first read of ``cached`` (the store's builds), and the exact
-path's device reductions are ``aggregates.stats_scan``'s ``masked_hist``
-kernel.
+that to the first read of ``cached`` or to ``observe_in_background``'s
+thread (which a degraded count starts instead of waiting), ``carry`` takes
+a merge build's pre-flush battery over without waiting for it, and the
+exact path's device reductions are ``aggregates.stats_scan``'s
+``masked_hist`` kernel.
 
 ≙ reference `GeoMesaStats` API (geomesa-index-api/.../stats/
 GeoMesaStats.scala:30,51-160 — getCount/getBounds/getMinMax/getFrequency/
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -69,16 +71,20 @@ class GeoMesaStats:
         self.planner = planner  # set by the datastore after index build
         self._cached: Dict[str, sk.Stat] = {}
         # (table, rows): the battery still to observe over the table's
-        # first ``rows`` rows, at the first read of ``cached`` (``defer``)
-        self._pending = None
+        # first ``rows`` rows at the first read of ``cached`` (``defer``,
+        # ``carry``); None once observed
+        self._pending: Optional[Tuple[FeatureTable, int]] = None
         self._observe_lock = threading.Lock()
+        self._start_lock = threading.Lock()
+        self._observer: Optional[threading.Thread] = None
         self.update_s = 0.0     # seconds the last ``update`` took
         self.update_split_s: Dict[str, float] = {}   # by spec (overlapping)
 
     @property
     def cached(self) -> Dict[str, sk.Stat]:
         """The battery's sketches by spec; a deferred battery is observed
-        here, at its first read."""
+        here at its first read, or by ``observe_in_background``'s thread
+        (a reader waits for it on the same lock)."""
         if self._pending is not None:
             with self._observe_lock:
                 if self._pending is not None:
@@ -95,7 +101,7 @@ class GeoMesaStats:
 
     @property
     def observed(self) -> bool:
-        """False while the battery waits for its first read."""
+        """False while the battery waits to be observed. Never blocks."""
         return self._pending is None
 
     def defer(self, table: FeatureTable, rows: Optional[int] = None) -> None:
@@ -109,12 +115,26 @@ class GeoMesaStats:
         """Take over ``other``'s battery for ``table``, whose leading rows
         are the ones ``other`` describes (a merge build's main table then
         delta): its sketches, or its deferred observe, now over ``table``'s
-        same leading rows."""
-        with other._observe_lock:
-            if other._pending is None:
-                self.cached = other._cached
-            else:
-                self.defer(table, other._pending[1])
+        same leading rows. Reads ``other`` without its lock, so it never
+        waits for ``other``'s observe (at worst both observe once), and
+        keeps no reference to ``other``, its planner or its table."""
+        pending = other._pending
+        if pending is None:
+            self.cached = other._cached
+        else:
+            self.defer(table, pending[1])
+
+    def observe_in_background(self) -> None:
+        """Start observing a deferred battery on a daemon thread, once (a
+        reader meanwhile waits for it on the same lock); nothing when it is
+        observed already."""
+        with self._start_lock:
+            if self._pending is None or self._observer is not None:
+                return
+            self._observer = threading.Thread(
+                target=lambda: self.cached, name="battery-observe",
+                daemon=True)
+            self._observer.start()
 
     # -- write path (≙ statUpdater.add + flush) ------------------------------
 

@@ -215,7 +215,8 @@ def _edges_and_more(lo, hi, bins, rng):
 
 @pytest.mark.parametrize("lo,hi,bins", [(0.0, 100.0, 20), (0.3, 77.7, 7),
                                         (-5.0, 5.0, 1), (2.0, 2.0, 10),
-                                        (0.1, 0.9, 16), (-1e6, 1e6, 1000)])
+                                        (0.1, 0.9, 16), (-1e6, 1e6, 1000),
+                                        (0.0, 1e38, 3)])
 def test_plain_masked_hist_equals_reference(lo, hi, bins):
     jnp = _ref("jax.numpy")
     jscan = _ref("geomesa_tpu.aggregates.stats_scan")
@@ -492,3 +493,81 @@ def test_cuda_store_stats_equal_cpu():
                        for a in (None, ["admin"])]
         out[device].append(s.stats("a").to_dict())
     assert out["cuda"] == out["cpu"]
+
+
+def _masks(n, seed):
+    """Masks of long runs (all-zero and all-set 16-byte vectors), of
+    random bytes and of isolated rows."""
+    rng = np.random.default_rng(seed)
+    runs = np.repeat(rng.random(-(-n // 4096)) < 0.5, 4096)[:n]
+    return {"runs": runs, "random": rng.random(n) < 0.5,
+            "isolated": rng.random(n) < 0.002}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", list(range(1, 16)))
+@pytest.mark.parametrize("n", [37, 100_003])
+@pytest.mark.parametrize("form,bins", [("hist", 20), ("hist", 5000),
+                                       ("grid", 32), ("bincount", 3),
+                                       ("bincount", 50)])
+def test_cuda_masked_hist_mask_offsets(offset, n, form, bins):
+    """Masks that are views at byte offsets 1 to 15 (the scalar head up to
+    the 16-byte boundary), lengths not a multiple of 16 (the scalar tail),
+    columns as views at the same row offset (unaligned column vectors),
+    masks of long runs, random bytes and isolated rows."""
+    dev = _cuda()
+    rng = np.random.default_rng(offset * 100 + bins)
+    total = n + offset
+    if form == "hist":
+        cols = [rng.uniform(-5, 110, total).astype(np.float32)]
+        kw = {"lo": 0.0, "hi": 100.0}
+    elif form == "grid":
+        cols = [rng.uniform(-190, 190, total).astype(np.float32),
+                rng.uniform(-95, 95, total).astype(np.float32)]
+        kw = {}
+    else:
+        cols = [rng.integers(-bins - 2, bins + 2, total).astype(np.int32)]
+        kw = {}
+    ct = [torch.from_numpy(c).to(dev)[offset:] for c in cols]
+    for kind, m in _masks(total, offset + n).items():
+        mt = torch.from_numpy(m).to(dev)[offset:]
+        got = thist.masked_hist(form, mt, *ct, bins=bins, **kw)
+        torch.cuda.synchronize()
+        want = tscan_stats.masked_hist(form, mt, *ct, bins=bins, **kw)
+        assert torch.equal(got, want), kind
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lo,hi,bins", [
+    (0.0, 100.0, 20), (0.3, 77.7, 7), (-5.0, 5.0, 1), (0.1, 0.9, 16),
+    (-1e6, 1e6, 1000), (0.0, 1.0, 4096), (0.0, 1.0, 4097),
+    (-1e30, 1e30, 100), (7.5, -3.0, 20), (2.0, 2.0, 10),
+    (0.0, 1e-40, 8), (1e-39, 2.5e-39, 5), (0.0, 1e38, 3)])
+@pytest.mark.parametrize("col", ["f32", "i32"])
+def test_cuda_masked_hist_edges_exact(lo, hi, bins, col):
+    """HIST on values at lo + k (hi - lo) / bins and their f32 neighbours
+    (and NaN, +-inf, huge values): hi > lo through the edges found by
+    bisection (bins up to 4,096; 4,097 divides), hi < lo and hi == lo
+    through the division, and so ranges whose reciprocal is no normal
+    f32 (a subnormal range's overflows, 1e38's is subnormal) — every
+    count the plain version's."""
+    dev = _cuda()
+    rng = np.random.default_rng(bins + abs(int(lo)))
+    if col == "f32":
+        vals = _edges_and_more(min(lo, hi), max(lo, hi), bins, rng)
+    else:
+        span = np.clip(np.array([lo, hi]), -2e9, 2e9).astype(np.int64)
+        vals = np.concatenate([
+            np.arange(min(span) - 3, min(span) + 40),
+            np.arange(max(span) - 40, max(span) + 3),
+            rng.integers(min(span) - 50, max(span) + 50, 20000),
+            [2**31 - 1, -2**31, 0]]).clip(-2**31, 2**31 - 1).astype(np.int32)
+    vt = torch.from_numpy(np.ascontiguousarray(vals)).to(dev)
+    for m in (np.ones(len(vals), bool), rng.random(len(vals)) < 0.6):
+        mt = torch.from_numpy(m).to(dev)
+        got = thist.masked_hist("hist", mt, vt, lo=lo, hi=hi, bins=bins)
+        torch.cuda.synchronize()
+        want = tscan_stats.masked_hist("hist", mt, vt,
+                                       lo=float(np.float32(lo)),
+                                       hi=float(np.float32(hi)), bins=bins)
+        assert torch.equal(got, want)

@@ -614,3 +614,169 @@ def test_cuda_knn_equals_cpu():
                        for k in (1, 10, 2048, 2049)]
     for (a, da), (b, db) in zip(out["cuda"], out["cpu"]):
         assert np.array_equal(a, b) and np.array_equal(da, db)
+
+
+def _bits_equal(got, want):
+    """Distances bit for bit (NaN included) and positions equal."""
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["full", "blocks"])
+@pytest.mark.parametrize("side", [0, 1])
+@pytest.mark.parametrize("case", ["all", "sparse", "few", "dup"])
+@pytest.mark.parametrize("m", [1, 32, 4096])
+@pytest.mark.parametrize("offset", [0, 5])
+def test_cuda_topk_each_side_of_the_cluster_threshold(form, side, case, m,
+                                                      offset):
+    """A FULL call of ``FULL_CLUSTER_MAX`` candidates, and a BLOCKS call of
+    ``CLUSTER_MAX`` (blocks of 1,024 rows), take the one-cluster route; one
+    candidate (one block) more the grid route. Masks and coordinates are
+    views at an offset (unaligned vectors: the scalar head and tail,
+    scalar coordinates)."""
+    dev = _cuda()
+    bsz = 1024
+    n = (ttopk.FULL_CLUSTER_MAX + side if form == "full"
+         else ttopk.CLUSTER_MAX + side * bsz)
+    rows = n + offset + (bsz if form == "blocks" else 0)
+    x, y = _points(rows, m + side, dup=case == "dup")
+    rng = np.random.default_rng(m + 7 * side)
+    mask = {"sparse": rng.random(n + offset) < 0.01,
+            "few": np.isin(np.arange(n + offset),
+                           rng.choice(n + offset, 9, replace=False))
+            }.get(case, np.ones(n + offset, bool))
+    t = [torch.from_numpy(a).to(dev)[offset:] for a in (x, y)]
+    t.append(torch.from_numpy(mask).to(dev)[offset:])
+    kw = {}
+    if form == "blocks":   # block b reads rows from b * bsz + 3
+        starts = np.arange(n // bsz, dtype=np.int64) * bsz + 3
+        kw = {"starts": torch.from_numpy(starts).to(dev), "bsz": bsz}
+    route = "grid" if side else "cluster"
+    before = dict(ttopk.topk_nearest.route_launches)
+    got = ttopk.topk_nearest(*t, 2.0, 48.0, m, **kw)
+    torch.cuda.synchronize()
+    assert ttopk.topk_nearest.route_launches[route] == before[route] + 1
+    _bits_equal(got, tscan.topk_nearest(*t, 2.0, 48.0, m, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["full", "blocks"])
+def test_cuda_topk_grid_route_from_two_threads(form):
+    """Two threads call the grid route at once on one stream, whose
+    workspace their calls share; each call's six launches go in together,
+    so every result equals its plain version (a dense and a sparse mask,
+    m = 4,096 and 32, so that one call's prefix or counts in the other's
+    pass would show)."""
+    import threading
+    dev = _cuda()
+    n = 3_000_017 if form == "full" else ttopk.CLUSTER_MAX + 4096
+    x, y = _points(n if form == "full" else n + 4096, 29)
+    t = [torch.from_numpy(a).to(dev) for a in (x, y)]
+    kw = {}
+    if form == "blocks":
+        kw = {"starts": torch.arange(n // 4096, dtype=torch.int64,
+                                     device=dev) * 4096 + 7, "bsz": 4096}
+    rng = np.random.default_rng(31)
+    args = [(torch.ones(n, dtype=torch.bool, device=dev), 2.0, 48.0, 4096),
+            (torch.from_numpy(rng.random(n) < 0.01).to(dev), -20.0, 10.0,
+             32)]
+    want = [tscan.topk_nearest(*t, mask, qx, qy, m, **kw)
+            for mask, qx, qy, m in args]
+    got = [None, None]
+    start = threading.Barrier(2)
+
+    def run(i):
+        mask, qx, qy, m = args[i]
+        start.wait()
+        got[i] = [ttopk.topk_nearest(*t, mask, qx, qy, m, **kw)
+                  for _ in range(16)]
+
+    before = ttopk.topk_nearest.route_launches["grid"]
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    assert ttopk.topk_nearest.route_launches["grid"] == before + 32
+    for i in range(2):
+        for res in got[i]:
+            _bits_equal(res, want[i])
+
+
+@pytest.mark.parametrize("name", ["CLUSTER", "CAPC"])
+def test_topk_cluster_shape_matches_the_kernel_source(name):
+    """``topk.CLUSTER`` and ``topk.CAPC``, which size the FULL route's
+    threshold, are the shape ``csrc/topk_nearest.cu`` fixes."""
+    import os
+    import re
+    with open(os.path.join(os.path.dirname(ttopk.__file__), "csrc",
+                           "topk_nearest.cu")) as fh:
+        src = fh.read()
+    got = re.search(rf"constexpr int {name} = (\d+);", src)
+    assert got is not None and int(got.group(1)) == getattr(ttopk, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4099, 100_003, 3_000_017])
+@pytest.mark.parametrize("live", [0, 1, 40])
+@pytest.mark.parametrize("m", [16, 700, 4096])
+def test_cuda_topk_equal_keys_and_inf_tails(n, live, m):
+    """Every point the same (every set key equal), ``live`` of them set:
+    m above the set count fills the +inf tail with the first unset
+    candidates in order, m below it takes the lowest set candidates."""
+    dev = _cuda()
+    x = np.full(n, 2.5, np.float32)
+    y = np.full(n, 47.0, np.float32)
+    mask = np.zeros(n, bool)
+    mask[np.random.default_rng(n + live).choice(n, live, replace=False)] = 1
+    if live == 0:
+        mask[:] = True                      # all set: every key equal
+    t = [torch.from_numpy(a).to(dev) for a in (x, y, mask)]
+    _bits_equal(ttopk.topk_nearest(*t, 2.0, 48.0, m),
+                tscan.topk_nearest(*t, 2.0, 48.0, m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1000, 100_003, 3_000_017])
+@pytest.mark.parametrize("m", [8, 4096])
+def test_cuda_topk_nan_coordinates(n, m):
+    """Set candidates with NaN coordinates sort after the +inf of the
+    unset ones, lower candidate first, NaN bits as the plain version's."""
+    dev = _cuda()
+    x, y = _points(n, n % 13)
+    rng = np.random.default_rng(n)
+    x[rng.random(n) < 0.3] = np.nan
+    y[rng.random(n) < 0.1] = np.nan
+    mask = rng.random(n) < 0.9
+    m = min(m, n)
+    t = [torch.from_numpy(a).to(dev) for a in (x, y, mask)]
+    _bits_equal(ttopk.topk_nearest(*t, -20.0, 10.0, m),
+                tscan.topk_nearest(*t, -20.0, 10.0, m))
+    # every finite distance of a few rows, then +inf, then NaN
+    few = np.zeros(n, bool)
+    few[:5] = True
+    t[2] = torch.from_numpy(few).to(dev)
+    _bits_equal(ttopk.topk_nearest(*t, -20.0, 10.0, m),
+                tscan.topk_nearest(*t, -20.0, 10.0, m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 3, 8])
+@pytest.mark.parametrize("nb", [3, 300, 700])
+def test_cuda_topk_blocks_views(offset, nb):
+    """BLOCKS on both routes (``nb`` blocks of 4,096: up to 2,867,200
+    candidates) with a mask that is a view at an odd offset."""
+    dev = _cuda()
+    bsz = 4096
+    n = 1_000_000
+    x, y = _points(n, nb)
+    rng = np.random.default_rng(offset)
+    starts = np.sort(rng.integers(0, n - bsz, nb)).astype(np.int64)
+    mask = rng.random(nb * bsz + offset) < 0.2
+    t = [torch.from_numpy(a).to(dev) for a in (x, y, mask, starts)]
+    mt = t[2][offset:]
+    got = ttopk.topk_nearest(t[0], t[1], mt, -3.0, 40.0, 64, t[3], bsz)
+    want = tscan.topk_nearest(t[0], t[1], mt, -3.0, 40.0, 64, t[3], bsz)
+    _bits_equal(got, want)

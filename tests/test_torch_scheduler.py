@@ -18,15 +18,22 @@ through both packages.
   bound; injected dispatch errors retry, then open the breaker (which
   closes again through a half-open probe on a fake clock); a killed worker
   and ``shutdown`` fail outstanding futures with structured errors; the
-  store replaces an unhealthy scheduler.
+  store replaces an unhealthy scheduler;
+- a degraded count (breaker open at submit, a nearly spent deadline on the
+  collector thread) never waits for a store's battery that is not yet
+  observed: it declines, starts the observe on a thread, and the exact
+  route answers; once the battery is observed it equals the reference's
+  estimate.
 
 Every thread test waits on ``future.result(timeout=...)``; none sleeps to
-synchronise or asserts on wall-clock latency. The port runs with
+synchronise, and only the battery test asserts on wall-clock time (a
+submit within 10 s while the battery is held back for 120 s). The port runs with
 device="cpu" (the kernels' plain versions).
 """
 
 import random
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -292,6 +299,79 @@ def test_nearly_spent_deadline_runs_exact_without_estimator(world):
     finally:
         tconfig.DEADLINE_DEGRADE_MS.unset()
         s.shutdown()
+
+
+def test_degraded_count_never_waits_for_the_battery(monkeypatch):
+    """A store's battery waits for its first read; a degraded count that
+    finds it unobserved starts its observe on a thread, held back here
+    (``observe_table`` waits on a gate). The first degraded count — at
+    submit while the breaker is open, and on the collector thread under a
+    nearly spent deadline — declines at once instead of waiting for it:
+    the exact route answers (the breaker's fail-fast, then the exact
+    count) and the scheduler keeps serving. Once the battery is observed,
+    the degraded counts are the reference's estimates again."""
+    from geomesa_tpu.datastore import TpuDataStore
+    from geomesa_tpu.filter.parser import parse_ecql as jparse
+    from geomesa_tpu.serve.resilience import degrade as jdegrade
+    store_mod = _pkg(True, "stats.store")
+    breaker = _pkg(True, "serve.resilience.breaker")
+    gate = threading.Event()
+    real = store_mod.observe_table
+
+    def held(*args, **kwargs):
+        assert gate.wait(120), "the battery's observe was never released"
+        return real(*args, **kwargs)
+    monkeypatch.setattr(store_mod, "observe_table", held)
+    cols = _columns(N, 17)
+    js = TpuDataStore()
+    js.load("t", JTable.build(js.create_schema("t", SPEC), cols))
+    ts = DataStoreFinder.get_data_store(type="torch", device="cpu")
+    ts.load("t", TTable.build(ts.create_schema("t", SPEC), cols))
+    tp = ts.planner("t")
+    battery = ts._stats["t"]
+    exact = tp.count(BOX)
+    s = _sched(True, tp, window_us=200)
+    clk = [0.0]
+    s.breaker = breaker.CircuitBreaker("device_dispatch", threshold=1,
+                                       cooldown_ms=50, probes=1,
+                                       clock=lambda: clk[0])
+    try:
+        s.breaker.record_failure()
+        assert s.breaker.retry_after_s() > 0
+        # at submit with the breaker open: no wait on the held battery
+        t0 = time.perf_counter()
+        req = s.submit("t", BOX)
+        took_s = time.perf_counter() - t0
+        assert took_s < 10.0 and not battery.observed and not req.degraded
+        assert battery._observer is not None     # its observe has started
+        with pytest.raises(breaker.CircuitOpenError):
+            req.result(timeout=WAIT)
+        clk[0] = 1.0                    # cooldown over: the exact route
+        assert s.count("t", BOX, timeout=WAIT) == exact
+        # under a nearly spent deadline, on the collector thread (a wait
+        # there would outlast the result's timeout: the gate holds 120 s)
+        tconfig.DEADLINE_DEGRADE_MS.set(10_000)
+        n = s.count("t", BOX, deadline_ms=5_000, timeout=WAIT)
+        assert n == exact and not getattr(n, "approximate", False)
+        assert [s.count("t", q, timeout=WAIT) for q in _boxes(4)] \
+            == [tp.count(q) for q in _boxes(4)]
+        assert not battery.observed
+        # observed: the degraded counts are the reference's estimates
+        gate.set()
+        assert battery.total == N and battery.observed
+        want = jdegrade.estimate(js.planner("t"), jparse(BOX), "deadline")
+        got = s.count("t", BOX, deadline_ms=5_000, timeout=WAIT)
+        assert getattr(got, "approximate", False) and got.reason == "deadline"
+        assert int(got) == int(want)
+        clk[0] = 2.0
+        s.breaker.record_failure()      # open again: degraded at submit
+        req = s.submit("t", BOX)
+        assert req.degraded and req.result(timeout=WAIT) == int(want)
+    finally:
+        gate.set()
+        tconfig.DEADLINE_DEGRADE_MS.unset()
+        s.shutdown()
+        ts.close()
 
 
 def test_admission_sheds_past_its_bound(world):

@@ -696,10 +696,35 @@ def test_store_battery_deferred_to_first_read(flushes):
         assert battery.get_count(q) == js.stats("p").get_count(q)
 
 
+def test_carried_battery_frees_the_old_generation():
+    """Merge-build flushes that carry an unobserved battery keep no
+    reference to the pre-flush battery, its planner or its table: after
+    two such flushes with no read, the first planner is freed; the read
+    still gives the first load's sketches."""
+    import gc
+    import weakref
+    ts = DataStoreFinder.get_data_store(type="torch", device="cpu")
+    ts.create_schema("p", SPEC)
+    ts.load("p", ttable.FeatureTable.build(ts.get_schema("p"),
+                                           _data(6000, 41)))
+    first = weakref.ref(ts.planner("p"))
+    first_table = weakref.ref(ts.tables["p"])
+    for k in range(2):
+        ts.load("p", ttable.FeatureTable.build(ts.get_schema("p"),
+                                               _data(1000, 42 + k)))
+        ts.flush("p")
+        assert ts.deltas["p"] is None and not ts._stats["p"].observed
+    gc.collect()
+    assert first() is None and first_table() is None
+    assert ts.stats("p").total == 6000
+
+
 def test_degraded_count_equals_reference(stores):
-    """The scheduler's degraded count (``degrade.estimate``) now prices the
-    store planner's counts, as the reference's does."""
+    """The scheduler's degraded count (``degrade.estimate``) prices the
+    store planner's counts, as the reference's does, once the battery is
+    observed (before that it declines: ``test_torch_scheduler.py``)."""
     js, ts = stores
+    assert ts.stats("pts").total > 0    # the first read observes it
     for q in ("BBOX(geom, -20, 5, 40, 35)", "val < 300",
               "BBOX(geom, -20, 5, 40, 35) AND "
               "dtg DURING 2020-01-07T00:00:00Z/2020-01-14T00:00:00Z"):
