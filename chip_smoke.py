@@ -112,6 +112,23 @@ Phases, each failing the run (non-zero exit) when it fails:
    ``torch.bincount``'s and ``torch.topk``'s times beside them
    (``phase_process_kernels``), ``topk_nearest``'s one-cluster and grid
    routes at 2^19 to 2^22 candidates, and its keys pass's SASS;
+7e. the attribute index (p) (``phase_attribute``, ``{"attribute": ...}``
+   line): a store of its own over the same 100M points with ``code`` (300
+   synthetic three-letter codes, Zipf-like, a generator of their own) and
+   ``val`` indexed, each row labelled as in (n): (p1) an equality on a code at
+   about 0.1% of rows, (p2) an ``IN`` of five codes with one repeated,
+   (p3) a string range whose bounds are outside the vocabulary, (p4)
+   ``val BETWEEN`` with (a)'s box and week (the chosen index, each index's
+   estimated and actual candidates), (p5) (p1) under auths, (p6) (p1) with
+   (b)'s polygon — each against a numpy oracle, with every kernel's
+   launches read around them (``fused_scan``'s RUNS form must launch) —
+   each query's p50, host syncs and device activities, ``explain`` of (p1)
+   and (p4), the build split of every index, ``reindex`` under concurrent
+   counts and ``update_schema``; then the RUNS form against its plain
+   version at (p1)'s, (p3)'s and (p4)'s runs and at 33.5M candidates in 1,
+   64 and 4,096 runs (count, mask, VIS, no box), and ``masked_hist`` HIST
+   over subnormal ranges (``P_HIST``) (``phase_attribute_kernels``); the
+   store is freed after it;
 8. the write path (l) on the same store, after every other phase (the
    corpus changes under it): 20 appends of 100,000 rows into the LSM delta
    tier, (a)-(d) and (g3)'s 64 boxes through ``count_many`` over main +
@@ -3218,6 +3235,39 @@ def vis_scan_bound(cols, plan, ids, nblk, bsz: int, k: int) -> dict:
                   + 4 * k + 4, 4 * cand)
 
 
+def query_profile(fn, device) -> dict:
+    """One query's host syncs (CUDA's sync debug mode), device activities,
+    busy ms and idle share (the profiler, one call) and p50 of ``REPS``
+    synced calls, after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from geomesa_tpu_torch.index import scan
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    fn()
+    sync()
+    with scan.host_syncs(device) as hs:
+        fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU]
+                 + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    names = sorted({e.name for e in dev})
+    return {"host_syncs": hs.count, "device_activities": len(dev),
+            "device_busy_ms": busy, "wall_ms_profiled": wall_ms,
+            "idle_share": 1.0 - busy / wall_ms,
+            "pageable": [m for m in names if "Pageable" in m],
+            "copies": [m for m in names if "Memcpy" in m],
+            "p50_ms": timed(fn, sync, REPS)[0]}
+
+
 def phase_auths(store, oracle, f_oracle) -> dict:
     """(n) on the cfg1 corpus: a store of its own over the main store's
     100M points and columns, each row labelled with one of 8 seed-drawn
@@ -3449,27 +3499,7 @@ def phase_auths(store, oracle, f_oracle) -> dict:
     idx.build_stages.pop("perm_readback_s", None)
 
     def measure(fn) -> dict:
-        fn()
-        sync()
-        with scan.host_syncs(store.device) as hs:
-            fn()
-        sync()
-        with profile(activities=[ProfilerActivity.CPU]
-                     + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
-            t0 = time.perf_counter()
-            fn()
-            sync()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        dev = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-        names = sorted({e.name for e in dev})
-        return {"host_syncs": hs.count, "device_activities": len(dev),
-                "device_busy_ms": busy, "wall_ms_profiled": wall_ms,
-                "idle_share": 1.0 - busy / wall_ms,
-                "pageable": [m for m in names if "Pageable" in m],
-                "copies": [m for m in names if "Memcpy" in m],
-                "p50_ms": timed(fn, sync, REPS)[0]}
+        return query_profile(fn, store.device)
 
     rows_path = {}
     for label, fn in (
@@ -3514,6 +3544,468 @@ def phase_auths(store, oracle, f_oracle) -> dict:
         "rows_path": rows_path, "perm_readback": perm_read}}))
     return {"launches": launches, "vis_launches": vis_launches,
             "vis_rows": vis_rows}
+
+
+# -- (p) the attribute index on the cfg1 corpus --------------------------------
+
+P_SPEC = ("code:String:index=true,val:Int:index=true,dtg:Date,*geom:Point;"
+          "geomesa.z3.interval=week")
+P_SEED = 1235               # the codes' own generator: the corpus's stays
+P_CODES = 300
+P_ZIPF = 1.1
+P_SHARE = 0.001             # (p1)'s code: the one nearest this share
+Q_P3 = "code >= 'M' AND code < 'P'"
+Q_P4 = f"val BETWEEN 40 AND 42 AND BBOX(geom, -10, 30, 30, 55) AND {DURING}"
+P_RUNS_N = 1 << 25          # the RUNS kernel's big shapes: 33,554,432 rows
+# HIST's subnormal re-check (lo, hi, bins): a range under 2^-126, bins
+# narrower than 2^-126 whose range and reciprocal are normal (the edges,
+# the flushed guess), and bins of 2^-100 (the guess without flushes)
+P_HIST = ((0.0, 1e-40, 8), (0.0, 1e-37, 20), (-1e-37, 1e-37, 4096),
+          (0.0, 20 * 2.0**-100, 20))
+P_READERS = 3               # counting threads beside the reindex
+
+
+def p_codes(n: int):
+    """(codes int32 a row, sorted vocabulary): 300 distinct random
+    three-letter codes, drawn with a Zipf-like skew (s = 1.1 over a
+    seed-drawn rank) from a generator of their own. The distribution is
+    synthetic: it stands for a skewed categorical column of event codes,
+    and no public count of any code set's shares is behind it."""
+    rng = np.random.default_rng(P_SEED)
+    letters = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ"))
+    vocab = set()
+    while len(vocab) < P_CODES:
+        vocab.add("".join(rng.choice(letters, 3)))
+    vocab = sorted(vocab)
+    rank = rng.permutation(P_CODES)
+    p = 1.0 / (rank + 1.0) ** P_ZIPF
+    return rng.choice(P_CODES, n, p=p / p.sum()).astype(np.int32), vocab
+
+
+def runs_bound(cols, stage, space, runs, mode: str, vis) -> dict:
+    """``fused_scan``'s RUNS form at ``runs`` of one stage: bytes — the
+    point planes of every candidate (a stage with boxes), the time planes
+    of those in a box (every candidate without boxes), the residual's
+    columns of those in a box and a window (counted by the plain scan of
+    the stage cut to its boxes, and to its boxes and windows), 4 bytes of
+    ``__vis__`` a candidate in the VIS form, 12 bytes a piece (block id
+    and bounds), a mask byte a candidate in MASK, the count; operations:
+    four key compares a candidate a box."""
+    import torch
+    from geomesa_tpu_torch.index import scan
+    kind, boxes, windows, residual = stage
+    ids, bounds, nb, _, bsz = space
+    cand = int(sum(h - l for l, h in runs))
+    counts = []
+    for cut in ((kind, boxes, None, None), (kind, boxes, windows, None)):
+        q = scan.staged_query(cols, [cut])
+        counts.append(int(scan.fused_scan(
+            cols, torch.from_numpy(q.packed).to(ids.device), q, ids, nb, bsz,
+            "count", runs=bounds)[0]))
+    rbytes = 0 if residual is None or residual.program is None else sum(
+        cols[c].element_size() for c, _ in residual.program.slots)
+    nbox = 0 if boxes is None else len(boxes)
+    point = 16 * cand if nbox else 0
+    tier = 0 if windows is None else 8 * (counts[0] if nbox else cand)
+    return _bound(point + tier + rbytes * counts[1] + (4 * cand if vis else 0)
+                  + 12 * int(nb[0]) + (cand if mode == "mask" else 0) + 4,
+                  4 * cand * max(1, nbox))
+
+
+def phase_attribute(store) -> dict:
+    """(p) on the cfg1 corpus: a store of its own over the main store's
+    100M points, dates and ``val``, with a ``code`` column of 300
+    three-letter codes (``p_codes``) and the schema ``P_SPEC`` (``code`` and
+    ``val`` indexed), each row labelled as in (n). Every answer equals a
+    numpy oracle:
+
+    - (p1) ``code = <the code nearest 0.1% of rows>``, count and rows;
+    - (p2) ``code IN`` five codes, one repeated, out of order, count (the
+      port counts a row once: numpy's answer);
+    - (p3) ``code >= 'M' AND code < 'P'`` (bounds outside the vocabulary),
+      count;
+    - (p4) ``val BETWEEN 40 AND 42`` with (a)'s box and week, count and
+      rows, with the index the planner chose and each index's estimated
+      (the battery's) and actual candidates;
+    - (p5) (p1) under (n)'s first auths (``fused_scan``'s RUNS form with
+      its VIS section);
+    - (p6) (p1) ANDed with (b)'s concave polygon: the slice, then the host
+      refine;
+
+    with every kernel's launches read around (p1)-(p6) (``fused_scan``'s
+    RUNS form must launch), each query's p50, host syncs and device
+    activities, ``explain`` of (p1) and (p4), the build split of every
+    index and the load's peak device memory; then ``reindex`` under
+    ``P_READERS`` counting threads (every count unchanged, the generation
+    bumped once) and ``update_schema`` adding an Int attribute, each
+    followed by counts against the oracle. Then the RUNS kernel against its
+    plain version (``phase_attribute_kernels``). The store is freed before
+    the next phase."""
+    import threading
+
+    import torch
+
+    from geomesa_tpu_torch import DataStoreFinder
+    from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
+    from geomesa_tpu_torch.filter.parser import parse_ecql
+    from geomesa_tpu_torch.kernels import (box_count, compact, density,
+                                           fused_scan, gate, pip)
+
+    cuda = store.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    main = store.planner("gdelt").table
+    n = len(main)
+    x, y = main.geometry().point_xy()
+    val = np.asarray(main.columns["val"])
+    dtg = np.asarray(main.columns["dtg"])
+    t0 = time.perf_counter()
+    codes, vocab = p_codes(n)
+    codes_s = time.perf_counter() - t0
+    exprs = vis_expressions()
+    vvocab = [t for t, _ in exprs]
+    vcodes = np.random.default_rng(N_SEED).integers(0, len(vvocab), n) \
+        .astype(np.int32)
+    some = next(a for a in (["admin"], ["admin", "ops"], ["ops"],
+                            ["user", "intel"], ["ext"], ["intel"])
+                if 0 < sum(oracle_visible(t, a) for _, t in exprs)
+                < len(exprs))
+    ok_some = np.array([oracle_visible(t, some) for _, t in exprs])[vcodes]
+
+    # the oracles
+    per_code = np.bincount(codes, minlength=P_CODES)
+    c1 = int(np.argmin(np.abs(per_code / n - P_SHARE)))
+    in1 = codes == c1
+    rows1 = np.flatnonzero(in1)
+    by_count = np.argsort(-per_code, kind="stable")
+    p2 = [int(by_count[k]) for k in (40, 7, 150, 40, 90)]   # out of order
+    in_range = np.array([(v >= "M") & (v < "P") for v in vocab])
+    lo_ms = np.datetime64("2020-01-05", "ms").astype(np.int64)
+    hi_ms = np.datetime64("2020-01-12", "ms").astype(np.int64)
+    sel4 = ((val >= 40) & (val <= 42) & (x >= -10) & (x <= 30) & (y >= 30)
+            & (y <= 55) & (dtg > lo_ms) & (dtg < hi_ms))
+    rows4 = np.flatnonzero(sel4)
+    del sel4
+    rows6 = rows1[oracle_pip(x[rows1], y[rows1], CONCAVE)]
+    q1 = f"code = '{vocab[c1]}'"
+    q2 = "code IN (" + ", ".join(f"'{vocab[c]}'" for c in p2) + ")"
+    q6 = f"{q1} AND INTERSECTS(geom, {CONCAVE_WKT})"
+    want = {"p1": len(rows1),
+            "p2": int(np.isin(codes, sorted(set(p2))).sum()),
+            "p3": int(in_range[codes].sum()), "p4": len(rows4),
+            "p5": int(ok_some[rows1].sum()), "p6": len(rows6)}
+
+    # the store
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    pstore = DataStoreFinder.get_data_store(type="torch",
+                                            device=store.device)
+    sft = pstore.create_schema("p", P_SPEC)
+    pstore.load("p", FeatureTable.build(
+        sft, {"code": StringColumn(codes, vocab), "val": val, "dtg": dtg,
+              "geom": main.columns["geom"]},
+        visibilities=StringColumn(vcodes, vvocab)))
+    sync()
+    load_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_mem if cuda else None
+    planner = pstore.planner("p")
+    t0 = time.perf_counter()
+    total = planner.stats.total   # the battery at its first read
+    battery_s = time.perf_counter() - t0
+    names = [f"attr:{i.attr}" if i.name == "attr" else i.name
+             for i in planner.indexes]
+    if names != ["z3", "attr:code", "attr:val"] or total != n:
+        raise AssertionError(f"(p) indexes {names}, battery total {total}")
+    split = {nm: dict(i.build_stages) for nm, i in zip(names,
+                                                       planner.indexes)}
+    log(f"[attr] (p) store of {n} rows, {P_CODES} codes (generated in "
+        f"{codes_s} s), loaded in {load_s} s; build split by index (s): "
+        f"{json.dumps(split)}; the battery at its first read {battery_s} s; "
+        f"peak device memory of the load {peak} bytes")
+
+    counters = {"pip_refine": pip.pip_refine,
+                "grid_scatter": density.grid_scatter,
+                "box_count": box_count.box_count,
+                "block_gate": gate.block_gate,
+                "fused_scan": fused_scan.fused_scan,
+                "ordered_compact": compact.ordered_compact}
+    for c in counters.values():
+        c.launches = 0
+    fused_scan.fused_scan.vis_launches = 0
+    fused_scan.fused_scan.runs_launches = 0
+    got = {"p1": pstore.count("p", q1), "p2": pstore.count("p", q2),
+           "p3": pstore.count("p", Q_P3), "p4": pstore.count("p", Q_P4),
+           "p5": pstore.count("p", q1, auths=some),
+           "p6": pstore.count("p", q6)}
+    rows = {"p1": pstore.query("p", q1).indices,
+            "p4": pstore.query("p", Q_P4).indices,
+            "p6": pstore.query("p", q6).indices}
+    sync()
+    launches = {k: c.launches for k, c in counters.items()}
+    runs_launches = fused_scan.fused_scan.runs_launches
+    vis_launches = fused_scan.fused_scan.vis_launches
+    bad = [k for k in want if got[k] != want[k]] + [
+        k for k, r in (("p1", rows1), ("p4", rows4), ("p6", rows6))
+        if not np.array_equal(rows[k], r)]
+    if bad:
+        raise AssertionError(f"(p) differs from its oracles at {bad}: got "
+                             f"{json.dumps(got)}, want {json.dumps(want)}")
+    if cuda and (runs_launches < 5 or vis_launches < 1):
+        raise AssertionError(f"(p) fused_scan's RUNS form launched "
+                             f"{runs_launches} times, its VIS form "
+                             f"{vis_launches}: (p1)-(p3), (p5) and (p6) "
+                             "must run on it")
+    plans = {}
+    for label, q in (("p1", q1), ("p2", q2), ("p3", Q_P3), ("p4", Q_P4),
+                     ("p6", q6)):
+        est = planner.stats.estimator
+        per_index = {}
+        for idx in planner.indexes:
+            p_ = idx.plan(parse_ecql(q))
+            if p_ is None:
+                continue
+            nm = f"attr:{idx.attr}" if idx.name == "attr" else idx.name
+            sel = 1.0
+            for on, s_ in (
+                    (p_.boxes_loose is not None, lambda p_=p_:
+                     est.spatial_selectivity(p_.explain["boxes"])),
+                    (p_.windows is not None, lambda p_=p_:
+                     est.temporal_selectivity(p_.explain["intervals"]))):
+                if on and p_.candidate_slices is None:
+                    s_ = s_()
+                    sel *= 1.0 if s_ is None else s_
+            per_index[nm] = {
+                "estimated": p_.n_candidates if p_.candidate_slices
+                is not None else sel * n,
+                "actual": p_.n_candidates}
+        plans[label] = {"chosen": planner.plan(q).explain["index"],
+                        "candidates": per_index}
+    log(f"[attr] (p1)-(p6) equal to their oracles: {json.dumps(got)}; "
+        f"(p1)'s code {vocab[c1]!r}, (p2) {q2}; launches "
+        f"{json.dumps(launches)}, of them fused_scan's RUNS form "
+        f"{runs_launches} (VIS {vis_launches}); plans {json.dumps(plans)}")
+
+    profiles = {}
+    for label, fn in (
+            ("p1_count", lambda: pstore.count("p", q1)),
+            ("p1_rows", lambda: pstore.query("p", q1).indices),
+            ("p2_count", lambda: pstore.count("p", q2)),
+            ("p3_count", lambda: pstore.count("p", Q_P3)),
+            ("p4_count", lambda: pstore.count("p", Q_P4)),
+            ("p4_rows", lambda: pstore.query("p", Q_P4).indices),
+            ("p5_count", lambda: pstore.count("p", q1, auths=some)),
+            ("p6_count", lambda: pstore.count("p", q6))):
+        profiles[label] = query_profile(fn, store.device)
+    explain = {}
+    for label, q in (("p1", q1), ("p4", Q_P4)):
+        e = pstore.explain("p", q, analyze=True)
+        explain[label] = {k: e.get(k) for k in (
+            "index", "strategy", "cost", "candidates", "scan", "n_boxes",
+            "n_windows", "analyze")}
+    log(json.dumps({"attribute_queries": profiles, "explain": explain}))
+
+    # reindex under concurrent counts
+    g0 = pstore.generation("p")
+    old = pstore.planners["p"]
+    seen, errors = [], []
+    stop = threading.Event()
+
+    def reader():
+        while not stop.is_set():
+            try:
+                seen.append(pstore.count("p", q1))
+            except Exception as e:  # noqa: BLE001 - collected and raised
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=reader) for _ in range(P_READERS)]
+    for t in threads:
+        t.start()
+    try:
+        t0 = time.perf_counter()
+        pstore.reindex("p")
+        pstore._reindex_threads["p"].join(600)
+        reindex_s = time.perf_counter() - t0
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    st = pstore.reindex_status("p")
+    after = pstore.count("p", q1)
+    if (st["state"] != "installed" or errors or set(seen) != {want["p1"]}
+            or after != want["p1"] or pstore.generation("p") != g0 + 1
+            or pstore.planners["p"] is old):
+        raise AssertionError(f"(p) reindex {json.dumps(st)}: errors "
+                             f"{errors[:3]}, counts {sorted(set(seen))}, "
+                             f"after {after}, generation "
+                             f"{pstore.generation('p')} (was {g0})")
+    del old
+    g1 = pstore.generation("p")
+
+    # update_schema: one more attribute, every row 0
+    t0 = time.perf_counter()
+    pstore.update_schema("p", "extra:Int")
+    sync()
+    update_s = time.perf_counter() - t0
+    evolved = {"p1": pstore.count("p", q1),
+               "extra": pstore.count("p", "extra = 0 AND " + q1)}
+    if evolved != {"p1": want["p1"], "extra": want["p1"]}:
+        raise AssertionError(f"(p) after update_schema {evolved}")
+    log(f"[attr] reindex under {P_READERS} counting threads: "
+        f"{json.dumps(st)} in {reindex_s} s, {len(seen)} counts all "
+        f"{want['p1']}, generation {g0} -> {g1}; "
+        f"update_schema adding extra:Int in {update_s} s, then "
+        f"{json.dumps(evolved)}")
+
+    kernels = phase_attribute_kernels(pstore, q1, Q_P3, Q_P4, some) \
+        if cuda else {"runs": [], "hist": []}
+    del pstore, planner
+    if cuda:
+        torch.cuda.empty_cache()
+    log(json.dumps({"attribute": {
+        "n": n, "load_s": load_s, "build_split": split,
+        "peak_device_bytes": peak, "battery_s": battery_s, "answers": got,
+        "launches_checked_run": launches, "runs_launches": runs_launches,
+        "vis_launches": vis_launches, "plans": plans,
+        "reindex_s": reindex_s, "update_schema_s": update_s}}))
+    return {"launches": launches, "runs_launches": runs_launches,
+            "runs_rows": kernels["runs"], "hist_rows": kernels["hist"]}
+
+
+def phase_attribute_kernels(pstore, q1: str, q3: str, q4: str,
+                            some) -> dict:
+    """``fused_scan``'s RUNS form against its plain version on the card:
+    at (p1)'s, (p3)'s and (p4)'s runs (their plans on ``attr:code`` and
+    ``attr:val``) in count mode and (p1)'s in mask mode; at 33,554,432
+    candidates of ``attr:code`` in 1, 64 and 4,096 runs with unaligned
+    starts, with (a)'s box, week and residual, in count mode, the 4,096
+    runs also in mask mode, in the VIS form (under (n)'s first auths) and
+    with no box. Then ``masked_hist`` HIST over ``P_HIST``'s subnormal
+    ranges on ``val`` and on values at and around their edges and across
+    the subnormals, against the plain version."""
+    import torch
+
+    from geomesa_tpu_torch.aggregates import stats_scan
+    from geomesa_tpu_torch.filter.parser import parse_ecql as parse
+    from geomesa_tpu_torch.index import scan
+    from geomesa_tpu_torch.index.spatial import BaseSpatialIndex
+    from geomesa_tpu_torch.kernels import fused_scan, hist
+
+    planner = pstore.planner("p")
+    by = {f"attr:{i.attr}": i for i in planner.indexes if i.name == "attr"}
+    out = []
+
+    def block_form(idx, stage, runs, reps):
+        """(ms, candidates) of ``fused_scan``'s block form (its count) over
+        the table's 4,096-row blocks that ``runs`` touch, on the same
+        index's columns: the same rows, read as blocks."""
+        k = idx.kernels
+        query = scan.staged_query(k.cols, [stage])
+        qbuf = torch.from_numpy(query.packed).to(k.device)
+        ids = np.unique(np.concatenate([np.arange(lo // 4096,
+                                                  (hi - 1) // 4096 + 1)
+                                        for lo, hi in runs]))
+        dids = torch.from_numpy(ids.astype(np.int32)).to(k.device)
+        nb = torch.tensor([len(ids)], dtype=torch.int32, device=k.device)
+        ms = cuda_ms(lambda: fused_scan.fused_scan(
+            k.cols, qbuf, query, dids, nb, 4096, "count"), reps)
+        return ms, len(ids) * 4096
+
+    def compare(label, idx, stage, runs, mode, reps, vis=False):
+        k = idx.kernels
+        space = k._runs_space(runs)
+        ids, bounds, nb, _, bsz = space
+        query = scan.staged_query(k.cols, [stage])
+        if query is None or query.vis != vis:
+            raise AssertionError(f"(p) {label}: no RUNS query")
+        qbuf = torch.from_numpy(query.packed).to(k.device)
+        args = (k.cols, qbuf, query, ids, nb, bsz, mode)
+        cut = None if mode == "count" else (
+            lambda r, live=int(nb[0]) * bsz: (r[0][:live], r[1]))
+        out.append(_time_kernel(
+            f"fused_scan RUNS {mode} {label}: {len(runs)} runs, "
+            f"{int(sum(h - l for l, h in runs))} candidates, "
+            f"{int(nb[0])} pieces",
+            lambda: fused_scan.fused_scan(*args, runs=bounds),
+            lambda: scan.fused_scan(*args, runs=bounds),
+            runs_bound(k.cols, stage, space, runs, mode, vis), reps, cut=cut))
+
+    for label, q, name, modes in (("(p1)", q1, "attr:code", ("count",
+                                                             "mask")),
+                                  ("(p3)", q3, "attr:code", ("count",)),
+                                  ("(p4)", q4, "attr:val", ("count",))):
+        idx = by[name]
+        p_ = idx.plan(parse(q))
+        stage = (p_.primary_kind, p_.boxes_loose, p_.windows,
+                 p_.residual_device)
+        for mode in modes:
+            compare(label, idx, stage, p_.candidate_slices, mode, 50)
+    idx = by["attr:code"]
+    base = BaseSpatialIndex.plan(idx, parse(Q_BOX))
+    stage = (base.primary_kind, base.boxes_loose, base.windows,
+             base.residual_device)
+    vis_stage = planner._apply_auths(base, some)
+    vis_stage = (vis_stage.primary_kind, vis_stage.boxes_loose,
+                 vis_stage.windows, vis_stage.residual_device)
+    n = idx.device.n
+    for k_runs in (1, 64, 4096):
+        # sorted, disjoint, spread over the table, starts not multiples of 4
+        width, step = P_RUNS_N // k_runs, (n - 16) // k_runs
+        runs = [(12345, 12345 + P_RUNS_N)] if k_runs == 1 else [
+            (3 + i * step + i % 7, 3 + i * step + i % 7 + width)
+            for i in range(k_runs)]
+        compare(f"at {k_runs} runs", idx, stage, runs, "count", 20)
+        ms_b, cand_b = block_form(idx, stage, runs, 20)
+        out[-1].update(block_form_ms=ms_b, block_form_candidates=cand_b)
+        log(f"[kernel] fused_scan block form over the {cand_b // 4096} "
+            f"blocks of 4,096 rows that the {k_runs} runs touch ({cand_b} "
+            f"candidates): {ms_b} ms; the RUNS form {out[-1]['ms']} ms over "
+            f"its {P_RUNS_N}")
+        if k_runs == 4096:
+            compare(f"at {k_runs} runs", idx, stage, runs, "mask", 20)
+            compare(f"VIS at {k_runs} runs", idx, vis_stage, runs, "count",
+                    20, vis=True)
+            compare(f"boxless at {k_runs} runs", idx,
+                    ("none", None, stage[2], stage[3]), runs, "count", 20)
+
+    # HIST over subnormal ranges and bins narrower than 2^-126, as the
+    # reference's CPU program flushes
+    hrows = []
+    col = idx.device.columns["val"]
+    f32 = np.float32
+    hrng = np.random.default_rng(P_SEED + 1)
+    tiny = np.finfo(f32).tiny
+    for lo, hi, bins in P_HIST:
+        edges = f32(lo) + (f32(hi) - f32(lo)) * np.arange(
+            bins + 1, dtype=f32) / f32(bins)
+        vals = np.concatenate([
+            edges, np.nextafter(edges, f32(np.inf)),
+            np.nextafter(edges, f32(-np.inf)),
+            np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-45, -1e-45,
+                      1.0, -1.0], f32),
+            (tiny * hrng.uniform(-2.0, 2.0, 1 << 18)
+             * np.exp2(-hrng.integers(0, 24, 1 << 18))).astype(f32),
+            hrng.uniform(lo - (hi - lo), hi + (hi - lo),
+                         1 << 20).astype(f32)])
+        fcol = torch.from_numpy(vals.astype(f32)).to(col.device)
+        for label, c in (("val", col), ("edges", fcol)):
+            mask = torch.ones(c.shape[0], dtype=torch.bool, device=c.device)
+            got = hist.masked_hist("hist", mask, c, lo=lo, hi=hi, bins=bins)
+            torch.cuda.synchronize()
+            want = stats_scan.masked_hist("hist", mask, c,
+                                          lo=float(f32(lo)),
+                                          hi=float(f32(hi)), bins=bins)
+            err = _equal_or_raise(f"masked_hist HIST lo {lo} hi {hi} "
+                                  f"{bins} bins on {label}", got, want)
+            counts = got.tolist()
+            hrows.append({"range": [lo, hi, bins], "label": label,
+                          "counts": counts if bins <= 20 else
+                          {"nonzero_bins": sum(1 for x in counts if x),
+                           "total": sum(counts)},
+                          "max_abs_err": err})
+    log(f"[kernel] masked_hist HIST over subnormal ranges: equal to the "
+        f"plain version: {json.dumps(hrows)}")
+    return {"runs": out, "hist": hrows}
 
 
 # -- (o) stats, BIN, sampling and KNN on the main store ------------------------
@@ -4222,6 +4714,7 @@ def main() -> int:
     mk = phase_extent_kernels(m.pop("m1_state"))
     o = phase_process(store, g_oracle)
     ok = phase_process_kernels(store)
+    pres = phase_attribute(store)
     w = phase_write(store, g_oracle)
     import torch
     from geomesa_tpu_torch.kernels import (box_count, compact, density,
@@ -4301,7 +4794,17 @@ def main() -> int:
         "bound_ms": ok[mod.NAME][0]["bound_ms"],
         "bound_by": ok[mod.NAME][0]["bound_by"],
         "library_ms": ok[mod.NAME][0]["library_ms"]}
-        for mod in (hist, topk)]}))
+        for mod in (hist, topk)] + [{
+        # fused_scan's RUNS form (the attribute index's staged count_at and
+        # select_at): its launches are (p)'s; the first row is (p1)'s count
+        "name": f"{fused_scan.NAME}_runs", "route": "cuda",
+        "source": fused_scan.SOURCE, "replaces": fused_scan.REPLACES_RUNS,
+        "launches": pres["runs_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in pres["runs_rows"]),
+        "ms": pres["runs_rows"][0]["ms"],
+        "plain_ms": pres["runs_rows"][0]["plain_ms"],
+        "bound_ms": pres["runs_rows"][0]["bound_ms"],
+        "bound_by": pres["runs_rows"][0]["bound_by"], "library_ms": None}]}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,11 @@ as the reference's XLA program computes it on the CPU —
   ``[0, n)`` are dropped (JAX's indexing, then its scatter's).
 
 f32 → int32 saturates and maps NaN to 0 (XLA's convert), so after the clip
-NaN and -inf land in bin 0 and +inf in the last. Counts are int32.
+NaN and -inf land in bin 0 and +inf in the last. XLA on the CPU reads a
+subnormal f32 as a zero of its sign and flushes a subnormal result to one
+(``_ftz``): HIST takes that flush at its inputs and after each step, so a
+range under 2^-126 divides by zero as the reference's does. GRID's sums
+of coordinates and 180 or 90 are never subnormal. Counts are int32.
 """
 
 from __future__ import annotations
@@ -43,6 +47,14 @@ from geomesa_tpu_torch.stats import sketches as sk
 # the f32 reciprocals XLA multiplies by in place of the grid's divisions
 INV360 = float(np.float32(1) / np.float32(360))
 INV180 = float(np.float32(1) / np.float32(180))
+# the least normal f32 (2^-126)
+F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _ftz(t: torch.Tensor) -> torch.Tensor:
+    """f32 values with every subnormal made a zero of its sign (XLA's
+    flush-to-zero on the CPU)."""
+    return torch.where(t.abs() < F32_TINY, t * 0.0, t)
 
 
 def _bin_index(v: torch.Tensor, bins: int) -> torch.Tensor:
@@ -63,11 +75,12 @@ def _count(idx: torch.Tensor, mask: torch.Tensor, n: int) -> torch.Tensor:
 def _masked_hist(col: torch.Tensor, mask: torch.Tensor, lo: float, hi: float,
                  bins: int) -> torch.Tensor:
     """int32 (bins,) histogram of the masked rows of an int32 or f32 column
-    over [lo, hi] (f32 values), end bins taking what falls outside."""
-    lo_t = torch.tensor(lo, dtype=torch.float32, device=col.device)
-    hi_t = torch.tensor(hi, dtype=torch.float32, device=col.device)
-    frac = (col.to(torch.float32) - lo_t) / (hi_t - lo_t)
-    return _count(_bin_index(frac * float(bins), bins), mask, bins)
+    over [lo, hi] (f32 values), end bins taking what falls outside; every
+    input and step flushed as XLA flushes them on the CPU (``_ftz``)."""
+    lo_t = _ftz(torch.tensor(lo, dtype=torch.float32, device=col.device))
+    hi_t = _ftz(torch.tensor(hi, dtype=torch.float32, device=col.device))
+    frac = _ftz(_ftz(_ftz(col.to(torch.float32)) - lo_t) / _ftz(hi_t - lo_t))
+    return _count(_bin_index(_ftz(frac * float(bins)), bins), mask, bins)
 
 
 def _masked_grid(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,

@@ -121,6 +121,17 @@ class Z3SFC:
         xi, yi, ti = self.normalize(x, y, t, lenient)
         return zorder.z3_encode(xi, yi, ti)
 
+    def ranges(
+        self,
+        xy: Sequence[Tuple[float, float, float, float]],
+        t: Sequence[Tuple[int, int]],
+        max_ranges: Optional[int] = None,
+        max_levels: int = 64,
+    ) -> List[IndexRange]:
+        """Cover the cross product of lon/lat boxes and in-bin time windows
+        (the explain path; planning uses ``ranges_arrays``)."""
+        return to_ranges(self.ranges_arrays(xy, t, max_ranges, max_levels))
+
     def ranges_arrays(self, xy, t, max_ranges: Optional[int] = None,
                       max_levels: int = 64):
         """Array-form cover (lo, hi, contained) of the cross product of

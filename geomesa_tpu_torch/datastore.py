@@ -25,6 +25,11 @@
     store.remove_features("gdelt", "val = 7")
     store.update_features("gdelt", "val < 10", {"val": 0})
     store.age_off("gdelt", now_ms)        # geomesa.feature.expiry
+    store.explain("gdelt", "name = 'a' AND BBOX(...)", analyze=True)
+    store.add_interceptor("gdelt", FullTableScanGuard())
+    store.reindex("gdelt"); store.reindex_status("gdelt")
+    store.update_schema("gdelt", "extra:Int")
+    store.remove_schema("gdelt")
 
     # the serving path: concurrent counts coalesce into batched dispatches
     store.count_many("gdelt", [f1, f2, ...])
@@ -34,7 +39,11 @@ The device is ``cuda`` unless the caller passes another (``device="cpu"``
 runs every kernel's plain version); asking for ``cuda`` without a card
 raises. Each type holds a main table in its spatial index on the device
 — Z3 for points with a date, XZ3 for lines and polygons with a date, Z2
-and XZ2 without one — and an LSM delta tier: small appends land in a host-side delta run that counts,
+and XZ2 without one, the first that ``geomesa.indices`` names when it
+names some, the full-scan index when none applies — plus an attribute
+index an indexed attribute (``index=true``, or ``attr:<name>`` in
+``geomesa.indices``), each a sorted copy of the table on the device; and
+an LSM delta tier: small appends land in a host-side delta run that counts,
 selects and density grids merge in exactly; a flush (explicit, past the
 threshold, or before ``planner()`` hands out a planner) merges the delta
 into the index by the incremental merge build (``Z3Index.merge_from``, the
@@ -46,11 +55,14 @@ read takes the caller's ``auths``; feature-id filters, the shaping hints
 sample) answer as the reference's. Every full build gives the type a
 fresh sketch battery, observed at its first read (``store.stats(type)``:
 cached estimates, exact stat scans through the ``masked_hist`` kernel),
-which a merge build carries over and the planner would price plans by
-where several indexes plan; ``geomesa_tpu_torch.process`` (KNN through the
+which a merge build carries over and the planner prices plans by where
+several indexes plan; ``geomesa_tpu_torch.process`` (KNN through the
 ``topk_nearest`` kernel, proximity, tube, ...) runs on ``store.planner``.
-Every other store feature raises NotImplementedError naming its
-ROADMAP.md item.
+Interceptors and guards (``index/guards.py``) attach a type at a time,
+``reindex`` rebuilds a type's indexes off the lock and swaps them in, and
+``update_schema``/``remove_schema`` evolve and drop types. Every other
+store feature (``open``'s durability, ``cluster_scan``) raises
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -75,11 +87,13 @@ from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.filter.evaluate import evaluate
 from geomesa_tpu_torch.filter.parser import parse_ecql
 from geomesa_tpu_torch.index.api import QueryResult, not_ported
+from geomesa_tpu_torch.index.attribute import AttributeIndex, indexed_attributes
 from geomesa_tpu_torch.index.device import resolve
 from geomesa_tpu_torch.index.planner import QueryPlanner
 from geomesa_tpu_torch.index.shaping import (reproject_table, shape_local,
                                              shape_rows, transform_table)
-from geomesa_tpu_torch.index.spatial import index_class
+from geomesa_tpu_torch.index.spatial import (FullScanIndex,
+                                             spatial_index_class)
 from geomesa_tpu_torch.metrics import REGISTRY as _metrics
 from geomesa_tpu_torch.security.visibility import allowed_codes
 from geomesa_tpu_torch.serve.resilience import deadline as _rdl
@@ -187,23 +201,47 @@ class TorchDataStore:
         self._generations: Dict[str, int] = {}
         self.epoch = _next_epoch()
         self._scheduler = None
+        # per-type query interceptors and guards, shared by every planner
+        # of the type (``add_interceptor``)
+        self._interceptors: Dict[str, list] = {}
+        # background reindex: the worker thread and the status a type
+        self._reindex_threads: Dict[str, threading.Thread] = {}
+        self._reindex_status: Dict[str, dict] = {}
+
+    # -- factory SPI ---------------------------------------------------------
 
     @classmethod
     def can_process(cls, params: dict) -> bool:
         return params.get("type") == "torch"
+
+    @classmethod
+    def create(cls, params: dict) -> "TorchDataStore":
+        return cls(params)
+
+    @classmethod
+    def open(cls, path: str, params: Optional[dict] = None):
+        """A durable store at ``path`` (≙ ``geomesa_tpu/datastore.py:185``):
+        the write-ahead log, snapshots and recovery are not ported."""
+        raise not_ported("durability (TorchDataStore.open: the write-ahead "
+                         "log, snapshots and recovery)", 15)
+
+    def cluster_scan(self, type_name: str):
+        """The multi-process cluster scan (≙ ``geomesa_tpu/datastore.py
+        :882``): the cluster runtime is not ported."""
+        raise not_ported("cluster_scan (the multi-process cluster runtime)",
+                         14)
+
+    # -- schema lifecycle ----------------------------------------------------
 
     def create_schema(self, sft: Union[SimpleFeatureType, str],
                       spec: Optional[str] = None) -> SimpleFeatureType:
         if isinstance(sft, str):
             sft = SimpleFeatureType.from_spec(sft, spec or "")
         sft.feature_expiry  # validate up front, not on the first write
-        if sft.name in self.schemas:
-            raise ValueError(f"Schema {sft.name} already exists")
-        index_class(sft)  # raises for a schema no index of the port holds
-        if any(a.options.get("index", "").lower() in ("true", "full", "join")
-               for a in sft.attributes) or sft.user_data.get("geomesa.indices"):
-            raise not_ported("attribute and configured indexes", 10)
+        spatial_index_class(sft)   # a configured S2/S3 index raises
         with self._lock:
+            if sft.name in self.schemas:
+                raise ValueError(f"Schema {sft.name} already exists")
             self.schemas[sft.name] = sft
             self.tables[sft.name] = None
             self._bump_generation(sft.name)
@@ -214,6 +252,78 @@ class TorchDataStore:
 
     def get_type_names(self) -> List[str]:
         return list(self.schemas)
+
+    def remove_schema(self, type_name: str) -> None:
+        """Drop a type (≙ ``geomesa_tpu/datastore.py:252-266``): its schema,
+        tables, planners, battery, delta, fid counter and interceptors, so a
+        type re-created under the name starts fresh; its generation is
+        bumped, not dropped, so no cached plan survives."""
+        with self._lock:
+            self._bump_generation(type_name)
+            for d in (self.schemas, self.tables, self.planners, self._stats,
+                      self.deltas, self._counters, self._interceptors):
+                d.pop(type_name, None)
+
+    def update_schema(self, type_name: str, add_attributes: str = "",
+                      new_name: Optional[str] = None) -> SimpleFeatureType:
+        """Schema evolution (≙ ``geomesa_tpu/datastore.py:1162-1222``,
+        MetadataBackedDataStore.updateSchema): append attributes (spec
+        syntax; existing rows take the type's zero or empty value) and/or
+        rename the type; a pending delta flushes first, and the indexes and
+        battery rebuild over the evolved schema."""
+        with self._lock:
+            sft = self.schemas[type_name]
+            spec = sft.to_spec()
+            if add_attributes:
+                body = spec.split(";")[0]
+                spec = body + "," + add_attributes + spec[len(body):]
+            out = SimpleFeatureType.from_spec(new_name or type_name, spec)
+            old_names = {a.name for a in sft.attributes}
+            for attr in out.attributes:
+                if attr.is_geometry and attr.name not in old_names:
+                    raise ValueError("Cannot add a geometry attribute")
+            spatial_index_class(out)
+            table = self.tables.get(type_name)
+            if table is not None:
+                self.flush(type_name)
+                table = self.tables[type_name]
+                n = len(table)
+                cols: Dict[str, object] = dict(table.columns)
+                for attr in out.attributes:
+                    if attr.name in cols:
+                        continue
+                    if attr.type_name == "String":
+                        cols[attr.name] = StringColumn(
+                            np.zeros(n, np.int32), [""])
+                    else:
+                        cols[attr.name] = np.zeros(n, dtype=attr.binding)
+                new_table = FeatureTable(out, cols, _n=n, _fids=table._fids,
+                                         visibility=table.visibility)
+            final = new_name or type_name
+            if new_name is not None and new_name != type_name:
+                if new_name in self.schemas:
+                    raise ValueError(f"Schema {new_name} already exists")
+                self.remove_schema(type_name)
+            self._bump_generation(final)
+            self.schemas[final] = out
+            self._stats.pop(final, None)
+            if table is not None:
+                self.tables[final] = new_table
+                self.deltas[final] = None
+                self._rebuild_indexes(final)
+            else:
+                self.tables[final] = None
+            return out
+
+    def add_interceptor(self, type_name: str, interceptor) -> None:
+        """Attach a query interceptor or guard to a type (≙
+        ``geomesa_tpu/datastore.py:1069``, the geomesa.query.interceptors
+        SPI): every planner of the type, built before or after, rewrites
+        and vetoes through it. The type's generation advances, so no plan
+        cached before the interceptor came skips it."""
+        with self._lock:
+            self._interceptors.setdefault(type_name, []).append(interceptor)
+            self._bump_generation(type_name)
 
     # -- writes --------------------------------------------------------------
 
@@ -456,23 +566,129 @@ class TorchDataStore:
             self._counters[type_name] = c + 1
             return c
 
+    # -- online build-then-swap reindex ----------------------------------------
+
+    def reindex(self, type_name: str, background: bool = True) -> dict:
+        """Rebuild the type's indexes off the serving path and swap the new
+        generation in (≙ ``geomesa_tpu/datastore.py:650-759``): readers keep
+        the old planner until the install, and the generation bump
+        invalidates every serving cache keyed on it. ``background`` returns
+        at once with the status (the worker is
+        ``_reindex_threads[type_name]``); else it runs here. The
+        reference's flight-recorder events and progress phases wait for
+        ROADMAP.md Queue 1 item 15."""
+        if type_name not in self.schemas:
+            raise KeyError(type_name)
+        if not background:
+            self._reindex_run(type_name)
+            return self.reindex_status(type_name)
+        with self._lock:
+            t = self._reindex_threads.get(type_name)
+            if t is not None and t.is_alive():
+                return self.reindex_status(type_name)   # already running
+            self._reindex_status[type_name] = {"state": "running",
+                                               "attempts": 0}
+            t = threading.Thread(target=self._reindex_run, args=(type_name,),
+                                 name=f"reindex-{type_name}", daemon=True)
+            self._reindex_threads[type_name] = t
+        t.start()
+        return self.reindex_status(type_name)
+
+    def reindex_status(self, type_name: str) -> dict:
+        """The type's reindex: ``state`` (idle, running, installed, aborted,
+        failed), ``attempts``, and once installed its ``generation``,
+        ``rows`` and ``seconds``; ``running`` while the worker lives."""
+        with self._lock:
+            st = dict(self._reindex_status.get(type_name, {"state": "idle"}))
+            t = self._reindex_threads.get(type_name)
+            st["running"] = bool(t is not None and t.is_alive())
+            return st
+
+    def _reindex_run(self, type_name: str, max_retries: int = 3) -> None:
+        """Flush, build a planner off the lock against the captured table,
+        and install it if the table is still that one (else retry, up to
+        ``max_retries`` attempts). The reference's throttle between the
+        stages (``GEOMESA_TPU_REINDEX_THROTTLE_MS``, 0 by default) is left
+        out: the build runs flat out."""
+        status = {"state": "running", "attempts": 0}
+        with self._lock:
+            self._reindex_status[type_name] = status
+        t0 = time.perf_counter()
+        try:
+            for attempt in range(1, max_retries + 1):
+                status["attempts"] = attempt
+                # land a pending delta first, so the rebuilt generation
+                # holds every row readers can see
+                self.flush(type_name)
+                with self._lock:
+                    base_table = self.tables.get(type_name)
+                if base_table is None:
+                    status.update(state="failed", error="no table")
+                    return
+                planner, stats = self._build_planner(type_name, base_table)
+                with self._lock:
+                    if self.tables.get(type_name) is not base_table:
+                        # a concurrent mutation swapped the table while this
+                        # generation built: it describes stale rows
+                        _metrics.inc("reindex.aborts")
+                        _metrics.inc(f"reindex.aborts.{type_name}")
+                        continue
+                    self._stats[type_name] = stats
+                    self.planners[type_name] = planner
+                    self._bump_generation(type_name)
+                    gen = self._generations.get(type_name, 0)
+                status.update(state="installed", generation=gen,
+                              rows=len(base_table),
+                              seconds=round(time.perf_counter() - t0, 3))
+                _metrics.inc("reindex.installs")
+                return
+            status.update(state="aborted",
+                          seconds=round(time.perf_counter() - t0, 3))
+        except Exception as e:  # noqa: BLE001 - surfaced via the status
+            status.update(state="failed", error=f"{type(e).__name__}: {e}",
+                          seconds=round(time.perf_counter() - t0, 3))
+            _metrics.inc("reindex.failures")
+            _metrics.inc(f"reindex.failures.{type_name}")
+
     # -- index builds --------------------------------------------------------
+
+    def _build_planner(self, type_name: str, table: FeatureTable,
+                       stats_cached: Optional[dict] = None):
+        """A fresh (planner, battery) over ``table``, touching no store
+        state — the build half of build-then-swap, safe off the lock (≙
+        ``geomesa_tpu/datastore.py:519-555``). The indexes: the spatial one
+        (``spatial_index_class``: the first of Z3, XZ3, Z2, XZ2 that
+        supports the schema and that ``geomesa.indices`` names), an
+        ``AttributeIndex`` an indexed attribute (built from the spatial
+        index's device planes), and the full-scan index where no spatial
+        index applies (the reference's always-present fallback, which
+        never wins beside a spatial plan)."""
+        sft = self.schemas[type_name]
+        indexes: List[object] = []
+        c = spatial_index_class(sft)
+        if c is not None:
+            indexes.append(c(sft, table, self.device))
+        base = indexes[0] if indexes else None
+        for attr in indexed_attributes(sft):
+            indexes.append(AttributeIndex(sft, table, attr, self.device,
+                                          base=base))
+        if c is None:
+            indexes.append(FullScanIndex(sft, table, self.device))
+        stats = GeoMesaStats(sft)
+        planner = QueryPlanner(
+            sft, table, indexes, timeout_ms=_timeout_ms(sft), stats=stats,
+            interceptors=self._interceptors.setdefault(type_name, []))
+        self._install_battery(stats, planner, table, stats_cached, None)
+        return planner, stats
 
     def _rebuild_indexes(self, type_name: str,
                          stats_cached: Optional[dict] = None) -> None:
-        """Full build of the type's spatial index over its main table — the
-        first of ``INDEX_CLASSES`` that supports the schema (Z3, XZ3, Z2,
-        XZ2; ≙ ``geomesa_tpu/datastore.py:519-555``) — and a fresh sketch
-        battery over it (``GeoMesaStats.update`` at its first read, or
-        ``stats_cached`` restored), both swapped in once built (callers hold
-        the lock)."""
-        sft = self.schemas[type_name]
-        table = self.tables[type_name]
-        stats = GeoMesaStats(sft)
-        planner = QueryPlanner(
-            sft, table, [index_class(sft)(sft, table, self.device)],
-            timeout_ms=_timeout_ms(sft), stats=stats)
-        self._install_battery(stats, planner, table, stats_cached, None)
+        """Full build of the type's indexes over its main table and a fresh
+        sketch battery over it (observed at its first read, or
+        ``stats_cached`` restored), swapped in once built (callers hold the
+        lock)."""
+        planner, stats = self._build_planner(type_name, self.tables[type_name],
+                                             stats_cached)
         self._stats[type_name] = stats
         self.planners[type_name] = planner
 
@@ -536,7 +752,9 @@ class TorchDataStore:
             planner = QueryPlanner(self.schemas[type_name], merged, indexes,
                                    timeout_ms=_timeout_ms(
                                        self.schemas[type_name]),
-                                   stats=stats)
+                                   stats=stats,
+                                   interceptors=self._interceptors.setdefault(
+                                       type_name, []))
             self._install_battery(stats, planner, merged, stats_cached,
                                   self._stats.get(type_name))
             self.tables[type_name] = merged
@@ -599,6 +817,24 @@ class TorchDataStore:
             if delta is not None:
                 c += len(self._delta_rows(delta, f, auths))
             return c
+
+    def explain(self, type_name: str, f: Union[str, ir.Filter],
+                analyze: bool = False, auths: Optional[list] = None) -> dict:
+        """The planner's ``explain`` over the main table, with the pending
+        delta's rows (``delta_rows``) and, under ``analyze``, its matches
+        merged into the counts as ``count`` merges them (≙
+        ``geomesa_tpu/datastore.py:1030-1062``; the live scheduler's cache
+        provenance waits for ROADMAP.md Queue 1 item 15)."""
+        planner, delta = self._snapshot(type_name)
+        out = planner.explain(f, analyze=analyze, auths=auths)
+        if delta is not None:
+            out["delta_rows"] = len(delta)
+            if analyze and "analyze" in out:
+                d = int(len(self._delta_rows(delta, f, auths)))
+                out["analyze"]["rows_matched"] += d
+                out["analyze"]["rows_scanned"] += len(delta)
+                out["analyze"]["delta_rows_matched"] = d
+        return out
 
     # -- the serving path ----------------------------------------------------
 
@@ -799,11 +1035,21 @@ class TorchDataStore:
 
 
 class DataStoreFinder:
-    """Data store lookup by params (≙ DataStoreFactorySpi discovery);
-    ``type="torch"`` selects this port's store."""
+    """Data store lookup by params (≙ DataStoreFactorySpi discovery,
+    ``geomesa_tpu/datastore.py:1250-1270``); ``type="torch"`` selects this
+    port's store, and ``register`` adds a factory (a class with
+    ``can_process(params)`` and ``create(params)``)."""
+
+    _factories: List[type] = [TorchDataStore]
+
+    @classmethod
+    def register(cls, factory: type) -> None:
+        if factory not in cls._factories:
+            cls._factories.append(factory)
 
     @classmethod
     def get_data_store(cls, **params):
-        if TorchDataStore.can_process(params):
-            return TorchDataStore(params)
+        for factory in cls._factories:
+            if factory.can_process(params):
+                return factory.create(params)
         raise ValueError(f"No datastore factory for params {sorted(params)}")

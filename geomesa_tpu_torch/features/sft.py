@@ -156,6 +156,16 @@ class SimpleFeatureType:
         return int(self.user_data.get("geomesa.xz.precision", "12"))
 
     @property
+    def configured_indices(self) -> Optional[List[str]]:
+        """The index names of ``geomesa.indices`` user data (``attr:name``
+        entries give ``attr``), or None to let the store pick its defaults
+        (≙ ``geomesa_tpu/features/sft.py:162``)."""
+        raw = self.user_data.get("geomesa.indices")
+        if not raw:
+            return None
+        return [part.split(":")[0] for part in raw.split(",") if part]
+
+    @property
     def feature_expiry(self) -> Optional[tuple]:
         """(date attribute name, ttl_ms) from ``geomesa.feature.expiry``
         user data, or None (≙ ``geomesa_tpu/features/sft.py:171``): the

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -45,13 +45,32 @@ class IndexScanPlan:
     cost: float = 0.0
     # the whole filter, where execution needs it (the feature-id plan)
     full_filter: Optional[ir.Filter] = None
+    # attribute-index pruning: [lo, hi) slices (into the index's sorted
+    # order) of the candidate rows; the device scan then reads only these
+    # rows (≙ a key-range scan instead of a full-table scan)
+    candidate_slices: Optional[List[Tuple[int, int]]] = None
 
     @property
     def device_exact(self) -> bool:
         """True when the plan resolves entirely on the device: a mask scan
-        with no host refinement."""
+        with no host refinement and no candidate slices (≙
+        ``geomesa_tpu/index/api.py:44-52``)."""
         return (not self.empty and self.residual_host is None
+                and self.candidate_slices is None
                 and self.index is not None)
+
+    @property
+    def n_candidates(self) -> Optional[int]:
+        if self.candidate_slices is None:
+            return None
+        return sum(h - l for l, h in self.candidate_slices)
+
+    def candidate_positions(self) -> np.ndarray:
+        """The candidate slices' positions, ascending (the reference's
+        materialised form; the port's scans read the slices as runs)."""
+        return np.concatenate(
+            [np.arange(l, h, dtype=np.int64) for l, h in self.candidate_slices]
+        ) if self.candidate_slices else np.empty(0, dtype=np.int64)
 
 
 @dataclass
@@ -64,11 +83,13 @@ class UnionScanPlan:
 
     branches: List[tuple]            # [(child_filter, IndexScanPlan), ...]
     full_filter: Optional[ir.Filter] = None
+    cost: float = 0.0                # the branches' heuristic costs summed
     empty: bool = False
     explain: Dict[str, object] = field(default_factory=dict)
 
     # duck-typed surface shared with IndexScanPlan consumers
     primary_kind: str = "union"
+    candidate_slices = None
     residual_host = None
     index = None
     blocks: object = None

@@ -438,7 +438,8 @@ def _from_plan(plan: IndexScanPlan, mode: str, capacity: Optional[int] = None,
     if not config.FUSED_QUERY.get():
         return None
     if plan.empty or plan.index is None \
-            or plan.primary_kind != "point_boxes" or plan.boxes_loose is None:
+            or plan.primary_kind != "point_boxes" or plan.boxes_loose is None \
+            or plan.candidate_slices is not None:
         return None
     boxes_geo = plan.explain.get("boxes")
     if not boxes_geo or len(boxes_geo) > len(plan.boxes_loose):
@@ -607,6 +608,7 @@ def _union_from_plan(planner, plan: UnionScanPlan, mode: str, auths,
             continue
         boxes_geo = bp.explain.get("boxes")
         if bp.primary_kind != "point_boxes" or bp.boxes_loose is None \
+                or bp.candidate_slices is not None \
                 or not boxes_geo or len(boxes_geo) > len(bp.boxes_loose):
             return None
         branches.append(bp)

@@ -1,13 +1,17 @@
 """Query planning and execution (≙ ``geomesa_tpu.index.planner``).
 
-Flow: parse the ECQL, plan it on the type's spatial index (Z3, XZ3, Z2
-or XZ2: boxes, windows, residual split; the cheapest plan by heuristic
-cost — the stats battery's prices join in only where several indexes plan,
-and a type builds one index so far), then execute as the reference does:
-the fused program first
-(``index/compiled.py``, point primaries), else the staged ``ScanKernels``
-over the plan's range-pruned block cover (``_pruned_blocks``), else the
-staged full-table mask. A count or a select of ascending table rows; host
+Flow: parse the ECQL, let the interceptors rewrite it, plan it on every
+index of the type — its spatial index (Z3, XZ3, Z2 or XZ2: boxes, windows,
+residual split), an attribute index an indexed attribute (its equality,
+range and ``IN`` predicates as candidate slices), or the full-scan index of
+a schema without a spatial one — and take the cheapest plan (priced by the
+stats battery's estimated rows where several indexes plan, the heuristic
+cost breaking ties; by heuristic cost alone otherwise); the interceptors'
+guards may veto it. Then execute as the reference does: a sliced plan
+through the staged ``count_at``/``select_at`` over its runs, else the
+fused program first (``index/compiled.py``, point primaries), else the
+staged ``ScanKernels`` over the plan's range-pruned block cover
+(``_pruned_blocks``), else the staged full-table mask. A count or a select of ascending table rows; host
 residuals re-evaluate on the host in f64 (``_refine``). A polygon
 INTERSECTS over a single-segment line layer counts through the
 certainty-band ``seg_band`` kernel, refining only its uncertain rows
@@ -19,7 +23,8 @@ the host. A feature-id filter is answered from the table's ids (the id
 index). Authorizations fold into the device stage as the allowed
 visibility codes (``_apply_auths``).
 ``prepare`` plans once (or binds a known shape's new values through the
-recipe fast path) and hands back a re-executable ``PreparedQuery``. Plan
+recipe fast path) and hands back a re-executable ``PreparedQuery``.
+``explain`` describes a plan (and, with ``analyze``, runs its count). Plan
 shapes that need modules not yet ported raise NotImplementedError naming
 their ROADMAP.md item.
 """
@@ -46,7 +51,7 @@ from geomesa_tpu_torch.index import compiled as _fused
 from geomesa_tpu_torch.index import prune as _prune
 from geomesa_tpu_torch.index.api import (IndexScanPlan, QueryResult,
                                          UnionScanPlan)
-from geomesa_tpu_torch.index.guards import Deadline
+from geomesa_tpu_torch.index.guards import Deadline, QueryGuardError
 from geomesa_tpu_torch.index.scan import _fetch, fold_vis
 from geomesa_tpu_torch.security.visibility import allowed_codes
 from geomesa_tpu_torch.serve.resilience import deadline as _rdl
@@ -66,17 +71,22 @@ def _select_tier(capacity) -> int:
 
 
 class QueryPlanner:
-    """Planner + executor for one feature type over its spatial index.
+    """Planner + executor for one feature type over its indexes.
     ``timeout_ms``: the cooperative deadline of ``count`` and prepared
-    counts (``guards.Deadline``, checked between stages)."""
+    counts (``guards.Deadline``, checked between stages). ``interceptors``:
+    ``guards.QueryInterceptor`` hooks that rewrite each filter before
+    planning and may veto the chosen plan (≙ the reference's, a list the
+    store shares with every planner of the type)."""
 
     def __init__(self, sft, table: FeatureTable, indexes: List[object],
-                 timeout_ms: Optional[float] = None, stats=None):
+                 timeout_ms: Optional[float] = None, stats=None,
+                 interceptors: Optional[list] = None):
         self.sft = sft
         self.table = table
         self.indexes = indexes
         self.timeout_ms = timeout_ms
         self.stats = stats  # GeoMesaStats: the cost-based choice's prices
+        self.interceptors = interceptors if interceptors is not None else []
 
     def plan(self, f: Union[str, ir.Filter]) -> IndexScanPlan:
         if not _trace.enabled():
@@ -90,6 +100,8 @@ class QueryPlanner:
     def _plan(self, f: Union[str, ir.Filter]) -> IndexScanPlan:
         if isinstance(f, str):
             f = parse_ecql(f)
+        for ic in self.interceptors:
+            f = ic.rewrite(f, self.sft)   # ≙ QueryInterceptor.rewrite
         if isinstance(f, ir.FidFilter):
             # ≙ the id index: the rows whose fids are listed
             return IndexScanPlan(None, "fid", full_filter=f, cost=0.5,
@@ -105,6 +117,10 @@ class QueryPlanner:
             union = self._union_plan(f)
             if union is not None:
                 plan = union
+        for ic in self.interceptors:   # ≙ the query guards' veto
+            msg = ic.guard(plan, f, self.sft)
+            if msg:
+                raise QueryGuardError(msg)
         return plan
 
     def _choose(self, f: ir.Filter) -> IndexScanPlan:
@@ -124,7 +140,7 @@ class QueryPlanner:
         def priced(p):
             if p.empty:
                 return (0.0, p.cost)
-            if getattr(p, "candidate_slices", None) is not None:
+            if p.candidate_slices is not None:
                 # attribute slices: the scanned row count is exact
                 return (float(p.n_candidates), p.cost)
             sel = 1.0
@@ -156,19 +172,78 @@ class QueryPlanner:
         if len(f.children) > 8:
             return None
         branches = []
+        cost = 0.0
         for c in f.children:
             # each branch by heuristic cost, as the reference's
-            bp = min(self._plans(c), key=lambda p: p.cost)
+            plans = self._plans(c)
+            if not plans:
+                return None
+            bp = min(plans, key=lambda p: p.cost)
             if bp.empty:
                 continue
-            if bp.primary_kind == "none":
+            if bp.primary_kind == "none" and bp.candidate_slices is None:
                 return None   # unconstrained branch: a union buys nothing
             branches.append((c, bp))
+            cost += bp.cost
         return UnionScanPlan(
-            branches=branches, full_filter=f, empty=not branches,
+            branches=branches, full_filter=f, cost=cost, empty=not branches,
             explain={"index": "union",
                      "strategies": [p.explain.get("index")
                                     for _, p in branches]})
+
+    def explain(self, f: Union[str, ir.Filter], analyze: bool = False,
+                auths=None) -> dict:
+        """The plan's description (≙ the reference's ``explain``,
+        ``geomesa_tpu/index/planner.py:179-252``): the plan's own keys
+        (``index``, boxes, intervals, residual split; ``candidates`` of an
+        attribute slice), ``scan`` ("range-pruned" or "full-mask"),
+        ``strategy``, ``cost``, ``empty``, ``n_boxes``, ``n_windows``, the
+        index's ``build`` stages and, when tracing is on, the span tree of
+        the dry run (``trace``: plan and range decomposition; no scan).
+        ``analyze`` also runs the plan's count in the same trace and, when
+        tracing is on, adds ``analyze``: ``executed``, ``rows_matched``,
+        ``rows_scanned``, ``duration_ms``, the device and host ms and the
+        self ms by stage. The reference's span annotations
+        (``obs/attrib.py``), its build-progress history and its cache
+        provenance wait for ROADMAP.md Queue 1 item 15."""
+        with _trace.trace("explain", type=self.sft.name) as t:
+            plan = self.plan(f)
+            blocks = self._pruned_blocks(plan)
+            n = None
+            if analyze:
+                n = self._count(
+                    self._apply_auths(plan, auths),
+                    f if isinstance(f, ir.Filter) else parse_ecql(f), auths)
+        out = dict(plan.explain)
+        if t is not None:
+            out["trace"] = t.to_dict()
+        out["scan"] = "range-pruned" if blocks is not None else "full-mask"
+        out.update({
+            "type": self.sft.name,
+            "strategy": plan.primary_kind,
+            "cost": plan.cost,
+            "empty": plan.empty,
+            "n_boxes": 0 if plan.boxes_loose is None
+            else len(plan.boxes_loose),
+            "n_windows": 0 if plan.windows is None else len(plan.windows),
+        })
+        stages = getattr(plan.index, "build_stages", None)
+        if stages:
+            out["build"] = {"stages": dict(stages)}
+        if analyze and t is not None:
+            st = t.self_times_ms()
+            device_ms = st.get("device_scan", 0.0) + st.get("device_wait", 0.0)
+            out["analyze"] = {
+                "executed": True,
+                "rows_matched": int(n) if n is not None else None,
+                "rows_scanned": (len(blocks) * _prune.BLOCK_SIZE
+                                 if blocks is not None else len(self.table)),
+                "duration_ms": round(t.duration_ms, 3),
+                "device_ms": round(device_ms, 3),
+                "host_ms": round(max(0.0, t.duration_ms - device_ms), 3),
+                "stages_ms": {k: round(v, 3) for k, v in st.items()},
+            }
+        return out
 
     # -- range pruning -------------------------------------------------------
 
@@ -183,7 +258,8 @@ class QueryPlanner:
             # the priciest host stage before a device dispatch
             _rdl.check_current("range_decompose")
             blocks = None
-            if not plan.empty and plan.index is not None:
+            if not plan.empty and plan.index is not None \
+                    and plan.candidate_slices is None:
                 t0 = time.perf_counter()
                 blocks = plan.index.candidate_blocks(plan)
                 if _trace.enabled():
@@ -240,7 +316,8 @@ class QueryPlanner:
     def _write_audit(self, plan, f, plan_ms: float, scan_ms: float,
                      hits: int) -> None:
         """The reference's audit-log hook; the audit log is not ported yet
-        (ROADMAP.md Queue 1 item 10), so nothing is written."""
+        (ROADMAP.md Queue 1 item 15, with its rotation), so nothing is
+        written."""
 
     # -- execution -----------------------------------------------------------
 
@@ -299,6 +376,11 @@ class QueryPlanner:
             return len(self._fid_vis_filter(
                 self._fid_rows(plan.full_filter), auths))
         if plan.residual_host is None:
+            if plan.candidate_slices is not None:
+                # the attribute index's runs: one staged count over them
+                return plan.index.kernels.count_at(
+                    plan.primary_kind, plan.boxes_loose, plan.windows,
+                    plan.residual_device, plan.candidate_slices)
             # fully device-exact: the fused program, else a staged count
             fused = _fused.try_count(self, plan)
             if fused is not None:
@@ -332,6 +414,7 @@ class QueryPlanner:
         kernel's cap (the caller then refines every candidate)."""
         res = plan.residual_host
         if not (isinstance(res, ir.Intersects) and plan.index is not None
+                and plan.candidate_slices is None
                 and plan.primary_kind == "bbox_overlap"
                 and res.attr == plan.index.geom):
             return None
@@ -375,6 +458,14 @@ class QueryPlanner:
         if plan.primary_kind == "fid":
             return self._fid_vis_filter(self._fid_rows(plan.full_filter),
                                         auths)
+        if plan.candidate_slices is not None:
+            idx, _ = plan.index.kernels.select_at(
+                plan.primary_kind, plan.boxes_loose, plan.windows,
+                plan.residual_device, plan.candidate_slices,
+                _select_tier(capacity))
+            rows = np.sort(plan.index.map_rows(idx))
+            return rows if plan.residual_host is None \
+                else self._refine(plan, rows)
         if plan.residual_host is None:
             pos = _fused.try_select(self, plan, capacity)
             if pos is not None:

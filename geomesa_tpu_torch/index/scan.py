@@ -42,6 +42,7 @@ import torch
 from geomesa_tpu_torch import trace as _trace
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.index import prune as _prune
+from geomesa_tpu_torch.index.api import not_ported
 
 
 class _RoundLedger:
@@ -1142,6 +1143,34 @@ def expand_blocks(cols, block_ids: torch.Tensor, bsz: int, n: int):
     return valid, rows, astart, _Gather(cols, rows)
 
 
+def run_members(ids: torch.Tensor, runs: torch.Tensor, rows: torch.Tensor,
+                bsz: int) -> torch.Tensor:
+    """The candidates of run pieces (``expand_blocks``' rows of block
+    ``ids``) that lie in their slot's ``runs`` [lo, hi); pads (id -1) have
+    none."""
+    lo = runs[:, 0].to(torch.int64).repeat_interleave(bsz)
+    hi = runs[:, 1].to(torch.int64).repeat_interleave(bsz)
+    return (ids >= 0).repeat_interleave(bsz) & (rows >= lo) & (rows < hi)
+
+
+def run_pieces(runs, n: int, bsz: int):
+    """(ids int32, bounds int32 (P, 2)) of sorted disjoint runs [lo, hi) of
+    rows cut at every ``bsz``-row block boundary: piece k is block ids[k]
+    with its rows bounds[k] (one piece a block a run touches)."""
+    r = np.asarray(runs, dtype=np.int64).reshape(-1, 2)
+    r = r[r[:, 1] > r[:, 0]]
+    if len(r) == 0:
+        return np.empty(0, np.int32), np.empty((0, 2), np.int32)
+    first = r[:, 0] // bsz
+    count = (r[:, 1] - 1) // bsz - first + 1
+    k = np.repeat(np.arange(len(r)), count)
+    ids = first[k] + (np.arange(len(k)) - np.repeat(np.cumsum(count) - count,
+                                                    count))
+    lo = np.maximum(r[k, 0], ids * bsz)
+    hi = np.minimum(r[k, 1], (ids + 1) * bsz)
+    return ids.astype(np.int32), np.stack([lo, hi], axis=1).astype(np.int32)
+
+
 # -- the fused scan (plain versions of kernels/csrc/block_gate.cu,
 #    fused_scan.cu and ordered_compact.cu) ------------------------------------
 
@@ -1322,7 +1351,8 @@ def _keys_in(k: torch.Tensor, lo: torch.Tensor,
 
 
 def fused_scan(cols, qbuf: torch.Tensor, query: FusedQuery, ids: torch.Tensor,
-               n_blocks: torch.Tensor, bsz: int, mode: str):
+               n_blocks: torch.Tensor, bsz: int, mode: str,
+               runs: Optional[torch.Tensor] = None):
     """The fused program's scan over the candidates of a block list (≙
     ``mask_of`` and ``gathered()`` of the reference's ``_jit_program`` and
     ``_jit_union_program``, and their ``jnp.sum``; ``select``'s
@@ -1338,6 +1368,12 @@ def fused_scan(cols, qbuf: torch.Tensor, query: FusedQuery, ids: torch.Tensor,
     - ``count``: int32 (1,) matches;
     - ``mask``: (bool (slots * bsz,) match per candidate, int32 (1,)).
 
+    With ``runs`` (int32 (slots, 2), the RUNS form: the attribute index's
+    staged ``count_at`` and ``select_at``, ≙ ``geomesa_tpu/index/scan.py
+    :603-619``) a candidate is a member when its row lies in its slot's
+    ``[lo, hi)`` (a piece of one of the plan's runs of sorted positions)
+    instead of in its block.
+
     The plain PyTorch version of the ``fused_scan`` CUDA kernel. The CPU
     path, and the kernel's yardstick on the card. It evaluates the
     predicates over the whole table and then takes each candidate's flag:
@@ -1346,6 +1382,8 @@ def fused_scan(cols, qbuf: torch.Tensor, query: FusedQuery, ids: torch.Tensor,
     keeps."""
     n = int(cols["xi"].shape[0])
     member, rows, _, _ = expand_blocks(cols, ids, bsz, n)
+    if runs is not None:
+        member = run_members(ids, runs, rows, bsz)
     live = torch.arange(ids.shape[0], device=ids.device) \
         < n_blocks.to(torch.int64)
     member &= live.repeat_interleave(bsz)
@@ -1837,6 +1875,134 @@ class ScanKernels:
             if cnt <= capacity:
                 return out[1: 1 + cnt].astype(np.int64), cnt
             capacity = 1 << int(np.ceil(np.log2(cnt)))
+
+    # candidate runs (the attribute index) -----------------------------------
+
+    # the RUNS form's block: a run is cut into pieces of at most this many
+    # rows, and a piece's quads outside its run load nothing
+    RUNS_BSZ = 256
+    # select_at's largest first capacity: a slice of at most this many
+    # candidates compacts once, into a buffer of its candidates' size
+    SELECT_AT_MAX = 1 << 20
+
+    def _runs_space(self, runs):
+        """(ids, bounds, n_blocks, starts, bsz) of the pieces of sorted,
+        disjoint position runs [lo, hi) (``run_pieces``), padded to a power
+        of two of at least 8 slots (pad id -1, bounds [0, 0)): ids, bounds
+        and the live count go up in one upload, as views of one int32
+        buffer; ``starts`` (int64, the clamped first rows) stays on the
+        host until a select needs it."""
+        bsz = min(self.RUNS_BSZ, self.n)
+        ids, bounds = run_pieces(runs, self.n, bsz)
+        live = len(ids)
+        P = max(8, 1 << max(0, live - 1).bit_length())
+        buf = np.zeros(3 * P + 1, np.int32)
+        buf[:P] = -1
+        buf[:live] = ids
+        buf[P: P + 2 * live] = bounds.reshape(-1)
+        buf[3 * P] = live
+        d = self._dev(buf)
+        pad = buf[:P].astype(np.int64)
+        starts = np.where(pad >= 0, np.clip(pad * bsz, 0, max(0, self.n - bsz)),
+                          0)
+        return d[:P], d[P: 3 * P].view(P, 2), d[3 * P: 3 * P + 1], starts, bsz
+
+    def _runs_candidates(self, stage, runs, mode: str):
+        """Zero-arg dispatcher over the candidates of ``runs``: ``mode``
+        "count" → 0-d int32; "mask" → (candidate mask, starts, n_blocks,
+        bsz). A point layer's stage is one launch of ``fused_scan``'s RUNS
+        form. An extent layer's ``bbox_overlap`` primary, or a table
+        without point planes, runs the torch ops over the pieces' gathered
+        rows (``fused_scan`` takes no envelope primary, ROADMAP.md Queue 2
+        item 18); any other stage ``staged_query`` declines (a residual
+        past the program's limits, authorizations it cannot fold) raises,
+        naming ROADMAP.md Queue 1 item 20."""
+        from geomesa_tpu_torch.kernels.fused_scan import fused_scan
+        ids, bounds, nb, starts, bsz = self._runs_space(runs)
+        query = staged_query(self.cols, [stage])
+        if query is None and "xi" in self.cols \
+                and stage[0] != "bbox_overlap":
+            raise not_ported("a sliced scan whose residual the fused_scan "
+                             "RUNS form cannot take", 20)
+        if query is not None:
+            qbuf = self._dev(query.packed)
+            if mode == "count":
+                return lambda: fused_scan(self.cols, qbuf, query, ids, nb, bsz,
+                                          "count", runs=bounds).reshape(())
+            dstarts = self._dev(starts)
+            return lambda: (fused_scan(self.cols, qbuf, query, ids, nb, bsz,
+                                       "mask", runs=bounds)[0], dstarts, nb,
+                            bsz)
+        f = self._stage(*stage)
+        cols, n = self.cols, self.n
+
+        def run():
+            _, rows, astart, g = expand_blocks(cols, ids, bsz, n)
+            m = f(g) & run_members(ids, bounds, rows, bsz)
+            if mode == "count":
+                return m.sum(dtype=torch.int32)
+            return m, astart, None, bsz
+        return run
+
+    def prepare_count_at(self, primary_kind, boxes, windows, residual, runs):
+        """Zero-arg dispatcher → 0-d int32 count of the rows of the sorted,
+        disjoint position ``runs`` [lo, hi) that the stage holds (≙ the
+        reference's ``count_at``, ``geomesa_tpu/index/scan.py:603-611``,
+        over the same positions without materialising them): one
+        ``fused_scan`` launch of the RUNS form on a point layer, no host
+        sync before the result is read."""
+        if self.n == 0 or not len(runs):
+            zero = torch.zeros((), dtype=torch.int32, device=self.device)
+            return lambda: zero
+        return self._runs_candidates(
+            (primary_kind, boxes, windows, residual), runs, "count")
+
+    def count_at(self, primary_kind, boxes, windows, residual, runs) -> int:
+        """Count over the candidate runs only (attribute-index pruning)."""
+        return int(_fetch(self.prepare_count_at(primary_kind, boxes, windows,
+                                                residual, runs)))
+
+    def prepare_select_at(self, primary_kind, boxes, windows, residual, runs,
+                          capacity: int):
+        """Zero-arg dispatcher → int32 [count, ascending positions ×
+        capacity, padded with n] of the candidate runs' matches: the RUNS
+        form's mask, then ``ordered_compact`` through the pieces' starts."""
+        from geomesa_tpu_torch.kernels.compact import ordered_compact
+        disp = self._runs_candidates((primary_kind, boxes, windows, residual),
+                                     runs, "mask")
+        n = self.n
+
+        def run():
+            m, starts, nblk, bsz = disp()
+            out = torch.empty(1 + capacity, dtype=torch.int32,
+                              device=self.device)
+            ordered_compact(m, capacity, n, starts=starts, bsz=bsz,
+                            n_blocks=nblk, count_out=out[:1],
+                            rows_out=out[1:])
+            return out
+        return run
+
+    def select_at(self, primary_kind, boxes, windows, residual, runs,
+                  capacity: int = 1 << 16):
+        """(ascending positions int64, count) of the candidate runs' matches
+        (≙ the reference's ``select_at``, ``geomesa_tpu/index/scan.py
+        :905``, whose positions come in the order of its slices; the
+        planner sorts the rows either way); grows the capacity and re-runs
+        on overflow."""
+        total = int(sum(h - l for l, h in np.asarray(runs).reshape(-1, 2)))
+        if self.n == 0 or total <= 0:
+            return np.empty(0, dtype=np.int64), 0
+        # the candidates bound the matches: up to the largest tier one pass
+        capacity = total if total <= self.SELECT_AT_MAX else \
+            min(max(1024, capacity), total)
+        while True:
+            out = _fetch(self.prepare_select_at(
+                primary_kind, boxes, windows, residual, runs,
+                capacity)).cpu().numpy()
+            cnt = int(out[0])
+            if cnt <= capacity:
+                return out[1: 1 + cnt].astype(np.int64), cnt
+            capacity = min(total, 1 << int(np.ceil(np.log2(cnt))))
 
     # certainty-band segment intersects -------------------------------------
 

@@ -48,7 +48,8 @@ from geomesa_tpu_torch.curves.xz import XZ2SFC, XZ3SFC
 from geomesa_tpu_torch.features import geometry as geo
 from geomesa_tpu_torch.features.table import FeatureTable, StringColumn
 from geomesa_tpu_torch.filter import ir
-from geomesa_tpu_torch.filter.extract import (Extraction, extract_bboxes,
+from geomesa_tpu_torch.filter.extract import (WHOLE_WORLD, Extraction,
+                                              extract_bboxes,
                                               extract_intervals)
 from geomesa_tpu_torch.index import prune as _p
 from geomesa_tpu_torch.index.api import IndexScanPlan, not_ported
@@ -296,7 +297,8 @@ class BaseSpatialIndex:
         dev = resolve(device)
         self.sft = sft
         self.table = table
-        self.geom = sft.geometry_attribute.name
+        g = sft.geometry_attribute
+        self.geom = g.name if g is not None else None
         dtg = sft.dtg_attribute
         self.dtg = dtg.name if dtg is not None else None
         self.period = TimePeriod.parse(sft.z3_interval) \
@@ -329,6 +331,13 @@ class BaseSpatialIndex:
         t0 = time.perf_counter()
         keys = self._sort_keys()
         t1 = time.perf_counter()
+        if keys is None:   # natural table order
+            self.perm = torch.arange(len(self.table), dtype=torch.int64,
+                                     device=dev)
+            st.update(keys_s=t1 - t0)
+            self.device = DeviceTable.build_sorted(
+                host_planes(self.table, self.period), self.perm, st)
+            return
         dkeys = [torch.from_numpy(np.ascontiguousarray(k)).to(dev)
                  for k in keys]
         sync(dev)
@@ -571,7 +580,8 @@ class BaseSpatialIndex:
     # planning ---------------------------------------------------------------
 
     def plan(self, f: ir.Filter) -> IndexScanPlan:
-        ext = extract_bboxes(f, self.geom)
+        ext = extract_bboxes(f, self.geom) if self.geom is not None \
+            else Extraction((WHOLE_WORLD,), False)
         iv = extract_intervals(f, self.dtg) if self.dtg is not None else None
         if len(ext.boxes) == 0 or (iv is not None and len(iv.intervals) == 0):
             return IndexScanPlan(self, "none", empty=True, full_filter=f,
@@ -628,6 +638,14 @@ class BaseSpatialIndex:
         if temporal and self.temporal:
             return 3.0
         return 10.0  # full scan
+
+    # explain ---------------------------------------------------------------
+
+    def key_ranges(self, plan: IndexScanPlan, max_ranges: int = 2000):
+        """The reference's z/xz range decomposition of a plan, for explain
+        (≙ ``geomesa_tpu/index/spatial.py:1011``): only the Z3 index has
+        one."""
+        raise NotImplementedError
 
 
 class Z3Index(BaseSpatialIndex):
@@ -791,6 +809,24 @@ class Z3Index(BaseSpatialIndex):
     def sorted_z(self) -> np.ndarray:
         return self._sorted_plane("_sorted_z", self._z)
 
+    def key_ranges(self, plan: IndexScanPlan, max_ranges: int = 2000):
+        """[(bin, z3 ranges)] of the plan's first 8 intervals, bin by bin
+        (≙ ``geomesa_tpu/index/spatial.py:1078``)."""
+        ext = extract_bboxes(plan.full_filter, self.geom)
+        iv = extract_intervals(plan.full_filter, self.dtg)
+        ranges = []
+        for lo, hi in iv.intervals[:8] if not iv.unconstrained else []:
+            blo, olo = time_to_binned_time(lo, self.period)
+            bhi, ohi = time_to_binned_time(hi, self.period)
+            for b in range(int(blo), int(bhi) + 1):
+                t0 = int(olo) if b == int(blo) else 0
+                t1 = int(ohi) if b == int(bhi) \
+                    else max_offset(self.period) - 1
+                rs = self._sfc.ranges(list(ext.boxes), [(t0, t1)],
+                                      max_ranges=max_ranges)
+                ranges.append((b, rs))
+        return ranges
+
     def _row_slices(self, boxes, intervals) -> Optional[np.ndarray]:
         return self._binned_row_slices(
             boxes, intervals, self.sorted_z,
@@ -904,16 +940,62 @@ class XZ2Index(BaseSpatialIndex):
         return _p.ranges_to_slices(self.sorted_xz, rs)
 
 
+class FullScanIndex(BaseSpatialIndex):
+    """Natural-order fallback for a schema with no spatial index (≙ the
+    reference's ``FullScanIndex``, ``geomesa_tpu/index/spatial.py
+    :1304-1331``, its full-table-scan strategy): the table's rows in load
+    order (the permutation is the identity), every predicate a residual,
+    cost 100. The reference builds one for every schema; it never wins
+    against a spatial plan (its cost and its priced rows are never lower),
+    so the port builds it only where no spatial index is picked."""
+
+    name = "full"
+    temporal = False
+    points = True
+
+    @classmethod
+    def supports(cls, sft) -> bool:
+        return True
+
+    def _sort_keys(self):
+        return None   # natural table order
+
+    def map_rows(self, idx: np.ndarray) -> np.ndarray:
+        return np.asarray(idx, dtype=np.int64)
+
+    def plan(self, f: ir.Filter) -> IndexScanPlan:
+        avail = set(self.device.columns)
+        dev_res, host_res = split_residual(
+            f if not isinstance(f, ir.Include) else None, self.sft,
+            self.vocabs, avail)
+        compiled = compile_residual(dev_res, self.sft, self.vocabs, avail) \
+            if dev_res else None
+        return IndexScanPlan(
+            index=self, primary_kind="none", residual_device=compiled,
+            residual_host=host_res, full_filter=f, cost=100.0,
+            explain={"index": self.name, "residual_host": host_res})
+
+
 # the reference's default order (geomesa_tpu/index/spatial.py:1334, its
 # opt-in S3/S2 aside): a schema builds the first class that supports it
 INDEX_CLASSES = [Z3Index, XZ3Index, Z2Index, XZ2Index]
+# the reference's S2/S3 indexes (geomesa_tpu/index/spatial.py:1171-1302)
+_NOT_PORTED = ("s2", "s3")
 
 
-def index_class(sft):
-    """The first index class of ``INDEX_CLASSES`` that supports ``sft``
-    (≙ the reference's ``_build_planner`` pick, ``datastore.py:519-535``)."""
+def spatial_index_class(sft):
+    """The spatial index a schema builds (≙ the pick of the reference's
+    ``_build_planner``, ``geomesa_tpu/datastore.py:519-530``): the first
+    class of ``INDEX_CLASSES`` that supports ``sft`` and, when
+    ``geomesa.indices`` names indexes, that it names; None when there is
+    none (the full-scan index then serves). A configured ``s2`` or ``s3``
+    raises."""
+    names = sft.configured_indices
+    if names is not None and any(n in _NOT_PORTED for n in names):
+        raise not_ported("the S2 and S3 indexes", 9)
     for c in INDEX_CLASSES:
+        if names is not None and c.name not in names:
+            continue
         if c.supports(sft):
             return c
-    raise not_ported("schemas without a geometry attribute (the full-scan "
-                     "index)", 9)
+    return None

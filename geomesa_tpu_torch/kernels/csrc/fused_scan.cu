@@ -21,6 +21,17 @@
 // reference's vis section, compiled.py:482-485 and :994-997, and the staged
 // modes' folded residual, planner.py:283-296; the kernel's VIS form).
 //
+// The RUNS form replaces the attribute index's staged count_at and
+// select_at (geomesa_tpu/index/scan.py:603-619): there the candidates are
+// the rows of a plan's sorted, disjoint runs [lo, hi) of index positions,
+// which the reference gathers at materialised, padded positions. Here a run
+// is cut into pieces, one a block of the candidate space: piece k is block
+// ids[k] (read in place, clamped as above) with its own row range
+// runs[k] = [lo, hi) inside it, and candidate i of piece k is a member when
+// its row lies in that range. A block holding several short runs appears
+// once for each; a run that spans many blocks is many pieces. A quad with
+// no member row issues no load, so a short run reads its own quads only.
+//
 // Modes: COUNT writes the int32 count; MASK writes one byte a candidate of
 // the live blocks (the input of the refine and density kernels and of
 // ordered_compact.cu, which turns it into select's ascending rows) and the
@@ -93,6 +104,8 @@
 //   user's MAX_SLOTS columns. The VIS form is a template instantiation of
 //   its own, so a query without authorizations runs the code it ran before
 //   (its registers and spills unchanged).
+// - RUNS is a template instantiation of its own for the same reason: the
+//   block form reads no run bounds and keeps its code.
 
 #include "lookback.cuh"
 
@@ -131,6 +144,7 @@ struct Params {
   int* out;                 // [count]
   uint8_t* mask;            // MASK: a byte a candidate
   const int* ids;           // block ids, padded with -1
+  const int2* runs;         // RUNS: each slot's rows [lo, hi)
   const int* nlive;         // live blocks on the device
   long long slots, bsz, n;  // candidates: slots x bsz; table rows
   int shift;                // log2(bsz) for a power of two, else -1
@@ -264,7 +278,9 @@ __device__ __forceinline__ bool matches(const Params& p, const Query& q,
 }
 
 // the slot of candidate c and the table row of its block's first candidate
-// (the clamped start); lo, hi: the rows that are the block's own
+// (the clamped start); lo, hi: the rows that are members, the block's own
+// (RUNS: the slot's run piece)
+template <bool RUNS>
 __device__ __forceinline__ long long block_of(const Params& p, unsigned c,
                                               unsigned& slot, long long& lo,
                                               long long& hi) {
@@ -272,8 +288,14 @@ __device__ __forceinline__ long long block_of(const Params& p, unsigned c,
   const int b = __ldg(p.ids + slot);
   const long long start = (long long)b * p.bsz;
   const long long top = p.n > p.bsz ? p.n - p.bsz : 0;
-  lo = start;
-  hi = b < 0 ? start : (start + p.bsz < p.n ? start + p.bsz : p.n);
+  if (RUNS) {
+    const int2 r = __ldg(p.runs + slot);
+    lo = b < 0 ? 0 : r.x;
+    hi = b < 0 ? 0 : r.y;
+  } else {
+    lo = start;
+    hi = b < 0 ? start : (start + p.bsz < p.n ? start + p.bsz : p.n);
+  }
   return start < 0 ? 0 : (start > top ? top : start);
 }
 
@@ -314,7 +336,7 @@ __device__ __forceinline__ int4 load_slot(const Params& p, int slot,
 }
 
 // issue quad q's loads, or mark it for the scalar path
-template <bool BOXLESS, bool VIS>
+template <bool BOXLESS, bool VIS, bool RUNS>
 __device__ __forceinline__ void load_quad(const Params& p, long long q,
                                           Quad& d) {
   d.vec = false;
@@ -322,10 +344,17 @@ __device__ __forceinline__ void load_quad(const Params& p, long long q,
   unsigned slot;
   long long lo, hi;
   const unsigned c = (unsigned)(q * QUAD);
-  const long long rs = block_of(p, c, slot, lo, hi);
+  const long long rs = block_of<RUNS>(p, c, slot, lo, hi);
   d.row0 = rs + (c - slot * (unsigned)p.bsz);
   if (d.row0 & 3) return;
   d.vec = true;
+  if (RUNS) {   // a quad outside its piece's run loads nothing
+    d.member = 0;
+#pragma unroll
+    for (int j = 0; j < QUAD; ++j)
+      d.member |= (unsigned)(d.row0 + j >= lo && d.row0 + j < hi) << j;
+    if (!d.member) return;
+  }
   if (!BOXLESS) {
     d.xi = __ldcs(reinterpret_cast<const int4*>(p.xi + d.row0));
     d.xl = __ldcs(reinterpret_cast<const int4*>(p.xl + d.row0));
@@ -342,6 +371,7 @@ __device__ __forceinline__ void load_quad(const Params& p, long long q,
       ? __ldcs(reinterpret_cast<const unsigned*>(p.valid + d.row0))
       : 0x01010101u;
   if (VIS) d.vc = __ldcs(reinterpret_cast<const int4*>(p.vis_col + d.row0));
+  if (RUNS) return;
   d.member = 0;
 #pragma unroll
   for (int j = 0; j < QUAD; ++j)
@@ -487,7 +517,7 @@ __device__ __forceinline__ unsigned test_quad_boxless(const Params& p,
 
 // quad q a candidate at a time (loads behind each test); the flags, 0 or
 // 1 a byte, of its candidates below live
-template <bool BOXLESS, bool VIS>
+template <bool BOXLESS, bool VIS, bool RUNS>
 __device__ __forceinline__ unsigned scalar_quad(const Params& p,
                                                 const Query& q, long long qd,
                                                 long long live) {
@@ -497,7 +527,7 @@ __device__ __forceinline__ unsigned scalar_quad(const Params& p,
     if (c >= live) break;
     unsigned slot;
     long long lo, hi;
-    const long long rs = block_of(p, (unsigned)c, slot, lo, hi);
+    const long long rs = block_of<RUNS>(p, (unsigned)c, slot, lo, hi);
     const long long row = rs + ((unsigned)c - slot * (unsigned)p.bsz);
     if (row < lo || row >= hi || (p.valid && !p.valid[row])) continue;
     if (VIS && !vis_ok(q, __ldg(p.vis_col + row))) continue;
@@ -512,8 +542,9 @@ __device__ __forceinline__ unsigned scalar_quad(const Params& p,
 
 // COUNT or MASK (p.mode): the live candidates' chunks, strided over the
 // grid. BOXLESS: every branch is boxless (its own instantiation, so the
-// boxed form keeps its registers); VIS: the query tests visibility
-template <bool BOXLESS, bool VIS>
+// boxed form keeps its registers); VIS: the query tests visibility; RUNS:
+// each slot is a run piece (its members p.runs[slot])
+template <bool BOXLESS, bool VIS, bool RUNS>
 __global__ void __launch_bounds__(THREADS, 3)
 fused_scan_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -547,13 +578,13 @@ fused_scan_kernel(const __grid_constant__ Params p) {
     const long long step = (long long)gridDim.x * THREADS;
     long long qd = (long long)blockIdx.x * THREADS + threadIdx.x;
     Quad cur;
-    if (qd < quads) load_quad<BOXLESS, VIS>(p, qd, cur);
+    if (qd < quads) load_quad<BOXLESS, VIS, RUNS>(p, qd, cur);
     while (qd < quads) {
       const long long qn = qd + step;
       Quad nxt;
-      if (qn < quads) load_quad<BOXLESS, VIS>(p, qn, nxt);
+      if (qn < quads) load_quad<BOXLESS, VIS, RUNS>(p, qn, nxt);
       const unsigned bytes =
-          !cur.vec ? scalar_quad<BOXLESS, VIS>(p, q, qd, live)
+          !cur.vec ? scalar_quad<BOXLESS, VIS, RUNS>(p, q, qd, live)
                    : (BOXLESS ? test_quad_boxless<VIS>(p, q, cur)
                               : test_quad<VIS>(p, q, cur));
       cnt += __popc(bytes);
@@ -583,18 +614,19 @@ fused_scan_kernel(const __grid_constant__ Params p) {
 }  // namespace
 
 // The launch's arguments as the wrapper packs them (kernels/fused_scan.py
-// _ARGS): 8-byte slots, pointers 0 for none. vis_col 0: no visibility test.
+// _ARGS): 8-byte slots, pointers 0 for none. vis_col 0: no visibility test;
+// runs 0: the block form (else int2 [lo, hi) a slot, the RUNS form).
 struct FusedScanArgs {
   long long xi, xl, yi, yl, bin, off, valid;
   long long col[MAX_SLOTS];
   long long kinds, nslots;
   long long qbuf, qbytes, br, box, wkey, prog, cnst, nbranch, points;
   long long vis_col, vis, vis_words;
-  long long ids, nlive, slots, bsz, n;
+  long long ids, runs, nlive, slots, bsz, n;
   long long mode, out, mask;
   long long ws, epoch, device;
 };
-static_assert(sizeof(FusedScanArgs) == 48 * 8, "FusedScanArgs must match _ARGS");
+static_assert(sizeof(FusedScanArgs) == 49 * 8, "FusedScanArgs must match _ARGS");
 
 
 // Scans the candidates of the first *nlive of the `slots` blocks of `ids`
@@ -607,7 +639,7 @@ extern "C" int fused_scan_launch(const FusedScanArgs* a, void* stream) {
   if (a->bsz <= 0 || a->slots < 0 || a->qbytes % 16 || a->epoch == 0
       || a->nslots < 0 || a->nslots > MAX_SLOTS || a->mode < COUNT
       || a->mode > MASK || !a->nlive || a->mask % 4
-      || a->slots * a->bsz > 0xffffffffLL
+      || a->slots * a->bsz > 0xffffffffLL || a->runs % 8
       || (a->vis_col && (a->vis_words <= 0 || a->vis < 0 || a->vis % 16
                          || a->vis + 4 * a->vis_words > a->qbytes)))
     return (int)cudaErrorInvalidValue;
@@ -638,6 +670,7 @@ extern "C" int fused_scan_launch(const FusedScanArgs* a, void* stream) {
   p.out = reinterpret_cast<int*>(a->out);
   p.mask = reinterpret_cast<uint8_t*>(a->mask);
   p.ids = reinterpret_cast<const int*>(a->ids);
+  p.runs = reinterpret_cast<const int2*>(a->runs);
   p.nlive = reinterpret_cast<const int*>(a->nlive);
   p.slots = a->slots;
   p.bsz = a->bsz;
@@ -660,9 +693,14 @@ extern "C" int fused_scan_launch(const FusedScanArgs* a, void* stream) {
   const size_t smem = (size_t)a->qbytes;
   unsigned grid = 1;
   const bool vis = a->vis_col != 0;
-  auto kernel = a->points
-      ? (vis ? fused_scan_kernel<false, true> : fused_scan_kernel<false, false>)
-      : (vis ? fused_scan_kernel<true, true> : fused_scan_kernel<true, false>);
+  using Kernel = void (*)(const Params);
+  static const Kernel forms[8] = {
+      fused_scan_kernel<false, false, false>, fused_scan_kernel<false, true, false>,
+      fused_scan_kernel<true, false, false>, fused_scan_kernel<true, true, false>,
+      fused_scan_kernel<false, false, true>, fused_scan_kernel<false, true, true>,
+      fused_scan_kernel<true, false, true>, fused_scan_kernel<true, true, true>};
+  const Kernel kernel =
+      forms[(vis ? 1 : 0) | (a->points ? 0 : 2) | (a->runs ? 4 : 0)];
   cudaError_t err = persistent_grid(
       reinterpret_cast<const void*>(kernel), smem, (int)a->device,
       (a->slots * a->bsz + CHUNK - 1) / CHUNK, grid);

@@ -22,7 +22,10 @@
 // passes -fmad=false), so a row on a bin edge lands where the reference
 // puts it. The f32 -> int32 convert truncates toward zero and saturates,
 // NaN giving 0, as XLA's does: after the clip NaN and -inf count in bin 0
-// and +inf in the last.
+// and +inf in the last. XLA on the CPU reads a subnormal f32 as a zero of
+// its sign and flushes a subnormal result to one: HIST flushes its inputs
+// and each step's result (ftz), so a range under 2^-126 divides by zero as
+// the reference's does (GRID's sums with 180 and 90 are never subnormal).
 //
 // What bounds it on the card: bytes — a mask byte a row, and 4 bytes of
 // column (8 in GRID) a row whose mask is set; the bins are written once. At
@@ -50,8 +53,9 @@
 //   one branch-free step over the edges (down when v < edge[g], up when
 //   v >= edge[g + 1]) gives the reference's bin for every value, NaN and
 //   +-inf included.
-//   hi <= lo (or a range that is not finite, or whose reciprocal is not a
-//   normal f32) keeps the reference's division a row.
+//   hi <= lo (or a range that is not finite, that flushes to zero, or
+//   whose reciprocal is not a normal f32) keeps the reference's division a
+//   row.
 // - Counts: up to REG_BINS bins, each thread counts in registers (a
 //   compare and an add a (row, bin)), summed over its warp at the end; up
 //   to SHARED_BINS each CTA in shared memory; beyond that into the output.
@@ -63,6 +67,7 @@
 //   table is small (each thread at least two mask vectors).
 
 #include <cfloat>
+#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -90,6 +95,7 @@ struct Params {
   long long nscalar;      // head + the tail after the vectors
   int vec;                // the columns are 16-byte aligned with the mask
   int edges;              // HIST through its edges (hi > lo)
+  int narrow;             // HIST edges: a bin under 2^-100, flushed guess
   float lo, hi;           // HIST range (f32)
   float inv_r;            // HIST: 1 / (hi - lo), the first guess's factor
   float inv_x, inv_y;     // GRID reciprocals of 360 and 180 (f32)
@@ -105,10 +111,17 @@ __device__ __forceinline__ int clip_bin(float v, int bins) {
   return i < 0 ? 0 : (i > bins - 1 ? bins - 1 : i);
 }
 
-// the reference's HIST bin of v, with its division
+// v, or a zero of its sign where v is subnormal (XLA's flush on the CPU)
+__device__ __forceinline__ float ftz(float v) {
+  return fabsf(v) < FLT_MIN ? copysignf(0.0f, v) : v;
+}
+
+// the reference's HIST bin of v, with its division, each step flushed
+// (p.lo and p.hi are flushed by the launch)
 __device__ __forceinline__ int hist_div(const Params& p, float v) {
-  const float frac = __fdiv_rn(__fsub_rn(v, p.lo), __fsub_rn(p.hi, p.lo));
-  return clip_bin(__fmul_rn(frac, (float)p.bins), p.bins);
+  const float frac = ftz(__fdiv_rn(ftz(__fsub_rn(ftz(v), p.lo)),
+                                   ftz(__fsub_rn(p.hi, p.lo))));
+  return clip_bin(ftz(__fmul_rn(frac, (float)p.bins)), p.bins);
 }
 
 // f32 bit patterns in the order of their values (-0 just below +0)
@@ -163,9 +176,18 @@ __device__ __forceinline__ int bin_of(const Params& p, const float* e,
     // the reciprocal's product is within 2^-21.5 (relative) of the
     // quotient's, so its bin is the reference's or a neighbour: one step
     // over the edges (e[0] = -inf, e[bins] = NaN: neither moves past the
-    // ends; NaN moves nowhere) gives the reference's, with no branch
-    const int g = clip_bin(__fmul_rn(__fmul_rn(__fsub_rn(v, p.lo), p.inv_r),
-                                     (float)p.bins), p.bins);
+    // ends; NaN moves nowhere) gives the reference's, with no branch.
+    // Where a bin is narrower than 2^-100 (p.narrow, the same for every
+    // row) the guess flushes each step as hist_div does: an unflushed
+    // subnormal could land bins away from the flushed quotient's bin
+    // once a bin is narrower than 2^-126; a wider bin moves under 2^-26
+    // of a bin, and the guess skips the flushes
+    const int g = p.narrow
+        ? clip_bin(ftz(__fmul_rn(ftz(__fmul_rn(ftz(__fsub_rn(ftz(v), p.lo)),
+                                              p.inv_r)),
+                                 (float)p.bins)), p.bins)
+        : clip_bin(__fmul_rn(__fmul_rn(__fsub_rn(v, p.lo), p.inv_r),
+                             (float)p.bins), p.bins);
     return g - (v < e[g]) + (v >= e[g + 1]);
   } else if (FORM == GRID) {
     const float g = (float)p.bins;
@@ -435,17 +457,23 @@ extern "C" int masked_hist_launch(int form, const void* a, const float* b,
   p.nscalar = head + (n - head - 16 * p.nvec);
   p.vec = (((uintptr_t)(p.a + head) & 15) == 0) &&
           (form != GRID || (((uintptr_t)(p.b + head) & 15) == 0));
+  // the reference reads a subnormal bound as a zero of its sign
+  lo = fabsf(lo) < FLT_MIN ? copysignf(0.0f, lo) : lo;
+  hi = fabsf(hi) < FLT_MIN ? copysignf(0.0f, hi) : hi;
   p.lo = lo;
   p.hi = hi;
-  const float r = hi - lo;
+  float r = hi - lo;
+  r = fabsf(r) < FLT_MIN ? copysignf(0.0f, r) : r;
   const bool finite = lo - lo == 0.0f && hi - hi == 0.0f && r - r == 0.0f;
   // the guess is within a bin of the reference's only where 1 / (hi - lo)
-  // is a normal f32: a range under about 2.9e-39 overflows it, one over
-  // about 8.5e37 makes it subnormal; those ranges keep the division
+  // is a normal f32: a range under 2^-126 flushes to zero, one over about
+  // 8.5e37 makes it subnormal; those ranges keep the division
   const double inv_r = 1.0 / (double)r;
-  p.edges = (form == HIST_I32 || form == HIST_F32) && hi > lo && finite &&
-            inv_r >= FLT_MIN && inv_r <= FLT_MAX && bins <= EDGE_MAX;
+  p.edges = (form == HIST_I32 || form == HIST_F32) && hi > lo && r > 0.0f &&
+            finite && inv_r >= FLT_MIN && inv_r <= FLT_MAX &&
+            bins <= EDGE_MAX;
   p.inv_r = p.edges ? (float)inv_r : 0.0f;
+  p.narrow = p.edges && (double)r / bins < std::ldexp(1.0, -100);
   p.inv_x = inv_x;
   p.inv_y = inv_y;
   p.bins = bins;

@@ -13,14 +13,18 @@ point layer (``index.scan.ScanKernels``) both launch it; a query whose
 branches have no boxes (``FusedQuery.points`` False) reads no point plane,
 and a query under authorizations (``FusedQuery.vis``) reads the table's
 ``__vis__`` codes and tests them against its bitmap (the kernel's VIS
-form; ``vis_launches`` counts those launches among ``launches``).
+form; ``vis_launches`` counts those launches among ``launches``). The
+attribute index's staged ``count_at`` and ``select_at`` pass ``runs``, the
+member rows [lo, hi) of each slot (a piece of one of the plan's sorted
+runs), and take the kernel's RUNS form; ``runs_launches`` counts those
+launches among ``launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import struct
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 
@@ -32,6 +36,8 @@ SOURCE = "geomesa_tpu_torch/kernels/csrc/fused_scan.cu"
 REPLACES = "geomesa_tpu/index/compiled.py:476"
 # the VIS form: the fused mask's visibility test
 REPLACES_VIS = "geomesa_tpu/index/compiled.py:482"
+# the RUNS form: the attribute index's staged count_at / select_at
+REPLACES_RUNS = "geomesa_tpu/index/scan.py:603"
 
 MAX_SLOTS = 16
 _MODES = {"count": 0, "mask": 1}
@@ -40,8 +46,8 @@ _KIND_DTYPES = {scan.SLOT_I32: torch.int32, scan.SLOT_F32: torch.float32,
 _POINT = ("xi", "xl", "yi", "yl")
 _TIME = ("bin", "off")
 
-# the C side's FusedScanArgs: 48 8-byte slots
-_ARGS = struct.Struct("=48q")
+# the C side's FusedScanArgs: 49 8-byte slots
+_ARGS = struct.Struct("=49q")
 
 _FN = None
 
@@ -59,7 +65,7 @@ def _bind():
     return _FN
 
 
-def _check(cols, qbuf, query, ids, n_blocks, bsz, mode) -> int:
+def _check(cols, qbuf, query, ids, n_blocks, bsz, mode, runs=None) -> int:
     """Validate the inputs; return the table's rows."""
     if mode not in _MODES:
         raise ValueError(f"fused_scan mode {mode}")
@@ -99,20 +105,26 @@ def _check(cols, qbuf, query, ids, n_blocks, bsz, mode) -> int:
         raise ValueError("the block list needs a positive block size bsz")
     for t in (qbuf, ids, n_blocks):
         build.placed(t, dev)
+    if runs is not None:
+        if runs.dtype is not torch.int32 or runs.shape != (ids.shape[0], 2):
+            raise TypeError("runs must be int32 (slots, 2): [lo, hi) a slot")
+        build.placed(runs, dev)
     return n
 
 
 def fused_scan(cols: Mapping[str, torch.Tensor], qbuf: torch.Tensor,
                query: scan.FusedQuery, ids: torch.Tensor,
-               n_blocks: torch.Tensor, bsz: int, mode: str):
+               n_blocks: torch.Tensor, bsz: int, mode: str,
+               runs: Optional[torch.Tensor] = None):
     """The count (int32 (1,)) or (mask, count) of the candidates of the
-    block list, left on the device; see
+    block list (with ``runs``: of its run pieces), left on the device; see
     ``index.scan.fused_scan`` for the semantics. On the card the mask's
     bytes past the first ``n_blocks`` blocks are not written."""
-    n = _check(cols, qbuf, query, ids, n_blocks, bsz, mode)
+    n = _check(cols, qbuf, query, ids, n_blocks, bsz, mode, runs)
     dev = qbuf.device
     if dev.type == "cpu":
-        return scan.fused_scan(cols, qbuf, query, ids, n_blocks, bsz, mode)
+        return scan.fused_scan(cols, qbuf, query, ids, n_blocks, bsz, mode,
+                               runs=runs)
     if dev.type != "cuda":
         raise ValueError(f"fused_scan runs on cuda or cpu, not {dev}")
     if qbuf.data_ptr() % 16:
@@ -142,7 +154,8 @@ def fused_scan(cols: Mapping[str, torch.Tensor], qbuf: torch.Tensor,
             qbuf.data_ptr(), qbuf.shape[0], off["br"][0], off["box"][0],
             off["wkey"][0], off["prog"][0], off["const"][0],
             len(query.branches), int(query.points), *vis,
-            ids.data_ptr(), n_blocks.data_ptr(), slots, bsz, n,
+            ids.data_ptr(), 0 if runs is None else runs.data_ptr(),
+            n_blocks.data_ptr(), slots, bsz, n,
             _MODES[mode], out.data_ptr(), mask.data_ptr() if slots * bsz
             and mode == "mask" else 0, ws.data_ptr(), epoch, dev.index)
         rc = fn(args, stream)
@@ -152,8 +165,11 @@ def fused_scan(cols: Mapping[str, torch.Tensor], qbuf: torch.Tensor,
     fused_scan.launches += 1
     if query.vis:
         fused_scan.vis_launches += 1
+    if runs is not None:
+        fused_scan.runs_launches += 1
     return (mask, out) if mode == "mask" else out
 
 
 fused_scan.launches = 0
 fused_scan.vis_launches = 0
+fused_scan.runs_launches = 0

@@ -4,9 +4,9 @@ Copied from ``geomesa_tpu.process.knn`` with its imports pointed at this
 package: the device work is ``ScanKernels.topk_nearest`` /
 ``topk_nearest_blocks`` (the ``topk_nearest`` CUDA kernel behind the
 ``fused_scan`` mask), the radius fallback's counts ``counts_multi`` (the
-``box_count`` kernel). The port's plans carry no attribute slices (the
-attribute index is not ported), so the reference's ``candidate_slices``
-tests are left out. What follows is the reference's own account.
+``box_count`` kernel). A plan with attribute slices (``candidate_slices``)
+leaves the pruned and pipelined routes, as in the reference. What follows
+is the reference's own account.
 
 ≙ reference `KNearestNeighborSearchProcess` (geomesa-process/.../query/
 KNearestNeighborSearchProcess.scala): the reference iterates expanding-radius
@@ -150,7 +150,8 @@ def _device_knn(planner, plan, x: float, y: float, k: int,
         _metrics.inc("knn.plan_rounds")
         whole_world = expand_bbox(x, y, r) == _WORLD
         plan_r = planner.plan(plan.full_filter if whole_world else with_bbox(r))
-        if not (plan_r.residual_host is None and plan_r.index is index):
+        if not (plan_r.residual_host is None and plan_r.candidate_slices is None
+                and plan_r.index is index):
             break  # composition changed the plan shape: full-table kernel
         blocks = planner._pruned_blocks(plan_r)
         if blocks is None:
@@ -281,7 +282,8 @@ def _pipelined_counts(planner, with_bbox, radii) -> np.ndarray:
     (device-exact primary boxes); otherwise sequential blocking counts."""
     plan = planner.plan(with_bbox(radii[0]))
     if (not plan.empty and plan.primary_kind in ("point_boxes", "bbox_overlap")
-            and plan.residual_host is None and plan.index is not None):
+            and plan.residual_host is None and plan.candidate_slices is None
+            and plan.index is not None):
         from geomesa_tpu_torch.filter.extract import extract_bboxes
         from geomesa_tpu_torch.index.spatial import _boxes_fp62
         geom = planner.sft.geometry_attribute.name

@@ -210,13 +210,24 @@ def _edges_and_more(lo, hi, bins, rng):
     special = np.array([np.nan, np.inf, -np.inf, 1e30, -1e30, 3e9, -3e9,
                         lo, hi], dtype=f32)
     rand = rng.uniform(lo - (hi - lo), hi + (hi - lo), 20000).astype(f32)
-    return np.concatenate(around + [special, rand]).astype(f32)
+    # every binade of the subnormals and the least normals, both signs
+    tiny = np.finfo(f32).tiny
+    sub = (tiny * rng.uniform(-2.0, 2.0, 2000) * np.exp2(
+        -rng.integers(0, 24, 2000))).astype(f32)
+    return np.concatenate(around + [special, rand, sub]).astype(f32)
 
 
 @pytest.mark.parametrize("lo,hi,bins", [(0.0, 100.0, 20), (0.3, 77.7, 7),
                                         (-5.0, 5.0, 1), (2.0, 2.0, 10),
                                         (0.1, 0.9, 16), (-1e6, 1e6, 1000),
-                                        (0.0, 1e38, 3)])
+                                        (0.0, 1e38, 3), (0.0, 1e-40, 8),
+                                        (1e-39, 2.5e-39, 5),
+                                        (1e-40, 1.0, 10), (-3e-39, 1.0, 7),
+                                        (0.0, 1e-37, 20), (2e-38, 1e-37, 20),
+                                        (0.0, 1e-36, 4096),
+                                        (-1e-37, 1e-37, 4096),
+                                        (0.0, 20 * 2.0**-100, 20),
+                                        (0.0, 20 * 2.0**-101, 20)])
 def test_plain_masked_hist_equals_reference(lo, hi, bins):
     jnp = _ref("jax.numpy")
     jscan = _ref("geomesa_tpu.aggregates.stats_scan")
@@ -542,15 +553,20 @@ def test_cuda_masked_hist_mask_offsets(offset, n, form, bins):
     (0.0, 100.0, 20), (0.3, 77.7, 7), (-5.0, 5.0, 1), (0.1, 0.9, 16),
     (-1e6, 1e6, 1000), (0.0, 1.0, 4096), (0.0, 1.0, 4097),
     (-1e30, 1e30, 100), (7.5, -3.0, 20), (2.0, 2.0, 10),
-    (0.0, 1e-40, 8), (1e-39, 2.5e-39, 5), (0.0, 1e38, 3)])
+    (0.0, 1e-40, 8), (1e-39, 2.5e-39, 5), (0.0, 1e38, 3),
+    (1e-40, 1.0, 10), (-3e-39, 1.0, 7), (0.0, 1e-37, 20),
+    (2e-38, 1e-37, 20), (0.0, 1e-36, 4096), (-1e-37, 1e-37, 4096),
+    (0.0, 20 * 2.0**-100, 20), (0.0, 20 * 2.0**-101, 20)])
 @pytest.mark.parametrize("col", ["f32", "i32"])
 def test_cuda_masked_hist_edges_exact(lo, hi, bins, col):
     """HIST on values at lo + k (hi - lo) / bins and their f32 neighbours
     (and NaN, +-inf, huge values): hi > lo through the edges found by
     bisection (bins up to 4,096; 4,097 divides), hi < lo and hi == lo
     through the division, and so ranges whose reciprocal is no normal
-    f32 (a subnormal range's overflows, 1e38's is subnormal) — every
-    count the plain version's."""
+    f32 (a subnormal range's overflows, 1e38's is subnormal), and bins
+    narrower than 2^-126 and either side of the flushed guess's 2^-100,
+    with values across the subnormals — every count the plain
+    version's."""
     dev = _cuda()
     rng = np.random.default_rng(bins + abs(int(lo)))
     if col == "f32":

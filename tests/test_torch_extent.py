@@ -281,6 +281,10 @@ def test_outside_the_slice_raises_naming_roadmap(stores):
             "bbox": (-60, 0, 60, 70), "width": 8, "height": 8}})
     with pytest.raises(NotImplementedError, match="item 9"):
         ts.count("polys", "st_area(geom) > 1")
+    # a schema without a geometry, once refused naming item 9, builds the
+    # full-scan index; a configured S2 index is what item 9 still holds
+    ts.create_schema("nogeom", "val:Int")
+    assert ts.get_schema("nogeom").geometry_attribute is None
     with pytest.raises(NotImplementedError, match="item 9"):
-        ts.create_schema("nogeom", "val:Int")
+        ts.create_schema("s2", "val:Int,*geom:Point;geomesa.indices=s2")
     assert "item 9" in str(not_ported("x", 9))

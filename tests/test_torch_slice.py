@@ -245,11 +245,25 @@ def _store(n=6000):
     (SPEC + ",geomesa.indices='z3,attr:age'", "item 10"),
 ])
 def test_outside_slice_raises_naming_roadmap(spec, item):
-    """The attribute and configured indexes stay outside the slice
-    (ROADMAP.md Queue 1 item 10's rest)."""
+    """The attribute and configured indexes, once refused naming ``item``
+    (ROADMAP.md Queue 1 item 10's rest), are ported: the schema creates and
+    plans and counts ``age = 40`` as the reference does (the quoted
+    ``geomesa.indices`` value names no index it knows, in both). What stays
+    outside names its own item: a configured S2 index (item 9)."""
+    from geomesa_tpu.datastore import TpuDataStore
     store = DataStoreFinder.get_data_store(type="torch", device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        store.create_schema("fq", spec)
+    ref = TpuDataStore()
+    for s, tbl in ((store, TTable), (ref, JTable)):
+        s.create_schema("fq", spec)
+        s.load("fq", tbl.build(s.get_schema("fq"), _columns(3000, 7)))
+    for q in ("age = 40", "age > 90 AND BBOX(geom,0,0,40,60)"):
+        assert store.explain("fq", q)["index"] \
+            == ref.explain("fq", q)["index"], q
+        assert store.count("fq", q) == ref.count("fq", q), q
+    assert item == "item 10"
+    with pytest.raises(NotImplementedError, match="item 9"):
+        store.create_schema("s2", spec.split(";")[0]
+                            + ";geomesa.indices=s2,attr:age")
 
 
 @pytest.mark.parametrize("q", ["IN ('1', '2')", "IN ('1', '2', 'x', '5999')",
