@@ -259,6 +259,9 @@ K_D = 3.0
 Q_K_DWITHIN = (f"DWITHIN(geom, POINT({I_CX} {I_CY}), {K_D}, degrees) "
                f"AND {DURING}")
 REPS = 10
+# (h)-(k)'s p50s: SLOW_REPS calls of a query slower than SLOW_MS
+SLOW_MS = 150.0
+SLOW_REPS = 3
 # (g): bench.py cfg1's serving queries around (a)'s box: 10 never-seen
 # boxes for the cold path (bench.py:389-395) and 64 distinct boxes for the
 # batch and the scheduler (bench.py:425-431)
@@ -1320,11 +1323,19 @@ def phase_filters(store, oracle) -> dict:
         f"{fused_runs} fused program runs")
     log(f"[filters] launches per query {json.dumps(per_query)}")
 
-    p50 = {}
+    # a query whose warm-up call takes over SLOW_MS (the host refines of
+    # (j)'s WITHIN and (k)'s MULTIPOLYGON, (h)'s rows) times SLOW_REPS
+    # calls, not REPS: they held (h)-(k) at over a minute
+    p50, reps = {}, {}
     for label, fn in filter_queries(store):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
+        torch.cuda.synchronize()
+        slow = (time.perf_counter() - t0) * 1e3 > SLOW_MS
+        reps[label] = SLOW_REPS if slow else REPS
         ts = []
-        for _ in range(REPS):
+        for _ in range(reps[label]):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
@@ -1332,7 +1343,7 @@ def phase_filters(store, oracle) -> dict:
             ts.append((time.perf_counter() - t0) * 1e3)
         p50[label] = float(np.median(ts))
     log(json.dumps({"filters": {
-        "p50_ms": p50, "reps": REPS, "answers": sizes,
+        "p50_ms": p50, "reps": reps, "answers": sizes,
         "refine_kinds": {"i": kinds[Q_I_LT], "j_contains":
                          kinds[Q_J_CONTAINS], "j_within": kinds[Q_J_WITHIN],
                          "k_multipolygon": kinds[Q_K_MULTI],
@@ -2672,6 +2683,23 @@ M_Z2_N = 10_000_000
 Q_M4 = "BBOX(geom, -10, 30, 30, 55) AND val > 10"
 # the seg_band check at segments within a few ulps of the polygon's edges
 M_NEAR_N = 33_554_432
+# (m1) the lines' density and an st_length count; (m3) an st_area count and
+# st_intersects of a buffer around each polygon with a point, both in M_BOX
+# (the host evaluates them feature by feature, as the reference's oracle)
+M_GRID = 256
+M_LEN = 1.5
+Q_M1_LEN = f"st_length(geom) > {M_LEN}"
+M_AREA = 1.0
+Q_M3_AREA = f"{Q_M1_BBOX} AND st_area(geom) > {M_AREA}"
+M_BUF_D = 0.5
+M_BUF_P = (1.0, 39.0)
+Q_M3_BUF = (f"{Q_M1_BBOX} AND st_intersects(st_buffer(geom, {M_BUF_D}), "
+            f"POINT({M_BUF_P[0]} {M_BUF_P[1]}))")
+# (m5) S2 and S3 over (m4)'s points: (a)'s box (with its week on S3) and
+# the concave polygon
+Q_M5_S2_POLY = f"INTERSECTS(geom, {CONCAVE_WKT})"
+# (m6) an append into (m1)'s layer, flushed by the merge build
+M_APPEND_N = 100_000
 
 
 def cfg2_segments(n: int, seed: int):
@@ -2812,6 +2840,49 @@ def _check(label: str, got, want) -> None:
         raise AssertionError(f"(m) {label}: {got} != oracle {want}")
 
 
+def _hull(pts: np.ndarray) -> np.ndarray:
+    """Andrew's monotone chain, counter-clockwise, collinear points
+    dropped (written out here)."""
+    pts = pts[np.lexsort((pts[:, 1], pts[:, 0]))]
+
+    def half(seq):
+        h = []
+        for p in seq:
+            while len(h) >= 2 and ((h[-1][0] - h[-2][0]) * (p[1] - h[-2][1])
+                                   - (h[-1][1] - h[-2][1]) * (p[0] - h[-2][0])
+                                   ) <= 0:
+                h.pop()
+            h.append(p)
+        return h
+
+    lower, upper = half(pts), half(pts[::-1])
+    return np.asarray(lower[:-1] + upper[:-1])
+
+
+def oracle_buffer_hits(rings: np.ndarray, box, d: float, point) -> int:
+    """The quadrilaterals whose envelope meets ``box`` and whose buffer —
+    the convex hull of their vertices, each moved by the eight vertices of
+    the octagon of circumradius d / cos(pi/8) at angles (k + 1/2) pi/4 —
+    holds ``point`` (on its boundary too): f64, written out here."""
+    v = rings[:, :4]
+    lo, hi = v.min(axis=1), v.max(axis=1)
+    r = d / np.cos(np.pi / 8)
+    px, py = point
+    keep = ((lo[:, 0] <= box[2]) & (hi[:, 0] >= box[0])
+            & (lo[:, 1] <= box[3]) & (hi[:, 1] >= box[1])
+            & (lo[:, 0] - r <= px) & (hi[:, 0] + r >= px)
+            & (lo[:, 1] - r <= py) & (hi[:, 1] + r >= py))
+    ang = (np.arange(8) + 0.5) * (np.pi / 4)
+    off = np.stack([r * np.cos(ang), r * np.sin(ang)], axis=1)
+    hits = 0
+    for i in np.flatnonzero(keep):
+        h = _hull((v[i][:, None, :] + off[None, :, :]).reshape(-1, 2))
+        e = np.roll(h, -1, axis=0) - h
+        cross = e[:, 0] * (py - h[:, 1]) - e[:, 1] * (px - h[:, 0])
+        hits += bool(np.all(cross >= 0))
+    return hits
+
+
 def extent_store(device: str, name: str, spec: str, cols: dict):
     """A store of its own holding one layer; returns (store, planner, load
     seconds, the index's build stages)."""
@@ -2862,28 +2933,50 @@ def phase_extent(points_table, device: str = "cuda", n: int = M_N,
     (m3) small convex quadrilaterals (XZ2; the band declines, the host
     ragged refine answers); (m4) the first ``n_z2`` points of the cfg1
     corpus (``points_table``) without a date (Z2), (a)'s box AND val > 10.
+    (m1) also selects the BBOX's rows and renders a M_GRID x M_GRID
+    density of the lines (envelope centres snapped on the host), both
+    through ``fused_scan``'s ENV form (its launches counted around each,
+    above 0 on the card), and counts ``st_length``; (m3) counts
+    ``st_area`` and a buffer's ``st_intersects`` with a point.
     Returns the measurements and (m1)'s store for the kernel checks."""
     import torch
     from geomesa_tpu_torch.features.geometry import (POLYGON,
                                                      GeometryArray)
     from geomesa_tpu_torch.index import prune
     from geomesa_tpu_torch.index.spatial import _boxes_fp62
-    from geomesa_tpu_torch.kernels import (box_count, density, dist, merge,
-                                           pip, seg_band)
+    from geomesa_tpu_torch.kernels import (box_count, density, dist,
+                                           fused_scan, merge, pip, seg_band)
 
     def sync():
         if device == "cuda":
             torch.cuda.synchronize()
 
+    on_card = device == "cuda"
     counters = {"pip_refine": pip.pip_refine,
                 "grid_scatter": density.grid_scatter,
                 "box_count": box_count.box_count,
                 "dist_refine": dist.dist_refine,
                 "merge_scatter": merge.merge_scatter,
-                "seg_band": seg_band.seg_band}
+                "seg_band": seg_band.seg_band,
+                "fused_scan": fused_scan.fused_scan}
     for c in counters.values():
         c.launches = 0
+    fused_scan.fused_scan.env_launches = 0
     out = {}
+    env_counts: dict = {}
+
+    def env_run(label: str, fn):
+        """``fn()`` with the ENV form's launches counted around it (the
+        selects and the density of an extent layer must take it)."""
+        before = fused_scan.fused_scan.env_launches
+        r = fn()
+        sync()
+        k = fused_scan.fused_scan.env_launches - before
+        if on_card and k < 1:
+            raise AssertionError(f"(m) {label} did not launch fused_scan's "
+                                 f"ENV form")
+        env_counts[label] = k
+        return r
 
     # (m1) cfg2
     t0 = time.perf_counter()
@@ -2911,7 +3004,8 @@ def phase_extent(points_table, device: str = "cuda", n: int = M_N,
     got = store.count("osm", Q_M1)
     cold_count_ms = (time.perf_counter() - t0) * 1e3
     _check("m1 count", got, len(want_rows))
-    _check("m1 rows", store.query("osm", Q_M1).indices, want_rows)
+    _check("m1 rows", env_run("m1 INTERSECTS rows", lambda: store.query(
+        "osm", Q_M1).indices), want_rows)
     band = prepared_band(planner, Q_M1, sync)
     _check("m1 prepared count", band["count"], len(want_rows))
     if band["band"].get("uncertain") is None:
@@ -2935,6 +3029,28 @@ def phase_extent(points_table, device: str = "cuda", n: int = M_N,
                for q in M_BOXES]
     many_p50, got = timed(lambda: store.count_many("osm", filters), sync)
     _check("m1 count_many", list(map(int, got)), want_boxes)
+    # the BBOX's rows and the density through fused_scan's ENV form
+    want_bbox = np.flatnonzero(env)
+    _check("m1 bbox rows", env_run("m1 BBOX rows", lambda: store.query(
+        "osm", Q_M1_BBOX).indices), want_bbox)
+    bbox_rows_p50, rows = timed(planner.prepare(Q_M1_BBOX).select_indices,
+                                sync)
+    _check("m1 prepared bbox rows", rows, want_bbox)
+    # each segment's envelope centre (bx > ax, by > ay), as the host snaps
+    want_grid = oracle_host_density((ax + bx) / 2, (ay + by) / 2, want_bbox,
+                                    M_BOX, M_GRID, M_GRID)
+    grid = env_run("m1 density", lambda: store.query(
+        "osm", Q_M1_BBOX, hints=density_hint(M_BOX, M_GRID, M_GRID)))
+    if not np.array_equal(grid.weights, want_grid.astype(np.float32)):
+        raise AssertionError("(m1) the density differs from the oracle's in "
+                             f"{int((grid.weights != want_grid).sum())} "
+                             "cells")
+    density_p50, _ = timed(lambda: store.query(
+        "osm", Q_M1_BBOX, hints=density_hint(M_BOX, M_GRID, M_GRID)), sync)
+    want_len = int(np.count_nonzero(np.hypot(bx - ax, by - ay) > M_LEN))
+    t0 = time.perf_counter()
+    _check("m1 st_length count", store.count("osm", Q_M1_LEN), want_len)
+    len_ms = (time.perf_counter() - t0) * 1e3
     store.close()
     out["m1"] = {
         "n": n, "load_s": load_s, "build_stages_s": stages,
@@ -2947,9 +3063,14 @@ def phase_extent(points_table, device: str = "cuda", n: int = M_N,
         "rows_p50_ms": rows_p50, "bbox_count": int(np.count_nonzero(env)),
         "bbox_count_p50_ms": bbox_p50, "union_blocks": int(len(union)),
         "counts_multi_blocks_p50_ms": multi_p50,
-        "count_many_p50_ms": many_p50}
+        "count_many_p50_ms": many_p50, "bbox_rows": len(want_bbox),
+        "bbox_rows_p50_ms": bbox_rows_p50, "density_p50_ms": density_p50,
+        "density_cells_set": int(np.count_nonzero(want_grid)),
+        "st_length_count": want_len, "st_length_count_ms": len_ms,
+        "env_launches": dict(env_counts)}
     log(json.dumps({"m1": out["m1"]}))
-    m1 = {"store": store, "planner": planner, "union": union, "fp": fp}
+    m1 = {"store": store, "planner": planner, "union": union, "fp": fp,
+          "segments": (ax, ay, bx, by)}
 
     # (m2) XZ3: the same segments with a date
     rng = np.random.default_rng(M_SEED + 1)
@@ -2980,7 +3101,7 @@ def phase_extent(points_table, device: str = "cuda", n: int = M_N,
                  "uncertain": band2["band"].get("uncertain"),
                  "rows_p50_ms": rows2_p50}
     log(json.dumps({"m2": out["m2"]}))
-    del store2, planner2, ax, ay, bx, by, hit
+    del store2, planner2, hit
 
     # (m3) polygons
     rings = quads(n_poly, M_SEED + 2)
@@ -3000,9 +3121,27 @@ def phase_extent(points_table, device: str = "cuda", n: int = M_N,
     planner3._count(plan3, Q_M1)
     if "band" in plan3.explain:
         raise AssertionError("(m3) the band route took a polygon layer")
+    # st_area: each ring's shoelace, f64
+    x3, y3 = rings[:, :, 0], rings[:, :, 1]
+    sa = 0.5 * np.sum(x3 * np.roll(y3, -1, axis=1)
+                      - np.roll(x3, -1, axis=1) * y3, axis=1)
+    lo3, hi3 = rings.min(axis=1), rings.max(axis=1)
+    in_box = ((lo3[:, 0] <= M_BOX[2]) & (hi3[:, 0] >= M_BOX[0])
+              & (lo3[:, 1] <= M_BOX[3]) & (hi3[:, 1] >= M_BOX[1]))
+    want_area = int(np.count_nonzero(in_box & (np.abs(sa) > M_AREA)))
+    t0 = time.perf_counter()
+    _check("m3 st_area count", store3.count("parcels", Q_M3_AREA), want_area)
+    area_ms = (time.perf_counter() - t0) * 1e3
+    want_buf = oracle_buffer_hits(rings, M_BOX, M_BUF_D, M_BUF_P)
+    t0 = time.perf_counter()
+    _check("m3 st_buffer count", env_run("m3 st_buffer", lambda: store3.count(
+        "parcels", Q_M3_BUF)), want_buf)
+    buf_ms = (time.perf_counter() - t0) * 1e3
     out["m3"] = {"n": n_poly, "load_s": load3, "build_stages_s": stages3,
                  "index": planner3.indexes[0].name, "count": len(want3),
-                 "count_p50_ms": count3_p50, "rows_p50_ms": rows3_p50}
+                 "count_p50_ms": count3_p50, "rows_p50_ms": rows3_p50,
+                 "st_area_count": want_area, "st_area_count_ms": area_ms,
+                 "st_buffer_count": want_buf, "st_buffer_count_ms": buf_ms}
     log(json.dumps({"m3": out["m3"]}))
     del store3, planner3, garr, rings
 
@@ -3028,11 +3167,12 @@ def phase_extent(points_table, device: str = "cuda", n: int = M_N,
 
     sync()
     out["launches"] = {k: c.launches for k, c in counters.items()}
-    on_card = device == "cuda"
+    out["launches"]["fused_scan_env"] = fused_scan.fused_scan.env_launches
     if on_card and (out["launches"]["seg_band"] < 1
-                    or out["launches"]["box_count"] < 1):
-        raise AssertionError(f"(m) did not launch seg_band and box_count: "
-                             f"{out['launches']}")
+                    or out["launches"]["box_count"] < 1
+                    or out["launches"]["fused_scan_env"] < 1):
+        raise AssertionError(f"(m) did not launch seg_band, box_count and "
+                             f"fused_scan's ENV form: {out['launches']}")
     log(json.dumps({"extent": {k: out[k] for k in ("m1", "m2", "m3", "m4",
                                                    "launches")}}))
     out["m1_state"] = m1
@@ -3133,12 +3273,71 @@ def near_edge_table(n: int, seed: int, dev):
             for k, v in cols.items()}
 
 
+def env_bound(cols, ids, k: int, bsz: int, nbox: int, mode: str) -> dict:
+    """``fused_scan``'s ENV form over the first ``k`` of block list
+    ``ids``: bytes — the eight fp62 envelope planes (32 B) and the
+    ``__valid__`` byte (where the table has one) of every candidate that is
+    its block's own row, the block ids, a mask byte a candidate in MASK,
+    the count; operations — four key compares a candidate a real box."""
+    from geomesa_tpu_torch.index import scan
+    n = int(cols["bxmin_i"].shape[0])
+    member = scan.expand_blocks(cols, ids[:k], bsz, n)[0]
+    rows = int(member.sum())
+    nbytes = (32 * rows + (rows if "__valid__" in cols else 0) + 4 * k
+              + (k * bsz if mode == "mask" else 0) + 4)
+    return _bound(nbytes, 4 * rows * nbox)
+
+
+def env_calls(m1: dict) -> list:
+    """(label, kernel call, plain call, bound, reps, cut) of the ENV form
+    at (m1)'s BBOX: its cover's blocks and all the table's blocks, count
+    and mask."""
+    import torch
+    from geomesa_tpu_torch.index import prune, scan
+    from geomesa_tpu_torch.kernels import fused_scan
+
+    planner = m1["planner"]
+    kern = planner.indexes[0].kernels
+    cols, dev, n = kern.cols, kern.device, kern.n
+    bsz = int(prune.BLOCK_SIZE)
+    plan = planner.plan(Q_M1_BBOX)
+    stage = (plan.primary_kind, plan.boxes_loose, plan.windows,
+             plan.residual_device)
+    q = scan.staged_query(cols, [stage])
+    if q is None or not (q.env and q.points):
+        raise AssertionError(f"(m1) BBOX did not pack an ENV query: {q}")
+    qbuf = torch.from_numpy(q.packed).to(dev)
+    nbox = len(plan.explain["boxes"])
+    cover = planner._pruned_blocks(plan)
+    nb = -(-n // bsz)
+    out = []
+    for where, ids, k in (
+            (f"(m1)'s BBOX cover ({len(cover)} blocks)",
+             torch.from_numpy(kern._pad_blocks(cover)).to(dev), len(cover)),
+            (f"all {n} rows ({nb} blocks)",
+             torch.arange(nb, dtype=torch.int32, device=dev), nb)):
+        nblk = torch.tensor([k], dtype=torch.int32, device=dev)
+        for mode in ("count", "mask"):
+            args = (cols, qbuf, q, ids, nblk, bsz, mode)
+            cut = (lambda r, k=k: (r[0][: k * bsz], r[1])) \
+                if mode == "mask" else None
+            out.append((f"fused_scan ENV {mode} at {where}",
+                        lambda args=args: fused_scan.fused_scan(*args),
+                        lambda args=args: scan.fused_scan(*args),
+                        env_bound(cols, ids, k, bsz, nbox, mode),
+                        200 if k < nb else 20, cut))
+    return out
+
+
 def phase_extent_kernels(m1: dict) -> dict:
     """seg_band and box_count's envelope mode against their plain versions
     on the card: seg_band at (m1)'s candidate blocks and at M_NEAR_N
     segments within a few ulps of the polygon's edges (every block a
     candidate); box_count at (m1)'s BBOX count (any box over its cover) and
-    its 64 boxes (per box over their union cover)."""
+    its 64 boxes (per box over their union cover); ``fused_scan``'s ENV
+    form at (m1)'s BBOX over its cover and over all the table's blocks,
+    count and mask (equal bit for bit, or the run fails; no single PyTorch
+    call computes it, so no library time)."""
     import torch
     from geomesa_tpu_torch.filter.geom_numpy import literal_segments
     from geomesa_tpu_torch.filter.parser import parse_ecql
@@ -3180,7 +3379,155 @@ def phase_extent_kernels(m1: dict) -> dict:
         torch.from_numpy(scan.pad_boxes(m1["fp"])).to(dev), None, None,
         torch.from_numpy(kern._pad_blocks(m1["union"])).to(dev), bsz, True,
         50, envelope=True)]
-    return {"seg_band": seg, "box_count": box}
+    env = [_time_kernel(label, k_, p_, b_, reps, cut=cut)
+           for label, k_, p_, b_, reps, cut in env_calls(m1)]
+    return {"seg_band": seg, "box_count": box, "fused_scan_env": env}
+
+
+def phase_extent_s2(points_table, device: str = "cuda",
+                    n: int = M_Z2_N) -> dict:
+    """(m5): S2 and S3 layers (``geomesa.indices=s2``/``s3``) over (m4)'s
+    points, the first ``n`` of the cfg1 corpus (S3 with their dates), on
+    stores of their own: (a)'s box (and val > 10; on S3 with its week) as
+    a count, a prepared count and rows, and the concave polygon's
+    INTERSECTS (on S3 with the week) as a count and rows through
+    ``pip_refine`` (its launches counted around them, above 0 on the
+    card), each against a numpy oracle."""
+    import torch
+    from geomesa_tpu_torch.kernels import pip
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    px, py = (v[:n] for v in points_table.geometry().point_xy())
+    val = np.asarray(points_table.columns["val"])[:n]
+    dtg = np.asarray(points_table.columns["dtg"])[:n]
+    inbox = (px >= -10) & (px <= 30) & (py >= 30) & (py <= 55) & (val > 10)
+    week = (dtg > np.datetime64("2020-01-05", "ms").astype(np.int64)) \
+        & (dtg < np.datetime64("2020-01-12", "ms").astype(np.int64))
+    inpoly = oracle_pip(px, py, CONCAVE)
+    out = {}
+    for kind, spec, cols, qb, wb, qp, wp in (
+            ("s2", "val:Int,*geom:Point;geomesa.indices=s2",
+             {"val": val, "geom": (px, py)}, Q_M4, inbox, Q_M5_S2_POLY,
+             inpoly),
+            ("s3", "val:Int,dtg:Date,*geom:Point;geomesa.indices=s3,"
+             "geomesa.z3.interval=week",
+             {"val": val, "dtg": dtg, "geom": (px, py)}, Q_BOX,
+             inbox & week, Q_POLY, inpoly & week)):
+        store, planner, load_s, stages = extent_store(device, kind, spec,
+                                                      cols)
+        for q in (qb, qp):
+            if store.explain(kind, q)["index"] != kind:
+                raise AssertionError(f"(m5) {q} planned on "
+                                     f"{store.explain(kind, q)['index']}")
+        want_b, want_p = np.flatnonzero(wb), np.flatnonzero(wp)
+        _check(f"m5 {kind} box count", store.count(kind, qb), len(want_b))
+        _check(f"m5 {kind} box rows", store.query(kind, qb).indices, want_b)
+        count_p50, got = timed(planner.prepare(qb).count, sync)
+        _check(f"m5 {kind} prepared box count", got, len(want_b))
+        rows_p50, rows = timed(lambda: store.query(kind, qb).indices, sync)
+        _check(f"m5 {kind} box rows p50", rows, want_b)
+        pip.pip_refine.launches = 0
+        _check(f"m5 {kind} polygon count", store.count(kind, qp),
+               len(want_p))
+        _check(f"m5 {kind} polygon rows", store.query(kind, qp).indices,
+               want_p)
+        sync()
+        pips = pip.pip_refine.launches
+        if device == "cuda" and pips < 1:
+            raise AssertionError(f"(m5) {kind}'s polygon did not launch "
+                                 f"pip_refine")
+        poly_p50, got = timed(planner.prepare(qp).count, sync)
+        _check(f"m5 {kind} prepared polygon count", got, len(want_p))
+        out[kind] = {"n": n, "load_s": load_s, "build_stages_s": stages,
+                     "indexes": [i.name for i in planner.indexes],
+                     "box_count": len(want_b), "box_count_p50_ms": count_p50,
+                     "box_rows_p50_ms": rows_p50,
+                     "polygon_count": len(want_p),
+                     "polygon_count_p50_ms": poly_p50,
+                     "pip_refine_launches": pips}
+        store.close()
+        del store, planner
+    log(json.dumps({"m5": out}))
+    return out
+
+
+def phase_extent_merge(m1: dict, device: str = "cuda",
+                       n_add: int = M_APPEND_N) -> dict:
+    """(m6): ``n_add`` more cfg2 segments appended into (m1)'s layer and
+    flushed by the merge build (``merge_from``: one ``merge_scatter``
+    launch on the card), held bitwise to a full rebuild of the merged
+    table (permutation, sorted keys, every device column, the segment
+    planes included), and the BBOX's count and rows on the merged layer
+    against the oracle."""
+    import torch
+    from geomesa_tpu_torch.features.geometry import GeometryArray
+    from geomesa_tpu_torch.features.table import FeatureTable
+    from geomesa_tpu_torch.index.spatial import XZ2Index
+    from geomesa_tpu_torch.kernels import merge
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    store = m1["store"]
+    ax, ay, bx, by = m1["segments"]
+    cx, cy, dx, dy = cfg2_segments(n_add, M_SEED + 5)
+    coords = np.empty((2 * n_add, 2))
+    coords[0::2, 0], coords[0::2, 1] = cx, cy
+    coords[1::2, 0], coords[1::2, 1] = dx, dy
+    old = store.planner("osm").indexes[0]
+    segs = "sx1" in old.device.columns
+    n_old = len(old.table)
+    merge.merge_scatter.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    store.load("osm", FeatureTable.build(store.get_schema("osm"), {
+        "geom": GeometryArray.linestrings(coords)}))
+    store.flush("osm")
+    sync()
+    flush_s = time.perf_counter() - t0
+    launches = merge.merge_scatter.launches
+    new = store.planner("osm").indexes[0]
+    if new.build_stages.get("merge_rows") != n_add:
+        raise AssertionError(f"(m6) the flush did not merge: "
+                             f"{new.build_stages}")
+    if device == "cuda" and launches != 1:
+        raise AssertionError(f"(m6) merge_scatter launched {launches} times")
+    t0 = time.perf_counter()
+    full = XZ2Index(store.get_schema("osm"), store.planner("osm").table,
+                    device)
+    if segs:
+        full.ensure_segment_columns()
+    sync()
+    rebuild_s = time.perf_counter() - t0
+    if not torch.equal(new.perm, full.perm) \
+            or not np.array_equal(new.sorted_xz, full.sorted_xz):
+        raise AssertionError("(m6) the merged permutation or keys differ "
+                             "from the full rebuild's")
+    if set(new.device.columns) != set(full.device.columns):
+        raise AssertionError(f"(m6) columns {sorted(new.device.columns)} != "
+                             f"{sorted(full.device.columns)}")
+    for name, col in full.device.columns.items():
+        if not torch.equal(new.device.columns[name], col):
+            raise AssertionError(f"(m6) column {name} differs from the full "
+                                 f"rebuild's")
+    ex, ey = np.concatenate([ax, cx]), np.concatenate([ay, cy])
+    fx, fy = np.concatenate([bx, dx]), np.concatenate([by, dy])
+    want = np.flatnonzero((ex <= M_BOX[2]) & (fx >= M_BOX[0])
+                          & (ey <= M_BOX[3]) & (fy >= M_BOX[1]))
+    _check("m6 bbox count", store.count("osm", Q_M1_BBOX), len(want))
+    _check("m6 bbox rows", store.query("osm", Q_M1_BBOX).indices, want)
+    out = {"n_old": n_old, "n_add": n_add, "flush_s": flush_s,
+           "merge_scatter_launches": launches,
+           "merge_stages_s": dict(new.build_stages),
+           "full_rebuild_s": rebuild_s, "segment_planes": segs,
+           "columns": len(full.device.columns), "bbox_count": len(want)}
+    log(json.dumps({"m6": out}))
+    del full
+    return out
 
 
 def vis_expressions(seed: int = N_SEED):
@@ -3870,6 +4217,63 @@ def phase_attribute(store) -> dict:
         "reindex_s": reindex_s, "update_schema_s": update_s}}))
     return {"launches": launches, "runs_launches": runs_launches,
             "runs_rows": kernels["runs"], "hist_rows": kernels["hist"]}
+
+
+P_WIDE_N = 4_000_000        # (p7)'s store: a sliced plan past the program
+
+
+def phase_sliced_wide(device: str = "cuda", n: int = P_WIDE_N) -> dict:
+    """(p7): a store of its own with an indexed ``a`` and 17 Int columns
+    (one past ``fused_scan.MAX_SLOTS``): sliced plans whose residual reads
+    all 17, with and without a box, counted and selected — the runs'
+    primary on ``fused_scan``'s RUNS form (its launches counted, above 0
+    on the card), the residual ANDed in as torch ops over the pieces'
+    rows — each equal to numpy."""
+    import torch
+    from geomesa_tpu_torch.index import scan
+    from geomesa_tpu_torch.kernels import fused_scan
+
+    cs = [f"c{i}" for i in range(fused_scan.MAX_SLOTS + 1)]
+    spec = ("a:Int:index=true," + ",".join(f"{c}:Int" for c in cs)
+            + ",dtg:Date,*geom:Point;geomesa.z3.interval=week")
+    rng = np.random.default_rng(P_SEED + 7)
+    base = np.datetime64("2020-01-01T00:00:00", "ms").astype(np.int64)
+    cols = {"a": rng.integers(0, 2000, n).astype(np.int32),
+            "dtg": base + rng.integers(0, 30 * 86400000, n),
+            "geom": (rng.uniform(-180, 180, n), rng.uniform(-90, 90, n))}
+    for c in cs:
+        cols[c] = rng.integers(0, 10, n).astype(np.int32)
+    resid = " AND ".join(f"{c} > 0" for c in cs)
+    x, y = cols["geom"]
+    allc = np.all([cols[c] > 0 for c in cs], axis=0)
+    qs = {f"a = 3 AND {resid}": (cols["a"] == 3) & allc,
+          f"a = 7 AND BBOX(geom, -60, -40, 60, 40) AND {resid}":
+          (cols["a"] == 7) & allc & (x >= -60) & (x <= 60) & (y >= -40)
+          & (y <= 40)}
+    store, planner, load_s, _ = extent_store(device, "wide", spec, cols)
+    fused_scan.fused_scan.runs_launches = 0
+    out = {"n": n, "load_s": load_s, "queries": []}
+    for q, m in qs.items():
+        plan = planner.plan(q)
+        stage = (plan.primary_kind, plan.boxes_loose, plan.windows,
+                 plan.residual_device)
+        if plan.candidate_slices is None or scan.staged_query(
+                plan.index.kernels.cols, [stage]) is not None:
+            raise AssertionError(f"(p7) {q[:30]}... is not a sliced plan "
+                                 f"past the program")
+        want = np.flatnonzero(m)
+        _check("p7 count", store.count("wide", q), len(want))
+        _check("p7 rows", store.query("wide", q).indices, want)
+        out["queries"].append({"candidates": plan.n_candidates,
+                               "count": len(want)})
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["runs_launches"] = fused_scan.fused_scan.runs_launches
+    if device == "cuda" and out["runs_launches"] < 1:
+        raise AssertionError("(p7) the RUNS form did not launch")
+    store.close()
+    log(json.dumps({"attribute_wide": out}))
+    return out
 
 
 def phase_attribute_kernels(pstore, q1: str, q3: str, q4: str,
@@ -4690,32 +5094,48 @@ def phase_profile(store, extra=()) -> None:
             "top": [[k[:60], v] for k, v in top5]}}))
 
 
+def timed_phase(label: str, fn, *args):
+    """``fn(*args)``, its wall seconds logged as a ``[phase]`` line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase] {label}: {time.perf_counter() - t0} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi, name = phase_device()
     log(f"[device] nvidia-smi: {smi}")
-    phase_build()
-    phase_kernels()
-    launches, store, routes, g_oracle, f_oracle = phase_main_path()
-    g = phase_serving(store, g_oracle)
-    f = phase_filters(store, f_oracle)
-    k = phase_kernel_main_inputs(store)
-    d = phase_density_kernel(store)
-    b = phase_box_count_kernel(store, g)
-    t = phase_dist_kernel(store)
-    fk = phase_fused_kernels(store)
-    phase_staged_kernels(store)
-    phase_profile(store, (("g1_prepared_count", g["pq"].count),
-                          ("g3_batch64_dispatch", g["disp"]),
-                          *filter_queries(store)))
-    nres = phase_auths(store, g_oracle, f_oracle)
+    timed_phase("build", phase_build)
+    timed_phase("kernels", phase_kernels)
+    launches, store, routes, g_oracle, f_oracle = timed_phase(
+        "main path", phase_main_path)
+    g = timed_phase("(g) serving", phase_serving, store, g_oracle)
+    f = timed_phase("(h)-(k) filters", phase_filters, store, f_oracle)
+    k = timed_phase("pip_refine at the main path", phase_kernel_main_inputs,
+                    store)
+    d = timed_phase("grid_scatter", phase_density_kernel, store)
+    b = timed_phase("box_count", phase_box_count_kernel, store, g)
+    t = timed_phase("dist_refine", phase_dist_kernel, store)
+    fk = timed_phase("fused kernels", phase_fused_kernels, store)
+    timed_phase("staged kernels", phase_staged_kernels, store)
+    timed_phase("profile", phase_profile, store, (
+        ("g1_prepared_count", g["pq"].count),
+        ("g3_batch64_dispatch", g["disp"]), *filter_queries(store)))
+    nres = timed_phase("(n) auths", phase_auths, store, g_oracle, f_oracle)
     nl = nres["launches"]
-    m = phase_extent(store.planner("gdelt").table)
-    mk = phase_extent_kernels(m.pop("m1_state"))
-    o = phase_process(store, g_oracle)
-    ok = phase_process_kernels(store)
-    pres = phase_attribute(store)
-    w = phase_write(store, g_oracle)
+    m = timed_phase("(m) extent", phase_extent,
+                    store.planner("gdelt").table)
+    m1_state = m.pop("m1_state")
+    mk = timed_phase("(m) extent kernels", phase_extent_kernels, m1_state)
+    timed_phase("(m5) S2/S3", phase_extent_s2, store.planner("gdelt").table)
+    timed_phase("(m6) merge", phase_extent_merge, m1_state)
+    del m1_state
+    o = timed_phase("(o) process", phase_process, store, g_oracle)
+    ok = timed_phase("(o) kernels", phase_process_kernels, store)
+    pres = timed_phase("(p) attribute", phase_attribute, store)
+    timed_phase("(p7) wide residual", phase_sliced_wide)
+    w = timed_phase("(l) write", phase_write, store, g_oracle)
     import torch
     from geomesa_tpu_torch.kernels import (box_count, compact, density,
                                            dist, fused_scan, gate, hist,
@@ -4804,7 +5224,19 @@ def main() -> int:
         "ms": pres["runs_rows"][0]["ms"],
         "plain_ms": pres["runs_rows"][0]["plain_ms"],
         "bound_ms": pres["runs_rows"][0]["bound_ms"],
-        "bound_by": pres["runs_rows"][0]["bound_by"], "library_ms": None}]}))
+        "bound_by": pres["runs_rows"][0]["bound_by"], "library_ms": None}] + [{
+        # fused_scan's ENV form (the envelope primary of extent layers): its
+        # launches are (m)'s; the first row is (m1)'s BBOX cover's count.
+        # No single PyTorch call computes it: library n/a
+        "name": f"{fused_scan.NAME}_env", "route": "cuda",
+        "source": fused_scan.SOURCE, "replaces": fused_scan.REPLACES_ENV,
+        "launches": m["launches"]["fused_scan_env"],
+        "max_abs_err": max(r["max_abs_err"] for r in mk["fused_scan_env"]),
+        "ms": mk["fused_scan_env"][0]["ms"],
+        "plain_ms": mk["fused_scan_env"][0]["plain_ms"],
+        "bound_ms": mk["fused_scan_env"][0]["bound_ms"],
+        "bound_by": mk["fused_scan_env"][0]["bound_by"],
+        "library_ms": None}]}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,7 @@ from geomesa_tpu_torch import config
 from geomesa_tpu_torch.aggregates import grid_codec
 from geomesa_tpu_torch.index import compiled as _fused
 from geomesa_tpu_torch.index import prune as _prune
-from geomesa_tpu_torch.index.api import UnionScanPlan, not_ported
+from geomesa_tpu_torch.index.api import UnionScanPlan
 
 
 @dataclass
@@ -71,12 +71,13 @@ def prepare_density(planner, f, bbox, width: int = 256, height: int = 256,
     the narrow one cannot carry the result. The returned callable carries
     ``.dispatch()`` — the (H, W) device grid without readback — and
     ``.packed()`` — the (mode, cap) of the encoding in use. Plans that are
-    not device-exact, or whose weight is not a device column, go through the
+    not device-exact, whose weight is not a device column, or over an
+    extent layer (lines and polygons: no point planes; their selects run
+    ``fused_scan``'s ENV form, then the envelope centres snap on the host,
+    as the reference renders them) go through the
     host (``_host_density``). An OR plan (``UnionScanPlan``) renders unit
     weights in one union program (``compiled.try_union_density``) when
     every branch is device-exact on one index, else through the host."""
-    if not planner.table.geometry().is_points:
-        raise not_ported("density over extent layers", 9)
     # auths fold into the device scan as the allowed visibility codes (≙
     # the reference's density under auths, VisibilityFilter on the scan)
     plan = planner._apply_auths(planner.plan(f), auths)
@@ -197,11 +198,13 @@ def density(planner, f, bbox, width: int = 256, height: int = 256,
 def host_grid(table, rows: np.ndarray, bbox, width: int, height: int,
               weight_attr: Optional[str] = None) -> np.ndarray:
     """Snap+accumulate selected table rows onto an (H, W) grid on the host
-    in f64 (the LocalQueryRunner density transform). Its snap is not the
+    in f64 (the LocalQueryRunner density transform; also the LSM delta
+    tier's contribution): each feature at its envelope's centre — a point
+    is its own — as the reference's ``host_grid``. Its snap is not the
     device's: the device snaps the f32 coordinate planes in f32."""
-    x, y = table.geometry().point_xy()
-    x = np.asarray(x, dtype=np.float64)[rows]
-    y = np.asarray(y, dtype=np.float64)[rows]
+    bbs = table.geometry().bboxes()[rows]
+    x = (bbs[:, 0] + bbs[:, 2]) / 2
+    y = (bbs[:, 1] + bbs[:, 3]) / 2
     w = np.asarray(table.column(weight_attr), dtype=np.float64)[rows] \
         if weight_attr else None
     xmin, ymin, xmax, ymax = bbox

@@ -39,15 +39,17 @@ The device is ``cuda`` unless the caller passes another (``device="cpu"``
 runs every kernel's plain version); asking for ``cuda`` without a card
 raises. Each type holds a main table in its spatial index on the device
 — Z3 for points with a date, XZ3 for lines and polygons with a date, Z2
-and XZ2 without one, the first that ``geomesa.indices`` names when it
-names some, the full-scan index when none applies — plus an attribute
+and XZ2 without one, S3 and S2 where ``geomesa.indices`` names them, the
+first that ``geomesa.indices`` names when it names some, the full-scan
+index when none applies — plus an attribute
 index an indexed attribute (``index=true``, or ``attr:<name>`` in
 ``geomesa.indices``), each a sorted copy of the table on the device; and
 an LSM delta tier: small appends land in a host-side delta run that counts,
 selects and density grids merge in exactly; a flush (explicit, past the
 threshold, or before ``planner()`` hands out a planner) merges the delta
-into the index by the incremental merge build (``Z3Index.merge_from``, the
-``merge_scatter`` CUDA kernel; the other indexes rebuild in full), and the
+into the index by the incremental merge build
+(``BaseSpatialIndex.merge_from``, the ``merge_scatter`` CUDA kernel; a type
+with an attribute index rebuilds in full, as in the reference), and the
 destructive mutations rebuild it. Features carry visibility labels (the
 writer's ``vis``, ``FeatureTable.build(..., visibilities=...)``), and every
 read takes the caller's ``auths``; feature-id filters, the shaping hints
@@ -661,8 +663,11 @@ class TorchDataStore:
         supports the schema and that ``geomesa.indices`` names), an
         ``AttributeIndex`` an indexed attribute (built from the spatial
         index's device planes), and the full-scan index where no spatial
-        index applies (the reference's always-present fallback, which
-        never wins beside a spatial plan)."""
+        index applies or where the spatial index prices its cover above
+        the rows (S2/S3's ``cover_slop``: there the reference's
+        always-present fallback wins a plan that the cover leaves
+        unconstrained, as the reference's planner picks it; beside a Z or
+        XZ index it never wins, so the port leaves it out)."""
         sft = self.schemas[type_name]
         indexes: List[object] = []
         c = spatial_index_class(sft)
@@ -672,7 +677,7 @@ class TorchDataStore:
         for attr in indexed_attributes(sft):
             indexes.append(AttributeIndex(sft, table, attr, self.device,
                                           base=base))
-        if c is None:
+        if c is None or getattr(c, "cover_slop", 1.0) > 1.0:
             indexes.append(FullScanIndex(sft, table, self.device))
         stats = GeoMesaStats(sft)
         planner = QueryPlanner(
@@ -715,21 +720,17 @@ class TorchDataStore:
                        n_old: int,
                        stats_cached: Optional[dict] = None) -> bool:
         """Incremental flush (≙ ``geomesa_tpu/datastore.py:574-647``): merge
-        the freshly sorted delta run into the resident index
-        (``Z3Index.merge_from``) instead of re-sorting the whole table.
-        False when ineligible (``MERGE_BUILD`` off, an index without
-        ``merge_from`` — every index but Z3's, whose flush rebuilds in
-        full, the reference's own route for them — an empty side, a delta
-        over ``MERGE_MAX_FRACTION`` of the main table — counted in
-        ``ingest.merge_fraction_breaches`` — or a stale planner): the
-        caller then rebuilds. Callers hold the lock and have not installed
-        ``merged`` yet."""
+        the freshly sorted delta run into each resident index
+        (``BaseSpatialIndex.merge_from``: S3, S2, Z3, XZ3, Z2, XZ2 and the
+        full-scan index) instead of re-sorting the whole table. False when
+        ineligible (``MERGE_BUILD`` off, a type with an indexed attribute —
+        an attribute index sorts by value, so a suffix delta is no sorted
+        run for it, as in the reference, ``geomesa_tpu/datastore.py
+        :608-612`` — an empty side, a delta over ``MERGE_MAX_FRACTION`` of
+        the main table — counted in ``ingest.merge_fraction_breaches`` — or
+        a stale planner): the caller then rebuilds. Callers hold the lock
+        and have not installed ``merged`` yet."""
         if not config.MERGE_BUILD.get():
-            return False
-        old_planner = self.planners.get(type_name)
-        if old_planner is not None and not all(
-                hasattr(type(idx), "merge_from")
-                for idx in old_planner.indexes):
             return False
         n_delta = len(merged) - n_old
         if n_old <= 0 or n_delta <= 0:
@@ -743,6 +744,8 @@ class TorchDataStore:
         if old_planner is None or current is None or len(current) != n_old \
                 or any(idx.table is not current
                        for idx in old_planner.indexes):
+            return False
+        if indexed_attributes(self.schemas[type_name]):
             return False
         with _trace.span("ingest.merge_build", kind="aggregate",
                          type=type_name):

@@ -1,22 +1,23 @@
 """Binding layer: filter-IR Func nodes → the geometry functions.
 
-≙ ``geomesa_tpu.geom.functions``: evaluates ``ir.Func`` / ``ir.FuncCmp``
-predicates over a point FeatureTable with the exact f64 host oracle
-(``geom.oracle``). ``filter/evaluate.py`` dispatches here, so it stays the
-parity reference of the fused program's refine kinds. The reference's
-second backend, the device catalog (``kernels=True``, ``geom/catalog.py``),
-and derived geometries with ragged output (``st_buffer``,
-``st_convexHull``) are ROADMAP.md Queue 1, item 13.
+≙ ``geomesa_tpu.geom.functions`` with ``kernels=False``, the reference's
+default: evaluates ``ir.Func`` / ``ir.FuncCmp`` predicates and
+``ir.FuncExpr`` values over a FeatureTable of points, lines or polygons
+with the exact f64 host oracle (``geom.oracle``). ``filter/evaluate.py``
+dispatches here, so it stays the parity reference of the fused program's
+refine kinds. The reference's second backend, the device catalog
+(``kernels=True``, ``geom/catalog.py``), is ROADMAP.md Queue 1, item 13,
+and raises naming it.
 
-Arguments evaluate to ``GeomBatch``es — a point column with per-row
-indices, or one literal shared by every row — so ``st_centroid`` (a point
-layer's centroids are its points) composes with every predicate.
+Arguments evaluate to ``GeomBatch``es — (GeometryArray, idx) pairs — so nested
+geometry-valued calls (st_buffer/st_centroid/st_convexHull) compose with
+every predicate.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -29,32 +30,15 @@ from geomesa_tpu_torch.index.api import not_ported
 
 @dataclass
 class GeomBatch:
-    """A per-row geometry value: ``arr[idx[k]]`` is row k's geometry. A
-    constant batch holds one literal shared by every row (``lit``); a POINT
-    literal is a one-point ``arr`` too, other literals have no ``arr``."""
-    arr: Optional[geo.GeometryArray]
+    """A per-row geometry value: ``arr[idx[k]]`` is row k's geometry."""
+    arr: geo.GeometryArray
     idx: np.ndarray
-    constant: bool
-    lit: Optional[tuple] = None
+    constant: bool            # one shared geometry broadcast to every row
+    attr: Optional[str] = None   # set when this is the raw geometry column
 
     def literal(self) -> tuple:
         """The shared (type_code, data) literal of a constant batch."""
-        return self.lit
-
-    def points(self) -> geo.GeometryArray:
-        """The point geometries of this batch's rows."""
-        if self.arr is None:
-            raise not_ported(f"st_* functions of a literal of geometry type "
-                             f"{self.lit[0]} (the geometry catalog)", 13)
-        return self.arr
-
-
-def _points_only(col: geo.GeometryArray) -> None:
-    """st_* functions read point features only (the ragged oracle is not
-    ported)."""
-    if not col.is_points:
-        raise not_ported("st_* functions over extent features (the ragged "
-                         "geom/oracle.py)", 9)
+        return self.arr.shape(int(self.idx[0]) if len(self.idx) else 0)
 
 
 def _rows_of(table, rows: Optional[np.ndarray]) -> np.ndarray:
@@ -70,34 +54,38 @@ def geom_arg(table, rows: Optional[np.ndarray], arg) -> GeomBatch:
         col = table.column(arg)
         if not isinstance(col, geo.GeometryArray):
             raise TypeError(f"Attribute {arg} is not a geometry")
-        _points_only(col)
-        return GeomBatch(col, r, False)
+        return GeomBatch(col, r, False, arg)
     if isinstance(arg, ir.FuncExpr):
         return eval_funcexpr(table, rows, arg)
     if isinstance(arg, tuple) and len(arg) == 2 and isinstance(arg[0], int):
-        arr = None
-        if arg[0] == geo.POINT:
-            arr = geo.GeometryArray.points([arg[1][0]], [arg[1][1]])
-        return GeomBatch(arr, np.zeros(len(r), dtype=np.int64), True,
-                         lit=arg)
+        lit = geo.GeometryArray.from_shapes([arg])
+        return GeomBatch(lit, np.zeros(len(r), dtype=np.int64), True)
     raise TypeError(f"Bad geometry argument {arg!r}")
 
 
 def eval_funcexpr(table, rows: Optional[np.ndarray],
                   e: ir.FuncExpr) -> GeomBatch:
-    """``st_centroid`` → a new GeomBatch (host f64). ``st_buffer`` and
-    ``st_convexHull`` build polygons, which need the geometry catalog."""
-    if e.name != "st_centroid":
-        if e.name in ("st_buffer", "st_convexhull"):
-            raise not_ported(f"{e.name} (derived geometries with ragged "
-                             "output, the geometry catalog)", 13)
-        raise TypeError(f"{e.name} is not geometry-valued")
+    """st_buffer / st_centroid / st_convexHull → a new GeomBatch (host f64,
+    collapsing constant inputs to a single computed geometry)."""
     g = geom_arg(table, rows, e.args[0])
+    idx = np.zeros(1, dtype=np.int64) if g.constant else g.idx
+    if e.name == "st_centroid":
+        cx, cy = oracle.centroid(g.arr, idx)
+        out = geo.GeometryArray.points(cx, cy)
+    elif e.name == "st_convexhull":
+        out = geo.GeometryArray.from_shapes(
+            oracle.convex_hull_shapes(g.arr, idx))
+    elif e.name == "st_buffer":
+        if len(e.args) < 2 or not isinstance(e.args[1], float):
+            raise TypeError("st_buffer needs a numeric distance")
+        out = geo.GeometryArray.from_shapes(
+            oracle.buffer_shapes(g.arr, idx, float(e.args[1])))
+    else:
+        raise TypeError(f"{e.name} is not geometry-valued")
     if g.constant:
-        return g   # a point literal is its own centroid
-    cx, cy = oracle.centroid(g.arr, g.idx)
-    return GeomBatch(geo.GeometryArray.points(cx, cy),
-                     np.arange(len(g.idx), dtype=np.int64), False)
+        n = len(g.idx)
+        return GeomBatch(out, np.zeros(n, dtype=np.int64), True)
+    return GeomBatch(out, np.arange(len(idx), dtype=np.int64), False)
 
 
 def _two_args(table, rows, args, name: str) -> Tuple[GeomBatch, GeomBatch]:
@@ -106,8 +94,8 @@ def _two_args(table, rows, args, name: str) -> Tuple[GeomBatch, GeomBatch]:
     return geom_arg(table, rows, args[0]), geom_arg(table, rows, args[1])
 
 
-def _pairwise_shapes(b: GeomBatch) -> list:
-    return [b.points().shape(int(i)) for i in b.idx]
+def _pairwise_shapes(b: GeomBatch) -> List[tuple]:
+    return [b.arr.shape(int(i)) for i in b.idx]
 
 
 def _no_kernels(kernels: bool) -> None:
@@ -121,14 +109,16 @@ def scalar_values(table, rows: Optional[np.ndarray], name: str,
     _no_kernels(kernels)
     if name in ("st_area", "st_length"):
         g = geom_arg(table, rows, args[0])
+        idx = np.zeros(1, dtype=np.int64) if g.constant else g.idx
         fn = oracle.area if name == "st_area" else oracle.length
-        return fn(g.points(), g.idx)
+        v = fn(g.arr, idx)
+        return np.broadcast_to(v, (len(g.idx),)).copy() if g.constant else v
     if name == "st_distance":
         a, b = _two_args(table, rows, args, name)
         if a.constant and not b.constant:
             a, b = b, a
         if b.constant:
-            return oracle.distance(a.points(), a.idx, b.literal())
+            return oracle.distance(a.arr, a.idx, b.literal())
         # both sides row-dependent: exact per-row host loop
         return np.asarray(
             [gn.geometry_distance(a.arr, int(a.idx[k]), shp)
@@ -146,14 +136,14 @@ def bool_values(table, rows: Optional[np.ndarray], name: str,
         if a.constant and not b.constant:
             a, b = b, a
         if b.constant:
-            return oracle.intersects(a.points(), a.idx, b.literal())
+            return oracle.intersects(a.arr, a.idx, b.literal())
         return np.asarray(
             [gn.geometry_intersects(a.arr, int(a.idx[k]), shp)
              for k, shp in enumerate(_pairwise_shapes(b))], dtype=bool)
     if name == "st_contains":
         # st_contains(a, b): a contains b
         if a.constant:
-            return oracle.contains_literal(b.points(), b.idx, a.literal())
+            return oracle.contains_literal(b.arr, b.idx, a.literal())
         if b.constant:
             return oracle.feature_contains(a.arr, a.idx, b.literal())
         return np.concatenate(
@@ -208,22 +198,19 @@ def eval_filter_node(f, table, rows: Optional[np.ndarray],
         attr, x0, y0, x1, y1 = pre
         col = table.column(attr)
         if isinstance(col, geo.GeometryArray):
-            _points_only(col)
-            # a point's bbox is the point itself
-            x, y = col.point_xy()
-            x, y = x[r], y[r]
-            cand = np.nonzero((x <= x1) & (x >= x0)
-                              & (y <= y1) & (y >= y0))[0]
+            bb = col.bboxes()[r]
+            cand = np.nonzero((bb[:, 0] <= x1) & (bb[:, 2] >= x0)
+                              & (bb[:, 1] <= y1) & (bb[:, 3] >= y0))[0]
             out = np.zeros(len(r), dtype=bool)
             if len(cand) == 0:
                 return out
             sub = r[cand]
     eval_rows = r if sub is None else sub
     if isinstance(f, ir.Func):
-        vals = bool_values(table, eval_rows, f.name, f.args)
+        vals = bool_values(table, eval_rows, f.name, f.args, kernels)
     else:
         from geomesa_tpu_torch.filter.evaluate import _apply_op
-        s = scalar_values(table, eval_rows, f.name, f.args)
+        s = scalar_values(table, eval_rows, f.name, f.args, kernels)
         vals = _apply_op(f.op, s, f.value)
     if sub is None:
         return vals

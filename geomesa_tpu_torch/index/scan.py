@@ -42,7 +42,6 @@ import torch
 from geomesa_tpu_torch import trace as _trace
 from geomesa_tpu_torch.filter import ir
 from geomesa_tpu_torch.index import prune as _prune
-from geomesa_tpu_torch.index.api import not_ported
 
 
 class _RoundLedger:
@@ -1210,13 +1209,17 @@ class FusedQuery:
       ``vis`` section, ``geomesa_tpu/index/compiled.py:482-485``, one test
       for the whole query however many branches it has).
 
-    ``slots`` lists the residual columns ((name, kind), ...)."""
+    ``slots`` lists the residual columns ((name, kind), ...). With ``env``
+    the rows are an extent layer's envelopes: a row is in a box when its
+    envelope overlaps it (the fp62 envelope planes' keys against the same
+    box keys; ``fused_scan``'s ENV form)."""
 
-    def __init__(self, branches, vis=None):
+    def __init__(self, branches, vis=None, env: bool = False):
         secs: Dict[str, list] = {k: [] for k in
                                  ("br", "box", "gate", "wkey", "wbin",
                                   "prog", "const", "vis")}
         self.vis = vis is not None
+        self.env = bool(env)
         if self.vis:
             codes = np.asarray(vis, dtype=np.int64).reshape(-1)
             codes = codes[codes >= 0]
@@ -1368,6 +1371,11 @@ def fused_scan(cols, qbuf: torch.Tensor, query: FusedQuery, ids: torch.Tensor,
     - ``count``: int32 (1,) matches;
     - ``mask``: (bool (slots * bsz,) match per candidate, int32 (1,)).
 
+    With ``query.env`` (the ENV form) the table's rows are envelopes, and a
+    row is in a box when its envelope overlaps it (``bbox_overlap``'s test
+    on ``pack62`` keys: bxmin <= qxhi, bxmax >= qxlo, bymin <= qyhi, bymax
+    >= qylo).
+
     With ``runs`` (int32 (slots, 2), the RUNS form: the attribute index's
     staged ``count_at`` and ``select_at``, ≙ ``geomesa_tpu/index/scan.py
     :603-619``) a candidate is a member when its row lies in its slot's
@@ -1380,7 +1388,7 @@ def fused_scan(cols, qbuf: torch.Tensor, query: FusedQuery, ids: torch.Tensor,
     without reading ``n_blocks`` back it cannot size the work to the alive
     blocks, so on the CPU a query scans every row whatever the gate
     keeps."""
-    n = int(cols["xi"].shape[0])
+    n = int(cols["bxmin_i" if query.env else "xi"].shape[0])
     member, rows, _, _ = expand_blocks(cols, ids, bsz, n)
     if runs is not None:
         member = run_members(ids, runs, rows, bsz)
@@ -1392,9 +1400,14 @@ def fused_scan(cols, qbuf: torch.Tensor, query: FusedQuery, ids: torch.Tensor,
     consts = query.section(qbuf, "const", torch.int32, 1).reshape(-1)
     # the predicates over the table's rows in place; each candidate then
     # takes its row's flag
-    if query.points:
-        x = pack62(cols["xi"], cols["xl"])
-        y = pack62(cols["yi"], cols["yl"])
+    if query.points and query.env:
+        x = pack62(cols["bxmin_i"], cols["bxmin_l"])
+        y = pack62(cols["bymin_i"], cols["bymin_l"])
+        x1 = pack62(cols["bxmax_i"], cols["bxmax_l"])
+        y1 = pack62(cols["bymax_i"], cols["bymax_l"])
+    elif query.points:
+        x = x1 = pack62(cols["xi"], cols["xl"])
+        y = y1 = pack62(cols["yi"], cols["yl"])
     t = pack62(cols["bin"], cols["off"]) if query.has_time else None
     m = None
     for (b0, B, w0, T, p0, L), boxless in zip(query.branches,
@@ -1403,8 +1416,8 @@ def fused_scan(cols, qbuf: torch.Tensor, query: FusedQuery, ids: torch.Tensor,
         bm = torch.full((n,), boxless, dtype=torch.bool,
                         device=qbuf.device)
         for j in range(B):
-            bm |= ((x >= q[j, 0]) & (x <= q[j, 1])
-                   & (y >= q[j, 2]) & (y <= q[j, 3]))
+            bm |= ((x1 >= q[j, 0]) & (x <= q[j, 1])
+                   & (y1 >= q[j, 2]) & (y <= q[j, 3]))
         if T:
             bm &= _keys_in(t, wkey[w0: w0 + T, 0], wkey[w0: w0 + T, 1])
         if L:
@@ -1455,23 +1468,25 @@ def ordered_compact(mask: torch.Tensor, cap: int, fill: int,
 
 
 def staged_query(cols, stages) -> Optional[FusedQuery]:
-    """The packed query of staged scans over a point layer's ``cols``, one
-    ``FusedQuery`` branch a stage ``(primary_kind, boxes, windows,
-    residual)`` (a row matches when any stage holds), or None when the
-    stages take the torch ops (``_mask_kernel``): the table has no point
-    planes, a stage has the envelope primary ``bbox_overlap`` (the kernel
-    compares point keys), a residual has no program (deeper than
-    ``MAX_PROGRAM_DEPTH``), or the residuals read more columns than
-    ``fused_scan.MAX_SLOTS`` or pack past ``compiled.QUERY_MAX_BYTES`` —
-    the fused program's declines. Primary ``"none"`` is a branch without
-    boxes (every row is in; a query of such branches alone reads no point
-    plane). The gate section, which only ``block_gate`` reads, is
-    zeros. Residuals folded with authorizations (``fold_vis``) give the
-    query its ``vis`` section; stages whose allowed codes differ take the
-    torch ops."""
+    """The packed query of staged scans over a point layer's or an extent
+    layer's ``cols``, one ``FusedQuery`` branch a stage ``(primary_kind,
+    boxes, windows, residual)`` (a row matches when any stage holds), or
+    None when the stages take the torch ops (``_mask_kernel``): the table
+    has neither point nor envelope planes, a stage's primary is not the
+    table's (``point_boxes`` on points, ``bbox_overlap`` on envelopes —
+    the query's ``env``, ``fused_scan``'s ENV form), a residual has no
+    program (deeper than ``MAX_PROGRAM_DEPTH``), or the residuals read more
+    columns than ``fused_scan.MAX_SLOTS`` or pack past
+    ``compiled.QUERY_MAX_BYTES`` — the fused program's declines. Primary
+    ``"none"`` is a branch without boxes (every row is in; a query of such
+    branches alone reads no spatial plane). The gate section, which only
+    ``block_gate`` reads, is zeros. Residuals folded with authorizations
+    (``fold_vis``) give the query its ``vis`` section; stages whose allowed
+    codes differ take the torch ops."""
     from geomesa_tpu_torch.index.compiled import QUERY_MAX_BYTES
     from geomesa_tpu_torch.kernels.fused_scan import MAX_SLOTS
-    if "xi" not in cols:
+    env = "xi" not in cols
+    if env and "bxmin_i" not in cols:
         return None
     try:
         vis = shared_vis([st[3] for st in stages])
@@ -1483,7 +1498,7 @@ def staged_query(cols, stages) -> Optional[FusedQuery]:
     for primary_kind, boxes, windows, residual in stages:
         if primary_kind == "none":
             boxes = None
-        elif primary_kind != "point_boxes":
+        elif primary_kind != ("bbox_overlap" if env else "point_boxes"):
             if primary_kind in PRIMARY_FNS:
                 return None
             raise ValueError(f"primary kind {primary_kind}")
@@ -1498,7 +1513,7 @@ def staged_query(cols, stages) -> Optional[FusedQuery]:
             gate = np.zeros((len(boxes), 4), np.float32)
         branches.append((boxes, gate, windows, prog))
     try:
-        query = FusedQuery(branches, vis)
+        query = FusedQuery(branches, vis, env)
     except Unsupported:       # one column read as two kinds
         return None
     if len(query.slots) > MAX_SLOTS or len(query.packed) > QUERY_MAX_BYTES:
@@ -1910,31 +1925,48 @@ class ScanKernels:
     def _runs_candidates(self, stage, runs, mode: str):
         """Zero-arg dispatcher over the candidates of ``runs``: ``mode``
         "count" → 0-d int32; "mask" → (candidate mask, starts, n_blocks,
-        bsz). A point layer's stage is one launch of ``fused_scan``'s RUNS
-        form. An extent layer's ``bbox_overlap`` primary, or a table
-        without point planes, runs the torch ops over the pieces' gathered
-        rows (``fused_scan`` takes no envelope primary, ROADMAP.md Queue 2
-        item 18); any other stage ``staged_query`` declines (a residual
-        past the program's limits, authorizations it cannot fold) raises,
-        naming ROADMAP.md Queue 1 item 20."""
+        bsz). A stage ``staged_query`` packs (a point layer's, or an extent
+        layer's through the ENV form) is one launch of ``fused_scan``'s RUNS
+        form. A stage whose residual it declines (deeper than
+        ``MAX_PROGRAM_DEPTH``, more than ``fused_scan.MAX_SLOTS`` columns,
+        packed past ``QUERY_MAX_BYTES``) keeps its primary — boxes,
+        windows, runs — on that launch as a mask, and ANDs the residual in
+        as torch ops over the pieces' gathered rows (the closure the block
+        form runs for the same residuals). A table the kernel cannot read
+        runs the torch ops over the gathered rows."""
         from geomesa_tpu_torch.kernels.fused_scan import fused_scan
         ids, bounds, nb, starts, bsz = self._runs_space(runs)
-        query = staged_query(self.cols, [stage])
-        if query is None and "xi" in self.cols \
-                and stage[0] != "bbox_overlap":
-            raise not_ported("a sliced scan whose residual the fused_scan "
-                             "RUNS form cannot take", 20)
+        cols, n = self.cols, self.n
+        query = staged_query(cols, [stage])
         if query is not None:
             qbuf = self._dev(query.packed)
             if mode == "count":
-                return lambda: fused_scan(self.cols, qbuf, query, ids, nb, bsz,
+                return lambda: fused_scan(cols, qbuf, query, ids, nb, bsz,
                                           "count", runs=bounds).reshape(())
             dstarts = self._dev(starts)
-            return lambda: (fused_scan(self.cols, qbuf, query, ids, nb, bsz,
+            return lambda: (fused_scan(cols, qbuf, query, ids, nb, bsz,
                                        "mask", runs=bounds)[0], dstarts, nb,
                             bsz)
+        kind, boxes, windows, residual = stage
+        prim = staged_query(cols, [(kind, boxes, windows, None)]) \
+            if residual is not None and residual[2] is not None else None
+        if prim is not None:
+            qbuf = self._dev(prim.packed)
+            dstarts = self._dev(starts)
+            fn, rp = residual[2], [self._dev(p) for p in residual[1]]
+
+            def run_residual():
+                m = fused_scan(cols, qbuf, prim, ids, nb, bsz, "mask",
+                               runs=bounds)[0]
+                m = m & fn(expand_blocks(cols, ids, bsz, n)[3], rp)
+                if mode == "mask":
+                    return m, dstarts, nb, bsz
+                # the kernel leaves the bytes past the live pieces unwritten
+                live = torch.arange(m.shape[0], device=m.device) \
+                    < nb.to(torch.int64) * bsz
+                return (m & live).sum(dtype=torch.int32)
+            return run_residual
         f = self._stage(*stage)
-        cols, n = self.cols, self.n
 
         def run():
             _, rows, astart, g = expand_blocks(cols, ids, bsz, n)
@@ -2017,8 +2049,9 @@ class ScanKernels:
         ``ensure_segment_columns``) against a polygon's f32 ``edges``,
         padded as the reference pads them (a power of two of at least 4
         rows of ``EDGE_PAD``; the kernel reads the real rows only). The
-        residual runs as torch ops over the gathered residual columns,
-        into a mask of the candidates."""
+        residual is a mask of the candidates: ``fused_scan``'s mask of the
+        residual alone (a boxless stage) where ``staged_query`` packs it,
+        else torch ops over the gathered residual columns."""
         from geomesa_tpu_torch.kernels.seg_band import seg_band as kernel
         if primary_kind != "bbox_overlap":
             raise ValueError(f"primary kind {primary_kind}")
@@ -2028,13 +2061,18 @@ class ScanKernels:
         n_edges = len(edges)
         b, w, e = self._dev(boxes), self._dev(windows), self._dev(ep)
         fn = residual[2] if residual else None
-        rp = [self._dev(p) for p in residual[1]] if residual else []
+        sc = self._scan([("none", None, None, residual)], blocks,
+                        block_size) if fn is not None else None
+        rp = [self._dev(p) for p in residual[1]] \
+            if residual and sc is None else []
         db = self._dev(self._pad_blocks(blocks))
         cols, n = self.cols, self.n
 
         def run():
             rm = None
-            if fn is not None:
+            if sc is not None:   # the cover's layout, as seg_band's
+                rm = self._kernel_mask(sc)
+            elif fn is not None:
                 rm = fn(expand_blocks(cols, db, block_size, n)[3], rp)
             return kernel(cols, b, w, rm, db, block_size, e, n_edges,
                           unc_cap)

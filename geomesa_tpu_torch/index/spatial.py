@@ -1,4 +1,5 @@
-"""The spatial indexes: Z3, XZ3, Z2 and XZ2 (≙ ``geomesa_tpu.index.spatial``).
+"""The spatial indexes: S3, S2, Z3, XZ3, Z2, XZ2 and the full-scan index
+(≙ ``geomesa_tpu.index.spatial``).
 
 Each index owns a device-resident projection of the table sorted in its key
 order — epoch-major for the temporal variants, the reference's
@@ -8,7 +9,11 @@ range pruning:
   - ``Z3Index``  point + time, (bin, z3) order (Z3IndexKeySpace.scala:34);
   - ``XZ3Index`` extent + time, (bin, xz3) order (XZ3IndexKeySpace.scala:33);
   - ``Z2Index``  point, z2 order (Z2IndexKeySpace.scala:29);
-  - ``XZ2Index`` extent, xz2 order (XZ2IndexKeySpace.scala:28).
+  - ``XZ2Index`` extent, xz2 order (XZ2IndexKeySpace.scala:28);
+  - ``S3Index``/``S2Index`` point (+ time), (bin, s2) / s2 order, opt-in
+    through ``geomesa.indices`` (S3IndexKeySpace.scala:36,
+    S2IndexKeySpace.scala:34);
+  - ``FullScanIndex`` the table's natural order.
 
 A point layer builds as the reference's ``_build_native`` does: the
 native C++ encoder (``geomesa_tpu_torch.native``) makes every plane and
@@ -25,7 +30,7 @@ primary (``bbox_overlap``) on extent layers — exact binned-time windows and
 a residual split between the device and the host; ``candidate_blocks``
 covers a plan with the gather blocks of its key ranges (the staged path's
 range pruning). ``ensure_segment_columns`` uploads a single-segment line
-layer's endpoints for the certainty-band intersects count. ``Z3Index``
+layer's endpoints for the certainty-band intersects count. Every index
 also builds incrementally from a grown table (``merge_from``, the
 ``merge_scatter`` kernel).
 """
@@ -43,6 +48,7 @@ import torch
 from geomesa_tpu_torch import config
 from geomesa_tpu_torch.curves.binnedtime import (TimePeriod, max_offset,
                                                  time_to_binned_time)
+from geomesa_tpu_torch.curves.s2 import S2SFC
 from geomesa_tpu_torch.curves.sfc import Z2SFC, Z3SFC
 from geomesa_tpu_torch.curves.xz import XZ2SFC, XZ3SFC
 from geomesa_tpu_torch.features import geometry as geo
@@ -52,7 +58,7 @@ from geomesa_tpu_torch.filter.extract import (WHOLE_WORLD, Extraction,
                                               extract_bboxes,
                                               extract_intervals)
 from geomesa_tpu_torch.index import prune as _p
-from geomesa_tpu_torch.index.api import IndexScanPlan, not_ported
+from geomesa_tpu_torch.index.api import IndexScanPlan
 from geomesa_tpu_torch.index.device import (DeviceTable, fp62_lat, fp62_lon,
                                             host_planes, resolve, sync)
 from geomesa_tpu_torch.index.scan import (Readback, ScanKernels, _dev,
@@ -277,6 +283,21 @@ class _DeltaKeyShim:
         self.geom = geom
         self.dtg = dtg
         self.period = period
+
+
+def _segment_planes(garr) -> Optional[Dict[str, np.ndarray]]:
+    """The f32 endpoint planes ``sx1``/``sy1``/``sx2``/``sy2`` of a column
+    of two-point LineStrings, in table order; None when any feature is
+    another shape (or the column is empty or of points)."""
+    if garr.is_point_column or not len(garr):
+        return None
+    counts = np.diff(garr.ring_offsets)
+    if not (np.all(garr.type_codes == geo.LINESTRING)
+            and len(counts) == len(garr) and np.all(counts == 2)):
+        return None
+    segs = garr.coords.reshape(len(garr), 4)
+    return {name: np.ascontiguousarray(segs[:, i].astype(np.float32))
+            for i, name in enumerate(("sx1", "sy1", "sx2", "sy2"))}
 
 
 class BaseSpatialIndex:
@@ -562,20 +583,159 @@ class BaseSpatialIndex:
         cached = getattr(self, "_seg_cols_ok", None)
         if cached is not None:
             return cached
-        ok = False
-        garr = self.table.geometry()
-        if not garr.is_point_column and len(garr):
-            counts = np.diff(garr.ring_offsets)
-            if (np.all(garr.type_codes == geo.LINESTRING)
-                    and len(counts) == len(garr) and np.all(counts == 2)):
-                segs = garr.coords.reshape(len(garr), 4)
-                for i, name in enumerate(("sx1", "sy1", "sx2", "sy2")):
-                    raw = torch.from_numpy(np.ascontiguousarray(
-                        segs[:, i].astype(np.float32))).to(self.perm.device)
-                    self.device.columns[name] = raw.index_select(0, self.perm)
-                ok = True
-        self._seg_cols_ok = ok
-        return ok
+        planes = _segment_planes(self.table.geometry())
+        if planes is not None:
+            for name, v in planes.items():
+                raw = torch.from_numpy(v).to(self.perm.device)
+                self.device.columns[name] = raw.index_select(0, self.perm)
+        self._seg_cols_ok = planes is not None
+        return self._seg_cols_ok
+
+    # incremental merge builds --------------------------------------------
+
+    @classmethod
+    def merge_from(cls, old: "BaseSpatialIndex", merged_table: FeatureTable,
+                   n_old: int) -> "BaseSpatialIndex":
+        """Incremental (LSM-merge) build of any spatial index (≙ the
+        reference's ``BaseSpatialIndex.merge_from``,
+        ``geomesa_tpu/index/spatial.py:663-823``): ``merged_table`` is
+        ``old.table`` followed by ``n_delta`` appended rows. Only the delta
+        run's keys are encoded and sorted (``np.lexsort`` of its key
+        planes); each delta row's rank ``r`` among the resident sorted keys
+        comes from a ``searchsorted`` of its ``_z``/``_xz`` secondary, per
+        bin segment on a temporal index, with ties to the residents
+        (``side="right"``); the full-scan index appends in natural order
+        (every rank ``n_old``). The host key planes merge by direct
+        placement; the device columns (an extent layer's envelope planes
+        and, where the merged layer keeps them, its segment planes too) and
+        the permutation merge in one ``merge_scatter`` launch, moving only
+        delta-sized data over the host link; a cached host permutation
+        (``host_perm``) merges by the same placement, so it survives the
+        flush. Dictionary columns whose vocabulary grew, and the visibility
+        codes, rebuild from the merged codes. The result is bitwise the full
+        rebuild's: the merged order is the stable lexsort of the
+        concatenated keys (residents keep their order, delta rows keep
+        theirs, ties go to the smaller table row — a resident)."""
+        n_new = len(merged_table)
+        n_delta = n_new - n_old
+        self = cls.__new__(cls)
+        self.sft = old.sft
+        self.table = merged_table
+        self.geom, self.dtg, self.period = old.geom, old.dtg, old.period
+        if hasattr(old, "_sfc"):
+            self._sfc = old._sfc
+        st: Dict[str, float] = {}
+        t0 = time.perf_counter()
+
+        # 1-2. the delta run's keys and its own stable sort
+        delta_table = merged_table.take(np.arange(n_old, n_new,
+                                                  dtype=np.int64))
+        shim = _DeltaKeyShim(old.sft, delta_table, old.geom, old.dtg,
+                             old.period)
+        keys_d = cls._sort_keys(shim)
+        t1 = time.perf_counter()
+
+        # 3. ranks among the residents (bin segment by bin segment)
+        touched = 0
+        runs = []
+        if keys_d is None:   # natural order: the delta appends
+            p_d = np.arange(n_delta, dtype=np.int64)
+            r = np.full(n_delta, n_old, dtype=np.int64)
+        else:
+            p_d = np.lexsort(tuple(reversed(keys_d))).astype(np.int64)
+            sec = "_z" if hasattr(shim, "_z") else "_xz"
+            sec_d = np.asarray(getattr(shim, sec))
+            sec_sd = sec_d[p_d]
+            old_sec = getattr(old, "sorted" + sec)
+            bins_d = getattr(shim, "_bins", None)
+            if bins_d is not None:
+                b_sd = bins_d[p_d]
+                old_b = old.sorted_bins
+                r = np.empty(n_delta, dtype=np.int64)
+                ub = np.unique(b_sd)
+                touched = len(ub)
+                for b in ub:
+                    ds = np.searchsorted(b_sd, b, side="left")
+                    de = np.searchsorted(b_sd, b, side="right")
+                    rs = np.searchsorted(old_b, b, side="left")
+                    re_ = np.searchsorted(old_b, b, side="right")
+                    r[ds:de] = rs + np.searchsorted(old_sec[rs:re_],
+                                                    sec_sd[ds:de],
+                                                    side="right")
+                self._bins = np.concatenate([old._bins, bins_d])
+                runs.append(("_sorted_bins", old_b, b_sd))
+            else:
+                r = np.searchsorted(old_sec, sec_sd,
+                                    side="right").astype(np.int64)
+            setattr(self, sec, np.concatenate([getattr(old, sec), sec_d]))
+            runs.append(("_sorted" + sec, old_sec, sec_sd))
+        t2 = time.perf_counter()
+
+        # 4. host key planes: delta row j lands at r[j] + j, the residents
+        # fill the rest in order; so does a cached host permutation (the
+        # device one merges in step 7 in either case)
+        if old._perm_cache is not None:
+            runs.append(("_perm_cache", old._perm_cache, n_old + p_d))
+        if runs:
+            is_delta = np.zeros(n_new, dtype=bool)
+            is_delta[r + np.arange(n_delta, dtype=np.int64)] = True
+            for attr, res, dl in runs:
+                merged = np.empty(n_new, dtype=res.dtype)
+                merged[~is_delta] = res
+                merged[is_delta] = dl
+                setattr(self, attr, merged)
+            del is_delta
+        t3 = time.perf_counter()
+
+        # 5. dictionary columns whose vocab grew under the union-vocab
+        # concat: the resident device codes are stale, so those columns
+        # rebuild from the merged codes
+        self.vocabs = {name: col.vocab
+                       for name, col in merged_table.columns.items()
+                       if isinstance(col, StringColumn)}
+        stale = [name for name in old.device.columns
+                 if name in self.vocabs
+                 and old.vocabs.get(name) != self.vocabs[name]]
+        full_codes = {name: merged_table.columns[name].codes
+                      for name in stale}
+        # the visibility codes likewise, and when the old table had none
+        # (≙ ``geomesa_tpu/index/spatial.py:790-796``)
+        old_vis, new_vis = old.table.visibility, merged_table.visibility
+        if new_vis is not None and (
+                "__vis__" not in old.device.columns or old_vis is None
+                or old_vis.vocab != new_vis.vocab):
+            stale.append("__vis__")
+            full_codes["__vis__"] = new_vis.codes
+        t4 = time.perf_counter()
+
+        # 6. the delta's device planes, in delta-sorted order; a line
+        # layer's segment planes while every merged feature is still one
+        # segment (else they drop, and ``ensure_segment_columns`` declines)
+        delta_planes = host_planes(delta_table, old.period)
+        seg = _segment_planes(delta_table.geometry()) \
+            if getattr(old, "_seg_cols_ok", None) else None
+        if seg is not None:
+            delta_planes.update(seg)
+            self._seg_cols_ok = True
+        delta_planes = {k: v[p_d] for k, v in delta_planes.items()}
+        t5 = time.perf_counter()
+
+        # 7. one merge_scatter launch: every column and the permutation
+        self.device, self.perm = DeviceTable.merge_scatter(
+            old.device, delta_planes, r, stale=stale, full_codes=full_codes,
+            perm_pair=(old.perm, n_old + p_d),
+            host_perm=self._perm_cache, stages=st)
+
+        # 8. the staged scan modes over the merged columns
+        self.kernels = ScanKernels(self.device.columns)
+        st.update(keys_s=t1 - t0, rank_s=t2 - t1, host_runs_s=t3 - t2,
+                  vocab_s=t4 - t3, planes_s=t5 - t4,
+                  merge_s=time.perf_counter() - t0, merge_rows=n_delta,
+                  merge_fraction=n_delta / max(1, n_old),
+                  merge_touched_bins=touched,
+                  merge_stale_cols=sorted(stale))
+        self.build_stages = st
+        return self
 
     # planning ---------------------------------------------------------------
 
@@ -654,119 +814,6 @@ class Z3Index(BaseSpatialIndex):
     name = "z3"
     temporal = True
     points = True
-
-    @classmethod
-    def merge_from(cls, old: "Z3Index", merged_table: FeatureTable,
-                   n_old: int) -> "Z3Index":
-        """Incremental (LSM-merge) build (≙
-        ``geomesa_tpu/index/spatial.py:663-823``): ``merged_table`` is
-        ``old.table`` followed by ``n_delta`` appended rows. Only the delta
-        run's keys are encoded and sorted (``np.lexsort``); each delta row's
-        rank ``r`` among the resident sorted keys comes from a per-bin
-        ``searchsorted`` with ties to the residents (``side="right"``); the
-        host key planes merge by direct placement; the device columns and
-        the permutation merge in one ``merge_scatter`` launch, moving only
-        delta-sized data over the host link; a cached host permutation
-        (``host_perm``) merges by the same placement, so it survives the
-        flush. Dictionary columns whose vocabulary grew, and the visibility
-        codes, rebuild from the merged codes. The result is bitwise the full
-        rebuild's: the merged order is the stable lexsort of the
-        concatenated keys (residents keep their order, delta rows keep
-        theirs, ties go to the smaller table row — a resident)."""
-        n_new = len(merged_table)
-        n_delta = n_new - n_old
-        self = cls.__new__(cls)
-        self.sft = old.sft
-        self.table = merged_table
-        self.geom, self.dtg = old.geom, old.dtg
-        self.period, self._sfc = old.period, old._sfc
-        st: Dict[str, float] = {}
-        t0 = time.perf_counter()
-
-        # 1-2. the delta run's keys and its own stable sort
-        delta_table = merged_table.take(np.arange(n_old, n_new,
-                                                  dtype=np.int64))
-        shim = _DeltaKeyShim(old.sft, delta_table, old.geom, old.dtg,
-                             old.period)
-        cls._sort_keys(shim)
-        bins_d, z_d = shim._bins, shim._z
-        p_d = np.lexsort((z_d, bins_d)).astype(np.int64)
-        z_sd, b_sd = z_d[p_d], bins_d[p_d]
-        t1 = time.perf_counter()
-
-        # 3. ranks among the residents, bin segment by bin segment
-        old_z, old_b = old.sorted_z, old.sorted_bins
-        r = np.empty(n_delta, dtype=np.int64)
-        touched = np.unique(b_sd)
-        for b in touched:
-            ds = np.searchsorted(b_sd, b, side="left")
-            de = np.searchsorted(b_sd, b, side="right")
-            rs = np.searchsorted(old_b, b, side="left")
-            re_ = np.searchsorted(old_b, b, side="right")
-            r[ds:de] = rs + np.searchsorted(old_z[rs:re_], z_sd[ds:de],
-                                            side="right")
-        t2 = time.perf_counter()
-
-        # 4. host key planes: delta row j lands at r[j] + j, the residents
-        # fill the rest in order; so does a cached host permutation (the
-        # device one merges in step 7 in either case)
-        is_delta = np.zeros(n_new, dtype=bool)
-        is_delta[r + np.arange(n_delta, dtype=np.int64)] = True
-        self._z = np.concatenate([old._z, z_d])
-        self._bins = np.concatenate([old._bins, bins_d])
-        runs = [("_sorted_z", old_z, z_sd), ("_sorted_bins", old_b, b_sd)]
-        if old._perm_cache is not None:
-            runs.append(("_perm_cache", old._perm_cache, n_old + p_d))
-        for attr, res, dl in runs:
-            merged = np.empty(n_new, dtype=res.dtype)
-            merged[~is_delta] = res
-            merged[is_delta] = dl
-            setattr(self, attr, merged)
-        del is_delta
-        t3 = time.perf_counter()
-
-        # 5. dictionary columns whose vocab grew under the union-vocab
-        # concat: the resident device codes are stale, so those columns
-        # rebuild from the merged codes
-        self.vocabs = {name: col.vocab
-                       for name, col in merged_table.columns.items()
-                       if isinstance(col, StringColumn)}
-        stale = [name for name in old.device.columns
-                 if name in self.vocabs
-                 and old.vocabs.get(name) != self.vocabs[name]]
-        full_codes = {name: merged_table.columns[name].codes
-                      for name in stale}
-        # the visibility codes likewise, and when the old table had none
-        # (≙ ``geomesa_tpu/index/spatial.py:790-796``)
-        old_vis, new_vis = old.table.visibility, merged_table.visibility
-        if new_vis is not None and (
-                "__vis__" not in old.device.columns or old_vis is None
-                or old_vis.vocab != new_vis.vocab):
-            stale.append("__vis__")
-            full_codes["__vis__"] = new_vis.codes
-        t4 = time.perf_counter()
-
-        # 6. the delta's device planes, in delta-sorted order
-        delta_planes = {k: v[p_d] for k, v in
-                        host_planes(delta_table, old.period).items()}
-        t5 = time.perf_counter()
-
-        # 7. one merge_scatter launch: every column and the permutation
-        self.device, self.perm = DeviceTable.merge_scatter(
-            old.device, delta_planes, r, stale=stale, full_codes=full_codes,
-            perm_pair=(old.perm, n_old + p_d),
-            host_perm=self._perm_cache, stages=st)
-
-        # 8. the staged scan modes over the merged columns
-        self.kernels = ScanKernels(self.device.columns)
-        st.update(keys_s=t1 - t0, rank_s=t2 - t1, host_runs_s=t3 - t2,
-                  vocab_s=t4 - t3, planes_s=t5 - t4,
-                  merge_s=time.perf_counter() - t0, merge_rows=n_delta,
-                  merge_fraction=n_delta / max(1, n_old),
-                  merge_touched_bins=len(touched),
-                  merge_stale_cols=sorted(stale))
-        self.build_stages = st
-        return self
 
     @classmethod
     def supports(cls, sft) -> bool:
@@ -940,6 +987,85 @@ class XZ2Index(BaseSpatialIndex):
         return _p.ranges_to_slices(self.sorted_xz, rs)
 
 
+class S2Index(BaseSpatialIndex):
+    """Point, no time: S2 (Hilbert-on-cube) order, opt-in through
+    ``geomesa.indices=s2`` (≙ the reference's ``S2Index``,
+    ``geomesa_tpu/index/spatial.py:1218-1251``; S2IndexKeySpace.scala:34).
+    Its keys come from the host encode (``curves.s2``) and sort on the
+    device; its table is a point table, so it scans as Z2's does."""
+
+    name = "s2"
+    temporal = False
+    points = True
+    # measured cover slop vs true rows (curves/s2.py _cell_rect): the cost
+    # model prices S2 plans above an equally-selective Z cover
+    cover_slop = 1.1
+
+    @classmethod
+    def supports(cls, sft) -> bool:
+        g = sft.geometry_attribute
+        names = sft.configured_indices
+        return (names is not None and "s2" in names
+                and g is not None and g.type_name == "Point")
+
+    def _sort_keys(self) -> List[np.ndarray]:
+        x, y = self.table.geometry().point_xy()
+        self._z = S2SFC.apply().index(x, y, lenient=True)
+        return _split63(self._z)
+
+    @property
+    def sorted_z(self) -> np.ndarray:
+        return self._sorted_plane("_sorted_z", self._z)
+
+    def _row_slices(self, boxes, intervals) -> Optional[np.ndarray]:
+        rs = S2SFC.apply().ranges(boxes, max_ranges=_p.MAX_RANGES)
+        return _p.ranges_to_slices(self.sorted_z, rs)
+
+
+class S3Index(BaseSpatialIndex):
+    """Point + time: epoch-major (bin, s2) order, opt-in through
+    ``geomesa.indices=s3`` (≙ the reference's ``S3Index``,
+    ``geomesa_tpu/index/spatial.py:1254-1301``; S3IndexKeySpace.scala:36):
+    the S2 cell id carries no time bits, so temporal pruning lands at bin
+    granularity, as in the [epoch][s2] layout."""
+
+    name = "s3"
+    temporal = True
+    points = True
+    cover_slop = 1.1   # see S2Index
+
+    @classmethod
+    def supports(cls, sft) -> bool:
+        g = sft.geometry_attribute
+        names = sft.configured_indices
+        return (names is not None and "s3" in names and g is not None
+                and g.type_name == "Point" and sft.dtg_attribute is not None)
+
+    def _sort_keys(self) -> List[np.ndarray]:
+        x, y = self.table.geometry().point_xy()
+        ms = np.asarray(self.table.columns[self.dtg], dtype=np.int64)
+        bins, _ = time_to_binned_time(ms, self.period)
+        self._z = S2SFC.apply().index(x, y, lenient=True)
+        self._bins = np.asarray(bins, dtype=np.int32)
+        return [self._bins] + _split63(self._z)
+
+    @property
+    def sorted_z(self) -> np.ndarray:
+        return self._sorted_plane("_sorted_z", self._z)
+
+    def _row_slices(self, boxes, intervals) -> Optional[np.ndarray]:
+        sfc = S2SFC.apply()
+        cover = {}
+
+        def cover_fn(bx, w):   # no time dim in the s2 key: one shared cover
+            if "c" not in cover:
+                cover["c"] = sfc.ranges(bx, max_ranges=_p.MAX_RANGES)
+            return cover["c"]
+
+        return self._binned_row_slices(boxes, intervals, self.sorted_z,
+                                       cover_fn)
+
+
 class FullScanIndex(BaseSpatialIndex):
     """Natural-order fallback for a schema with no spatial index (≙ the
     reference's ``FullScanIndex``, ``geomesa_tpu/index/spatial.py
@@ -976,11 +1102,10 @@ class FullScanIndex(BaseSpatialIndex):
             explain={"index": self.name, "residual_host": host_res})
 
 
-# the reference's default order (geomesa_tpu/index/spatial.py:1334, its
-# opt-in S3/S2 aside): a schema builds the first class that supports it
-INDEX_CLASSES = [Z3Index, XZ3Index, Z2Index, XZ2Index]
-# the reference's S2/S3 indexes (geomesa_tpu/index/spatial.py:1171-1302)
-_NOT_PORTED = ("s2", "s3")
+# the reference's order (geomesa_tpu/index/spatial.py:1334): a schema
+# builds the first class that supports it (S3 and S2 only where
+# ``geomesa.indices`` names them)
+INDEX_CLASSES = [S3Index, S2Index, Z3Index, XZ3Index, Z2Index, XZ2Index]
 
 
 def spatial_index_class(sft):
@@ -988,11 +1113,8 @@ def spatial_index_class(sft):
     ``_build_planner``, ``geomesa_tpu/datastore.py:519-530``): the first
     class of ``INDEX_CLASSES`` that supports ``sft`` and, when
     ``geomesa.indices`` names indexes, that it names; None when there is
-    none (the full-scan index then serves). A configured ``s2`` or ``s3``
-    raises."""
+    none (the full-scan index then serves)."""
     names = sft.configured_indices
-    if names is not None and any(n in _NOT_PORTED for n in names):
-        raise not_ported("the S2 and S3 indexes", 9)
     for c in INDEX_CLASSES:
         if names is not None and c.name not in names:
             continue

@@ -106,6 +106,29 @@
 //   (its registers and spills unchanged).
 // - RUNS is a template instantiation of its own for the same reason: the
 //   block form reads no run bounds and keeps its code.
+//
+// The ENV form replaces the envelope primary of extent layers (lines and
+// polygons): the reference's _bbox_overlap_pairwise through _mask_kernel
+// (geomesa_tpu/index/scan.py:100-114, :368), which the staged modes of an
+// XZ2/XZ3 layer run for their counts, masks, selects and densities. A row
+// is then an envelope, eight fp62 planes (bxmin, bxmax, bymin, bymax, each
+// an int/frac pair), and it lies in a box when the envelope overlaps it:
+// bxmin <= qxhi, bxmax >= qxlo, bymin <= qyhi and bymax >= qylo, compared
+// as pack62 keys like the point form's (so the host packs the same box
+// keys). Its design, a first one:
+// - ENV is a template instantiation of its own (as BOXLESS, VIS and RUNS
+//   are), so the point form's registers stay as they were; it takes the
+//   block, table, RUNS and VIS shapes and both modes. A branch without
+//   boxes keeps the r[6] flag; a query of such branches alone takes the
+//   BOXLESS form, which reads no spatial plane of either kind.
+// - A quad loads its eight envelope planes with eight 16-byte streaming
+//   loads, all issued before any compare, but without the point form's
+//   register double buffer: two quads of eight planes would hold 64
+//   registers of loads a thread and spill at three CTAs an SM. The three
+//   CTAs' 24 warps an SM keep the loads in flight instead.
+// - What bounds it: 32 bytes of envelope planes a candidate, __valid__'s
+//   byte, and in MASK mode a byte written; per (candidate, box) four
+//   64-bit key compares.
 
 #include "lookback.cuh"
 
@@ -122,10 +145,14 @@ enum Kind { K_I32 = 0, K_F32 = 1, K_BOOL = 2 };
 enum Op { OP_TRUE = 0, OP_FALSE, OP_AND, OP_OR, OP_NOT, OP_CMP, OP_IN };
 
 struct Params {
-  const int* xi;
+  const int* xi;            // ENV: the envelope's bxmin planes, then bymin
   const int* xl;
   const int* yi;
   const int* yl;
+  const int* hxi;           // ENV: bxmax_i, bxmax_l, bymax_i, bymax_l
+  const int* hxl;
+  const int* hyi;
+  const int* hyl;
   const int* bin;           // null without windows
   const int* off;
   const uint8_t* valid;     // __valid__ per table row, or null
@@ -245,9 +272,12 @@ __device__ __forceinline__ bool run_program(const Query& q, const int4* words,
   return st & 1ull;
 }
 
-// any branch holds at `row`, whose point keys are x, y
+// any branch holds at `row`, whose point keys are x, y (ENV: whose
+// envelope keys are x..x1, y..y1)
+template <bool ENV>
 __device__ __forceinline__ bool matches(const Params& p, const Query& q,
                                         long long x, long long y,
+                                        long long x1, long long y1,
                                         long long row) {
   bool have_t = false;
   long long tk = 0;
@@ -256,7 +286,8 @@ __device__ __forceinline__ bool matches(const Params& p, const Query& q,
     bool in = r[6] != 0;   // a boxless branch: every row is in its boxes
     for (int j = r[0], e = r[0] + r[1]; j < e && !in; ++j) {
       const BoxKeys b = q.box[j];
-      in = (x >= b.xlo) & (x <= b.xhi) & (y >= b.ylo) & (y <= b.yhi);
+      in = ENV ? (x <= b.xhi) & (x1 >= b.xlo) & (y <= b.yhi) & (y1 >= b.ylo)
+               : (x >= b.xlo) & (x <= b.xhi) & (y >= b.ylo) & (y <= b.yhi);
     }
     if (!in) continue;
     if (r[3] > 0) {
@@ -312,6 +343,14 @@ struct Quad {
   bool vec;          // loaded; else the scalar path
 };
 
+// ENV: a quad's envelope maxima beside its minima (xi..yl)
+template <bool ENV>
+struct QuadT : Quad {};
+template <>
+struct QuadT<true> : Quad {
+  int4 hxi, hxl, hyi, hyl;
+};
+
 __device__ __forceinline__ int lane_of(const int4& v, int j) {
   return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
 }
@@ -336,9 +375,9 @@ __device__ __forceinline__ int4 load_slot(const Params& p, int slot,
 }
 
 // issue quad q's loads, or mark it for the scalar path
-template <bool BOXLESS, bool VIS, bool RUNS>
+template <bool BOXLESS, bool VIS, bool RUNS, bool ENV>
 __device__ __forceinline__ void load_quad(const Params& p, long long q,
-                                          Quad& d) {
+                                          QuadT<ENV>& d) {
   d.vec = false;
   if (!p.vec) return;
   unsigned slot;
@@ -360,6 +399,12 @@ __device__ __forceinline__ void load_quad(const Params& p, long long q,
     d.xl = __ldcs(reinterpret_cast<const int4*>(p.xl + d.row0));
     d.yi = __ldcs(reinterpret_cast<const int4*>(p.yi + d.row0));
     d.yl = __ldcs(reinterpret_cast<const int4*>(p.yl + d.row0));
+    if constexpr (ENV) {
+      d.hxi = __ldcs(reinterpret_cast<const int4*>(p.hxi + d.row0));
+      d.hxl = __ldcs(reinterpret_cast<const int4*>(p.hxl + d.row0));
+      d.hyi = __ldcs(reinterpret_cast<const int4*>(p.hyi + d.row0));
+      d.hyl = __ldcs(reinterpret_cast<const int4*>(p.hyl + d.row0));
+    }
   } else {   // no box: the time planes and residual columns take them
     const int4 z = make_int4(0, 0, 0, 0);
     d.xi = p.bin ? __ldcs(reinterpret_cast<const int4*>(p.bin + d.row0)) : z;
@@ -379,10 +424,10 @@ __device__ __forceinline__ void load_quad(const Params& p, long long q,
 }
 
 // a loaded quad's flags, 0 or 1 a byte
-template <bool VIS>
+template <bool VIS, bool ENV>
 __device__ __forceinline__ unsigned test_quad(const Params& p,
                                               const Query& q,
-                                              const Quad& d) {
+                                              const QuadT<ENV>& d) {
   unsigned bytes = 0;
 #pragma unroll
   for (int j = 0; j < QUAD; ++j) {
@@ -391,7 +436,13 @@ __device__ __forceinline__ unsigned test_quad(const Params& p,
     if (VIS && !vis_ok(q, lane_of(d.vc, j))) continue;
     const long long x = pack62(lane_of(d.xi, j), lane_of(d.xl, j));
     const long long y = pack62(lane_of(d.yi, j), lane_of(d.yl, j));
-    if (matches(p, q, x, y, d.row0 + j)) bytes |= 1u << (8 * j);
+    long long x1 = x, y1 = y;
+    if constexpr (ENV) {
+      x1 = pack62(lane_of(d.hxi, j), lane_of(d.hxl, j));
+      y1 = pack62(lane_of(d.hyi, j), lane_of(d.hyl, j));
+    }
+    if (matches<ENV>(p, q, x, y, x1, y1, d.row0 + j))
+      bytes |= 1u << (8 * j);
   }
   return bytes;
 }
@@ -517,7 +568,7 @@ __device__ __forceinline__ unsigned test_quad_boxless(const Params& p,
 
 // quad q a candidate at a time (loads behind each test); the flags, 0 or
 // 1 a byte, of its candidates below live
-template <bool BOXLESS, bool VIS, bool RUNS>
+template <bool BOXLESS, bool VIS, bool RUNS, bool ENV>
 __device__ __forceinline__ unsigned scalar_quad(const Params& p,
                                                 const Query& q, long long qd,
                                                 long long live) {
@@ -535,7 +586,11 @@ __device__ __forceinline__ unsigned scalar_quad(const Params& p,
         BOXLESS ? 0 : pack62(__ldg(p.xi + row), __ldg(p.xl + row));
     const long long y =
         BOXLESS ? 0 : pack62(__ldg(p.yi + row), __ldg(p.yl + row));
-    if (matches(p, q, x, y, row)) bytes |= 1u << (8 * j);
+    const long long x1 =
+        ENV ? pack62(__ldg(p.hxi + row), __ldg(p.hxl + row)) : x;
+    const long long y1 =
+        ENV ? pack62(__ldg(p.hyi + row), __ldg(p.hyl + row)) : y;
+    if (matches<ENV>(p, q, x, y, x1, y1, row)) bytes |= 1u << (8 * j);
   }
   return bytes;
 }
@@ -543,8 +598,9 @@ __device__ __forceinline__ unsigned scalar_quad(const Params& p,
 // COUNT or MASK (p.mode): the live candidates' chunks, strided over the
 // grid. BOXLESS: every branch is boxless (its own instantiation, so the
 // boxed form keeps its registers); VIS: the query tests visibility; RUNS:
-// each slot is a run piece (its members p.runs[slot])
-template <bool BOXLESS, bool VIS, bool RUNS>
+// each slot is a run piece (its members p.runs[slot]); ENV: the rows are
+// envelopes (never with BOXLESS)
+template <bool BOXLESS, bool VIS, bool RUNS, bool ENV>
 __global__ void __launch_bounds__(THREADS, 3)
 fused_scan_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -577,16 +633,19 @@ fused_scan_kernel(const __grid_constant__ Params p) {
     const long long quads = (live + QUAD - 1) / QUAD;
     const long long step = (long long)gridDim.x * THREADS;
     long long qd = (long long)blockIdx.x * THREADS + threadIdx.x;
-    Quad cur;
-    if (qd < quads) load_quad<BOXLESS, VIS, RUNS>(p, qd, cur);
+    QuadT<ENV> cur;   // ENV loads each quad as it comes (no double buffer)
+    if (!ENV && qd < quads) load_quad<BOXLESS, VIS, RUNS, ENV>(p, qd, cur);
     while (qd < quads) {
       const long long qn = qd + step;
-      Quad nxt;
-      if (qn < quads) load_quad<BOXLESS, VIS, RUNS>(p, qn, nxt);
+      QuadT<ENV> nxt;
+      if (ENV)
+        load_quad<BOXLESS, VIS, RUNS, ENV>(p, qd, cur);
+      else if (qn < quads)
+        load_quad<BOXLESS, VIS, RUNS, ENV>(p, qn, nxt);
       const unsigned bytes =
-          !cur.vec ? scalar_quad<BOXLESS, VIS, RUNS>(p, q, qd, live)
+          !cur.vec ? scalar_quad<BOXLESS, VIS, RUNS, ENV>(p, q, qd, live)
                    : (BOXLESS ? test_quad_boxless<VIS>(p, q, cur)
-                              : test_quad<VIS>(p, q, cur));
+                              : test_quad<VIS, ENV>(p, q, cur));
       cnt += __popc(bytes);
       if (p.mode == MASK) {
         if (qd * QUAD + QUAD <= live) {
@@ -597,7 +656,7 @@ fused_scan_kernel(const __grid_constant__ Params p) {
         }
       }
       qd = qn;
-      cur = nxt;
+      if (!ENV) cur = nxt;
     }
   }
   cnt = __reduce_add_sync(FULL, cnt);
@@ -615,7 +674,10 @@ fused_scan_kernel(const __grid_constant__ Params p) {
 
 // The launch's arguments as the wrapper packs them (kernels/fused_scan.py
 // _ARGS): 8-byte slots, pointers 0 for none. vis_col 0: no visibility test;
-// runs 0: the block form (else int2 [lo, hi) a slot, the RUNS form).
+// runs 0: the block form (else int2 [lo, hi) a slot, the RUNS form); env 1:
+// the rows are envelopes, xi..yl their bxmin_i, bxmin_l, bymin_i, bymin_l
+// planes and hxi..hyl their bxmax_i, bxmax_l, bymax_i, bymax_l (the ENV
+// form, when the query has boxes).
 struct FusedScanArgs {
   long long xi, xl, yi, yl, bin, off, valid;
   long long col[MAX_SLOTS];
@@ -625,8 +687,9 @@ struct FusedScanArgs {
   long long ids, runs, nlive, slots, bsz, n;
   long long mode, out, mask;
   long long ws, epoch, device;
+  long long hxi, hxl, hyi, hyl, env;
 };
-static_assert(sizeof(FusedScanArgs) == 49 * 8, "FusedScanArgs must match _ARGS");
+static_assert(sizeof(FusedScanArgs) == 54 * 8, "FusedScanArgs must match _ARGS");
 
 
 // Scans the candidates of the first *nlive of the `slots` blocks of `ids`
@@ -648,6 +711,11 @@ extern "C" int fused_scan_launch(const FusedScanArgs* a, void* stream) {
   p.xl = reinterpret_cast<const int*>(a->xl);
   p.yi = reinterpret_cast<const int*>(a->yi);
   p.yl = reinterpret_cast<const int*>(a->yl);
+  const bool env = a->env && a->points;
+  p.hxi = reinterpret_cast<const int*>(a->hxi);
+  p.hxl = reinterpret_cast<const int*>(a->hxl);
+  p.hyi = reinterpret_cast<const int*>(a->hyi);
+  p.hyl = reinterpret_cast<const int*>(a->hyl);
   p.bin = reinterpret_cast<const int*>(a->bin);
   p.off = reinterpret_cast<const int*>(a->off);
   p.valid = reinterpret_cast<const uint8_t*>(a->valid);
@@ -681,7 +749,9 @@ extern "C" int fused_scan_launch(const FusedScanArgs* a, void* stream) {
   p.vec = a->bsz % QUAD == 0 && a->valid % 4 == 0 && a->vis_col % 16 == 0
           && (a->points ? a->xi % 16 == 0 && a->xl % 16 == 0
                              && a->yi % 16 == 0 && a->yl % 16 == 0
-                       : a->bin % 16 == 0 && a->off % 16 == 0);
+                       : a->bin % 16 == 0 && a->off % 16 == 0)
+          && (!env || (a->hxi % 16 == 0 && a->hxl % 16 == 0
+                       && a->hyi % 16 == 0 && a->hyl % 16 == 0));
   p.aligned = 0;   // the residual slots that load a quad at a time
   for (int k = 0; k < p.nslots; ++k) {
     const bool b = ((a->kinds >> (4 * k)) & 15) == K_BOOL;
@@ -694,13 +764,22 @@ extern "C" int fused_scan_launch(const FusedScanArgs* a, void* stream) {
   unsigned grid = 1;
   const bool vis = a->vis_col != 0;
   using Kernel = void (*)(const Params);
-  static const Kernel forms[8] = {
-      fused_scan_kernel<false, false, false>, fused_scan_kernel<false, true, false>,
-      fused_scan_kernel<true, false, false>, fused_scan_kernel<true, true, false>,
-      fused_scan_kernel<false, false, true>, fused_scan_kernel<false, true, true>,
-      fused_scan_kernel<true, false, true>, fused_scan_kernel<true, true, true>};
+  static const Kernel forms[12] = {
+      fused_scan_kernel<false, false, false, false>,
+      fused_scan_kernel<false, true, false, false>,
+      fused_scan_kernel<true, false, false, false>,
+      fused_scan_kernel<true, true, false, false>,
+      fused_scan_kernel<false, false, true, false>,
+      fused_scan_kernel<false, true, true, false>,
+      fused_scan_kernel<true, false, true, false>,
+      fused_scan_kernel<true, true, true, false>,
+      fused_scan_kernel<false, false, false, true>,
+      fused_scan_kernel<false, true, false, true>,
+      fused_scan_kernel<false, false, true, true>,
+      fused_scan_kernel<false, true, true, true>};
   const Kernel kernel =
-      forms[(vis ? 1 : 0) | (a->points ? 0 : 2) | (a->runs ? 4 : 0)];
+      env ? forms[8 | (vis ? 1 : 0) | (a->runs ? 2 : 0)]
+          : forms[(vis ? 1 : 0) | (a->points ? 0 : 2) | (a->runs ? 4 : 0)];
   cudaError_t err = persistent_grid(
       reinterpret_cast<const void*>(kernel), smem, (int)a->device,
       (a->slots * a->bsz + CHUNK - 1) / CHUNK, grid);

@@ -17,7 +17,11 @@ form; ``vis_launches`` counts those launches among ``launches``). The
 attribute index's staged ``count_at`` and ``select_at`` pass ``runs``, the
 member rows [lo, hi) of each slot (a piece of one of the plan's sorted
 runs), and take the kernel's RUNS form; ``runs_launches`` counts those
-launches among ``launches``.
+launches among ``launches``. A query over an extent layer's envelopes
+(``FusedQuery.env``, the staged modes of XZ2/XZ3 layers) reads the eight
+fp62 envelope planes in place of the point planes and tests envelope
+overlap (the kernel's ENV form); ``env_launches`` counts those launches
+among ``launches``.
 """
 
 from __future__ import annotations
@@ -38,16 +42,22 @@ REPLACES = "geomesa_tpu/index/compiled.py:476"
 REPLACES_VIS = "geomesa_tpu/index/compiled.py:482"
 # the RUNS form: the attribute index's staged count_at / select_at
 REPLACES_RUNS = "geomesa_tpu/index/scan.py:603"
+# the ENV form: the envelope primary _bbox_overlap_pairwise via _mask_kernel
+REPLACES_ENV = "geomesa_tpu/index/scan.py:100"
 
 MAX_SLOTS = 16
 _MODES = {"count": 0, "mask": 1}
 _KIND_DTYPES = {scan.SLOT_I32: torch.int32, scan.SLOT_F32: torch.float32,
                 scan.SLOT_BOOL: torch.bool}
 _POINT = ("xi", "xl", "yi", "yl")
+# the ENV form's planes: the minima in the point planes' four slots, then
+# the maxima
+_ENV = ("bxmin_i", "bxmin_l", "bymin_i", "bymin_l",
+        "bxmax_i", "bxmax_l", "bymax_i", "bymax_l")
 _TIME = ("bin", "off")
 
-# the C side's FusedScanArgs: 49 8-byte slots
-_ARGS = struct.Struct("=49q")
+# the C side's FusedScanArgs: 54 8-byte slots
+_ARGS = struct.Struct("=54q")
 
 _FN = None
 
@@ -69,9 +79,10 @@ def _check(cols, qbuf, query, ids, n_blocks, bsz, mode, runs=None) -> int:
     """Validate the inputs; return the table's rows."""
     if mode not in _MODES:
         raise ValueError(f"fused_scan mode {mode}")
-    n = int(cols["xi"].shape[0])
-    dev = cols["xi"].device
-    for k in _POINT + (_TIME if query.has_time else ()):
+    planes = _ENV if query.env else _POINT
+    n = int(cols[planes[0]].shape[0])
+    dev = cols[planes[0]].device
+    for k in planes + (_TIME if query.has_time else ()):
         t = cols[k]
         if t.dtype is not torch.int32 or t.shape != (n,):
             raise TypeError(f"column {k} must be int32 with {n} rows")
@@ -142,11 +153,12 @@ def fused_scan(cols: Mapping[str, torch.Tensor], qbuf: torch.Tensor,
     off = query.offsets
     vis = (cols["__vis__"].data_ptr(), off["vis"][0], off["vis"][1] // 4) \
         if query.vis else (0, 0, 0)
+    planes = [cols[k].data_ptr() for k in (_ENV if query.env else _POINT)]
     with build.on_device(dev):
         stream = build.raw_stream(dev)
         ws, _, epoch = lookback.workspace(dev, stream, 0)
         args = _ARGS.pack(
-            *(cols[k].data_ptr() for k in _POINT),
+            *planes[:4],
             *((cols[k].data_ptr() for k in _TIME) if query.has_time
               else (0, 0)),
             0 if valid is None else valid.data_ptr(),
@@ -157,7 +169,8 @@ def fused_scan(cols: Mapping[str, torch.Tensor], qbuf: torch.Tensor,
             ids.data_ptr(), 0 if runs is None else runs.data_ptr(),
             n_blocks.data_ptr(), slots, bsz, n,
             _MODES[mode], out.data_ptr(), mask.data_ptr() if slots * bsz
-            and mode == "mask" else 0, ws.data_ptr(), epoch, dev.index)
+            and mode == "mask" else 0, ws.data_ptr(), epoch, dev.index,
+            *(planes[4:] if query.env else (0, 0, 0, 0)), int(query.env))
         rc = fn(args, stream)
     if rc != 0:
         msg = build.load(NAME).fused_scan_error_string(rc).decode()
@@ -167,9 +180,12 @@ def fused_scan(cols: Mapping[str, torch.Tensor], qbuf: torch.Tensor,
         fused_scan.vis_launches += 1
     if runs is not None:
         fused_scan.runs_launches += 1
+    if query.env and query.points:
+        fused_scan.env_launches += 1
     return (mask, out) if mode == "mask" else out
 
 
 fused_scan.launches = 0
 fused_scan.vis_launches = 0
 fused_scan.runs_launches = 0
+fused_scan.env_launches = 0

@@ -15,10 +15,11 @@ JAX package on identical seeded inputs:
   updates and age-off — counts, rows and the chosen index equal;
 - the staged ``count_at``/``select_at`` over a plan's runs against the
   reference's over the same positions, and the cutting of runs into
-  pieces;
+  pieces; a sliced plan whose residual is past the program (17 columns);
 - the index pick: ``geomesa.indices`` naming the spatial index, an
   attribute only (the full-scan index then serves), a schema without a
-  geometry, and ``s2``/``s3``, which raise; the Z3 ``key_ranges``;
+  geometry, and ``s2``/``s3`` (the S2/S3 index first, the full-scan index
+  beside it); the Z3 ``key_ranges``;
 - ``explain`` with and without ``analyze``, over a pending delta;
 - the guards of ``tests/test_guards_views.py:35-85`` through
   ``add_interceptor``.
@@ -279,12 +280,15 @@ def test_sliced_count_is_one_runs_scan_without_host_sync(world,
     assert int(out) == js.count("t", q)
 
 
-def test_sliced_residual_past_the_program_raises_naming_roadmap():
+def test_sliced_residual_past_the_program_raises_naming_roadmap(monkeypatch):
     """A sliced plan on a point layer whose residual the RUNS form cannot
-    take (17 columns, past ``fused_scan.MAX_SLOTS``) raises naming ROADMAP
-    item 20, on the CPU as on the card: it never runs torch ops instead.
-    The same residual on the spatial index keeps the block route's
-    answer."""
+    take (17 columns, past ``fused_scan.MAX_SLOTS``) — refused until the
+    RUNS form took such residuals — now keeps its primary on the RUNS
+    launch and ANDs the residual in as torch ops over the pieces' rows:
+    its count and rows equal the reference's and numpy's, its staged
+    ``count_at``/``select_at`` the reference's over the same positions, and
+    the RUNS form launched. The same residual on the spatial index keeps
+    the block route's answer."""
     cs = [f"c{i}" for i in range(kscan.MAX_SLOTS + 1)]
     spec = "a:Int:index=true," + ",".join(f"{c}:Int" for c in cs) \
         + ",dtg:Date,*geom:Point"
@@ -296,16 +300,43 @@ def test_sliced_residual_past_the_program_raises_naming_roadmap():
     for c in cs:
         cols[c] = rng.integers(0, 10, n).astype(np.int32)
     js, ts = _pair(spec, cols)
+    calls = []
+    plain = tscan.fused_scan
+
+    def spy(*a, **kw):
+        calls.append(kw.get("runs") is not None)
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(tscan, "fused_scan", spy)
     resid = " AND ".join(f"{c} > 0" for c in cs)
-    q = f"a = 3 AND {resid}"
-    assert ts.planner("t").plan(q).candidate_slices is not None
-    with pytest.raises(NotImplementedError, match="item 20"):
-        ts.count("t", q)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        ts.query("t", q)
-    want = np.sum((cols["a"] == 3)
-                  & np.all([cols[c] > 0 for c in cs], axis=0))
-    assert js.count("t", q) == want
+    want_mask = (cols["a"] == 3) & np.all([cols[c] > 0 for c in cs], axis=0)
+    for q, m in ((f"a = 3 AND {resid}", want_mask),
+                 (f"a = 3 AND BBOX(geom, -20, -40, 60, 10) AND {resid}",
+                  want_mask & (cols["geom"][0] >= -20)
+                  & (cols["geom"][1] <= 10))):
+        plan = ts.planner("t").plan(q)
+        assert plan.candidate_slices is not None
+        args = (plan.primary_kind, plan.boxes_loose, plan.windows,
+                plan.residual_device)
+        assert tscan.staged_query(plan.index.kernels.cols, [args]) is None
+        calls.clear()
+        assert ts.count("t", q) == js.count("t", q) == int(m.sum()) > 0
+        assert np.array_equal(ts.query("t", q).indices,
+                              js.query("t", q).indices)
+        assert np.array_equal(ts.query("t", q).indices, np.flatnonzero(m))
+        jp = js.planner("t").plan(q)
+        pos = jp.candidate_positions()
+        jargs = (jp.primary_kind, jp.boxes_loose, jp.windows,
+                 jp.residual_device)
+        want = jp.index.kernels.count_at(*jargs, pos)
+        assert plan.index.kernels.count_at(*args,
+                                           plan.candidate_slices) == want
+        jsel, jcnt = jp.index.kernels.select_at(*jargs, pos)
+        tsel, tcnt = plan.index.kernels.select_at(
+            *args, plan.candidate_slices, 64)
+        assert tcnt == jcnt == want and np.array_equal(tsel, np.sort(jsel))
+        # every scan of the runs went through the RUNS form
+        assert calls and all(calls)
     q2 = f"BBOX(geom, -60, -40, 60, 40) AND {resid}"
     assert ts.count("t", q2) == js.count("t", q2)
 
@@ -609,9 +640,21 @@ def test_index_set_follows_configured_indices(spec, want):
 @pytest.mark.parametrize("spec", [SPEC + ";geomesa.indices=s2",
                                   SPEC + ";geomesa.indices=s3,z3"])
 def test_s2_and_s3_raise_naming_roadmap(spec):
-    ts = DataStoreFinder.get_data_store(type="torch", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ts.create_schema("t", spec)
+    """``geomesa.indices`` naming ``s2`` or ``s3`` (and ``z3``), once
+    refused naming item 9, builds the S2/S3 index first — the reference's
+    ``INDEX_CLASSES`` order — beside the attribute indexes and the
+    full-scan index, and answers as the reference does: counts, rows and
+    the chosen index."""
+    js, ts = _pair(spec, _ref_data())
+    names = [f"attr:{i.attr}" if i.name == "attr" else i.name
+             for i in ts.planner("t").indexes]
+    kind = "s2" if "s2" in spec else "s3"
+    assert names == [kind, "attr:name", "attr:val", "full"]
+    for q in ("val = 42", "name = 'bob'", "INCLUDE",
+              "BBOX(geom, -20, -10, 30, 25) AND val > 100",
+              f"BBOX(geom, -20, -10, 30, 25) AND {WEEK}",
+              "name IN ('ann', 'cat') AND BBOX(geom, 0, 0, 20, 20)"):
+        _same(js, ts, q)
 
 
 def test_z3_key_ranges_equal_reference(world):

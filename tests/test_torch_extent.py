@@ -10,7 +10,7 @@ polygon INTERSECTS, BBOX, WITHIN, DWITHIN, DURING, attribute residuals,
 OR and INCLUDE. Every count and every row set must equal the reference's;
 the index each store picks, the band route (its plan record and launch
 counter), appends into the delta tier and a flush of an extent layer
-(a full rebuild, as the reference's route without a merge build) too.
+(the merge build, as the reference's) too.
 """
 
 import numpy as np
@@ -24,7 +24,6 @@ from geomesa_tpu_torch import DataStoreFinder
 from geomesa_tpu_torch import config as tconfig
 from geomesa_tpu_torch.features import geometry as tgeo
 from geomesa_tpu_torch.features.table import FeatureTable as TTable
-from geomesa_tpu_torch.index.api import not_ported
 from geomesa_tpu_torch.kernels import seg_band as tseg
 
 from test_torch_geometry import _random_shapes
@@ -223,8 +222,9 @@ def test_band_route_engages_on_single_segment_layers(stores, layer, route):
 
 
 def test_appends_and_flush_on_extent_layers():
-    """Appends land in the delta tier and count exactly; a flush rebuilds
-    the XZ index in full; every answer equals the reference's throughout."""
+    """Appends land in the delta tier and count exactly; a flush merges
+    them into the XZ index (``merge_from``); every answer equals the
+    reference's throughout."""
     js = TpuDataStore()
     ts = DataStoreFinder.get_data_store(type="torch", device="cpu")
     queries = [f"INTERSECTS(geom, {POLY}) AND {DURING}",
@@ -275,16 +275,32 @@ def test_mutations_on_an_extent_layer():
 
 
 def test_outside_the_slice_raises_naming_roadmap(stores):
-    _, ts = stores
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ts.query("lines", "INCLUDE", hints={"density": {
-            "bbox": (-60, 0, 60, 70), "width": 8, "height": 8}})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ts.count("polys", "st_area(geom) > 1")
-    # a schema without a geometry, once refused naming item 9, builds the
-    # full-scan index; a configured S2 index is what item 9 still holds
+    """What this test once held refused naming item 9 — density over an
+    extent layer, st_* over extent features, a configured S2 index — now
+    answers as the reference does: the density grid byte for byte, the
+    count and rows; a schema without a geometry builds the full-scan
+    index."""
+    js, ts = stores
+    hints = {"density": {"bbox": (-60, 0, 60, 70), "width": 8, "height": 8}}
+    got = ts.query("lines", "INCLUDE", hints=hints)
+    want = js.query("lines", "INCLUDE", hints=hints)
+    assert got.weights.dtype == np.float32
+    assert got.weights.tobytes() == np.asarray(want.weights).tobytes()
+    q = "st_area(geom) > 1"
+    assert ts.count("polys", q) == js.count("polys", q) > 0
+    assert np.array_equal(ts.query("polys", q).indices,
+                          js.query("polys", q).indices)
     ts.create_schema("nogeom", "val:Int")
     assert ts.get_schema("nogeom").geometry_attribute is None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ts.create_schema("s2", "val:Int,*geom:Point;geomesa.indices=s2")
-    assert "item 9" in str(not_ported("x", 9))
+    spec = "val:Int,*geom:Point;geomesa.indices=s2"
+    ts.create_schema("s2", spec)
+    js.create_schema("s2", spec)
+    x, y = np.random.default_rng(3).uniform(-60, 60, (2, 2000))
+    for s in (js, ts):
+        tbl = TTable if s is ts else JTable
+        s.load("s2", tbl.build(s.get_schema("s2"), {
+            "val": np.arange(2000, dtype=np.int32), "geom": (x, y)}))
+    q = "BBOX(geom, -10, -10, 20, 30) AND val > 500"
+    assert ts.count("s2", q) == js.count("s2", q) > 0
+    assert ts.explain("s2", q)["index"] == js.explain("s2", q)["index"] \
+        == "s2"

@@ -315,9 +315,17 @@ def test_scalar_values_equal_reference(world):
     "st_area(POLYGON((0 0, 1 0, 1 1, 0 0))) > 0",
 ])
 def test_catalog_shapes_raise_naming_roadmap(world, q):
-    _, tp = world
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tp.count(q)
+    """``st_buffer``, ``st_convexHull`` and non-point literals, once refused
+    naming item 13, take the reference's ``kernels=False`` host routes:
+    counts and rows equal the reference's (only ``kernels=True``, the
+    device catalog, still names item 13, below)."""
+    jp, tp = world
+    assert tp.count(q) == jp.count(q)
+    assert np.array_equal(np.sort(tp.select_indices(q)),
+                          np.sort(jp.select_indices(q)))
+    jf, tf = jparse(q), tparse(q)
+    assert np.array_equal(tevaluate(tf, tp.table),
+                          jevaluate(jf, jp.table))
 
 
 def test_device_catalog_route_raises_naming_roadmap(world):

@@ -402,6 +402,198 @@ def test_merge_fraction_gate_falls_back_to_full_rebuild():
     assert ts.count("t", "INCLUDE") == 31_500
 
 
+# -- every index's merge build == its full rebuild == the reference's ---------
+
+
+def _lines(n, rng):
+    """Single-segment LineStrings (the band route's layers)."""
+    lx, ly = rng.uniform(-30, 30, n), rng.uniform(-30, 30, n)
+    c = np.empty((2 * n, 2))
+    c[0::2, 0], c[0::2, 1] = lx, ly
+    c[1::2, 0] = lx + rng.uniform(0.01, 2.0, n)
+    c[1::2, 1] = ly + rng.uniform(0.01, 2.0, n)
+    return c
+
+
+def _polys(n, rng):
+    cx, cy = rng.uniform(-30, 30, n), rng.uniform(-30, 30, n)
+    r = rng.uniform(0.05, 1.5, n)
+    return [(3, [[[x - d, y - d], [x + d, y - d], [x + d, y + d],
+                  [x - d, y - d]]]) for x, y, d in zip(cx, cy, r)]
+
+
+# kind: (spec, geometry, index class name)
+INDEX_KINDS = {
+    "z3": ("v:Int,dtg:Date,*geom:Point;geomesa.z3.interval=week", "points",
+           "Z3Index"),
+    "z2": ("v:Int,*geom:Point", "points", "Z2Index"),
+    "xz2": ("v:Int,*geom:LineString", "lines", "XZ2Index"),
+    "xz3": ("v:Int,dtg:Date,*geom:Polygon;geomesa.z3.interval=week",
+            "polys", "XZ3Index"),
+    "s2": ("v:Int,*geom:Point;geomesa.indices=s2", "points", "S2Index"),
+    "s3": ("v:Int,dtg:Date,*geom:Point;geomesa.indices=s3,"
+           "geomesa.z3.interval=week", "points", "S3Index"),
+    "full": ("v:Int,name:String,dtg:Date", None, "FullScanIndex"),
+}
+
+
+def _kind_cols(kind, n, seed, tgeo, jgeo):
+    """(reference columns, port columns) of ``n`` rows; ties in the keys
+    (repeated geometries and dates) so the ranks' tie rule shows."""
+    spec, geom, _ = INDEX_KINDS[kind]
+    rng = np.random.default_rng(seed)
+    cols = {"v": rng.integers(0, 100, n).astype(np.int32)}
+    if "dtg" in spec:
+        cols["dtg"] = _BASE + rng.integers(0, 3 * 7, n) * _DAY
+    if "name" in spec:
+        cols["name"] = rng.choice(["a", "b", f"s{seed}"], n).astype(object)
+    if geom is None:
+        return cols, dict(cols)
+    if geom == "points":
+        x = np.round(rng.uniform(-30, 30, n), 1)
+        y = np.round(rng.uniform(-30, 30, n), 1)
+        return dict(cols, geom=(x, y)), dict(cols, geom=(x, y))
+    if geom == "lines":
+        c = _lines(n, rng)
+        if n >= 8:
+            c[2:8] = c[0:6]   # repeated segments
+        return (dict(cols, geom=jgeo.GeometryArray.linestrings(c)),
+                dict(cols, geom=tgeo.GeometryArray.linestrings(c)))
+    shapes = _polys(n, rng)
+    if n >= 8:
+        shapes[1:4] = shapes[0:3]
+    return (dict(cols, geom=jgeo.GeometryArray.from_shapes(shapes)),
+            dict(cols, geom=tgeo.GeometryArray.from_shapes(shapes)))
+
+
+def _state(idx, names=None) -> dict:
+    """Sorted key runs, the permutation and the device columns (``names``
+    only, when given) of a spatial index of either package."""
+    out = {"perm": np.asarray(idx.perm.numpy() if torch.is_tensor(idx.perm)
+                              else idx.perm).astype(np.int64)}
+    for attr in ("sorted_z", "sorted_xz", "sorted_bins"):
+        try:
+            out[attr] = np.asarray(getattr(idx, attr))
+        except (AttributeError, TypeError):
+            pass
+    for k, v in idx.device.columns.items():
+        if names is None or k in names:
+            out[f"dev.{k}"] = v.numpy() if torch.is_tensor(v) \
+                else np.asarray(v)
+    return out
+
+
+@pytest.mark.parametrize("kind", list(INDEX_KINDS))
+@pytest.mark.parametrize("sizes", [(3000, 400), (2000, 1)],
+                         ids=["delta_400", "delta_1"])
+def test_every_index_merges_bitwise_a_full_rebuild(kind, sizes):
+    """``merge_from`` of each index (Z3, Z2, XZ2, XZ3, S2, S3 and the
+    full-scan index) over a resident table and an appended run: the merged
+    permutation, sorted key runs and every device column equal a full
+    rebuild of the merged table and the reference's ``merge_from`` of the
+    same tables (a line layer's segment planes merge too); one
+    ``merge_scatter`` call moves the device columns."""
+    jspatial = pytest.importorskip("geomesa_tpu.index.spatial")
+    jgeo = pytest.importorskip("geomesa_tpu.features.geometry")
+    JSFT = pytest.importorskip("geomesa_tpu.features.sft").SimpleFeatureType
+    _, _, JTable, _ = _ref()
+    from geomesa_tpu_torch.features import geometry as tgeo
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType as TSFT
+    from geomesa_tpu_torch.index import spatial as tspatial
+    spec, geom, cls = INDEX_KINDS[kind]
+    n_old, n_delta = sizes
+    jsft, tsft = JSFT.from_spec("m", spec), TSFT.from_spec("m", spec)
+    ja, ta = _kind_cols(kind, n_old, 1, tgeo, jgeo)
+    jd, td = _kind_cols(kind, n_delta, 2, tgeo, jgeo)
+    jold, told = JTable.build(jsft, ja), TTable.build(tsft, ta)
+    jmerged = JTable.concat([jold, JTable.build(jsft, jd)])
+    tmerged = TTable.concat([told, TTable.build(tsft, td)])
+    JCls, TCls = getattr(jspatial, cls), getattr(tspatial, cls)
+    jidx, tidx = JCls(jsft, jold), TCls(tsft, told, "cpu")
+    segments = geom == "lines"
+    if segments:
+        assert tidx.ensure_segment_columns()
+    calls = []
+    plain = tmerge.merge_scatter
+
+    def spy(*a, **k):
+        calls.append(len(a[0]))
+        return plain(*a, **k)
+
+    tmerge.merge_scatter, saved = spy, tmerge.merge_scatter
+    try:
+        tnew = TCls.merge_from(tidx, tmerged, n_old)
+    finally:
+        tmerge.merge_scatter = saved
+    assert len(calls) == 1 and tnew.build_stages["merge_rows"] == n_delta
+    jnew = JCls.merge_from(jidx, jmerged, n_old)
+    tfull = TCls(tsft, tmerged, "cpu")
+    if segments:
+        assert "sx1" in tnew.device.columns
+        assert tfull.ensure_segment_columns()
+    got = _state(tnew)
+    _assert_same(got, _state(tfull), f"{kind}: merge vs rebuild")
+    jcols = set(jnew.device.columns)
+    want = _state(jnew, jcols)
+    got_ref = {k: v for k, v in got.items()
+               if not k.startswith("dev.") or k[4:] in jcols}
+    assert set(got_ref) == set(want), kind
+    for k in want:
+        assert np.array_equal(got_ref[k], want[k]), f"{kind}: {k}"
+
+
+def test_segment_planes_drop_when_the_delta_is_not_segments():
+    """A line layer's segment planes survive a merge of single segments
+    and drop when the delta brings a longer line; the band route then
+    declines, as after a full rebuild."""
+    from geomesa_tpu_torch.features import geometry as tgeo
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType as TSFT
+    from geomesa_tpu_torch.index.spatial import XZ2Index
+    sft = TSFT.from_spec("m", "v:Int,*geom:LineString")
+    rng = np.random.default_rng(4)
+    old = TTable.build(sft, {"v": np.arange(600, dtype=np.int32),
+                             "geom": tgeo.GeometryArray.linestrings(
+                                 _lines(600, rng))})
+    idx = XZ2Index(sft, old, "cpu")
+    assert idx.ensure_segment_columns()
+    longer = tgeo.GeometryArray.from_shapes(
+        [(2, [[0.0, 0.0], [1.0, 1.0], [2.0, 0.0]])])
+    merged = TTable.concat([old, TTable.build(sft, {
+        "v": np.array([7], np.int32), "geom": longer})])
+    new = XZ2Index.merge_from(idx, merged, 600)
+    assert "sx1" not in new.device.columns
+    assert not new.ensure_segment_columns()
+    assert not XZ2Index(sft, merged, "cpu").ensure_segment_columns()
+
+
+@pytest.mark.parametrize("kind", ["xz2", "xz3", "z2", "s3", "full", "attr"])
+def test_store_flush_merges_every_index_kind(kind):
+    """A store's flush merges every index kind (``_merge_rebuild``), and
+    answers as the reference's store; a type with an attribute index stays
+    on the full rebuild, as the reference's."""
+    config, TpuDataStore, JTable, _ = _ref()
+    jgeo = pytest.importorskip("geomesa_tpu.features.geometry")
+    from geomesa_tpu_torch.features import geometry as tgeo
+    spec = INDEX_KINDS["z3"][0].replace("v:Int", "v:Int:index=true") \
+        if kind == "attr" else INDEX_KINDS[kind][0]
+    k = "z3" if kind == "attr" else kind
+    js = TpuDataStore()
+    ts = DataStoreFinder.get_data_store(type="torch", device="cpu")
+    for s in (js, ts):
+        s.create_schema("t", spec)
+    for j, rows in enumerate((3000, 300, 200)):
+        jc, tc = _kind_cols(k, rows, 10 + j, tgeo, jgeo)
+        js.load("t", JTable.build(js.get_schema("t"), jc))
+        ts.load("t", TTable.build(ts.get_schema("t"), tc))
+    for s in (js, ts):
+        s.flush("t")
+    idx = ts.planners["t"].indexes[0]
+    assert ("merge_rows" in idx.build_stages) == (kind != "attr")
+    q = "v < 30" if kind == "full" else "BBOX(geom, -5, -5, 10, 10) AND v < 60"
+    assert ts.count("t", q) == js.count("t", q) > 0
+    assert np.array_equal(ts.query("t", q).indices, js.query("t", q).indices)
+
+
 # -- the CUDA kernel against its plain version (card only) --------------------
 
 

@@ -248,8 +248,9 @@ def test_outside_slice_raises_naming_roadmap(spec, item):
     """The attribute and configured indexes, once refused naming ``item``
     (ROADMAP.md Queue 1 item 10's rest), are ported: the schema creates and
     plans and counts ``age = 40`` as the reference does (the quoted
-    ``geomesa.indices`` value names no index it knows, in both). What stays
-    outside names its own item: a configured S2 index (item 9)."""
+    ``geomesa.indices`` value names no index it knows, in both). A
+    configured S2 index beside the attribute index, once refused naming
+    item 9, builds in both and answers alike."""
     from geomesa_tpu.datastore import TpuDataStore
     store = DataStoreFinder.get_data_store(type="torch", device="cpu")
     ref = TpuDataStore()
@@ -261,9 +262,17 @@ def test_outside_slice_raises_naming_roadmap(spec, item):
             == ref.explain("fq", q)["index"], q
         assert store.count("fq", q) == ref.count("fq", q), q
     assert item == "item 10"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        store.create_schema("s2", spec.split(";")[0]
-                            + ";geomesa.indices=s2,attr:age")
+    s2 = spec.split(";")[0] + ";geomesa.indices=s2,attr:age"
+    for s, tbl in ((store, TTable), (ref, JTable)):
+        s.create_schema("s2", s2)
+        s.load("s2", tbl.build(s.get_schema("s2"), _columns(3000, 7)))
+    for q in ("age = 40", "BBOX(geom,0,0,40,60)",
+              "age > 90 AND BBOX(geom,0,0,40,60)"):
+        assert store.explain("s2", q)["index"] \
+            == ref.explain("s2", q)["index"], q
+        assert store.count("s2", q) == ref.count("s2", q), q
+        assert np.array_equal(store.query("s2", q).indices,
+                              ref.query("s2", q).indices), q
 
 
 @pytest.mark.parametrize("q", ["IN ('1', '2')", "IN ('1', '2', 'x', '5999')",
