@@ -1,7 +1,8 @@
 """Two trees of the port timed on one card, in turns.
 
     python3 chip_compare.py PARENT_ROOT CHANGE_ROOT
-        [--phases count,kernels,fused,fusedk,staged,rows,process,knn,m3]
+        [--phases count,kernels,fused,fusedk,staged,rows,process,knn,m3,
+                  pack]
         [--rounds 4] [--reps 40] [--n 100000000] [--out FILE] [--device cpu]
 
 One worker process a tree imports ``geomesa_tpu_torch`` from that tree,
@@ -73,6 +74,11 @@ adjacent pair of answers ran on the same card, seconds apart. The phases:
   hint over (a). An answer is the p50 of ``--reps`` calls to a device
   synchronise (10 for the stats hint); both trees must give the same
   rows and distances (compared by digest).
+- ``pack``: the geometry catalog's ``pack_features`` onto the card at
+  (m1)'s 5,000,000 lines and (m3)'s 500,000 quadrilaterals, every row in
+  a seeded random order. An answer is the p50 of up to 8 calls to a device
+  synchronise (and, where the tree's pack has a host and a device half,
+  of each half); both trees must give the same packs (compared by digest).
 - ``m3``: ``chip_smoke.py``'s (m3), 500,000 quadrilaterals in an XZ2
   layer of their own: its polygon's prepared count, ``store.count`` and
   prepared rows, each the p50 of ``--reps`` calls to a device
@@ -675,10 +681,80 @@ def setup_m3(cs, a) -> tuple:
     return {"count": got}, answer
 
 
+# -- phase pack ---------------------------------------------------------------
+
+
+def setup_pack(cs, a) -> tuple:
+    """``geom.catalog.pack_features`` onto the card at (q)'s layers: (m1)'s
+    5,000,000 lines (bench cfg2's segments) and (m3)'s 500,000
+    quadrilaterals, every row, in a seeded random order (the planner hands
+    the catalog its rows in index order, which is not the layer's). An
+    answer is the p50 of ``min(--reps, 8)`` calls to a device synchronise;
+    both trees must give the same packs (compared by digest)."""
+    import torch
+
+    from geomesa_tpu_torch.features.geometry import POLYGON, GeometryArray
+    from geomesa_tpu_torch.geom import catalog
+
+    n1 = cs.M_N if a.device == "cuda" else 20_000
+    n3 = cs.M_POLY_N if a.device == "cuda" else 20_000
+    ax, ay, bx, by = cs.cfg2_segments(n1, cs.M_SEED)
+    coords = np.empty((2 * n1, 2))
+    coords[0::2, 0], coords[0::2, 1] = ax, ay
+    coords[1::2, 0], coords[1::2, 1] = bx, by
+    rings = cs.quads(n3, cs.M_SEED + 2)
+    lv = np.arange(n3 + 1, dtype=np.int64)
+    rng = np.random.default_rng(7)
+    cases = {
+        "lines": (GeometryArray.linestrings(coords), rng.permutation(n1)),
+        "quads": (GeometryArray(np.full(n3, POLYGON, dtype=np.int8), lv, lv,
+                                5 * lv, rings.reshape(-1, 2)),
+                  rng.permutation(n3))}
+    dev = torch.device(a.device)
+    sync = torch.cuda.synchronize if a.device == "cuda" else (lambda: None)
+    fields = ("verts", "vmask", "segs", "smask", "wsign", "mode", "poly",
+              "ref32")
+    ready = {}
+    for k, (arr, rows) in cases.items():
+        arr.bboxes()   # cached on the layer's array, as in a store
+        p = catalog.pack_features(arr, rows, dev)
+        ready[k] = _digest(*(getattr(p, f) for f in fields))
+        del p
+
+    split = hasattr(catalog, "pack_host")
+
+    def answer() -> dict:
+        out = {}
+        for k, (arr, rows) in cases.items():
+            ts, th, td = [], [], []
+            for _ in range(min(a.reps, 8)):
+                sync()
+                t0 = time.perf_counter()
+                catalog.pack_features(arr, rows, dev)
+                sync()
+                ts.append((time.perf_counter() - t0) * 1e3)
+                if split:   # a tree whose pack has a host and a device half
+                    t0 = time.perf_counter()
+                    h = catalog.pack_host(arr, rows)
+                    t1 = time.perf_counter()
+                    catalog.pack_device(h, dev)
+                    sync()
+                    th.append((t1 - t0) * 1e3)
+                    td.append((time.perf_counter() - t1) * 1e3)
+            out[f"{k}_p50_ms"] = _median(ts)
+            if split:
+                out[f"{k}_host_p50_ms"] = _median(th)
+                out[f"{k}_device_p50_ms"] = _median(td)
+        return out
+
+    return ready, answer
+
+
 PHASES = {"count": setup_count, "kernels": setup_kernels,
           "fused": setup_fused, "fusedk": setup_fusedk,
           "staged": setup_staged, "rows": setup_rows,
-          "process": setup_process, "knn": setup_knn, "m3": setup_m3}
+          "process": setup_process, "knn": setup_knn, "m3": setup_m3,
+          "pack": setup_pack}
 
 
 # -- worker and turns -------------------------------------------------------

@@ -84,6 +84,23 @@ Phases, each failing the run (non-zero exit) when it fails:
    share of the band count; then ``seg_band`` against its plain version at
    (m1)'s candidate blocks and at 33,554,432 near-edge segments, and
    ``box_count``'s envelope mode at (m1)'s box and 64 boxes;
+7b'. the geometry catalog (q) (``phase_catalog``, ``{"catalog": ...}``
+   line) on (m1)'s and (m3)'s stores, the planner's default route for st_*
+   residuals: (q1) ``st_length(geom) > 1.5`` over the 5M lines
+   (``geom_unary``), (q2) (m3)'s ``st_area`` count in M_BOX
+   (``geom_unary``) and its buffer count (``geom_pred``), (q3)
+   ``st_intersects`` with M_WKT and ``st_contains`` of POINT(1 39) over
+   the quads (``geom_pred``), (q4) ``st_distance(geom, POINT(1 39)) <
+   0.5`` (``geom_dist``) — scalar counts equal to a numpy f32 oracle in the
+   reference's arithmetic (the f64 count and the rows on which the two
+   differ beside it), booleans to their f64 oracles, (q4) to the plain
+   version's count on the card with every distance within the documented
+   2e-4 + 1e-5·d of its f64 value; each query's p50 with
+   GEOMESA_TPU_GEOM_KERNELS on and off, its kernels' launches (each must
+   launch) and the split of its catalog call (pack, upload, kernel,
+   refine); then each catalog kernel against its plain version at (q)'s
+   shapes with its bound, registers and spills
+   (``phase_catalog_kernels``);
 7c. authorizations, feature ids, shaping and the rows path (n)
    (``phase_auths``): a store of its own over the same 100M points, each
    labelled with one of 8 seed-drawn visibility expressions; (a)-(d) under
@@ -2945,7 +2962,8 @@ def phase_extent(points_table, device: str = "cuda", n: int = M_N,
     from geomesa_tpu_torch.index import prune
     from geomesa_tpu_torch.index.spatial import _boxes_fp62
     from geomesa_tpu_torch.kernels import (box_count, density, dist,
-                                           fused_scan, merge, pip, seg_band)
+                                           fused_scan, geom, merge, pip,
+                                           seg_band)
 
     def sync():
         if device == "cuda":
@@ -2958,7 +2976,10 @@ def phase_extent(points_table, device: str = "cuda", n: int = M_N,
                 "dist_refine": dist.dist_refine,
                 "merge_scatter": merge.merge_scatter,
                 "seg_band": seg_band.seg_band,
-                "fused_scan": fused_scan.fused_scan}
+                "fused_scan": fused_scan.fused_scan,
+                "geom_unary": geom.geom_unary,
+                "geom_dist": geom.geom_dist,
+                "geom_pred": geom.geom_pred}
     for c in counters.values():
         c.launches = 0
     fused_scan.fused_scan.env_launches = 0
@@ -3047,7 +3068,9 @@ def phase_extent(points_table, device: str = "cuda", n: int = M_N,
                              "cells")
     density_p50, _ = timed(lambda: store.query(
         "osm", Q_M1_BBOX, hints=density_hint(M_BOX, M_GRID, M_GRID)), sync)
-    want_len = int(np.count_nonzero(np.hypot(bx - ax, by - ay) > M_LEN))
+    # st_length through the catalog (geom_unary): the f32 value, as the
+    # reference's route reads it
+    want_len = int(np.count_nonzero(lines_length32(ax, ay, bx, by) > M_LEN))
     t0 = time.perf_counter()
     _check("m1 st_length count", store.count("osm", Q_M1_LEN), want_len)
     len_ms = (time.perf_counter() - t0) * 1e3
@@ -3121,14 +3144,12 @@ def phase_extent(points_table, device: str = "cuda", n: int = M_N,
     planner3._count(plan3, Q_M1)
     if "band" in plan3.explain:
         raise AssertionError("(m3) the band route took a polygon layer")
-    # st_area: each ring's shoelace, f64
-    x3, y3 = rings[:, :, 0], rings[:, :, 1]
-    sa = 0.5 * np.sum(x3 * np.roll(y3, -1, axis=1)
-                      - np.roll(x3, -1, axis=1) * y3, axis=1)
+    # st_area through the catalog (geom_unary): the f32 value, as the
+    # reference's route reads it
     lo3, hi3 = rings.min(axis=1), rings.max(axis=1)
     in_box = ((lo3[:, 0] <= M_BOX[2]) & (hi3[:, 0] >= M_BOX[0])
               & (lo3[:, 1] <= M_BOX[3]) & (hi3[:, 1] >= M_BOX[1]))
-    want_area = int(np.count_nonzero(in_box & (np.abs(sa) > M_AREA)))
+    want_area = int(np.count_nonzero(in_box & (quads_area32(rings) > M_AREA)))
     t0 = time.perf_counter()
     _check("m3 st_area count", store3.count("parcels", Q_M3_AREA), want_area)
     area_ms = (time.perf_counter() - t0) * 1e3
@@ -3143,7 +3164,9 @@ def phase_extent(points_table, device: str = "cuda", n: int = M_N,
                  "st_area_count": want_area, "st_area_count_ms": area_ms,
                  "st_buffer_count": want_buf, "st_buffer_count_ms": buf_ms}
     log(json.dumps({"m3": out["m3"]}))
-    del store3, planner3, garr, rings
+    m3 = {"store": store3, "planner": planner3, "rings": rings,
+          "in_box": in_box, "want_hits": want3, "want_buf": want_buf}
+    del garr
 
     # (m4) Z2: the first n_z2 points of the cfg1 corpus without a date
     px, py = (v[:n_z2] for v in points_table.geometry().point_xy())
@@ -3170,12 +3193,16 @@ def phase_extent(points_table, device: str = "cuda", n: int = M_N,
     out["launches"]["fused_scan_env"] = fused_scan.fused_scan.env_launches
     if on_card and (out["launches"]["seg_band"] < 1
                     or out["launches"]["box_count"] < 1
-                    or out["launches"]["fused_scan_env"] < 1):
-        raise AssertionError(f"(m) did not launch seg_band, box_count and "
-                             f"fused_scan's ENV form: {out['launches']}")
+                    or out["launches"]["fused_scan_env"] < 1
+                    or out["launches"]["geom_unary"] < 1
+                    or out["launches"]["geom_pred"] < 1):
+        raise AssertionError(f"(m) did not launch seg_band, box_count, "
+                             f"fused_scan's ENV form, geom_unary and "
+                             f"geom_pred: {out['launches']}")
     log(json.dumps({"extent": {k: out[k] for k in ("m1", "m2", "m3", "m4",
                                                    "launches")}}))
     out["m1_state"] = m1
+    out["m3_state"] = m3
     return out
 
 
@@ -3382,6 +3409,459 @@ def phase_extent_kernels(m1: dict) -> dict:
     env = [_time_kernel(label, k_, p_, b_, reps, cut=cut)
            for label, k_, p_, b_, reps, cut in env_calls(m1)]
     return {"seg_band": seg, "box_count": box, "fused_scan_env": env}
+
+
+# -- (q) the geometry catalog -------------------------------------------------
+#
+# The st_* residuals of (m1)'s and (m3)'s stores through the planner's
+# default route, the device catalog (geom/catalog.py): geom_unary for
+# st_length / st_area, geom_pred for st_intersects / st_contains (and the
+# buffer's), geom_dist for st_distance. Scalar comparisons read the f32
+# kernel value, as the reference's route does, so their counts are held to
+# a numpy f32 oracle in the reference's arithmetic (the 1/256-degree local
+# origin, jnp.hypot's fma(r, r, 1), left-to-right sums, subnormals
+# flushed), with the f64 count printed beside it; the booleans are exact.
+
+Q_Q3_CONTAINS = f"st_contains(geom, POINT({M_BUF_P[0]} {M_BUF_P[1]}))"
+Q_Q3_INTERSECTS = f"st_intersects(geom, {M_WKT})"
+Q_DIST_R = 0.5
+Q_Q4 = (f"st_distance(geom, POINT({M_BUF_P[0]} {M_BUF_P[1]})) "
+        f"< {Q_DIST_R}")
+Q_REPS = 3          # p50 reps of a (q) query on the catalog route
+Q_REPS_OFF = 1      # and on the host route (seconds a call at 5M rows)
+F32_TINY = 2.0 ** -126
+
+# f32 operations of the catalog's programs, each add, subtraction,
+# multiplication, division, square root, min, max and compare one, a fused
+# multiply-add two (its two flops). geom_unary per real segment: 2 (x2 −
+# x1, y2 − y1) + hypot 8 (max, min, division, fma, sqrt, multiplication,
+# the zero test) + the mask 1 + cross 4 (x2·y1, fma, ·w) + 2 sums + 2 (x1
+# + x2, y1 + y2) + 4 fma sums (8) = 27; per real vertex 3 (·mask, 2 sums);
+# per feature 10 (max, two guards, 2 multiplications, 2 divisions, the
+# mode). geom_dist / geom_pred per pair: point → segment 22 (2
+# subtractions, ll 3, the numerator 5, the division, the clamp 2, 2 fma
+# (4), 2 subtractions, the square 3), the vertex → point square 5, the
+# unbanded crossing 8, the proper crossing of a (segment, literal edge)
+# pair 4 × 7 + 4 = 32, a banded (point, edge) step 22 (PIP_OPS_PER_PAIR
+# and the edge's own 4), a banded (segment, edge) pair SEG_OPS_PER_PAIR
+# (64) and the literal's shift into each feature's frame 6 an edge.
+GEOM_UNARY_OPS_SEG = 27
+GEOM_UNARY_OPS_VERT = 3
+GEOM_UNARY_OPS_FEAT = 10
+GEOM_PTSEG_OPS = 22
+GEOM_PTPT_OPS = 5
+GEOM_PIP_OPS = 8
+GEOM_CROSS_OPS = 32
+GEOM_BAND_OPS = PIP_OPS_PER_PAIR + PIP_OPS_PER_EDGE
+
+
+def _ftz32(a: np.ndarray) -> np.ndarray:
+    a = np.asarray(a, dtype=np.float32)
+    return np.where(np.abs(a) < F32_TINY, a * np.float32(0), a)
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """f32 a·b + c rounded once (the product exact in f64, the f64 sum
+    rounded to odd), flushed: numpy, written out here."""
+    p = np.asarray(a, np.float32).astype(np.float64) \
+        * np.asarray(b, np.float32).astype(np.float64)
+    cd = np.asarray(c, np.float32).astype(np.float64)
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    odd = (err != 0) & ((s.view(np.int64) & 1) == 0) & np.isfinite(s)
+    s = np.where(odd, np.nextafter(s, np.copysign(np.inf, err)), s)
+    return _ftz32(s.astype(np.float32))
+
+
+def _local32(v: np.ndarray, lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """f32 coordinates in each feature's frame: minus the centre of its
+    envelope rounded to 1/256 degree, in f64, then rounded to f32."""
+    ref = np.round(((lo + hi) * 0.5) * 256.0) / 256.0
+    return _ftz32((v - ref).astype(np.float32))
+
+
+def lines_length32(ax, ay, bx, by) -> np.ndarray:
+    """st_length of single-segment lines in the catalog's f32 arithmetic:
+    jnp.hypot's max · sqrt(fma(r, r, 1)), r = min / max."""
+    x1 = _local32(ax, np.minimum(ax, bx), np.maximum(ax, bx))
+    x2 = _local32(bx, np.minimum(ax, bx), np.maximum(ax, bx))
+    y1 = _local32(ay, np.minimum(ay, by), np.maximum(ay, by))
+    y2 = _local32(by, np.minimum(ay, by), np.maximum(ay, by))
+    a, b = np.abs(_ftz32(x2 - x1)), np.abs(_ftz32(y2 - y1))
+    hi, lo = np.maximum(a, b), np.minimum(a, b)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        r = _ftz32(lo / np.where(hi == 0, np.float32(1), hi))
+    root = _ftz32(np.sqrt(_fma32(r, r, 1.0).astype(np.float64)
+                          ).astype(np.float32))
+    return np.where(hi == 0, hi, _ftz32(hi * root))
+
+
+def quads_area32(rings: np.ndarray) -> np.ndarray:
+    """st_area of closed quadrilateral rings (n, 5, 2) in the catalog's f32
+    arithmetic: Σ fma(x1, y2, −x2·y1)·w left to right, w the sign of the
+    ring's f64 signed area, halved, clamped at 0."""
+    lo, hi = rings.min(axis=1), rings.max(axis=1)
+    lx = _local32(rings[..., 0], lo[:, None, 0], hi[:, None, 0])
+    ly = _local32(rings[..., 1], lo[:, None, 1], hi[:, None, 1])
+    x, y = rings[..., 0], rings[..., 1]
+    sa = 0.5 * np.sum(x * np.roll(y, -1, axis=1) - np.roll(x, -1, axis=1) * y,
+                      axis=1)
+    w = np.where(sa >= 0, np.float32(1), np.float32(-1))
+    a2 = None
+    for j in range(4):
+        c = _ftz32(_fma32(lx[:, j], ly[:, j + 1],
+                          -_ftz32(lx[:, j + 1] * ly[:, j])) * w)
+        a2 = c if a2 is None else _ftz32(a2 + c)
+    return np.maximum(_ftz32(a2 * np.float32(0.5)), np.float32(0))
+
+
+def quads_contain_point(rings: np.ndarray, point) -> np.ndarray:
+    """f64, written out here: the quadrilaterals holding ``point`` by
+    crossing parity, or on an edge."""
+    px, py = point
+    x1, y1 = rings[:, :4, 0], rings[:, :4, 1]
+    x2, y2 = rings[:, 1:, 0], rings[:, 1:, 1]
+    cond = (y1 > py) != (y2 > py)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        xint = (x2 - x1) * (py - y1) / (y2 - y1) + x1
+    inside = (np.count_nonzero(cond & (px < xint), axis=1) % 2) == 1
+    cross = (x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)
+    on = (cross == 0) & (np.minimum(x1, x2) <= px) & (px <= np.maximum(x1, x2)) \
+        & (np.minimum(y1, y2) <= py) & (py <= np.maximum(y1, y2))
+    return inside | on.any(axis=1)
+
+
+class _pack_recorder:
+    """Within it, the rows of every ``catalog.pack_features`` call (the
+    rows the planner's route hands the catalog)."""
+
+    def __enter__(self):
+        from geomesa_tpu_torch.geom import catalog
+        self.mod, self.orig, self.calls = catalog, catalog.pack_features, []
+
+        def rec(arr, rows, device=None):
+            self.calls.append((arr, np.asarray(rows, dtype=np.int64)))
+            return self.orig(arr, rows, device)
+
+        catalog.pack_features = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.pack_features = self.orig
+
+
+def catalog_split(kind: str, arr, rows, literal=None, op: int = 0,
+                  device: str = "cuda") -> dict:
+    """Seconds of one catalog call on ``rows``, by the stages the query
+    runs: the pack's host half (``catalog.pack_host``: numpy over the
+    ragged offsets), its device half (``catalog.pack_device``: the upload
+    and the padded tables built on the card, synchronised), the kernel on
+    the pack's real rows (synchronised), and the refine (read back, and the
+    f64 host refine of the predicate's uncertain rows); and, apart, the
+    whole ``pack_features`` call the query makes."""
+    import torch
+    from geomesa_tpu_torch.features.geometry import MULTIPOINT, POINT
+    from geomesa_tpu_torch.geom import catalog, oracle
+    from geomesa_tpu_torch.kernels import geom
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    sync()
+    t0 = time.perf_counter()
+    catalog.pack_features(arr, rows, dev)
+    sync()
+    whole = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h = catalog.pack_host(arr, rows)
+    t1 = time.perf_counter()
+    p = catalog.pack_device(h, dev)
+    if literal is not None:
+        ls, lp, lpoly = catalog.pack_literal(literal, dev)
+    sync()
+    t2 = time.perf_counter()
+    if kind == "unary":
+        res = geom.geom_unary(*p.rows(*catalog.UNARY))
+    elif kind == "dist":
+        res = (geom.geom_dist(*p.rows(*catalog.PAIR), ls, lp, lpoly),)
+    else:
+        ext = literal[0] not in (POINT, MULTIPOINT)
+        res = geom.geom_pred(*p.rows(*catalog.PAIR), ls, lp, op, lpoly, ext)
+    sync()
+    t3 = time.perf_counter()
+    host = [r.cpu().numpy() for r in res]
+    n_unc = 0
+    if kind == "pred":
+        unc = ~host[0] & ~host[1]
+        n_unc = int(unc.sum())
+        if n_unc:
+            oracle.intersects(arr, rows[unc], literal) if op == 0 else \
+                oracle.feature_contains(arr, rows[unc], literal)
+    t4 = time.perf_counter()
+    return {"rows": int(len(rows)), "B": int(p.verts.shape[0]),
+            "K": int(p.verts.shape[1]), "S": int(p.segs.shape[1]),
+            "uncertain": n_unc, "pack_features_s": whole,
+            "pack_host_s": t1 - t0, "pack_device_s": t2 - t1,
+            "kernel_s": t3 - t2, "refine_s": t4 - t3}
+
+
+def _q_count(label: str, store, layer: str, q: str, want, uses,
+             want_off=None, device: str = "cuda") -> dict:
+    """One (q) query: the count on the catalog route (each kernel of
+    ``uses`` launched, counted around the call), equal to ``want``; its
+    p50 with GEOMESA_TPU_GEOM_KERNELS on (Q_REPS synced calls after that
+    one) and off (Q_REPS_OFF calls: the host f64 route, its count equal to
+    ``want_off``); the catalog calls' rows."""
+    import torch
+    from geomesa_tpu_torch import config as tconfig
+    from geomesa_tpu_torch.kernels import geom
+    kerns = {"geom_unary": geom.geom_unary, "geom_dist": geom.geom_dist,
+             "geom_pred": geom.geom_pred}
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    before = {k: f.launches for k, f in kerns.items()}
+    with _pack_recorder() as rec:
+        got = store.count(layer, q)
+    sync()
+    used = {k: kerns[k].launches - before[k] for k in kerns}
+    for k in uses:
+        if device == "cuda" and used[k] < 1:
+            raise AssertionError(f"(q) {label} did not launch {k}: {used}")
+    if got != want:
+        raise AssertionError(f"(q) {label}: {got} != oracle {want}")
+
+    def p50(reps):
+        ts = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            n = store.count(layer, q)
+            sync()
+            ts.append(time.perf_counter() - t0)
+        return p50_ms(ts), n
+
+    on_ms, n = p50(Q_REPS)
+    if n != want:
+        raise AssertionError(f"(q) {label}: {n} != oracle {want}")
+    tconfig.GEOM_KERNELS.set(False)
+    try:
+        off_ms, n_off = p50(Q_REPS_OFF)
+    finally:
+        tconfig.GEOM_KERNELS.unset()
+    if want_off is not None and n_off != want_off:
+        raise AssertionError(f"(q) {label} on the host route: {n_off} != "
+                             f"oracle {want_off}")
+    r = {"count": int(got), "p50_on_ms": on_ms, "p50_off_ms": off_ms,
+         "count_host_route": int(n_off), "launches": used,
+         "catalog_rows": [int(len(rw)) for _, rw in rec.calls]}
+    log(f"[q] {label}: {json.dumps(r)}")
+    r["calls"] = rec.calls
+    return r
+
+
+def phase_catalog(m1: dict, m3: dict, device: str = "cuda") -> dict:
+    """(q): the geometry catalog on (m1)'s 5M-line and (m3)'s 500,000-quad
+    stores. (q1) st_length(geom) > 1.5 over every line (geom_unary); (q2)
+    (m3)'s st_area count in M_BOX (geom_unary) and its buffer count
+    (geom_pred); (q3) st_intersects with M_WKT and st_contains of POINT(1
+    39) over the quads (geom_pred); (q4) st_distance(geom, POINT(1 39)) <
+    0.5 (geom_dist). Scalar counts equal the f32 oracle (the f64 oracle's
+    count and the rows on which they differ printed beside), booleans their
+    f64 oracles; (q4) equals the plain version's count on the card and
+    every candidate's f32 distance is within 2e-4 + 1e-5·d of its f64
+    distance (geom/catalog.py's documented tolerance). Each query's p50 on
+    and off the catalog, its kernels' launches and the split of its
+    catalog call. Returns the measurements, the launches of the whole
+    phase and the recorded catalog inputs for the kernel checks."""
+    from geomesa_tpu_torch.features.geometry import POINT, parse_wkt
+    from geomesa_tpu_torch.geom import catalog, oracle
+    from geomesa_tpu_torch.kernels import geom
+
+    for k in (geom.geom_unary, geom.geom_dist, geom.geom_pred):
+        k.launches = 0
+    out = {}
+    ax, ay, bx, by = m1["segments"]
+    len32 = lines_length32(ax, ay, bx, by)
+    len64 = np.hypot(bx - ax, by - ay)
+    want32 = int(np.count_nonzero(len32 > M_LEN))
+    want64 = int(np.count_nonzero(len64 > M_LEN))
+    q1 = _q_count("q1 st_length", m1["store"], "osm", Q_M1_LEN, want32,
+                  ("geom_unary",), want64, device)
+    q1.update(f64_count=want64, rows_f32_f64_differ=int(np.count_nonzero(
+        (len32 > M_LEN) != (len64 > M_LEN))))
+    out["q1"] = q1
+    rings, in_box = m3["rings"], m3["in_box"]
+    area32 = quads_area32(rings)
+    x3, y3 = rings[..., 0], rings[..., 1]
+    area64 = np.abs(0.5 * np.sum(x3 * np.roll(y3, -1, axis=1)
+                                 - np.roll(x3, -1, axis=1) * y3, axis=1))
+    want32 = int(np.count_nonzero(in_box & (area32 > M_AREA)))
+    want64 = int(np.count_nonzero(in_box & (area64 > M_AREA)))
+    q2 = _q_count("q2 st_area", m3["store"], "parcels", Q_M3_AREA, want32,
+                  ("geom_unary",), want64, device)
+    q2.update(f64_count=want64, rows_f32_f64_differ=int(np.count_nonzero(
+        in_box & ((area32 > M_AREA) != (area64 > M_AREA)))))
+    out["q2_area"] = q2
+    out["q2_buffer"] = _q_count("q2 buffer", m3["store"], "parcels",
+                                Q_M3_BUF, m3["want_buf"], ("geom_pred",),
+                                m3["want_buf"], device)
+    want = len(m3["want_hits"])
+    out["q3_intersects"] = _q_count("q3 st_intersects", m3["store"],
+                                    "parcels", Q_Q3_INTERSECTS, want,
+                                    ("geom_pred",), want, device)
+    want = int(np.count_nonzero(quads_contain_point(rings, M_BUF_P)))
+    out["q3_contains"] = _q_count("q3 st_contains", m3["store"], "parcels",
+                                  Q_Q3_CONTAINS, want, ("geom_pred",), want,
+                                  device)
+    # (q4): the plain version's count over the prefilter's candidates (the
+    # rows whose envelope meets the point's box of side 2r), on the card
+    garr = m3["planner"].table.column("geom")
+    bb = garr.bboxes()
+    px, py = M_BUF_P
+    cand = np.flatnonzero((bb[:, 0] <= px + Q_DIST_R)
+                          & (bb[:, 2] >= px - Q_DIST_R)
+                          & (bb[:, 1] <= py + Q_DIST_R)
+                          & (bb[:, 3] >= py - Q_DIST_R))
+    lit = (POINT, [px, py])
+    p = catalog.pack_features(garr, cand, device)
+    ls, lp, lpoly = catalog.pack_literal(lit, device)
+    d32 = catalog._dist_plain(*p.rows(*catalog.PAIR), ls, lp,
+                              lpoly).cpu().numpy()
+    d64 = oracle.distance(garr, cand, lit)
+    tol = 2e-4 + 1e-5 * np.abs(d64)
+    worst = float(np.max(np.abs(d32.astype(np.float64) - d64) - tol,
+                         initial=-np.inf))
+    if worst > 0:
+        raise AssertionError(f"(q4) an f32 distance is {worst} past the "
+                             "documented tolerance 2e-4 + 1e-5·d")
+    want32 = int(np.count_nonzero(d32 < Q_DIST_R))
+    want64 = int(np.count_nonzero(d64 < Q_DIST_R))
+    q4 = _q_count("q4 st_distance", m3["store"], "parcels", Q_Q4, want32,
+                  ("geom_dist",), want64, device)
+    q4.update(f64_count=want64, candidates=int(len(cand)),
+              rows_f32_f64_differ=int(np.count_nonzero(
+                  (d32 < Q_DIST_R) != (d64 < Q_DIST_R))),
+              max_abs_f32_f64=float(np.max(np.abs(d32 - d64), initial=0.0)))
+    out["q4"] = q4
+    out["launches"] = {k.__name__: k.launches
+                       for k in (geom.geom_unary, geom.geom_dist,
+                                 geom.geom_pred)}
+    # the split of each query's catalog call, on the rows it was given
+    wkt = parse_wkt(M_WKT)
+    for key, kind, literal, op in (
+            ("q1", "unary", None, 0), ("q2_area", "unary", None, 0),
+            ("q2_buffer", "pred", lit, 0),
+            ("q3_intersects", "pred", wkt, 0),
+            ("q3_contains", "pred", lit, 2), ("q4", "dist", lit, 0)):
+        arr, rows = out[key]["calls"][-1]
+        out[key]["split"] = catalog_split(kind, arr, rows, literal, op,
+                                          device)
+    log(json.dumps({"catalog": {k: {kk: vv for kk, vv in v.items()
+                                    if kk != "calls"}
+                                if isinstance(v, dict) else v
+                                for k, v in out.items()}}))
+    return out
+
+
+def geom_bound(kind: str, p, L: int = 0, P: int = 0,
+               out_bytes: int = 4) -> dict:
+    """The least time for one catalog kernel call on the ``p.n`` real
+    features of pack ``p`` (and a literal of L edges and P points): bytes
+    — the features' real vertices (8 B and a mask byte each) and segments
+    (16 B and a mask byte; for geom_unary also a 4-byte weight) read once,
+    a feature's mode (geom_unary) or polygon flag and 8-byte origin, and
+    the outputs written once; operations — the GEOM_* counts over the same
+    vertices, segments and literal items. Neither counts the pads the pack
+    holds for the reference's shapes (rows past n, slots past a feature's
+    own)."""
+    n = int(p.n)
+    nv = int(p.vmask[:n].sum())
+    ns = int(p.smask[:n].sum())
+    nbytes = nv * 9 + ns * 17 + (ns * 4 + n * 4 if kind == "unary"
+                                 else n * 9) + n * out_bytes \
+        + 16 * L + 8 * P
+    if kind == "unary":
+        ops = (GEOM_UNARY_OPS_SEG * ns + GEOM_UNARY_OPS_VERT * nv
+               + GEOM_UNARY_OPS_FEAT * n)
+    elif kind == "dist":
+        ops = (GEOM_PTSEG_OPS * (nv * L + P * ns) + GEOM_PTPT_OPS * nv * P
+               + GEOM_PIP_OPS * (nv * L + P * ns) + GEOM_CROSS_OPS * ns * L
+               + 6 * L * n)
+    else:
+        ops = (GEOM_PTSEG_OPS * (nv * L + P * ns) + GEOM_PTPT_OPS * nv * P
+               + GEOM_BAND_OPS * (nv * L + P * ns)
+               + SEG_OPS_PER_PAIR * ns * L + 6 * L * n)
+    return _bound(nbytes, ops)
+
+
+def phase_catalog_kernels(qres: dict) -> dict:
+    """Each catalog kernel against its plain version on the card at (q)'s
+    shapes (equal bit for bit, or the run fails): geom_unary at (q1)'s 5M
+    lines and (q2)'s st_area rows, geom_pred at (q3)'s rows against M_WKT
+    (intersects) and POINT(1 39) (contains), geom_dist at (q4)'s candidates
+    and over all 500,000 quads; kernel ms by CUDA events, the plain
+    version's ms, the bound, registers and spills (cuobjdump). No single
+    PyTorch call computes them: no library time."""
+    import torch
+    from geomesa_tpu_torch.features.geometry import (MULTIPOINT, POINT,
+                                                     parse_wkt)
+    from geomesa_tpu_torch.geom import catalog
+    from geomesa_tpu_torch.kernels import geom
+
+    dev = torch.device("cuda")
+    out = {"geom_unary": [], "geom_dist": [], "geom_pred": []}
+
+    def packed(key, rows=None):
+        arr, rw = qres[key]["calls"][-1]
+        p = catalog.pack_features(arr, rw if rows is None else rows, dev)
+        return p, arr
+
+    for key in ("q1", "q2_area"):
+        p, _ = packed(key)
+        args = tuple(p.rows(*catalog.UNARY))
+        out["geom_unary"].append(_time_kernel(
+            f"geom_unary at ({key}): {p.n} rows (B {p.verts.shape[0]}), K "
+            f"{p.verts.shape[1]}, S {p.segs.shape[1]}",
+            lambda a=args: geom.geom_unary(*a),
+            lambda a=args: catalog._unary_plain(*a),
+            geom_bound("unary", p, out_bytes=16), 50 if key != "q1" else 20))
+    lit_pt = (POINT, [M_BUF_P[0], M_BUF_P[1]])
+    for key, literal, op in (("q3_intersects", parse_wkt(M_WKT), 0),
+                             ("q3_contains", lit_pt, 2)):
+        p, _ = packed(key)
+        ls, lp, lpoly = catalog.pack_literal(literal, dev)
+        ext = literal[0] not in (POINT, MULTIPOINT)
+        args = (*p.rows(*catalog.PAIR), ls, lp, op, lpoly, ext)
+        out["geom_pred"].append(_time_kernel(
+            f"geom_pred op {op} at ({key}): {p.n} rows (B "
+            f"{p.verts.shape[0]}), L "
+            f"{ls.shape[0]}, P {lp.shape[0]}",
+            lambda a=args: geom.geom_pred(*a),
+            lambda a=args: catalog._pred_plain(*a),
+            geom_bound("pred", p, ls.shape[0], lp.shape[0], out_bytes=2),
+            50))
+    arr, _ = qres["q4"]["calls"][-1]
+    for label, rows in (("(q4)'s candidates", None),
+                        ("all 500,000 quads", np.arange(len(arr)))):
+        p, _ = packed("q4", rows)
+        ls, lp, lpoly = catalog.pack_literal(lit_pt, dev)
+        args = (*p.rows(*catalog.PAIR), ls, lp, lpoly)
+        out["geom_dist"].append(_time_kernel(
+            f"geom_dist at {label}: {p.n} rows (B {p.verts.shape[0]})",
+            lambda a=args: geom.geom_dist(*a),
+            lambda a=args: catalog._dist_plain(*a),
+            geom_bound("dist", p, ls.shape[0], lp.shape[0]), 50))
+    for name in out:
+        res = kernel_resources(name)
+        log(f"[kernel] {name} registers and spills (cuobjdump): "
+            f"{json.dumps(res)}")
+    return out
 
 
 def phase_extent_s2(points_table, device: str = "cuda",
@@ -4577,8 +5057,8 @@ def phase_process(store, g_oracle) -> dict:
     launches counted from 0 around the phase."""
     import torch
     from geomesa_tpu_torch.kernels import (box_count, compact, density,
-                                           dist, fused_scan, gate, hist,
-                                           merge, pip, seg_band, topk)
+                                           dist, fused_scan, gate, geom,
+                                           hist, merge, pip, seg_band, topk)
     from geomesa_tpu_torch.metrics import REGISTRY
     from geomesa_tpu_torch.process import knn
     table = store.tables["gdelt"]
@@ -5127,7 +5607,12 @@ def main() -> int:
     m = timed_phase("(m) extent", phase_extent,
                     store.planner("gdelt").table)
     m1_state = m.pop("m1_state")
+    m3_state = m.pop("m3_state")
     mk = timed_phase("(m) extent kernels", phase_extent_kernels, m1_state)
+    qres = timed_phase("(q) catalog", phase_catalog, m1_state, m3_state)
+    qk = timed_phase("(q) catalog kernels", phase_catalog_kernels, qres)
+    qlaunch = qres["launches"]
+    del m3_state, qres
     timed_phase("(m5) S2/S3", phase_extent_s2, store.planner("gdelt").table)
     timed_phase("(m6) merge", phase_extent_merge, m1_state)
     del m1_state
@@ -5138,8 +5623,8 @@ def main() -> int:
     w = timed_phase("(l) write", phase_write, store, g_oracle)
     import torch
     from geomesa_tpu_torch.kernels import (box_count, compact, density,
-                                           dist, fused_scan, gate, hist,
-                                           merge, pip, seg_band, topk)
+                                           dist, fused_scan, gate, geom,
+                                           hist, merge, pip, seg_band, topk)
     head = d[0]   # (d)'s own inputs, 64x64, unit weights
     bhead = b[0]  # (g3)'s batch over the union of its covers
     thead = t[0]  # (i)'s own inputs
@@ -5236,7 +5721,17 @@ def main() -> int:
         "plain_ms": mk["fused_scan_env"][0]["plain_ms"],
         "bound_ms": mk["fused_scan_env"][0]["bound_ms"],
         "bound_by": mk["fused_scan_env"][0]["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}] + [{
+        # the geometry catalog's kernels: launches from (q)'s run, the
+        # rest from the first row of each kernel's comparisons ((q1)'s
+        # lines, (q3)'s intersects rows, (q4)'s candidates)
+        "name": name, "route": "cuda", "source": geom.SOURCES[name],
+        "replaces": geom.REPLACES[name], "launches": qlaunch[name],
+        "max_abs_err": max(r["max_abs_err"] for r in qk[name]),
+        "ms": qk[name][0]["ms"], "plain_ms": qk[name][0]["plain_ms"],
+        "bound_ms": qk[name][0]["bound_ms"],
+        "bound_by": qk[name][0]["bound_by"], "library_ms": None}
+        for name in geom.NAMES]}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -259,3 +259,27 @@ NODE_ID = _register(
     "federated metrics, the node dimension on traces/flight events, the "
     "/healthz + BENCH_summary attribution). Empty = derived "
     "hostname-pid-suffix, unique per process incarnation.")
+
+# -- the geometry function catalog (geom/catalog.py) -------------------------
+
+GEOM_KERNELS = _register(
+    "GEOMESA_TPU_GEOM_KERNELS", True, _parse_bool,
+    "Evaluate st_* residual predicates through the device catalog "
+    "(geom/catalog.py: the geom_unary, geom_dist and geom_pred kernels; "
+    "the predicates' uncertain sliver refined by the f64 host oracle, so "
+    "booleans stay exact; scalar comparisons read the f32 kernel value, "
+    "as the reference's do). Off: every Func residual evaluates on the "
+    "f64 host oracle.")
+
+GEOM_FUSE = _register(
+    "GEOMESA_TPU_GEOM_FUSE", True, _parse_bool,
+    "Registered as the reference registers it, and read nowhere (the "
+    "reference reads it nowhere either): the fused program lowers its "
+    "eligible Func residuals whatever its value.")
+
+GEOM_CHUNK = _register(
+    "GEOMESA_TPU_GEOM_CHUNK", 4_000_000, int,
+    "Element budget of the catalog's plain pairwise tables (feature "
+    "segment x literal segment): the plain predicate and distance run "
+    "their rows in chunks so B*64*L stays under it. The kernels build no "
+    "pair table and take a call's rows in one launch.")

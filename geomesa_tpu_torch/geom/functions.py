@@ -1,17 +1,27 @@
-"""Binding layer: filter-IR Func nodes → the geometry functions.
+"""Binding layer: filter-IR Func nodes → the geometry catalog.
 
-≙ ``geomesa_tpu.geom.functions`` with ``kernels=False``, the reference's
-default: evaluates ``ir.Func`` / ``ir.FuncCmp`` predicates and
-``ir.FuncExpr`` values over a FeatureTable of points, lines or polygons
-with the exact f64 host oracle (``geom.oracle``). ``filter/evaluate.py``
-dispatches here, so it stays the parity reference of the fused program's
-refine kinds. The reference's second backend, the device catalog
-(``kernels=True``, ``geom/catalog.py``), is ROADMAP.md Queue 1, item 13,
-and raises naming it.
+≙ ``geomesa_tpu.geom.functions``: evaluates ``ir.Func`` / ``ir.FuncCmp``
+predicates and ``ir.FuncExpr`` projections over a FeatureTable of points,
+lines or polygons. Two backends share one argument-evaluation core:
 
-Arguments evaluate to ``GeomBatch``es — (GeometryArray, idx) pairs — so nested
-geometry-valued calls (st_buffer/st_centroid/st_convexHull) compose with
-every predicate.
+* host — the exact f64 oracle (``geom.oracle``); ``filter/evaluate.py``
+  dispatches here with ``kernels=False``, so it stays the parity reference
+  of the fused program's refine kinds;
+* kernels — the device catalog (``geom.catalog``: the ``geom_unary``,
+  ``geom_dist`` and ``geom_pred`` kernels) for the planner's staged refine
+  (``GEOMESA_TPU_GEOM_KERNELS``, on by default, as in the reference);
+  boolean predicates stay exact (banded + host-refined), scalars are the
+  kernels' f32 values, with the documented bounds.
+
+``scalar_values``/``bool_values`` default to ``kernels=False``, as the
+reference's do; ``eval_filter_node`` and ``project_values`` read the knob
+when ``kernels`` is None. ``device`` is where the catalog runs (the card
+unless the caller names another).
+
+Arguments evaluate to ``GeomBatch``es — (GeometryArray, idx) pairs — so
+nested geometry-valued calls (st_buffer/st_centroid/st_convexHull) compose
+with every predicate and with select/export projections
+(``st_centroid(geom) AS c``).
 """
 
 from __future__ import annotations
@@ -21,11 +31,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from geomesa_tpu_torch import config
 from geomesa_tpu_torch.features import geometry as geo
 from geomesa_tpu_torch.filter import geom_numpy as gn
 from geomesa_tpu_torch.filter import ir
-from geomesa_tpu_torch.geom import oracle
-from geomesa_tpu_torch.index.api import not_ported
+from geomesa_tpu_torch.geom import catalog, oracle
 
 
 @dataclass
@@ -98,27 +108,29 @@ def _pairwise_shapes(b: GeomBatch) -> List[tuple]:
     return [b.arr.shape(int(i)) for i in b.idx]
 
 
-def _no_kernels(kernels: bool) -> None:
-    if kernels:
-        raise not_ported("the device geometry catalog (geom/catalog.py)", 13)
-
-
 def scalar_values(table, rows: Optional[np.ndarray], name: str,
-                  args: tuple, kernels: bool = False) -> np.ndarray:
+                  args: tuple, kernels: bool = False,
+                  device=None) -> np.ndarray:
     """f64 values of a scalar st_* call at ``rows``."""
-    _no_kernels(kernels)
     if name in ("st_area", "st_length"):
         g = geom_arg(table, rows, args[0])
         idx = np.zeros(1, dtype=np.int64) if g.constant else g.idx
-        fn = oracle.area if name == "st_area" else oracle.length
-        v = fn(g.arr, idx)
+        if kernels:
+            v = catalog.unary_values(g.arr, idx, device)[
+                "area" if name == "st_area" else "length"]
+        else:
+            fn = oracle.area if name == "st_area" else oracle.length
+            v = fn(g.arr, idx)
         return np.broadcast_to(v, (len(g.idx),)).copy() if g.constant else v
     if name == "st_distance":
         a, b = _two_args(table, rows, args, name)
         if a.constant and not b.constant:
             a, b = b, a
         if b.constant:
-            return oracle.distance(a.arr, a.idx, b.literal())
+            lit = b.literal()
+            if kernels:
+                return catalog.batch_distance(a.arr, a.idx, lit, device)
+            return oracle.distance(a.arr, a.idx, lit)
         # both sides row-dependent: exact per-row host loop
         return np.asarray(
             [gn.geometry_distance(a.arr, int(a.idx[k]), shp)
@@ -128,24 +140,36 @@ def scalar_values(table, rows: Optional[np.ndarray], name: str,
 
 
 def bool_values(table, rows: Optional[np.ndarray], name: str,
-                args: tuple, kernels: bool = False) -> np.ndarray:
+                args: tuple, kernels: bool = False,
+                device=None) -> np.ndarray:
     """Exact boolean values of st_contains / st_intersects at ``rows``."""
-    _no_kernels(kernels)
     a, b = _two_args(table, rows, args, name)
     if name == "st_intersects":
         if a.constant and not b.constant:
             a, b = b, a
         if b.constant:
-            return oracle.intersects(a.arr, a.idx, b.literal())
+            lit = b.literal()
+            if kernels:
+                return catalog.batch_predicate(a.arr, a.idx, "intersects",
+                                               lit, device)
+            return oracle.intersects(a.arr, a.idx, lit)
         return np.asarray(
             [gn.geometry_intersects(a.arr, int(a.idx[k]), shp)
              for k, shp in enumerate(_pairwise_shapes(b))], dtype=bool)
     if name == "st_contains":
         # st_contains(a, b): a contains b
         if a.constant:
-            return oracle.contains_literal(b.arr, b.idx, a.literal())
+            lit = a.literal()
+            if kernels:
+                return catalog.batch_predicate(b.arr, b.idx, "within", lit,
+                                               device)
+            return oracle.contains_literal(b.arr, b.idx, lit)
         if b.constant:
-            return oracle.feature_contains(a.arr, a.idx, b.literal())
+            lit = b.literal()
+            if kernels:
+                return catalog.batch_predicate(a.arr, a.idx, "contains",
+                                               lit, device)
+            return oracle.feature_contains(a.arr, a.idx, lit)
         return np.concatenate(
             [oracle.feature_contains(a.arr, a.idx[k: k + 1], shp)
              for k, shp in enumerate(_pairwise_shapes(b))]) \
@@ -186,11 +210,14 @@ def _prefilter_box(f) -> Optional[Tuple[str, float, float, float, float]]:
 
 
 def eval_filter_node(f, table, rows: Optional[np.ndarray],
-                     kernels: bool = False) -> np.ndarray:
+                     kernels: Optional[bool] = None,
+                     device=None) -> np.ndarray:
     """Boolean mask at ``rows`` for an ir.Func / ir.FuncCmp node, with a
-    bbox prefilter for the common attr-vs-literal shapes (host oracle;
-    ``kernels=True``, the device catalog, is not ported)."""
-    _no_kernels(kernels)
+    bbox prefilter for the common attr-vs-literal shapes. ``kernels`` None
+    reads GEOMESA_TPU_GEOM_KERNELS; filter/evaluate.py passes False (it IS
+    the host oracle)."""
+    if kernels is None:
+        kernels = bool(config.GEOM_KERNELS.get())
     r = _rows_of(table, rows)
     pre = _prefilter_box(f)
     sub = None
@@ -207,13 +234,121 @@ def eval_filter_node(f, table, rows: Optional[np.ndarray],
             sub = r[cand]
     eval_rows = r if sub is None else sub
     if isinstance(f, ir.Func):
-        vals = bool_values(table, eval_rows, f.name, f.args, kernels)
+        vals = bool_values(table, eval_rows, f.name, f.args, kernels, device)
     else:
         from geomesa_tpu_torch.filter.evaluate import _apply_op
-        s = scalar_values(table, eval_rows, f.name, f.args, kernels)
+        s = scalar_values(table, eval_rows, f.name, f.args, kernels, device)
         vals = _apply_op(f.op, s, f.value)
     if sub is None:
         return vals
     out = np.zeros(len(r), dtype=bool)
     out[cand] = vals
+    return out
+
+
+# -- projections (select / export: "st_centroid(geom) AS c") -----------------
+
+
+def parse_projection(spec: str):
+    """Parse one ``st_fn(args) AS name`` projection term → (FuncExpr-or-
+    (name, args), alias). Plain attribute names pass through as (attr,
+    alias)."""
+    from geomesa_tpu_torch.filter.parser import _Tokens, _parse_func_args
+    text = spec.strip()
+    toks = _Tokens(text)
+    tok = toks.peek()
+    if tok is None:
+        raise ValueError("Empty projection")
+    k, v = tok
+    if k != "word":
+        raise ValueError(f"Bad projection {spec!r}")
+    name = v.lower()
+    if name in ir.FUNC_NAMES:
+        toks.next()
+        args = _parse_func_args(toks)
+        node = (name, args)
+    else:
+        toks.next()
+        node = v
+    alias = None
+    if toks.peek_word() == "AS":
+        toks.next()
+        alias = toks.expect("word")
+    if toks.peek() is not None:
+        raise ValueError(f"Trailing input in projection {spec!r}")
+    if alias is None:
+        alias = name if isinstance(node, tuple) else v
+    return node, alias
+
+
+def project_values(table, rows: Optional[np.ndarray], node,
+                   kernels: Optional[bool] = None, device=None):
+    """Evaluate a parsed projection term at ``rows``.
+
+    Returns (kind, values): kind 'scalar' → f64 array; kind 'geom' → list of
+    (type_code, data) shapes; kind 'attr' → the raw column values.
+    """
+    if kernels is None:
+        kernels = bool(config.GEOM_KERNELS.get())
+    r = _rows_of(table, rows)
+    if isinstance(node, str):
+        col = table.column(node)
+        if isinstance(col, geo.GeometryArray):
+            return "geom", [col.shape(int(i)) for i in r]
+        from geomesa_tpu_torch.features.table import StringColumn
+        if isinstance(col, StringColumn):
+            return "attr", [col.vocab[c] for c in col.codes[r]]
+        return "attr", np.asarray(col)[r]
+    name, args = node
+    if name in ir.FUNC_SCALAR:
+        return "scalar", scalar_values(table, r, name, args, kernels, device)
+    if name in ir.FUNC_BOOLEAN:
+        return "scalar", bool_values(table, r, name, args, kernels,
+                                     device).astype(np.float64)
+    e = ir.FuncExpr(name, args)
+    if name == "st_centroid" and kernels:
+        g = geom_arg(table, r, args[0])
+        if not g.constant:
+            u = catalog.unary_values(g.arr, g.idx, device)
+            return "geom", [(geo.POINT, [float(x), float(y)])
+                            for x, y in zip(u["cx"], u["cy"])]
+    b = eval_funcexpr(table, r, e)
+    return "geom", _pairwise_shapes(b)
+
+
+def parse_projections(spec: str) -> List[tuple]:
+    """Split a comma-separated projection list on TOP-LEVEL commas only
+    (``st_distance(geom, POINT(1 2)) AS d, val`` is two terms, not three)
+    and parse each — the ``?select=`` / ``--select`` surface grammar."""
+    terms, depth, start = [], 0, 0
+    for i, ch in enumerate(spec):
+        if ch == "(":
+            depth += 1
+        elif ch == ")":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            terms.append(spec[start:i])
+            start = i + 1
+    terms.append(spec[start:])
+    return [parse_projection(t) for t in terms if t.strip()]
+
+
+def projection_columns(table, rows: Optional[np.ndarray], spec: str,
+                       kernels: Optional[bool] = None,
+                       device=None) -> dict:
+    """Evaluate a ``?select=`` projection list → ordered {alias: values}
+    with JSON-safe values: geometry terms serialize to WKT, scalars to
+    floats, raw attributes to native types (the reference's REST features
+    route and CLI export path read it; their port is ROADMAP.md item
+    15)."""
+    out: dict = {}
+    for node, alias in parse_projections(spec):
+        kind, vals = project_values(table, rows, node, kernels, device)
+        if kind == "geom":
+            out[alias] = [geo.write_wkt(*s) for s in vals]
+        elif kind == "scalar":
+            out[alias] = [float(v) for v in np.asarray(vals)]
+        else:
+            out[alias] = [v.item() if isinstance(v, np.generic) else v
+                          for v in vals]
     return out

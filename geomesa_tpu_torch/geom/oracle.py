@@ -6,8 +6,8 @@ reference's geomesa-spark-jts UDFs
 st_contains/st_intersects) over point and ragged (line, polygon, multi)
 features. The filter evaluator (``filter.evaluate``) and the fused
 program's uncertain-sliver refine call them directly, so the oracle IS the
-semantics. (The reference's device catalog, ``geom.catalog``, is judged
-against these; its port is ROADMAP.md Queue 1, item 13.)
+semantics. (The device catalog, ``geom.catalog``, is judged against
+these, and refines its predicates' uncertain sliver with them.)
 
 Semantics notes (documented in the README function table):
 

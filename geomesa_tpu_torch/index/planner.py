@@ -540,12 +540,36 @@ class QueryPlanner:
             return rows
         return rows[self._refine_mask(plan.residual_host, rows)]
 
+    @property
+    def device(self) -> torch.device:
+        """The device the type's indexes (and so its catalog route) run on."""
+        return self.indexes[0].kernels.device
+
     def _refine_mask(self, res: ir.Filter, rows: np.ndarray) -> np.ndarray:
-        """Residual mask over candidate rows, st_* calls through the host
-        oracle (``geom.functions``). The reference's optional device-catalog
-        route gives the same mask by its own contract
-        (tests/test_geom_catalog.py ``test_kernel_vs_oracle_parity_pins_zero``);
-        the catalog is ROADMAP.md Queue 1, item 13."""
+        """Residual mask over candidate rows (≙ the reference's route). With
+        GEOMESA_TPU_GEOM_KERNELS on (the default), each st_* part of an AND
+        residual goes through the device catalog (``geom.catalog``) on the
+        planner's device: the predicates' bands plus the f64 refine of
+        their uncertain sliver give the host oracle's mask, and a scalar
+        comparison reads the f32 kernel value, as the reference's does. The
+        other parts, and every part with the knob off, evaluate on the
+        host (``evaluate_at``)."""
+        parts = res.children if isinstance(res, ir.And) else (res,)
+        if config.GEOM_KERNELS.get() \
+                and any(isinstance(p, (ir.Func, ir.FuncCmp)) for p in parts):
+            from geomesa_tpu_torch.geom.functions import eval_filter_node
+            mask = np.ones(len(rows), dtype=bool)
+            rest = []
+            for p in parts:
+                if isinstance(p, (ir.Func, ir.FuncCmp)):
+                    mask &= eval_filter_node(p, self.table, rows,
+                                             kernels=True,
+                                             device=self.device)
+                else:
+                    rest.append(p)
+            if rest:
+                mask &= evaluate_at(ir.and_filters(rest), self.table, rows)
+            return mask
         return evaluate_at(res, self.table, rows)
 
 

@@ -311,13 +311,21 @@ def _orient_band(px, py, qx, qy, rx, ry):
     return det, tol
 
 
-def _pip_band_pairs(px, py, ex1, ey1, ex2, ey2):
+def _pip_band(px, py, ex1, ey1, ex2, ey2, evalid=None):
+    """(certainly-inside, certainly-outside) of points against padded
+    polygon edges, reduced over the last axis (≙ the reference's
+    ``_pip_band``): ``evalid`` masks the padded edges out of both the
+    crossings and the uncertainty, as the geometry catalog's feature edge
+    tables need."""
     cond = (ey1 > py) != (ey2 > py)
     o, t = _orient_band(ex1, ey1, ex2, ey2, px, py)
     upward = ey2 > ey1
     cross = cond & torch.where(upward, o > t, o < -t)
     unc = (cond & (o.abs() <= t)) \
         | ((ey1 - py).abs() <= DY_BAND) | ((ey2 - py).abs() <= DY_BAND)
+    if evalid is not None:
+        cross = cross & evalid
+        unc = unc & evalid
     inside = (cross.sum(dim=-1) % 2) == 1
     any_unc = unc.any(dim=-1)
     return inside & ~any_unc, ~inside & ~any_unc
@@ -339,7 +347,7 @@ def pip_band(px: torch.Tensor, py: torch.Tensor, edges: torch.Tensor):
     step = max(1, _PIP_CHUNK_PAIRS // max(1, ne))
     for a in range(0, n, step):
         b = min(n, a + step)
-        cin[a:b], cout[a:b] = _pip_band_pairs(
+        cin[a:b], cout[a:b] = _pip_band(
             px[a:b, None], py[a:b, None], *e)
     return cin, cout
 
@@ -373,8 +381,8 @@ def _seg_flags(ax, ay, bx, by, edges: torch.Tensor):
         b = min(n, a + step)
         sa = [v[a:b, None] for v in (ax, ay, bx, by)]
         hit_p, miss_p = _segpair_band(*sa, *e)
-        in_a, out_a = _pip_band_pairs(sa[0], sa[1], *e)
-        in_b, out_b = _pip_band_pairs(sa[2], sa[3], *e)
+        in_a, out_a = _pip_band(sa[0], sa[1], *e)
+        in_b, out_b = _pip_band(sa[2], sa[3], *e)
         hit[a:b] = in_a | in_b | hit_p.any(dim=1)
         miss[a:b] = out_a & out_b & miss_p.all(dim=1)
     return hit, miss

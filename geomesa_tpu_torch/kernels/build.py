@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # every kernel of the port, by its source's name under csrc/
 KERNELS = ("pip_refine", "grid_scatter", "box_count", "dist_refine",
            "merge_scatter", "seg_band", "block_gate", "fused_scan",
-           "ordered_compact", "masked_hist", "topk_nearest")
+           "ordered_compact", "masked_hist", "topk_nearest", "geom_unary",
+           "geom_dist", "geom_pred")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -293,7 +293,7 @@ def test_func_filter_mask_equals_reference(world, q):
     node = tf.children[0] if hasattr(tf, "children") else tf
     jnode = jf.children[0] if hasattr(jf, "children") else jf
     assert np.array_equal(
-        tfunctions.eval_filter_node(node, tp.table, rows),
+        tfunctions.eval_filter_node(node, tp.table, rows, kernels=False),
         jfunctions.eval_filter_node(jnode, jp.table, rows, kernels=False))
 
 
@@ -316,9 +316,9 @@ def test_scalar_values_equal_reference(world):
 ])
 def test_catalog_shapes_raise_naming_roadmap(world, q):
     """``st_buffer``, ``st_convexHull`` and non-point literals, once refused
-    naming item 13, take the reference's ``kernels=False`` host routes:
-    counts and rows equal the reference's (only ``kernels=True``, the
-    device catalog, still names item 13, below)."""
+    naming item 13, take the reference's routes: counts and rows equal the
+    reference's (the planner's through the device catalog,
+    GEOMESA_TPU_GEOM_KERNELS; the evaluator's through the host oracle)."""
     jp, tp = world
     assert tp.count(q) == jp.count(q)
     assert np.array_equal(np.sort(tp.select_indices(q)),
@@ -326,13 +326,6 @@ def test_catalog_shapes_raise_naming_roadmap(world, q):
     jf, tf = jparse(q), tparse(q)
     assert np.array_equal(tevaluate(tf, tp.table),
                           jevaluate(jf, jp.table))
-
-
-def test_device_catalog_route_raises_naming_roadmap(world):
-    _, tp = world
-    node = tparse("st_distance(geom, POINT(10 10)) < 15")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tfunctions.eval_filter_node(node, tp.table, None, kernels=True)
 
 
 # -- the evaluator on tests/test_filter.py's point inputs ----------------------

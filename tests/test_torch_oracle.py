@@ -12,7 +12,8 @@ package:
   shapes equal;
 - ``scalar_values``/``bool_values``/``eval_filter_node`` on that corpus,
   with ``st_buffer``, ``st_convexHull``, ``st_centroid`` and non-point
-  literals as arguments; ``kernels=True`` names ROADMAP item 13;
+  literals as arguments (``kernels=True``, the device catalog, is
+  ``tests/test_torch_catalog.py``'s and ``test_torch_catalog_route.py``'s);
 - st_* filters over line and polygon layers through both stores (XZ2 and
   XZ3 layers): counts and row ids equal.
 
@@ -163,7 +164,8 @@ def test_func_nodes_equal_reference(tables, q):
     jt, tt = tables
     rows = np.arange(1, len(tt), 2)
     for r in (None, rows):
-        got = tfunctions.eval_filter_node(_node(tparse(q)), tt, r)
+        got = tfunctions.eval_filter_node(_node(tparse(q)), tt, r,
+                                          kernels=False)
         want = jfunctions.eval_filter_node(_node(jparse(q)), jt, r,
                                            kernels=False)
         assert np.array_equal(got, want), r
@@ -194,20 +196,6 @@ def test_bool_values_equal_reference(tables, name, args):
     assert np.array_equal(
         tfunctions.bool_values(tt, rows, name, args),
         jfunctions.bool_values(jt, rows, name, args, kernels=False))
-
-
-def test_device_catalog_still_names_item_13(tables):
-    _, tt = tables
-    for call in (lambda: tfunctions.scalar_values(tt, None, "st_area",
-                                                  ("geom",), kernels=True),
-                 lambda: tfunctions.bool_values(
-                     tt, None, "st_intersects", ("geom", LITERAL),
-                     kernels=True),
-                 lambda: tfunctions.eval_filter_node(
-                     _node(tparse("st_area(geom) > 1")), tt, None,
-                     kernels=True)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            call()
 
 
 LAYERS = {"polys": "val:Int,*geom:Polygon",
