@@ -2,7 +2,7 @@
 
     python3 chip_compare.py PARENT_ROOT CHANGE_ROOT
         [--phases count,kernels,fused,fusedk,staged,rows,process,knn,m3,
-                  pack]
+                  pack,catalog]
         [--rounds 4] [--reps 40] [--n 100000000] [--out FILE] [--device cpu]
 
 One worker process a tree imports ``geomesa_tpu_torch`` from that tree,
@@ -79,6 +79,16 @@ adjacent pair of answers ran on the same card, seconds apart. The phases:
   a seeded random order. An answer is the p50 of up to 8 calls to a device
   synchronise (and, where the tree's pack has a host and a device half,
   of each half); both trees must give the same packs (compared by digest).
+- ``catalog``: the geometry catalog's ``geom_dist`` and ``geom_pred``
+  bare on ``chip_smoke.catalog_pair_calls``' packs — (q3)'s rows (from the
+  counts of an XZ2 store of (m3)'s 500,000 quadrilaterals), (q4)'s
+  candidates, all 500,000 quads against POINT(1 39), M_WKT (ops 0, 1, 2)
+  and a 700-edge ring, all 5,000,000 of (m1)'s lines against M_WKT —
+  each checked against its plain version. An answer is
+  ``chip_smoke.cuda_ms`` over back-to-back calls, the host's ms a call
+  (``chip_smoke.host_ms``), the median of lone calls between two syncs
+  and, on the card, the device activities and device ms a call; both
+  trees must give the same outputs (compared by digest).
 - ``m3``: ``chip_smoke.py``'s (m3), 500,000 quadrilaterals in an XZ2
   layer of their own: its polygon's prepared count, ``store.count`` and
   prepared rows, each the p50 of ``--reps`` calls to a device
@@ -583,6 +593,86 @@ def setup_process(cs, a) -> tuple:
     return ready, answer
 
 
+# -- phase catalog -------------------------------------------------------------
+
+
+def setup_catalog(cs, a) -> tuple:
+    """``geom_dist`` and ``geom_pred`` bare on ``chip_smoke.py``'s
+    ``catalog_pair_calls`` packs: (m3)'s 500,000 quadrilaterals in an XZ2
+    store of their own, whose (q3) counts give the catalog its rows (as
+    recorded by ``chip_smoke._pack_recorder``), (q4)'s candidates by their
+    envelopes, and (m1)'s 5,000,000 lines; each call checked against its
+    plain version. An answer is ``chip_smoke.cuda_ms`` over back-to-back
+    calls, the host's ms a call, the median of lone calls between two
+    syncs and, on the card, the device activities and device ms a call;
+    both trees must give the same outputs (compared by digest)."""
+    import torch
+
+    from geomesa_tpu_torch.features.geometry import POLYGON, GeometryArray
+
+    n3 = cs.M_POLY_N if a.device == "cuda" else 2_000
+    n1 = cs.M_N if a.device == "cuda" else 20_000
+    rings = cs.quads(n3, cs.M_SEED + 2)
+    lv = np.arange(n3 + 1, dtype=np.int64)
+    quads = GeometryArray(np.full(n3, POLYGON, dtype=np.int8), lv, lv,
+                          5 * lv, rings.reshape(-1, 2))
+    store, _, _, _ = cs.extent_store(a.device, "parcels", "*geom:Polygon",
+                                     {"geom": quads})
+    rows = {}
+    for key, q in (("q3_intersects", cs.Q_Q3_INTERSECTS),
+                   ("q3_contains", cs.Q_Q3_CONTAINS)):
+        with cs._pack_recorder() as rec:
+            store.count("parcels", q)
+        # (a small dry-run layer may leave a query no candidate)
+        rows[key] = rec.calls[-1][1] if rec.calls else np.zeros(0, np.int64)
+    bb = quads.bboxes()
+    (px, py), r = cs.M_BUF_P, cs.Q_DIST_R
+    rows["q4"] = np.flatnonzero((bb[:, 0] <= px + r) & (bb[:, 2] >= px - r)
+                                & (bb[:, 1] <= py + r) & (bb[:, 3] >= py - r))
+    ax, ay, bx, by = cs.cfg2_segments(n1, cs.M_SEED)
+    coords = np.empty((2 * n1, 2))
+    coords[0::2, 0], coords[0::2, 1] = ax, ay
+    coords[1::2, 0], coords[1::2, 1] = bx, by
+    lines = GeometryArray.linestrings(coords)
+    dev = torch.device(a.device)
+    calls = {}
+    ready = {"rows": {k: int(len(v)) for k, v in rows.items()}}
+    for c in cs.catalog_pair_calls(quads, lines, rows, dev):
+        got, want = c["call"](), c["plain"]()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if c["got_rows"] is not None:
+            got = tuple(g[c["got_rows"]] for g in got)
+        if any(not torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"{c['label']} differs from its plain "
+                                 "version")
+        got = c["call"]()
+        ready[c["ident"]] = _digest(*(got if isinstance(got, tuple)
+                                      else (got,)))
+        calls[c["ident"]] = (c["call"], min(c["reps"], a.reps))
+    del store
+
+    def answer() -> dict:
+        out = {}
+        for key, (kern, reps) in calls.items():
+            out[f"{key}_host_ms"] = cs.host_ms(kern, reps)
+            out[f"{key}_sync_ms"] = sync_ms(kern, reps)
+            if a.device == "cuda":
+                out[f"{key}_ms"] = cs.cuda_ms(kern, reps)
+                acts, dev_ms = cs.activities_per_call(kern)
+            else:
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    kern()
+                out[f"{key}_ms"] = (time.perf_counter() - t0) * 1e3 / 2
+                acts = dev_ms = None
+            out[f"{key}_activities"] = acts
+            out[f"{key}_device_ms"] = dev_ms
+        return out
+
+    return ready, answer
+
+
 # -- phase knn ----------------------------------------------------------------
 
 
@@ -754,7 +844,7 @@ PHASES = {"count": setup_count, "kernels": setup_kernels,
           "fused": setup_fused, "fusedk": setup_fusedk,
           "staged": setup_staged, "rows": setup_rows,
           "process": setup_process, "knn": setup_knn, "m3": setup_m3,
-          "pack": setup_pack}
+          "pack": setup_pack, "catalog": setup_catalog}
 
 
 # -- worker and turns -------------------------------------------------------

@@ -99,8 +99,10 @@ Phases, each failing the run (non-zero exit) when it fails:
    GEOMESA_TPU_GEOM_KERNELS on and off, its kernels' launches (each must
    launch) and the split of its catalog call (pack, upload, kernel,
    refine); then each catalog kernel against its plain version at (q)'s
-   shapes with its bound, registers and spills
-   (``phase_catalog_kernels``);
+   shapes and, for the pair kernels, at the layers' scale (all 500,000
+   quads against POINT(1 39), M_WKT and a 700-edge ring, all 5M lines
+   against M_WKT: ``catalog_pair_calls``) with its bound, registers and
+   spills (``phase_catalog_kernels``);
 7c. authorizations, feature ids, shaping and the rows path (n)
    (``phase_auths``): a store of its own over the same 100M points, each
    labelled with one of 8 seed-drawn visibility expressions; (a)-(d) under
@@ -1509,12 +1511,13 @@ def _bound(nbytes: float, ops: float) -> dict:
 
 
 def _time_kernel(label: str, kern, plain, bound: dict, reps: int,
-                 library=None, cut=None) -> dict:
+                 library=None, cut=None, got_rows=None) -> dict:
     """A kernel against its plain version on the same card tensors (equal,
     or the run fails; ``cut`` trims both results to what the kernel writes
-    first), then its time by CUDA events, its device activities and device
-    time a call from the profiler, the plain version's time and the library
-    call's."""
+    first; ``got_rows`` picks the kernel's rows that a plain version run on
+    a slice of the inputs gives), then its time by CUDA events, its device
+    activities and device time a call from the profiler, the plain
+    version's time and the library call's."""
     import torch
     got = kern()
     torch.cuda.synchronize()
@@ -1522,6 +1525,9 @@ def _time_kernel(label: str, kern, plain, bound: dict, reps: int,
     torch.cuda.synchronize()
     if cut is not None:
         got, want = cut(got), cut(want)
+    if got_rows is not None:
+        got = tuple(g[got_rows] for g in got) if isinstance(got, tuple) \
+            else got[got_rows]
     err = _equal_or_raise(label, got, want)
     acts, dev_ms, by_kernel = activities_per_call(kern, 50, by_kernel=True)
     ms = cuda_ms(kern, reps)
@@ -3779,7 +3785,8 @@ def geom_bound(kind: str, p, L: int = 0, P: int = 0,
     the outputs written once; operations — the GEOM_* counts over the same
     vertices, segments and literal items. Neither counts the pads the pack
     holds for the reference's shapes (rows past n, slots past a feature's
-    own)."""
+    own): L and P are the literal's own edges and points, not the padded
+    lengths of ``pack_literal``."""
     n = int(p.n)
     nv = int(p.vmask[:n].sum())
     ns = int(p.smask[:n].sum())
@@ -3800,30 +3807,137 @@ def geom_bound(kind: str, p, L: int = 0, P: int = 0,
     return _bound(nbytes, ops)
 
 
-def phase_catalog_kernels(qres: dict) -> dict:
-    """Each catalog kernel against its plain version on the card at (q)'s
-    shapes (equal bit for bit, or the run fails): geom_unary at (q1)'s 5M
-    lines and (q2)'s st_area rows, geom_pred at (q3)'s rows against M_WKT
-    (intersects) and POINT(1 39) (contains), geom_dist at (q4)'s candidates
-    and over all 500,000 quads; kernel ms by CUDA events, the plain
-    version's ms, the bound, registers and spills (cuobjdump). No single
-    PyTorch call computes them: no library time."""
+# the plain versions' rows at the scale of a layer: a seeded slice (their
+# pair tables at 5,000,000 lines, or 500,000 quads against a 1,024-edge
+# literal, would take minutes and tens of GB)
+CATALOG_SLICE_LINES = 1 << 20
+CATALOG_SLICE_RING = 4096
+CATALOG_SLICE_SEED = 2020
+
+
+def star_ring(n: int):
+    """A closed star-shaped polygon of n edges around POINT(1 39) (at 700,
+    tests/test_torch_catalog.py's literal past a tile: L and P 1,024 after
+    the padding)."""
+    from geomesa_tpu_torch.features.geometry import POLYGON
+    ang = np.linspace(0, 2 * np.pi, n + 1)
+    r = 12 + 3 * np.sin(7 * ang)
+    ring = [[1 + float(a), 39 + float(b)]
+            for a, b in zip(r * np.cos(ang), r * np.sin(ang))]
+    ring[-1] = ring[0]
+    return (POLYGON, [ring])
+
+
+def catalog_pair_calls(quads, lines, rows: dict, dev) -> list:
+    """geom_dist's and geom_pred's shapes, on the card: (q3)'s intersects
+    rows against M_WKT and contains rows against POINT(1 39), (q4)'s
+    candidates, (q3)'s intersects rows against the 700-edge ring (both
+    kernels, in the plan's LIT form), then at the scale of a layer — all 500,000 quads against
+    POINT(1 39) (geom_dist), M_WKT (geom_pred op 0, 1, 2) and the 700-edge
+    ring (both), and all 5,000,000 lines against M_WKT (geom_pred op 0).
+    ``rows`` holds (q)'s rows by key. Each entry: key, kernel name, label,
+    the kernel's call, the plain version's call (on a seeded slice of the
+    rows where the entry's ``got_rows`` says which), the bound, reps."""
     import torch
     from geomesa_tpu_torch.features.geometry import (MULTIPOINT, POINT,
                                                      parse_wkt)
+    from geomesa_tpu_torch.filter import geom_numpy as gn
+    from geomesa_tpu_torch.geom import catalog
+    from geomesa_tpu_torch.kernels import geom
+    lit_pt = (POINT, [M_BUF_P[0], M_BUF_P[1]])
+    lits = {"M_WKT": parse_wkt(M_WKT), "POINT(1 39)": lit_pt,
+            "the 700-edge ring": star_ring(700)}
+    packed = {k: catalog.pack_literal(v, dev) for k, v in lits.items()}
+    # the literal's own edges and points: the bound counts no pad
+    real = {k: (len(gn.literal_segments(v)), len(gn.literal_coords(v)))
+            for k, v in lits.items()}
+    rng = np.random.default_rng(CATALOG_SLICE_SEED)
+    out = []
+
+    def add(key, layer, kname, arr, rw, litname, op=0, slice_n=None,
+            reps=50):
+        p = catalog.pack_features(arr, rw, dev)
+        args = tuple(p.rows(*catalog.PAIR))
+        ls, lp, lpoly = packed[litname]
+        ext = lits[litname][0] not in (POINT, MULTIPOINT)
+        got_rows = None
+        pargs = args
+        if slice_n is not None and slice_n < p.n:
+            pick = np.sort(rng.choice(p.n, slice_n, replace=False))
+            got_rows = torch.from_numpy(pick).to(dev)
+            pargs = tuple(t[got_rows] for t in args)
+        if kname == geom.NAME_DIST:
+            call = (lambda a=args: geom.geom_dist(*a, ls, lp, lpoly))
+            plain = (lambda a=pargs: catalog._dist_plain(*a, ls, lp, lpoly))
+            bound = geom_bound("dist", p, *real[litname])
+        else:
+            call = (lambda a=args: geom.geom_pred(*a, ls, lp, op, lpoly, ext))
+            plain = (lambda a=pargs: catalog._pred_plain(*a, ls, lp, op,
+                                                         lpoly, ext))
+            bound = geom_bound("pred", p, *real[litname], out_bytes=2)
+        shape = (p.n, p.verts.shape[1], p.segs.shape[1], ls.shape[0],
+                 lp.shape[0])
+        # (chip_compare.py runs this with a parent tree's wrapper, which
+        # may have no plan)
+        plan = geom.plan(*shape) if hasattr(geom, "plan") else None
+        opname = "" if kname == geom.NAME_DIST else f" op {op}"
+        label = (f"{kname}{opname} at {key}: {p.n} rows, K {shape[1]}, S "
+                 f"{shape[2]} x {litname} (L {shape[3]}, P {shape[4]}; "
+                 f"{real[litname][0]} and {real[litname][1]} real), plan "
+                 f"{plan}")
+        if got_rows is not None:
+            label += (f"; the plain version on {slice_n} of the rows (seed "
+                      f"{CATALOG_SLICE_SEED})")
+        ident = "_".join((kname.split("_")[1] + opname.replace(" op ", ""),
+                          layer, {"M_WKT": "mwkt", "POINT(1 39)": "point",
+                                  "the 700-edge ring": "ring"}[litname]))
+        out.append({"key": key, "ident": ident, "kernel": kname,
+                    "label": label,
+                    "call": call, "plain": plain, "bound": bound,
+                    "reps": reps, "got_rows": got_rows})
+
+    add("(q3) intersects", "q3", geom.NAME_PRED, quads,
+        rows["q3_intersects"], "M_WKT", 0)
+    add("(q3) contains", "q3", geom.NAME_PRED, quads, rows["q3_contains"],
+        "POINT(1 39)", 2)
+    add("(q4)'s candidates", "q4", geom.NAME_DIST, quads, rows["q4"],
+        "POINT(1 39)")
+    # (q3)'s rows against a long literal: the plan's LIT form
+    add("(q3) intersects", "q3", geom.NAME_DIST, quads,
+        rows["q3_intersects"], "the 700-edge ring")
+    add("(q3) intersects", "q3", geom.NAME_PRED, quads,
+        rows["q3_intersects"], "the 700-edge ring", 0)
+    every = np.arange(len(quads))
+    add("all 500,000 quads", "quads", geom.NAME_DIST, quads, every,
+        "POINT(1 39)")
+    for op in (0, 1, 2):
+        add("all 500,000 quads", "quads", geom.NAME_PRED, quads, every,
+            "M_WKT", op)
+    add("all 5,000,000 lines", "lines", geom.NAME_PRED, lines,
+        np.arange(len(lines)), "M_WKT", 0, CATALOG_SLICE_LINES, 20)
+    add("all 500,000 quads", "quads", geom.NAME_DIST, quads, every,
+        "the 700-edge ring", 0, CATALOG_SLICE_RING, 10)
+    add("all 500,000 quads", "quads", geom.NAME_PRED, quads, every,
+        "the 700-edge ring", 0, CATALOG_SLICE_RING, 10)
+    return out
+
+
+def phase_catalog_kernels(qres: dict) -> dict:
+    """Each catalog kernel against its plain version on the card (equal bit
+    for bit, or the run fails): geom_unary at (q1)'s 5M lines and (q2)'s
+    st_area rows; geom_dist and geom_pred at ``catalog_pair_calls``' shapes
+    ((q)'s rows and the layers' scale); kernel ms by CUDA events, the plain
+    version's ms, the bound, registers and spills (cuobjdump). No single
+    PyTorch call computes them: no library time."""
+    import torch
     from geomesa_tpu_torch.geom import catalog
     from geomesa_tpu_torch.kernels import geom
 
     dev = torch.device("cuda")
     out = {"geom_unary": [], "geom_dist": [], "geom_pred": []}
-
-    def packed(key, rows=None):
-        arr, rw = qres[key]["calls"][-1]
-        p = catalog.pack_features(arr, rw if rows is None else rows, dev)
-        return p, arr
-
     for key in ("q1", "q2_area"):
-        p, _ = packed(key)
+        arr, rw = qres[key]["calls"][-1]
+        p = catalog.pack_features(arr, rw, dev)
         args = tuple(p.rows(*catalog.UNARY))
         out["geom_unary"].append(_time_kernel(
             f"geom_unary at ({key}): {p.n} rows (B {p.verts.shape[0]}), K "
@@ -3831,32 +3945,18 @@ def phase_catalog_kernels(qres: dict) -> dict:
             lambda a=args: geom.geom_unary(*a),
             lambda a=args: catalog._unary_plain(*a),
             geom_bound("unary", p, out_bytes=16), 50 if key != "q1" else 20))
-    lit_pt = (POINT, [M_BUF_P[0], M_BUF_P[1]])
-    for key, literal, op in (("q3_intersects", parse_wkt(M_WKT), 0),
-                             ("q3_contains", lit_pt, 2)):
-        p, _ = packed(key)
-        ls, lp, lpoly = catalog.pack_literal(literal, dev)
-        ext = literal[0] not in (POINT, MULTIPOINT)
-        args = (*p.rows(*catalog.PAIR), ls, lp, op, lpoly, ext)
-        out["geom_pred"].append(_time_kernel(
-            f"geom_pred op {op} at ({key}): {p.n} rows (B "
-            f"{p.verts.shape[0]}), L "
-            f"{ls.shape[0]}, P {lp.shape[0]}",
-            lambda a=args: geom.geom_pred(*a),
-            lambda a=args: catalog._pred_plain(*a),
-            geom_bound("pred", p, ls.shape[0], lp.shape[0], out_bytes=2),
-            50))
-    arr, _ = qres["q4"]["calls"][-1]
-    for label, rows in (("(q4)'s candidates", None),
-                        ("all 500,000 quads", np.arange(len(arr)))):
-        p, _ = packed("q4", rows)
-        ls, lp, lpoly = catalog.pack_literal(lit_pt, dev)
-        args = (*p.rows(*catalog.PAIR), ls, lp, lpoly)
-        out["geom_dist"].append(_time_kernel(
-            f"geom_dist at {label}: {p.n} rows (B {p.verts.shape[0]})",
-            lambda a=args: geom.geom_dist(*a),
-            lambda a=args: catalog._dist_plain(*a),
-            geom_bound("dist", p, ls.shape[0], lp.shape[0]), 50))
+        del p, args
+    quads = qres["q4"]["calls"][-1][0]
+    lines = qres["q1"]["calls"][-1][0]
+    rows = {k: qres[k]["calls"][-1][1]
+            for k in ("q3_intersects", "q3_contains", "q4")}
+    for c in catalog_pair_calls(quads, lines, rows, dev):
+        r = _time_kernel(c["label"], c["call"], c["plain"], c["bound"],
+                         c["reps"], got_rows=c["got_rows"])
+        r["key"] = c["key"]
+        out[c["kernel"]].append(r)
+        del c
+        torch.cuda.empty_cache()
     for name in out:
         res = kernel_resources(name)
         log(f"[kernel] {name} registers and spills (cuobjdump): "

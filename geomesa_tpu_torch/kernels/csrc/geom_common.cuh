@@ -18,15 +18,7 @@
 
 namespace geomk {
 
-constexpr float F32_TINY = 1.17549435e-38f;   // 2^-126
-constexpr float VERT_PAD = 3e9f;
-constexpr float SEG_PAD = 4e9f;
-constexpr float BIG = 9e18f;
-
-// an input as XLA reads it: a subnormal is a zero of its sign
-__device__ __forceinline__ float zin(float v) {
-  return fabsf(v) < F32_TINY ? copysignf(0.0f, v) : v;
-}
+constexpr float BIG = 9e18f;  // a masked pair's squared distance
 
 __device__ __forceinline__ float zadd(float a, float b) {
   float d;
@@ -46,6 +38,10 @@ __device__ __forceinline__ float zmul(float a, float b) {
   return d;
 }
 
+// an input as XLA reads it: a subnormal is a zero of its sign (one
+// flushed multiplication by 1, exact for every other value)
+__device__ __forceinline__ float zin(float v) { return zmul(v, 1.0f); }
+
 __device__ __forceinline__ float zdiv(float a, float b) {
   float d;
   asm("div.rn.ftz.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
@@ -64,7 +60,15 @@ __device__ __forceinline__ float zfma(float a, float b, float c) {
   return d;
 }
 
-// squared distance of point p to segment (x1, y1)-(x2, y2) (_pt_seg_d2)
+// the smaller of a and b, NaN when either is NaN (XLA's min, torch.amin and
+// torch.minimum); no signed-zero rule is needed: the squared distances
+// this takes are never -0
+__device__ __forceinline__ float nmin(float a, float b) {
+  return (b < a || b != b) ? b : a;
+}
+
+// squared distance of point p to segment (x1, y1)-(x2, y2) (_pt_seg_d2;
+// its clamp keeps a NaN, as torch.clamp and XLA's clamp do)
 __device__ __forceinline__ float pt_seg_d2(float px, float py, float x1,
                                            float y1, float x2, float y2) {
   const float dx = zsub(x2, x1);
@@ -72,21 +76,23 @@ __device__ __forceinline__ float pt_seg_d2(float px, float py, float x1,
   const float ll = zfma(dx, dx, zmul(dy, dy));
   float t = zdiv(zfma(zsub(px, x1), dx, zmul(zsub(py, y1), dy)),
                  ll == 0.0f ? 1.0f : ll);
-  t = fminf(fmaxf(t, 0.0f), 1.0f);
+  if (t == t) t = fminf(fmaxf(t, 0.0f), 1.0f);
   const float ex = zsub(px, zfma(t, dx, x1));
   const float ey = zsub(py, zfma(t, dy, y1));
   return zfma(ex, ex, zmul(ey, ey));
 }
 
 // the half-open crossing of edge (x1, y1)-(x2, y2) by the ray from p
-// (_pip_plain's term, unbanded)
+// (_pip_plain's term, unbanded; no division where the edge does not
+// straddle p's y)
 __device__ __forceinline__ bool pip_cross(float px, float py, float x1,
                                           float y1, float x2, float y2) {
   const bool cond = (y1 > py) != (y2 > py);
+  if (!cond) return false;
   const float den = zsub(y2, y1);
   const float xs = zadd(x1, zdiv(zmul(zsub(py, y1), zsub(x2, x1)),
                                  y2 == y1 ? 1.0f : den));
-  return cond && xs > px;
+  return xs > px;
 }
 
 // the band constants of index/scan.py (TOL_T, TOL_D, DY_BAND)
@@ -112,17 +118,24 @@ __device__ __forceinline__ void orient_band(const Band& bd, float px,
                   __fmul_rn(bd.tol_d, sd));
 }
 
-// one edge's (crossing, uncertain) terms of _pip_band for point p
+// one edge's (crossing, uncertain) terms of _pip_band for point p (the
+// orientation only where the edge straddles p's y: elsewhere both terms
+// are the tie band's alone)
 __device__ __forceinline__ void pip_band_step(const Band& bd, float px,
                                               float py, float x1, float y1,
                                               float x2, float y2, bool& cross,
                                               bool& unc) {
-  const bool cond = (y1 > py) != (y2 > py);
+  const bool tie = fabsf(__fsub_rn(y1, py)) <= bd.dy ||
+                   fabsf(__fsub_rn(y2, py)) <= bd.dy;
+  if ((y1 > py) == (y2 > py)) {
+    cross = false;
+    unc = tie;
+    return;
+  }
   float o, t;
   orient_band(bd, x1, y1, x2, y2, px, py, o, t);
-  cross = cond && ((y2 > y1) ? (o > t) : (o < -t));
-  unc = (cond && fabsf(o) <= t) || fabsf(__fsub_rn(y1, py)) <= bd.dy ||
-        fabsf(__fsub_rn(y2, py)) <= bd.dy;
+  cross = (y2 > y1) ? (o > t) : (o < -t);
+  unc = fabsf(o) <= t || tie;
 }
 
 // (certain-intersect, certain-miss) of segment (a, b) against edge (c, d)
@@ -147,11 +160,8 @@ __device__ __forceinline__ float4 zin4(float4 v) {
   return make_float4(zin(v.x), zin(v.y), zin(v.z), zin(v.w));
 }
 
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ float2 zin2(float2 v) {
+  return make_float2(zin(v.x), zin(v.y));
 }
 
 }  // namespace geomk

@@ -21,250 +21,127 @@
 //
 // The bands are index/scan.py's (unflushed, unfused: the bounds of
 // seg_band.cu and pip_refine.cu); the distances are catalog._min_d2's
-// (flushed, fused). Any, all, min and parity do not depend on order, so
-// kernel and plain version (catalog._pred_plain) are equal bit for bit.
-// Rows neither certainly true nor certainly false go to the f64 host
-// oracle (catalog.batch_predicate).
+// (flushed, fused, a NaN kept by the min). Any, all, min and parity do not
+// depend on order, so kernel and plain version (catalog._pred_plain) are
+// equal bit for bit. Rows neither certainly true nor certainly false go to
+// the f64 host oracle (catalog.batch_predicate).
 //
-// What bounds it on the card: operations, about 4 x 11 f32 operations
-// per (segment, literal edge) band, 18 per (point, edge) band and 25 per
-// distance pair, against a few bytes of pack per feature.
+// What bounds it on the card: operations at all but the shortest
+// literals, about 4 x 11 f32 operations a (segment, literal edge) band, 18
+// a (point, edge) band and 25 a distance pair, against a few bytes of pack
+// a feature.
 //
-// Design: as geom_dist.cu — one CTA of one warp a feature, the shifted
-// literal staged in shared memory in tiles of 256, the lanes over the
-// feature's vertices, its segments, then the literal's points, warp votes
-// and a warp min at the end.
+// Design: geom_pair.cuh's traversal (several features a warp, the literal
+// staged once a CTA, lanes over the literal when it is long). The any and
+// all terms are bits of one word a lane (an all as "some item fails"), so
+// a group meets in one OR and one min.
 
-#include "geom_common.cuh"
+#include "geom_pair.cuh"
 
 namespace {
 
 using namespace geomk;
 
-constexpr int THREADS = 32;
-constexpr int BLOCKS_PER_SM = 32;
-constexpr int TILE = 256;
-constexpr int MAX_DEVICES = 64;
-constexpr unsigned FULL = 0xffffffffu;
-
-struct Params {
-  const float* verts;     // (B, K, 2)
-  const uint8_t* vmask;   // (B, K)
-  const float4* segs;     // (B, S)
-  const uint8_t* smask;   // (B, S)
-  const uint8_t* poly;    // (B,)
-  const float* ref;       // (B, 2) f32 origins
-  const float4* lsegs;    // (L,)
-  const float2* lpts;     // (P,)
-  long long B;
-  int K, S, L, P;
-  int op, lit_poly, lit_ext;
-  Band band;
-  float miss2;            // the certain-miss band, squared in f32
-  uint8_t* cin;           // (B,)
-  uint8_t* cout;          // (B,)
+enum : unsigned {
+  ANY_VIN = 1u << 0,
+  SOME_V_NOT_IN = 1u << 1,
+  ANY_VOUT = 1u << 2,
+  HAS_V = 1u << 3,
+  ANY_SI = 1u << 4,
+  SOME_S_NOT_MISS = 1u << 5,
+  ANY_PIN = 1u << 6,
+  SOME_P_NOT_IN = 1u << 7,
+  ANY_POUT = 1u << 8,
 };
 
-// the literal's edges [e0, e0 + ne) into shared memory, in the frame of
-// origin (rx, ry)
-__device__ __forceinline__ void stage_edges(const Params& p, float4* s_e,
-                                            int e0, int ne, float rx,
-                                            float ry) {
-  __syncwarp();
-  for (int i = threadIdx.x; i < ne; i += THREADS) {
-    const float4 e = zin4(p.lsegs[e0 + i]);
-    s_e[i] = make_float4(zsub(e.x, rx), zsub(e.y, ry), zsub(e.z, rx),
-                         zsub(e.w, ry));
-  }
-  __syncwarp();
-}
+struct PredOp {
+  float d2;
+  unsigned fl;
+  Band bd;
 
-__global__ void __launch_bounds__(THREADS)
-geom_pred_kernel(Params p) {
-  __shared__ float4 s_e[TILE];
-  __shared__ float2 s_p[TILE];
-  const int lane = threadIdx.x;
-  for (long long b = blockIdx.x; b < p.B; b += gridDim.x) {
-    const float rx = zin(p.ref[2 * b]);
-    const float ry = zin(p.ref[2 * b + 1]);
-    const float4* sg = p.segs + b * p.S;
-    const uint8_t* sm = p.smask + b * p.S;
-    const bool fpoly = p.poly[b] != 0;
-    float d2 = BIG;
-    bool any_vin = false, all_vin = true, any_vout = false, has_v = false;
-    bool any_si = false, all_sm = true;
-    bool any_pin = false, all_pin = true, any_pout = false;
-    // the feature's vertices against the literal's edges and points
-    for (int k0 = 0; k0 < p.K; k0 += THREADS) {
-      const int k = k0 + lane;
-      const bool live = k < p.K;
-      const bool vm = live && p.vmask[b * p.K + k];
-      const float vx = vm ? zin(p.verts[(b * p.K + k) * 2]) : VERT_PAD;
-      const float vy = vm ? zin(p.verts[(b * p.K + k) * 2 + 1]) : VERT_PAD;
-      bool inside = false, unc = false;
-      for (int e0 = 0; e0 < p.L; e0 += TILE) {
-        const int ne = min(TILE, p.L - e0);
-        stage_edges(p, s_e, e0, ne, rx, ry);
-        if (live) {
-          for (int i = 0; i < ne; ++i) {
-            const float4 e = s_e[i];
-            bool cr, un;
-            pip_band_step(p.band, vx, vy, e.x, e.y, e.z, e.w, cr, un);
-            inside ^= cr;
-            unc |= un;
-            if (vm) d2 = fminf(d2, pt_seg_d2(vx, vy, e.x, e.y, e.z, e.w));
-          }
-        }
-      }
-      if (live) {
-        const bool vin = inside && !unc;
-        const bool vout = !inside && !unc;
-        any_vin |= vin && vm;
-        all_vin &= vin || !vm;
-        any_vout |= vout && vm;
-        has_v |= vm;
-      }
-      for (int q0 = 0; q0 < p.P; q0 += TILE) {
-        const int nq = min(TILE, p.P - q0);
-        __syncwarp();
-        for (int i = lane; i < nq; i += THREADS) {
-          const float2 q = p.lpts[q0 + i];
-          s_p[i] = make_float2(zsub(zin(q.x), rx), zsub(zin(q.y), ry));
-        }
-        __syncwarp();
-        if (vm) {
-          for (int i = 0; i < nq; ++i) {
-            const float dx = zsub(vx, s_p[i].x);
-            const float dy = zsub(vy, s_p[i].y);
-            d2 = fminf(d2, zfma(dx, dx, zmul(dy, dy)));
-          }
-        }
-      }
-    }
-    // the feature's segments against the literal's edges
-    for (int j0 = 0; j0 < p.S; j0 += THREADS) {
-      const int j = j0 + lane;
-      const bool live = j < p.S;
-      const bool real = live && sm[j];
-      const float4 s = live ? zin4(sg[j]) : make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int e0 = 0; e0 < p.L; e0 += TILE) {
-        const int ne = min(TILE, p.L - e0);
-        stage_edges(p, s_e, e0, ne, rx, ry);
-        if (live) {
-          for (int i = 0; i < ne; ++i) {
-            bool hit, miss;
-            segpair_band(p.band, s, s_e[i], hit, miss);
-            any_si |= hit && real;
-            all_sm &= miss || !real;
-          }
-        }
-      }
-    }
-    // the literal's points against the feature's segments
-    for (int q0 = 0; q0 < p.P; q0 += THREADS) {
-      const int q = q0 + lane;
-      if (q < p.P) {
-        const float2 pt = p.lpts[q];
-        const float qx = zsub(zin(pt.x), rx);
-        const float qy = zsub(zin(pt.y), ry);
-        bool inside = false, unc = false;
-        for (int j = 0; j < p.S; ++j) {
-          if (!sm[j]) continue;
-          const float4 s = zin4(sg[j]);
-          bool cr, un;
-          pip_band_step(p.band, qx, qy, s.x, s.y, s.z, s.w, cr, un);
-          inside ^= cr;
-          unc |= un;
-          d2 = fminf(d2, pt_seg_d2(qx, qy, s.x, s.y, s.z, s.w));
-        }
-        const bool pin = inside && !unc;
-        any_pin |= pin;
-        all_pin &= pin;
-        any_pout |= !inside && !unc;
-      }
-    }
-    d2 = warp_min(d2);
-    any_vin = __any_sync(FULL, any_vin);
-    all_vin = __all_sync(FULL, all_vin);
-    any_vout = __any_sync(FULL, any_vout);
-    has_v = __any_sync(FULL, has_v);
-    any_si = __any_sync(FULL, any_si);
-    all_sm = __all_sync(FULL, all_sm);
-    any_pin = __any_sync(FULL, any_pin);
-    all_pin = __all_sync(FULL, all_pin);
-    any_pout = __any_sync(FULL, any_pout);
-    if (lane == 0) {
-      const bool far = d2 > p.miss2;
-      bool ci, co;
-      if (p.op == 0) {
-        ci = any_si || (p.lit_poly && any_vin) || (fpoly && any_pin);
-        co = far;
-      } else if (p.op == 1) {
-        ci = p.lit_poly && has_v && all_vin && all_sm;
-        co = far || (p.lit_poly && any_vout);
-      } else {
-        ci = fpoly && all_pin && all_sm;
-        co = far || (fpoly && any_pout) || (p.lit_ext && !fpoly);
-      }
-      p.cin[b] = ci;
-      p.cout[b] = co;
-    }
-  }
-}
+  __device__ explicit PredOp(const PairParams& p)
+      : d2(BIG), fl(0u), bd(p.band) {}
 
-int g_sms[MAX_DEVICES];
+  // A: a vertex against a literal edge (banded parity)
+  __device__ __forceinline__ void vertex_edge(float vx, float vy, float4 e,
+                                              bool& in, bool& unc) {
+    bool cr, un;
+    pip_band_step(bd, vx, vy, e.x, e.y, e.z, e.w, cr, un);
+    in ^= cr;
+    unc |= un;
+    d2 = nmin(d2, pt_seg_d2(vx, vy, e.x, e.y, e.z, e.w));
+  }
+
+  // B: a vertex against a literal point
+  __device__ __forceinline__ void vertex_point(float vx, float vy,
+                                               float2 q) {
+    const float dx = zsub(vx, q.x);
+    const float dy = zsub(vy, q.y);
+    d2 = nmin(d2, zfma(dx, dx, zmul(dy, dy)));
+  }
+
+  __device__ __forceinline__ void vertex_end(bool in, bool unc) {
+    fl |= HAS_V;
+    fl |= (in && !unc) ? ANY_VIN : SOME_V_NOT_IN;
+    if (!in && !unc) fl |= ANY_VOUT;
+  }
+
+  // C: a feature segment against a literal edge
+  __device__ __forceinline__ void seg_edge(float4 s, float4 e) {
+    bool hit, miss;
+    segpair_band(bd, s, e, hit, miss);
+    if (hit) fl |= ANY_SI;
+    if (!miss) fl |= SOME_S_NOT_MISS;
+  }
+
+  // D: a literal point against a feature segment (banded parity)
+  __device__ __forceinline__ void point_seg(float qx, float qy, float4 s,
+                                            bool& in, bool& unc) {
+    bool cr, un;
+    pip_band_step(bd, qx, qy, s.x, s.y, s.z, s.w, cr, un);
+    in ^= cr;
+    unc |= un;
+    d2 = nmin(d2, pt_seg_d2(qx, qy, s.x, s.y, s.z, s.w));
+  }
+
+  __device__ __forceinline__ void point_end(bool, bool in, bool unc) {
+    fl |= (in && !unc) ? ANY_PIN : SOME_P_NOT_IN;
+    if (!in && !unc) fl |= ANY_POUT;
+  }
+
+  __device__ __forceinline__ void reduce(int G) {
+    d2 = group_min(d2, G);
+    fl = group_or(fl, G);
+  }
+
+  __device__ __forceinline__ void write(const PairParams& p, long long b,
+                                        bool fpoly) const {
+    const bool far = d2 > p.miss2;
+    const bool lit_poly = p.lit_poly != 0;
+    bool ci, co;
+    if (p.op == 0) {
+      ci = (fl & ANY_SI) || (lit_poly && (fl & ANY_VIN)) ||
+           (fpoly && (fl & ANY_PIN));
+      co = far;
+    } else if (p.op == 1) {
+      ci = lit_poly && (fl & HAS_V) && !(fl & SOME_V_NOT_IN) &&
+           !(fl & SOME_S_NOT_MISS);
+      co = far || (lit_poly && (fl & ANY_VOUT));
+    } else {
+      ci = fpoly && !(fl & SOME_P_NOT_IN) && !(fl & SOME_S_NOT_MISS);
+      co = far || (fpoly && (fl & ANY_POUT)) || (p.lit_ext && !fpoly);
+    }
+    p.cin[b] = ci;
+    p.cout[b] = co;
+  }
+};
 
 }  // namespace
 
-// Launches on `stream` (PyTorch's current stream of `device`, the current
-// device) and returns the launch's cudaError_t (0 on success); the caller
-// raises on non-zero. tol_t, tol_d and dy_band are index/scan.py's TOL_T,
+// tol_t, tol_d and dy_band in the arguments are index/scan.py's TOL_T,
 // TOL_D and DY_BAND; miss2 is catalog.MISS2.
-extern "C" int geom_pred_launch(const float* verts, const uint8_t* vmask,
-                                const float* segs, const uint8_t* smask,
-                                const uint8_t* poly, const float* ref,
-                                const float* lsegs, const float* lpts,
-                                long long B, int K, int S, int L, int P,
-                                int op, int lit_poly, int lit_ext,
-                                float tol_t, float tol_d, float dy_band,
-                                float miss2, uint8_t* cin, uint8_t* cout,
-                                int device, void* stream) {
-  if (B <= 0) return 0;
-  if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (g_sms[device] == 0) {
-    int sms = 0;
-    const cudaError_t err = cudaDeviceGetAttribute(
-        &sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return (int)err;
-    g_sms[device] = sms > 0 ? sms : 1;
-  }
-  Params p;
-  p.verts = verts;
-  p.vmask = vmask;
-  p.segs = reinterpret_cast<const float4*>(segs);
-  p.smask = smask;
-  p.poly = poly;
-  p.ref = ref;
-  p.lsegs = reinterpret_cast<const float4*>(lsegs);
-  p.lpts = reinterpret_cast<const float2*>(lpts);
-  p.B = B;
-  p.K = K;
-  p.S = S;
-  p.L = L;
-  p.P = P;
-  p.op = op;
-  p.lit_poly = lit_poly;
-  p.lit_ext = lit_ext;
-  p.band.tol_t = tol_t;
-  p.band.tol_d = tol_d;
-  p.band.dy = dy_band;
-  p.miss2 = miss2;
-  p.cin = cin;
-  p.cout = cout;
-  const long long fit = (long long)g_sms[device] * BLOCKS_PER_SM;
-  const unsigned grid = (unsigned)(B < fit ? B : fit);
-  geom_pred_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+extern "C" int geom_pred_launch(const PairArgs* a, void* stream) {
+  return pair_launch<PredOp>(a, stream);
 }
 
 extern "C" const char* geom_pred_error_string(int code) {

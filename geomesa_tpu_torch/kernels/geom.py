@@ -14,11 +14,16 @@ its own feature only, and the kernels build no (B, S, L) pair table (the
 plain versions' pair tables are what ``GEOM_CHUNK`` bounds). The catalog
 hands them a pack's first n rows (``FeaturePack.rows``), so a launch
 spends nothing on the rows that pad the pack to a power of two.
+
+The pair kernels (``csrc/geom_pair.cuh``) give each feature a group of
+lanes and take the literal in one of two forms; ``plan`` picks both from
+the batch's size, the pack's slot counts and the literal's length.
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import Tuple
 
 import torch
@@ -40,14 +45,43 @@ _FNS = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-_F = ctypes.c_float
 _ARGTYPES = {
     NAME_UNARY: [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P, _I, _P],
-    NAME_DIST: [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P,
-                _I, _P],
-    NAME_PRED: [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
-                _I, _F, _F, _F, _F, _P, _P, _I, _P],
+    NAME_DIST: [ctypes.c_char_p, _P],
+    NAME_PRED: [ctypes.c_char_p, _P],
 }
+
+# the pair kernels' PairArgs (csrc/geom_pair.cuh): 22 8-byte integer slots,
+# then index/scan.py's band constants and catalog.MISS2 as doubles
+_PAIR_ARGS = struct.Struct("=22q4d")
+_CONSTS = None
+
+# threads from which a batch keeps the card busy (chip_geom_plans.py: at
+# 50,000 quads 2 lanes a feature beat 8): a batch with fewer features
+# gives each feature more lanes
+FILL = 1 << 16
+# the literal's length (edges or points) from which a feature's lanes
+# split the literal (LIT) when its own items cannot fill the card
+LIT_FROM = 64
+
+
+def plan(B: int, K: int, S: int, L: int, P: int) -> Tuple[bool, int]:
+    """(lanes over the literal?, lanes a feature) of a pair kernel's launch
+    for B features of K vertex and S segment slots against a literal of L
+    edges and P points. A lane a feature where the batch fills the card
+    (no lane idles on a feature's short item list); else the fewest lanes
+    that fill it, at most one a slot; and a warp a feature with its lanes
+    over a literal of LIT_FROM or more items when even a lane a slot leaves
+    the card short (chip_geom_plans.py measures the choice)."""
+    slots = 1
+    while slots < max(K, S) and slots < 32:
+        slots *= 2
+    g = 1
+    while g < slots and B * g < FILL:
+        g *= 2
+    if B * slots < FILL and max(L, P) >= LIT_FROM:
+        return True, 32
+    return False, g
 
 
 def _bind(name: str):
@@ -72,6 +106,9 @@ def _raise_on(name: str, rc: int) -> None:
 
 
 def _expect(t: torch.Tensor, label: str, dtype, shape, dev) -> None:
+    if (t.dtype is dtype and t.shape == shape and t.is_contiguous()
+            and t.device == dev):
+        return   # a call's every tensor: the checks below name the fault
     if t.dtype is not dtype:
         raise TypeError(f"{label} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -144,6 +181,31 @@ def geom_unary(verts: torch.Tensor, vmask: torch.Tensor, segs: torch.Tensor,
     return out[0], out[1], out[2], out[3]
 
 
+def _pair_launch(name: str, verts, vmask, segs, smask, poly, ref32, lsegs,
+                 lpts, B: int, K: int, S: int, L: int, P: int, op: int,
+                 lit_poly: bool, lit_ext: bool, out: int, cin: int,
+                 cout: int) -> None:
+    """One launch of pair kernel ``name`` on ``verts``' device, planned by
+    ``plan``; raises when it is refused."""
+    global _CONSTS
+    dev = verts.device
+    if _CONSTS is None:
+        # bound at the first launch: geom.catalog imports this module
+        from geomesa_tpu_torch.geom import catalog
+        _CONSTS = (scan.TOL_T, scan.TOL_D, scan.DY_BAND, catalog.MISS2)
+    lit, g = plan(B, K, S, L, P)
+    args = _PAIR_ARGS.pack(
+        verts.data_ptr(), vmask.data_ptr(), segs.data_ptr(),
+        smask.data_ptr(), poly.data_ptr(), ref32.data_ptr(),
+        lsegs.data_ptr(), lpts.data_ptr(), B, K, S, L, P,
+        g.bit_length() - 1, int(lit), op, int(bool(lit_poly)),
+        int(bool(lit_ext)), out, cin, cout, dev.index, *_CONSTS)
+    fn = _bind(name)
+    with build.on_device(dev):
+        rc = fn(args, build.raw_stream(dev))
+    _raise_on(name, rc)
+
+
 def geom_dist(verts, vmask, segs, smask, poly, ref32, lsegs, lpts,
               lit_poly: bool) -> torch.Tensor:
     """(B,) f32 distances of a packed batch to a packed literal; see
@@ -157,13 +219,9 @@ def geom_dist(verts, vmask, segs, smask, poly, ref32, lsegs, lpts,
                                    lsegs, lpts, lit_poly)
     _on_cuda(dev, NAME_DIST)
     out = torch.empty(B, dtype=torch.float32, device=dev)
-    fn = _bind(NAME_DIST)
-    with build.on_device(dev):
-        rc = fn(_ptr(verts), _ptr(vmask), _ptr(segs), _ptr(smask),
-                _ptr(poly), _ptr(ref32), _ptr(lsegs), _ptr(lpts), B, K, S,
-                L, P, int(bool(lit_poly)), _ptr(out), dev.index,
-                build.raw_stream(dev))
-    _raise_on(NAME_DIST, rc)
+    _pair_launch(NAME_DIST, verts, vmask, segs, smask, poly, ref32, lsegs,
+                 lpts, B, K, S, L, P, 0, lit_poly, False, out.data_ptr(), 0,
+                 0)
     geom_dist.launches += 1
     return out
 
@@ -183,19 +241,12 @@ def geom_pred(verts, vmask, segs, smask, poly, ref32, lsegs, lpts, op: int,
         return catalog._pred_plain(verts, vmask, segs, smask, poly, ref32,
                                    lsegs, lpts, op, lit_poly, lit_ext)
     _on_cuda(dev, NAME_PRED)
-    from geomesa_tpu_torch.geom import catalog
-    cin = torch.empty(B, dtype=torch.bool, device=dev)
-    cout = torch.empty(B, dtype=torch.bool, device=dev)
-    fn = _bind(NAME_PRED)
-    with build.on_device(dev):
-        rc = fn(_ptr(verts), _ptr(vmask), _ptr(segs), _ptr(smask),
-                _ptr(poly), _ptr(ref32), _ptr(lsegs), _ptr(lpts), B, K, S,
-                L, P, int(op), int(bool(lit_poly)), int(bool(lit_ext)),
-                scan.TOL_T, scan.TOL_D, scan.DY_BAND, catalog.MISS2,
-                _ptr(cin), _ptr(cout), dev.index, build.raw_stream(dev))
-    _raise_on(NAME_PRED, rc)
+    flags = torch.empty((2, B), dtype=torch.bool, device=dev)
+    ptr = flags.data_ptr()
+    _pair_launch(NAME_PRED, verts, vmask, segs, smask, poly, ref32, lsegs,
+                 lpts, B, K, S, L, P, op, lit_poly, lit_ext, 0, ptr, ptr + B)
     geom_pred.launches += 1
-    return cin, cout
+    return flags.unbind(0)
 
 
 geom_unary.launches = 0

@@ -24,12 +24,19 @@ all-point batch (a point column and ragged points) and an empty row set.
   ``kernel_hulls``, ``kernel_buffers``, ``parity_report`` and the
   ``STATS`` they count equal the reference's; every parity axis 0.
 
+- The pair programs' plain versions against the reference's on packs 1 to
+  64 slots wide, a mixed pack (one 1,000-vertex line among quads) and
+  quads against a 700-edge ring; the pair kernels' launch plan and packed
+  arguments.
+
 Tolerance: none, but the unary values of packs wider than 8 segments.
 The port runs with device="cpu" (the plain versions). The ``gpu`` tests
 hold each kernel to its plain version on the card, bit for bit, on the
-same corpora and at (m1)/(m3)-like shapes of ``chip_smoke.py``; they import
-nothing of JAX (``python -m pytest --noconftest -m gpu
-tests/test_torch_catalog.py`` on the card).
+same corpora and at (m1)/(m3)-like shapes of ``chip_smoke.py``, and the
+pair kernels in every form (lane-group widths, batch sizes, literal
+lengths about a tile, a mixed pack, subnormal and NaN coordinates, rows
+on the bands' edges); they import nothing of JAX (``python -m pytest
+--noconftest -m gpu tests/test_torch_catalog.py`` on the card).
 """
 
 import importlib
@@ -595,6 +602,141 @@ def test_catalog_defaults_to_the_card():
         tcat.unary_values(ta, np.arange(3))
 
 
+# -- the pair programs on wide packs, a mixed pack and a long literal -------------
+
+WIDTHS = (1, 2, 4, 8, 16, 32, 64)
+
+
+def _slot_shapes(slots: int, n: int = 96):
+    """n features whose packs are ``slots`` wide (K and S): points at 1,
+    else lines and closed polygons of up to ``slots`` coordinates (most at
+    it, some shorter, so that masks end at different slots), around the
+    polygon literal."""
+    rng = np.random.default_rng(slots)
+    shapes = []
+    for i in range(n):
+        cx, cy = float(rng.uniform(-40, 40)), float(rng.uniform(-30, 30))
+        if slots == 1:
+            shapes.append((tgeo.POINT, [cx, cy]))
+            continue
+        m = slots if i % 3 else int(rng.integers(2, slots + 1))
+        ang = np.sort(rng.uniform(0, 2 * np.pi, m))
+        r = rng.uniform(0.5, 12.0, m)
+        pts = [[cx + float(a), cy + float(b)]
+               for a, b in zip(r * np.cos(ang), r * np.sin(ang))]
+        if i % 2 and m >= 4:
+            shapes.append((tgeo.POLYGON, [pts[:-1] + [pts[0]]]))
+        else:
+            shapes.append((tgeo.LINESTRING, pts))
+    return shapes
+
+
+def _mixed_shapes():
+    """One 1,000-vertex line among 100 quadrilaterals: every quad padded
+    to the line's 1,024 slots."""
+    quads = [(tgeo.POLYGON, [q.tolist()]) for q in _smoke_quads(100, 9)]
+    line = (tgeo.LINESTRING, [[float(x), float(np.sin(x)) + 39.0]
+                              for x in np.linspace(-5, 5, 1000)])
+    return quads[:60] + [line] + quads[60:]
+
+
+def _ring(n: int, cx: float = 1.0, cy: float = 39.0):
+    """A closed star-shaped polygon of n edges around (cx, cy)."""
+    ang = np.linspace(0, 2 * np.pi, n + 1)
+    r = 12 + 3 * np.sin(7 * ang)
+    ring = [[cx + float(a), cy + float(b)]
+            for a, b in zip(r * np.cos(ang), r * np.sin(ang))]
+    ring[-1] = ring[0]
+    return (tgeo.POLYGON, [ring])
+
+
+def _pair_case(case):
+    """(shapes, literals) of a wide, mixed or long-literal case."""
+    if case == "mixed":
+        return _mixed_shapes(), (LITERALS["polygon"],)
+    if case == "ring700":
+        quads = [(tgeo.POLYGON, [q.tolist()]) for q in _smoke_quads(256, 4)]
+        return quads, (_ring(700),)
+    return _slot_shapes(case), (LITERALS["polygon"], LITERALS["point"])
+
+
+@pytest.mark.parametrize("case", WIDTHS + ("mixed", "ring700"))
+@pytest.mark.parametrize("kind", ["dist", "pred"])
+def test_plain_pair_programs_equal_reference_on_new_shapes(case, kind):
+    """_dist_plain / _pred_plain against the reference's _dist_batch /
+    _pred_batch on packs 1 to 64 slots wide, a mixed pack (one 1,000-vertex
+    line among quads) and quads against a 700-edge ring: the plain
+    versions the card is held to equal the JAX package there too."""
+    jcat = _ref("geomesa_tpu.geom.catalog")
+    jgeo = _ref("geomesa_tpu.features.geometry")
+    shapes, lits = _pair_case(case)
+    ja = jgeo.GeometryArray.from_shapes(shapes)
+    ta = tgeo.GeometryArray.from_shapes(shapes)
+    r = np.arange(len(ta), dtype=np.int64)
+    jp, tp = jcat.pack_features(ja, r), tcat.pack_features(ta, r, "cpu")
+    if case in WIDTHS:
+        assert max(tp.verts.shape[1], tp.segs.shape[1]) == case
+    for lit in lits:
+        jls, jlp, jpoly = jcat.pack_literal(lit)
+        tls, tlp, tpoly = tcat.pack_literal(lit, "cpu")
+        if kind == "dist":
+            want = np.asarray(jcat._dist_batch(
+                jp.verts, jp.vmask, jp.segs, jp.smask, jp.poly, jp.ref32,
+                jls, jlp, jpoly))
+            got = _np(tcat._dist_plain(tp.verts, tp.vmask, tp.segs,
+                                       tp.smask, tp.poly, tp.ref32, tls,
+                                       tlp, tpoly))
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+            continue
+        ext = lit[0] not in (tgeo.POINT, tgeo.MULTIPOINT)
+        for op in (0, 1, 2):
+            want = jcat._pred_batch(jp.verts, jp.vmask, jp.segs, jp.smask,
+                                    jp.poly, jp.ref32, jls, jlp, op, jpoly,
+                                    ext)
+            got = tcat._pred_plain(tp.verts, tp.vmask, tp.segs, tp.smask,
+                                   tp.poly, tp.ref32, tls, tlp, op, tpoly,
+                                   ext)
+            for a, b in zip(got, want):
+                assert np.array_equal(_np(a), np.asarray(b)), (lit[0], op)
+
+
+@pytest.mark.parametrize("B, K, S, L, P, want", [
+    (500_000, 8, 4, 1, 1, (False, 1)),       # (m3)'s quads, a point
+    (5_000_000, 2, 1, 4, 8, (False, 1)),     # (m1)'s lines, M_WKT
+    (50_000, 8, 4, 4, 8, (False, 2)),
+    (5_328, 8, 4, 4, 8, (False, 8)),         # (q3)'s rows
+    (45, 8, 4, 1, 1, (False, 8)),            # (q4)'s candidates
+    (5_328, 8, 4, 1024, 1024, (True, 32)),   # a long literal, few rows
+    (500_000, 8, 4, 1024, 1024, (False, 1)),
+    (100, 64, 64, 4, 8, (False, 32)),
+    (100, 1, 1, 64, 64, (True, 32)),         # a few points, a long ring
+    (500_000, 1, 1, 64, 64, (False, 1)),
+])
+def test_pair_plan(B, K, S, L, P, want):
+    """The launch plan: a lane a feature where the batch fills the card,
+    more lanes (at most one a slot) where it does not, and a warp over a
+    literal of 64 or more items when even that leaves the card short."""
+    assert kgeom.plan(B, K, S, L, P) == want
+
+
+def test_pair_args_match_the_kernels_struct():
+    """The wrapper packs csrc/geom_pair.cuh's PairArgs: its 8-byte integer
+    slots, then its doubles, in that order."""
+    import os
+    import re
+    src = os.path.join(os.path.dirname(kgeom.__file__), "csrc",
+                       "geom_pair.cuh")
+    with open(src) as fh:
+        body = re.search(r"struct PairArgs \{(.*?)\};", fh.read(),
+                         re.S).group(1)
+    ints = sum(len(m.split(",")) for m in re.findall(
+        r"long long ([^;]*);", body))
+    dbls = sum(len(m.split(",")) for m in re.findall(
+        r"double ([^;]*);", body))
+    assert kgeom._PAIR_ARGS.format.lstrip("=") == f"{ints}q{dbls}d"
+    assert kgeom._PAIR_ARGS.size == 8 * (ints + dbls)
+
+
 # -- the CUDA kernels against their plain versions (card only) --------------------
 
 
@@ -690,8 +832,10 @@ def test_cuda_geom_pred_equals_plain(k, lit, op):
 
 @pytest.mark.gpu
 def test_cuda_literal_past_a_tile():
-    """A literal of 700 edges and points (three shared-memory tiles of
-    256): distances and bands equal the plain version's."""
+    """A literal of 700 edges and points (1,024 each after the padding,
+    one whole shared-memory tile of the pair kernels; lengths past a tile
+    are ``test_cuda_pair_kernels_literal_lengths``'): distances and bands
+    equal the plain version's."""
     dev = _cuda()
     ang = np.linspace(0, 2 * np.pi, 701)
     r = 12 + 3 * np.sin(7 * ang)
@@ -734,3 +878,265 @@ def test_cuda_entry_points_equal_cpu():
     assert all(np.array_equal(first[0][k], u[k]) for k in u)
     assert np.array_equal(first[1], d)
     assert all(np.array_equal(x, y) for x, y in zip(first[2], b))
+
+
+# -- the pair kernels' forms (card only) -----------------------------------------
+
+
+def _pair_on_card(p, dev):
+    return [getattr(p, f)[: p.n].to(dev) for f in tcat.PAIR]
+
+
+def _same_nan(a, b):
+    """Equal bit for bit but NaN payloads: NaN in the same rows."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def _held(args, ls, lp, lpoly, ext=True, ops=(0, 1, 2), nan=False):
+    """Both kernels on ``args`` against a literal, each one launch, equal
+    to the plain versions on the same card tensors."""
+    before = kgeom.geom_dist.launches
+    got = kgeom.geom_dist(*args, ls, lp, lpoly)
+    torch.cuda.synchronize()
+    assert kgeom.geom_dist.launches == before + 1
+    want = tcat._dist_plain(*args, ls, lp, lpoly)
+    assert (_same_nan if nan else torch.equal)(got, want)
+    for op in ops:
+        before = kgeom.geom_pred.launches
+        got = kgeom.geom_pred(*args, ls, lp, op, lpoly, ext)
+        torch.cuda.synchronize()
+        assert kgeom.geom_pred.launches == before + 1
+        want = tcat._pred_plain(*args, ls, lp, op, lpoly, ext)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), op
+
+
+FORMS = {"natural": None, "items1": (False, 1), "items8": (False, 8),
+         "lit": (True, 32)}
+
+
+def _force(monkeypatch, form):
+    if FORMS[form] is not None:
+        monkeypatch.setattr(kgeom, "plan", lambda *_: FORMS[form])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slots", WIDTHS)
+@pytest.mark.parametrize("lit", ["polygon", "point", "line", "multipoint"])
+def test_cuda_pair_kernels_at_every_width(slots, lit):
+    """Packs 1 to 64 slots wide at 96 rows: the launch gives each feature
+    min(32, slots) lanes, every width the plan can choose."""
+    dev = _cuda()
+    ta = tgeo.GeometryArray.from_shapes(_slot_shapes(slots))
+    p = tcat.pack_features(ta, np.arange(len(ta)), "cpu")
+    args = _pair_on_card(p, dev)
+    K, S = args[0].shape[1], args[2].shape[1]
+    literal = LITERALS[lit]
+    ls, lp, lpoly = tcat.pack_literal(literal, dev)
+    assert kgeom.plan(p.n, K, S, ls.shape[0], lp.shape[0]) == \
+        (False, min(32, slots))
+    _held(args, ls, lp, lpoly,
+          literal[0] not in (tgeo.POINT, tgeo.MULTIPOINT))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 37, 255, 257, 1000, 40_000])
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_cuda_pair_kernels_batch_sizes(B, form, monkeypatch):
+    """Batches of one feature, fewer than a warp, either side of a CTA's
+    256 features, and 40,000 (2 lanes a feature), quads from a row that is
+    not a CTA's multiple, in every form."""
+    dev = _cuda()
+    ta = _quad_array(tgeo, _smoke_quads(B + 3, B))
+    p = tcat.pack_features(ta, np.arange(3, B + 3), "cpu")
+    args = _pair_on_card(p, dev)
+    _force(monkeypatch, form)
+    for lit in ("polygon", "point"):
+        _held(args, *tcat.pack_literal(LITERALS[lit], dev))
+
+
+def _unpadded_ring(n: int, dev):
+    """The first n edges and n points of a closed star-shaped ring around
+    (1, 39), unpadded (the last edge ends on the first point at n > 2)."""
+    ring = np.asarray(_ring(max(n, 3))[1][0], dtype=np.float32)[: n + 1]
+    ls = torch.from_numpy(np.concatenate([ring[:-1], ring[1:]], 1)).to(dev)
+    lp = torch.from_numpy(np.ascontiguousarray(ring[:n])).to(dev)
+    return ls, lp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 1024, 1025])
+@pytest.mark.parametrize("form", ["items1", "items8", "lit"])
+def test_cuda_pair_kernels_literal_lengths(n, form, monkeypatch):
+    """A literal of n edges and n points (unpadded) at 1, one whole tile
+    of 1,024 and one past it (two tiles behind CTA barriers), in both
+    forms: lanes over the feature's items and over the literal."""
+    dev = _cuda()
+    ta = _quad_array(tgeo, _smoke_quads(600, 21))
+    p = tcat.pack_features(ta, np.arange(600), "cpu")
+    args = _pair_on_card(p, dev)
+    ls, lp = _unpadded_ring(n, dev)
+    assert ls.shape[0] == n and lp.shape[0] == n
+    _force(monkeypatch, form)
+    _held(args, ls, lp, n > 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_cuda_pair_kernels_mixed_pack(form, monkeypatch):
+    """One 1,000-vertex line among quads (every quad padded to 1,024
+    slots): the quads' loops stop at their own counts. Against a literal
+    of 1,025 edges and points (two tiles), the line's vertex rounds (1,000,
+    or 125 at 8 lanes) run in several chunks, each restaging the tiles
+    behind CTA barriers."""
+    dev = _cuda()
+    ta = tgeo.GeometryArray.from_shapes(_mixed_shapes())
+    p = tcat.pack_features(ta, np.arange(len(ta)), "cpu")
+    args = _pair_on_card(p, dev)
+    assert args[0].shape[1] == 1024 and args[2].shape[1] == 1024
+    _force(monkeypatch, form)
+    for lit in (LITERALS["polygon"], LITERALS["point"], _ring(700)):
+        _held(args, *tcat.pack_literal(lit, dev))
+    _held(args, *_unpadded_ring(1025, dev), True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_cuda_pair_kernels_subnormal_and_nan(form, monkeypatch):
+    """Subnormal and NaN coordinates in vertices, segments and origins,
+    and masks that are not prefixes: NaN where the plain version gives
+    NaN (its min keeps them), every other value bit for bit."""
+    dev = _cuda()
+    ta = tgeo.GeometryArray.from_shapes(_extra_shapes() + _shapes(11))
+    p = tcat.pack_features(ta, np.arange(len(ta)), "cpu")
+    v, vm, s, sm, poly, ref = [t.clone() for t in p.rows(*tcat.PAIR)]
+    rng = np.random.default_rng(5)
+    vm &= torch.from_numpy(rng.random(tuple(vm.shape)) < 0.8)
+    vm |= torch.from_numpy(rng.random(tuple(vm.shape)) < 0.05)
+    sm &= torch.from_numpy(rng.random(tuple(sm.shape)) < 0.8)
+    for t, k in ((v, 40), (s, 30)):
+        flat = t.view(-1)
+        at = torch.from_numpy(rng.choice(flat.numel(), k, replace=False))
+        flat[at[: k // 2]] = float("nan")
+        flat[at[k // 2:]] = torch.from_numpy(
+            (rng.standard_normal(k - k // 2) * 1e-39).astype(np.float32))
+    ref[3, 0], ref[5, 1] = float("nan"), 1e-40
+    args = [t.to(dev) for t in (v, vm, s, sm, poly, ref)]
+    want = tcat._dist_plain(*args, *tcat.pack_literal(
+        LITERALS["polygon"], dev))
+    assert bool(torch.isnan(want).any())
+    _force(monkeypatch, form)
+    for lit in ("polygon", "point", "line", "multipoint"):
+        literal = LITERALS[lit]
+        _held(args, *tcat.pack_literal(literal, dev),
+              ext=literal[0] not in (tgeo.POINT, tgeo.MULTIPOINT), nan=True)
+
+
+def _run_literal(r: int, lead: bool):
+    """(edges (L, 4), points (P, 2)) f32 numpy: a 31-edge ring around
+    (1, 39) and its 31 points (or nothing, ``lead`` false), then r copies
+    of one of its edges and r of the point (1, 39)."""
+    ring = np.asarray(_ring(31)[1][0], dtype=np.float32)
+    edges = np.concatenate([ring[:-1], ring[1:]], 1)
+    pts = ring[:-1]
+    ls = np.concatenate([edges if lead else edges[:0],
+                         np.repeat(edges[5:6], r, 0)])
+    lp = np.concatenate([pts if lead else pts[:0],
+                         np.repeat(np.float32([[1.0, 39.0]]), r, 0)])
+    return ls, lp
+
+
+def _run_cut(ls, lp, r: int):
+    """The literal with its trailing runs cut as the pair kernels cut them:
+    one point, and one edge or two as r is odd or even."""
+    keep = 2 - (r & 1)
+    return ls[: len(ls) - r + keep], lp[: len(lp) - r + 1]
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 7])
+@pytest.mark.parametrize("kind", ["dist", "pred"])
+def test_plain_pair_programs_keep_their_answer_when_a_trailing_run_is_cut(
+        r, kind):
+    """What the pair kernels rely on to skip pack_literal's pads: a
+    trailing run of r identical edges answers as its first one (r odd) or
+    two (r even), and a run of r identical points as its first one, in the
+    plain versions (the card's kernels are held to them bit for bit)."""
+    ta = _quad_array(tgeo, _smoke_quads(400, 17))
+    p = tcat.pack_features(ta, np.arange(400), "cpu")
+    args = list(p.rows(*tcat.PAIR))
+    for lead in (True, False):
+        ls, lp = _run_literal(r, lead)
+        cut = _run_cut(ls, lp, r)
+        full_t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (ls, lp)]
+        cut_t = [torch.from_numpy(np.ascontiguousarray(a)) for a in cut]
+        if kind == "dist":
+            assert torch.equal(tcat._dist_plain(*args, *full_t, True),
+                               tcat._dist_plain(*args, *cut_t, True))
+            continue
+        for op in (0, 1, 2):
+            got = tcat._pred_plain(*args, *full_t, op, True, True)
+            want = tcat._pred_plain(*args, *cut_t, op, True, True)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), op
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [1, 2, 3, 6])
+@pytest.mark.parametrize("lead", [True, False])
+@pytest.mark.parametrize("form", ["items1", "items8", "lit"])
+def test_cuda_pair_kernels_trailing_runs(r, lead, form, monkeypatch):
+    """A literal that ends in r copies of one of its edges (each crossing
+    some quads' vertex rays: the parity of r shows) and of a point, or is
+    nothing but those copies: the kernels, which cut such runs, equal the
+    plain versions, which take every copy."""
+    dev = _cuda()
+    ta = _quad_array(tgeo, _smoke_quads(2000, 23))
+    p = tcat.pack_features(ta, np.arange(2000), "cpu")
+    args = _pair_on_card(p, dev)
+    ls, lp = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in _run_literal(r, lead))
+    _force(monkeypatch, form)
+    _held(args, ls, lp, True)
+
+
+def _band_edge_shapes():
+    """Features on the polygon literal's edges and corners: points on its
+    edges and at its corners, quads sharing an edge or a corner with it,
+    lines along its edges, and a copy of it."""
+    ring = LITERALS["polygon"][1][0]
+    shapes = []
+    for (x1, y1), (x2, y2) in zip(ring[:-1], ring[1:]):
+        for t in (0.0, 0.25, 0.5):
+            shapes.append((tgeo.POINT, [x1 + t * (x2 - x1),
+                                        y1 + t * (y2 - y1)]))
+        shapes.append((tgeo.LINESTRING, [[x1, y1], [x2, y2]]))
+        shapes.append((tgeo.POLYGON, [[[x1, y1], [x2, y2], [x2 + 1, y2 + 1],
+                                       [x1 + 1, y1 + 1], [x1, y1]]]))
+    shapes.append(LITERALS["polygon"])
+    return shapes
+
+
+@pytest.mark.gpu
+def test_cuda_band_edge_rows_go_to_the_refine():
+    """Rows on the bands' edges: the kernels equal the plain versions, some
+    rows are neither certainly in nor certainly out, and the entry points
+    on the card refine them to the CPU's answers."""
+    dev = _cuda()
+    ta = tgeo.GeometryArray.from_shapes(_band_edge_shapes())
+    r = np.arange(len(ta), dtype=np.int64)
+    p = tcat.pack_features(ta, r, "cpu")
+    args = _pair_on_card(p, dev)
+    ls, lp, lpoly = tcat.pack_literal(LITERALS["polygon"], dev)
+    _held(args, ls, lp, lpoly)
+    unc = 0
+    for op in (0, 1, 2):
+        ci, co = kgeom.geom_pred(*args, ls, lp, op, lpoly, True)
+        unc += int((~ci & ~co).sum())
+    assert unc > 0
+    refined = 0
+    for name in ("intersects", "within", "contains"):
+        before = tcat.STATS["refined_rows"]
+        got = tcat.batch_predicate(ta, r, name, LITERALS["polygon"], "cuda")
+        refined += tcat.STATS["refined_rows"] - before
+        want = tcat.batch_predicate(ta, r, name, LITERALS["polygon"], "cpu")
+        assert np.array_equal(got, want), name
+    assert refined == unc
