@@ -148,6 +148,20 @@ Phases, each failing the run (non-zero exit) when it fails:
    64 and 4,096 runs (count, mask, VIS, no box), and ``masked_hist`` HIST
    over subnormal ranges (``P_HIST``) (``phase_attribute_kernels``); the
    store is freed after it;
+7f. bench.py cfg3's joins (r) (``phase_cfg3``, ``{"cfg3": ...}`` line),
+   before (l): (r1) ``SpatialJoin.counts`` and ``assign`` over the first
+   20,000,000 points of the corpus against perf/polygons_complex.json's 32
+   polygons (``pip_join``; p50s and Mpts/s, ``hits.sum() > 0`` as bench.py
+   asserts); (r2) ``extent_join`` of 200,000 seeded two-point lines against
+   them on the host and on the device route, the pair lists equal, the
+   pair kernel declined (polygons past ``MAX_SEGMENTS``, 0 ``pair_band``
+   launches); (r3) the 13 polygons of at most 512 segments: the candidate
+   pairs tiled to about 1,000,000 through ``device_refine`` and
+   ``prepare_refine``'s staged call (p50s, Mpairs/s) and the join on both
+   routes; then each kernel against its plain version on the card at those
+   inputs, with its bound (``pip_join``: the (point in bbox, edge) pairs
+   and the straddling ones, the reference's dense count beside them;
+   ``pair_band``: the real segment pairs);
 8. the write path (l) on the same store, after every other phase (the
    corpus changes under it): 20 appends of 100,000 rows into the LSM delta
    tier, (a)-(d) and (g3)'s 64 boxes through ``count_many`` over main +
@@ -5547,6 +5561,312 @@ def sass_keys_pass(so_path=None):
     return None
 
 
+# bench.py cfg3 (bench.py:685-770): the point-in-polygon join over the first
+# 20M points of the cfg1 corpus against perf/polygons_complex.json's 32
+# polygons, and the extent join of 200,000 seeded two-point lines against
+# them; the pair kernel at the 13 polygons of at most MAX_SEGMENTS segments
+# (the reference declines the others), the candidate pairs tiled to about
+# 1M as bench.py tiles them
+R_N = 20_000_000
+R_LINES = 200_000
+R_SEED = 3303
+R_PAIRS = 1_000_000
+R_REPS = 5
+# f32 operations of the join a (point in a polygon's bbox, real edge) pair:
+# the two y compares and their xor; a straddling edge adds 2 subtractions,
+# the division, the fma (2) and the compare
+PIPJ_OPS_PER_PAIR = 3
+PIPJ_OPS_PER_CROSS = 6
+
+
+def cfg3_polygons():
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "perf", "polygons_complex.json")) as fh:
+        pc = json.load(fh)
+    return [(int(code), rings) for code, rings in pc["polygons"]], \
+        pc["vertex_counts"]
+
+
+def cfg3_lines(n: int = R_LINES, seed: int = R_SEED) -> np.ndarray:
+    """(2n, 2) vertices of bench.py cfg3's two-point lines (its
+    distributions, bench.py:724-730; a generator of their own)."""
+    rng = np.random.default_rng(seed)
+    jx = rng.uniform(-60, 60, n)
+    jy = rng.uniform(-60, 60, n)
+    jc = np.empty((2 * n, 2))
+    jc[0::2, 0], jc[0::2, 1] = jx, jy
+    jc[1::2, 0] = jx + rng.uniform(-1, 1, n)
+    jc[1::2, 1] = jy + rng.uniform(-1, 1, n)
+    return jc
+
+
+def pip_join_work(px, py, bufs, first) -> dict:
+    """What one join call over these points must do, counted on their
+    device, for each mode: the (point in a polygon's bbox, real edge)
+    pairs and those whose edge straddles the point's y (COUNTS: every
+    polygon whose bbox holds the point; ASSIGN: only the polygons up to
+    the point's first hit ``first``, after which the kernel drops it), the
+    (point, polygon) pairs in a bbox; the bytes read (the points, 8 a
+    point; the real edges, 16 each); and the reference's dense count
+    (every point against every polygon's padded edges)."""
+    from geomesa_tpu_torch.arith import flush, sub
+    edges, n_edges, bboxes, center = bufs
+    c = flush(center)
+    work = {m: {"inbbox_pairs": 0, "straddling_pairs": 0,
+                "inbbox_points": 0} for m in ("counts", "assign")}
+    for p in range(edges.shape[0]):
+        bb = flush(bboxes[p])
+        inb = ((px >= bb[0]) & (px <= bb[2]) & (py >= bb[1])
+               & (py <= bb[3])).nonzero().squeeze(1)
+        f = first[inb]
+        keep = (f < 0) | (f >= p)
+        ne = int(n_edges[p])
+        e = flush(edges[p, :ne])
+        for m, k in (("counts", int(inb.numel())), ("assign",
+                                                    int(keep.sum()))):
+            work[m]["inbbox_points"] += k
+            work[m]["inbbox_pairs"] += k * ne
+        step = max(1, (1 << 24) // max(1, ne))
+        for a in range(0, int(inb.numel()), step):
+            q = sub(flush(py[inb[a:a + step]]), c[1])[:, None]
+            sc = ((e[None, :, 1] > q) != (e[None, :, 3] > q)).sum(1)
+            work["counts"]["straddling_pairs"] += int(sc.sum())
+            work["assign"]["straddling_pairs"] += int(
+                sc[keep[a:a + step]].sum())
+    work["in_bytes"] = 8 * px.numel() + 16 * int(n_edges.sum())
+    work["dense_pairs"] = int(edges.shape[0]) * px.numel() \
+        * int(edges.shape[1])
+    return work
+
+
+def pip_join_bound(work: dict, mode: str, out_bytes: int) -> dict:
+    """The least time for one join call in ``mode`` ("counts" or
+    "assign"): bytes — ``work``'s inputs read once, the output written
+    once; operations — PIPJ_OPS_PER_PAIR a (point in the polygon's bbox,
+    real edge) pair the mode must test and PIPJ_OPS_PER_CROSS more a pair
+    whose edge straddles the point's y."""
+    w = work[mode]
+    r = _bound(work["in_bytes"] + out_bytes,
+               PIPJ_OPS_PER_PAIR * w["inbbox_pairs"]
+               + PIPJ_OPS_PER_CROSS * w["straddling_pairs"])
+    r.update(w)
+    r["dense_pairs"] = work["dense_pairs"]
+    return r
+
+
+def pair_band_bound(prep) -> dict:
+    """The least time for one ``pair_band`` call: bytes — the pair vectors
+    (8 a pair), the real segments of the two tables (16 each) and their
+    counts and flags (6 a geometry) read once, the packed verdicts written
+    once; operations — what this run's pairs need, found by the plain
+    version's segment-pair band on the same inputs: a pair with a certain
+    crossing SEG_OPS_PER_PAIR for each real segment pair up to its first
+    crossing (in the kernel's order, left segment major) and nothing
+    more; any other pair SEG_OPS_PER_PAIR for each of its real segment
+    pairs and GEOM_BAND_OPS for each (left first vertex, right real edge)
+    pair where the right side is polygonal, and the converse."""
+    import torch
+    from geomesa_tpu_torch.index.scan import _segpair_band
+    lseg, lcnt, lpoly, _ = prep._d_l
+    rseg, rcnt, rpoly, _ = prep._d_r
+    n = prep.n
+    ls_, rs_ = lseg.shape[1], rseg.shape[1]
+    dev = lseg.device
+    li = torch.arange(ls_, device=dev)[None, :, None]
+    ri = torch.arange(rs_, device=dev)[None, None, :]
+    step = max(1, (1 << 24) // (ls_ * rs_))
+    segpairs = pips = crossed = 0
+    for a in range(0, n, step):
+        pl = prep._d_pl[a:min(n, a + step)].long()
+        pr = prep._d_pr[a:min(n, a + step)].long()
+        lc, rc = lcnt[pl].long(), rcnt[pr].long()
+        sl = lseg[pl][:, :, None, :]
+        sr = rseg[pr][:, None, :, :]
+        hit, _ = _segpair_band(*sl.unbind(-1), *sr.unbind(-1))
+        hit = (hit & (li < lc[:, None, None]) & (ri < rc[:, None, None])
+               ).flatten(1)
+        crossing = hit.any(dim=1)
+        k = hit.to(torch.uint8).argmax(dim=1)   # the first crossing
+        upto = (k // rs_) * rc + k % rs_ + 1
+        segpairs += int(torch.where(crossing, upto, lc * rc).sum())
+        pips += int(torch.where(crossing, 0, rc * rpoly[pr].long()
+                                + lc * lpoly[pl].long()).sum())
+        crossed += int(crossing.sum())
+    nbytes = 8 * int(prep._d_pl.numel()) + 16 * int(lcnt.sum() + rcnt.sum()) \
+        + 6 * (lcnt.numel() + rcnt.numel()) + 2 * ((prep._d_pl.numel() + 7) // 8)
+    r = _bound(nbytes, SEG_OPS_PER_PAIR * segpairs + GEOM_BAND_OPS * pips)
+    r.update(segment_pairs=segpairs, first_vertex_pairs=pips,
+             crossing_pairs=crossed)
+    return r
+
+
+def phase_cfg3(x, y, device: str = "cuda", n: int = R_N,
+               n_lines: int = R_LINES, n_pairs: int = R_PAIRS) -> dict:
+    """bench.py cfg3 on the card, over the corpus's first ``n`` points
+    ``x``/``y`` (before (l) changes it): (r1) the point-in-polygon join,
+    (r2) the extent join at its shapes (the pair kernel declines there: the
+    reference's MAX_SEGMENTS), (r3) the pair kernel at the polygons it
+    accepts; every answer against its plain version or the host route,
+    each kernel's launches read around the main path's run. Prints a
+    ``{"cfg3": ...}`` line. ``device="cpu"`` rehearses the path with the
+    plain versions (no kernel timings)."""
+    import torch
+    from geomesa_tpu_torch.features.geometry import GeometryArray
+    from geomesa_tpu_torch.filter import geom_batch
+    from geomesa_tpu_torch.kernels import pair_band, pip_join
+    from geomesa_tpu_torch.parallel import join as pjoin
+    from geomesa_tpu_torch.parallel import pair_kernel
+    ej = importlib.import_module("geomesa_tpu_torch.parallel.extent_join")
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    polys, vc = cfg3_polygons()
+    out = {"n_points": n, "n_polygons": len(polys),
+           "poly_vertices_total": int(sum(vc)),
+           "poly_vertices_max": int(max(vc))}
+
+    # (r1) the point-in-polygon join
+    px = torch.from_numpy(np.ascontiguousarray(x[:n], dtype=np.float32))
+    py = torch.from_numpy(np.ascontiguousarray(y[:n], dtype=np.float32))
+    dx, dy = px.to(device), py.to(device)
+    join = pjoin.SpatialJoin(polys, device)
+    join.counts(dx, dy)   # the polygon tables on the card, the build warm
+    sync()
+    pip_join.pip_join.launches = 0
+    hits = join.counts(dx, dy)
+    first = join.assign(dx, dy)
+    sync()
+    launches = {"pip_join": pip_join.pip_join.launches}
+    if cuda and launches["pip_join"] < 2:
+        raise AssertionError("(r1) the join did not run on pip_join")
+    if int(hits.sum()) <= 0:
+        raise AssertionError("(r1) no point in any polygon")
+    n_first = int((first >= 0).sum())
+    # every point in a polygon has a first polygon; a point counted twice
+    # lies in two of them
+    if not n_first <= int(hits.sum()):
+        raise AssertionError("(r1) assign's hits exceed the counts'")
+    p50, _ = timed(lambda: join.counts(dx, dy), sync, R_REPS)
+    p50_a, _ = timed(lambda: join.assign(dx, dy), sync, R_REPS)
+    out["r1"] = {"hits": int(hits.sum()), "assigned": n_first,
+                 "counts_p50_ms": p50, "assign_p50_ms": p50_a,
+                 "mpts_per_s_per_chip": n / (p50 / 1e3) / 1e6}
+    log(f"[cfg3] (r1) {n} points x {len(polys)} polygons: {int(hits.sum())} "
+        f"hits, {n_first} points assigned; counts p50 {p50} ms "
+        f"({out['r1']['mpts_per_s_per_chip']} Mpts/s), assign p50 {p50_a} ms")
+    bufs = join._bufs(dx.device)
+    rows = []
+    work = pip_join_work(dx, dy, bufs, first)
+    for label in ("counts", "assign"):
+        w = work[label]
+        log(f"[cfg3] (r1) pip_join {label} work: {w['inbbox_pairs']} (point "
+            f"in bbox, edge) pairs, {w['straddling_pairs']} straddling, "
+            f"{w['inbbox_points']} (point, polygon) in bbox; the reference's "
+            f"dense count {work['dense_pairs']} pairs")
+    for label, assign in (("counts", False), ("assign", True)):
+        bound = pip_join_bound(work, label, 4 * (n if assign else len(polys)))
+        log(f"[cfg3] (r1) pip_join {label} bound {bound['bound_ms']} ms "
+            f"({bound['bound_by']})")
+        if not cuda:
+            continue
+        plain = pjoin.assign if assign else pjoin.contains_matrix
+        rows.append(_time_kernel(
+            f"pip_join {label} (r1): {n} points x {len(polys)} polygons",
+            lambda a=assign: pip_join.pip_join(dx, dy, None, *bufs,
+                                               assign=a),
+            lambda f=plain: f(dx, dy, None, *bufs), bound, 10))
+    del dx, dy, px, py, first, join, bufs
+
+    # (r2) the extent join at cfg3's shapes
+    lines = GeometryArray.linestrings(cfg3_lines(n_lines))
+    polys_g = GeometryArray.from_shapes(polys)
+    cli, crj = ej.candidate_pairs(lines.bboxes(), polys_g.bboxes())
+    pair_band.pair_band.launches = 0
+    t0 = time.perf_counter()
+    la, ra = ej.extent_join(lines, polys_g, device="never",
+                            torch_device=device)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    la_d, ra_d = ej.extent_join(lines, polys_g, device="always",
+                                torch_device=device)
+    dev_s = time.perf_counter() - t0
+    if not (np.array_equal(la, la_d) and np.array_equal(ra, ra_d)):
+        raise AssertionError("(r2) host and device pair lists differ")
+    _, fid = geom_batch.build_segments(polys_g, np.arange(len(polys)))
+    nseg = np.bincount(fid, minlength=len(polys))
+    launches["pair_band_r2"] = pair_band.pair_band.launches
+    if launches["pair_band_r2"] != 0:
+        raise AssertionError("(r2) pair_band launched where the reference "
+                             "declines")
+    out["r2"] = {"lines": n_lines, "candidate_pairs": int(len(cli)),
+                 "candidate_polygons": int(len(np.unique(crj))),
+                 "pairs": int(len(la)), "host_s": host_s, "device_s": dev_s,
+                 "polygons_over_512_segments":
+                     int((nseg > pair_kernel.MAX_SEGMENTS).sum()),
+                 "pair_band_launches": launches["pair_band_r2"]}
+    log(f"[cfg3] (r2) {n_lines} lines x {len(polys)} polygons: "
+        f"{len(cli)} candidate pairs over {out['r2']['candidate_polygons']} "
+        f"polygons, {len(la)} pairs; host {host_s} s, device route "
+        f"{dev_s} s (declined: {out['r2']['polygons_over_512_segments']} "
+        f"polygons past {pair_kernel.MAX_SEGMENTS} segments; pair_band "
+        f"launches 0)")
+
+    # (r3) the pair kernel at the polygons it accepts
+    keep = np.flatnonzero(nseg <= pair_kernel.MAX_SEGMENTS)
+    small = GeometryArray.from_shapes([polys[i] for i in keep])
+    sli, srj = ej.candidate_pairs(lines.bboxes(), small.bboxes())
+    reps_t = max(1, n_pairs // max(1, len(sli)))
+    tli, trj = np.tile(sli, reps_t), np.tile(srj, reps_t)
+    pair_band.pair_band.launches = 0
+    hit, unc = pair_kernel.device_refine(lines, small, tli, trj, device)
+    prep = pair_kernel.prepare_refine(lines, small, tli, trj, device)
+    h2, u2 = prep()
+    la_s, ra_s = ej.extent_join(lines, small, device="never",
+                                torch_device=device)
+    la_sd, ra_sd = ej.extent_join(lines, small, device="always",
+                                  torch_device=device)
+    sync()
+    launches["pair_band"] = pair_band.pair_band.launches
+    if cuda and launches["pair_band"] < 3:
+        raise AssertionError("(r3) the refine did not run on pair_band")
+    if not (np.array_equal(hit, h2) and np.array_equal(unc, u2)):
+        raise AssertionError("(r3) device_refine and the staged refine "
+                             "differ")
+    if not (np.array_equal(la_s, la_sd) and np.array_equal(ra_s, ra_sd)):
+        raise AssertionError("(r3) host and device pair lists differ")
+    p50_d, _ = timed(lambda: pair_kernel.device_refine(
+        lines, small, tli, trj, device), sync, R_REPS)
+    p50_p, _ = timed(prep, sync, R_REPS)
+    out["r3"] = {"polygons": int(len(keep)), "candidate_pairs": int(len(sli)),
+                 "tiled_pairs": int(len(tli)), "hits": int(hit.sum()),
+                 "uncertain": int(unc.sum()), "pairs": int(len(la_s)),
+                 "refine_p50_ms": p50_d, "staged_p50_ms": p50_p,
+                 "mpairs_per_s_per_chip": len(tli) / (p50_d / 1e3) / 1e6,
+                 "staged_mpairs_per_s_per_chip":
+                     len(tli) / (p50_p / 1e3) / 1e6}
+    log(f"[cfg3] (r3) {len(tli)} pairs ({len(sli)} candidates x {reps_t}) "
+        f"of {n_lines} lines x {len(keep)} polygons: {int(hit.sum())} hits, "
+        f"{int(unc.sum())} uncertain; device_refine p50 {p50_d} ms "
+        f"({out['r3']['mpairs_per_s_per_chip']} Mpairs/s), staged p50 "
+        f"{p50_p} ms; the join {len(la_s)} pairs on both routes")
+    args = (*prep._d_l, *prep._d_r, prep._d_pl, prep._d_pr)
+    bound = pair_band_bound(prep)
+    log(f"[cfg3] (r3) pair_band work: {bound['segment_pairs']} real "
+        f"segment pairs, {bound['first_vertex_pairs']} first-vertex "
+        f"pairs ({bound['crossing_pairs']} pairs end at a crossing); bound "
+        f"{bound['bound_ms']} ms ({bound['bound_by']})")
+    if cuda:
+        rows.append(_time_kernel(
+            f"pair_band (r3): {len(tli)} pairs, S_l {args[0].shape[1]}, "
+            f"S_r {args[4].shape[1]}",
+            lambda: pair_band.pair_band(*args),
+            lambda: pair_kernel.pair_plain(*args), bound, 10))
+    out["launches"] = launches
+    out["kernels"] = rows
+    print(json.dumps({"cfg3": {k: v for k, v in out.items()
+                               if k != "kernels"}}))
+    return out
+
+
 def queries(store):
     """The main path's queries as (label, zero-arg fn), for the timings and
     the profile."""
@@ -5720,11 +6040,14 @@ def main() -> int:
     ok = timed_phase("(o) kernels", phase_process_kernels, store)
     pres = timed_phase("(p) attribute", phase_attribute, store)
     timed_phase("(p7) wide residual", phase_sliced_wide)
+    r = timed_phase("(r) cfg3", phase_cfg3,
+                    *store.tables["gdelt"].geometry().point_xy())
     w = timed_phase("(l) write", phase_write, store, g_oracle)
     import torch
     from geomesa_tpu_torch.kernels import (box_count, compact, density,
                                            dist, fused_scan, gate, geom,
-                                           hist, merge, pip, seg_band, topk)
+                                           hist, merge, pair_band, pip,
+                                           pip_join, seg_band, topk)
     head = d[0]   # (d)'s own inputs, 64x64, unit weights
     bhead = b[0]  # (g3)'s batch over the union of its covers
     thead = t[0]  # (i)'s own inputs
@@ -5831,7 +6154,18 @@ def main() -> int:
         "ms": qk[name][0]["ms"], "plain_ms": qk[name][0]["plain_ms"],
         "bound_ms": qk[name][0]["bound_ms"],
         "bound_by": qk[name][0]["bound_by"], "library_ms": None}
-        for name in geom.NAMES]}))
+        for name in geom.NAMES] + [{
+        # (r)'s kernels: launches from the phase's run, the rest from the
+        # first row of each kernel's comparisons ((r1)'s counts, (r3)'s
+        # pairs); no single PyTorch call computes either
+        "name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
+        "replaces": mod.REPLACES, "launches": r["launches"][mod.NAME],
+        "max_abs_err": max(x["max_abs_err"] for x in rows),
+        "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+        "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
+        "library_ms": None}
+        for mod, rows in ((pip_join, r["kernels"][:2]),
+                          (pair_band, r["kernels"][2:]))]}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -32,7 +32,7 @@ as the reference's XLA program computes it on the CPU —
 f32 → int32 saturates and maps NaN to 0 (XLA's convert), so after the clip
 NaN and -inf land in bin 0 and +inf in the last. XLA on the CPU reads a
 subnormal f32 as a zero of its sign and flushes a subnormal result to one
-(``_ftz``): HIST takes that flush at its inputs and after each step, so a
+(``flush``): HIST takes that flush at its inputs and after each step, so a
 range under 2^-126 divides by zero as the reference's does. GRID's sums
 of coordinates and 180 or 90 are never subnormal. Counts are int32.
 """
@@ -42,19 +42,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from geomesa_tpu_torch.arith import flush
 from geomesa_tpu_torch.stats import sketches as sk
 
 # the f32 reciprocals XLA multiplies by in place of the grid's divisions
 INV360 = float(np.float32(1) / np.float32(360))
 INV180 = float(np.float32(1) / np.float32(180))
-# the least normal f32 (2^-126)
-F32_TINY = float(np.finfo(np.float32).tiny)
-
-
-def _ftz(t: torch.Tensor) -> torch.Tensor:
-    """f32 values with every subnormal made a zero of its sign (XLA's
-    flush-to-zero on the CPU)."""
-    return torch.where(t.abs() < F32_TINY, t * 0.0, t)
 
 
 def _bin_index(v: torch.Tensor, bins: int) -> torch.Tensor:
@@ -76,11 +69,12 @@ def _masked_hist(col: torch.Tensor, mask: torch.Tensor, lo: float, hi: float,
                  bins: int) -> torch.Tensor:
     """int32 (bins,) histogram of the masked rows of an int32 or f32 column
     over [lo, hi] (f32 values), end bins taking what falls outside; every
-    input and step flushed as XLA flushes them on the CPU (``_ftz``)."""
-    lo_t = _ftz(torch.tensor(lo, dtype=torch.float32, device=col.device))
-    hi_t = _ftz(torch.tensor(hi, dtype=torch.float32, device=col.device))
-    frac = _ftz(_ftz(_ftz(col.to(torch.float32)) - lo_t) / _ftz(hi_t - lo_t))
-    return _count(_bin_index(_ftz(frac * float(bins)), bins), mask, bins)
+    input and step flushed as XLA flushes them on the CPU (``flush``)."""
+    lo_t = flush(torch.tensor(lo, dtype=torch.float32, device=col.device))
+    hi_t = flush(torch.tensor(hi, dtype=torch.float32, device=col.device))
+    frac = flush(flush(flush(col.to(torch.float32)) - lo_t)
+                 / flush(hi_t - lo_t))
+    return _count(_bin_index(flush(frac * float(bins)), bins), mask, bins)
 
 
 def _masked_grid(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,

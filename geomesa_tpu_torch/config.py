@@ -260,6 +260,13 @@ NODE_ID = _register(
     "/healthz + BENCH_summary attribution). Empty = derived "
     "hostname-pid-suffix, unique per process incarnation.")
 
+JOIN_DEVICE_MIN_PAIRS = _register(
+    "GEOMESA_TPU_JOIN_DEVICE_MIN_PAIRS", 32_768, int,
+    "Candidate-pair count above which the extent join's exact refine runs "
+    "on the device band kernel (parallel/pair_kernel: pair_band; below it, "
+    "host f64 soups win — each device dispatch pays a launch and a "
+    "readback).")
+
 # -- the geometry function catalog (geom/catalog.py) -------------------------
 
 GEOM_KERNELS = _register(

@@ -27,10 +27,10 @@ feature.
 The plain versions (``_unary_plain``, ``_dist_plain``, ``_pred_plain``,
 ``_hull_plain``) are torch ops batched over the B features, in the
 reference's operation order and with its rounding: XLA on the CPU flushes
-subnormal f32 inputs and results to zeros of their sign (``_z``) and
-contracts ``a * b + c`` into one fused multiply-add where the product has
-no other use (``_fma``: ``x1 * y2 - x2 * y1`` is ``fma(x1, y2, -(x2 *
-y1))``, ``jnp.hypot``'s ``1 + r * r`` is ``fma(r, r, 1)``, a sum of
+subnormal f32 inputs and results to zeros of their sign and contracts ``a
+* b + c`` into one fused multiply-add where the product has no other use
+(``geomesa_tpu_torch/arith.py``: ``x1 * y2 - x2 * y1`` is ``fma(x1, y2,
+-(x2 * y1))``, ``jnp.hypot``'s ``1 + r * r`` is ``fma(r, r, 1)``, a sum of
 products accumulates by fma). The unary sums run left to right over the
 padded rows, which is XLA's order up to 8 segments (it reassociates wider
 sums; there the values are held to ``parity_report``'s bounds). The
@@ -48,6 +48,14 @@ import numpy as np
 import torch
 
 from geomesa_tpu_torch import config
+from geomesa_tpu_torch.arith import add as _add
+from geomesa_tpu_torch.arith import div as _div
+from geomesa_tpu_torch.arith import flush as _z
+from geomesa_tpu_torch.arith import fma as _fma
+from geomesa_tpu_torch.arith import mul as _mul
+from geomesa_tpu_torch.arith import pow2 as _pow2
+from geomesa_tpu_torch.arith import sqrt as _sqrt
+from geomesa_tpu_torch.arith import sub as _sub
 from geomesa_tpu_torch.features import geometry as geo
 from geomesa_tpu_torch.filter import geom_numpy as gn
 from geomesa_tpu_torch.geom import oracle
@@ -70,7 +78,6 @@ MISS2 = float(_MISS_BAND * _MISS_BAND)
 VERT_PAD = 3e9       # masked vertices and literal points
 SEG_PAD = 4e9        # masked feature segments in the crossing test
 BIG = float(np.float32(9e18))
-F32_TINY = 2.0 ** -126
 HULL_STEPS = 160     # gift-wrap steps; hulls beyond go to the host
 
 # per-op uncertain-sliver / host-refine counters (observability + tests)
@@ -82,13 +89,6 @@ STATS: Dict[str, int] = {
 _LOCK = threading.Lock()
 
 _OP_CODE = {"intersects": 0, "within": 1, "contains": 2}
-
-
-def _pow2(n: int, lo: int = 1) -> int:
-    p = lo
-    while p < n:
-        p <<= 1
-    return p
 
 
 # -- feature packing ---------------------------------------------------------
@@ -417,7 +417,14 @@ def pack_features(arr: geo.GeometryArray, rows: np.ndarray,
 def pack_literal(literal: tuple, device=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, bool]:
     """((L, 4) padded f32 edges, (P, 2) f32 points, polygonal?) in the
-    global frame (the programs shift them by each feature's ref)."""
+    global frame (the programs shift them by each feature's ref).
+
+    The points pad to a power of two with copies of the literal's last
+    point (``VERT_PAD`` only for a literal without points), so every
+    ``any``, ``all`` and ``min`` the programs take over the points is the
+    one over the literal's own. The reference pads with ``VERT_PAD``,
+    which lies outside every feature: its banded contains answers false
+    for a feature that contains a literal of 3, 5, 6 or 7 points."""
     dev = resolve(device)
     lsegs = gn.literal_segments(literal)
     L = _pow2(max(len(lsegs), 1))
@@ -427,59 +434,13 @@ def pack_literal(literal: tuple, device=None
     P = _pow2(max(len(lc), 1))
     lp = np.full((P, 2), VERT_PAD, dtype=np.float32)
     lp[: len(lc)] = lc
+    if len(lc):
+        lp[len(lc):] = lc[-1]
     return torch.from_numpy(ls).to(dev), torch.from_numpy(lp).to(dev), \
         literal[0] in (geo.POLYGON, geo.MULTIPOLYGON)
 
 
 # -- the plain programs: f32 arithmetic as XLA does it on the CPU --------------
-
-
-def _z(t: torch.Tensor) -> torch.Tensor:
-    """f32 values with every subnormal made a zero of its sign."""
-    return torch.where(t.abs() < F32_TINY, t * 0.0, t)
-
-
-def _add(a, b):
-    return _z(a + b)
-
-
-def _sub(a, b):
-    return _z(a - b)
-
-
-def _mul(a, b):
-    return _z(a * b)
-
-
-def _div(a, b):
-    # in f64, rounded once to f32: the correctly rounded quotient (so on
-    # every backend, whatever its f32 division)
-    b = b.double() if isinstance(b, torch.Tensor) else float(b)
-    return _z((a.double() / b).float())
-
-
-def _sqrt(a):
-    # in f64, rounded once to f32: the correctly rounded root (PyTorch's
-    # f32 sqrt on the CPU is not)
-    return _z(torch.sqrt(a.double()).float())
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
-    """f32 ``a * b + c`` rounded once (a fused multiply-add), flushed: the
-    product is exact in f64 and the f64 sum rounds to odd (TwoSum's error
-    picks the odd neighbour), so its rounding to f32 is the single
-    rounding of the exact value."""
-    p = a.double() * b.double()
-    cd = c.double() if isinstance(c, torch.Tensor) else torch.tensor(
-        float(c), dtype=torch.float64, device=p.device)
-    s = p + cd
-    bb = s - p
-    err = (p - (s - bb)) + (cd - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.copysign(torch.full_like(s, float("inf")), err)
-    s = torch.where((err != 0) & even & torch.isfinite(s),
-                    torch.nextafter(s, toward), s)
-    return _z(s.float())
 
 
 def _lsum(x: torch.Tensor) -> torch.Tensor:

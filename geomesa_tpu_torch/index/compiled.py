@@ -75,6 +75,7 @@ import torch
 
 from geomesa_tpu_torch import config
 from geomesa_tpu_torch import trace as _trace
+from geomesa_tpu_torch.arith import pow2
 from geomesa_tpu_torch.curves.binnedtime import time_to_binned_time
 from geomesa_tpu_torch.features import geometry as geo
 from geomesa_tpu_torch.filter import ir
@@ -131,17 +132,13 @@ STATS: Dict[str, int] = {
 }
 
 
-def _pow2(x: int) -> int:
-    return max(1, 1 << max(0, int(x) - 1).bit_length())
-
-
 def _tier(capacity: Optional[int]) -> int:
     if capacity is None:
         return 1 << 16
     for t in _SELECT_TIERS:
         if capacity <= t:
             return t
-    return _pow2(capacity)
+    return pow2(capacity)
 
 
 # -- per-block device summaries (the in-kernel cover) -------------------------
@@ -238,7 +235,7 @@ def refine_spec(plan: IndexScanPlan):
     if lit is None or lit[0] != geo.POLYGON:
         return None
     edges = literal_segments(lit).astype(np.float32)
-    ep = np.tile(EDGE_PAD, (max(4, _pow2(len(edges))), 1))
+    ep = np.tile(EDGE_PAD, (max(4, pow2(len(edges))), 1))
     ep[: len(edges)] = edges
     return "pip", ep
 
@@ -454,7 +451,7 @@ def _from_plan(plan: IndexScanPlan, mode: str, capacity: Optional[int] = None,
     n = plan.index.device.n
     if n < 4 * int(_prune.BLOCK_SIZE):
         return None  # tiny tables: the staged full mask is already one pass
-    sel_cap = min(_tier(capacity), _pow2(n)) \
+    sel_cap = min(_tier(capacity), pow2(n)) \
         if mode in ("select", "select_refine") else 0
     try:
         return Program(plan, mode, sel_cap=sel_cap, unc_cap=unc_cap,
@@ -511,7 +508,7 @@ def try_select(planner, plan: IndexScanPlan,
         if cnt <= prog.sel_cap:
             return out[1: 1 + cnt].astype(np.int64)
         STATS["overflow_retries"] += 1
-        capacity = _pow2(cnt)
+        capacity = pow2(cnt)
 
 
 def try_count_refine(planner, plan: IndexScanPlan) -> Optional[int]:
@@ -531,7 +528,7 @@ def try_count_refine(planner, plan: IndexScanPlan) -> Optional[int]:
         if n_unc <= unc_cap:
             break
         STATS["overflow_retries"] += 1
-        unc_cap = _pow2(n_unc)
+        unc_cap = pow2(n_unc)
     if n_unc == 0:
         return certain
     rows = plan.index.map_rows(out[2: 2 + n_unc].astype(np.int64))
@@ -555,9 +552,9 @@ def try_select_refine(planner, plan: IndexScanPlan,
         out = _fetch(prog.run).numpy()
         n_in, n_unc = int(out[0]), int(out[1])
         if n_in > prog.sel_cap:
-            capacity = _pow2(n_in)
+            capacity = pow2(n_in)
         elif n_unc > unc_cap:
-            unc_cap = _pow2(n_unc)
+            unc_cap = pow2(n_unc)
         else:
             break
         STATS["overflow_retries"] += 1
@@ -614,7 +611,7 @@ def _union_from_plan(planner, plan: UnionScanPlan, mode: str, auths,
         branches.append(bp)
     if not branches:
         return None
-    sel_cap = min(_tier(capacity), _pow2(idx.device.n)) \
+    sel_cap = min(_tier(capacity), pow2(idx.device.n)) \
         if mode == "select" else 0
     try:
         return UnionProgram(plan, mode, sel_cap=sel_cap, grid=grid,
@@ -641,7 +638,7 @@ def try_union_select(planner, plan: UnionScanPlan, auths,
             return np.sort(prog.index.map_rows(
                 out[1: 1 + cnt].astype(np.int64)))
         STATS["overflow_retries"] += 1
-        capacity = _pow2(cnt)
+        capacity = pow2(cnt)
 
 
 def try_union_density(planner, plan: UnionScanPlan, auths, grid_bbox,
@@ -684,7 +681,7 @@ def _shape_key(f: ir.Filter) -> str:
     if isinstance(f, ir.Cmp):
         return f"cmp{f.op}:{f.attr}"
     if isinstance(f, ir.In):
-        return f"in{_pow2(len(f.values))}:{f.attr}"
+        return f"in{pow2(len(f.values))}:{f.attr}"
     if isinstance(f, ir.Func):
         return f"fn:{f.name}({_func_args_sig(f.args)})"
     if isinstance(f, ir.FuncCmp):

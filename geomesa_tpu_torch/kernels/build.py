@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("pip_refine", "grid_scatter", "box_count", "dist_refine",
            "merge_scatter", "seg_band", "block_gate", "fused_scan",
            "ordered_compact", "masked_hist", "topk_nearest", "geom_unary",
-           "geom_dist", "geom_pred")
+           "geom_dist", "geom_pred", "pip_join", "pair_band")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

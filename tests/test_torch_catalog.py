@@ -13,7 +13,13 @@ multi-parts, multipoints and lines and polygons of 12 to 40 segments; an
 all-point batch (a point column and ragged points) and an empty row set.
 
 - ``pack_features`` and ``pack_literal``: every array equal to the
-  reference's.
+  reference's, but ``pack_literal``'s point pads (copies of the literal's
+  last point; the reference's 3e9 make its banded contains false for a
+  feature that contains a literal whose point count is not a power of
+  two). Contains (op 2) is held to the reference's program on the port's
+  literal points and to the f64 oracle (``_hold_contains``), and
+  ``INSIDE``'s literals in ``BOXES`` answer the oracle's through
+  ``batch_predicate`` and a store query.
 - The plain programs against ``_unary_batch``, ``_dist_batch``,
   ``_pred_batch`` and ``_hull_batch`` on the same packs: distances, the
   bands and the hulls equal; the unary values bit for bit where the pack
@@ -48,6 +54,7 @@ import torch
 from geomesa_tpu_torch import config as tconfig
 from geomesa_tpu_torch.features import geometry as tgeo
 from geomesa_tpu_torch.geom import catalog as tcat
+from geomesa_tpu_torch.geom import oracle as toracle
 from geomesa_tpu_torch.kernels import geom as kgeom
 
 SEEDS = (3, 11, 29)
@@ -161,6 +168,55 @@ LITERALS = {
 }
 
 
+# literals inside the box BOXES[0] (and the larger box around it), of 5, 3
+# and 3 points: the reference's contains answers false for both boxes, the
+# oracle true
+INSIDE_WKT = {
+    "inside_polygon": "POLYGON((-10 30, 10 30, 10 50, -10 50, -10 30))",
+    "inside_line": "LINESTRING(-20 30, 0 45, 20 35)",
+    "inside_multipoint": "MULTIPOINT((-5 40), (5 42), (0 35))",
+}
+INSIDE = {k: tgeo.parse_wkt(v) for k, v in INSIDE_WKT.items()}
+BOXES = [
+    "POLYGON((-40 20, 40 20, 40 60, -40 60, -40 20))",
+    "POLYGON((-50 10, 50 10, 50 70, -50 70, -50 10))",
+    "POLYGON((100 0, 110 0, 110 10, 100 10, 100 0))",
+]
+
+
+def _ref_pred(jcat, jp, jls, jlp, tlp, op, jpoly, ext):
+    """The reference's banded predicate program on the same pack; contains
+    (op 2) on the port's literal points (``pack_literal``: the reference's
+    pads answer false for a feature that contains a literal whose point
+    count is not a power of two), so the program is held bit for bit and
+    the pads to the oracle (``_hold_contains``)."""
+    lp = _np(tlp) if op == 2 else jlp
+    return jcat._pred_batch(jp.verts, jp.vmask, jp.segs, jp.smask, jp.poly,
+                            jp.ref32, jls, lp, op, jpoly, ext)
+
+
+def _stored_closed(ta, i) -> bool:
+    """Whether every ring of feature i is stored closed."""
+    code, data = toracle.feature_shape(ta, int(i))
+    rings = data if code == tgeo.POLYGON else \
+        [r for p in data for r in p] if code == tgeo.MULTIPOLYGON else []
+    return all(np.array_equal(np.asarray(r[0]), np.asarray(r[-1]))
+               for r in rings)
+
+
+def _hold_contains(ta, rows, literal, cin, cout):
+    """Contains' bands against the f64 oracle: a certainly-true row
+    contains the literal; a row neither certainly true nor left to the
+    refine (cout) does not. Polygons stored open are left out: there the
+    program's rings and the oracle's differ whatever the pads."""
+    n = len(rows)
+    keep = np.asarray([_stored_closed(ta, i) for i in rows], dtype=bool)
+    want = toracle.feature_contains(ta, rows, literal)
+    cin, cout = _np(cin)[:n], _np(cout)[:n]
+    assert not np.any(cin & ~want)
+    assert not np.any(keep & cout & ~cin & want)
+
+
 def _shapes(which):
     if which == "extra":
         return _extra_shapes()
@@ -240,13 +296,22 @@ def test_pack_features_all_points_equals_reference(form):
     _same_pack(jcat.pack_features(ja, r), tcat.pack_features(ta, r, "cpu"))
 
 
-@pytest.mark.parametrize("lit", sorted(LITERALS))
+@pytest.mark.parametrize("lit", sorted(LITERALS) + sorted(INSIDE))
 def test_pack_literal_equals_reference(lit):
+    """Edges, the literal's own points and the polygonal flag equal the
+    reference's. The point pads do not: the reference pads with 3e9, which
+    lies outside every feature, so its banded contains answers false for a
+    feature that contains a literal of 3, 5, 6 or 7 points (the f64 oracle:
+    true). The port pads with copies of the last point, which leave every
+    reduction over the points as it is over the literal's own."""
     jcat = _ref("geomesa_tpu.geom.catalog")
-    jls, jlp, jpoly = jcat.pack_literal(LITERALS[lit])
-    tls, tlp, tpoly = tcat.pack_literal(LITERALS[lit], "cpu")
+    literal = {**LITERALS, **INSIDE}[lit]
+    jls, jlp, jpoly = jcat.pack_literal(literal)
+    tls, tlp, tpoly = tcat.pack_literal(literal, "cpu")
+    n = len(_ref("geomesa_tpu.filter.geom_numpy").literal_coords(literal))
     assert np.array_equal(np.asarray(jls), _np(tls))
-    assert np.array_equal(np.asarray(jlp), _np(tlp))
+    assert np.array_equal(np.asarray(jlp)[:n], _np(tlp)[:n])
+    assert np.all(_np(tlp)[n:] == _np(tlp)[n - 1])
     assert jpoly == tpoly
 
 
@@ -334,12 +399,13 @@ def test_plain_pred_equals_reference(which, lit, op):
     jls, jlp, jpoly = jcat.pack_literal(literal)
     tls, tlp, tpoly = tcat.pack_literal(literal, "cpu")
     ext = literal[0] not in (tgeo.POINT, tgeo.MULTIPOINT)
-    want = jcat._pred_batch(jp.verts, jp.vmask, jp.segs, jp.smask, jp.poly,
-                            jp.ref32, jls, jlp, op, jpoly, ext)
+    want = _ref_pred(jcat, jp, jls, jlp, tlp, op, jpoly, ext)
     got = tcat._pred_plain(tp.verts, tp.vmask, tp.segs, tp.smask, tp.poly,
                            tp.ref32, tls, tlp, op, tpoly, ext)
     for a, b in zip(got, want):
         assert np.array_equal(_np(a), np.asarray(b))
+    if op == 2:
+        _hold_contains(ta, r, literal, *got)
 
 
 @pytest.mark.parametrize("which", CORPORA)
@@ -380,11 +446,11 @@ def test_plain_programs_at_the_smoke_shapes():
                 a = tcat._pred_plain(tp.verts, tp.vmask, tp.segs, tp.smask,
                                      tp.poly, tp.ref32, tls, tlp, op, tpoly,
                                      ext)
-                b = jcat._pred_batch(jp.verts, jp.vmask, jp.segs, jp.smask,
-                                     jp.poly, jp.ref32, jls, jlp, op, jpoly,
-                                     ext)
+                b = _ref_pred(jcat, jp, jls, jlp, tlp, op, jpoly, ext)
                 assert all(np.array_equal(_np(x), np.asarray(y))
                            for x, y in zip(a, b))
+                if op == 2:
+                    _hold_contains(ta, r, lit, *a)
 
 
 SMOKE_POLY = (tgeo.POLYGON, [[[-12.0, 30.0], [10.0, 28.0], [14.0, 44.0],
@@ -494,12 +560,17 @@ def test_entry_points_equal_reference(which, rows):
         want, dj = _stats_delta(jcat, lambda: jcat.batch_distance(
             ja, r, literal))
         assert dt == dj and np.array_equal(got, want)
-        for op in ("intersects", "within", "contains"):
+        for op in ("intersects", "within"):
             got, dt = _stats_delta(tcat, lambda: tcat.batch_predicate(
                 ta, r, op, literal, "cpu"))
             want, dj = _stats_delta(jcat, lambda: jcat.batch_predicate(
                 ja, r, op, literal))
             assert dt == dj and np.array_equal(got, want), (lit, op)
+        # contains: the f64 oracle's answer (the reference's point pads
+        # make it false for a feature that contains a literal whose point
+        # count is not a power of two; see test_pack_literal_equals_reference)
+        got = tcat.batch_predicate(ta, r, "contains", literal, "cpu")
+        assert np.array_equal(got, toracle.feature_contains(ta, r, literal))
     got, dt = _stats_delta(tcat, lambda: tcat.kernel_hulls(ta, r, "cpu"))
     want, dj = _stats_delta(jcat, lambda: jcat.kernel_hulls(ja, r))
     assert dt == dj and len(got) == len(want)
@@ -509,6 +580,77 @@ def test_entry_points_equal_reference(which, rows):
     want, dj = _stats_delta(jcat, lambda: jcat.kernel_buffers(ja, r, 0.25))
     assert dt == dj and len(got) == len(want)
     assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def _box_arrays():
+    jgeo = _ref("geomesa_tpu.features.geometry")
+    return (jgeo.GeometryArray.from_shapes([jgeo.parse_wkt(b)
+                                            for b in BOXES]),
+            tgeo.GeometryArray.from_shapes([tgeo.parse_wkt(b)
+                                            for b in BOXES]))
+
+
+@pytest.mark.parametrize("lit", sorted(INSIDE))
+def test_contains_a_literal_inside_answers_the_oracle(lit):
+    """Two boxes that contain a literal of 5 or 3 points, and one that does
+    not: ``batch_predicate(..., "contains", ...)`` answers the f64 oracle's
+    [True, True, False] (the reference answers all False: its point pads
+    lie outside every feature). intersects, within and the distances stay
+    the reference's, STATS included."""
+    jcat = _ref("geomesa_tpu.geom.catalog")
+    ja, ta = _box_arrays()
+    r = np.arange(len(BOXES), dtype=np.int64)
+    literal = INSIDE[lit]
+    got = tcat.batch_predicate(ta, r, "contains", literal, "cpu")
+    want = toracle.feature_contains(ta, r, literal)
+    assert want.tolist() == [True, True, False]
+    assert np.array_equal(got, want)
+    for op in ("intersects", "within"):
+        g, dt = _stats_delta(tcat, lambda: tcat.batch_predicate(
+            ta, r, op, literal, "cpu"))
+        w, dj = _stats_delta(jcat, lambda: jcat.batch_predicate(
+            ja, r, op, literal))
+        assert dt == dj and np.array_equal(g, w), op
+    g, dt = _stats_delta(tcat, lambda: tcat.batch_distance(ta, r, literal,
+                                                            "cpu"))
+    w, dj = _stats_delta(jcat, lambda: jcat.batch_distance(ja, r, literal))
+    assert dt == dj and np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("lit", sorted(INSIDE))
+def test_store_st_contains_a_literal_inside_answers_the_oracle(lit):
+    """``st_contains(geom, <literal>)`` through a store of the three boxes
+    with GEOMESA_TPU_GEOM_KERNELS on (the planner's st_* refine through the
+    catalog): the oracle's two rows; ``st_intersects`` and ``st_within``'s
+    converse (the literal within the feature is contains) stay equal to
+    the reference's store."""
+    jds = _ref("geomesa_tpu.datastore")
+    jtable = _ref("geomesa_tpu.features.table")
+    jconfig = _ref("geomesa_tpu.config")
+    from geomesa_tpu_torch import DataStoreFinder
+    from geomesa_tpu_torch.features.table import FeatureTable
+    ja, ta = _box_arrays()
+    spec = "val:Int,*geom:Polygon"
+    vals = np.arange(len(BOXES), dtype=np.int32)
+    js = jds.TpuDataStore()
+    ts = DataStoreFinder.get_data_store(type="torch", device="cpu")
+    for s, tbl, arr in ((js, jtable.FeatureTable, ja),
+                        (ts, FeatureTable, ta)):
+        s.create_schema("boxes", spec)
+        s.load("boxes", tbl.build(s.get_schema("boxes"),
+                                  {"val": vals, "geom": arr}))
+    wkt = INSIDE_WKT[lit]
+    for c in (jconfig, tconfig):
+        c.GEOM_KERNELS.set(True)
+    try:
+        q = f"st_contains(geom, {wkt})"
+        assert ts.count("boxes", q) == 2
+        assert np.array_equal(np.sort(ts.query("boxes", q).indices), [0, 1])
+        q = f"st_intersects(geom, {wkt})"
+        assert ts.count("boxes", q) == js.count("boxes", q) == 2
+    finally:
+        for c in (jconfig, tconfig):
+            c.GEOM_KERNELS.unset()
 
 
 @pytest.mark.parametrize("which", CORPORA)
@@ -690,14 +832,14 @@ def test_plain_pair_programs_equal_reference_on_new_shapes(case, kind):
             continue
         ext = lit[0] not in (tgeo.POINT, tgeo.MULTIPOINT)
         for op in (0, 1, 2):
-            want = jcat._pred_batch(jp.verts, jp.vmask, jp.segs, jp.smask,
-                                    jp.poly, jp.ref32, jls, jlp, op, jpoly,
-                                    ext)
+            want = _ref_pred(jcat, jp, jls, jlp, tlp, op, jpoly, ext)
             got = tcat._pred_plain(tp.verts, tp.vmask, tp.segs, tp.smask,
                                    tp.poly, tp.ref32, tls, tlp, op, tpoly,
                                    ext)
             for a, b in zip(got, want):
                 assert np.array_equal(_np(a), np.asarray(b)), (lit[0], op)
+            if op == 2:
+                _hold_contains(ta, r, lit, *got)
 
 
 @pytest.mark.parametrize("B, K, S, L, P, want", [
@@ -828,6 +970,33 @@ def test_cuda_geom_pred_equals_plain(k, lit, op):
                             ext)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lit", sorted(INSIDE))
+@pytest.mark.parametrize("op", [0, 1, 2])
+def test_cuda_geom_pred_literal_inside_equals_plain(lit, op):
+    """The boxes around a literal of 5 or 3 points (its pads copies of its
+    last point, which the kernel's trailing-run cut takes as one): equal
+    to the plain version, and contains answers the oracle's on the card."""
+    dev = _cuda()
+    ta = tgeo.GeometryArray.from_shapes([tgeo.parse_wkt(b) for b in BOXES])
+    r = np.arange(len(BOXES), dtype=np.int64)
+    p = tcat.pack_features(ta, r, "cpu")
+    v, vm, s, sm, _, _, poly, ref32 = _on(p, dev)
+    literal = INSIDE[lit]
+    ls, lp, lpoly = tcat.pack_literal(literal, dev)
+    ext = literal[0] not in (tgeo.POINT, tgeo.MULTIPOINT)
+    got = kgeom.geom_pred(v, vm, s, sm, poly, ref32, ls, lp, op, lpoly, ext)
+    torch.cuda.synchronize()
+    want = tcat._pred_plain(v, vm, s, sm, poly, ref32, ls, lp, op, lpoly,
+                            ext)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if op == 2:
+        assert np.array_equal(
+            tcat.batch_predicate(ta, r, "contains", literal, dev),
+            toracle.feature_contains(ta, r, literal))
 
 
 @pytest.mark.gpu

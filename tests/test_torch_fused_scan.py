@@ -49,6 +49,7 @@ import pytest
 import torch
 
 from geomesa_tpu_torch import config as tconfig
+from geomesa_tpu_torch.arith import pow2
 from geomesa_tpu_torch.features.sft import SimpleFeatureType as TSFT
 from geomesa_tpu_torch.features.table import FeatureTable as TTable
 from geomesa_tpu_torch.filter import ir as tir
@@ -263,7 +264,7 @@ def test_gate_lists_the_reference_alive_blocks(world, gate, mode):
 
 def prog_cap(nb: int) -> int:
     """The reference's pruned-branch capacity at the default fraction."""
-    return tcompiled._pow2(max(4, int(np.ceil(nb * 0.25))))
+    return pow2(max(4, int(np.ceil(nb * 0.25))))
 
 
 # -- every mode, raw ---------------------------------------------------------------

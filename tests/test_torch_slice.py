@@ -347,7 +347,11 @@ def test_port_imports_neither_jax_nor_reference():
         "geomesa_tpu_torch.stats, geomesa_tpu_torch.process, "
         "geomesa_tpu_torch.aggregates.stats_scan, "
         "geomesa_tpu_torch.aggregates.bin, "
-        "geomesa_tpu_torch.aggregates.sampling\n"
+        "geomesa_tpu_torch.aggregates.sampling, "
+        "geomesa_tpu_torch.parallel, geomesa_tpu_torch.parallel.join, "
+        "geomesa_tpu_torch.parallel.pair_kernel, "
+        "geomesa_tpu_torch.kernels.pip_join, "
+        "geomesa_tpu_torch.kernels.pair_band\n"
         "from geomesa_tpu_torch.features.table import FeatureTable\n"
         "s = DataStoreFinder.get_data_store(type='torch', device='cpu')\n"
         "sft = s.create_schema('t', 'val:Int,dtg:Date,*geom:Point')\n"
